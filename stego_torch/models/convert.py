@@ -1,12 +1,18 @@
-"""Weights carried across: JAX parameter pytrees and STEGO Lightning
-``.ckpt`` files <-> the port's modules.
+"""Weights carried across: JAX parameter pytrees, JAX train states and
+STEGO Lightning ``.ckpt`` files <-> the port's modules.
 
 The port's modules use the reference's names, so its ``state_dict()`` is the
 Lightning checkpoint's: ``net.model.*`` (the DINO ViT), ``net.cluster1.0.*``,
-``net.cluster2.{0,2}.*``, ``linear_probe.*``, ``cluster_probe.clusters``.
-The JAX package stacks the ViT blocks on a leading axis and stores dense
-kernels as (in, out); the mapping below is the one
-``stego_tpu/models/export.py`` (:23-117) and ``convert.py`` (:47-242) use.
+``net.cluster2.{0,2}.*``, ``linear_probe.*``, ``cluster_probe.clusters``,
+``train_cluster_probe.clusters``, ``decoder.*``. The JAX package stacks the
+ViT blocks on a leading axis and stores dense kernels as (in, out); the
+mapping below is the one ``stego_tpu/models/export.py`` (:23-117) and
+``convert.py`` (:47-242) use.
+
+A JAX train state (``segmenter.py:init_state``) is params, three optax Adam
+states (``count``, ``mu``, ``nu`` each) and ``step``;
+:func:`load_jax_train_state` puts it into the port's modules and
+``torch.optim.Adam`` states, :func:`jax_train_state` takes it back out.
 """
 
 from __future__ import annotations
@@ -41,10 +47,16 @@ _CONV_KEYS = (
     ("net.cluster2.0", ("head", "cluster2"), "fc1_kernel", "fc1_bias"),
     ("net.cluster2.2", ("head", "cluster2"), "fc2_kernel", "fc2_bias"),
     ("linear_probe", ("linear_probe",), "kernel", "bias"),
+    ("decoder", ("decoder",), "kernel", "bias"),
 )
-# checkpoint entries the eval-only segmenter has no module for yet
-_TRAIN_ONLY = ("train_cluster_probe.clusters", "decoder.weight",
-               "decoder.bias")
+# cluster centres: torch name -> JAX path (same layout on both sides)
+_CLUSTER_KEYS = (
+    ("cluster_probe.clusters", ("cluster_probe", "clusters")),
+    ("train_cluster_probe.clusters", ("train_cluster_probe", "clusters")),
+)
+# the params root each optimizer's moments start from ("net" holds the
+# head and the decoder under their own keys, the probes' are the subtree)
+_OPT_ROOTS = {"net": None, "linear": "linear_probe", "cluster": "cluster_probe"}
 
 
 def _t(x) -> torch.Tensor:
@@ -116,7 +128,9 @@ def stego_state_dict(backbone: Mapping[str, Any],
         sd[prefix + ".weight"] = _t(np.asarray(node[kernel]).T[:, :, None,
                                                                 None])
         sd[prefix + ".bias"] = _t(node[bias])
-    sd["cluster_probe.clusters"] = _t(params["cluster_probe"]["clusters"])
+    for name, (root, leaf) in _CLUSTER_KEYS:
+        if root in params:
+            sd[name] = _t(params[root][leaf])
     return sd
 
 
@@ -143,7 +157,6 @@ def _segmenter_from_state_dict(sd: Mapping[str, torch.Tensor], cfg: Config,
     n_classes = sd["linear_probe.weight"].shape[0]
     seg = UnsupervisedSegmenter(n_classes, cfg, vit_cfg=vit_cfg)
     missing, unexpected = seg.load_state_dict(sd, strict=False)
-    unexpected = [k for k in unexpected if k not in _TRAIN_ONLY]
     if missing or unexpected:
         raise ValueError(f"state dict does not fit the segmenter: missing "
                          f"{missing}, unexpected {unexpected}")
@@ -175,8 +188,120 @@ def to_jax_params(seg: UnsupervisedSegmenter
             node = node.setdefault(key, {})
         node[kernel] = _np(sd[prefix + ".weight"])[:, :, 0, 0].T
         node[bias] = _np(sd[prefix + ".bias"])
-    params["cluster_probe"] = {"clusters": _np(sd["cluster_probe.clusters"])}
+    for name, (root, leaf) in _CLUSTER_KEYS:
+        params[root] = {leaf: _np(sd[name])}
     return vit_params_from_state_dict(sd, prefix="net.model."), params
+
+
+def _trainable(seg: UnsupervisedSegmenter
+               ) -> Dict[str, Tuple[Tuple[str, ...], bool]]:
+    """Every head and probe parameter: torch name -> (JAX params path,
+    dense 1x1-conv kernel?)."""
+    names = dict(seg.named_parameters())
+    out: Dict[str, Tuple[Tuple[str, ...], bool]] = {}
+    for prefix, path, kernel, bias in _CONV_KEYS:
+        if prefix + ".weight" in names:
+            out[prefix + ".weight"] = (path + (kernel,), True)
+            out[prefix + ".bias"] = (path + (bias,), False)
+    for name, path in _CLUSTER_KEYS:
+        out[name] = (path, False)
+    return out
+
+
+def _get(tree: Mapping[str, Any], path: Tuple[str, ...]):
+    for key in path:
+        tree = tree[key]
+    return tree
+
+
+def _set(tree: Dict[str, Any], path: Tuple[str, ...], value) -> None:
+    for key in path[:-1]:
+        tree = tree.setdefault(key, {})
+    tree[path[-1]] = value
+
+
+def _from_jax(a, dense: bool, like: torch.Tensor) -> torch.Tensor:
+    t = _t(a)
+    if dense:
+        t = t.T[:, :, None, None]
+    return t.to(like.device)
+
+
+def _to_jax(t: torch.Tensor, dense: bool) -> np.ndarray:
+    a = _np(t)
+    return a[:, :, 0, 0].T if dense else a
+
+
+def _opt_path(opt_name: str, path: Tuple[str, ...]) -> Tuple[str, ...]:
+    """A parameter's path inside its optimizer's moment trees."""
+    return path if _OPT_ROOTS[opt_name] is None else path[1:]
+
+
+def load_jax_train_state(seg: UnsupervisedSegmenter,
+                         state: Mapping[str, Any]) -> None:
+    """Put a JAX train state (``segmenter.py:init_state`` layout, numpy or
+    jax arrays) into ``seg``: its head and probe weights, the Adam moments
+    and step counts of ``seg.optimizers()``, and ``seg.step``. The ViT
+    weights are not part of a train state."""
+    params = state["params"]
+    trainable = _trainable(seg)
+    named = dict(seg.named_parameters())
+    with torch.no_grad():
+        for name, (path, dense) in trainable.items():
+            named[name].copy_(_from_jax(_get(params, path), dense,
+                                        named[name]))
+    ids = {id(p): n for n, p in named.items()}
+    for opt_name, opt in seg.optimizers().items():
+        adam = state["opt"][opt_name][0]
+        count = float(np.asarray(adam.count))
+        for group in opt.param_groups:
+            for p in group["params"]:
+                path, dense = trainable[ids[id(p)]]
+                sub = _opt_path(opt_name, path)
+                opt.state[p] = {
+                    "step": torch.tensor(count),
+                    "exp_avg": _from_jax(_get(adam.mu, sub), dense, p),
+                    "exp_avg_sq": _from_jax(_get(adam.nu, sub), dense, p),
+                }
+    seg.step = int(np.asarray(state["step"]))
+
+
+def jax_train_state(seg: UnsupervisedSegmenter,
+                    like: Mapping[str, Any]) -> Dict[str, Any]:
+    """Inverse of :func:`load_jax_train_state`: ``seg``'s train state as
+    numpy, in the structure of the JAX train state ``like`` (its optax
+    state tuples are rebuilt with ``_replace``, so no optax is needed)."""
+    trainable = _trainable(seg)
+    named = dict(seg.named_parameters())
+    params: Dict[str, Any] = {}
+    for name, (path, dense) in trainable.items():
+        _set(params, path, _to_jax(named[name], dense))
+    ids = {id(p): n for n, p in named.items()}
+    opt_states = {}
+    for opt_name, opt in seg.optimizers().items():
+        mu: Dict[str, Any] = {}
+        nu: Dict[str, Any] = {}
+        count = 0.0
+        for group in opt.param_groups:
+            for p in group["params"]:
+                path, dense = trainable[ids[id(p)]]
+                st = opt.state.get(p)
+                zeros = torch.zeros_like(p)
+                if st:
+                    count = float(st["step"])
+                _set(mu, _opt_path(opt_name, path),
+                     _to_jax(st["exp_avg"] if st else zeros, dense))
+                _set(nu, _opt_path(opt_name, path),
+                     _to_jax(st["exp_avg_sq"] if st else zeros, dense))
+        like_opt = like["opt"][opt_name]
+        adam = like_opt[0]
+        count_dtype = np.asarray(adam.count).dtype
+        opt_states[opt_name] = (adam._replace(
+            count=np.asarray(count, dtype=count_dtype), mu=mu, nu=nu),
+        ) + tuple(like_opt[1:])
+    return {"params": params, "opt": opt_states,
+            "step": np.asarray(seg.step,
+                               dtype=np.asarray(like["step"]).dtype)}
 
 
 def load_stego_checkpoint(path: str, vit_cfg: Optional[ViTConfig] = None

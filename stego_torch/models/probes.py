@@ -1,6 +1,6 @@
-"""Cluster probe and linear probe; counterpart of
-``stego_tpu/models/probes.py``. NHWC maps; the probes are the reference's
-modules (``ClusterLookup.clusters``, a 1x1 ``nn.Conv2d``) applied as channel
+"""Cluster probe, linear probe and the reconstruction decoder; counterpart
+of ``stego_tpu/models/probes.py``. NHWC maps; the probes are the reference's
+modules (``ClusterLookup.clusters``, 1x1 ``nn.Conv2d``s) applied as channel
 matmuls."""
 
 from __future__ import annotations
@@ -22,6 +22,12 @@ class ClusterLookup(nn.Module):
         super().__init__()
         self.clusters = nn.Parameter(
             torch.randn(n_classes, dim, generator=generator))
+
+    def reset_parameters(self, generator: Optional[torch.Generator] = None):
+        """Fresh N(0, 1) centres (reference src/modules.py:142-144)."""
+        with torch.no_grad():
+            self.clusters.copy_(torch.randn(self.clusters.shape,
+                                            generator=generator))
 
 
 def cluster_lookup(
@@ -56,6 +62,12 @@ def conv1x1(conv: nn.Conv2d, x: torch.Tensor) -> torch.Tensor:
 def linear_probe_logits(probe: nn.Conv2d, x: torch.Tensor) -> torch.Tensor:
     """(B, H, W, C) code -> (B, H, W, n_classes) logits."""
     return conv1x1(probe, x)
+
+
+def decoder_apply(decoder: nn.Conv2d, code: torch.Tensor) -> torch.Tensor:
+    """The reconstruction decoder, a 1x1 conv dim -> n_feats (reference
+    src/train_segmentation.py:78), on (B, H, W, dim) code."""
+    return conv1x1(decoder, code)
 
 
 def init_conv1x1(conv: nn.Conv2d, generator: Optional[torch.Generator]):

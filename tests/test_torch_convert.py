@@ -99,3 +99,54 @@ def test_infer_vit_cfg_vit_small_8():
     cfg = VIT_CONFIGS["vit_small"][8]
     sd = VisionTransformer(cfg).state_dict()
     assert convert.infer_vit_cfg(sd) == cfg
+
+
+def test_jax_train_state_round_trip_after_two_steps():
+    """A JAX train state after two steps (Adam moments and counts non-zero,
+    the decoder in the net group) goes into the port's modules and Adams
+    and comes back unchanged."""
+    from stego_tpu.train.segmenter import make_train_step
+
+    cfg = make_cfg(rec_weight=0.5, use_pallas_loss=False, feature_samples=2,
+                   neg_samples=1)
+    jseg, bb, _ = jax_model(cfg)
+    state = jseg.init_state(jax.random.PRNGKey(4))
+    rng = np.random.default_rng(0)
+    img = rng.standard_normal((2, 32, 32, 3)).astype(np.float32)
+    batch = {"img": img, "img_pos": img[::-1].copy(),
+             "label": rng.integers(-1, 5, (2, 32, 32)).astype(np.int32)}
+    step = jax.jit(make_train_step(jseg, with_hist=False))
+    for i in range(2):
+        state, _ = step(bb, state, batch, jax.random.PRNGKey(10 + i))
+    state = jax.tree.map(np.asarray, state)
+    seg = convert.from_jax_params(bb, state["params"], cfg)
+    convert.load_jax_train_state(seg, state)
+    assert seg.step == 2
+    net = seg.optimizers()["net"]
+    assert len(net.param_groups[0]["params"]) == 8  # head + decoder
+    assert all(float(st["step"]) == 2 for st in net.state.values())
+    assert_tree_equal(convert.jax_train_state(seg, like=state), state)
+
+
+def test_train_only_entries_cross_both_checkpoint_writers(tmp_path):
+    """train_cluster_probe and the decoder: JAX export -> port load, and
+    port save -> JAX loader, equal to the JAX params."""
+    cfg = make_cfg()
+    _, bb, params = jax_model(cfg, seed=5)
+    path = str(tmp_path / "jax.ckpt")
+    export_stego_checkpoint(path, cfg, bb, params)
+    seg = convert.load_stego_checkpoint(path)
+    np.testing.assert_array_equal(
+        seg.train_cluster_probe.clusters.detach().numpy(),
+        params["train_cluster_probe"]["clusters"])
+    np.testing.assert_array_equal(
+        seg.decoder.weight.detach().numpy()[:, :, 0, 0].T,
+        params["decoder"]["kernel"])
+    out = str(tmp_path / "port.ckpt")
+    convert.save_stego_checkpoint(out, seg)
+    loaded = jax_load_stego_checkpoint(out)
+    for key in ("train_cluster_probe", "decoder"):
+        assert_tree_equal(loaded[key], params[key])
+    _, back = convert.to_jax_params(seg)
+    for key in ("train_cluster_probe", "decoder"):
+        assert_tree_equal(back[key], params[key])

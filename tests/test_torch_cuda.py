@@ -86,3 +86,88 @@ def test_attention_kernel_rejects_f32(cuda):
     q = torch.zeros(1, 8, 128, device=cuda)
     with pytest.raises(ValueError, match="bf16"):
         fa.token_major_attention(q, q, q, 2, 0.125)
+
+
+def _corr_inputs(dev, b, hw, cf, cc, s, neg, seed):
+    """Seeded inputs of kernel C1: f32 feature and code maps, U(-1, 1)
+    coordinates, super_perm negatives and the JAX package's default
+    shifts."""
+    from stego_torch.ops.math import super_perm
+
+    g = torch.Generator(device=dev).manual_seed(seed)
+    feats = [torch.randn(b, hw, hw, cf, generator=g, device=dev)
+             for _ in range(2)]
+    code = [torch.randn(b, hw, hw, cc, generator=g, device=dev)
+            for _ in range(2)]
+    coords = [torch.rand(b, s, s, 2, generator=g, device=dev) * 2 - 1
+              for _ in range(2)]
+    perms = [super_perm(b, g) for _ in range(neg)]
+    shifts = [0.18, 0.12] + [0.46] * neg
+    return feats, code, coords, perms, shifts
+
+
+def _corr_run(fn, feats, code, coords, perms, shifts, weights, **kw):
+    """Losses, cd means and the code gradients of a fixed combination."""
+    c = [x.clone().requires_grad_(True) for x in code]
+    losses, cds = fn(feats[0], feats[1], c[0], c[1], coords[0], coords[1],
+                     perms, shifts, feat_dtype=torch.bfloat16, **kw)
+    total = (losses * weights[0]).sum() + (cds * weights[1]).sum()
+    grads = torch.autograd.grad(total, c)
+    return losses.detach(), cds.detach(), grads
+
+
+@pytest.mark.parametrize("b,hw,cf,cc,s,neg,opts", [
+    (16, 28, 384, 70, 11, 5, dict(pointwise=True, zero_clamp=True)),
+    (16, 28, 384, 70, 11, 5, dict(pointwise=False, stabalize=True)),
+    (3, 8, 40, 16, 4, 0, dict(pointwise=True, zero_clamp=False)),
+    (2, 5, 8, 3, 3, 1, dict(pointwise=True, zero_clamp=True)),
+])
+def test_corr_sampled_kernel_matches_plain(cuda, b, hw, cf, cc, s, neg,
+                                           opts):
+    """Kernel C1 against its plain version at the train step's shape
+    (ViT-S/8 at res 224, cocostuff27 head, 11 x 11 samples, 5 negatives)
+    and at small ones. Losses and cd means within rtol 1e-4, atol 1e-6;
+    code gradients within rtol 2e-4, atol 1e-5 (PARITY_r05's sampled-loss
+    rows): the two sum in other orders, and the kernel's gradient adds with
+    f32 atomics."""
+    from stego_torch.ops import corr_fused_sampling as c1
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    feats, code, coords, perms, shifts = _corr_inputs(cuda, b, hw, cf, cc, s,
+                                                      neg, seed=b + cf)
+    g = 2 + neg
+    wts = torch.randn(2, g, generator=torch.Generator(device=cuda)
+                      .manual_seed(7), device=cuda)
+    f0, b0 = c1.FWD_LAUNCHES, c1.BWD_LAUNCHES
+    got = _corr_run(c1.sampled_corr_fused, feats, code, coords, perms, shifts,
+                    wts, **opts)
+    torch.cuda.synchronize()
+    assert (c1.FWD_LAUNCHES, c1.BWD_LAUNCHES) == (f0 + 1, b0 + 1)
+    want = _corr_run(c1.sampled_corr_plain, feats, code, coords, perms,
+                     shifts, wts, **opts)
+    torch.testing.assert_close(got[0], want[0], rtol=1e-4, atol=1e-6)
+    torch.testing.assert_close(got[1], want[1], rtol=1e-4, atol=1e-6)
+    for gg, ww in zip(got[2], want[2]):
+        torch.testing.assert_close(gg, ww, rtol=2e-4, atol=1e-5)
+
+
+def test_corr_sampled_kernel_rejects_one_image_batch(cuda):
+    from stego_torch.ops import corr_fused_sampling as c1
+
+    feats, code, coords, _, _ = _corr_inputs(cuda, 1, 8, 32, 8, 3, 0, seed=0)
+    perm = [torch.zeros(1, dtype=torch.long, device=cuda)]
+    with pytest.raises(ValueError, match="1-image batch"):
+        c1.sampled_corr_fused(feats[0], feats[1], code[0], code[1],
+                              coords[0], coords[1], perm, [0.1, 0.2, 0.3],
+                              feat_dtype=torch.bfloat16)
+
+
+def test_corr_sampled_kernel_rejects_f32_features(cuda):
+    from stego_torch.ops import corr_fused_sampling as c1
+
+    feats, code, coords, perms, shifts = _corr_inputs(cuda, 2, 8, 32, 8, 3,
+                                                      1, seed=0)
+    with pytest.raises(ValueError, match="bf16 features"):
+        c1.sampled_corr_fused(feats[0], feats[1], code[0], code[1],
+                              coords[0], coords[1], perms, shifts,
+                              feat_dtype=torch.float32)
