@@ -17,7 +17,7 @@ from typing import Optional, Union
 import numpy as np
 import torch
 
-from stego_tpu.config import Config
+from stego_torch.config import Config
 from stego_torch.data.transforms import channel_stats
 from stego_torch.eval.evaluate import load_model_for_eval, make_eval_step
 from stego_torch.models.vit import ViTConfig
@@ -80,7 +80,7 @@ def demo(cfg: Config, model_path: str, image_dir: str, result_dir: str,
 
 
 def main(argv=None):
-    from stego_tpu.config import prep_args
+    from stego_torch.config import prep_args
 
     overrides = prep_args(argv)
     base = overrides.pop("config", None)

@@ -1,11 +1,13 @@
 """Build the port's CUDA kernels and load them with ctypes.
 
-Every ``stego_torch/csrc/*.cu`` file is compiled by one ``nvcc`` call into
-one shared library with a plain C interface, for Hopper (``sm_90a``):
+Every ``stego_torch/csrc/*.cu`` file is compiled for Hopper (``sm_90a``)
+by its own ``nvcc`` process, all started together, and the objects are
+linked into one shared library with a plain C interface:
 
-    nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared \
-         -Xcompiler -fPIC -Xptxas -v \
-         -o build/stego_torch/libstego_torch_<hash>.so stego_torch/csrc/*.cu
+    nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 \
+         -Xcompiler -fPIC -Xptxas -v -c -o <name>.o stego_torch/csrc/<name>.cu
+    nvcc -gencode arch=compute_90a,code=sm_90a -shared \
+         -o build/stego_torch/libstego_torch_<hash>.so *.o
 
 The library is built at first use, into ``build/stego_torch/`` at the root of
 the checkout (listed in ``.gitignore``), and named by a hash of the sources
@@ -31,9 +33,9 @@ from pathlib import Path
 
 CSRC_DIR = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "stego_torch"
-NVCC_FLAGS = (
-    "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-    "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a")
+NVCC_FLAGS = ARCH_FLAGS + (
+    "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
 
 _P = ctypes.c_void_p
@@ -48,6 +50,8 @@ SIGNATURES = {
     "stego_corr_sampled_fwd": (_P,) * 10 + (_I,) * 7 + (_F, _F, _I, _P),
     "stego_corr_sampled_bwd": (_P,) * 10 + (_I,) * 6 + (_F, _F, _I, _F, _I,
                                                         _P),
+    "stego_corr_stream_fwd": (_P,) * 5 + (_I,) * 6 + (_F, _F, _I, _P),
+    "stego_corr_stream_bwd": (_P,) * 10 + (_I,) * 6 + (_F, _F, _I, _I, _P),
 }
 
 _lock = threading.Lock()
@@ -88,16 +92,37 @@ def build() -> Path:
         return out
     nvcc = find_nvcc()
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
-    cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp), *map(str, sources())]
-    proc = subprocess.run(cmd, capture_output=True, text=True, check=False)
-    (BUILD_DIR / "build.log").write_text(
-        " ".join(cmd) + "\n" + proc.stdout + proc.stderr)
-    if proc.returncode != 0:
+    tag = f"{out.stem}.{os.getpid()}"
+    objs = [BUILD_DIR / f"{tag}.{src.stem}.o" for src in sources()]
+    tmp = out.with_name(f"{tag}.so.tmp")
+    compiles = [[nvcc, *NVCC_FLAGS, "-c", "-o", str(obj), str(src)]
+                for src, obj in zip(sources(), objs)]
+    procs = [subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                              stderr=subprocess.PIPE, text=True)
+             for cmd in compiles]
+    log, error = [], None
+
+    def record(cmd, returncode, stdout, stderr):
+        nonlocal error
+        log.append(" ".join(cmd) + "\n" + stdout + stderr)
+        if returncode != 0 and error is None:
+            error = (f"nvcc failed with exit code {returncode} ({cmd[-1]}):"
+                     f"\n{stderr[-4000:]}")
+
+    for cmd, proc in zip(compiles, procs):
+        stdout, stderr = proc.communicate()  # sets returncode
+        record(cmd, proc.returncode, stdout, stderr)
+    if error is None:
+        link = [nvcc, *ARCH_FLAGS, "-shared", "-o", str(tmp), *map(str, objs)]
+        proc = subprocess.run(link, capture_output=True, text=True,
+                              check=False)
+        record(link, proc.returncode, proc.stdout, proc.stderr)
+    for obj in objs:
+        obj.unlink(missing_ok=True)
+    (BUILD_DIR / "build.log").write_text("".join(log))
+    if error is not None:
         tmp.unlink(missing_ok=True)
-        raise RuntimeError(
-            f"nvcc failed with exit code {proc.returncode}:\n"
-            f"{proc.stderr[-4000:]}")
+        raise RuntimeError(error)
     os.replace(tmp, out)
     return out
 

@@ -22,7 +22,7 @@ from typing import Any, Dict, Mapping, Optional, Tuple
 import numpy as np
 import torch
 
-from stego_tpu.config import Config
+from stego_torch.config import Config
 from stego_torch.models.vit import ViTConfig
 from stego_torch.train.segmenter import UnsupervisedSegmenter
 

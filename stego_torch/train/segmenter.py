@@ -6,9 +6,12 @@ Submodule names are the Lightning module's (``net``, ``linear_probe``,
 keys equal those of a STEGO ``.ckpt`` (``models/convert.py``).
 
 The train step (:func:`make_train_step`) runs the frozen trunk once over
-img ‖ img_pos, the head, the contrastive correlation loss (kernel C1 when
-the fused conditions hold, :func:`resolve_corr_sampling`), the probe losses
-on the detached code and three Adam updates. Every random input of the step
+img ‖ img_pos, the head, the contrastive correlation loss, the probe losses
+on the detached code and three Adam updates. The loss runs through kernel
+C1 when the fused conditions hold (:func:`resolve_corr_sampling`), and
+through the streamed kernel C2 otherwise: full-field (``full_field_loss``),
+or bilinearly sampled first (``fused_sampling="off"``,
+``pallas_loss_bf16``). Every random input of the step
 (dropout keep-masks, sample coordinates, negative permutations) is an
 argument: :func:`draw_step_randomness` draws them from a
 ``torch.Generator``; the tests hand in the JAX package's draws instead,
@@ -16,9 +19,8 @@ since ``jax.random`` streams cannot be reproduced in torch.
 
 Not ported yet (ROADMAP.md queue 1, item 4): the aug-alignment loss
 (``aug_alignment_weight > 0``, needs ``ops/augment.py``), the CRF loss
-(``crf_weight > 0``), the salience-biased draw (``use_salience``), the
-feature-pyramid arch and the streamed loss kernel C2 (full-field,
-``pallas_loss_bf16``, ``fused_sampling="off"``). Each raises.
+(``crf_weight > 0``), the salience-biased draw (``use_salience``) and the
+feature-pyramid arch. Each raises.
 """
 
 from __future__ import annotations
@@ -29,7 +31,7 @@ from typing import Any, Dict, Optional
 import torch
 import torch.nn as nn
 
-from stego_tpu.config import Config
+from stego_torch.config import Config
 from stego_torch.models.featurizer import DinoFeaturizer, dropout2d
 from stego_torch.models.probes import (ClusterLookup, cluster_lookup,
                                        decoder_apply, init_conv1x1,
@@ -65,9 +67,10 @@ class UnsupervisedSegmenter(nn.Module):
     """Featurizer ``net`` + ``linear_probe`` (1x1 conv) + ``cluster_probe``,
     and the training-only ``train_cluster_probe`` and ``decoder``.
     ``generator`` seeds every random init. ``step`` counts train steps.
-    ``use_corr_kernel = False`` makes the loss call kernel C1's plain
-    version even on a CUDA tensor (as ``net.model.use_kernels`` does for the
-    trunk's kernels), to hold the step against it on the card."""
+    ``use_corr_kernel = False`` makes the loss call the plain version of its
+    kernel (C1 or C2) even on a CUDA tensor (as ``net.model.use_kernels``
+    does for the trunk's kernels), to hold the step against it on the
+    card."""
 
     def __init__(self, n_classes: int, cfg: Config,
                  vit_cfg: Optional[ViTConfig] = None,
@@ -144,7 +147,8 @@ def resolve_corr_sampling(seg: UnsupervisedSegmenter) -> str:
     (kernel C1) needs the fused loss, sampled (not full-field) mode, a
     correspondence loss and no ``pallas_loss_bf16``; "auto" takes it
     whenever those hold, on any device of the port (one device, so the
-    mesh condition always holds). Otherwise "gather", the streamed path."""
+    mesh condition always holds). Otherwise "gather": bilinear sampling,
+    then the streamed kernel C2. Full-field mode samples nothing."""
     cfg = seg.cfg
     fused_ok = (cfg.use_pallas_loss and not cfg.full_field_loss
                 and cfg.correspondence_weight > 0

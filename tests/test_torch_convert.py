@@ -16,6 +16,7 @@ from stego_tpu.train.segmenter import \
 from stego_torch.models import convert
 from stego_torch.models.vit import VIT_CONFIGS, VisionTransformer
 
+from tests.test_torch_config import torch_config
 from tests.test_torch_vit import CFG, JAX_CFG, jax_backbone
 
 
@@ -61,8 +62,8 @@ def test_export_stego_checkpoint_loads_into_port(tmp_path, projection_type):
     path = str(tmp_path / "model.ckpt")
     export_stego_checkpoint(path, cfg, bb, params, step=3)
     loaded = convert.load_stego_checkpoint(path)
-    direct = convert.from_jax_params(bb, params, cfg)
-    assert loaded.cfg == cfg and loaded.n_classes == 5
+    direct = convert.from_jax_params(bb, params, torch_config(cfg))
+    assert loaded.cfg == torch_config(cfg) and loaded.n_classes == 5
     assert loaded.vit_cfg == CFG
     assert loaded.cluster_probe.clusters.shape == (6, 6)
     sd = direct.state_dict()
@@ -75,7 +76,7 @@ def test_to_jax_params_inverts_from_jax_params():
     cfg = make_cfg()
     _, bb, params = jax_model(cfg, seed=2)
     got_bb, got_params = convert.to_jax_params(
-        convert.from_jax_params(bb, params, cfg))
+        convert.from_jax_params(bb, params, torch_config(cfg)))
     assert_tree_equal(got_bb, bb)
     for key in ("head", "linear_probe", "cluster_probe"):
         assert_tree_equal(got_params[key], params[key])
@@ -84,7 +85,8 @@ def test_to_jax_params_inverts_from_jax_params():
 def test_port_checkpoint_loads_into_jax(tmp_path):
     """save_stego_checkpoint -> the JAX loader: the same pytrees."""
     cfg = make_cfg()
-    seg = convert.from_jax_params(*jax_model(cfg, seed=3)[1:], cfg)
+    seg = convert.from_jax_params(*jax_model(cfg, seed=3)[1:],
+                                  torch_config(cfg))
     path = str(tmp_path / "port.ckpt")
     convert.save_stego_checkpoint(path, seg, step=5)
     loaded = jax_load_stego_checkpoint(path)
@@ -119,7 +121,7 @@ def test_jax_train_state_round_trip_after_two_steps():
     for i in range(2):
         state, _ = step(bb, state, batch, jax.random.PRNGKey(10 + i))
     state = jax.tree.map(np.asarray, state)
-    seg = convert.from_jax_params(bb, state["params"], cfg)
+    seg = convert.from_jax_params(bb, state["params"], torch_config(cfg))
     convert.load_jax_train_state(seg, state)
     assert seg.step == 2
     net = seg.optimizers()["net"]

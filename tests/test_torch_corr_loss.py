@@ -1,7 +1,9 @@
-"""stego_torch's correlation loss against the JAX package: the plain version
-of kernel C1 against the JAX fused-sampling kernel (interpret mode), the
-einsum oracle, the sampler and the closed-form finalize, on the same seeded
-inputs and the same coordinate and permutation draws."""
+"""stego_torch's correlation loss against the JAX package: the plain
+versions of kernels C1 and C2 against the JAX fused-sampling and streamed
+kernels (interpret mode), the loss's front end in its fused, full-field and
+grid-sampled forms, the einsum oracle, the sampler and the closed-form
+finalize, on the same seeded inputs and the same coordinate and permutation
+draws."""
 
 import jax
 import jax.numpy as jnp
@@ -17,6 +19,8 @@ from stego_tpu.ops.pallas_corr import _finalize as jax_finalize
 from stego_tpu.ops.pallas_corr import _Static
 from stego_tpu.ops.pallas_corr import \
     contrastive_correlation_loss_fused as jax_corr_loss_fused
+from stego_tpu.ops.pallas_corr import \
+    fused_correlation_loss_multi as jax_stream_multi
 from stego_tpu.ops.pallas_corr_fused_sampling import \
     sampled_corr_fused as jax_sampled_corr_fused
 from stego_tpu.ops.sampling import \
@@ -35,6 +39,8 @@ from stego_torch.ops.sampling import (bilinear_sample_weights,
 # losses and cd means; code gradients (PARITY_r05.json, sampled-loss rows)
 LOSS_TOL = dict(rtol=1e-4, atol=1e-6)
 GRAD_TOL = dict(rtol=2e-4, atol=1e-5)
+# the streamed loss C2 (PARITY_r05.json, corr rows)
+STREAM_LOSS_TOL = dict(rtol=1e-4, atol=1e-5)
 B, HW, CF, CC = 4, 8, 32, 16
 
 
@@ -231,20 +237,206 @@ def test_fused_loss_front_end_matches_jax(return_cd_tensors):
                                    err_msg=k)
 
 
-@pytest.mark.parametrize("what", ["full_field", "code_bf16", "streamed",
-                                  "salience"])
+@pytest.mark.parametrize("what", ["salience"])
 def test_fused_loss_unported_branches_raise(what):
     arrs = [t(a) for a in maps(0)]
     cs = [t(c) for c in coords(1)]
     cfg = CorrLossCfg(feature_samples=2, neg_samples=0,
                       use_salience=what == "salience")
-    kw = {"full_field": dict(full_field=True),
-          "code_bf16": dict(code_bf16=True),
-          "streamed": dict(sampling_impl="gather"),
-          "salience": {}}[what]
     with pytest.raises(NotImplementedError, match="not ported"):
-        corr_stream.contrastive_correlation_loss_fused(cfg, *arrs, *cs, [],
-                                                       **kw)
+        corr_stream.contrastive_correlation_loss_fused(cfg, *arrs, *cs, [])
+
+
+def stream_pairs(seed, b=2, hw=8, cf=CF, cc=CC, neg=2):
+    """Seeded NHWC maps of the three pair types, as the loss hands them to
+    C2: (feats, feats, code, code), (feats, feats_pos, code, code_pos) and
+    one (feats, feats_neg_k, code, code_neg_k) a negative. Returns the
+    distinct maps, ``[feats, feats_pos, feats_neg_0, ...]`` and the same
+    for the code, as numpy."""
+    rng = np.random.default_rng(seed)
+    fs = [rng.standard_normal((b, hw, hw, cf)).astype(np.float32)
+          for _ in range(2 + neg)]
+    cs = [rng.standard_normal((b, hw, hw, cc)).astype(np.float32)
+          for _ in range(2 + neg)]
+    return fs, cs
+
+
+def pair_list(fs, cs):
+    return [(fs[0], fs[k], cs[0], cs[k]) for k in range(len(fs))]
+
+
+def jax_stream(fs, cs, shifts, **kw):
+    """JAX fused_correlation_loss_multi in interpret mode: (losses, cds,
+    gradients of a seeded combination of them in every code map)."""
+    wl, wc = weights(len(shifts))
+    n_groups = len(shifts)
+
+    def fn(cs):
+        losses, cds = jax_stream_multi(
+            pair_list([jnp.asarray(f) for f in fs], cs), shifts,
+            interpret=True, **kw)
+        return (jnp.sum(losses * wl[:n_groups])
+                + jnp.sum(cds * wc[:n_groups])), (losses, cds)
+
+    (_, (losses, cds)), grads = jax.value_and_grad(fn, has_aux=True)(
+        [jnp.asarray(c) for c in cs])
+    return np.asarray(losses), np.asarray(cds), [np.asarray(g) for g in grads]
+
+
+def port_stream(fs, cs, shifts, **kw):
+    wl, wc = weights(len(shifts))
+    c = [t(x).requires_grad_(True) for x in cs]
+    losses, cds = corr_stream.fused_correlation_loss_multi(
+        pair_list([t(f) for f in fs], c), shifts, **kw)
+    total = (losses * t(wl)).sum() + (cds * t(wc)).sum()
+    grads = torch.autograd.grad(total, c)
+    return (losses.detach().numpy(), cds.detach().numpy(),
+            [g.numpy() for g in grads])
+
+
+def assert_stream_close(got, want):
+    np.testing.assert_allclose(got[0], want[0], **STREAM_LOSS_TOL)
+    np.testing.assert_allclose(got[1], want[1], **STREAM_LOSS_TOL)
+    for g, w in zip(got[2], want[2]):
+        np.testing.assert_allclose(g, w, **GRAD_TOL)
+
+
+@pytest.mark.parametrize("fdt", ["float32", "bfloat16"])
+@pytest.mark.parametrize("pointwise,zero_clamp,stabalize", [
+    (True, True, False), (False, False, True), (True, False, True),
+    (False, True, False)])
+def test_stream_plain_matches_jax_kernel(fdt, pointwise, zero_clamp,
+                                         stabalize):
+    """C2's plain version against the JAX streamed kernel (interpret mode):
+    losses and cd means within rtol 1e-4, atol 1e-5, code gradients within
+    rtol 2e-4, atol 1e-5 (PARITY_r05's corr rows), 8 x 8 maps, two
+    negatives."""
+    fs, cs = stream_pairs(11)
+    shifts = [0.18, 0.12, 0.46, 0.46]
+    opts = dict(pointwise=pointwise, zero_clamp=zero_clamp,
+                stabalize=stabalize)
+    want = jax_stream(fs, cs, shifts, feat_dtype=getattr(jnp, fdt), **opts)
+    got = port_stream(fs, cs, shifts, feat_dtype=getattr(torch, fdt), **opts)
+    assert_stream_close(got, want)
+
+
+@pytest.mark.parametrize("hw,opts", [
+    (11, dict(pointwise=True, zero_clamp=True)),
+    (8, dict(pointwise=False, stabalize=True)),
+])
+def test_stream_plain_code_bf16_matches_jax_kernel(hw, opts):
+    """code_bf16 (pallas_loss_bf16): cd from bf16-rounded code and the
+    backward's dL/dcd rounded to bf16, in both; the same tolerances as f32
+    (both sides round at the same points, so only the f32 sums' order
+    differs)."""
+    fs, cs = stream_pairs(12, hw=hw)
+    shifts = [0.18, 0.12, 0.46, 0.46]
+    want = jax_stream(fs, cs, shifts, feat_dtype=jnp.bfloat16,
+                      code_bf16=True, **opts)
+    got = port_stream(fs, cs, shifts, feat_dtype=torch.bfloat16,
+                      code_bf16=True, **opts)
+    assert_stream_close(got, want)
+
+
+@pytest.mark.parametrize("hw,neg,split", [(11, 2, 1), (8, 1, 2), (11, 0, 1)])
+def test_stream_plain_ragged_split_and_no_negatives_match_jax(hw, neg,
+                                                              split):
+    """11 x 11 maps (121 rows: ragged against the TPU's 128-row tiles and
+    the card's 64-row ones), split_groups=2 (one pointwise mean per half
+    batch) and no negatives."""
+    fs, cs = stream_pairs(13, b=4, hw=hw, neg=neg)
+    shifts = [0.18, 0.12] + [0.46] * neg
+    want = jax_stream(fs, cs, shifts, split_groups=split)
+    got = port_stream(fs, cs, shifts, split_groups=split)
+    assert_stream_close(got, want)
+
+
+def test_stream_multi_dedupes_shared_maps_and_detaches_features():
+    """A map two pairs share is normalized once (4 distinct maps for 4 pair
+    types here), the losses equal the plain version on stacked copies, and
+    the feature maps get no gradient."""
+    fs, cs = stream_pairs(14)
+    tf, tc = [t(f) for f in fs], [t(c) for c in cs]
+    shifts = [0.18, 0.12, 0.46, 0.46]
+    losses, cds = corr_stream.fused_correlation_loss_multi(
+        pair_list(tf, tc), shifts)
+    prep = corr_stream.prep
+    stacked = corr_stream.fused_correlation_loss_plain(
+        torch.cat([prep(tf[0])] * 4), torch.cat([prep(f) for f in tf]),
+        torch.cat([prep(tc[0])] * 4), torch.cat([prep(c) for c in tc]),
+        shifts, [2] * 4)
+    torch.testing.assert_close(losses, stacked[0], rtol=0, atol=0)
+    torch.testing.assert_close(cds, stacked[1], rtol=0, atol=0)
+    tf[1].requires_grad_(True)
+    losses, _ = corr_stream.fused_correlation_loss_multi(pair_list(tf, tc),
+                                                         shifts)
+    assert not losses.requires_grad
+
+
+def test_finalize_rows_takes_unequal_groups():
+    rng = np.random.default_rng(15)
+    sums = [t(rng.standard_normal((5, 3)).astype(np.float32))
+            for _ in range(4)]
+    losses, cds, gm = corr_stream.finalize_rows(*sums, [0.1, 0.2],
+                                                [2, 3], True)
+    for g, (a, z) in enumerate(((0, 2), (2, 5))):
+        want = corr_stream.finalize(*(s[None, a:z] for s in sums),
+                                    [0.1 * (g + 1)], True)
+        for x, w in zip((losses, cds, gm), want):
+            torch.testing.assert_close(x[g], w[0])
+    with pytest.raises(ValueError, match="rows"):
+        corr_stream.finalize_rows(*sums, [0.1], [2, 3], True)
+
+
+@pytest.mark.parametrize("mode", ["full_field", "gather", "gather_hist",
+                                  "gather_bf16", "full_field_bf16"])
+def test_streamed_front_end_matches_jax(mode):
+    """contrastive_correlation_loss_fused's C2 branches (full-field and
+    grid-sampled, sampling_impl="gather") against the JAX front end in
+    interpret mode, with its coordinate and permutation draws injected: the
+    output dict (the hist variant's cd tensors included) and the code
+    gradients of a seeded combination of the losses."""
+    arrs = maps(16, b=3, hw=6)
+    full = mode.startswith("full_field")
+    hist = mode == "gather_hist"
+    bf16 = mode.endswith("bf16")
+    jcfg = JaxCorrLossCfg(feature_samples=3, neg_samples=2)
+    cfg = CorrLossCfg(feature_samples=3, neg_samples=2)
+    key = jax.random.PRNGKey(17)
+    c1d, c2d, perms = loss_draws(key, 3, 3, 2)
+    kw = dict(full_field=full, return_cd_tensors=hist, code_bf16=bf16)
+    fdt = "bfloat16" if bf16 else "float32"
+
+    def total(out):
+        return (out["pos_intra_loss"] + 2 * out["pos_inter_loss"]
+                + 3 * out["neg_inter_loss"] + (0 if hist else
+                                               out["pos_inter_cd"]))
+
+    def jfn(c1, c2):
+        out = jax_corr_loss_fused(jcfg, key, jnp.asarray(arrs[0]),
+                                  jnp.asarray(arrs[1]), c1, c2,
+                                  interpret=True, sampling_impl="gather",
+                                  feat_dtype=getattr(jnp, fdt), **kw)
+        return total(out), out
+
+    (_, jout), jgrads = jax.value_and_grad(jfn, argnums=(0, 1),
+                                           has_aux=True)(
+        jnp.asarray(arrs[2]), jnp.asarray(arrs[3]))
+    c1 = t(arrs[2]).requires_grad_(True)
+    c2 = t(arrs[3]).requires_grad_(True)
+    out = corr_stream.contrastive_correlation_loss_fused(
+        cfg, t(arrs[0]), t(arrs[1]), c1, c2, t(c1d), t(c2d),
+        [t(p) for p in perms], sampling_impl="gather",
+        feat_dtype=getattr(torch, fdt), **kw)
+    grads = torch.autograd.grad(total(out), [c1, c2])
+    assert out.keys() == jout.keys()
+    for k in jout:
+        assert tuple(out[k].shape) == tuple(jout[k].shape), k
+        np.testing.assert_allclose(out[k].detach().numpy(),
+                                   np.asarray(jout[k]), **STREAM_LOSS_TOL,
+                                   err_msg=k)
+    for g, w in zip(grads, jgrads):
+        np.testing.assert_allclose(g.numpy(), np.asarray(w), **GRAD_TOL)
 
 
 @pytest.mark.parametrize("pointwise", [True, False])

@@ -171,3 +171,98 @@ def test_corr_sampled_kernel_rejects_f32_features(cuda):
         c1.sampled_corr_fused(feats[0], feats[1], code[0], code[1],
                               coords[0], coords[1], perms, shifts,
                               feat_dtype=torch.float32)
+
+
+def _stream_inputs(dev, b, hw, cf, cc, neg, seed):
+    """Seeded full-field inputs of kernel C2: the normalized feature (bf16)
+    and code (f32) maps of b images and their positives, and the pair rows
+    of the self pair, the positive pair and ``neg`` negatives, as the
+    full-field loss builds them (ops/corr_stream.py:_full_field)."""
+    from stego_torch.ops import corr_stream as c2
+    from stego_torch.ops.math import super_perm
+
+    g = torch.Generator(device=dev).manual_seed(seed)
+    feats = c2.prep(torch.randn(2 * b, hw, hw, cf, generator=g, device=dev),
+                    torch.bfloat16)
+    code = c2.prep(torch.randn(2 * b, hw, hw, cc, generator=g, device=dev))
+    ar = torch.arange(b, device=dev)
+    idx1 = ar.repeat(2 + neg)
+    idx2 = torch.cat([ar, ar + b] + [super_perm(b, g) for _ in range(neg)])
+    shifts = [0.18, 0.12] + [0.46] * neg
+    return feats, code, idx1, idx2, shifts
+
+
+@pytest.mark.parametrize("b,hw,cf,cc,neg,opts", [
+    (16, 28, 384, 70, 5, dict(pointwise=True, zero_clamp=True)),
+    (16, 28, 384, 70, 5, dict(pointwise=False, stabalize=True)),
+    (16, 28, 384, 70, 5, dict(pointwise=True, zero_clamp=True,
+                              code_bf16=True)),
+    (16, 11, 384, 70, 5, dict(pointwise=True, zero_clamp=True)),
+    (3, 8, 40, 16, 0, dict(pointwise=True, zero_clamp=False)),
+    (2, 5, 8, 3, 1, dict(pointwise=False, zero_clamp=True,
+                         code_bf16=True)),
+    (4, 9, 32, 128, 2, dict(pointwise=True, stabalize=True)),
+])
+def test_corr_stream_kernel_matches_plain(cuda, b, hw, cf, cc, neg, opts):
+    """Kernel C2 against its plain version: the full-field shape (ViT-S/8
+    at res 224, cocostuff27 head, 5 negatives, N = 784), the grid-sampled
+    one (N = 121), with code_bf16, and small ragged ones (N = 64, 25, 81,
+    no negatives). Losses and cd means within rtol 1e-4, atol 1e-5; code
+    gradients, at weights that make the largest 1, within rtol 2e-4, atol
+    1e-5 (PARITY_r05's corr rows): the two sum in other orders. The
+    kernel's gradient is deterministic."""
+    from stego_torch.ops import corr_stream as c2
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    feats, code, idx1, idx2, shifts = _stream_inputs(cuda, b, hw, cf, cc,
+                                                     neg, seed=b + cf + cc)
+    wts = torch.randn(2, 2 + neg, generator=torch.Generator(device=cuda)
+                      .manual_seed(7), device=cuda)
+
+    def run(use_kernel):
+        c = code.clone().requires_grad_(True)
+        losses, cds = c2.stream_loss(feats, c, idx1, idx2, shifts,
+                                     [b] * (2 + neg),
+                                     opts.get("pointwise", True),
+                                     opts.get("zero_clamp", True),
+                                     opts.get("stabalize", False),
+                                     opts.get("code_bf16", False), use_kernel)
+        total = (losses * wts[0]).sum() + (cds * wts[1]).sum()
+        (grad,) = torch.autograd.grad(total, [c])
+        return losses.detach(), cds.detach(), grad
+
+    # weights that make the plain version's largest code gradient 1, so
+    # that the gradient tolerance is measured against the gradient's size
+    wts = wts / float(run(False)[2].abs().max())
+    f0, b0 = c2.FWD_LAUNCHES, c2.BWD_LAUNCHES
+    got = run(True)
+    again = run(True)
+    torch.cuda.synchronize()
+    assert (c2.FWD_LAUNCHES, c2.BWD_LAUNCHES) == (f0 + 2, b0 + 2)
+    want = run(False)
+    torch.testing.assert_close(got[0], want[0], rtol=1e-4, atol=1e-5)
+    torch.testing.assert_close(got[1], want[1], rtol=1e-4, atol=1e-5)
+    # with code_bf16 a dL/dcd coefficient may round one bf16 ulp apart in
+    # the two versions: two ulps (2**-7) of the largest gradient
+    grad_atol = 2 ** -7 if opts.get("code_bf16") else 1e-5
+    torch.testing.assert_close(got[2], want[2], rtol=2e-4, atol=grad_atol)
+    for x, y in zip(got, again):
+        assert torch.equal(x, y)
+
+
+def test_corr_stream_kernel_rejects_f32_features(cuda):
+    """A CUDA tensor never falls back to the plain version: f32 features
+    raise."""
+    from stego_torch.ops import corr_stream as c2
+
+    feats, code, idx1, idx2, shifts = _stream_inputs(cuda, 2, 4, 16, 8, 1,
+                                                     seed=0)
+    before = c2.FWD_LAUNCHES
+    with pytest.raises(ValueError, match="bf16 features"):
+        c2.stream_loss(feats.float(), code, idx1, idx2, shifts, [2] * 3, True,
+                   True, False, False, True)
+    assert c2.FWD_LAUNCHES == before
+    f = torch.randn(2, 4, 4, 16, device=cuda)
+    c = torch.randn(2, 4, 4, 8, device=cuda)
+    with pytest.raises(ValueError, match="bf16 features"):
+        c2.fused_correlation_loss_multi([(f, f, c, c)], [0.1])

@@ -25,6 +25,7 @@ from stego_torch.models.probes import linear_probe_logits
 from stego_torch.ops.interp import interpolate
 from stego_torch.ops.math import l2_normalize
 
+from tests.test_torch_config import torch_config
 from tests.test_torch_convert import jax_model, make_cfg
 from tests.test_torch_vit import JAX_CFG
 
@@ -42,7 +43,7 @@ def batch(seed, b=2, res=RES):
 
 def both(cfg, seed=0):
     jseg, bb, params = jax_model(cfg, seed)
-    seg = from_jax_params(bb, params, cfg).eval()
+    seg = from_jax_params(bb, params, torch_config(cfg)).eval()
     return jseg, bb, params, seg
 
 
@@ -166,7 +167,8 @@ def test_demo_writes_png_trees(tmp_path):
                                                 force_rgb=True))
 
     out, jax_out = tmp_path / "port", tmp_path / "jax"
-    assert demo(cfg, ckpt, str(image_dir), str(out), "cpu") == 2
+    assert demo(torch_config(cfg), ckpt, str(image_dir), str(out),
+                "cpu") == 2
     jax_demo(cfg, ckpt, str(image_dir), str(jax_out), vit_cfg=JAX_CFG)
     step = make_eval_step(load_model_for_eval(ckpt, "cpu"))
     for i, name in enumerate(("a.png", "b.png")):

@@ -34,6 +34,7 @@ from stego_torch.train.segmenter import (draw_step_randomness,
                                          resolve_corr_sampling)
 from stego_torch.utils.metrics import UnsupervisedMetrics, update_conf_matrix
 
+from tests.test_torch_config import torch_config
 from tests.test_torch_vit import JAX_CFG, jax_backbone
 
 B, RES, N_CLASSES = 4, 64, 5
@@ -104,7 +105,7 @@ def setup(cfg, seed=0):
     bb = jax_backbone(seed)
     state = jax.tree.map(np.asarray,
                          jseg.init_state(jax.random.PRNGKey(seed + 1)))
-    seg = from_jax_params(bb, state["params"], cfg)
+    seg = from_jax_params(bb, state["params"], torch_config(cfg))
     load_jax_train_state(seg, state)
     return jseg, bb, state, seg
 
@@ -251,17 +252,35 @@ def test_draw_step_randomness_shapes():
 def test_resolve_corr_sampling():
     seg = setup(make_cfg(fused_sampling="auto"))[3]
     assert resolve_corr_sampling(seg) == "fused"
-    seg.cfg = make_cfg(fused_sampling="off")
+    seg.cfg = torch_config(make_cfg(fused_sampling="off"))
     assert resolve_corr_sampling(seg) == "gather"
-    seg.cfg = make_cfg(fused_sampling="on", full_field_loss=True)
+    seg.cfg = torch_config(make_cfg(fused_sampling="on",
+                                    full_field_loss=True))
     with pytest.raises(ValueError, match="fused_sampling='on'"):
         resolve_corr_sampling(seg)
 
 
+def test_train_step_full_field_matches_jax_two_steps():
+    """full_field_loss: the dense loss through C2's plain version (JAX: the
+    streamed kernel in interpret mode), f32; the step logs cd means and no
+    histograms (``segmenter.py:190``)."""
+    seg, _ = run_both(make_cfg(full_field_loss=True, fused_sampling="auto"))
+    assert seg.step == 2
+
+
+def test_train_step_streamed_sampling_matches_jax_two_steps():
+    """fused_sampling="off": grid-sampled coordinates into C2, with the
+    hist variant's cd histograms."""
+    run_both(make_cfg(fused_sampling="off"))
+
+
+def test_train_step_pallas_loss_bf16_matches_jax_two_steps():
+    """pallas_loss_bf16: the sampler resolves to "gather" and C2 runs its
+    code side in bf16 with f32 sums, as on the TPU."""
+    run_both(make_cfg(pallas_loss_bf16=True, fused_sampling="auto"))
+
+
 @pytest.mark.parametrize("kw,at_build", [
-    (dict(full_field_loss=True, fused_sampling="auto"), False),
-    (dict(pallas_loss_bf16=True, fused_sampling="auto"), False),
-    (dict(fused_sampling="off"), False),
     (dict(use_salience=True), True),
     (dict(aug_alignment_weight=0.1), True),
     (dict(crf_weight=0.1), True),
