@@ -37,8 +37,12 @@
 // bf16 products (0.053 ms at 989 TFLOP/s) and 9.6 GFLOP of f32 FMA (0.144 ms
 // at 67 TFLOP/s), so ~0.20 ms of compute against ~28 MB of input (0.008 ms
 // at 3.35 TB/s): compute-bound. The backward recomputes fd and cd and forms
-// dc1 and dc2: ~0.49 ms. With code_bf16 the cd and dc products move to the
-// tensor cores' rate: ~0.063 ms forward.
+// dc1 and dc2: ~0.49 ms. With code_bf16 every product has bf16 operands,
+// so the bound counts cd, dc1 and dc2 at the tensor cores' rate: ~0.063 ms
+// forward, ~0.083 ms backward. This kernel runs only cd on mma.sync there:
+// dc1 and dc2 are scalar f32 FMA from shared memory in both instantiations
+// (with code_bf16 on bf16-rounded coefficients and code), so its code_bf16
+// backward is about as slow as its f32 one.
 //
 // Design, right before fast. Forward: one block a (64 rows of side 1, pair
 // row); 8 warps, each 16 rows by 32 columns of a tile; the block loops over
@@ -519,7 +523,8 @@ corr_stream_bwd_kernel(const __nv_bfloat16* __restrict__ feats,
       }
       __syncthreads();
       // side 1: out[i][c] += sum_j coeff[i][j] c2[j][c] (c_other holds j);
-      // side 2: out[j][c] += sum_i coeff[i][j] c1[i][c] (c_other holds i)
+      // side 2: out[j][c] += sum_i coeff[i][j] c1[i][c] (c_other holds i);
+      // scalar f32 FMA in both instantiations
       const int a_m = side1 ? kCoeffPitch : 1;
       const int a_k = side1 ? 1 : kCoeffPitch;
       const int kn = min(kTile, n - o0);

@@ -2,7 +2,10 @@
 
 Every ``stego_torch/csrc/*.cu`` file is compiled for Hopper (``sm_90a``)
 by its own ``nvcc`` process, all started together, and the objects are
-linked into one shared library with a plain C interface:
+linked into one shared library with a plain C interface. The build then
+takes about as long as its slowest source, not the sum of all, so a
+kernel added to ``csrc/`` lengthens it only when it is the slowest one
+(``chip_smoke.py`` builds every kernel inside a fixed time limit).
 
     nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 \
          -Xcompiler -fPIC -Xptxas -v -c -o <name>.o stego_torch/csrc/<name>.cu

@@ -243,10 +243,12 @@ def fused_correlation_loss_multi(
     """All pair types in one launch of each of C2's entries.
 
     ``pairs``: one (f1, f2, c1, c2) tuple of NHWC maps a pair type, all of
-    one spatial size; with ``pre_prepped`` instead normalized (B, N, C)
-    rows (:func:`prep`), and ``n_real``, where given, must be N (the port
-    pads nothing). A tensor (feature and code map together) that several
-    pairs share is normalized once and read by index. ``shifts``: one a pair
+    one spatial size. A tensor (feature and code map together) that several
+    pairs share is normalized once and read by index. ``pre_prepped`` and
+    ``n_real`` keep the JAX signature; no caller in the port sets them:
+    with ``pre_prepped`` the pairs are normalized (B, N, C) rows
+    (:func:`prep`), and ``n_real``, where given, must be N (the port pads
+    nothing). ``shifts``: one a pair
     type. ``feat_dtype``: the features' type in the fd product (the kernel
     takes bf16 only). ``code_bf16``: the code side in bf16 with f32 sums
     (``pallas_loss_bf16``). ``split_groups``: every pair type cut into that

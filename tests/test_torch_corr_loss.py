@@ -373,6 +373,70 @@ def test_stream_multi_dedupes_shared_maps_and_detaches_features():
     assert not losses.requires_grad
 
 
+@pytest.mark.parametrize("n_real", [None, 121])
+def test_stream_multi_takes_pre_prepped_rows(n_real):
+    """pre_prepped (the JAX signature's option): normalized (B, N, C) rows
+    give the losses and code gradients of the NHWC maps they come from;
+    n_real, where given, is N."""
+    fs, cs = stream_pairs(18, hw=11)
+    shifts = [0.18, 0.12, 0.46, 0.46]
+    want = port_stream(fs, cs, shifts, feat_dtype=torch.bfloat16)
+    wl, wc = weights(len(shifts))
+    c = [t(x).requires_grad_(True) for x in cs]
+    prepped = pair_list([corr_stream.prep(t(f), torch.bfloat16) for f in fs],
+                        [corr_stream.prep(x) for x in c])
+    losses, cds = corr_stream.fused_correlation_loss_multi(
+        prepped, shifts, pre_prepped=True, n_real=n_real)
+    total = (losses * t(wl)).sum() + (cds * t(wc)).sum()
+    grads = torch.autograd.grad(total, c)
+    np.testing.assert_array_equal(losses.detach().numpy(), want[0])
+    np.testing.assert_array_equal(cds.detach().numpy(), want[1])
+    for g, w in zip(grads, want[2]):
+        np.testing.assert_allclose(g.numpy(), w, rtol=1e-6, atol=1e-9)
+
+
+def test_stream_multi_rejects_padded_n_real():
+    fs, cs = stream_pairs(18, hw=4)
+    prepped = pair_list([corr_stream.prep(t(f)) for f in fs],
+                        [corr_stream.prep(t(x)) for x in cs])
+    with pytest.raises(ValueError, match="pads nothing"):
+        corr_stream.fused_correlation_loss_multi(
+            prepped, [0.18, 0.12, 0.46, 0.46], pre_prepped=True, n_real=128)
+
+
+@pytest.mark.parametrize("hw", [8, 11])
+def test_stream_plain_code_bf16_backward_rounds_coefficients(hw):
+    """code_bf16's backward rounds dL/dcd to bf16: against the same loss on
+    bf16-rounded code without code_bf16 (the same forward bit for bit, an
+    unrounded dL/dcd), the code gradients differ in most elements by more
+    than the f32 tolerance (rtol 2e-4, atol 1e-5 at weights that make the
+    largest gradient 1). That is what makes the card's code_bf16 gate (at
+    least 99% of elements within that tolerance) tell a kernel that skips
+    the rounding from one that keeps it."""
+    fs, cs = stream_pairs(19, b=4, hw=hw)
+    shifts = [0.18, 0.12, 0.46, 0.46]
+    tf = [corr_stream.prep(t(f), torch.bfloat16) for f in fs]
+    rounded = [corr_stream.prep(t(x)).bfloat16().float() for x in cs]
+
+    def run(code, code_bf16, scale=1.0):
+        c = [x.clone().requires_grad_(True) for x in code]
+        losses, cds = corr_stream.fused_correlation_loss_multi(
+            pair_list(tf, c), shifts, pre_prepped=True, code_bf16=code_bf16)
+        wl, wc = weights(len(shifts))
+        total = ((losses * t(wl)).sum() + (cds * t(wc)).sum()) * scale
+        return losses, cds, torch.cat([g.flatten() for g in
+                                       torch.autograd.grad(total, c)])
+
+    scale = 1 / float(run(rounded, True)[2].abs().max())
+    got, want = run(rounded, False, scale), run(rounded, True, scale)
+    torch.testing.assert_close(got[0], want[0], rtol=0, atol=0)
+    torch.testing.assert_close(got[1], want[1], rtol=0, atol=0)
+    diff = (got[2] - want[2]).abs()
+    inside = float((diff <= 1e-5 + 2e-4 * want[2].abs()).float().mean())
+    assert inside < 0.5
+    assert float(diff.max()) <= 2 ** -7
+
+
 def test_finalize_rows_takes_unequal_groups():
     rng = np.random.default_rng(15)
     sums = [t(rng.standard_normal((5, 3)).astype(np.float32))
