@@ -17,12 +17,13 @@
    its code and predictions must agree with the same batch through the
    plain versions on the card.
 4. Holds kernel C1 (the sampled correlation loss, forward and backward)
-   against its plain version at the train step's shapes, and times both.
+   against its plain version at the train step's shapes, with bf16 and
+   with f32 features (a bf16 and an f32 trunk), and times both.
 5. Holds kernel C2 (the streamed correlation loss, forward and backward)
    against its plain version at the full-field shape (7 dense 784 x 784
    fields of 16 images) and the grid-sampled shape (121 samples), with f32
-   and with bf16 code (code_bf16), and times both; the f32 kernel, which
-   ignores code_bf16, must fail the code_bf16 gate.
+   and with bf16 code (code_bf16), and with f32 features, and times both;
+   the f32 kernel, which ignores code_bf16, must fail the code_bf16 gate.
 6. Trains: 20 steps of make_train_step at the reference footprint
    (src/configs/train_config.yml: ViT-S/8, res 224, batch 16, 11 x 11
    samples, 5 negatives, dropout) on one fixed synthetic batch, each
@@ -36,6 +37,20 @@
    fused_sampling="off" and pallas_loss_bf16; each step launches C2 forward
    and backward once and C1 never, and one step of each is held against
    the same step with C2's plain version.
+8. The feature-cache path, on seeded synthetic scenes of 27 classes
+   (stego_torch/data/synthetic.py; 1024 train images at res 224, 128 val
+   images at res 320): the KNN table of the train split (train/knn.py,
+   bf16 trunk, top 30; every image its own nearest); feature caches
+   (train/feat_cache.py) of both splits with the bf16 and the f32 trunk,
+   whose rows equal the trunk's output; cached train runs over index
+   batches that FeatCacheSampler draws from the KNN table (bf16 and f32
+   trunks with the sampled loss, C1, 20 steps; f32 full-field, C2, 10
+   steps; f32 fused_sampling="off", C2, 3 steps), each step launching the
+   loss's kernel forward and backward once and no other kernel, the loss
+   falling, one step held against the same step with the loss's plain
+   version; one f32 image step against one cached step on the same images;
+   make_cached_val_epoch over both val caches, its last batch padded,
+   against make_val_step on the same images.
 
 Prints one JSON line with the kernels' results (times, launches on the
 main paths, errors against the plain versions, the least time the card
@@ -48,8 +63,10 @@ fails. Imports nothing of JAX.
 
 from __future__ import annotations
 
+import concurrent.futures
 import copy
 import dataclasses
+import functools
 import json
 import math
 import os
@@ -59,6 +76,7 @@ import sys
 import tempfile
 import time
 
+import numpy as np
 import torch
 
 BATCH = 8
@@ -95,6 +113,10 @@ STREAM_RTOL, STREAM_ATOL = 1e-4, 1e-5
 # with the f32 kernel must fail that.
 BF16_GRAD_ATOL, BF16_GRAD_SHARE, BF16_PARAM_ATOL = 2 ** -7, 0.99, 5e-5
 FULL_STEPS, SHORT_STEPS = 10, 3
+# the feature-cache path: seeded synthetic scenes of 27 classes, the train
+# split at TRAIN_RES with its KNN table, the val split at VAL_RES in
+# batches of VAL_BATCH (128 = 5 x 24 + 8: a short final chunk and batch)
+TRAIN_IMAGES, VAL_IMAGES, VAL_BATCH, KNN_K = 1024, 128, 24, 30
 # counted launches: attention, LN, C1 forward/backward, C2 forward/backward
 COUNTS = ("attention", "layer_norm", "corr_sampled_fwd", "corr_sampled_bwd",
           "corr_stream_fwd", "corr_stream_bwd")
@@ -438,63 +460,71 @@ def corr_inputs(dev, b, hw, cf, cc, s, neg, seed):
 
 
 def phase_corr(dev):
+    """Kernel C1 against its plain version with bf16 features (a bf16
+    trunk) and f32 features (an f32 trunk); {feature type: (errors, device
+    times, bounds)}."""
     from stego_torch.ops import corr_fused_sampling as c1
 
     sh = CORR_SHAPE
     print(f"kernel C1 (corr_sampled) vs plain: B={sh['b']}, {sh['hw']}x"
-          f"{sh['hw']} maps, feats {sh['cf']} in bf16, code {sh['cc']} f32, "
-          f"{sh['s']}x{sh['s']} samples, {sh['neg']} negatives; losses and "
-          f"cd rtol {LOSS_RTOL} atol {LOSS_ATOL}, code grads rtol "
-          f"{GRAD_RTOL} atol {GRAD_ATOL}")
+          f"{sh['hw']} maps, feats {sh['cf']} in bf16 and in f32, code "
+          f"{sh['cc']} f32, {sh['s']}x{sh['s']} samples, {sh['neg']} "
+          f"negatives; losses and cd rtol {LOSS_RTOL} atol {LOSS_ATOL}, "
+          f"code grads rtol {GRAD_RTOL} atol {GRAD_ATOL}")
     feats, code, coords, perms, wts = corr_inputs(dev, **sh, seed=3)
     shifts = [0.18, 0.12] + [0.46] * sh["neg"]
-    errs = {"fwd": 0.0, "bwd": 0.0}
-    times = {}
-    for opts in (dict(pointwise=True, zero_clamp=True),
-                 dict(pointwise=False, stabalize=True)):
-        def forward(fn):
-            c = [x.clone().requires_grad_(True) for x in code]
-            losses, cds = fn(feats[0], feats[1], c[0], c[1], coords[0],
-                             coords[1], perms, shifts,
-                             feat_dtype=torch.bfloat16, **opts)
-            total = (losses * wts[0]).sum() + (cds * wts[1]).sum()
-            return losses, cds, total, c
+    out = {}
+    for feat_dtype, name in ((torch.bfloat16, "bf16"), (torch.float32, "f32")):
+        errs = {"fwd": 0.0, "bwd": 0.0}
+        times = {}
+        for opts in (dict(pointwise=True, zero_clamp=True),
+                     dict(pointwise=False, stabalize=True)):
+            def forward(fn):
+                c = [x.clone().requires_grad_(True) for x in code]
+                losses, cds = fn(feats[0], feats[1], c[0], c[1], coords[0],
+                                 coords[1], perms, shifts,
+                                 feat_dtype=feat_dtype, **opts)
+                total = (losses * wts[0]).sum() + (cds * wts[1]).sum()
+                return losses, cds, total, c
 
-        def run(fn):
-            losses, cds, total, c = forward(fn)
-            return (losses.detach(), cds.detach(),
-                    *torch.autograd.grad(total, c))
+            def run(fn):
+                losses, cds, total, c = forward(fn)
+                return (losses.detach(), cds.detach(),
+                        *torch.autograd.grad(total, c))
 
-        wts = unit_gradient_weights(wts, run, c1.sampled_corr_plain)
-        got = run(c1.sampled_corr_fused)
-        torch.cuda.synchronize()
-        want = run(c1.sampled_corr_plain)
-        label = ", ".join(f"{k}={v}" for k, v in opts.items())
-        hold_to_plain(label, got, want, errs, (LOSS_RTOL, LOSS_ATOL),
-                      (GRAD_RTOL, GRAD_ATOL))
-        if not times:
-            times = time_fwd_bwd(forward, run, c1.sampled_corr_fused,
-                                 c1.sampled_corr_plain)
-    bounds = c1_bounds(**sh)
-    print(f"  forward {bound_text(bounds['fwd'])}; backward "
-          f"{bound_text(bounds['bwd'])}")
-    return errs, times, bounds
+            wts = unit_gradient_weights(wts, run, c1.sampled_corr_plain)
+            got = run(c1.sampled_corr_fused)
+            torch.cuda.synchronize()
+            want = run(c1.sampled_corr_plain)
+            label = f"{name} features, " + ", ".join(
+                f"{k}={v}" for k, v in opts.items())
+            hold_to_plain(label, got, want, errs, (LOSS_RTOL, LOSS_ATOL),
+                          (GRAD_RTOL, GRAD_ATOL))
+            if not times:
+                times = time_fwd_bwd(forward, run, c1.sampled_corr_fused,
+                                     c1.sampled_corr_plain)
+        bounds = c1_bounds(**sh, feat_bytes=torch.finfo(feat_dtype).bits // 8)
+        print(f"  {name} features: forward {bound_text(bounds['fwd'])}; "
+              f"backward {bound_text(bounds['bwd'])}")
+        out[name] = (errs, times, bounds)
+    return out
 
 
-def c1_bounds(b, hw, cf, cc, s, neg):
+def c1_bounds(b, hw, cf, cc, s, neg, feat_bytes=2):
     """C1's least times, forward and backward, all f32 FMA (the kernel
     keeps the TPU's rounding points, so no tensor cores). Forward: fd and
     cd of every slot (S x S x (cf + cc) multiply-adds, S = s * s samples)
-    and the 4-tap sampling of both sides; it reads the bf16 feature and f32
-    code maps and the coordinates and writes the row sums, z2cn and fd.
-    Backward: cd again, dz1 and dz2, the normalise Jacobian and the 4-tap
-    scatter; it reads the residuals and writes the code gradients."""
+    and the 4-tap sampling of both sides; it reads the feature maps
+    (``feat_bytes`` an element) and f32 code maps and the coordinates and
+    writes the row sums, z2cn and fd. Backward: cd again, dz1 and dz2, the
+    normalise Jacobian and the 4-tap scatter; it reads the residuals and
+    writes the code gradients."""
     n, ss, slots = hw * hw, s * s, (2 + neg) * b
     coords = 2 * b * ss * 2 * 4
     resid = slots * (5 * ss + ss * cc + ss * ss) * 4
     fwd = bound({"f32": 2 * slots * ss * ss * (cf + cc)
                  + 2 * slots * 2 * ss * 4 * (cf + cc)},
-                2 * b * n * (2 * cf + 4 * cc) + coords + resid)
+                2 * b * n * (feat_bytes * cf + 4 * cc) + coords + resid)
     bwd = bound({"f32": 3 * 2 * slots * ss * ss * cc
                  + 2 * slots * 2 * ss * 6 * cc},
                 resid + coords + 2 * b * n * cc * 4)
@@ -566,20 +596,22 @@ def time_fwd_bwd(forward, run, kernel, plain):
     return {"fwd": t_fwd["device"], "bwd": t_bwd["device"]}
 
 
-def stream_inputs(dev, b, hw, cf, cc, neg, distinct, seed):
+def stream_inputs(dev, b, hw, cf, cc, neg, distinct, seed,
+                  feat_dtype=torch.bfloat16):
     """Seeded inputs of kernel C2 as the train step builds them
-    (ops/corr_stream.py): normalized bf16 feature and f32 code maps, and the
-    pair rows of the self pair, the positive pair and ``neg`` negatives.
-    Full-field (``distinct=False``): the maps of the b images and of their
-    positives, negatives read by index. Grid-sampled (``distinct=True``):
-    one map set a pair type, as the sampled pairs are."""
+    (ops/corr_stream.py): normalized feature (``feat_dtype``: a bf16 or an
+    f32 trunk's) and f32 code maps, and the pair rows of the self pair, the
+    positive pair and ``neg`` negatives. Full-field (``distinct=False``):
+    the maps of the b images and of their positives, negatives read by
+    index. Grid-sampled (``distinct=True``): one map set a pair type, as the
+    sampled pairs are."""
     from stego_torch.ops import corr_stream as c2
     from stego_torch.ops.math import super_perm
 
     g = torch.Generator(device=dev).manual_seed(seed)
     m = (2 + neg if distinct else 2) * b
     feats = c2.prep(torch.randn(m, hw, hw, cf, generator=g, device=dev),
-                    torch.bfloat16)
+                    feat_dtype)
     code = c2.prep(torch.randn(m, hw, hw, cc, generator=g, device=dev))
     ar = torch.arange(b, device=dev)
     idx1 = ar.repeat(2 + neg)
@@ -589,19 +621,22 @@ def stream_inputs(dev, b, hw, cf, cc, neg, distinct, seed):
     return feats, code, idx1, idx2, weights
 
 
-def c2_bounds(rows, maps, n, cf, cc, code_bf16):
-    """C2's least times, forward and backward. Forward: fd, a bf16 product
-    of n x n x cf a pair row, and cd, n x n x cc in f32 (bf16 with
-    code_bf16); it reads the maps and writes the row sums. Backward: fd and
-    cd again and the two contractions coeff c2 and coeff^T c1 (n x n x cc
-    each); it reads the maps and the row sums and writes the code
-    gradients."""
+def c2_bounds(rows, maps, n, cf, cc, code_bf16, feat_f32=False):
+    """C2's least times, forward and backward. Forward: fd, a product of
+    n x n x cf a pair row (bf16, or f32 for an f32 trunk's features), and
+    cd, n x n x cc in f32 (bf16 with code_bf16); it reads the maps and
+    writes the row sums. Backward: fd and cd again and the two contractions
+    coeff c2 and coeff^T c1 (n x n x cc each); it reads the maps and the
+    row sums and writes the code gradients."""
     fd = 2 * rows * n * n * cf
     cd = 2 * rows * n * n * cc
     code_type = "bf16" if code_bf16 else "f32"
-    maps_bytes = maps * n * (2 * cf + 4 * cc)
+    feat_type = "f32" if feat_f32 else "bf16"
+    maps_bytes = maps * n * ((4 if feat_f32 else 2) * cf + 4 * cc)
     sums = rows * 4 * n * 4
-    fwd_ops, bwd_ops = {"bf16": fd, "f32": 0}, {"bf16": fd, "f32": 0}
+    fwd_ops, bwd_ops = {"bf16": 0, "f32": 0}, {"bf16": 0, "f32": 0}
+    fwd_ops[feat_type] += fd
+    bwd_ops[feat_type] += fd
     fwd_ops[code_type] += cd
     bwd_ops[code_type] += 3 * cd
     fwd = bound(fwd_ops, maps_bytes + sums)
@@ -614,24 +649,30 @@ def phase_corr_stream(dev):
 
     sh = CORR_SHAPE
     b, cf, cc, neg = sh["b"], sh["cf"], sh["cc"], sh["neg"]
-    print(f"kernel C2 (corr_stream) vs plain: B={b}, feats {cf} in bf16, "
-          f"code {cc} f32, {neg} negatives; losses and cd rtol "
+    print(f"kernel C2 (corr_stream) vs plain: B={b}, feats {cf} in bf16 "
+          f"and in f32, code {cc} f32, {neg} negatives; losses and cd rtol "
           f"{STREAM_RTOL} atol {STREAM_ATOL}, code grads rtol {GRAD_RTOL} "
           f"atol {GRAD_ATOL}")
     shifts = [0.18, 0.12] + [0.46] * neg
     groups = [b] * (2 + neg)
     out = {}
     zero_clamp = dict(pointwise=True, zero_clamp=True)  # the train runs'
-    cases = [(name, hw, False, opts) for name, hw in STREAM_SHAPES
-             for opts in (zero_clamp, dict(pointwise=False, stabalize=True))]
+    stabalize = dict(pointwise=False, stabalize=True)
+    cases = [(name, hw, False, False, opts) for name, hw in STREAM_SHAPES
+             for opts in (zero_clamp, stabalize)]
     # code_bf16 at the shape of the path that runs it (pallas_loss_bf16,
     # grid-sampled), then at the full-field shape
-    cases += [(name, hw, True, zero_clamp) for name, hw in STREAM_SHAPES[::-1]]
-    for name, hw, code_bf16, opts in cases:
-        key = (name, code_bf16)
+    cases += [(name, hw, True, False, zero_clamp)
+              for name, hw in STREAM_SHAPES[::-1]]
+    # f32 features (an f32 trunk's cached full-field and grid-sampled steps)
+    cases += [(name, hw, False, True, opts) for name, hw in STREAM_SHAPES
+              for opts in (zero_clamp, stabalize)]
+    for name, hw, code_bf16, feat_f32, opts in cases:
+        key = (name, code_bf16, feat_f32)
         distinct = name == "grid-sampled"
         feats, code, idx1, idx2, wts = stream_inputs(
-            dev, b, hw, cf, cc, neg, distinct, seed=hw + code_bf16)
+            dev, b, hw, cf, cc, neg, distinct, seed=hw + code_bf16,
+            feat_dtype=torch.float32 if feat_f32 else torch.bfloat16)
 
         def forward(use_kernel, code_in=code, bf16=code_bf16):
             c = code_in.clone().requires_grad_(True)
@@ -656,6 +697,7 @@ def phase_corr_stream(dev):
         share = BF16_GRAD_SHARE if code_bf16 else None
         label = (f"{name} (N={hw * hw}, {idx1.numel()} pair rows, "
                  f"{feats.shape[0]} maps)"
+                 f"{', f32 features' if feat_f32 else ''}"
                  f"{', code_bf16' if code_bf16 else ''}, "
                  + ", ".join(f"{k}={v}" for k, v in opts.items())
                  + f"; code grads rtol {grad_tol[0]} atol {grad_tol[1]}")
@@ -681,7 +723,7 @@ def phase_corr_stream(dev):
             continue
         res["times"] = time_fwd_bwd(forward, run, True, False)
         res["bounds"] = c2_bounds(idx1.numel(), feats.shape[0], hw * hw, cf,
-                                  cc, code_bf16)
+                                  cc, code_bf16, feat_f32)
         print(f"  forward {bound_text(res['bounds']['fwd'])}; backward "
               f"{bound_text(res['bounds']['bwd'])}")
     return out
@@ -707,23 +749,23 @@ def reset_counts():
     c2.FWD_LAUNCHES = c2.BWD_LAUNCHES = 0
 
 
-def compare_steps(ref, batch, rand, kernel, param_atol=GRAD_ATOL):
+def compare_steps(ref, make_step, kernel, param_atol=GRAD_ATOL):
     """One train step from ``ref``'s state with the loss's kernel
     (``kernel``, C1 or C2) and one with its plain version (trunk kernels on
     in both): metrics within rtol LOSS_RTOL, atol LOSS_ATOL, updated
     parameters within rtol GRAD_RTOL, atol ``param_atol``; then one with
-    every kernel off, reported only. With ``pallas_loss_bf16``, a step with
-    the kernel ignoring it (the f32 kernel) must fail the parameter gate."""
+    every kernel off, reported only. ``make_step(seg)`` builds the step of a
+    copy of ``ref`` as a call without arguments. With ``pallas_loss_bf16``,
+    a step with the kernel ignoring it (the f32 kernel) must fail the
+    parameter gate."""
     def one_step(use_kernels, use_corr_kernel, ignore_code_bf16=False):
-        from stego_torch.train.segmenter import make_train_step
-
         seg = copy.deepcopy(ref)
         seg.net.model.use_kernels = use_kernels
         seg.use_corr_kernel = use_corr_kernel
-        step = make_train_step(seg, with_hist=False)
+        step = make_step(seg)
         if ignore_code_bf16:  # the sampler stays the one resolved above
             seg.cfg = dataclasses.replace(seg.cfg, pallas_loss_bf16=False)
-        metrics = step(batch, rand)
+        metrics = step()
         return metrics, {n: p.detach() for n, p in seg.named_parameters()}, \
             {n: p.grad for n, p in seg.named_parameters()}
 
@@ -782,6 +824,57 @@ def compare_steps(ref, batch, rand, kernel, param_atol=GRAD_ATOL):
           f"{float(m0['loss/total'] - mk['loss/total']):.3e} (report only)")
 
 
+def run_steps(steps, hist_steps, expect, fall_window, hist_logged, step):
+    """``steps`` calls of ``step(i, with_hist) -> metrics``, the variant
+    with histograms at ``hist_steps``; the main path, so every launch is
+    counted. Every step must launch exactly ``expect`` (the COUNTS), give a
+    finite loss and log histograms at ``hist_steps`` when ``hist_logged``;
+    with ``fall_window`` the mean loss of the last that many steps must be
+    below that of the first. Returns the step times (ms) and the
+    launches."""
+    reset_counts()
+    losses, step_ms = [], []
+    for i in range(steps):
+        before = train_counts()
+        t0 = time.perf_counter()
+        m = step(i, i in hist_steps)
+        loss = float(m["loss/total"])  # synchronizes
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+        losses.append(loss)
+        delta = tuple(a - b for a, b in zip(train_counts(), before))
+        check(delta == expect and math.isfinite(loss)
+              and ("hist/pos_intra" in m) == (hist_logged
+                                               and i in hist_steps),
+              f"step {i}{' (hist)' if i in hist_steps else ''}: "
+              f"{step_ms[-1]:.2f} ms, loss/total {loss:.6f}, launches "
+              f"attention/LN/C1 fwd/C1 bwd/C2 fwd/C2 bwd {delta}")
+    launches = dict(zip(COUNTS, train_counts()))
+    if fall_window:
+        first = statistics.mean(losses[:fall_window])
+        last = statistics.mean(losses[-fall_window:])
+        check(last < first,
+              f"loss/total falls: mean of steps 0-{fall_window - 1} "
+              f"{first:.6f}, of steps {steps - fall_window}-{steps - 1} "
+              f"{last:.6f}")
+    return step_ms, launches
+
+
+def report_steps(step_ms, images, one_step, peak_gb):
+    """Prints the median step (after the third), images/s, the device's
+    busy time over one more step (``one_step``) and its top 6 kernels, and
+    peak memory."""
+    skip = min(3, len(step_ms) - 1)
+    med = statistics.median(step_ms[skip:])
+    by_kernel = kernel_times(one_step)
+    busy = sum(by_kernel.values()) / 1e3
+    print(f"  median {med:.2f} ms per step (steps {skip}-{len(step_ms) - 1}), "
+          f"{images / med * 1e3:.1f} images/s; device busy "
+          f"{busy:.3f} ms a step ({busy / med:.0%} of the median); peak "
+          f"device memory {peak_gb:.2f} GiB")
+    for name, us in sorted(by_kernel.items(), key=lambda kv: -kv[1])[:6]:
+        print(f"    {us / 1e3:8.3f} ms  {name[:90]}")
+
+
 def train_run(dev, label, steps, hist_steps, expect, fall_window,
               time_plain=False, **cfg_kw):
     """``steps`` train steps of a seeded ViT-S/8 segmenter (cocostuff27
@@ -795,9 +888,7 @@ def train_run(dev, label, steps, hist_steps, expect, fall_window,
     kernel against the same step with its plain version. Returns the
     trained segmenter, the batch, the generator and the launches of the
     steps (the main path; the comparison's launches are not counted)."""
-    from stego_torch.config import Config
-    from stego_torch.train.segmenter import (UnsupervisedSegmenter,
-                                             draw_step_randomness,
+    from stego_torch.train.segmenter import (draw_step_randomness,
                                              make_train_step)
 
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -805,14 +896,8 @@ def train_run(dev, label, steps, hist_steps, expect, fall_window,
     print(f"train, {label}: seeded ViT-S/8 segmenter, cocostuff27 head, "
           f"bf16 trunk, res {TRAIN_RES}, batch {TRAIN_BATCH}, 5 negatives, "
           f"dropout; {steps} steps on one fixed batch")
-    cfg = Config(dataset_name="cocostuff27", model_type="vit_small",
-                 dino_patch_size=8, dim=70, projection_type="nonlinear",
-                 backbone_dtype="bfloat16", res=TRAIN_RES,
-                 batch_size=TRAIN_BATCH, run_crf=False, **cfg_kw)
-    seg = UnsupervisedSegmenter(27, cfg,
-                                generator=torch.Generator().manual_seed(0))
-    seg.to(dev)
-    seg.net.model.cast_blocks(torch.bfloat16)
+    seg = cocostuff_segmenter(dev, "bfloat16", **cfg_kw)
+    cfg = seg.cfg
     ref = copy.deepcopy(seg)
     gen = torch.Generator(device=dev).manual_seed(4)
     img = images(gen, TRAIN_RES, dev, TRAIN_BATCH)
@@ -826,44 +911,14 @@ def train_run(dev, label, steps, hist_steps, expect, fall_window,
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
 
-    # the main path: every launch from here to the read below is counted
-    reset_counts()
-    losses, step_ms = [], []
-    for i in range(steps):
-        before = train_counts()
-        t0 = time.perf_counter()
-        m = step_fns[i in hist_steps](
-            batch, draw_step_randomness(seg, TRAIN_BATCH, gen))
-        loss = float(m["loss/total"])  # synchronizes
-        step_ms.append((time.perf_counter() - t0) * 1e3)
-        losses.append(loss)
-        delta = tuple(a - b for a, b in zip(train_counts(), before))
-        check(delta == expect and math.isfinite(loss)
-              and ("hist/pos_intra" in m) == (hist_logged
-                                               and i in hist_steps),
-              f"step {i}{' (hist)' if i in hist_steps else ''}: "
-              f"{step_ms[-1]:.2f} ms, loss/total {loss:.6f}, launches "
-              f"attention/LN/C1 fwd/C1 bwd/C2 fwd/C2 bwd {delta}")
-    launches = dict(zip(COUNTS, train_counts()))
+    # the main path: every launch of run_steps is counted
+    step_ms, launches = run_steps(
+        steps, hist_steps, expect, fall_window, hist_logged,
+        lambda i, hist: step_fns[hist](
+            batch, draw_step_randomness(seg, TRAIN_BATCH, gen)))
     peak_gb = torch.cuda.max_memory_allocated() / 2**30
-    if fall_window:
-        first = statistics.mean(losses[:fall_window])
-        last = statistics.mean(losses[-fall_window:])
-        check(last < first,
-              f"loss/total falls: mean of steps 0-{fall_window - 1} "
-              f"{first:.6f}, of steps {steps - fall_window}-{steps - 1} "
-              f"{last:.6f}")
-    skip = min(3, steps - 1)
-    med = statistics.median(step_ms[skip:])
-    by_kernel = kernel_times(lambda: step_fns[False](
-        batch, draw_step_randomness(seg, TRAIN_BATCH, gen)))
-    busy = sum(by_kernel.values()) / 1e3
-    print(f"  median {med:.2f} ms per step (steps {skip}-{steps - 1}), "
-          f"{TRAIN_BATCH / med * 1e3:.1f} images/s; device busy "
-          f"{busy:.3f} ms a step ({busy / med:.0%} of the median); peak "
-          f"device memory {peak_gb:.2f} GiB")
-    for name, us in sorted(by_kernel.items(), key=lambda kv: -kv[1])[:6]:
-        print(f"    {us / 1e3:8.3f} ms  {name[:90]}")
+    report_steps(step_ms, TRAIN_BATCH, lambda: step_fns[False](
+        batch, draw_step_randomness(seg, TRAIN_BATCH, gen)), peak_gb)
     if time_plain:
         # the same step with the loss's plain version, after the counted run
         seg.use_corr_kernel = False
@@ -881,9 +936,11 @@ def train_run(dev, label, steps, hist_steps, expect, fall_window,
               f"per step (steps 2-4 of 5), {TRAIN_BATCH / plain_med * 1e3:.1f}"
               f" images/s; device busy {plain_busy:.3f} ms a step")
 
-    compare_steps(ref, batch, draw_step_randomness(ref, TRAIN_BATCH, gen),
-                  "C2" if expect[4] else "C1",
-                  BF16_PARAM_ATOL if cfg.pallas_loss_bf16 else GRAD_ATOL)
+    rand = draw_step_randomness(ref, TRAIN_BATCH, gen)
+    compare_steps(ref, lambda s: functools.partial(
+        make_train_step(s, with_hist=False), batch, rand),
+        "C2" if expect[4] else "C1",
+        BF16_PARAM_ATOL if cfg.pallas_loss_bf16 else GRAD_ATOL)
     return seg, gen, launches
 
 
@@ -935,6 +992,384 @@ def phase_train_stream(dev):
     return runs
 
 
+def cocostuff_segmenter(dev, backbone_dtype="bfloat16", **cfg_kw):
+    """A seeded ViT-S/8 segmenter with the cocostuff27 head (dim 70,
+    nonlinear, 27 classes) at the reference train footprint (res 224, batch
+    16, 11 x 11 samples, 5 negatives, dropout), on ``dev``; a bf16 trunk
+    keeps its block weights in bf16."""
+    from stego_torch.config import Config
+    from stego_torch.train.segmenter import UnsupervisedSegmenter
+
+    cfg = Config(dataset_name="cocostuff27", model_type="vit_small",
+                 dino_patch_size=8, dim=70, projection_type="nonlinear",
+                 backbone_dtype=backbone_dtype, res=TRAIN_RES,
+                 batch_size=TRAIN_BATCH, run_crf=False, **cfg_kw)
+    seg = UnsupervisedSegmenter(27, cfg,
+                                generator=torch.Generator().manual_seed(0))
+    seg.to(dev)
+    if backbone_dtype == "bfloat16":
+        seg.net.model.cast_blocks(torch.bfloat16)
+    return seg
+
+
+def render(args):
+    """Scene ``i`` of split ``split`` (0 train, 1 val) at ``res``
+    (stego_torch/data/synthetic.py, seeded by (split, i)): the
+    ImageNet-normalized f32 image and the int16 labels (-1 ignored)."""
+    from stego_torch.data.synthetic import render_scene
+    from stego_torch.data.transforms import channel_stats
+
+    split, i, res = args
+    img, label = render_scene(np.random.default_rng((split, i)), res, 27)
+    mean, std = channel_stats(3)
+    return ((img - mean) / std).astype(np.float32), label.astype(np.int16)
+
+
+def scenes(split, n, res):
+    """``n`` scenes of a split, rendered by a pool of processes (spawned,
+    so that no child shares this process's CUDA state; the pool ends before
+    this returns)."""
+    import multiprocessing
+
+    ctx = multiprocessing.get_context("spawn")
+    with concurrent.futures.ProcessPoolExecutor(
+            min(8, os.cpu_count() or 1), mp_context=ctx) as pool:
+        return list(pool.map(render, [(split, i, res) for i in range(n)],
+                             chunksize=8))
+
+
+class SceneSplit:
+    """A split of scenes with the surface of ContrastiveSegDataset that
+    build_feat_cache and FeatCacheSampler read: the base dataset of (img,
+    label) items, its KNN table and the pair draw's seed and epoch."""
+
+    def __init__(self, items, nns=None, num_neighbors=7):
+        self.dataset = items
+        self.nns = nns
+        self.num_neighbors = num_neighbors
+        self.seed, self.epoch = 0, 0
+        self.pos_images = self.pos_labels = nns is not None
+
+    def __len__(self):
+        return len(self.dataset)
+
+
+def trunk_launches(batches):
+    """The COUNTS of ``batches`` bf16 trunk calls and nothing else."""
+    return dict(zip(COUNTS, (12 * batches, 25 * batches, 0, 0, 0, 0)))
+
+
+def phase_knn(dev, tmp, seg, items):
+    """The KNN precompute of the train split with the bf16 trunk
+    (train/knn.py): embed in batches of 16, top-30, the .npz. Returns nns
+    and the launches (12 attention and 25 LN a batch)."""
+    from stego_torch.train.knn import build_knn_cache, knn_cache_file
+
+    n = len(items)
+    print(f"knn: {n} scenes at res {TRAIN_RES}, bf16 trunk, batches of "
+          f"{TRAIN_BATCH}, top {KNN_K}")
+    loader = [torch.from_numpy(np.stack([img for img, _ in
+                                         items[i:i + TRAIN_BATCH]]))
+              for i in range(0, n, TRAIN_BATCH)]
+    path = knn_cache_file(tmp, "vit_small", "synthetic", "train", None,
+                          TRAIN_RES)
+    torch.cuda.synchronize()
+    reset_counts()  # the main path: every launch of the build is counted
+    t0 = time.perf_counter()
+    nns = build_knn_cache(path, seg.net, loader, k=KNN_K)
+    sec = time.perf_counter() - t0
+    launches = dict(zip(COUNTS, train_counts()))
+    with np.load(path) as f:
+        saved = f["nns"]
+    check(nns.shape == (n, KNN_K) and np.array_equal(saved, nns)
+          and bool((nns[:, 0] == np.arange(n)).all()),
+          f"nns {nns.shape} {nns.dtype}, saved and loaded equal, every image "
+          f"its own nearest; {sec:.2f} s for embedding, top-k and .npz "
+          f"({n / sec:.1f} images/s)")
+    check(launches == trunk_launches(len(loader)),
+          f"knn launches {launches}: 12 attention and 25 LN a batch")
+    # report only: how often a neighbour's main class is the image's
+    main = np.array([np.bincount(lab[lab >= 0], minlength=27).argmax()
+                     for _, lab in items])
+    same = float((main[nns[:, 1:8]] == main[:, None]).mean())
+    chance = float((np.bincount(main, minlength=27) / n) @
+                   (np.bincount(main, minlength=27) / n))
+    print(f"  the 7 nearest neighbours share the image's main class in "
+          f"{same:.1%} of cases (chance {chance:.1%}; random trunk weights)")
+    return nns, launches
+
+
+def phase_feat_cache(dev, segs, train, val):
+    """Feature caches (train/feat_cache.py) of the train split (res 224,
+    chunks of 16) and the val split (res 320, chunks of 24, the last padded)
+    with the bf16 and the f32 trunk. A bf16 build launches A 12 and L 25
+    times a chunk, an f32 build neither; the rows of one chunk of each cache
+    equal the trunk's output on the same batch (f32 within rtol 1e-4, atol
+    1e-5; bf16 within one bf16 ulp). Returns {(trunk, split): cache} and the
+    launches of every build."""
+    from stego_torch.ops import layer_norm as ln
+    from stego_torch.train.feat_cache import (build_feat_cache,
+                                              estimate_cache_gb)
+
+    caches, total = {}, dict.fromkeys(COUNTS, 0)
+    for trunk, seg in segs.items():
+        for split, ds, res, chunk in (("train", train, TRAIN_RES, TRAIN_BATCH),
+                                      ("val", val, VAL_RES, VAL_BATCH)):
+            n = len(ds)
+            chunks = -(-n // chunk)
+            torch.cuda.synchronize()
+            reset_counts()  # the main path: every launch is counted
+            t0 = time.perf_counter()
+            cache = build_feat_cache(seg, ds, seg.cfg, batch_size=chunk,
+                                     res=res, with_mask=False)
+            torch.cuda.synchronize()
+            sec = time.perf_counter() - t0
+            launches = dict(zip(COUNTS, train_counts()))
+            for k, v in launches.items():
+                total[k] += v
+            gib = sum(t.numel() * t.element_size()
+                      for t in cache.values()) / 2**30
+            est = estimate_cache_gb(seg.cfg, seg, n, res=res, with_mask=False)
+            feats = cache["feats"]
+            want_launches = trunk_launches(chunks if trunk == "bf16" else 0)
+            check(feats.shape == (n, res // 8, res // 8, EMBED)
+                  and feats.dtype == seg.net.backbone_dtype
+                  and cache["label"].shape == (n, res, res)
+                  and launches == want_launches,
+                  f"cache, {trunk} trunk, {split}: {n} images at res {res} "
+                  f"in chunks of {chunk}: {sec:.2f} s ({n / sec:.1f} "
+                  f"images/s), features {tuple(feats.shape)} {feats.dtype}, "
+                  f"{gib:.3f} GiB with the labels (estimate {est:.3f}); "
+                  f"launches attention/LN {launches['attention']}/"
+                  f"{launches['layer_norm']}")
+            # the rows of one chunk against the trunk on the same batch: the
+            # train split's second chunk, the val split's short last chunk
+            # with the build's padding (copies of its last image)
+            first = chunk if split == "train" else (chunks - 1) * chunk
+            rows = list(range(first, min(n, first + chunk)))
+            img = np.stack([ds.dataset[i][0] for i in rows])
+            img = np.concatenate([img] + [img[-1:]] * (chunk - len(rows)))
+            want = seg.net.backbone_features(
+                torch.from_numpy(img).to(dev))[:len(rows)]
+            got = feats[rows].float()
+            if trunk == "f32":
+                tol, what = 1e-5 + 1e-4 * want.abs(), "rtol 1e-4, atol 1e-5"
+            else:
+                tol, what = ln.bf16_ulp_tolerance(want), "one bf16 ulp"
+            diff = (got - want).abs()
+            check(within(diff, tol, want),
+                  f"cache, {trunk} trunk, {split}: rows {rows[0]}-{rows[-1]} "
+                  f"vs the trunk on the same batch: max abs diff "
+                  f"{float(diff.max()):.3e} (within {what})")
+            caches[(trunk, split)] = cache
+    return caches, total
+
+
+def index_batches(dev, split, count):
+    """``count`` index batches of 16 (ind, and ind_pos drawn by
+    FeatCacheSampler from the KNN table) over a seeded order of the split,
+    on ``dev``."""
+    from stego_torch.train.feat_cache import FeatCacheSampler
+
+    sampler = FeatCacheSampler(split)
+    order = np.random.default_rng(5).permutation(len(split))
+    out = []
+    for j in range(count):
+        draws = [sampler[int(i)]
+                 for i in order[j * TRAIN_BATCH:(j + 1) * TRAIN_BATCH]]
+        out.append({k: torch.tensor([int(d[k]) for d in draws], device=dev)
+                    for k in ("ind", "ind_pos")})
+    return out
+
+
+def cached_run(dev, label, base, cache, batches, steps, hist_steps, expect,
+               fall_window, **cfg_kw):
+    """``steps`` cached train steps (make_cached_train_step) of a copy of
+    ``base`` with ``cfg_kw``, over ``batches`` in turn (as many as the loss
+    windows hold, so that both windows see the same images); the checks and
+    report of train_run, then one step with the loss's kernel held against
+    the same step with its plain version. Returns the trained segmenter and
+    the launches of the steps."""
+    from stego_torch.train.segmenter import (draw_step_randomness,
+                                             make_cached_train_step)
+
+    seg = copy.deepcopy(base)
+    seg.cfg = dataclasses.replace(seg.cfg, **cfg_kw)
+    ref = copy.deepcopy(seg)
+    print(f"cached train, {label}: {steps} steps over {len(batches)} index "
+          f"batches of {TRAIN_BATCH} in turn")
+    gen = torch.Generator(device=dev).manual_seed(6)
+    step_fns = {h: make_cached_train_step(seg, with_hist=h)
+                for h in (True, False)}
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    # the main path: every launch of run_steps is counted
+    step_ms, launches = run_steps(
+        steps, hist_steps, expect, fall_window, not seg.cfg.full_field_loss,
+        lambda i, hist: step_fns[hist](
+            cache, batches[i % len(batches)],
+            draw_step_randomness(seg, TRAIN_BATCH, gen)))
+    peak_gb = torch.cuda.max_memory_allocated() / 2**30
+    report_steps(step_ms, TRAIN_BATCH, lambda: step_fns[False](
+        cache, batches[0], draw_step_randomness(seg, TRAIN_BATCH, gen)),
+        peak_gb)
+    rand = draw_step_randomness(ref, TRAIN_BATCH, gen)
+    compare_steps(ref, lambda s: functools.partial(
+        make_cached_train_step(s, with_hist=False), cache, batches[0], rand),
+        "C2" if expect[4] else "C1")
+    return seg, launches
+
+
+def phase_cached_train(dev, bases, caches, batches):
+    """The cached train runs: bf16 and f32 trunks with the sampled loss
+    (C1, 20 steps), the f32 trunk with the full-field loss (C2, 10 steps)
+    and with fused_sampling="off" (C2 at N=121, 3 steps). Returns the
+    segmenters of the sampled runs and the launches of every run."""
+    sampled, streamed = (0, 0, 1, 1, 0, 0), (0, 0, 0, 0, 1, 1)
+    trained, runs = {}, {}
+    for trunk in ("bf16", "f32"):
+        trained[trunk], runs[trunk] = cached_run(
+            dev, f"{trunk} trunk, sampled loss (C1, {trunk} features)",
+            bases[trunk], caches[(trunk, "train")], batches[:5], TRAIN_STEPS,
+            HIST_STEPS, sampled, 5)
+    _, runs["f32_full_field"] = cached_run(
+        dev, "f32 trunk, full-field loss (C2, f32 features, 7 dense 784x784 "
+        "fields)", bases["f32"], caches[("f32", "train")], batches[:3],
+        FULL_STEPS, (0,), streamed, 3, full_field_loss=True)
+    _, runs["f32_gather"] = cached_run(
+        dev, "f32 trunk, fused_sampling=off (grid-sampled 11x11, C2, f32 "
+        "features)", bases["f32"], caches[("f32", "train")], batches[:1],
+        SHORT_STEPS, (0,), streamed, 0, fused_sampling="off")
+    return trained, runs
+
+
+def phase_cached_vs_image(dev, base, cache, split, batch):
+    """One f32 image step (make_train_step: the f32 trunk over img ||
+    img_pos, then C1 with f32 features) against one cached step from the
+    same state and draws on the same 16 images: loss metrics within rtol
+    LOSS_RTOL, atol LOSS_ATOL; updated parameters within rtol GRAD_RTOL,
+    atol GRAD_ATOL. Comparison launches, not counted."""
+    from stego_torch.train.segmenter import (draw_step_randomness,
+                                             make_cached_train_step,
+                                             make_train_step)
+
+    print("cached vs image step: f32 trunk, sampled loss (C1, f32 features), "
+          "one step each from the same state and draws on the same images")
+    ind, ind_pos = batch["ind"].tolist(), batch["ind_pos"].tolist()
+
+    def stack(sel, j, dtype):
+        return torch.from_numpy(np.stack(
+            [split.dataset[i][j] for i in sel])).to(dev, dtype)
+
+    img_batch = {"img": stack(ind, 0, torch.float32),
+                 "img_pos": stack(ind_pos, 0, torch.float32),
+                 "label": stack(ind, 1, torch.int64)}
+    rand = draw_step_randomness(base, TRAIN_BATCH,
+                                torch.Generator(device=dev).manual_seed(7))
+    out = {}
+    for name, steps in (("image", lambda s: functools.partial(
+            make_train_step(s, with_hist=False), img_batch, rand)),
+                        ("cached", lambda s: functools.partial(
+            make_cached_train_step(s, with_hist=False), cache, batch, rand))):
+        seg = copy.deepcopy(base)
+        step = steps(seg)
+        before = train_counts()
+        metrics = step()
+        torch.cuda.synchronize()
+        delta = tuple(a - b for a, b in zip(train_counts(), before))
+        params = {n: p.detach() for n, p in seg.named_parameters()}
+        device = sum(kernel_times(steps(copy.deepcopy(base))).values()) / 1e3
+        out[name] = (metrics, params)
+        check(delta == (0, 0, 1, 1, 0, 0),
+              f"{name} step: launches {delta}; device time of one step "
+              f"{device:.3f} ms (report only)")
+    (mi, pi), (mc, pc) = out["image"], out["cached"]
+    worst, ok = 0.0, True
+    for k in mi:
+        d = (mc[k] - mi[k]).abs()
+        worst = max(worst, float(d))
+        ok &= within(d, LOSS_ATOL + LOSS_RTOL * mi[k].abs(), mi[k])
+    check(ok, f"cached vs image step: {len(mi)} loss/cd metrics, max abs "
+              f"diff {worst:.3e} (rtol {LOSS_RTOL}, atol {LOSS_ATOL})")
+    worst, ok = 0.0, True
+    for n in pi:
+        d = (pc[n] - pi[n]).abs()
+        worst = max(worst, float(d.max()))
+        ok &= within(d, GRAD_ATOL + GRAD_RTOL * pi[n].abs(), pi[n])
+    check(ok, f"cached vs image step: updated parameters, max abs diff "
+              f"{worst:.3e} (rtol {GRAD_RTOL}, atol {GRAD_ATOL})")
+
+
+def phase_cached_val(dev, segs, caches, split):
+    """make_cached_val_epoch over each val cache in batches of 24, the last
+    padded with -1: the confusion matrices sum to the valid pixels, no
+    kernel launches; against make_val_step over the same images batch by
+    batch, at least PRED_AGREE of the predictions agree, and the summed
+    confusion matrices move no more pixels than that allows. Returns the
+    launches of the epochs (none)."""
+    from stego_torch.train.segmenter import (make_cached_val_epoch,
+                                             make_cached_val_step,
+                                             make_val_step)
+
+    n = len(split)
+    nb = -(-n // VAL_BATCH)
+    inds = torch.full((nb * VAL_BATCH,), -1, dtype=torch.long, device=dev)
+    inds[:n] = torch.arange(n, device=dev)
+    inds = inds.reshape(nb, VAL_BATCH)
+    n_valid = sum(int((label >= 0).sum()) for _, label in split.dataset)
+    total = dict.fromkeys(COUNTS, 0)
+    for trunk, seg in segs.items():
+        cache = caches[(trunk, "val")]
+        epoch = make_cached_val_epoch(seg)
+        torch.cuda.synchronize()
+        reset_counts()  # the main path: every launch is counted
+        t0 = time.perf_counter()
+        out = epoch(cache, inds)
+        sums = (int(out["conf_linear"].sum()), int(out["conf_cluster"].sum()))
+        ms = (time.perf_counter() - t0) * 1e3
+        launches = dict(zip(COUNTS, train_counts()))
+        for k, v in launches.items():
+            total[k] += v
+        check(sums == (n_valid, n_valid) and launches == trunk_launches(0),
+              f"cached val, {trunk} trunk: {nb} batches of {VAL_BATCH} at res "
+              f"{VAL_RES} (the last {n - (nb - 1) * VAL_BATCH} images and "
+              f"padding) in {ms:.2f} ms; confusion matrices sum to {sums} of "
+              f"{n_valid} valid pixels; no kernel launches")
+        val_step, step = make_val_step(seg), make_cached_val_step(seg)
+        agree = dict.fromkeys(("linear", "cluster"), 0)
+        conf = dict.fromkeys(("conf_linear", "conf_cluster"), 0)
+        t0 = time.perf_counter()
+        for b in range(nb):
+            rows = range(b * VAL_BATCH, min(n, (b + 1) * VAL_BATCH))
+            img = torch.from_numpy(np.stack([split.dataset[i][0]
+                                             for i in rows])).to(dev)
+            label = torch.from_numpy(np.stack([split.dataset[i][1]
+                                               for i in rows])).to(dev)
+            o = val_step({"img": img, "label": label})
+            oc = step(cache, {"ind": inds[b]})
+            for name in agree:
+                agree[name] += int((o[f"{name}_preds"]
+                                    == oc[f"{name}_preds"][:len(rows)]).sum())
+            for k in conf:
+                conf[k] = conf[k] + o[k]
+        img_ms = (time.perf_counter() - t0) * 1e3
+        pixels = n * VAL_RES * VAL_RES
+        for name, same in agree.items():
+            check(same / pixels >= PRED_AGREE,
+                  f"cached val, {trunk} trunk: {name} predictions agree with "
+                  f"make_val_step's on {same / pixels:.4%} of pixels (>= "
+                  f"{PRED_AGREE:.0%}); the image val steps (trunk, head, "
+                  f"probes) took {img_ms:.2f} ms")
+        for k in conf:
+            moved = int((conf[k] - out[k]).abs().sum()) // 2
+            check(moved <= (1 - PRED_AGREE) * n_valid,
+                  f"cached val, {trunk} trunk: {k} of the epoch vs the image "
+                  f"val steps: {moved} pixels moved (<= "
+                  f"{1 - PRED_AGREE:.0%} of the valid pixels)")
+    return total
+
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; nothing was run", file=sys.stderr)
@@ -965,10 +1400,33 @@ def main() -> int:
     check(launches["attention"] == 2 * REQUESTS * ATTN_PER_REQUEST
           and launches["layer_norm"] == 2 * REQUESTS * LN_PER_REQUEST,
           f"eval path launches: {launches}")
-    c1_err, c1_times, c1_bound = phase_corr(dev)
+    c1 = phase_corr(dev)
     c2 = phase_corr_stream(dev)
     train, val = phase_train(dev)
     stream = phase_train_stream(dev)
+
+    # the feature-cache path: KNN, caches, cached train and val steps
+    t0 = time.perf_counter()
+    train_items = scenes(0, TRAIN_IMAGES, TRAIN_RES)
+    val_items = scenes(1, VAL_IMAGES, VAL_RES)
+    print(f"scenes: {TRAIN_IMAGES} at res {TRAIN_RES} and {VAL_IMAGES} at res "
+          f"{VAL_RES}, 27 classes, rendered in "
+          f"{time.perf_counter() - t0:.1f} s")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    bases = {trunk: cocostuff_segmenter(dev, dtype, cache_backbone_feats=True)
+             for trunk, dtype in (("bf16", "bfloat16"), ("f32", "float32"))}
+    with tempfile.TemporaryDirectory() as tmp:
+        nns, knn_launches = phase_knn(dev, tmp, bases["bf16"], train_items)
+    train_split = SceneSplit(train_items, nns, bases["bf16"].cfg.num_neighbors)
+    val_split = SceneSplit(val_items)
+    caches, cache_launches = phase_feat_cache(dev, bases, train_split,
+                                              val_split)
+    batches = index_batches(dev, train_split, 5)
+    trained, cached = phase_cached_train(dev, bases, caches, batches)
+    phase_cached_vs_image(dev, bases["f32"], caches[("f32", "train")],
+                          train_split, batches[0])
+    cached_val = phase_cached_val(dev, trained, caches, val_split)
 
     def per_step(steps, corr):
         return dict(zip(COUNTS, [12 * steps, 25 * steps]
@@ -982,11 +1440,20 @@ def main() -> int:
         steps = FULL_STEPS if name == "full_field" else SHORT_STEPS
         check(run == per_step(steps, (0, 0, 1, 1)),
               f"{name} train path launches: {run}")
+    for name, run in cached.items():
+        steps = {"f32_full_field": FULL_STEPS,
+                 "f32_gather": SHORT_STEPS}.get(name, TRAIN_STEPS)
+        corr = (0, 0, 1, 1) if name in ("f32_full_field", "f32_gather") \
+            else (1, 1, 0, 0)
+        check(run == dict(zip(COUNTS, (0, 0) + tuple(steps * x
+                                                      for x in corr))),
+              f"cached {name} train path launches: {run}")
     # launches of each kernel summed over every path it runs on: eval,
-    # train (sampled, full-field, grid-sampled, bf16 code) and val
-    total = {name: sum(run.get(name, 0) for run in
-                       (launches, train, val, *stream.values()))
-             for name in COUNTS}
+    # train (sampled, full-field, grid-sampled, bf16 code), val, the KNN,
+    # the cache builds, cached train (bf16 and f32 trunks) and cached val
+    paths = (launches, train, val, *stream.values(), knn_launches,
+             cache_launches, *cached.values(), cached_val)
+    total = {name: sum(run.get(name, 0) for run in paths) for name in COUNTS}
 
     def row(name, source, replaces, launches_, err, times, bnd, lib=None,
             **extra):
@@ -1000,6 +1467,12 @@ def main() -> int:
     c1_ref = "stego_tpu/ops/pallas_corr_fused_sampling.py"
     c2_src = "stego_torch/csrc/corr_stream.cu"
     c2_ref = "stego_tpu/ops/pallas_corr.py"
+    c1_err, c1_times, c1_bound = c1["bf16"]
+    c1f_err, c1f_times, c1f_bound = c1["f32"]
+    # C1's forward by feature type (its bf16 and f32 instantiations, each
+    # launched by its own trunk's paths); the backward reads no features
+    c1_fwd_bf16 = (train["corr_sampled_fwd"]
+                   + cached["bf16"]["corr_sampled_fwd"])
     rows = [
         row("layer_norm", "stego_torch/csrc/layer_norm.cu",
             "stego_tpu/ops/layer_norm.py:39", total["layer_norm"], ln_err,
@@ -1009,19 +1482,27 @@ def main() -> int:
             "stego_tpu/ops/flash_attention.py:391", total["attention"],
             at_err, (at["ms"], at["plain_ms"]), at["bound"],
             at["library_ms"]),
-        row("corr_sampled_fwd", c1_src, f"{c1_ref}:93",
-            total["corr_sampled_fwd"], c1_err["fwd"], c1_times["fwd"],
-            c1_bound["fwd"]),
+        row("corr_sampled_fwd", c1_src, f"{c1_ref}:93", c1_fwd_bf16,
+            c1_err["fwd"], c1_times["fwd"], c1_bound["fwd"]),
         row("corr_sampled_bwd", c1_src, f"{c1_ref}:187",
-            total["corr_sampled_bwd"], c1_err["bwd"], c1_times["bwd"],
-            c1_bound["bwd"]),
+            total["corr_sampled_bwd"], max(c1_err["bwd"], c1f_err["bwd"]),
+            c1_times["bwd"], c1_bound["bwd"]),
+        row("corr_sampled_fwd_f32", c1_src, f"{c1_ref}:93",
+            cached["f32"]["corr_sampled_fwd"], c1f_err["fwd"],
+            c1f_times["fwd"], c1f_bound["fwd"]),
     ]
+    check(total["corr_sampled_fwd"] == c1_fwd_bf16
+          + cached["f32"]["corr_sampled_fwd"],
+          "every C1 forward launch is on a path of one feature type")
     # C2 by the path that runs it, each row measured at that path's shape
     # (phase C2's full-field code_bf16 case runs on no path: printed only)
     for suffix, key, run in (
-            ("", ("full-field", False), stream["full_field"]),
-            ("_gather", ("grid-sampled", False), stream["gather"]),
-            ("_code_bf16", ("grid-sampled", True), stream["code_bf16"])):
+            ("", ("full-field", False, False), stream["full_field"]),
+            ("_gather", ("grid-sampled", False, False), stream["gather"]),
+            ("_code_bf16", ("grid-sampled", True, False), stream["code_bf16"]),
+            ("_f32", ("full-field", False, True), cached["f32_full_field"]),
+            ("_f32_gather", ("grid-sampled", False, True),
+             cached["f32_gather"])):
         for what, line in (("fwd", 106), ("bwd", 229)):
             rows.append(row(
                 f"corr_stream_{what}{suffix}", c2_src, f"{c2_ref}:{line}",

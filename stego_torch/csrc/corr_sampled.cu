@@ -15,19 +15,21 @@
 // for g = 0). Sampling is bilinear with border clamping and
 // align_corners=True, as four taps (stego_tpu/ops/sampling.py:33-59; the
 // reference's grid transpose is done by the wrapper). Per sample the
-// features (bf16) and the code (f32) are l2-normalised, and
+// features (bf16 or f32) and the code (f32) are l2-normalised, and
 // fd = f1n f2n^T, cd = c1n c2n^T (S x S). The forward writes the row sums
 // s1 = sum_j clamp(cd) fd, s2 = sum_j clamp(cd), s3 = sum_j fd and
 // sum_j cd, the side-2 raw code norms, and the residuals c2n (S x CC) and fd
 // (S x S); ops/corr_stream.py:finalize turns the sums into the losses.
 //
-// Rounding points of _sfwd_kernel (:101-135). Feature side: tap weights
-// rounded to bf16, products with the bf16 features accumulated in f32, the
-// sampled value rounded to bf16, l2-normalised in f32 (eps 1e-10) and
-// stored as bf16; fd is a bf16 x bf16 product with f32 accumulation (every
-// such product is exact in f32, so an f32 FMA per term is the f32 sum of
-// exact products). Code side: f32 throughout, with f32 FMA (no tensor
-// cores, so no TF32).
+// Rounding points of _sfwd_kernel (:101-135). Feature side, bf16 features
+// (a bf16 trunk): tap weights rounded to bf16, products with the bf16
+// features accumulated in f32, the sampled value rounded to bf16,
+// l2-normalised in f32 (eps 1e-10) and stored as bf16; fd is a bf16 x bf16
+// product with f32 accumulation (every such product is exact in f32, so an
+// f32 FMA per term is the f32 sum of exact products). f32 features (an f32
+// trunk, feat_dtype=float32): f32 tap weights and sampled values, no
+// rounding, l2-normalised in f32 (eps 1e-10); fd is f32 x f32 with f32 FMA.
+// Code side: f32 throughout, with f32 FMA (no tensor cores, so no TF32).
 //
 // Bound: at the train step's shapes (B = 16, 28 x 28 maps, 384 feature and
 // 70 code channels, S = 121, 7 slots an image) the forward is about 1.5
@@ -41,7 +43,13 @@
 // of its 256 threads accumulates an 8 x 8 tile of fd in registers with f32
 // FMA, then the block samples the code into the same shared memory (f32
 // panels) and accumulates the matching 8 x 8 tile of cd; row sums reduce
-// over the 16 threads of a row group by warp shuffles.
+// over the 16 threads of a row group by warp shuffles. f32 features would
+// need 418 KB of panels, above the 227 KB a block may have: the block
+// first computes every sample's norm over all channels (one warp a
+// sample), then takes the channels 128 at a time (2 x 128 x 136 x 4 B =
+// 139 KB), sampling each chunk again with the same FMA order and dividing
+// by the norm, and keeps the 8 x 8 fd accumulators in registers across the
+// chunks. The bf16 instantiation is the bf16 kernel as it was.
 //
 // Backward (_sbwd_kernel, :187-307), again one block a slot: it recomputes
 // cd from the residual code panels (the same FMA order as the forward, so
@@ -61,11 +69,14 @@
 #include <math.h>
 #include <stdint.h>
 
+#include <type_traits>
+
 namespace {
 
 constexpr int kSMax = 128;         // samples a block takes (S <= 128)
 constexpr int kPitch = kSMax + 8;  // k-major panel row, in elements
 constexpr int kMaxFeat = 384;      // feature channels
+constexpr int kFeatChunk = 128;    // f32 feature channels in a panel
 constexpr int kMaxCode = 96;       // code channels
 constexpr int kFwdThreads = 256;   // 16 x 16 threads, one 8 x 8 tile each
 constexpr int kBwdThreads = 288;   // 9 warps
@@ -180,6 +191,67 @@ __device__ void sample_feats(const __nv_bfloat16* f, const int* tap_idx,
   }
 }
 
+// Channel c of the f32 feature sample at taps (idx, wt): sum_t w_t f[idx_t]
+// in f32, the same FMA order wherever it is called.
+__device__ __forceinline__ float sample_f32(const float* f, const int* idx,
+                                            const float* wt, int cf, int c) {
+  float v = 0.f;
+#pragma unroll
+  for (int t = 0; t < 4; ++t) {
+    v = fmaf(wt[t], f[static_cast<size_t>(idx[t]) * cf + c], v);
+  }
+  return v;
+}
+
+// The l2 norms max(|z|, eps) of the f32 feature map f (hw, cf) sampled at
+// s points, over all cf channels, into norm (s). One warp a sample, lanes
+// over channels.
+__device__ void feat_norms_f32(const float* f, const int* tap_idx,
+                               const float* tap_w, int s, int cf,
+                               float* norm) {
+  const int lane = threadIdx.x & 31;
+  const int warps = blockDim.x >> 5;
+  for (int k = threadIdx.x >> 5; k < s; k += warps) {
+    int idx[4];
+    float wt[4];
+#pragma unroll
+    for (int t = 0; t < 4; ++t) {
+      idx[t] = tap_idx[k * 4 + t];
+      wt[t] = tap_w[k * 4 + t];
+    }
+    float sq = 0.f;
+    for (int c = lane; c < cf; c += 32) {
+      const float v = sample_f32(f, idx, wt, cf, c);
+      sq = fmaf(v, v, sq);
+    }
+    const float d = fmaxf(sqrtf(warp_sum(sq)), kEps);
+    if (lane == 0) norm[k] = d;
+  }
+}
+
+// Channels c0 .. c0 + depth - 1 of the f32 feature map f sampled at s
+// points and divided by their norms (feat_norms_f32), into the k-major f32
+// panel (depth rows of kPitch). One warp a sample, lanes over channels.
+__device__ void sample_feats_f32(const float* f, const int* tap_idx,
+                                 const float* tap_w, int s, int cf, int c0,
+                                 int depth, const float* norm, float* panel) {
+  const int lane = threadIdx.x & 31;
+  const int warps = blockDim.x >> 5;
+  for (int k = threadIdx.x >> 5; k < s; k += warps) {
+    int idx[4];
+    float wt[4];
+#pragma unroll
+    for (int t = 0; t < 4; ++t) {
+      idx[t] = tap_idx[k * 4 + t];
+      wt[t] = tap_w[k * 4 + t];
+    }
+    const float d = norm[k];
+    for (int cl = lane; cl < depth; cl += 32) {
+      panel[cl * kPitch + k] = sample_f32(f, idx, wt, cf, c0 + cl) / d;
+    }
+  }
+}
+
 // Samples the f32 code map c (hw, cc) at s points into the k-major f32 panel
 // (cc rows of kPitch): z = sum_t w_t c[idx_t], l2-normalised. When z_out is
 // given, also writes the normalised rows (s, cc) and the raw norms (s).
@@ -276,10 +348,18 @@ __device__ __forceinline__ void tile_dot_f32(const float* a, const float* b,
   }
 }
 
-// Bytes of the forward's panel region: two bf16 feature panels, later two
-// f32 code panels.
+// true for the f32 feature instantiation
+template <typename FeatT>
+__host__ __device__ constexpr bool f32_feats() {
+  return std::is_same<FeatT, float>::value;
+}
+
+// Bytes of the forward's panel region: two feature panels (bf16: every
+// channel; f32: kFeatChunk channels), later two f32 code panels.
+template <typename FeatT>
 __host__ __device__ __forceinline__ size_t panels_bytes(int cf, int cc) {
-  const size_t feat = 2 * static_cast<size_t>(cf) * kPitch * 2;
+  const int rows = f32_feats<FeatT>() && cf > kFeatChunk ? kFeatChunk : cf;
+  const size_t feat = 2 * static_cast<size_t>(rows) * kPitch * sizeof(FeatT);
   const size_t code = 2 * static_cast<size_t>(cc) * kPitch * sizeof(float);
   return feat > code ? feat : code;
 }
@@ -311,9 +391,51 @@ __device__ bool side2_of(int b, int g, int batch, const int* perms,
   return true;
 }
 
+// fd (8 x 8 a thread at rows r0, columns c0) of the slot whose side 1 is
+// map f1 sampled at the first kSMax taps and side 2 map f2 at the next, over
+// the panel region p (the panels_bytes<FeatT> bytes at the start of shared
+// memory, zeroed; on return it may be reused). f32 features take the norms
+// (2 kSMax floats of shared memory) first, then the channels in chunks.
+template <typename FeatT>
+__device__ void feature_fd(const FeatT* f1, const FeatT* f2,
+                           const int* tap_idx, const float* tap_w, int s,
+                           int cf, unsigned char* p, float* norm, int r0,
+                           int c0, float (&fd)[8][8]) {
+#pragma unroll
+  for (int i = 0; i < 8; ++i) {
+#pragma unroll
+    for (int j = 0; j < 8; ++j) fd[i][j] = 0.f;
+  }
+  if constexpr (!f32_feats<FeatT>()) {
+    __nv_bfloat16* p1 = reinterpret_cast<__nv_bfloat16*>(p);
+    __nv_bfloat16* p2 = p1 + static_cast<size_t>(cf) * kPitch;
+    sample_feats(f1, tap_idx, tap_w, s, cf, p1);
+    sample_feats(f2, tap_idx + kSMax * 4, tap_w + kSMax * 4, s, cf, p2);
+    __syncthreads();
+    tile_dot_bf16(p1, p2, cf, r0, c0, fd);
+  } else {
+    float* p1 = reinterpret_cast<float*>(p);
+    float* p2 = p1 + static_cast<size_t>(min(kFeatChunk, cf)) * kPitch;
+    feat_norms_f32(f1, tap_idx, tap_w, s, cf, norm);
+    feat_norms_f32(f2, tap_idx + kSMax * 4, tap_w + kSMax * 4, s, cf,
+                   norm + kSMax);
+    for (int ch0 = 0; ch0 < cf; ch0 += kFeatChunk) {
+      const int depth = min(kFeatChunk, cf - ch0);
+      // the norms are written, every thread is done with the last chunk
+      __syncthreads();
+      sample_feats_f32(f1, tap_idx, tap_w, s, cf, ch0, depth, norm, p1);
+      sample_feats_f32(f2, tap_idx + kSMax * 4, tap_w + kSMax * 4, s, cf,
+                       ch0, depth, norm + kSMax, p2);
+      __syncthreads();
+      tile_dot_f32(p1, p2, depth, r0, c0, fd);
+    }
+  }
+}
+
+template <typename FeatT>
 __global__ void __launch_bounds__(kFwdThreads, 1)
-corr_sampled_fwd_kernel(const __nv_bfloat16* __restrict__ feats,
-                        const __nv_bfloat16* __restrict__ feats_pos,
+corr_sampled_fwd_kernel(const FeatT* __restrict__ feats,
+                        const FeatT* __restrict__ feats_pos,
                         const float* __restrict__ code,
                         const float* __restrict__ code_pos,
                         const float* __restrict__ grid1,
@@ -336,9 +458,10 @@ corr_sampled_fwd_kernel(const __nv_bfloat16* __restrict__ feats,
     return;
   }
 
-  const size_t panel_bytes = panels_bytes(cf, cc);
+  const size_t panel_bytes = panels_bytes<FeatT>(cf, cc);
   int* tap_idx = reinterpret_cast<int*>(smem + panel_bytes);
   float* tap_w = reinterpret_cast<float*>(tap_idx + 2 * kSMax * 4);
+  float* norm = tap_w + 2 * kSMax * 4;  // f32 features: 2 kSMax norms
 
   const float* g1 = grid1 + static_cast<size_t>(b) * s * 2;
   const float* g2 = (side2.self ? grid1 : grid2) + static_cast<size_t>(b) * s * 2;
@@ -347,25 +470,14 @@ corr_sampled_fwd_kernel(const __nv_bfloat16* __restrict__ feats,
   __syncthreads();
 
   // features: side 1 from feats[b], side 2 from its image
-  __nv_bfloat16* p1 = reinterpret_cast<__nv_bfloat16*>(smem);
-  __nv_bfloat16* p2 = p1 + static_cast<size_t>(cf) * kPitch;
-  const __nv_bfloat16* f2src = side2.pos ? feats_pos : feats;
-  sample_feats(feats + static_cast<size_t>(b) * hw * cf, tap_idx, tap_w, s,
-               cf, p1);
-  sample_feats(f2src + static_cast<size_t>(side2.image) * hw * cf,
-               tap_idx + kSMax * 4, tap_w + kSMax * 4, s, cf, p2);
-  __syncthreads();
-
   const int tid = threadIdx.x;
   const int r0 = (tid >> 4) * 8;  // 16 row groups of 8
   const int c0 = (tid & 15) * 8;  // 16 column groups of 8
+  const FeatT* f2src = side2.pos ? feats_pos : feats;
   float fd[8][8];
-#pragma unroll
-  for (int i = 0; i < 8; ++i) {
-#pragma unroll
-    for (int j = 0; j < 8; ++j) fd[i][j] = 0.f;
-  }
-  tile_dot_bf16(p1, p2, cf, r0, c0, fd);
+  feature_fd<FeatT>(feats + static_cast<size_t>(b) * hw * cf,
+                    f2src + static_cast<size_t>(side2.image) * hw * cf,
+                    tap_idx, tap_w, s, cf, smem, norm, r0, c0, fd);
   __syncthreads();  // every thread is done with the feature panels
 
   // code, f32, into the same shared memory
@@ -623,8 +735,33 @@ corr_sampled_bwd_kernel(const float* __restrict__ grid1,
   }
 }
 
+template <typename FeatT>
 size_t fwd_smem_bytes(int cf, int cc) {
-  return panels_bytes(cf, cc) + 2 * kSMax * 4 * (sizeof(int) + sizeof(float));
+  const size_t norms = f32_feats<FeatT>() ? 2 * kSMax * sizeof(float) : 0;
+  return panels_bytes<FeatT>(cf, cc)
+         + 2 * kSMax * 4 * (sizeof(int) + sizeof(float)) + norms;
+}
+
+template <typename FeatT>
+cudaError_t launch_fwd(const void* feats, const void* feats_pos,
+                       const void* code, const void* code_pos,
+                       const void* grid1, const void* grid2,
+                       const void* perms, void* acc, void* z2cn, void* fd,
+                       int batch, int h, int w, int cf, int cc, int s, int g,
+                       float lo, float hi, cudaStream_t stream) {
+  const size_t smem = fwd_smem_bytes<FeatT>(cf, cc);
+  cudaError_t err = cudaFuncSetAttribute(
+      corr_sampled_fwd_kernel<FeatT>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
+  if (err != cudaSuccess) return err;
+  corr_sampled_fwd_kernel<FeatT><<<batch * g, kFwdThreads, smem, stream>>>(
+      static_cast<const FeatT*>(feats), static_cast<const FeatT*>(feats_pos),
+      static_cast<const float*>(code), static_cast<const float*>(code_pos),
+      static_cast<const float*>(grid1), static_cast<const float*>(grid2),
+      static_cast<const int*>(perms), static_cast<float*>(acc),
+      static_cast<float*>(z2cn), static_cast<float*>(fd), batch, h, w, cf, cc,
+      s, g, lo, hi);
+  return cudaGetLastError();
 }
 
 size_t bwd_smem_bytes(int cc) {
@@ -635,19 +772,20 @@ size_t bwd_smem_bytes(int cc) {
 
 }  // namespace
 
-// feats, feats_pos: (batch, h * w, cf) bf16; code, code_pos: (batch, h * w,
-// cc) f32; grid1, grid2: (batch, s, 2) f32 sample points in the reference's
-// transposed order; perms: (g - 2, batch) int32. Writes acc (batch * g, 5,
-// s): s1, s2, s3, sum cd and the side-2 code norms of each slot
-// (slot = b * g + pair type); z2cn (batch * g, s, cc) and fd (batch * g, s,
-// s). cf <= 384, cc <= 96, s <= 128, g >= 2. Returns the CUDA error code of
-// the launch (0 on success).
+// feats, feats_pos: (batch, h * w, cf), bf16 (feat_f32 = 0) or f32
+// (feat_f32 = 1); code, code_pos: (batch, h * w, cc) f32; grid1, grid2:
+// (batch, s, 2) f32 sample points in the reference's transposed order;
+// perms: (g - 2, batch) int32. Writes acc (batch * g, 5, s): s1, s2, s3,
+// sum cd and the side-2 code norms of each slot (slot = b * g + pair type);
+// z2cn (batch * g, s, cc) and fd (batch * g, s, s). cf <= 384, cc <= 96,
+// s <= 128, g >= 2. Returns the CUDA error code of the launch (0 on
+// success).
 extern "C" int stego_corr_sampled_fwd(
     const void* feats, const void* feats_pos, const void* code,
     const void* code_pos, const void* grid1, const void* grid2,
     const void* perms, void* acc, void* z2cn, void* fd, int batch, int h,
-    int w, int cf, int cc, int s, int g, float lo, float hi, int device,
-    void* stream) {
+    int w, int cf, int cc, int s, int g, int feat_f32, float lo, float hi,
+    int device, void* stream) {
   if (batch <= 0 || h <= 0 || w <= 0 || cf <= 0 || cf > kMaxFeat ||
       cc <= 0 || cc > kMaxCode || s <= 0 || s > kSMax || g < 2 ||
       static_cast<long long>(batch) * g > 2147483647LL) {
@@ -655,21 +793,17 @@ extern "C" int stego_corr_sampled_fwd(
   }
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
-  const size_t smem = fwd_smem_bytes(cf, cc);
-  err = cudaFuncSetAttribute(corr_sampled_fwd_kernel,
-                             cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             static_cast<int>(smem));
-  if (err != cudaSuccess) return static_cast<int>(err);
-  corr_sampled_fwd_kernel<<<batch * g, kFwdThreads, smem,
-                            static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const __nv_bfloat16*>(feats),
-      static_cast<const __nv_bfloat16*>(feats_pos),
-      static_cast<const float*>(code), static_cast<const float*>(code_pos),
-      static_cast<const float*>(grid1), static_cast<const float*>(grid2),
-      static_cast<const int*>(perms), static_cast<float*>(acc),
-      static_cast<float*>(z2cn), static_cast<float*>(fd), batch, h, w, cf, cc,
-      s, g, lo, hi);
-  return static_cast<int>(cudaGetLastError());
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (feat_f32) {
+    err = launch_fwd<float>(feats, feats_pos, code, code_pos, grid1, grid2,
+                            perms, acc, z2cn, fd, batch, h, w, cf, cc, s, g,
+                            lo, hi, st);
+  } else {
+    err = launch_fwd<__nv_bfloat16>(feats, feats_pos, code, code_pos, grid1,
+                                    grid2, perms, acc, z2cn, fd, batch, h, w,
+                                    cf, cc, s, g, lo, hi, st);
+  }
+  return static_cast<int>(err);
 }
 
 // Residuals of the forward (z2cn, fd, acc) and scal (g, 5) per group:

@@ -10,10 +10,10 @@
 //
 // What it computes. A pair row r correlates side 1, rows of map idx1[r],
 // with side 2, rows of map idx2[r], of one stack of normalised maps: feats
-// (maps, n, cf) bf16 and code (maps, n, cc) f32. The wrapper hands in each
-// distinct map once and the pair rows by index (the full-field step's
-// negatives are code[perm_k(b)]), so no stacked copies exist. For every row
-// i of side 1 the forward sums over all columns j of side 2:
+// (maps, n, cf) bf16 or f32 and code (maps, n, cc) f32. The wrapper hands
+// in each distinct map once and the pair rows by index (the full-field
+// step's negatives are code[perm_k(b)]), so no stacked copies exist. For
+// every row i of side 1 the forward sums over all columns j of side 2:
 //   fd = f1 f2^T, cd = c1 c2^T,
 //   s1 = sum_j clamp(cd) fd, s2 = sum_j clamp(cd), s3 = sum_j fd, sum_j cd,
 // and writes them to acc (rows, 4, n); ops/corr_stream.py:finalize turns
@@ -24,9 +24,10 @@
 // dc1 = coeff c2 and dc2 = coeff^T c1 (pallas_corr.py:200-264).
 //
 // Rounding points of the TPU kernel, kept: fd is a bf16 x bf16 product with
-// f32 accumulation (mma.sync m16n8k16, every product exact in f32); cd is
-// f32 with f32 FMA in channel order (no tensor cores, so no TF32), or with
-// code_bf16 a bf16 x bf16 product with f32 accumulation (mma.sync), and then
+// f32 accumulation (mma.sync m16n8k16, every product exact in f32), or with
+// f32 features (an f32 trunk, feat_dtype=float32) f32 x f32 with f32 FMA in
+// channel order; cd is f32 with f32 FMA in channel order (no tensor cores,
+// so no TF32), or with code_bf16 a bf16 x bf16 product with f32 accumulation (mma.sync), and then
 // the backward rounds coeff and the code to bf16 before its f32 sums
 // (pallas_corr.py:251-260). The backward computes cd with the forward's
 // function, so every cd, and so the clamp mask, equals the forward's bit for
@@ -63,6 +64,21 @@
 // The price is fd and cd computed twice in the backward. Ragged n (784 and
 // 121 are not multiples of 64): tile rows past n are zeros in shared memory
 // and masked out of the sums; nothing is padded in device memory.
+//
+// f32 features. Two 64-row f32 feature tiles of 384 channels would take
+// about 200 KB, which does not fit beside the code tiles. The block's own
+// 64 rows (side 1 in the forward, its map's rows in the backward) stay in
+// shared memory with every channel, channel-major (101 KB at 384); the
+// other side's tile comes in chunks of 64 channels (17 KB), and fd
+// accumulates over the chunks in registers, in the mma fragment layout, by
+// f32 FMA in channel order, as cd does. The backward's recomputed fd comes
+// from the same function in the same order, so the pointwise
+// fd' = fd - rowmean + gm uses the forward's values. The bf16 feature
+// instantiations are the bf16 kernels as they were. Bound at the full-field
+// shape: fd alone is 52.9 GFLOP of f32 FMA, 0.79 ms at 67 TFLOP/s; this
+// first f32 kernel reads both fd operands from shared memory for every
+// 16 FMAs of a thread, so it is bound by shared-memory bandwidth well above
+// that.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -78,9 +94,11 @@ constexpr int kWarps = 8;          // 16 rows x 32 columns of a tile each
 constexpr int kThreads = kWarps * 32;
 constexpr int kHalf = kTile / 2;   // columns of a warp
 constexpr int kLoadBatch = 4;      // loads a thread has in flight
-constexpr int kMaxFeat = 512;      // feature channels
+constexpr int kMaxFeat = 512;      // bf16 feature channels
+constexpr int kMaxFeatF32 = 384;   // f32 feature channels
+constexpr int kFeatChunk = 64;     // f32 feature channels of a chunk
 constexpr int kMaxCode = 128;      // code channels
-constexpr int kCodePitchF32 = kTile + 2;  // channel-major f32 code tile row
+constexpr int kCodePitchF32 = kTile + 2;  // channel-major f32 tile row
 constexpr int kCodePitchBf16 = kTile + 8; // channel-major bf16 code tile row
 constexpr int kCoeffPitch = kTile + 1;
 constexpr int kOutCols = kMaxCode / 8;    // gradient columns a thread owns
@@ -133,10 +151,13 @@ struct Geometry {
   int cfp;          // cf rounded up to 16 (mma depth)
   int ccp;          // cc rounded up to 16
   int feat_pitch;   // bf16 elements a feature tile row
-  size_t feat_bytes, code_bytes;
+  // feature tiles a (the block's own rows) and b (the other side's): bf16
+  // row-major with every channel; f32 channel-major, a with every channel
+  // and b with kFeatChunk
+  size_t feat_a_bytes, feat_b_bytes, code_bytes;
 };
 
-template <bool kBf16>
+template <bool kBf16, bool kFeatF32>
 __host__ __device__ Geometry make_geometry(int n, int cf, int cc) {
   Geometry g;
   g.n = n;
@@ -145,7 +166,13 @@ __host__ __device__ Geometry make_geometry(int n, int cf, int cc) {
   g.cfp = (cf + 15) & ~15;
   g.ccp = (cc + 15) & ~15;
   g.feat_pitch = g.cfp + 8;
-  g.feat_bytes = static_cast<size_t>(kTile) * g.feat_pitch * 2;
+  if (kFeatF32) {
+    g.feat_a_bytes = static_cast<size_t>(cf) * kCodePitchF32 * 4;
+    g.feat_b_bytes = static_cast<size_t>(kFeatChunk) * kCodePitchF32 * 4;
+  } else {
+    g.feat_a_bytes = static_cast<size_t>(kTile) * g.feat_pitch * 2;
+    g.feat_b_bytes = g.feat_a_bytes;
+  }
   g.code_bytes = kBf16 ? static_cast<size_t>(g.ccp) * kCodePitchBf16 * 2
                        : static_cast<size_t>(g.ccp) * kCodePitchF32 * 4;
   return g;
@@ -193,6 +220,33 @@ __device__ void load_feat_tile(__nv_bfloat16* dst,
   }
 }
 
+// Rows row0 .. row0 + 63, channels c0 .. c0 + nc - 1 of one (n, cf) f32
+// map into a channel-major tile (nc rows of kCodePitchF32), zeros past n.
+__device__ void load_feat_tile_f32(float* dst, const float* map, int row0,
+                                   int c0, int nc, const Geometry& g) {
+  const int total = kTile * nc;
+  for (int base = threadIdx.x; base < total; base += kLoadBatch * kThreads) {
+    float v[kLoadBatch];
+#pragma unroll
+    for (int u = 0; u < kLoadBatch; ++u) {
+      const int idx = base + u * kThreads;
+      const int r = idx / nc;
+      const int row = row0 + r;
+      v[u] = (idx < total && row < g.n)
+                 ? map[static_cast<size_t>(row) * g.cf + c0 + idx - r * nc]
+                 : 0.f;
+    }
+#pragma unroll
+    for (int u = 0; u < kLoadBatch; ++u) {
+      const int idx = base + u * kThreads;
+      if (idx < total) {
+        const int r = idx / nc;
+        dst[(idx - r * nc) * kCodePitchF32 + r] = v[u];
+      }
+    }
+  }
+}
+
 // Rows row0 .. row0 + 63 of one (n, cc) f32 map into a channel-major tile
 // (ccp rows of the code pitch), zeros past n and past cc; bf16 tiles round
 // each value.
@@ -230,30 +284,28 @@ __device__ void load_code_tile(T* dst, const float* map, int row0,
 __device__ __forceinline__ int warp_row0() { return (threadIdx.x >> 5) % 4 * 16; }
 __device__ __forceinline__ int warp_col0() { return (threadIdx.x >> 5) / 4 * kHalf; }
 
-// fd and cd of this warp's 16 rows of the i tile (fa, ca) against its 32
-// rows of the j tile (fb, cb), in the mma fragment layout: element
-// [nt][e] is row warp_row0() + g + 8 * (e >> 1), column warp_col0() +
-// nt * 8 + 2 t + (e & 1).
-template <bool kBf16>
-__device__ __forceinline__ void corr_tile(const __nv_bfloat16* fa,
-                                          const __nv_bfloat16* fb,
-                                          const void* ca, const void* cb,
-                                          const Geometry& geo,
-                                          float (&fd)[4][4],
-                                          float (&cd)[4][4]) {
+// The tiles below hold this warp's 16 rows of the i tile against its 32
+// rows of the j tile in the mma fragment layout: element [nt][e] is row
+// warp_row0() + g + 8 * (e >> 1), column warp_col0() + nt * 8 + 2 t +
+// (e & 1).
+__device__ __forceinline__ void zero_tile(float (&x)[4][4]) {
+#pragma unroll
+  for (int nt = 0; nt < 4; ++nt) {
+#pragma unroll
+    for (int e = 0; e < 4; ++e) x[nt][e] = 0.f;
+  }
+}
+
+// fd += fa fb^T from row-major bf16 feature tiles, by mma.sync.
+__device__ __forceinline__ void fd_bf16(const __nv_bfloat16* fa,
+                                        const __nv_bfloat16* fb,
+                                        const Geometry& geo,
+                                        float (&fd)[4][4]) {
   const int row0 = warp_row0();
   const int col0 = warp_col0();
   const int lane = threadIdx.x & 31;
   const int g = lane >> 2;
   const int t = lane & 3;
-#pragma unroll
-  for (int nt = 0; nt < 4; ++nt) {
-#pragma unroll
-    for (int e = 0; e < 4; ++e) {
-      fd[nt][e] = 0.f;
-      cd[nt][e] = 0.f;
-    }
-  }
   const int fp = geo.feat_pitch;
   for (int kc = 0; kc < geo.cfp / 16; ++kc) {
     const __nv_bfloat16* ap = fa + (row0 + g) * fp + kc * 16 + 2 * t;
@@ -270,6 +322,44 @@ __device__ __forceinline__ void corr_tile(const __nv_bfloat16* fa,
                *reinterpret_cast<const uint32_t*>(bp + 8));
     }
   }
+}
+
+// fd += a b^T over channels 0 .. depth - 1 of channel-major f32 tiles (rows
+// of kCodePitchF32), by f32 FMA in channel order.
+__device__ __forceinline__ void fd_f32(const float* a, const float* b,
+                                       int depth, float (&fd)[4][4]) {
+  constexpr int P = kCodePitchF32;
+  const int row0 = warp_row0();
+  const int col0 = warp_col0();
+  const int lane = threadIdx.x & 31;
+  const int g = lane >> 2;
+  const int t = lane & 3;
+  for (int k = 0; k < depth; ++k) {
+    const float a0 = a[k * P + row0 + g];
+    const float a1 = a[k * P + row0 + g + 8];
+#pragma unroll
+    for (int nt = 0; nt < 4; ++nt) {
+      const float2 v = *reinterpret_cast<const float2*>(
+          b + k * P + col0 + nt * 8 + 2 * t);
+      fd[nt][0] = fmaf(a0, v.x, fd[nt][0]);
+      fd[nt][1] = fmaf(a0, v.y, fd[nt][1]);
+      fd[nt][2] = fmaf(a1, v.x, fd[nt][2]);
+      fd[nt][3] = fmaf(a1, v.y, fd[nt][3]);
+    }
+  }
+}
+
+// cd += ca cb^T from channel-major code tiles: bf16 by mma.sync, f32 by
+// f32 FMA in channel order.
+template <bool kBf16>
+__device__ __forceinline__ void cd_tile(const void* ca, const void* cb,
+                                        const Geometry& geo,
+                                        float (&cd)[4][4]) {
+  const int row0 = warp_row0();
+  const int col0 = warp_col0();
+  const int lane = threadIdx.x & 31;
+  const int g = lane >> 2;
+  const int t = lane & 3;
   if constexpr (kBf16) {
     constexpr int P = kCodePitchBf16;
     const __nv_bfloat16* cab = static_cast<const __nv_bfloat16*>(ca);
@@ -306,45 +396,114 @@ __device__ __forceinline__ void corr_tile(const __nv_bfloat16* fa,
   }
 }
 
-// Carves the dynamic shared memory: feature tiles a and b, code tiles a and
-// b, and (backward) the coefficient tile.
+// Carves the dynamic shared memory: feature tiles a (the block's own rows)
+// and b (the other side's), code tiles a and b, and (backward) the
+// coefficient tile.
 struct Smem {
-  __nv_bfloat16* fa;
-  __nv_bfloat16* fb;
+  void* fa;
+  void* fb;
   void* ca;
   void* cb;
   float* coeff;
 };
 
 __device__ Smem carve(unsigned char* base, const Geometry& g) {
+  const size_t feat = g.feat_a_bytes + g.feat_b_bytes;
   Smem s;
-  s.fa = reinterpret_cast<__nv_bfloat16*>(base);
-  s.fb = reinterpret_cast<__nv_bfloat16*>(base + g.feat_bytes);
-  s.ca = base + 2 * g.feat_bytes;
-  s.cb = base + 2 * g.feat_bytes + g.code_bytes;
-  s.coeff = reinterpret_cast<float*>(base + 2 * g.feat_bytes +
-                                     2 * g.code_bytes);
+  s.fa = base;
+  s.fb = base + g.feat_a_bytes;
+  s.ca = base + feat;
+  s.cb = base + feat + g.code_bytes;
+  s.coeff = reinterpret_cast<float*>(base + feat + 2 * g.code_bytes);
   return s;
 }
 
-template <bool kBf16>
+template <bool kBf16, bool kFeatF32>
 size_t smem_bytes(int n, int cf, int cc, bool backward) {
-  const Geometry g = make_geometry<kBf16>(n, cf, cc);
-  return 2 * g.feat_bytes + 2 * g.code_bytes +
+  const Geometry g = make_geometry<kBf16, kFeatF32>(n, cf, cc);
+  return g.feat_a_bytes + g.feat_b_bytes + 2 * g.code_bytes +
          (backward ? static_cast<size_t>(kTile) * kCoeffPitch * 4 : 0);
 }
 
+template <bool kFeatF32>
+using FeatType = typename std::conditional<kFeatF32, float,
+                                           __nv_bfloat16>::type;
+
+// Rows row0 .. row0 + 63 of one feature map into the own tile s.fa, every
+// channel.
+template <bool kFeatF32>
+__device__ void load_own_feats(const Smem& s, const FeatType<kFeatF32>* map,
+                               int row0, const Geometry& geo) {
+  if constexpr (kFeatF32) {
+    load_feat_tile_f32(static_cast<float*>(s.fa), map, row0, 0, geo.cf, geo);
+  } else {
+    load_feat_tile(static_cast<__nv_bfloat16*>(s.fa), map, row0, geo);
+  }
+}
+
+// fd and cd of the block's own 64 rows (features in s.fa, code in s.ca,
+// loaded) against rows o0 .. o0 + 63 of the other side's maps f_other and
+// c_other, which it loads into s.fb and s.cb: the own rows are the i tile
+// when own_first, else the j tile. Starts with a barrier, so every thread
+// is done with the previous other tile (and the own tile is loaded); ends
+// with the other code tile in s.cb. f32 features take the other side's
+// channels kFeatChunk at a time, fd accumulating over the chunks.
+template <bool kBf16, bool kFeatF32>
+__device__ void tile_against(const Smem& s,
+                             const FeatType<kFeatF32>* f_other,
+                             const float* c_other, int o0, bool own_first,
+                             const Geometry& geo, float (&fd)[4][4],
+                             float (&cd)[4][4]) {
+  using CodeT = typename std::conditional<kBf16, __nv_bfloat16, float>::type;
+  zero_tile(fd);
+  zero_tile(cd);
+  if constexpr (kFeatF32) {
+    const float* own = static_cast<const float*>(s.fa);
+    float* other = static_cast<float*>(s.fb);
+    for (int c0 = 0; c0 < geo.cf; c0 += kFeatChunk) {
+      const int nc = min(kFeatChunk, geo.cf - c0);
+      __syncthreads();  // every thread is done with the last chunk
+      load_feat_tile_f32(other, f_other, o0, c0, nc, geo);
+      if (c0 == 0) load_code_tile(static_cast<CodeT*>(s.cb), c_other, o0, geo);
+      __syncthreads();
+      const float* mine = own + c0 * kCodePitchF32;
+      if (own_first) {
+        fd_f32(mine, other, nc, fd);
+      } else {
+        fd_f32(other, mine, nc, fd);
+      }
+    }
+  } else {
+    const auto* own = static_cast<const __nv_bfloat16*>(s.fa);
+    auto* other = static_cast<__nv_bfloat16*>(s.fb);
+    __syncthreads();
+    load_feat_tile(other, f_other, o0, geo);
+    load_code_tile(static_cast<CodeT*>(s.cb), c_other, o0, geo);
+    __syncthreads();
+    if (own_first) {
+      fd_bf16(own, other, geo, fd);
+    } else {
+      fd_bf16(other, own, geo, fd);
+    }
+  }
+  if (own_first) {
+    cd_tile<kBf16>(s.ca, s.cb, geo, cd);
+  } else {
+    cd_tile<kBf16>(s.cb, s.ca, geo, cd);
+  }
+}
+
 // grid (ceil(n / 64), rows); acc (rows, 4, n).
-template <bool kBf16>
+template <bool kBf16, bool kFeatF32>
 __global__ void __launch_bounds__(kThreads, 1)
-corr_stream_fwd_kernel(const __nv_bfloat16* __restrict__ feats,
+corr_stream_fwd_kernel(const FeatType<kFeatF32>* __restrict__ feats,
                        const float* __restrict__ code,
                        const int* __restrict__ idx1,
                        const int* __restrict__ idx2, float* __restrict__ acc,
                        int maps, int n, int cf, int cc, float lo, float hi) {
   using CodeT = typename std::conditional<kBf16, __nv_bfloat16, float>::type;
   extern __shared__ __align__(16) unsigned char smem[];
-  const Geometry geo = make_geometry<kBf16>(n, cf, cc);
+  const Geometry geo = make_geometry<kBf16, kFeatF32>(n, cf, cc);
   const Smem s = carve(smem, geo);
   const int i0 = blockIdx.x * kTile;
   const int r = blockIdx.y;
@@ -363,7 +522,7 @@ corr_stream_fwd_kernel(const __nv_bfloat16* __restrict__ feats,
   }
   const size_t fstride = static_cast<size_t>(n) * cf;
   const size_t cstride = static_cast<size_t>(n) * cc;
-  load_feat_tile(s.fa, feats + m1 * fstride, i0, geo);
+  load_own_feats<kFeatF32>(s, feats + m1 * fstride, i0, geo);
   load_code_tile(static_cast<CodeT*>(s.ca), code + m1 * cstride, i0, geo);
 
   const int lane = threadIdx.x & 31;
@@ -372,11 +531,8 @@ corr_stream_fwd_kernel(const __nv_bfloat16* __restrict__ feats,
   float sums[4][2] = {};  // s1, s2, s3, sum cd of rows g and g + 8
   float fd[4][4], cd[4][4];
   for (int j0 = 0; j0 < n; j0 += kTile) {
-    __syncthreads();  // every warp is done with the previous j tile
-    load_feat_tile(s.fb, feats + m2 * fstride, j0, geo);
-    load_code_tile(static_cast<CodeT*>(s.cb), code + m2 * cstride, j0, geo);
-    __syncthreads();
-    corr_tile<kBf16>(s.fa, s.fb, s.ca, s.cb, geo, fd, cd);
+    tile_against<kBf16, kFeatF32>(s, feats + m2 * fstride,
+                                  code + m2 * cstride, j0, true, geo, fd, cd);
 #pragma unroll
     for (int nt = 0; nt < 4; ++nt) {
 #pragma unroll
@@ -422,9 +578,9 @@ corr_stream_fwd_kernel(const __nv_bfloat16* __restrict__ feats,
 // list: entry e < rows is pair row e reading map m as side 1, e >= rows is
 // pair row e - rows reading it as side 2. scal (groups, 5): g_loss, g_cdm,
 // fd mean, shift, 1/m; row_group (rows,). Writes dcode (maps, n, cc).
-template <bool kBf16>
+template <bool kBf16, bool kFeatF32>
 __global__ void __launch_bounds__(kThreads, 1)
-corr_stream_bwd_kernel(const __nv_bfloat16* __restrict__ feats,
+corr_stream_bwd_kernel(const FeatType<kFeatF32>* __restrict__ feats,
                        const float* __restrict__ code,
                        const int* __restrict__ idx1,
                        const int* __restrict__ idx2,
@@ -438,7 +594,7 @@ corr_stream_bwd_kernel(const __nv_bfloat16* __restrict__ feats,
   using CodeT = typename std::conditional<kBf16, __nv_bfloat16, float>::type;
   constexpr int CP = kBf16 ? kCodePitchBf16 : kCodePitchF32;
   extern __shared__ __align__(16) unsigned char smem[];
-  const Geometry geo = make_geometry<kBf16>(n, cf, cc);
+  const Geometry geo = make_geometry<kBf16, kFeatF32>(n, cf, cc);
   const Smem s = carve(smem, geo);
   const int t0 = blockIdx.x * kTile;
   const int m = blockIdx.y;
@@ -462,12 +618,9 @@ corr_stream_bwd_kernel(const __nv_bfloat16* __restrict__ feats,
   }
 
   // the block's own rows: side 1 of a side-1 entry, side 2 of a side-2 one
-  __nv_bfloat16* f_own = s.fa;
-  __nv_bfloat16* f_other = s.fb;
-  CodeT* c_own = static_cast<CodeT*>(s.ca);
-  CodeT* c_other = static_cast<CodeT*>(s.cb);
-  load_feat_tile(f_own, feats + m * fstride, t0, geo);
-  load_code_tile(c_own, code + m * cstride, t0, geo);
+  const CodeT* c_other = static_cast<const CodeT*>(s.cb);
+  load_own_feats<kFeatF32>(s, feats + m * fstride, t0, geo);
+  load_code_tile(static_cast<CodeT*>(s.ca), code + m * cstride, t0, geo);
 
   float fd[4][4], cd[4][4];
   const int end = offsets[m + 1];
@@ -482,17 +635,12 @@ corr_stream_bwd_kernel(const __nv_bfloat16* __restrict__ feats,
                 inv_m = sc[4];
     const float* s3 = acc + (static_cast<size_t>(r) * 4 + 2) * n;
     for (int o0 = 0; o0 < n; o0 += kTile) {
-      __syncthreads();  // every thread is done with the previous tiles
-      load_feat_tile(f_other, feats + other * fstride, o0, geo);
-      load_code_tile(c_other, code + other * cstride, o0, geo);
-      __syncthreads();
+      // the forward's function: fd and cd equal the forward's bit for bit
+      tile_against<kBf16, kFeatF32>(s, feats + other * fstride,
+                                    code + other * cstride, o0, side1, geo,
+                                    fd, cd);
       const int i0 = side1 ? t0 : o0;
       const int j0 = side1 ? o0 : t0;
-      if (side1) {
-        corr_tile<kBf16>(f_own, f_other, c_own, c_other, geo, fd, cd);
-      } else {
-        corr_tile<kBf16>(f_other, f_own, c_other, c_own, geo, fd, cd);
-      }
       // coeff of this warp's rows into the shared tile [i][j]
 #pragma unroll
       for (int h = 0; h < 2; ++h) {
@@ -560,9 +708,10 @@ corr_stream_bwd_kernel(const __nv_bfloat16* __restrict__ feats,
   }
 }
 
-bool bad_shape(int rows, int maps, int n, int cf, int cc) {
+bool bad_shape(int rows, int maps, int n, int cf, int cc, int feat_f32) {
   return rows <= 0 || rows > 65535 || maps <= 0 || maps > 65535 || n <= 0 ||
-         cf <= 0 || cf > kMaxFeat || cc <= 0 || cc > kMaxCode;
+         cf <= 0 || cf > (feat_f32 ? kMaxFeatF32 : kMaxFeat) || cc <= 0 ||
+         cc > kMaxCode;
 }
 
 template <typename Kernel>
@@ -574,43 +723,75 @@ cudaError_t prepare(Kernel kernel, int device, size_t smem) {
                               static_cast<int>(smem));
 }
 
+template <bool kBf16, bool kFeatF32>
+cudaError_t launch_fwd(const void* feats, const void* code, const void* idx1,
+                       const void* idx2, void* acc, int rows, int maps, int n,
+                       int cf, int cc, float lo, float hi, int device,
+                       cudaStream_t stream) {
+  const size_t smem = smem_bytes<kBf16, kFeatF32>(n, cf, cc, false);
+  cudaError_t err =
+      prepare(corr_stream_fwd_kernel<kBf16, kFeatF32>, device, smem);
+  if (err != cudaSuccess) return err;
+  const dim3 grid((n + kTile - 1) / kTile, rows);
+  corr_stream_fwd_kernel<kBf16, kFeatF32><<<grid, kThreads, smem, stream>>>(
+      static_cast<const FeatType<kFeatF32>*>(feats),
+      static_cast<const float*>(code), static_cast<const int*>(idx1),
+      static_cast<const int*>(idx2), static_cast<float*>(acc), maps, n, cf,
+      cc, lo, hi);
+  return cudaGetLastError();
+}
+
+template <bool kBf16, bool kFeatF32>
+cudaError_t launch_bwd(const void* feats, const void* code, const void* idx1,
+                       const void* idx2, const void* acc, const void* scal,
+                       const void* row_group, const void* order,
+                       const void* offsets, void* dcode, int rows, int maps,
+                       int n, int cf, int cc, float lo, float hi,
+                       int pointwise, int device, cudaStream_t stream) {
+  const size_t smem = smem_bytes<kBf16, kFeatF32>(n, cf, cc, true);
+  cudaError_t err =
+      prepare(corr_stream_bwd_kernel<kBf16, kFeatF32>, device, smem);
+  if (err != cudaSuccess) return err;
+  const dim3 grid((n + kTile - 1) / kTile, maps);
+  corr_stream_bwd_kernel<kBf16, kFeatF32><<<grid, kThreads, smem, stream>>>(
+      static_cast<const FeatType<kFeatF32>*>(feats),
+      static_cast<const float*>(code), static_cast<const int*>(idx1),
+      static_cast<const int*>(idx2), static_cast<const float*>(acc),
+      static_cast<const float*>(scal), static_cast<const int*>(row_group),
+      static_cast<const int*>(order), static_cast<const int*>(offsets),
+      static_cast<float*>(dcode), rows, maps, n, cf, cc, lo, hi, pointwise);
+  return cudaGetLastError();
+}
+
 }  // namespace
 
-// feats (maps, n, cf) bf16 and code (maps, n, cc) f32, both l2-normalised
-// rows; idx1, idx2 (rows,) int32 map indices of each pair row's two sides.
-// Writes acc (rows, 4, n) f32: s1, s2, s3 and sum cd of every side-1 row.
-// cf <= 512, cc <= 128, rows and maps <= 65535. code_bf16 rounds the code to
-// bf16 for cd. Returns the CUDA error code of the launch (0 on success).
+// feats (maps, n, cf), bf16 (feat_f32 = 0) or f32 (feat_f32 = 1), and code
+// (maps, n, cc) f32, both l2-normalised rows; idx1, idx2 (rows,) int32 map
+// indices of each pair row's two sides. Writes acc (rows, 4, n) f32: s1,
+// s2, s3 and sum cd of every side-1 row. cf <= 512 (bf16) or 384 (f32),
+// cc <= 128, rows and maps <= 65535. code_bf16 rounds the code to bf16 for
+// cd. Returns the CUDA error code of the launch (0 on success).
 extern "C" int stego_corr_stream_fwd(const void* feats, const void* code,
                                      const void* idx1, const void* idx2,
                                      void* acc, int rows, int maps, int n,
-                                     int cf, int cc, int code_bf16, float lo,
-                                     float hi, int device, void* stream) {
-  if (bad_shape(rows, maps, n, cf, cc)) {
+                                     int cf, int cc, int code_bf16,
+                                     int feat_f32, float lo, float hi,
+                                     int device, void* stream) {
+  if (bad_shape(rows, maps, n, cf, cc, feat_f32)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  const dim3 grid((n + kTile - 1) / kTile, rows);
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const auto* f = static_cast<const __nv_bfloat16*>(feats);
-  const auto* c = static_cast<const float*>(code);
-  const auto* i1 = static_cast<const int*>(idx1);
-  const auto* i2 = static_cast<const int*>(idx2);
-  auto* a = static_cast<float*>(acc);
-  cudaError_t err;
+  using Launch = cudaError_t (*)(const void*, const void*, const void*,
+                                 const void*, void*, int, int, int, int, int,
+                                 float, float, int, cudaStream_t);
+  Launch launch;
   if (code_bf16) {
-    const size_t smem = smem_bytes<true>(n, cf, cc, false);
-    err = prepare(corr_stream_fwd_kernel<true>, device, smem);
-    if (err != cudaSuccess) return static_cast<int>(err);
-    corr_stream_fwd_kernel<true><<<grid, kThreads, smem, st>>>(
-        f, c, i1, i2, a, maps, n, cf, cc, lo, hi);
+    launch = feat_f32 ? &launch_fwd<true, true> : &launch_fwd<true, false>;
   } else {
-    const size_t smem = smem_bytes<false>(n, cf, cc, false);
-    err = prepare(corr_stream_fwd_kernel<false>, device, smem);
-    if (err != cudaSuccess) return static_cast<int>(err);
-    corr_stream_fwd_kernel<false><<<grid, kThreads, smem, st>>>(
-        f, c, i1, i2, a, maps, n, cf, cc, lo, hi);
+    launch = feat_f32 ? &launch_fwd<false, true> : &launch_fwd<false, false>;
   }
-  return static_cast<int>(cudaGetLastError());
+  return static_cast<int>(launch(feats, code, idx1, idx2, acc, rows, maps, n,
+                                 cf, cc, lo, hi, device, st));
 }
 
 // The forward's inputs and acc; scal (groups, 5) f32: g_loss, g_cdm, fd
@@ -625,38 +806,25 @@ extern "C" int stego_corr_stream_bwd(const void* feats, const void* code,
                                      const void* row_group, const void* order,
                                      const void* offsets, void* dcode,
                                      int rows, int maps, int n, int cf, int cc,
-                                     int code_bf16, float lo, float hi,
-                                     int pointwise, int device, void* stream) {
-  if (bad_shape(rows, maps, n, cf, cc)) {
+                                     int code_bf16, int feat_f32, float lo,
+                                     float hi, int pointwise, int device,
+                                     void* stream) {
+  if (bad_shape(rows, maps, n, cf, cc, feat_f32)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  const dim3 grid((n + kTile - 1) / kTile, maps);
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const auto* f = static_cast<const __nv_bfloat16*>(feats);
-  const auto* c = static_cast<const float*>(code);
-  const auto* i1 = static_cast<const int*>(idx1);
-  const auto* i2 = static_cast<const int*>(idx2);
-  const auto* a = static_cast<const float*>(acc);
-  const auto* sc = static_cast<const float*>(scal);
-  const auto* rgp = static_cast<const int*>(row_group);
-  const auto* ord = static_cast<const int*>(order);
-  const auto* off = static_cast<const int*>(offsets);
-  auto* d = static_cast<float*>(dcode);
-  cudaError_t err;
+  using Launch = cudaError_t (*)(const void*, const void*, const void*,
+                                 const void*, const void*, const void*,
+                                 const void*, const void*, const void*, void*,
+                                 int, int, int, int, int, float, float, int,
+                                 int, cudaStream_t);
+  Launch launch;
   if (code_bf16) {
-    const size_t smem = smem_bytes<true>(n, cf, cc, true);
-    err = prepare(corr_stream_bwd_kernel<true>, device, smem);
-    if (err != cudaSuccess) return static_cast<int>(err);
-    corr_stream_bwd_kernel<true><<<grid, kThreads, smem, st>>>(
-        f, c, i1, i2, a, sc, rgp, ord, off, d, rows, maps, n, cf, cc, lo, hi,
-        pointwise);
+    launch = feat_f32 ? &launch_bwd<true, true> : &launch_bwd<true, false>;
   } else {
-    const size_t smem = smem_bytes<false>(n, cf, cc, true);
-    err = prepare(corr_stream_bwd_kernel<false>, device, smem);
-    if (err != cudaSuccess) return static_cast<int>(err);
-    corr_stream_bwd_kernel<false><<<grid, kThreads, smem, st>>>(
-        f, c, i1, i2, a, sc, rgp, ord, off, d, rows, maps, n, cf, cc, lo, hi,
-        pointwise);
+    launch = feat_f32 ? &launch_bwd<false, true> : &launch_bwd<false, false>;
   }
-  return static_cast<int>(cudaGetLastError());
+  return static_cast<int>(launch(feats, code, idx1, idx2, acc, scal,
+                                 row_group, order, offsets, dcode, rows, maps,
+                                 n, cf, cc, lo, hi, pointwise, device, st));
 }

@@ -4,8 +4,10 @@
     python -m stego_torch.eval.demo model_path=<.ckpt> image_dir=<dir> run_crf=false
 
 Writes ``results/predictions/<experiment_name>/{linear,cluster}/<name>.png``
-(uint8 label maps), the trees the JAX demo writes. Runs on the first CUDA
-device, or on the CPU (the kernels' plain versions) when there is none.
+(uint8 label maps), the trees the JAX demo writes. ``main`` runs on the
+first CUDA device and exits with an error when there is none; only a
+caller of :func:`demo` can ask for the CPU, by passing a CPU device (the
+kernels' plain versions then run).
 """
 
 from __future__ import annotations
@@ -88,7 +90,10 @@ def main(argv=None):
            else Config.from_dict(overrides, strict=True))
     if not cfg.model_path or not cfg.image_dir:
         raise SystemExit("pass model_path=... image_dir=...")
-    device = torch.device("cuda" if torch.cuda.is_available() else "cpu")
+    if not torch.cuda.is_available():
+        raise SystemExit("stego_torch.eval.demo runs on a CUDA device and "
+                         "found none; nothing was written")
+    device = torch.device("cuda", 0)
     result_dir = join("results", "predictions", cfg.experiment_name)
     n = demo(cfg, cfg.model_path, cfg.image_dir, result_dir, device)
     print(f"wrote {n} predictions to {result_dir}")

@@ -50,11 +50,11 @@ SIGNATURES = {
     "stego_layer_norm": (_P, _P, _P, _P, _I, _I, _F, _I, _P),
     "stego_attention": (_P, _P, _P, _P, _I, _I, _I) + (_L,) * 12
     + (_F, _I, _P),
-    "stego_corr_sampled_fwd": (_P,) * 10 + (_I,) * 7 + (_F, _F, _I, _P),
+    "stego_corr_sampled_fwd": (_P,) * 10 + (_I,) * 8 + (_F, _F, _I, _P),
     "stego_corr_sampled_bwd": (_P,) * 10 + (_I,) * 6 + (_F, _F, _I, _F, _I,
                                                         _P),
-    "stego_corr_stream_fwd": (_P,) * 5 + (_I,) * 6 + (_F, _F, _I, _P),
-    "stego_corr_stream_bwd": (_P,) * 10 + (_I,) * 6 + (_F, _F, _I, _I, _P),
+    "stego_corr_stream_fwd": (_P,) * 5 + (_I,) * 7 + (_F, _F, _I, _P),
+    "stego_corr_stream_bwd": (_P,) * 10 + (_I,) * 7 + (_F, _F, _I, _I, _P),
 }
 
 _lock = threading.Lock()

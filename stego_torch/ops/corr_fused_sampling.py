@@ -140,8 +140,8 @@ def sampled_corr_fused(
     int), ``shifts`` one per group (2 + len(perms)). Returns
     (losses (G,), cd_means (G,)), each the mean over its group's
     B * S * S elements, as ``pallas_corr_fused_sampling.py:sampled_corr_fused``.
-    On a CUDA device the features must be convertible to bf16
-    ``feat_dtype``: the kernel is built for a bf16 trunk."""
+    On a CUDA device ``feat_dtype`` is bf16 (a bf16 trunk) or f32 (an f32
+    trunk): the kernel has an instantiation for each."""
     if orig_code.device.type == "cpu":
         return sampled_corr_plain(orig_feats, orig_feats_pos, orig_code,
                                   orig_code_pos, coords1, coords2, perms,
@@ -171,9 +171,9 @@ class _SampledCorr(torch.autograd.Function):
         cc = code.shape[-1]
         s = coords1.shape[1] * coords1.shape[2]
         g = 2 + len(perms)
-        if feat_dtype != torch.bfloat16:
+        if feat_dtype not in (torch.bfloat16, torch.float32):
             raise ValueError(
-                f"kernel C1 samples bf16 features (a bf16 trunk's "
+                f"kernel C1 samples bf16 or f32 features (the trunk's "
                 f"feat_dtype); got feat_dtype {feat_dtype}")
         tensors = {"code": code, "code_pos": code_pos, "feats": feats,
                    "feats_pos": feats_pos, "coords1": coords1,
@@ -201,7 +201,7 @@ class _SampledCorr(torch.autograd.Function):
                 f"kernel C1 takes <= {MAX_FEAT_CHANNELS} feature channels, "
                 f"<= {MAX_CODE_CHANNELS} code channels and <= {MAX_SAMPLES} "
                 f"samples; got {cf}, {cc}, {s}")
-        f1, f2 = _flat(feats, torch.bfloat16), _flat(feats_pos, torch.bfloat16)
+        f1, f2 = _flat(feats, feat_dtype), _flat(feats_pos, feat_dtype)
         c1, c2 = _flat(code, torch.float32), _flat(code_pos, torch.float32)
         grid1 = _grid(coords1).float().reshape(b, s, 2).contiguous()
         grid2 = _grid(coords2).float().reshape(b, s, 2).contiguous()
@@ -218,7 +218,8 @@ class _SampledCorr(torch.autograd.Function):
             f1.data_ptr(), f2.data_ptr(), c1.data_ptr(), c2.data_ptr(),
             grid1.data_ptr(), grid2.data_ptr(), perm.data_ptr(),
             acc.data_ptr(), z2cn.data_ptr(), fd.data_ptr(), b, h, w, cf, cc,
-            s, g, lo, hi, dev.index, torch.cuda.current_stream(dev).cuda_stream)
+            s, g, int(feat_dtype == torch.float32), lo, hi, dev.index,
+            torch.cuda.current_stream(dev).cuda_stream)
         build.check(err, "corr_sampled forward kernel")
         global FWD_LAUNCHES
         FWD_LAUNCHES += 1

@@ -52,8 +52,10 @@ from stego_torch.ops.math import l2_normalize, tensor_correlation
 from stego_torch.ops.sampling import (bilinear_sample_weights,
                                       sample_from_coords)
 
-# What the CUDA kernel is built for (csrc/corr_stream.cu).
+# What the CUDA kernel is built for (csrc/corr_stream.cu): feature channels
+# of bf16 and of f32 features, code channels.
 MAX_FEAT_CHANNELS = 512
+MAX_FEAT_CHANNELS_F32 = 384
 MAX_CODE_CHANNELS = 128
 # Launches of the CUDA kernel's two entries in this process (plain-version
 # calls do not count). Read and reset by chip_smoke.py to show the main path
@@ -249,8 +251,8 @@ def fused_correlation_loss_multi(
     with ``pre_prepped`` the pairs are normalized (B, N, C) rows
     (:func:`prep`), and ``n_real``, where given, must be N (the port pads
     nothing). ``shifts``: one a pair
-    type. ``feat_dtype``: the features' type in the fd product (the kernel
-    takes bf16 only). ``code_bf16``: the code side in bf16 with f32 sums
+    type. ``feat_dtype``: the features' type in the fd product, bf16 or f32.
+    ``code_bf16``: the code side in bf16 with f32 sums
     (``pallas_loss_bf16``). ``split_groups``: every pair type cut into that
     many equal groups, each with its own pointwise fd mean, and their losses
     averaged (``negatives_scope=local``). ``use_kernel=False`` takes the
@@ -300,10 +302,11 @@ class _StreamCorr(torch.autograd.Function):
     def forward(ctx, code, feats, idx1, idx2, shifts, group_sizes,
                 pointwise, zero_clamp, stabalize, code_bf16):
         dev = code.device
-        if feats.dtype != torch.bfloat16:
+        if feats.dtype not in (torch.bfloat16, torch.float32):
             raise ValueError(
-                f"kernel C2 takes bf16 features (a bf16 trunk's feat_dtype); "
-                f"got {feats.dtype}")
+                f"kernel C2 takes bf16 or f32 features (the trunk's "
+                f"feat_dtype); got {feats.dtype}")
+        feat_f32 = feats.dtype == torch.float32
         if code.dim() != 3 or feats.dim() != 3 \
                 or feats.shape[:2] != code.shape[:2]:
             raise ValueError(f"feats {tuple(feats.shape)} and code "
@@ -319,9 +322,10 @@ class _StreamCorr(torch.autograd.Function):
         if idx2.shape != (r,) or idx1.dim() != 1:
             raise ValueError(f"idx1 {tuple(idx1.shape)} and idx2 "
                              f"{tuple(idx2.shape)} must be (R,)")
-        if not (cf <= MAX_FEAT_CHANNELS and cc <= MAX_CODE_CHANNELS):
+        max_cf = MAX_FEAT_CHANNELS_F32 if feat_f32 else MAX_FEAT_CHANNELS
+        if not (cf <= max_cf and cc <= MAX_CODE_CHANNELS):
             raise ValueError(
-                f"kernel C2 takes <= {MAX_FEAT_CHANNELS} feature and <= "
+                f"kernel C2 takes <= {max_cf} {feats.dtype} feature and <= "
                 f"{MAX_CODE_CHANNELS} code channels; got {cf}, {cc}")
         feats = feats.contiguous()
         code = code.float().contiguous()
@@ -331,8 +335,8 @@ class _StreamCorr(torch.autograd.Function):
         lo, hi = clamp_bounds(zero_clamp, stabalize)
         err = build.library().stego_corr_stream_fwd(
             feats.data_ptr(), code.data_ptr(), i1.data_ptr(), i2.data_ptr(),
-            acc.data_ptr(), r, m, n, cf, cc, int(code_bf16), lo, hi,
-            dev.index, torch.cuda.current_stream(dev).cuda_stream)
+            acc.data_ptr(), r, m, n, cf, cc, int(code_bf16), int(feat_f32),
+            lo, hi, dev.index, torch.cuda.current_stream(dev).cuda_stream)
         build.check(err, "corr_stream forward kernel")
         global FWD_LAUNCHES
         FWD_LAUNCHES += 1
@@ -369,7 +373,8 @@ class _StreamCorr(torch.autograd.Function):
             feats.data_ptr(), code.data_ptr(), i1.data_ptr(), i2.data_ptr(),
             acc.data_ptr(), scal.data_ptr(), row_group.data_ptr(),
             order.data_ptr(), offsets.data_ptr(), dcode.data_ptr(), r, m, n,
-            feats.shape[-1], cc, int(code_bf16), lo, hi, int(pointwise),
+            feats.shape[-1], cc, int(code_bf16),
+            int(feats.dtype == torch.float32), lo, hi, int(pointwise),
             dev.index, torch.cuda.current_stream(dev).cuda_stream)
         build.check(err, "corr_stream backward kernel")
         global BWD_LAUNCHES

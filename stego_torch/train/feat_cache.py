@@ -1,0 +1,156 @@
+"""Frozen-trunk feature cache; counterpart of
+``stego_tpu/train/feat_cache.py``.
+
+STEGO's trunk is frozen (reference no-grad region, src/modules.py:85) and
+its loader transform is deterministic per index outside of
+``loader_crop_type="random"``, yet the reference recomputes the same DINO
+features for every image in every epoch. ``cache_backbone_feats=true``
+runs the trunk once over the split, keeps ``(feats, label)`` on the device
+and trains head and probes from index batches
+(``train/segmenter.py:make_cached_train_step``): a step is head, loss,
+probes and Adam only.
+
+The steps are the image steps' (``_update_from_feats`` is shared), so a
+cached step equals the image step on the same images. The cache refuses
+configurations whose losses need per-step images (aug alignment, CRF loss)
+or whose decoding is random (random loader crops). Not ported: the cache
+sharded over several GPUs (``feat_cache_sharded``, ROADMAP queue 1, item
+6) and the salience masks (``use_salience``, item 3); both raise.
+"""
+
+from __future__ import annotations
+
+from typing import Dict
+
+import numpy as np
+import torch
+
+from stego_torch.config import Config
+from stego_torch.ops.correlation import salience_not_ported
+
+
+def validate_feat_cache_cfg(cfg: Config) -> None:
+    """Reject configurations the cache cannot represent faithfully
+    (``feat_cache.py:36-56``)."""
+    if cfg.arch != "dino":
+        raise ValueError(
+            "cache_backbone_feats supports arch=dino (the FPN arm's BatchNorm "
+            "head consumes multi-scale taps whose running stats the cache "
+            "would freeze)")
+    if cfg.loader_crop_type == "random":
+        raise ValueError(
+            "cache_backbone_feats requires a deterministic loader transform: "
+            "loader_crop_type='random' decodes a different crop every epoch "
+            "(use crop_type=five materialized crops instead — the reference's "
+            "own crop_datasets.py pattern)")
+    if cfg.aug_alignment_weight > 0:
+        raise ValueError(
+            "cache_backbone_feats is incompatible with aug_alignment_weight>0:"
+            " the augmented view must pass through the backbone every step")
+    if cfg.crf_weight > 0:
+        raise ValueError(
+            "cache_backbone_feats is incompatible with crf_weight>0: the CRF "
+            "loss consumes per-step images")
+
+
+def check_not_sharded(cfg: Config) -> None:
+    """Raise for ``feat_cache_sharded``, which the port does not have yet."""
+    if cfg.feat_cache_sharded:
+        raise NotImplementedError(
+            "feat_cache_sharded=true: a feature cache sharded over several "
+            "GPUs is not ported yet (ROADMAP.md queue 1, item 6)")
+
+
+def estimate_cache_gb(cfg: Config, seg, n_items: int,
+                      res: int | None = None, with_mask: bool | None = None
+                      ) -> float:
+    """Device-memory estimate of the cache (features in the trunk's dtype,
+    int16 labels, float16 masks when ``use_salience``), in GiB
+    (``feat_cache.py:59-70``)."""
+    res = res or cfg.res
+    hp = res // seg.vit_cfg.patch_size
+    feat_itemsize = 2 if cfg.backbone_dtype == "bfloat16" else 4
+    per_item = hp * hp * seg.net.n_feats * feat_itemsize
+    per_item += res * res * 2  # int16 labels
+    if cfg.use_salience if with_mask is None else with_mask:
+        per_item += res * res * 2  # float16 masks
+    return n_items * per_item / 2**30
+
+
+def build_feat_cache(seg, contrastive_ds, cfg: Config,
+                     batch_size: int | None = None, res: int | None = None,
+                     with_mask: bool | None = None) -> Dict[str, torch.Tensor]:
+    """One no-grad trunk pass over the (deterministic) base dataset
+    ``contrastive_ds.dataset``, whose items are (img (H, W, 3), label (H, W)
+    [, mask]) arrays.
+
+    Returns tensors on the segmenter's device, indexed by base-dataset
+    index: ``feats`` (N, H/p, W/p, C) in the trunk's dtype (a bf16 trunk's
+    features are bf16 values, so storing them in bf16 loses nothing) and
+    ``label`` (N, H, W) int16. The trunk runs in chunks of ``batch_size``
+    (default ``cfg.batch_size``) images; the short final chunk is padded
+    with copies of its last image, so that every chunk has one shape
+    (``feat_cache.py:123-128``), and the padding's rows are dropped.
+    ``res`` and ``with_mask`` override the train split's defaults: the
+    validation cache is built at ``cfg.val_res`` and needs no masks."""
+    validate_feat_cache_cfg(cfg)
+    check_not_sharded(cfg)
+    want_mask = cfg.use_salience if with_mask is None else with_mask
+    if want_mask:
+        raise salience_not_ported()
+    base = contrastive_ds.dataset
+    n = len(base)
+    est = estimate_cache_gb(cfg, seg, n, res=res, with_mask=want_mask)
+    if est > cfg.feat_cache_max_gb:
+        raise ValueError(
+            f"feature cache for {n} items would need ~{est:.1f} GiB per "
+            f"device (> feat_cache_max_gb={cfg.feat_cache_max_gb}); raise the "
+            f"cap if device memory allows, or train without "
+            f"cache_backbone_feats")
+
+    device = next(seg.parameters()).device
+    dtype = seg.net.backbone_dtype
+    b = batch_size or cfg.batch_size
+    feats = None
+    labels = []
+    for start in range(0, n, b):
+        items = [base[i] for i in range(start, min(start + b, n))]
+        imgs = np.stack([it[0] for it in items]).astype(np.float32)
+        labels.append(np.stack([it[1] for it in items]).astype(np.int16))
+        pad = b - len(items)
+        if pad:  # one shape for every chunk
+            imgs = np.concatenate([imgs, np.repeat(imgs[-1:], pad, axis=0)])
+        f = seg.net.backbone_features(torch.from_numpy(imgs).to(device))
+        if feats is None:
+            feats = torch.empty((n,) + tuple(f.shape[1:]), dtype=dtype,
+                                device=device)
+        feats[start:start + len(items)] = f[:len(items)]
+    return {"feats": feats,
+            "label": torch.from_numpy(np.concatenate(labels)).to(device)}
+
+
+class FeatCacheSampler:
+    """Index-only mirror of ``ContrastiveSegDataset.__getitem__``'s pair draw.
+
+    Reproduces the neighbor selection exactly — same ``(seed, epoch, ind)``
+    Generator, same first draw (data/contrastive.py:163-169; reference
+    data.py:524) — without decoding any image, so the cached mode samples the
+    very (ind, ind_pos) sequence the image pipeline would have fed the step.
+    ``DataLoader`` drives ``epoch`` like any dataset's.
+    """
+
+    def __init__(self, contrastive_ds):
+        self.ds = contrastive_ds
+        self.epoch = 0
+        self.use_pos = contrastive_ds.pos_images or contrastive_ds.pos_labels
+
+    def __len__(self) -> int:
+        return len(self.ds)
+
+    def __getitem__(self, ind: int) -> Dict[str, np.ndarray]:
+        out = {"ind": np.int32(ind)}
+        if self.use_pos:
+            rng = np.random.default_rng((self.ds.seed, self.epoch, ind))
+            nn_choice = int(rng.integers(1, self.ds.num_neighbors + 1))
+            out["ind_pos"] = np.int32(self.ds.nns[ind][nn_choice])
+        return out

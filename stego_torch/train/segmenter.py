@@ -7,12 +7,15 @@ keys equal those of a STEGO ``.ckpt`` (``models/convert.py``).
 
 The train step (:func:`make_train_step`) runs the frozen trunk once over
 img ‖ img_pos, the head, the contrastive correlation loss, the probe losses
-on the detached code and three Adam updates. The loss runs through kernel
-C1 when the fused conditions hold (:func:`resolve_corr_sampling`), and
-through the streamed kernel C2 otherwise: full-field (``full_field_loss``),
-or bilinearly sampled first (``fused_sampling="off"``,
-``pallas_loss_bf16``). Every random input of the step
-(dropout keep-masks, sample coordinates, negative permutations) is an
+on the detached code and three Adam updates. The cached steps
+(:func:`make_cached_train_step`, :func:`make_cached_val_step`,
+:func:`make_cached_val_epoch`) take the trunk's features from a feature
+cache (``train/feat_cache.py``) by index instead, and share the rest. The
+loss runs through kernel C1 when the fused conditions hold
+(:func:`resolve_corr_sampling`), and through the streamed kernel C2
+otherwise: full-field (``full_field_loss``), or bilinearly sampled first
+(``fused_sampling="off"``, ``pallas_loss_bf16``). Every random input of the
+step (dropout keep-masks, sample coordinates, negative permutations) is an
 argument: :func:`draw_step_randomness` draws them from a
 ``torch.Generator``; the tests hand in the JAX package's draws instead,
 since ``jax.random`` streams cannot be reproduced in torch.
@@ -45,6 +48,7 @@ from stego_torch.ops.math import (block_local_super_perm, l2_normalize,
                                   one_hot_feats)
 from stego_torch.ops.probe_ce import (upsampled_argmax,
                                       upsampled_masked_cross_entropy)
+from stego_torch.train.feat_cache import check_not_sharded
 from stego_torch.utils.metrics import update_conf_matrix
 
 PROBE_LR = 5e-3  # linear and cluster probes (train_segmentation.py:379-381)
@@ -379,33 +383,137 @@ def make_train_step(seg: UnsupervisedSegmenter, with_hist: bool = True):
     return train_step
 
 
+def _index(ind: Any, device: torch.device) -> torch.Tensor:
+    """An index batch (tensor, array or list) as int64 on ``device``."""
+    return torch.as_tensor(ind).to(device=device, dtype=torch.long)
+
+
+def make_cached_train_step(seg: UnsupervisedSegmenter,
+                           with_hist: bool = True):
+    """The train step over a feature cache (``segmenter.py:526-588``):
+    ``step(cache, batch, rand) -> metrics``, updating ``seg`` and its
+    optimizers in place.
+
+    ``cache``: :func:`~stego_torch.train.feat_cache.build_feat_cache`'s
+    dict. ``batch``: int ``ind`` (B,) (and ``ind_pos`` (B,), the KNN
+    positives, when the correspondence loss is on; both as
+    :class:`~stego_torch.train.feat_cache.FeatCacheSampler` draws them).
+    ``rand``: :func:`draw_step_randomness`'s draws. The step gathers the
+    features (as f32) and labels by index and goes through the image step's
+    ``_update_from_feats``, so on the same images and draws it is the image
+    step. ``steps_per_dispatch > 1`` (``make_cached_multi_step``) is the
+    TPU's workaround for its dispatch latency (ROADMAP queue 1, item 0) and
+    raises."""
+    cfg = seg.cfg
+    _check_ported(cfg)
+    check_not_sharded(cfg)
+    if cfg.steps_per_dispatch > 1:
+        raise NotImplementedError(
+            "steps_per_dispatch > 1 (make_cached_multi_step) is not ported: "
+            "it is the TPU's workaround for its dispatch latency (ROADMAP.md "
+            "queue 1, item 0); a CUDA graph of the step is the GPU's lever")
+    sampling_impl = resolve_corr_sampling(seg)
+    use_pos = cfg.correspondence_weight > 0
+
+    def train_step(cache: Dict[str, torch.Tensor],
+                   batch: Dict[str, Any],
+                   rand: Dict[str, Any]) -> Dict[str, torch.Tensor]:
+        feats, labels = cache["feats"], cache["label"]
+        ind = _index(batch["ind"], feats.device)
+        image_feat = feats.index_select(0, ind).float()
+        sub = {"label": labels.index_select(0, ind).to(torch.int32)}
+        image_feat_pos = None
+        if use_pos:
+            ind_pos = _index(batch["ind_pos"], feats.device)
+            image_feat_pos = feats.index_select(0, ind_pos).float()
+            sub["label_pos"] = labels.index_select(0, ind_pos).to(torch.int32)
+        return _update_from_feats(seg, with_hist, image_feat, image_feat_pos,
+                                  sub, rand, sampling_impl)
+
+    return train_step
+
+
+def _val_outputs(seg: UnsupervisedSegmenter, code: torch.Tensor,
+                 label: torch.Tensor) -> Dict[str, torch.Tensor]:
+    """Probe predictions at label resolution and the two confusion
+    matrices of a val step (``segmenter.py:741-769``)."""
+    nc = seg.n_classes
+    extra = seg.cfg.extra_clusters
+    hw = tuple(label.shape[1:3])
+    linear_preds = upsampled_argmax(
+        linear_probe_logits(seg.linear_probe, code), hw)
+    clusters = l2_normalize(seg.cluster_probe.clusters, dim=1)
+    cluster_preds = upsampled_argmax(code @ clusters.T, hw)
+    dev = label.device
+    return {
+        "conf_linear": update_conf_matrix(
+            torch.zeros((nc, nc), dtype=torch.long, device=dev),
+            linear_preds, label, nc, 0),
+        "conf_cluster": update_conf_matrix(
+            torch.zeros((nc + extra, nc), dtype=torch.long, device=dev),
+            cluster_preds, label, nc, extra),
+        "linear_preds": linear_preds,
+        "cluster_preds": cluster_preds,
+    }
+
+
+def make_cached_val_step(seg: UnsupervisedSegmenter):
+    """The val step over a feature cache built at ``val_res``
+    (``segmenter.py:637-694``): ``step(cache, batch)`` with int ``ind``
+    (B,) gives :func:`make_val_step`'s outputs. Entries ``ind = -1`` pad a
+    short final batch: their labels are the ignore label, so the confusion
+    matrices never count them."""
+
+    @torch.no_grad()
+    def val_step(cache: Dict[str, torch.Tensor],
+                 batch: Dict[str, Any]) -> Dict[str, torch.Tensor]:
+        feats = cache["feats"]
+        ind = _index(batch["ind"], feats.device)
+        safe = torch.clamp_min(ind, 0)
+        label = cache["label"].index_select(0, safe).to(torch.int32)
+        label = torch.where((ind >= 0)[:, None, None], label,
+                            torch.full((), -1, dtype=label.dtype,
+                                       device=label.device))
+        code = seg.net.head_code(feats.index_select(0, safe).float())
+        return _val_outputs(seg, code, label)
+
+    return val_step
+
+
+def make_cached_val_epoch(seg: UnsupervisedSegmenter):
+    """A whole cached val epoch (``segmenter.py:697-722``):
+    ``epoch(cache, inds)`` over the (n_batches, B) index batches ``inds``
+    (``-1`` pads the last) gives the summed ``conf_linear`` and
+    ``conf_cluster``, added up on the device."""
+    single = make_cached_val_step(seg)
+    nc = seg.n_classes
+    extra = seg.cfg.extra_clusters
+
+    def val_epoch(cache: Dict[str, torch.Tensor],
+                  inds: Any) -> Dict[str, torch.Tensor]:
+        dev = cache["feats"].device
+        conf = {"conf_linear": torch.zeros((nc, nc), dtype=torch.long,
+                                           device=dev),
+                "conf_cluster": torch.zeros((nc + extra, nc),
+                                            dtype=torch.long, device=dev)}
+        for ind in inds:
+            out = single(cache, {"ind": ind})
+            for k in conf:
+                conf[k] += out[k]
+        return conf
+
+    return val_epoch
+
+
 def make_val_step(seg: UnsupervisedSegmenter):
     """Validation step ``step(batch) -> dict`` (``segmenter.py:725-769``):
     probe argmax predictions at label resolution and the two confusion
     matrices, (n, n) linear and (n + extra, n) cluster, int64, indexed
     [prediction, label]."""
-    nc = seg.n_classes
-    extra = seg.cfg.extra_clusters
 
     @torch.no_grad()
     def val_step(batch: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
-        img, label = batch["img"], batch["label"]
-        _, code = seg.net(img)
-        hw = tuple(label.shape[1:3])
-        linear_preds = upsampled_argmax(
-            linear_probe_logits(seg.linear_probe, code), hw)
-        clusters = l2_normalize(seg.cluster_probe.clusters, dim=1)
-        cluster_preds = upsampled_argmax(code @ clusters.T, hw)
-        dev = label.device
-        return {
-            "conf_linear": update_conf_matrix(
-                torch.zeros((nc, nc), dtype=torch.long, device=dev),
-                linear_preds, label, nc, 0),
-            "conf_cluster": update_conf_matrix(
-                torch.zeros((nc + extra, nc), dtype=torch.long, device=dev),
-                cluster_preds, label, nc, extra),
-            "linear_preds": linear_preds,
-            "cluster_preds": cluster_preds,
-        }
+        _, code = seg.net(batch["img"])
+        return _val_outputs(seg, code, batch["label"])
 
     return val_step

@@ -110,26 +110,30 @@ def _corr_run(fn, feats, code, coords, perms, shifts, weights, **kw):
     """Losses, cd means and the code gradients of a fixed combination."""
     c = [x.clone().requires_grad_(True) for x in code]
     losses, cds = fn(feats[0], feats[1], c[0], c[1], coords[0], coords[1],
-                     perms, shifts, feat_dtype=torch.bfloat16, **kw)
+                     perms, shifts, **kw)
     total = (losses * weights[0]).sum() + (cds * weights[1]).sum()
     grads = torch.autograd.grad(total, c)
     return losses.detach(), cds.detach(), grads
 
 
+@pytest.mark.parametrize("feat_dtype", [torch.bfloat16, torch.float32])
 @pytest.mark.parametrize("b,hw,cf,cc,s,neg,opts", [
     (16, 28, 384, 70, 11, 5, dict(pointwise=True, zero_clamp=True)),
     (16, 28, 384, 70, 11, 5, dict(pointwise=False, stabalize=True)),
     (3, 8, 40, 16, 4, 0, dict(pointwise=True, zero_clamp=False)),
     (2, 5, 8, 3, 3, 1, dict(pointwise=True, zero_clamp=True)),
+    (2, 6, 200, 8, 5, 1, dict(pointwise=True, zero_clamp=True)),
 ])
 def test_corr_sampled_kernel_matches_plain(cuda, b, hw, cf, cc, s, neg,
-                                           opts):
+                                           opts, feat_dtype):
     """Kernel C1 against its plain version at the train step's shape
     (ViT-S/8 at res 224, cocostuff27 head, 11 x 11 samples, 5 negatives)
-    and at small ones. Losses and cd means within rtol 1e-4, atol 1e-6;
-    code gradients within rtol 2e-4, atol 1e-5 (PARITY_r05's sampled-loss
-    rows): the two sum in other orders, and the kernel's gradient adds with
-    f32 atomics."""
+    and at small ones (200 channels: an f32 chunk of 128 and a partial
+    one), with bf16 features (a bf16 trunk) and f32 features (an f32 trunk).
+    Losses and cd means within rtol 1e-4, atol 1e-6; code gradients, at
+    weights that make the largest 1, within rtol 2e-4, atol 1e-5
+    (PARITY_r05's sampled-loss rows): the two sum in other orders, and the
+    kernel's gradient adds with f32 atomics."""
     from stego_torch.ops import corr_fused_sampling as c1
 
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -138,6 +142,12 @@ def test_corr_sampled_kernel_matches_plain(cuda, b, hw, cf, cc, s, neg,
     g = 2 + neg
     wts = torch.randn(2, g, generator=torch.Generator(device=cuda)
                       .manual_seed(7), device=cuda)
+    opts = dict(opts, feat_dtype=feat_dtype)
+    # weights that make the plain version's largest code gradient 1, so
+    # that the gradient tolerance is measured against the gradient's size
+    wts = wts / max(float(x.abs().max()) for x in _corr_run(
+        c1.sampled_corr_plain, feats, code, coords, perms, shifts, wts,
+        **opts)[2])
     f0, b0 = c1.FWD_LAUNCHES, c1.BWD_LAUNCHES
     got = _corr_run(c1.sampled_corr_fused, feats, code, coords, perms, shifts,
                     wts, **opts)
@@ -162,31 +172,37 @@ def test_corr_sampled_kernel_rejects_one_image_batch(cuda):
                               feat_dtype=torch.bfloat16)
 
 
-def test_corr_sampled_kernel_rejects_f32_features(cuda):
+def test_corr_sampled_kernel_rejects_other_feature_types(cuda):
+    """A CUDA tensor never falls back to the plain version: a feature type
+    the kernel has no instantiation for raises, and nothing launches."""
     from stego_torch.ops import corr_fused_sampling as c1
 
     feats, code, coords, perms, shifts = _corr_inputs(cuda, 2, 8, 32, 8, 3,
                                                       1, seed=0)
-    with pytest.raises(ValueError, match="bf16 features"):
+    before = c1.FWD_LAUNCHES
+    with pytest.raises(ValueError, match="bf16 or f32 features"):
         c1.sampled_corr_fused(feats[0], feats[1], code[0], code[1],
                               coords[0], coords[1], perms, shifts,
-                              feat_dtype=torch.float32)
+                              feat_dtype=torch.float16)
+    assert c1.FWD_LAUNCHES == before
 
 
-def _stream_inputs(dev, b, hw, cf, cc, neg, seed, distinct=False):
-    """Seeded inputs of kernel C2: normalized feature (bf16) and code (f32)
-    maps and the pair rows of the self pair, the positive pair and ``neg``
-    negatives. Full-field (``distinct=False``): the maps of b images and
-    their positives, negatives read by index, as ops/corr_stream.py:
-    _full_field builds them. Grid-sampled (``distinct=True``): one map set
-    a pair type, as the gather branch's sampled pairs are."""
+def _stream_inputs(dev, b, hw, cf, cc, neg, seed, distinct=False,
+                   feat_dtype=torch.bfloat16):
+    """Seeded inputs of kernel C2: normalized feature (``feat_dtype``) and
+    code (f32) maps and the pair rows of the self pair, the positive pair
+    and ``neg`` negatives. Full-field (``distinct=False``): the maps of b
+    images and their positives, negatives read by index, as
+    ops/corr_stream.py:_full_field builds them. Grid-sampled
+    (``distinct=True``): one map set a pair type, as the gather branch's
+    sampled pairs are."""
     from stego_torch.ops import corr_stream as c2
     from stego_torch.ops.math import super_perm
 
     g = torch.Generator(device=dev).manual_seed(seed)
     m = (2 + neg if distinct else 2) * b
     feats = c2.prep(torch.randn(m, hw, hw, cf, generator=g, device=dev),
-                    torch.bfloat16)
+                    feat_dtype)
     code = c2.prep(torch.randn(m, hw, hw, cc, generator=g, device=dev))
     ar = torch.arange(b, device=dev)
     idx1 = ar.repeat(2 + neg)
@@ -224,6 +240,7 @@ def _code_bf16_grads_agree(got, want):
         and float(inside) >= 0.99
 
 
+@pytest.mark.parametrize("feat_dtype", [torch.bfloat16, torch.float32])
 @pytest.mark.parametrize("b,hw,cf,cc,neg,distinct,opts", [
     (16, 28, 384, 70, 5, False, dict(pointwise=True, zero_clamp=True)),
     (16, 28, 384, 70, 5, False, dict(pointwise=False, stabalize=True)),
@@ -236,13 +253,17 @@ def _code_bf16_grads_agree(got, want):
     (2, 5, 8, 3, 1, False, dict(pointwise=False, zero_clamp=True,
                                 code_bf16=True)),
     (4, 9, 32, 128, 2, False, dict(pointwise=True, stabalize=True)),
+    (2, 7, 100, 16, 1, False, dict(pointwise=True, zero_clamp=True)),
 ])
 def test_corr_stream_kernel_matches_plain(cuda, b, hw, cf, cc, neg, distinct,
-                                          opts):
-    """Kernel C2 against its plain version: the full-field shape (ViT-S/8
-    at res 224, cocostuff27 head, 5 negatives, N = 784, 32 maps), the
-    grid-sampled one (N = 121, 112 maps), both also with code_bf16, and
-    small ragged ones (N = 64, 25, 81, no negatives). Losses and cd means
+                                          opts, feat_dtype):
+    """Kernel C2 against its plain version, with bf16 features (a bf16
+    trunk) and f32 features (an f32 trunk, whose tiles take the channels
+    64 at a time: 100 channels are a chunk and a partial one): the
+    full-field shape (ViT-S/8 at res 224, cocostuff27 head, 5 negatives,
+    N = 784, 32 maps), the grid-sampled one (N = 121, 112 maps), both also
+    with code_bf16, and small ragged ones (N = 64, 25, 81, 49, no
+    negatives). Losses and cd means
     within rtol 1e-4, atol 1e-5; code gradients, at weights that make the
     largest 1, within rtol 2e-4, atol 1e-5 (PARITY_r05's corr rows): the
     two sum in other orders; with code_bf16 :func:`_code_bf16_grads_agree`.
@@ -251,7 +272,8 @@ def test_corr_stream_kernel_matches_plain(cuda, b, hw, cf, cc, neg, distinct,
 
     torch.backends.cuda.matmul.allow_tf32 = False
     feats, code, idx1, idx2, shifts = _stream_inputs(
-        cuda, b, hw, cf, cc, neg, seed=b + cf + cc, distinct=distinct)
+        cuda, b, hw, cf, cc, neg, seed=b + cf + cc, distinct=distinct,
+        feat_dtype=feat_dtype)
     wts = torch.randn(2, 2 + neg, generator=torch.Generator(device=cuda)
                       .manual_seed(7), device=cuda)
     args = (c2, feats, code, idx1, idx2, shifts, b, neg)
@@ -297,19 +319,89 @@ def test_corr_stream_code_bf16_gate_rejects_f32_kernel(cuda, hw, distinct):
         assert not _code_bf16_grads_agree(got[2], want[2])
 
 
-def test_corr_stream_kernel_rejects_f32_features(cuda):
-    """A CUDA tensor never falls back to the plain version: f32 features
-    raise."""
+def test_corr_stream_kernel_rejects_other_feature_types(cuda):
+    """A CUDA tensor never falls back to the plain version: f16 features,
+    and f32 features wider than the f32 tiles take, raise before a
+    launch."""
     from stego_torch.ops import corr_stream as c2
 
     feats, code, idx1, idx2, shifts = _stream_inputs(cuda, 2, 4, 16, 8, 1,
                                                      seed=0)
     before = c2.FWD_LAUNCHES
-    with pytest.raises(ValueError, match="bf16 features"):
-        c2.stream_loss(feats.float(), code, idx1, idx2, shifts, [2] * 3, True,
-                   True, False, False, True)
+    with pytest.raises(ValueError, match="bf16 or f32 features"):
+        c2.stream_loss(feats.half(), code, idx1, idx2, shifts, [2] * 3, True,
+                       True, False, False, True)
+    wide = torch.zeros(4, 16, c2.MAX_FEAT_CHANNELS_F32 + 8, device=cuda)
+    with pytest.raises(ValueError, match="feature and"):
+        c2.stream_loss(wide, code, idx1, idx2, shifts, [2] * 3, True, True,
+                       False, False, True)
     assert c2.FWD_LAUNCHES == before
-    f = torch.randn(2, 4, 4, 16, device=cuda)
-    c = torch.randn(2, 4, 4, 8, device=cuda)
-    with pytest.raises(ValueError, match="bf16 features"):
-        c2.fused_correlation_loss_multi([(f, f, c, c)], [0.1])
+
+
+@pytest.mark.parametrize("kw,kernel", [
+    (dict(), "C1"),
+    (dict(full_field_loss=True), "C2"),
+    (dict(fused_sampling="off"), "C2"),
+])
+def test_cached_f32_step_matches_plain_loss_step(cuda, kw, kernel):
+    """One cached train step of an f32 trunk's cache (ViT patch 8, width
+    128, depth 2, res 64, 8 images, dim 6, 3 x 3 samples, 2 negatives)
+    with the loss's kernel, f32 tiles, against the same step with its plain
+    version: metrics within rtol 1e-4, atol 1e-6, updated parameters within
+    rtol 2e-4, atol 1e-5; one forward and one backward launch of the loss's
+    kernel, none of the other."""
+    import copy
+
+    import numpy as np
+
+    from stego_torch.config import Config
+    from stego_torch.models.vit import ViTConfig
+    from stego_torch.ops import corr_fused_sampling as c1
+    from stego_torch.ops import corr_stream as c2
+    from stego_torch.train.feat_cache import build_feat_cache
+    from stego_torch.train.segmenter import (UnsupervisedSegmenter,
+                                             draw_step_randomness,
+                                             make_cached_train_step)
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    cfg = Config(dataset_name="directory", dim=6, res=64, feature_samples=3,
+                 neg_samples=2, batch_size=4, backbone_dtype="float32",
+                 cache_backbone_feats=True, **kw)
+    vit = ViTConfig(patch_size=8, embed_dim=128, depth=2, num_heads=2,
+                    img_size=64)
+    seg = UnsupervisedSegmenter(5, cfg, vit_cfg=vit).to(cuda)
+    rng = np.random.default_rng(0)
+
+    class Contrastive:
+        dataset = [(rng.standard_normal((64, 64, 3)).astype(np.float32),
+                    rng.integers(-1, 5, (64, 64))) for _ in range(8)]
+
+    cache = build_feat_cache(seg, Contrastive(), cfg)
+    batch = {"ind": torch.tensor([0, 3, 5, 6], device=cuda),
+             "ind_pos": torch.tensor([2, 1, 7, 4], device=cuda)}
+    rand = draw_step_randomness(
+        seg, 4, torch.Generator(device=cuda).manual_seed(1))
+    out = {}
+    for use_kernel in (True, False):
+        twin = copy.deepcopy(seg)
+        twin.use_corr_kernel = use_kernel
+        before = (c1.FWD_LAUNCHES, c1.BWD_LAUNCHES, c2.FWD_LAUNCHES,
+                  c2.BWD_LAUNCHES)
+        metrics = make_cached_train_step(twin, with_hist=False)(cache, batch,
+                                                                rand)
+        torch.cuda.synchronize()
+        delta = tuple(a - b for a, b in zip(
+            (c1.FWD_LAUNCHES, c1.BWD_LAUNCHES, c2.FWD_LAUNCHES,
+             c2.BWD_LAUNCHES), before))
+        want = ((1, 1, 0, 0) if kernel == "C1" else (0, 0, 1, 1)) \
+            if use_kernel else (0, 0, 0, 0)
+        assert delta == want
+        out[use_kernel] = (metrics, dict(twin.named_parameters()))
+    (mk, pk), (mp, pp) = out[True], out[False]
+    for k in mp:
+        torch.testing.assert_close(mk[k], mp[k], rtol=1e-4, atol=1e-6,
+                                   msg=k)
+    for n in pp:
+        torch.testing.assert_close(pk[n], pp[n], rtol=2e-4, atol=1e-5,
+                                   msg=n)

@@ -181,3 +181,18 @@ def test_demo_writes_png_trees(tmp_path):
             want = np.asarray(Image.open(jax_out / tree / name))
             assert (got == want).mean() >= 0.99
     assert sorted(os.listdir(out / "cluster")) == ["a.png", "b.png"]
+
+
+def test_demo_main_needs_a_cuda_device(tmp_path, monkeypatch):
+    """``python -m stego_torch.eval.demo`` runs on the card: without one it
+    exits with an error that says so and writes nothing (a caller of
+    ``demo`` asks for the CPU by passing a CPU device)."""
+    from stego_torch.eval import demo as demo_module
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    monkeypatch.chdir(tmp_path)
+    (tmp_path / "imgs").mkdir()
+    with pytest.raises(SystemExit, match="CUDA device"):
+        demo_module.main([f"model_path={tmp_path / 'm.ckpt'}",
+                          f"image_dir={tmp_path / 'imgs'}", "run_crf=false"])
+    assert sorted(os.listdir(tmp_path)) == ["imgs"]

@@ -1,8 +1,9 @@
 """stego_torch runs where there is no JAX, no PIL and no JAX package: a
 fresh interpreter in which those imports fail imports every module of the
-port and runs one eval step, and another runs train steps (the sampled loss
+port and runs one eval step, another runs train steps (the sampled loss
 through C1's plain version, full-field and grid-sampled through C2's) and
-one val step, on the CPU."""
+one val step, and a third builds a KNN cache and a feature cache and runs a
+cached train step and a cached val epoch, on the CPU."""
 
 import subprocess
 import sys
@@ -28,7 +29,8 @@ MODULES = [
     "stego_torch.eval.evaluate", "stego_torch.eval.demo",
     "stego_torch.ops.sampling", "stego_torch.ops.correlation",
     "stego_torch.ops.corr_stream", "stego_torch.ops.corr_fused_sampling",
-    "stego_torch.utils.metrics",
+    "stego_torch.utils.metrics", "stego_torch.data.synthetic",
+    "stego_torch.train.knn", "stego_torch.train.feat_cache",
 ]
 for name in MODULES:
     importlib.import_module(name)
@@ -85,6 +87,61 @@ print("OK", sorted(m for m, mod in sys.modules.items()
 """
 
 
+CACHED_SCRIPT = """
+import sys
+sys.modules["jax"] = None  # any import of jax raises ImportError
+sys.modules["PIL"] = None
+sys.modules["stego_tpu"] = None  # nor anything of the JAX package
+import os
+import tempfile
+import numpy as np
+import torch
+from stego_torch.config import Config
+from stego_torch.data.synthetic import render_scene
+from stego_torch.models.vit import ViTConfig
+from stego_torch.train.feat_cache import FeatCacheSampler, build_feat_cache
+from stego_torch.train.knn import build_knn_cache, knn_cache_file
+from stego_torch.train.segmenter import (UnsupervisedSegmenter,
+                                         draw_step_randomness,
+                                         make_cached_train_step,
+                                         make_cached_val_epoch)
+cfg = Config(dataset_name="directory", dim=6, res=32, feature_samples=3,
+             neg_samples=2, batch_size=4, num_neighbors=3,
+             cache_backbone_feats=True)  # bf16 trunk, fused sampling
+vit = ViTConfig(patch_size=8, embed_dim=128, depth=2, num_heads=2,
+                img_size=32)
+seg = UnsupervisedSegmenter(5, cfg, vit_cfg=vit)
+rng = np.random.default_rng(0)
+items = [render_scene(rng, 32, 5) for _ in range(10)]
+
+class Contrastive:
+    dataset = items
+    seed, epoch, num_neighbors = 0, 0, 3
+    pos_images = pos_labels = True
+
+ds = Contrastive()
+with tempfile.TemporaryDirectory() as tmp:
+    path = knn_cache_file(tmp, "vit_small", "synth", "train", None, 32)
+    loader = [torch.from_numpy(np.stack([it[0] for it in items[i:i + 4]]))
+              for i in range(0, 10, 4)]
+    ds.nns = build_knn_cache(path, seg.net, loader, k=4)
+    assert os.path.exists(path) and ds.nns.shape == (10, 4)
+cache = build_feat_cache(seg, ds, cfg)
+assert cache["feats"].dtype == torch.bfloat16
+sampler = FeatCacheSampler(ds)
+draws = [sampler[i] for i in (3, 0, 9, 5)]
+batch = {k: np.array([d[k] for d in draws]) for k in ("ind", "ind_pos")}
+g = torch.Generator().manual_seed(0)
+m = make_cached_train_step(seg)(cache, batch, draw_step_randomness(seg, 4, g))
+assert torch.isfinite(m["loss/total"]) and seg.step == 1
+out = make_cached_val_epoch(seg)(cache, [[0, 1, 2, 3], [4, 5, -1, -1]])
+n_valid = sum(int((items[i][1] >= 0).sum()) for i in range(6))
+assert int(out["conf_linear"].sum()) == n_valid
+print("OK", sorted(m for m, mod in sys.modules.items()
+                   if mod is not None and m.split(".")[0] == "stego_tpu"))
+"""
+
+
 def run_without_jax(script):
     proc = subprocess.run([sys.executable, "-c", script], cwd=REPO,
                           capture_output=True, text=True, timeout=300)
@@ -100,4 +157,9 @@ def test_slice_imports_and_runs_without_jax_or_pil():
 
 def test_train_and_val_step_run_without_jax_or_pil():
     proc = run_without_jax(TRAIN_SCRIPT)
+    assert proc.stdout.strip().endswith("OK []"), proc.stdout
+
+
+def test_knn_cache_and_cached_steps_run_without_jax_or_pil():
+    proc = run_without_jax(CACHED_SCRIPT)
     assert proc.stdout.strip().endswith("OK []"), proc.stdout
