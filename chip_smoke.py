@@ -112,6 +112,14 @@ STREAM_RTOL, STREAM_ATOL = 1e-4, 1e-5
 # a parameter whose gradient is below 1e-9 (lr g / (|g| + 1e-8)); the step
 # with the f32 kernel must fail that.
 BF16_GRAD_ATOL, BF16_GRAD_SHARE, BF16_PARAM_ATOL = 2 ** -7, 0.99, 5e-5
+# f32 features: the losses and code gradients average fd over many
+# elements, so a kernel that rounded the features to bf16 (~1e-4 on one fd
+# of unit vectors of 384 channels) could stay inside their tolerances. The
+# f32 kernels' products are therefore also held elementwise against the f32
+# plain version: C1's fd within FD_ATOL, C2's fd row sums (N terms) within
+# ROW_SUM_ATOL; the bf16 instantiation on the same f32 features, the
+# control, must fail.
+FD_ATOL, ROW_SUM_ATOL = 1e-5, 1e-4
 FULL_STEPS, SHORT_STEPS = 10, 3
 # the feature-cache path: seeded synthetic scenes of 27 classes, the train
 # split at TRAIN_RES with its KNN table, the val split at VAL_RES in
@@ -479,16 +487,16 @@ def phase_corr(dev):
         times = {}
         for opts in (dict(pointwise=True, zero_clamp=True),
                      dict(pointwise=False, stabalize=True)):
-            def forward(fn):
+            def forward(fn, dtype=feat_dtype):
                 c = [x.clone().requires_grad_(True) for x in code]
                 losses, cds = fn(feats[0], feats[1], c[0], c[1], coords[0],
-                                 coords[1], perms, shifts,
-                                 feat_dtype=feat_dtype, **opts)
+                                 coords[1], perms, shifts, feat_dtype=dtype,
+                                 **opts)
                 total = (losses * wts[0]).sum() + (cds * wts[1]).sum()
                 return losses, cds, total, c
 
-            def run(fn):
-                losses, cds, total, c = forward(fn)
+            def run(fn, dtype=feat_dtype):
+                losses, cds, total, c = forward(fn, dtype)
                 return (losses.detach(), cds.detach(),
                         *torch.autograd.grad(total, c))
 
@@ -500,6 +508,17 @@ def phase_corr(dev):
                 f"{k}={v}" for k, v in opts.items())
             hold_to_plain(label, got, want, errs, (LOSS_RTOL, LOSS_ATOL),
                           (GRAD_RTOL, GRAD_ATOL))
+            if name == "f32":
+                plain_fd = c1.sampled_products_plain(
+                    feats[0], feats[1], code[0], code[1], coords[0],
+                    coords[1], perms)[0]
+                fd_err = {dtype: float((c1.kernel_fd(forward(
+                    c1.sampled_corr_fused, dtype)[0]) - plain_fd).abs().max())
+                    for dtype in (torch.float32, torch.bfloat16)}
+                f32_control(label, "fd", fd_err, FD_ATOL, agreement(
+                    run(c1.sampled_corr_fused, torch.bfloat16), want,
+                    (LOSS_RTOL, LOSS_ATOL), (GRAD_RTOL, GRAD_ATOL),
+                    verbose=False))
             if not times:
                 times = time_fwd_bwd(forward, run, c1.sampled_corr_fused,
                                      c1.sampled_corr_plain)
@@ -577,6 +596,24 @@ def hold_to_plain(label, got, want, errs, loss_tol, grad_tol, share=None):
                                            share).items():
         errs[what] = max(errs[what], err)
         check(ok, f"{label}: {text}")
+
+
+def f32_control(label, what, err, atol, ctl):
+    """The f32 kernel's products (``what``) against the f32 plain version's
+    within ``atol``; and the control, the bf16 instantiation on the same f32
+    features, must fail the gate of losses, code gradients (``ctl``, its
+    :func:`agreement`) and products together. ``err``: {feature type: the
+    products' max_abs_err}."""
+    f32, bf16 = err[torch.float32], err[torch.bfloat16]
+    check(f32 <= atol, f"{label}: {what} elementwise, max_abs_err "
+                       f"{f32:.3e} (<= {atol})")
+    verdict = {k: "passes" if v[0] else "fails" for k, v in ctl.items()}
+    check(not (ctl["fwd"][0] and ctl["bwd"][0] and bf16 <= atol),
+          f"control, the bf16 instantiation on the same f32 features against "
+          f"the f32 plain version: {what} max_abs_err {bf16:.3e} "
+          f"({'passes' if bf16 <= atol else 'fails'} <= {atol}); losses and "
+          f"cd {verdict['fwd']} ({ctl['fwd'][1]}); code gradients "
+          f"{verdict['bwd']} ({ctl['bwd'][1]})")
 
 
 def time_fwd_bwd(forward, run, kernel, plain):
@@ -674,9 +711,9 @@ def phase_corr_stream(dev):
             dev, b, hw, cf, cc, neg, distinct, seed=hw + code_bf16,
             feat_dtype=torch.float32 if feat_f32 else torch.bfloat16)
 
-        def forward(use_kernel, code_in=code, bf16=code_bf16):
+        def forward(use_kernel, code_in=code, bf16=code_bf16, feats_in=feats):
             c = code_in.clone().requires_grad_(True)
-            losses, cds = c2.stream_loss(feats, c, idx1, idx2, shifts,
+            losses, cds = c2.stream_loss(feats_in, c, idx1, idx2, shifts,
                                          groups, code_bf16=bf16,
                                          use_kernel=use_kernel, **opts)
             total = (losses * wts[0]).sum() + (cds * wts[1]).sum()
@@ -705,6 +742,16 @@ def phase_corr_stream(dev):
                       (STREAM_RTOL, STREAM_ATOL), grad_tol, share)
         check(all(torch.equal(x, y) for x, y in zip(got, again)),
               f"{label}: two kernel runs bitwise equal")
+        if feat_f32 and opts is zero_clamp:
+            plain_sums = torch.bmm(feats[idx1],
+                                   feats[idx2].transpose(1, 2)).sum(-1)
+            sum_err = {dtype: float((c2.kernel_row_sums(forward(
+                True, feats_in=feats.to(dtype))[0])[:, 2] - plain_sums)
+                .abs().max()) for dtype in (torch.float32, torch.bfloat16)}
+            f32_control(label, "fd row sums", sum_err, ROW_SUM_ATOL,
+                        agreement(run(True, feats_in=feats.bfloat16()), want,
+                                  (STREAM_RTOL, STREAM_ATOL), grad_tol,
+                                  verbose=False))
         if code_bf16:
             # controls: kernels that ignore code_bf16 must fail the gate
             for what, code_in in (("raw", code),

@@ -62,7 +62,7 @@ def _grid(coords: torch.Tensor) -> torch.Tensor:
     return coords.transpose(1, 2)
 
 
-def sampled_corr_plain(
+def sampled_products_plain(
     orig_feats: torch.Tensor,
     orig_feats_pos: torch.Tensor,
     orig_code: torch.Tensor,
@@ -70,23 +70,18 @@ def sampled_corr_plain(
     coords1: torch.Tensor,
     coords2: torch.Tensor,
     perms: Sequence[torch.Tensor],
-    shifts: Sequence[float],
-    pointwise: bool = True,
-    zero_clamp: bool = True,
-    stabalize: bool = False,
     feat_dtype: torch.dtype = torch.float32,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """The plain version: (losses (G,), cd_means (G,)), differentiable in
-    the code maps."""
+    """The plain version's products of every slot: (fd, cd), each
+    (G*B, S, S) f32, group-major (slot g * B + b), differentiable in the
+    code maps; the kernel's forward leaves the same fd, slot-major, for its
+    backward."""
     b, h, w, cf = orig_feats.shape
     cc = orig_code.shape[-1]
-    neg = len(perms)
-    g = 2 + neg
-    _check_groups(b, neg, len(shifts))
+    g = 2 + len(perms)
     hw = h * w
     w1 = bilinear_sample_weights((h, w), _grid(coords1))   # (B, S, HW) f32
     w2 = bilinear_sample_weights((h, w), _grid(coords2))
-    s = w1.shape[1]
     f = torch.cat([orig_feats, orig_feats_pos]).detach() \
         .reshape(2 * b, hw, cf).to(feat_dtype)
     c = torch.cat([orig_code, orig_code_pos]).reshape(2 * b, hw, cc).float()
@@ -108,6 +103,31 @@ def sampled_corr_plain(
     z2cn = l2_normalize(torch.bmm(w_side2, c[src]))            # (G*B, S, cc)
     fd = torch.bmm(z1f.float().repeat(g, 1, 1), z2fn.float().transpose(1, 2))
     cd = torch.bmm(z1cn.repeat(g, 1, 1), z2cn.transpose(1, 2))
+    return fd, cd
+
+
+def sampled_corr_plain(
+    orig_feats: torch.Tensor,
+    orig_feats_pos: torch.Tensor,
+    orig_code: torch.Tensor,
+    orig_code_pos: torch.Tensor,
+    coords1: torch.Tensor,
+    coords2: torch.Tensor,
+    perms: Sequence[torch.Tensor],
+    shifts: Sequence[float],
+    pointwise: bool = True,
+    zero_clamp: bool = True,
+    stabalize: bool = False,
+    feat_dtype: torch.dtype = torch.float32,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The plain version: (losses (G,), cd_means (G,)), differentiable in
+    the code maps."""
+    b, g = orig_feats.shape[0], 2 + len(perms)
+    _check_groups(b, len(perms), len(shifts))
+    fd, cd = sampled_products_plain(orig_feats, orig_feats_pos, orig_code,
+                                    orig_code_pos, coords1, coords2, perms,
+                                    feat_dtype)
+    s = fd.shape[-1]
     lo, hi = clamp_bounds(zero_clamp, stabalize)
     cdc = torch.clamp(cd, lo, hi)
 
@@ -153,6 +173,16 @@ def sampled_corr_fused(
                               tuple(float(x) for x in shifts),
                               bool(pointwise), bool(zero_clamp),
                               bool(stabalize), feat_dtype)
+
+
+def kernel_fd(losses: torch.Tensor) -> torch.Tensor:
+    """The fd that the kernel's forward computed for ``losses`` (kept on
+    their autograd node for the backward), group-major (G*B, S, S) as
+    :func:`sampled_products_plain` gives it."""
+    fd = losses.grad_fn.saved_tensors[4]
+    b, g, s = losses.grad_fn.static[0], losses.grad_fn.static[5], \
+        fd.shape[-1]
+    return fd.reshape(b, g, s, s).transpose(0, 1).reshape(g * b, s, s)
 
 
 def _flat(t: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:

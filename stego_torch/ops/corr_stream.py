@@ -295,6 +295,13 @@ def fused_correlation_loss_multi(
     return _merge(losses, cd_means, split_groups)
 
 
+def kernel_row_sums(losses: torch.Tensor) -> torch.Tensor:
+    """The row sums (R, 4, N) that the kernel's forward computed for
+    ``losses`` (kept on their autograd node for the backward): per pair row
+    and sample, sum(clamp(cd) fd), sum(clamp(cd)), sum(fd), sum(cd)."""
+    return losses.grad_fn.saved_tensors[4]
+
+
 class _StreamCorr(torch.autograd.Function):
     """Kernel C2 as an autograd function of the normalized code maps."""
 

@@ -18,7 +18,7 @@ from __future__ import annotations
 
 import os
 from os.path import join
-from typing import Callable, Iterable, Optional, Union
+from typing import Callable, Iterable, Union
 
 import numpy as np
 import torch
@@ -66,18 +66,16 @@ def embed_dataset(embed_fn: Callable[[torch.Tensor], torch.Tensor],
 
 
 def topk_neighbors(feats: Union[torch.Tensor, np.ndarray], k: int = 30,
-                   n_chunks: int = 16, max_sims_bytes: int = 1 << 30,
-                   device: Optional[Union[str, torch.device]] = None
+                   n_chunks: int = 16, max_sims_bytes: int = 1 << 30
                    ) -> np.ndarray:
     """Row-chunked all-pairs cosine top-k (reference
     precompute_knns.py:86-94): (N, min(k, N)) int32 neighbour indices, most
     similar first. Each chunk of rows is one f32 matmul against the whole
     table and one ``torch.topk``; the chunk has N // n_chunks rows, capped
     so that its similarity block stays under ``max_sims_bytes``
-    (``knn.py:52-99``). Runs on ``device``: by default the tensor's, or the
-    first CUDA device for a numpy array."""
-    if device is None:
-        device = feats.device if isinstance(feats, torch.Tensor) else "cuda:0"
+    (``knn.py:52-99``). Runs on the tensor's device, or on the first CUDA
+    device for a numpy array."""
+    device = feats.device if isinstance(feats, torch.Tensor) else "cuda:0"
     table = torch.as_tensor(feats).to(device=device, dtype=torch.float32)
     n = table.shape[0]
     k = min(k, n)

@@ -161,6 +161,32 @@ def test_corr_sampled_kernel_matches_plain(cuda, b, hw, cf, cc, s, neg,
         torch.testing.assert_close(gg, ww, rtol=2e-4, atol=1e-5)
 
 
+def test_corr_sampled_f32_fd_gate_rejects_bf16_kernel(cuda):
+    """The losses and gradients average fd over many elements, so a kernel
+    that rounded f32 features to bf16 could pass their gates; fd itself,
+    elementwise, tells them apart. At the train step's shape the f32
+    kernel's fd is within 1e-5 of the f32 plain version's, and the bf16
+    instantiation's on the same f32 features is not."""
+    from stego_torch.ops import corr_fused_sampling as c1
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    feats, code, coords, perms, shifts = _corr_inputs(cuda, 16, 28, 384, 70,
+                                                      11, 5, seed=3)
+    # code that needs gradients, so that the losses keep the kernel's node
+    code = [c.requires_grad_(True) for c in code]
+    args = (feats[0], feats[1], code[0], code[1], coords[0], coords[1],
+            perms)
+    want = c1.sampled_products_plain(*args)[0]
+
+    def fd_err(feat_dtype):
+        losses, _ = c1.sampled_corr_fused(*args, shifts,
+                                          feat_dtype=feat_dtype)
+        return float((c1.kernel_fd(losses) - want).abs().max())
+
+    assert fd_err(torch.float32) <= 1e-5
+    assert fd_err(torch.bfloat16) > 1e-5
+
+
 def test_corr_sampled_kernel_rejects_one_image_batch(cuda):
     from stego_torch.ops import corr_fused_sampling as c1
 
@@ -317,6 +343,30 @@ def test_corr_stream_code_bf16_gate_rejects_f32_kernel(cuda, hw, distinct):
         got = _stream_run(c2, feats, code_in, idx1, idx2, shifts, 16, 5, wts,
                           opts, True, code_bf16=False)
         assert not _code_bf16_grads_agree(got[2], want[2])
+
+
+@pytest.mark.parametrize("hw,distinct", [(28, False), (11, True)])
+def test_corr_stream_f32_row_sum_gate_rejects_bf16_kernel(cuda, hw,
+                                                          distinct):
+    """As for C1: at the full-field and grid-sampled shapes the f32
+    kernel's fd row sums are within 1e-4 of the f32 plain version's, and
+    the bf16 instantiation's on the same f32 features are not."""
+    from stego_torch.ops import corr_stream as c2
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    feats, code, idx1, idx2, shifts = _stream_inputs(
+        cuda, 16, hw, 384, 70, 5, seed=hw, distinct=distinct,
+        feat_dtype=torch.float32)
+    want = torch.bmm(feats[idx1], feats[idx2].transpose(1, 2)).sum(-1)
+
+    def row_sum_err(feat_dtype):
+        losses, _ = c2.stream_loss(feats.to(feat_dtype),
+                                   code.requires_grad_(True), idx1, idx2,
+                                   shifts, [16] * 7)
+        return float((c2.kernel_row_sums(losses)[:, 2] - want).abs().max())
+
+    assert row_sum_err(torch.float32) <= 1e-4
+    assert row_sum_err(torch.bfloat16) > 1e-4
 
 
 def test_corr_stream_kernel_rejects_other_feature_types(cuda):
