@@ -38,18 +38,21 @@
 // writes 7 MB of residuals. Neither bound is near: at this size a simple
 // kernel is bound by its own instruction issue. Design: one block a slot,
 // 112 blocks, no block waits on another (side 1 is sampled again in each
-// of its image's 7 blocks). A block samples both sides' features into two
-// k-major bf16 panels in shared memory (2 x 384 x 136 x 2 B = 204 KB), each
-// of its 256 threads accumulates an 8 x 8 tile of fd in registers with f32
-// FMA, then the block samples the code into the same shared memory (f32
-// panels) and accumulates the matching 8 x 8 tile of cd; row sums reduce
-// over the 16 threads of a row group by warp shuffles. f32 features would
-// need 418 KB of panels, above the 227 KB a block may have: the block
-// first computes every sample's norm over all channels (one warp a
-// sample), then takes the channels 128 at a time (2 x 128 x 136 x 4 B =
-// 139 KB), sampling each chunk again with the same FMA order and dividing
-// by the norm, and keeps the 8 x 8 fd accumulators in registers across the
-// chunks. The bf16 instantiation is the bf16 kernel as it was.
+// of its image's 7 blocks). Up to 384 bf16 channels, a block samples both
+// sides' features into two k-major bf16 panels in shared memory (2 x 384 x
+// 136 x 2 B = 204 KB), one warp a sample keeping its samples in registers
+// for the l2 norm. Every channel at once would not fit beside the taps
+// above that (408 KB of bf16 panels at ViT-B's 768 channels, 418 KB of f32
+// at 384): the block first computes every sample's norm over all channels
+// (one warp a sample), then samples the channels a chunk at a time again
+// with the same FMA order, divided by the norms (bf16: 384 channels a
+// chunk; f32: 128, 2 x 128 x 136 x 4 B = 139 KB). Each of the 256 threads
+// accumulates an 8 x 8 tile of fd in registers with f32 FMA across the
+// chunks in channel order; then the block samples the code into the same
+// shared memory (f32 panels) and accumulates the matching 8 x 8 tile of
+// cd; row sums reduce over the 16 threads of a row group by warp shuffles.
+// The chunks change no sum: at ViT-B's 768 channels fd is the channel-order
+// f32 sum it would be in one panel.
 //
 // Backward (_sbwd_kernel, :187-307), again one block a slot: it recomputes
 // cd from the residual code panels (the same FMA order as the forward, so
@@ -75,8 +78,8 @@ namespace {
 
 constexpr int kSMax = 128;         // samples a block takes (S <= 128)
 constexpr int kPitch = kSMax + 8;  // k-major panel row, in elements
-constexpr int kMaxFeat = 384;      // feature channels
-constexpr int kFeatChunk = 128;    // f32 feature channels in a panel
+constexpr int kMaxFeat = 768;      // feature channels (ViT-B)
+constexpr int kWholeBf16 = 384;    // bf16 channels a panel takes at once
 constexpr int kMaxCode = 96;       // code channels
 constexpr int kFwdThreads = 256;   // 16 x 16 threads, one 8 x 8 tile each
 constexpr int kBwdThreads = 288;   // 9 warps
@@ -147,13 +150,94 @@ __device__ void load_taps(const float* grid_a, const float* grid_b, int s,
   }
 }
 
-// Samples the bf16 feature map f (hw, cf) at s points into the k-major panel
-// (cf rows of kPitch): z = sum_t bf16(w_t) f[idx_t] in f32, rounded to bf16,
-// l2-normalised in f32, stored as bf16. One warp a sample, lanes over
-// channels.
-__device__ void sample_feats(const __nv_bfloat16* f, const int* tap_idx,
-                             const float* tap_w, int s, int cf,
-                             __nv_bfloat16* panel) {
+// Channel c of the feature sample at taps (idx, wt): sum_t w_t f[idx_t]
+// with f32 FMA, the same order wherever it is called. bf16 features take
+// the weights rounded to bf16 and round the sum to bf16 (_sfwd_kernel
+// :101-110); f32 features neither.
+__device__ __forceinline__ float sample_at(const __nv_bfloat16* f,
+                                           const int* idx, const float* wt,
+                                           int cf, int c) {
+  float v = 0.f;
+#pragma unroll
+  for (int t = 0; t < 4; ++t) {
+    v = fmaf(bf16_round(wt[t]),
+             __bfloat162float(f[static_cast<size_t>(idx[t]) * cf + c]), v);
+  }
+  return bf16_round(v);
+}
+
+__device__ __forceinline__ float sample_at(const float* f, const int* idx,
+                                           const float* wt, int cf, int c) {
+  float v = 0.f;
+#pragma unroll
+  for (int t = 0; t < 4; ++t) {
+    v = fmaf(wt[t], f[static_cast<size_t>(idx[t]) * cf + c], v);
+  }
+  return v;
+}
+
+// The l2 norms max(|z|, eps) of the feature map f (hw, cf) sampled at s
+// points, over all cf channels, into norm (s). One warp a sample, lanes over
+// channels: lane l sums channels l, l + 32, ... in order.
+template <typename FeatT>
+__device__ void feat_norms(const FeatT* f, const int* tap_idx,
+                           const float* tap_w, int s, int cf, float* norm) {
+  const int lane = threadIdx.x & 31;
+  const int warps = blockDim.x >> 5;
+  for (int k = threadIdx.x >> 5; k < s; k += warps) {
+    int idx[4];
+    float wt[4];
+#pragma unroll
+    for (int t = 0; t < 4; ++t) {
+      idx[t] = tap_idx[k * 4 + t];
+      wt[t] = tap_w[k * 4 + t];
+    }
+    float sq = 0.f;
+    for (int c = lane; c < cf; c += 32) {
+      const float v = sample_at(f, idx, wt, cf, c);
+      sq = fmaf(v, v, sq);
+    }
+    const float d = fmaxf(sqrtf(warp_sum(sq)), kEps);
+    if (lane == 0) norm[k] = d;
+  }
+}
+
+// Channels c0 .. c0 + depth - 1 of the feature map f sampled at s points and
+// divided by their norms (feat_norms), into the k-major panel (depth rows of
+// kPitch) in the feature type. One warp a sample, lanes over channels.
+template <typename FeatT>
+__device__ void sample_feats(const FeatT* f, const int* tap_idx,
+                             const float* tap_w, int s, int cf, int c0,
+                             int depth, const float* norm, FeatT* panel) {
+  const int lane = threadIdx.x & 31;
+  const int warps = blockDim.x >> 5;
+  for (int k = threadIdx.x >> 5; k < s; k += warps) {
+    int idx[4];
+    float wt[4];
+#pragma unroll
+    for (int t = 0; t < 4; ++t) {
+      idx[t] = tap_idx[k * 4 + t];
+      wt[t] = tap_w[k * 4 + t];
+    }
+    const float d = norm[k];
+    for (int cl = lane; cl < depth; cl += 32) {
+      const float z = sample_at(f, idx, wt, cf, c0 + cl) / d;
+      if constexpr (std::is_same<FeatT, float>::value) {
+        panel[cl * kPitch + k] = z;
+      } else {
+        panel[cl * kPitch + k] = __float2bfloat16_rn(z);
+      }
+    }
+  }
+}
+
+// Every channel (cf <= kWholeBf16) of the bf16 feature map f sampled at s
+// points, l2-normalised, into the k-major bf16 panel in one pass: each lane
+// keeps its channels' samples in registers for the norm. The same values as
+// feat_norms and then sample_feats, which read the features twice.
+__device__ void sample_feats_whole(const __nv_bfloat16* f, const int* tap_idx,
+                                   const float* tap_w, int s, int cf,
+                                   __nv_bfloat16* panel) {
   const int lane = threadIdx.x & 31;
   const int warps = blockDim.x >> 5;
   for (int k = threadIdx.x >> 5; k < s; k += warps) {
@@ -164,10 +248,10 @@ __device__ void sample_feats(const __nv_bfloat16* f, const int* tap_idx,
       idx[t] = tap_idx[k * 4 + t];
       wb[t] = bf16_round(tap_w[k * 4 + t]);
     }
-    float z[kMaxFeat / 32];
+    float z[kWholeBf16 / 32];
     float sq = 0.f;
 #pragma unroll
-    for (int u = 0; u < kMaxFeat / 32; ++u) {
+    for (int u = 0; u < kWholeBf16 / 32; ++u) {
       const int c = lane + 32 * u;
       float v = 0.f;
       if (c < cf) {
@@ -184,70 +268,9 @@ __device__ void sample_feats(const __nv_bfloat16* f, const int* tap_idx,
     }
     const float d = fmaxf(sqrtf(warp_sum(sq)), kEps);
 #pragma unroll
-    for (int u = 0; u < kMaxFeat / 32; ++u) {
+    for (int u = 0; u < kWholeBf16 / 32; ++u) {
       const int c = lane + 32 * u;
       if (c < cf) panel[c * kPitch + k] = __float2bfloat16_rn(z[u] / d);
-    }
-  }
-}
-
-// Channel c of the f32 feature sample at taps (idx, wt): sum_t w_t f[idx_t]
-// in f32, the same FMA order wherever it is called.
-__device__ __forceinline__ float sample_f32(const float* f, const int* idx,
-                                            const float* wt, int cf, int c) {
-  float v = 0.f;
-#pragma unroll
-  for (int t = 0; t < 4; ++t) {
-    v = fmaf(wt[t], f[static_cast<size_t>(idx[t]) * cf + c], v);
-  }
-  return v;
-}
-
-// The l2 norms max(|z|, eps) of the f32 feature map f (hw, cf) sampled at
-// s points, over all cf channels, into norm (s). One warp a sample, lanes
-// over channels.
-__device__ void feat_norms_f32(const float* f, const int* tap_idx,
-                               const float* tap_w, int s, int cf,
-                               float* norm) {
-  const int lane = threadIdx.x & 31;
-  const int warps = blockDim.x >> 5;
-  for (int k = threadIdx.x >> 5; k < s; k += warps) {
-    int idx[4];
-    float wt[4];
-#pragma unroll
-    for (int t = 0; t < 4; ++t) {
-      idx[t] = tap_idx[k * 4 + t];
-      wt[t] = tap_w[k * 4 + t];
-    }
-    float sq = 0.f;
-    for (int c = lane; c < cf; c += 32) {
-      const float v = sample_f32(f, idx, wt, cf, c);
-      sq = fmaf(v, v, sq);
-    }
-    const float d = fmaxf(sqrtf(warp_sum(sq)), kEps);
-    if (lane == 0) norm[k] = d;
-  }
-}
-
-// Channels c0 .. c0 + depth - 1 of the f32 feature map f sampled at s
-// points and divided by their norms (feat_norms_f32), into the k-major f32
-// panel (depth rows of kPitch). One warp a sample, lanes over channels.
-__device__ void sample_feats_f32(const float* f, const int* tap_idx,
-                                 const float* tap_w, int s, int cf, int c0,
-                                 int depth, const float* norm, float* panel) {
-  const int lane = threadIdx.x & 31;
-  const int warps = blockDim.x >> 5;
-  for (int k = threadIdx.x >> 5; k < s; k += warps) {
-    int idx[4];
-    float wt[4];
-#pragma unroll
-    for (int t = 0; t < 4; ++t) {
-      idx[t] = tap_idx[k * 4 + t];
-      wt[t] = tap_w[k * 4 + t];
-    }
-    const float d = norm[k];
-    for (int cl = lane; cl < depth; cl += 32) {
-      panel[cl * kPitch + k] = sample_f32(f, idx, wt, cf, c0 + cl) / d;
     }
   }
 }
@@ -354,11 +377,18 @@ __host__ __device__ constexpr bool f32_feats() {
   return std::is_same<FeatT, float>::value;
 }
 
-// Bytes of the forward's panel region: two feature panels (bf16: every
-// channel; f32: kFeatChunk channels), later two f32 code panels.
+// Feature channels of a panel: 384 bf16 (every channel of ViT-S in one
+// chunk) or 128 f32.
+template <typename FeatT>
+__host__ __device__ constexpr int feat_chunk() {
+  return f32_feats<FeatT>() ? 128 : kWholeBf16;
+}
+
+// Bytes of the forward's panel region: two feature panels of a chunk of
+// channels, later two f32 code panels.
 template <typename FeatT>
 __host__ __device__ __forceinline__ size_t panels_bytes(int cf, int cc) {
-  const int rows = f32_feats<FeatT>() && cf > kFeatChunk ? kFeatChunk : cf;
+  const int rows = cf > feat_chunk<FeatT>() ? feat_chunk<FeatT>() : cf;
   const size_t feat = 2 * static_cast<size_t>(rows) * kPitch * sizeof(FeatT);
   const size_t code = 2 * static_cast<size_t>(cc) * kPitch * sizeof(float);
   return feat > code ? feat : code;
@@ -394,45 +424,52 @@ __device__ bool side2_of(int b, int g, int batch, const int* perms,
 // fd (8 x 8 a thread at rows r0, columns c0) of the slot whose side 1 is
 // map f1 sampled at the first kSMax taps and side 2 map f2 at the next, over
 // the panel region p (the panels_bytes<FeatT> bytes at the start of shared
-// memory, zeroed; on return it may be reused). f32 features take the norms
-// (2 kSMax floats of shared memory) first, then the channels in chunks.
-template <typename FeatT>
+// memory, zeroed; on return it may be reused). kWhole (bf16, cf <=
+// kWholeBf16): every channel sampled and normalised in one pass. Otherwise
+// the norms (2 kSMax floats of shared memory) come first, then the channels
+// in chunks, fd accumulating over them in channel order. The two are
+// separate instantiations: compiled into one kernel with the chunked path,
+// the one-pass path ran about 1.3x slower on an H100 (PERF.md).
+template <typename FeatT, bool kWhole>
 __device__ void feature_fd(const FeatT* f1, const FeatT* f2,
                            const int* tap_idx, const float* tap_w, int s,
                            int cf, unsigned char* p, float* norm, int r0,
                            int c0, float (&fd)[8][8]) {
+  constexpr int kChunk = feat_chunk<FeatT>();
 #pragma unroll
   for (int i = 0; i < 8; ++i) {
 #pragma unroll
     for (int j = 0; j < 8; ++j) fd[i][j] = 0.f;
   }
-  if constexpr (!f32_feats<FeatT>()) {
-    __nv_bfloat16* p1 = reinterpret_cast<__nv_bfloat16*>(p);
-    __nv_bfloat16* p2 = p1 + static_cast<size_t>(cf) * kPitch;
-    sample_feats(f1, tap_idx, tap_w, s, cf, p1);
-    sample_feats(f2, tap_idx + kSMax * 4, tap_w + kSMax * 4, s, cf, p2);
+  FeatT* p1 = reinterpret_cast<FeatT*>(p);
+  FeatT* p2 = p1 + static_cast<size_t>(min(kChunk, cf)) * kPitch;
+  if constexpr (kWhole) {
+    sample_feats_whole(f1, tap_idx, tap_w, s, cf, p1);
+    sample_feats_whole(f2, tap_idx + kSMax * 4, tap_w + kSMax * 4, s, cf, p2);
     __syncthreads();
     tile_dot_bf16(p1, p2, cf, r0, c0, fd);
   } else {
-    float* p1 = reinterpret_cast<float*>(p);
-    float* p2 = p1 + static_cast<size_t>(min(kFeatChunk, cf)) * kPitch;
-    feat_norms_f32(f1, tap_idx, tap_w, s, cf, norm);
-    feat_norms_f32(f2, tap_idx + kSMax * 4, tap_w + kSMax * 4, s, cf,
-                   norm + kSMax);
-    for (int ch0 = 0; ch0 < cf; ch0 += kFeatChunk) {
-      const int depth = min(kFeatChunk, cf - ch0);
+    feat_norms(f1, tap_idx, tap_w, s, cf, norm);
+    feat_norms(f2, tap_idx + kSMax * 4, tap_w + kSMax * 4, s, cf,
+               norm + kSMax);
+    for (int ch0 = 0; ch0 < cf; ch0 += kChunk) {
+      const int depth = min(kChunk, cf - ch0);
       // the norms are written, every thread is done with the last chunk
       __syncthreads();
-      sample_feats_f32(f1, tap_idx, tap_w, s, cf, ch0, depth, norm, p1);
-      sample_feats_f32(f2, tap_idx + kSMax * 4, tap_w + kSMax * 4, s, cf,
-                       ch0, depth, norm + kSMax, p2);
+      sample_feats(f1, tap_idx, tap_w, s, cf, ch0, depth, norm, p1);
+      sample_feats(f2, tap_idx + kSMax * 4, tap_w + kSMax * 4, s, cf, ch0,
+                   depth, norm + kSMax, p2);
       __syncthreads();
-      tile_dot_f32(p1, p2, depth, r0, c0, fd);
+      if constexpr (f32_feats<FeatT>()) {
+        tile_dot_f32(p1, p2, depth, r0, c0, fd);
+      } else {
+        tile_dot_bf16(p1, p2, depth, r0, c0, fd);
+      }
     }
   }
 }
 
-template <typename FeatT>
+template <typename FeatT, bool kWhole>
 __global__ void __launch_bounds__(kFwdThreads, 1)
 corr_sampled_fwd_kernel(const FeatT* __restrict__ feats,
                         const FeatT* __restrict__ feats_pos,
@@ -461,7 +498,7 @@ corr_sampled_fwd_kernel(const FeatT* __restrict__ feats,
   const size_t panel_bytes = panels_bytes<FeatT>(cf, cc);
   int* tap_idx = reinterpret_cast<int*>(smem + panel_bytes);
   float* tap_w = reinterpret_cast<float*>(tap_idx + 2 * kSMax * 4);
-  float* norm = tap_w + 2 * kSMax * 4;  // f32 features: 2 kSMax norms
+  float* norm = tap_w + 2 * kSMax * 4;  // 2 kSMax norms unless kWhole
 
   const float* g1 = grid1 + static_cast<size_t>(b) * s * 2;
   const float* g2 = (side2.self ? grid1 : grid2) + static_cast<size_t>(b) * s * 2;
@@ -475,7 +512,7 @@ corr_sampled_fwd_kernel(const FeatT* __restrict__ feats,
   const int c0 = (tid & 15) * 8;  // 16 column groups of 8
   const FeatT* f2src = side2.pos ? feats_pos : feats;
   float fd[8][8];
-  feature_fd<FeatT>(feats + static_cast<size_t>(b) * hw * cf,
+  feature_fd<FeatT, kWhole>(feats + static_cast<size_t>(b) * hw * cf,
                     f2src + static_cast<size_t>(side2.image) * hw * cf,
                     tap_idx, tap_w, s, cf, smem, norm, r0, c0, fd);
   __syncthreads();  // every thread is done with the feature panels
@@ -735,26 +772,27 @@ corr_sampled_bwd_kernel(const float* __restrict__ grid1,
   }
 }
 
-template <typename FeatT>
+template <typename FeatT, bool kWhole>
 size_t fwd_smem_bytes(int cf, int cc) {
-  const size_t norms = f32_feats<FeatT>() ? 2 * kSMax * sizeof(float) : 0;
   return panels_bytes<FeatT>(cf, cc)
-         + 2 * kSMax * 4 * (sizeof(int) + sizeof(float)) + norms;
+         + 2 * kSMax * 4 * (sizeof(int) + sizeof(float))
+         + (kWhole ? 0 : 2 * kSMax * sizeof(float));
 }
 
-template <typename FeatT>
+template <typename FeatT, bool kWhole>
 cudaError_t launch_fwd(const void* feats, const void* feats_pos,
                        const void* code, const void* code_pos,
                        const void* grid1, const void* grid2,
                        const void* perms, void* acc, void* z2cn, void* fd,
                        int batch, int h, int w, int cf, int cc, int s, int g,
                        float lo, float hi, cudaStream_t stream) {
-  const size_t smem = fwd_smem_bytes<FeatT>(cf, cc);
+  const size_t smem = fwd_smem_bytes<FeatT, kWhole>(cf, cc);
   cudaError_t err = cudaFuncSetAttribute(
-      corr_sampled_fwd_kernel<FeatT>,
+      corr_sampled_fwd_kernel<FeatT, kWhole>,
       cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
   if (err != cudaSuccess) return err;
-  corr_sampled_fwd_kernel<FeatT><<<batch * g, kFwdThreads, smem, stream>>>(
+  corr_sampled_fwd_kernel<FeatT, kWhole>
+      <<<batch * g, kFwdThreads, smem, stream>>>(
       static_cast<const FeatT*>(feats), static_cast<const FeatT*>(feats_pos),
       static_cast<const float*>(code), static_cast<const float*>(code_pos),
       static_cast<const float*>(grid1), static_cast<const float*>(grid2),
@@ -777,7 +815,7 @@ size_t bwd_smem_bytes(int cc) {
 // (batch, s, 2) f32 sample points in the reference's transposed order;
 // perms: (g - 2, batch) int32. Writes acc (batch * g, 5, s): s1, s2, s3,
 // sum cd and the side-2 code norms of each slot (slot = b * g + pair type);
-// z2cn (batch * g, s, cc) and fd (batch * g, s, s). cf <= 384, cc <= 96,
+// z2cn (batch * g, s, cc) and fd (batch * g, s, s). cf <= 768, cc <= 96,
 // s <= 128, g >= 2. Returns the CUDA error code of the launch (0 on
 // success).
 extern "C" int stego_corr_sampled_fwd(
@@ -795,13 +833,19 @@ extern "C" int stego_corr_sampled_fwd(
   if (err != cudaSuccess) return static_cast<int>(err);
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (feat_f32) {
-    err = launch_fwd<float>(feats, feats_pos, code, code_pos, grid1, grid2,
-                            perms, acc, z2cn, fd, batch, h, w, cf, cc, s, g,
-                            lo, hi, st);
+    err = launch_fwd<float, false>(feats, feats_pos, code, code_pos, grid1,
+                                   grid2, perms, acc, z2cn, fd, batch, h, w,
+                                   cf, cc, s, g, lo, hi, st);
+  } else if (cf <= kWholeBf16) {
+    err = launch_fwd<__nv_bfloat16, true>(feats, feats_pos, code, code_pos,
+                                          grid1, grid2, perms, acc, z2cn, fd,
+                                          batch, h, w, cf, cc, s, g, lo, hi,
+                                          st);
   } else {
-    err = launch_fwd<__nv_bfloat16>(feats, feats_pos, code, code_pos, grid1,
-                                    grid2, perms, acc, z2cn, fd, batch, h, w,
-                                    cf, cc, s, g, lo, hi, st);
+    err = launch_fwd<__nv_bfloat16, false>(feats, feats_pos, code, code_pos,
+                                           grid1, grid2, perms, acc, z2cn,
+                                           fd, batch, h, w, cf, cc, s, g, lo,
+                                           hi, st);
   }
   return static_cast<int>(err);
 }

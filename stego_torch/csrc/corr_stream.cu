@@ -65,20 +65,26 @@
 // 121 are not multiples of 64): tile rows past n are zeros in shared memory
 // and masked out of the sums; nothing is padded in device memory.
 //
-// f32 features. Two 64-row f32 feature tiles of 384 channels would take
-// about 200 KB, which does not fit beside the code tiles. The block's own
-// 64 rows (side 1 in the forward, its map's rows in the backward) stay in
-// shared memory with every channel, channel-major (101 KB at 384); the
-// other side's tile comes in chunks of 64 channels (17 KB), and fd
-// accumulates over the chunks in registers, in the mma fragment layout, by
-// f32 FMA in channel order, as cd does. The backward's recomputed fd comes
-// from the same function in the same order, so the pointwise
-// fd' = fd - rowmean + gm uses the forward's values. The bf16 feature
-// instantiations are the bf16 kernels as they were. Bound at the full-field
-// shape: fd alone is 52.9 GFLOP of f32 FMA, 0.79 ms at 67 TFLOP/s; this
-// first f32 kernel reads both fd operands from shared memory for every
-// 16 FMAs of a thread, so it is bound by shared-memory bandwidth well above
-// that.
+// Feature channels in chunks. The block's own 64 rows (side 1 in the
+// forward, its map's rows in the backward) stay in shared memory with every
+// channel; the other side's tile comes a chunk of channels at a time, and fd
+// accumulates over the chunks in registers in channel order, so the chunks
+// change no sum. bf16: the own tile row-major (99 KB at ViT-B's 768
+// channels), the other side whole up to 384 channels (one chunk: the kernel
+// as it was) and above that in chunks of 256 channels (34 KB); two whole
+// 768-channel tiles, 198 KB, would not fit beside the code tiles, and
+// 384-channel chunks would not beside f32 code tiles of 128 channels and
+// the backward's coefficients (234 KB). f32 features: the
+// own tile channel-major (101 KB at 384), the other side in chunks of 64
+// channels (17 KB), fd by f32 FMA in channel order in the mma fragment
+// layout, as cd does; above 384 channels (202 KB of own tile at 768) the own
+// rows come in the same 64-channel chunks too, read again from device
+// memory (L2) for every tile. The backward's recomputed fd comes from the
+// same function in the same order, so the pointwise fd' = fd - rowmean + gm
+// uses the forward's values. Bound at the full-field shape: fd alone is
+// 52.9 GFLOP of f32 FMA, 0.79 ms at 67 TFLOP/s; this first f32 kernel reads
+// both fd operands from shared memory for every 16 FMAs of a thread, so it
+// is bound by shared-memory bandwidth well above that.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -94,9 +100,11 @@ constexpr int kWarps = 8;          // 16 rows x 32 columns of a tile each
 constexpr int kThreads = kWarps * 32;
 constexpr int kHalf = kTile / 2;   // columns of a warp
 constexpr int kLoadBatch = 4;      // loads a thread has in flight
-constexpr int kMaxFeat = 512;      // bf16 feature channels
-constexpr int kMaxFeatF32 = 384;   // f32 feature channels
-constexpr int kFeatChunk = 64;     // f32 feature channels of a chunk
+constexpr int kMaxFeat = 768;      // feature channels (ViT-B)
+constexpr int kWholeBf16 = 384;    // bf16 channels the other tile takes whole
+constexpr int kChunkBf16 = 256;    // bf16 channels of a chunk above that
+constexpr int kChunkF32 = 64;      // f32 feature channels of a chunk
+constexpr int kOwnMaxF32 = 384;    // f32 channels of a resident own tile
 constexpr int kMaxCode = 128;      // code channels
 constexpr int kCodePitchF32 = kTile + 2;  // channel-major f32 tile row
 constexpr int kCodePitchBf16 = kTile + 8; // channel-major bf16 code tile row
@@ -150,10 +158,13 @@ struct Geometry {
   int n, cf, cc;
   int cfp;          // cf rounded up to 16 (mma depth)
   int ccp;          // cc rounded up to 16
-  int feat_pitch;   // bf16 elements a feature tile row
+  int chunk;        // feature channels of the other side's tile a step
+  bool own_chunked; // f32 above kOwnMaxF32: the own rows in chunks too
+  int feat_pitch;   // bf16 elements an own feature tile row
+  int chunk_pitch;  // bf16 elements an other-side feature tile row
   // feature tiles a (the block's own rows) and b (the other side's): bf16
-  // row-major with every channel; f32 channel-major, a with every channel
-  // and b with kFeatChunk
+  // row-major, a with every channel and b with a chunk; f32 channel-major,
+  // a with every channel (or a chunk) and b with a chunk
   size_t feat_a_bytes, feat_b_bytes, code_bytes;
 };
 
@@ -166,26 +177,33 @@ __host__ __device__ Geometry make_geometry(int n, int cf, int cc) {
   g.cfp = (cf + 15) & ~15;
   g.ccp = (cc + 15) & ~15;
   g.feat_pitch = g.cfp + 8;
+  g.own_chunked = kFeatF32 && cf > kOwnMaxF32;
   if (kFeatF32) {
-    g.feat_a_bytes = static_cast<size_t>(cf) * kCodePitchF32 * 4;
-    g.feat_b_bytes = static_cast<size_t>(kFeatChunk) * kCodePitchF32 * 4;
+    g.chunk = kChunkF32;
+    g.chunk_pitch = 0;
+    g.feat_a_bytes = static_cast<size_t>(g.own_chunked ? kChunkF32 : cf) *
+                     kCodePitchF32 * 4;
+    g.feat_b_bytes = static_cast<size_t>(kChunkF32) * kCodePitchF32 * 4;
   } else {
+    g.chunk = g.cfp <= kWholeBf16 ? g.cfp : kChunkBf16;
+    g.chunk_pitch = g.chunk + 8;
     g.feat_a_bytes = static_cast<size_t>(kTile) * g.feat_pitch * 2;
-    g.feat_b_bytes = g.feat_a_bytes;
+    g.feat_b_bytes = static_cast<size_t>(kTile) * g.chunk_pitch * 2;
   }
   g.code_bytes = kBf16 ? static_cast<size_t>(g.ccp) * kCodePitchBf16 * 2
                        : static_cast<size_t>(g.ccp) * kCodePitchF32 * 4;
   return g;
 }
 
-// Rows row0 .. row0 + 63 of one (n, cf) bf16 map into a row-major tile of
-// feat_pitch, zeros past n and past cf.
+// Rows row0 .. row0 + 63, channels c0 .. c0 + ncp - 1 (ncp: nc rounded up
+// to 16, c0 a multiple of 16) of one (n, cf) bf16 map into a row-major tile
+// of ``pitch``, zeros past n and past cf.
 // Loads run in batches of kLoadBatch a thread, all issued before their
 // stores, so that a thread waits on one round trip a batch.
 __device__ void load_feat_tile(__nv_bfloat16* dst,
-                               const __nv_bfloat16* map, int row0,
-                               const Geometry& g) {
-  const int chunks = g.cfp / 8;  // 16-byte chunks a row
+                               const __nv_bfloat16* map, int row0, int c0,
+                               int nc, int pitch, const Geometry& g) {
+  const int chunks = ((nc + 15) & ~15) / 8;  // 16-byte chunks a row
   const int total = kTile * chunks;
   const bool vec = (g.cf % 8) == 0;
   for (int base = threadIdx.x; base < total; base += kLoadBatch * kThreads) {
@@ -194,7 +212,7 @@ __device__ void load_feat_tile(__nv_bfloat16* dst,
     for (int u = 0; u < kLoadBatch; ++u) {
       const int idx = base + u * kThreads;
       const int r = idx / chunks;
-      const int c8 = (idx - r * chunks) * 8;
+      const int c8 = c0 + (idx - r * chunks) * 8;
       const int row = row0 + r;
       v[u] = make_uint4(0u, 0u, 0u, 0u);
       if (idx < total && row < g.n) {
@@ -213,7 +231,7 @@ __device__ void load_feat_tile(__nv_bfloat16* dst,
       const int idx = base + u * kThreads;
       if (idx < total) {
         const int r = idx / chunks;
-        *reinterpret_cast<uint4*>(dst + r * g.feat_pitch +
+        *reinterpret_cast<uint4*>(dst + r * pitch +
                                   (idx - r * chunks) * 8) = v[u];
       }
     }
@@ -296,28 +314,27 @@ __device__ __forceinline__ void zero_tile(float (&x)[4][4]) {
   }
 }
 
-// fd += fa fb^T from row-major bf16 feature tiles, by mma.sync.
-__device__ __forceinline__ void fd_bf16(const __nv_bfloat16* fa,
-                                        const __nv_bfloat16* fb,
-                                        const Geometry& geo,
-                                        float (&fd)[4][4]) {
+// fd += fa fb^T over ``depth`` channels (a multiple of 16) of row-major
+// bf16 feature tiles of row pitches pa and pb, by mma.sync.
+__device__ __forceinline__ void fd_bf16(const __nv_bfloat16* fa, int pa,
+                                        const __nv_bfloat16* fb, int pb,
+                                        int depth, float (&fd)[4][4]) {
   const int row0 = warp_row0();
   const int col0 = warp_col0();
   const int lane = threadIdx.x & 31;
   const int g = lane >> 2;
   const int t = lane & 3;
-  const int fp = geo.feat_pitch;
-  for (int kc = 0; kc < geo.cfp / 16; ++kc) {
-    const __nv_bfloat16* ap = fa + (row0 + g) * fp + kc * 16 + 2 * t;
+  for (int kc = 0; kc < depth / 16; ++kc) {
+    const __nv_bfloat16* ap = fa + (row0 + g) * pa + kc * 16 + 2 * t;
     const uint32_t a[4] = {
         *reinterpret_cast<const uint32_t*>(ap),
-        *reinterpret_cast<const uint32_t*>(ap + 8 * fp),
+        *reinterpret_cast<const uint32_t*>(ap + 8 * pa),
         *reinterpret_cast<const uint32_t*>(ap + 8),
-        *reinterpret_cast<const uint32_t*>(ap + 8 * fp + 8)};
+        *reinterpret_cast<const uint32_t*>(ap + 8 * pa + 8)};
 #pragma unroll
     for (int nt = 0; nt < 4; ++nt) {
       const __nv_bfloat16* bp =
-          fb + (col0 + nt * 8 + g) * fp + kc * 16 + 2 * t;
+          fb + (col0 + nt * 8 + g) * pb + kc * 16 + 2 * t;
       mma_bf16(fd[nt], a, *reinterpret_cast<const uint32_t*>(bp),
                *reinterpret_cast<const uint32_t*>(bp + 8));
     }
@@ -430,60 +447,68 @@ using FeatType = typename std::conditional<kFeatF32, float,
                                            __nv_bfloat16>::type;
 
 // Rows row0 .. row0 + 63 of one feature map into the own tile s.fa, every
-// channel.
+// channel, unless the own rows come in chunks (f32 above kOwnMaxF32).
 template <bool kFeatF32>
 __device__ void load_own_feats(const Smem& s, const FeatType<kFeatF32>* map,
                                int row0, const Geometry& geo) {
   if constexpr (kFeatF32) {
-    load_feat_tile_f32(static_cast<float*>(s.fa), map, row0, 0, geo.cf, geo);
+    if (!geo.own_chunked) {
+      load_feat_tile_f32(static_cast<float*>(s.fa), map, row0, 0, geo.cf,
+                         geo);
+    }
   } else {
-    load_feat_tile(static_cast<__nv_bfloat16*>(s.fa), map, row0, geo);
+    load_feat_tile(static_cast<__nv_bfloat16*>(s.fa), map, row0, 0, geo.cf,
+                   geo.feat_pitch, geo);
   }
 }
 
-// fd and cd of the block's own 64 rows (features in s.fa, code in s.ca,
-// loaded) against rows o0 .. o0 + 63 of the other side's maps f_other and
-// c_other, which it loads into s.fb and s.cb: the own rows are the i tile
-// when own_first, else the j tile. Starts with a barrier, so every thread
-// is done with the previous other tile (and the own tile is loaded); ends
-// with the other code tile in s.cb. f32 features take the other side's
-// channels kFeatChunk at a time, fd accumulating over the chunks.
+// fd and cd of the block's own 64 rows (rows own0 .. own0 + 63 of f_own; the
+// code in s.ca and, unless chunked, the features in s.fa, loaded) against
+// rows o0 .. o0 + 63 of the other side's maps f_other and c_other, which it
+// loads into s.fb and s.cb: the own rows are the i tile when own_first,
+// else the j tile. Starts with a barrier, so every thread is done with the
+// previous other tile (and the own tile is loaded); ends with the other
+// code tile in s.cb. The other side's channels come geo.chunk at a time
+// (and the own rows' too when geo.own_chunked), fd accumulating over the
+// chunks in channel order.
 template <bool kBf16, bool kFeatF32>
-__device__ void tile_against(const Smem& s,
-                             const FeatType<kFeatF32>* f_other,
+__device__ void tile_against(const Smem& s, const FeatType<kFeatF32>* f_own,
+                             int own0, const FeatType<kFeatF32>* f_other,
                              const float* c_other, int o0, bool own_first,
                              const Geometry& geo, float (&fd)[4][4],
                              float (&cd)[4][4]) {
   using CodeT = typename std::conditional<kBf16, __nv_bfloat16, float>::type;
   zero_tile(fd);
   zero_tile(cd);
-  if constexpr (kFeatF32) {
-    const float* own = static_cast<const float*>(s.fa);
-    float* other = static_cast<float*>(s.fb);
-    for (int c0 = 0; c0 < geo.cf; c0 += kFeatChunk) {
-      const int nc = min(kFeatChunk, geo.cf - c0);
-      __syncthreads();  // every thread is done with the last chunk
+  for (int c0 = 0; c0 < geo.cf; c0 += geo.chunk) {
+    const int nc = min(geo.chunk, geo.cf - c0);
+    __syncthreads();  // every thread is done with the last chunk
+    if constexpr (kFeatF32) {
+      float* own = static_cast<float*>(s.fa);
+      float* other = static_cast<float*>(s.fb);
       load_feat_tile_f32(other, f_other, o0, c0, nc, geo);
+      if (geo.own_chunked) load_feat_tile_f32(own, f_own, own0, c0, nc, geo);
       if (c0 == 0) load_code_tile(static_cast<CodeT*>(s.cb), c_other, o0, geo);
       __syncthreads();
-      const float* mine = own + c0 * kCodePitchF32;
+      const float* mine = geo.own_chunked ? own : own + c0 * kCodePitchF32;
       if (own_first) {
         fd_f32(mine, other, nc, fd);
       } else {
         fd_f32(other, mine, nc, fd);
       }
-    }
-  } else {
-    const auto* own = static_cast<const __nv_bfloat16*>(s.fa);
-    auto* other = static_cast<__nv_bfloat16*>(s.fb);
-    __syncthreads();
-    load_feat_tile(other, f_other, o0, geo);
-    load_code_tile(static_cast<CodeT*>(s.cb), c_other, o0, geo);
-    __syncthreads();
-    if (own_first) {
-      fd_bf16(own, other, geo, fd);
     } else {
-      fd_bf16(other, own, geo, fd);
+      const auto* own = static_cast<const __nv_bfloat16*>(s.fa) + c0;
+      auto* other = static_cast<__nv_bfloat16*>(s.fb);
+      const int pa = geo.feat_pitch, pb = geo.chunk_pitch;
+      const int depth = (nc + 15) & ~15;
+      load_feat_tile(other, f_other, o0, c0, nc, pb, geo);
+      if (c0 == 0) load_code_tile(static_cast<CodeT*>(s.cb), c_other, o0, geo);
+      __syncthreads();
+      if (own_first) {
+        fd_bf16(own, pa, other, pb, depth, fd);
+      } else {
+        fd_bf16(other, pb, own, pa, depth, fd);
+      }
     }
   }
   if (own_first) {
@@ -531,8 +556,9 @@ corr_stream_fwd_kernel(const FeatType<kFeatF32>* __restrict__ feats,
   float sums[4][2] = {};  // s1, s2, s3, sum cd of rows g and g + 8
   float fd[4][4], cd[4][4];
   for (int j0 = 0; j0 < n; j0 += kTile) {
-    tile_against<kBf16, kFeatF32>(s, feats + m2 * fstride,
-                                  code + m2 * cstride, j0, true, geo, fd, cd);
+    tile_against<kBf16, kFeatF32>(s, feats + m1 * fstride, i0,
+                                  feats + m2 * fstride, code + m2 * cstride,
+                                  j0, true, geo, fd, cd);
 #pragma unroll
     for (int nt = 0; nt < 4; ++nt) {
 #pragma unroll
@@ -636,7 +662,8 @@ corr_stream_bwd_kernel(const FeatType<kFeatF32>* __restrict__ feats,
     const float* s3 = acc + (static_cast<size_t>(r) * 4 + 2) * n;
     for (int o0 = 0; o0 < n; o0 += kTile) {
       // the forward's function: fd and cd equal the forward's bit for bit
-      tile_against<kBf16, kFeatF32>(s, feats + other * fstride,
+      tile_against<kBf16, kFeatF32>(s, feats + m * fstride, t0,
+                                    feats + other * fstride,
                                     code + other * cstride, o0, side1, geo,
                                     fd, cd);
       const int i0 = side1 ? t0 : o0;
@@ -708,10 +735,9 @@ corr_stream_bwd_kernel(const FeatType<kFeatF32>* __restrict__ feats,
   }
 }
 
-bool bad_shape(int rows, int maps, int n, int cf, int cc, int feat_f32) {
+bool bad_shape(int rows, int maps, int n, int cf, int cc) {
   return rows <= 0 || rows > 65535 || maps <= 0 || maps > 65535 || n <= 0 ||
-         cf <= 0 || cf > (feat_f32 ? kMaxFeatF32 : kMaxFeat) || cc <= 0 ||
-         cc > kMaxCode;
+         cf <= 0 || cf > kMaxFeat || cc <= 0 || cc > kMaxCode;
 }
 
 template <typename Kernel>
@@ -768,8 +794,7 @@ cudaError_t launch_bwd(const void* feats, const void* code, const void* idx1,
 // feats (maps, n, cf), bf16 (feat_f32 = 0) or f32 (feat_f32 = 1), and code
 // (maps, n, cc) f32, both l2-normalised rows; idx1, idx2 (rows,) int32 map
 // indices of each pair row's two sides. Writes acc (rows, 4, n) f32: s1,
-// s2, s3 and sum cd of every side-1 row. cf <= 512 (bf16) or 384 (f32),
-// cc <= 128, rows and maps <= 65535. code_bf16 rounds the code to bf16 for
+// s2, s3 and sum cd of every side-1 row. cf <= 768, cc <= 128, rows and maps <= 65535. code_bf16 rounds the code to bf16 for
 // cd. Returns the CUDA error code of the launch (0 on success).
 extern "C" int stego_corr_stream_fwd(const void* feats, const void* code,
                                      const void* idx1, const void* idx2,
@@ -777,7 +802,7 @@ extern "C" int stego_corr_stream_fwd(const void* feats, const void* code,
                                      int cf, int cc, int code_bf16,
                                      int feat_f32, float lo, float hi,
                                      int device, void* stream) {
-  if (bad_shape(rows, maps, n, cf, cc, feat_f32)) {
+  if (bad_shape(rows, maps, n, cf, cc)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
@@ -809,7 +834,7 @@ extern "C" int stego_corr_stream_bwd(const void* feats, const void* code,
                                      int code_bf16, int feat_f32, float lo,
                                      float hi, int pointwise, int device,
                                      void* stream) {
-  if (bad_shape(rows, maps, n, cf, cc, feat_f32)) {
+  if (bad_shape(rows, maps, n, cf, cc)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   const cudaStream_t st = static_cast<cudaStream_t>(stream);

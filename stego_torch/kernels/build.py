@@ -48,8 +48,9 @@ _F = ctypes.c_float
 # C signatures of the entries in csrc/ (pointers and the stream as void*).
 SIGNATURES = {
     "stego_layer_norm": (_P, _P, _P, _P, _I, _I, _F, _I, _P),
+    "stego_add_layer_norm": (_P,) * 6 + (_I, _I, _I, _F, _I, _P),
     "stego_attention": (_P, _P, _P, _P, _I, _I, _I) + (_L,) * 12
-    + (_F, _I, _P),
+    + (_F, _I, _I, _P),
     "stego_corr_sampled_fwd": (_P,) * 10 + (_I,) * 8 + (_F, _F, _I, _P),
     "stego_corr_sampled_bwd": (_P,) * 10 + (_I,) * 6 + (_F, _F, _I, _F, _I,
                                                         _P),

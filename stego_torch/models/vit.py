@@ -10,9 +10,16 @@ Numerics follow the JAX trunk:
 * bf16 trunk (``dtype=torch.bfloat16``): block matmuls in bf16, tanh GELU
   (``vit.py:272-280``), LayerNorm statistics in f32. With ``use_flash`` the
   block LayerNorms go through kernel L (:func:`fused_layer_norm`) and every
-  attention sublayer through kernel A (:func:`token_major_attention`) on
-  token-major q/k/v (``vit.py:160-210``).
-* f32 trunk: erf GELU, einsum-form attention and the plain LayerNorm.
+  attention sublayer through kernel A: on token-major q/k/v for an even
+  head count (:func:`token_major_attention`, ``vit.py:186-210``), else on
+  head-major views of the same packed qkv through :func:`trunk_attention`
+  (``vit.py:225-239``; ViT-T's 3 heads), which writes its output
+  token-major for the projection. Past N_pad 4096 both take the einsum
+  form.
+* f32 trunk: erf GELU, einsum-form attention and the plain LayerNorm. With
+  ``use_flash`` (which the JAX package runs through its Pallas kernels) the
+  attention goes to kernel A, which takes bf16 only: on the card it raises,
+  on the CPU the plain versions run.
 * Weights are cast to the compute dtype where they are used, as the JAX
   trunk's ``.astype(x.dtype)`` does, so storing the block weights in bf16
   (:meth:`VisionTransformer.cast_blocks`) changes no result. Patch embed, cls
@@ -37,9 +44,9 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from stego_torch.ops.flash_attention import (
-    KV_RESIDENT_MAX_N,
     attention_plain,
     token_major_attention,
+    trunk_attention,
     use_pair_attention,
 )
 from stego_torch.ops.interp import interpolate
@@ -131,10 +138,16 @@ class Attention(nn.Module):
                 fn = token_major_attention if use_kernels else attention_plain
                 out = fn(q, k, v, heads, scale)
                 return _linear(out, self.proj), None, None
-            if -(-n // 128) * 128 <= KV_RESIDENT_MAX_N:
-                raise NotImplementedError(
-                    f"head-major attention (kernel A3: {heads} heads of "
-                    f"{hd}) is not ported yet; see ROADMAP.md queue 2")
+            # head-major: (B, H, N, d) views of the packed qkv, and the
+            # output written token-major through a view of the same kind
+            q, k, v = qkv.unflatten(-1, (3, heads, hd)).unbind(2)
+            out = torch.empty_like(x)
+            if trunk_attention(q.transpose(1, 2), k.transpose(1, 2),
+                               v.transpose(1, 2), scale,
+                               out=out.unflatten(-1, (heads, hd))
+                               .transpose(1, 2),
+                               use_kernel=use_kernels) is not None:
+                return _linear(out, self.proj), None, None
         qkv = qkv.reshape(b, n, 3, heads, hd).permute(2, 0, 3, 1, 4)
         q, k, v = qkv[0], qkv[1], qkv[2]  # (B, H, N, d)
         logits = (q.float() @ k.float().transpose(-1, -2)) * scale

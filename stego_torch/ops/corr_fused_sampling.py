@@ -35,7 +35,7 @@ from stego_torch.ops.math import l2_normalize
 from stego_torch.ops.sampling import bilinear_sample_weights
 
 # What the CUDA kernel is built for (csrc/corr_sampled.cu).
-MAX_FEAT_CHANNELS = 384
+MAX_FEAT_CHANNELS = 768  # ViT-B
 MAX_CODE_CHANNELS = 96
 MAX_SAMPLES = 128
 # Launches of the CUDA kernel's two entries in this process (plain-version

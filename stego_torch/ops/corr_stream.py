@@ -53,9 +53,8 @@ from stego_torch.ops.sampling import (bilinear_sample_weights,
                                       sample_from_coords)
 
 # What the CUDA kernel is built for (csrc/corr_stream.cu): feature channels
-# of bf16 and of f32 features, code channels.
-MAX_FEAT_CHANNELS = 512
-MAX_FEAT_CHANNELS_F32 = 384
+# (ViT-B's 768, bf16 or f32) and code channels.
+MAX_FEAT_CHANNELS = 768
 MAX_CODE_CHANNELS = 128
 # Launches of the CUDA kernel's two entries in this process (plain-version
 # calls do not count). Read and reset by chip_smoke.py to show the main path
@@ -329,10 +328,9 @@ class _StreamCorr(torch.autograd.Function):
         if idx2.shape != (r,) or idx1.dim() != 1:
             raise ValueError(f"idx1 {tuple(idx1.shape)} and idx2 "
                              f"{tuple(idx2.shape)} must be (R,)")
-        max_cf = MAX_FEAT_CHANNELS_F32 if feat_f32 else MAX_FEAT_CHANNELS
-        if not (cf <= max_cf and cc <= MAX_CODE_CHANNELS):
+        if not (cf <= MAX_FEAT_CHANNELS and cc <= MAX_CODE_CHANNELS):
             raise ValueError(
-                f"kernel C2 takes <= {max_cf} {feats.dtype} feature and <= "
+                f"kernel C2 takes <= {MAX_FEAT_CHANNELS} feature and <= "
                 f"{MAX_CODE_CHANNELS} code channels; got {cf}, {cc}")
         feats = feats.contiguous()
         code = code.float().contiguous()

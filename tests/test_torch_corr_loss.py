@@ -581,3 +581,44 @@ def test_block_local_super_perm_blocks_and_guard():
         block_local_super_perm(4, g, n_blocks=4)
     with pytest.raises(ValueError, match="not divisible"):
         block_local_super_perm(6, g, n_blocks=4)
+
+
+@pytest.mark.parametrize("fdt", ["float32", "bfloat16"])
+@pytest.mark.parametrize("pointwise,zero_clamp,stabalize", [
+    (True, True, False), (False, False, True)])
+def test_sampled_corr_plain_matches_jax_kernel_vit_base_channels(
+        fdt, pointwise, zero_clamp, stabalize):
+    """C1's plain version at ViT-B's 768 feature channels (small 6 x 6
+    maps, 3 x 3 samples) against the JAX kernel, which pads them to a
+    multiple of 128 (pallas_corr_fused_sampling.py:436): the losses' and
+    gradients' tolerances above."""
+    arrs = maps(20, hw=6, cf=768)
+    cs = coords(21, s1=3, s2=3)
+    perms = [np.array([1, 2, 3, 0])]
+    shifts = [0.18, 0.12, 0.46]
+    opts = dict(pointwise=pointwise, zero_clamp=zero_clamp,
+                stabalize=stabalize)
+    want = jax_sampled(arrs, cs, perms, shifts, getattr(jnp, fdt), **opts)
+    got = port_sampled(sampled_corr_plain, arrs, cs, perms, shifts,
+                       getattr(torch, fdt), **opts)
+    np.testing.assert_allclose(got[0], want[0], **LOSS_TOL)
+    np.testing.assert_allclose(got[1], want[1], **LOSS_TOL)
+    for g, w in zip(got[2], want[2]):
+        np.testing.assert_allclose(g, w, **GRAD_TOL)
+
+
+@pytest.mark.parametrize("fdt", ["float32", "bfloat16"])
+@pytest.mark.parametrize("pointwise,zero_clamp,stabalize", [
+    (True, True, False), (False, False, True)])
+def test_stream_plain_matches_jax_kernel_vit_base_channels(
+        fdt, pointwise, zero_clamp, stabalize):
+    """C2's plain version at ViT-B's 768 feature channels (6 x 6 maps, one
+    negative) against the JAX kernel, which takes cf whole
+    (pallas_corr.py:138-148): the streamed loss's tolerances above."""
+    fs, cs = stream_pairs(22, hw=6, cf=768, neg=1)
+    shifts = [0.18, 0.12, 0.46]
+    opts = dict(pointwise=pointwise, zero_clamp=zero_clamp,
+                stabalize=stabalize)
+    want = jax_stream(fs, cs, shifts, feat_dtype=getattr(jnp, fdt), **opts)
+    got = port_stream(fs, cs, shifts, feat_dtype=getattr(torch, fdt), **opts)
+    assert_stream_close(got, want)

@@ -31,6 +31,7 @@ MODULES = [
     "stego_torch.ops.corr_stream", "stego_torch.ops.corr_fused_sampling",
     "stego_torch.utils.metrics", "stego_torch.data.synthetic",
     "stego_torch.train.knn", "stego_torch.train.feat_cache",
+    "stego_torch.tools.attention_layouts",
 ]
 for name in MODULES:
     importlib.import_module(name)
@@ -46,6 +47,20 @@ img = torch.rand(2, 32, 32, 3, generator=torch.Generator().manual_seed(0))
 linear, cluster = make_eval_step(seg)(img, img[..., 0])
 assert linear.shape == cluster.shape == (2, 32, 32)
 assert int(linear.max()) < 5 and int(cluster.min()) >= 0
+# ViT-T's 3 heads take the head-major path (trunk_attention)
+tiny = UnsupervisedSegmenter(5, cfg, vit_cfg=ViTConfig(
+    patch_size=8, embed_dim=192, depth=2, num_heads=3, img_size=32)).eval()
+linear, _ = make_eval_step(tiny)(img, img[..., 0])
+assert linear.shape == (2, 32, 32)
+from stego_torch.tools.attention_layouts import (ladder_errors, main,
+                                                run_ladder)
+cpu = torch.device("cpu")
+rows = run_ladder("vit_small", batch=1, tokens=9, iters=1, device=cpu)
+assert len(rows) == 10 and all(r["launches"] == {} for r in rows)
+errors = ladder_errors("vit_small", batch=1, tokens=9, device=cpu)
+assert all(e["max_abs_err_plain"] in (None, 0.0) for e in errors.values())
+assert main(["--device", "cpu", "--models", "vit_tiny", "--batch", "1",
+             "--tokens", "9", "--iters", "1"]) == 0
 print("OK", sorted(m for m, mod in sys.modules.items()
                    if mod is not None and m.split(".")[0] == "stego_tpu"))
 """

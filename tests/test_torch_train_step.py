@@ -35,7 +35,8 @@ from stego_torch.train.segmenter import (draw_step_randomness,
 from stego_torch.utils.metrics import UnsupervisedMetrics, update_conf_matrix
 
 from tests.test_torch_config import torch_config
-from tests.test_torch_vit import JAX_CFG, jax_backbone
+from stego_tpu.models.vit import ViTConfig as JaxViTConfig
+from tests.test_torch_vit import JAX_CFG, TINY, jax_backbone, tiny_backbone
 
 B, RES, N_CLASSES = 4, 64, 5
 STATE_TOL = dict(rtol=2e-4, atol=1e-5)  # tests/test_fused_sampling.py:265
@@ -98,11 +99,13 @@ def jax_step_draws(jseg, key, b):
     return out
 
 
-def setup(cfg, seed=0):
+def setup(cfg, seed=0, tiny=False):
     """JAX segmenter, backbone and train state (numpy), and the port's
-    segmenter holding the same weights and train state."""
-    jseg = JaxUnsupervisedSegmenter(N_CLASSES, cfg, vit_cfg=JAX_CFG)
-    bb = jax_backbone(seed)
+    segmenter holding the same weights and train state; ``tiny``: ViT-T's
+    geometry (192 wide, 3 heads of 64) instead of 2 heads of 64."""
+    vit_cfg = JaxViTConfig(**TINY) if tiny else JAX_CFG
+    jseg = JaxUnsupervisedSegmenter(N_CLASSES, cfg, vit_cfg=vit_cfg)
+    bb = tiny_backbone(seed) if tiny else jax_backbone(seed)
     state = jax.tree.map(np.asarray,
                          jseg.init_state(jax.random.PRNGKey(seed + 1)))
     seg = from_jax_params(bb, state["params"], torch_config(cfg))
@@ -145,8 +148,8 @@ def port_cd_near_bin_edges(seg, batch, rand):
     return near
 
 
-def run_both(cfg, n_steps=2, with_hist=True, label_res=RES):
-    jseg, bb, jstate, seg = setup(cfg)
+def run_both(cfg, n_steps=2, with_hist=True, label_res=RES, tiny=False):
+    jseg, bb, jstate, seg = setup(cfg, tiny=tiny)
     jstep = jax.jit(jax_make_train_step(jseg, with_hist=with_hist))
     step = make_train_step(seg, with_hist=with_hist)
     batch = make_batch(3, label_res)
@@ -176,6 +179,15 @@ def test_train_step_matches_jax_two_steps():
     metrics, histograms, updated params and Adam moments after each of two
     steps."""
     run_both(make_cfg())
+
+
+def test_train_step_vit_tiny_matches_jax_two_steps():
+    """ViT-T's 3-head trunk with use_flash_attention in f32: JAX's
+    head-major Pallas kernels (interpret mode) against the port's
+    trunk_attention (its plain versions on the CPU); the same gates over
+    two steps."""
+    seg, _ = run_both(make_cfg(use_flash_attention=True), tiny=True)
+    assert seg.net.model.cfg.num_heads == 3
 
 
 def test_train_step_without_hist_matches_jax():

@@ -128,3 +128,68 @@ def test_l2_normalize_matches_jax():
         l2_normalize(torch.from_numpy(x), dim=-1).numpy(),
         np.asarray(jax_l2_normalize(jnp.asarray(x), axis=-1)), atol=2e-7,
         rtol=0)  # one f32 ulp of values up to 1
+
+
+# ViT-T's geometry (192 wide, 3 heads of 64) at depth 2: the odd head count
+# takes the head-major path (trunk_attention) in both packages
+TINY = dict(patch_size=8, embed_dim=192, depth=2, num_heads=3, img_size=32)
+
+
+def tiny_backbone(seed):
+    params = init_vit_params(jax.random.PRNGKey(seed), JaxViTConfig(**TINY))
+    return jax.tree_util.tree_map(lambda x: np.asarray(x, np.float32), params)
+
+
+@pytest.mark.parametrize("res", [32, 280])
+def test_vit_tiny_flash_f32_matches_jax(res):
+    """f32, use_flash: JAX's Pallas head-major kernels (interpret mode)
+    against the port's plain versions, batch-resident at res 32 (N=17) and
+    kv-resident at res 280 (N=1226, N_pad 1280 > 1152): rtol 1e-4, atol 1e-5,
+    the JAX package's own tolerance for its flash trunk."""
+    bb = tiny_backbone(8)
+    img = image(9, res, b=1)
+    jf, _, _ = vit_get_intermediate_feat(bb, jnp.asarray(img),
+                                         JaxViTConfig(**TINY), n=1,
+                                         want_attn_qkv=False, use_flash=True)
+    vit = VisionTransformer(ViTConfig(**TINY))
+    vit.load_state_dict(vit_state_dict(bb))
+    with torch.no_grad():
+        f, _, _ = vit.get_intermediate_feat(torch.from_numpy(img), n=1,
+                                            want_attn_qkv=False,
+                                            use_flash=True)
+    np.testing.assert_allclose(f[0].numpy(), np.asarray(jf[0]), rtol=1e-4,
+                               atol=1e-5)
+
+
+@pytest.mark.parametrize("res", [32, 280])
+def test_vit_tiny_flash_bf16_matches_jax(res):
+    """bf16, use_flash, both head-major branches: max abs 6e-2, mean abs
+    4e-3, the bf16 trunk gates of the ViT-S tests above."""
+    bb = tiny_backbone(10)
+    img = image(11, res, b=1)
+    jf, _, _ = vit_get_intermediate_feat(bb, jnp.asarray(img),
+                                         JaxViTConfig(**TINY), n=1,
+                                         dtype=jnp.bfloat16,
+                                         want_attn_qkv=False, use_flash=True)
+    vit = VisionTransformer(ViTConfig(**TINY))
+    vit.load_state_dict(vit_state_dict(bb))
+    with torch.no_grad():
+        f, _, _ = vit.get_intermediate_feat(
+            torch.from_numpy(img), n=1, want_attn_qkv=False,
+            dtype=torch.bfloat16, use_flash=True)
+    diff = np.abs(f[0].numpy() - np.asarray(jf[0]))
+    assert diff.max() <= 6e-2 and diff.mean() <= 4e-3, (diff.max(),
+                                                         diff.mean())
+
+
+def test_vit_tiny_head_major_path_equals_einsum_path():
+    """The head-major path (plain versions on the CPU) against the trunk's
+    einsum form on the same f32 weights: rtol 1e-4, atol 1e-5."""
+    vit = VisionTransformer(ViTConfig(**TINY),
+                            torch.Generator().manual_seed(3))
+    img = torch.from_numpy(image(12, 48, b=2))
+    with torch.no_grad():
+        kw = dict(n=1, want_attn_qkv=False)
+        flash = vit.get_intermediate_feat(img, use_flash=True, **kw)[0][0]
+        einsum = vit.get_intermediate_feat(img, use_flash=False, **kw)[0][0]
+    torch.testing.assert_close(flash, einsum, rtol=1e-4, atol=1e-5)
