@@ -65,7 +65,16 @@
    val steps at res 320; and a seeded ViT-B/8 segmenter with the
    cocostuff27_vit_base preset 10 steps with the sampled loss (C1 at 768
    channels) and 3 full-field steps (C2 at 768), each with the same gates.
-10. Runs the attention layout ladder (stego_torch/tools/attention_layouts.py:
+10. Past the parent's caps: A-f32 (kernel A on f32 q/k/v, TF32 off)
+   against its plain versions at 2e-5, token-major at ViT-S's shape and
+   every head-major form at ViT-T's, beside f32 SDPA; C1 at 100 code
+   channels and 12x12 samples and C2 at 160 code channels in phases C1
+   and C2; 3 ViT-S/8 train steps each at dim=100 with 12x12 samples (C1),
+   full-field at dim=160 (C2) and with an f32 trunk through A-f32 (12
+   launches a step, LayerNorm plain), each held against its plain step
+   (the f32 trunk by its gradients, with TF32 and bf16 attention as
+   controls that must fail).
+11. Runs the attention layout ladder (stego_torch/tools/attention_layouts.py:
    12 chained pre-LN attention sublayers at B=32, N=785 for ViT-S, ViT-B
    and ViT-T), every rung's core held against its plain version and each
    chain launching exactly its kernels: the path of kernel A's resident,
@@ -135,7 +144,20 @@ CORR_SHAPE = dict(b=16, hw=28, cf=384, cc=70, s=11, neg=5)
 C1_CASES = (("bf16", torch.bfloat16, 384), ("f32", torch.float32, 384),
             ("bf16_192", torch.bfloat16, 192),
             ("bf16_768", torch.bfloat16, 768),
-            ("f32_768", torch.float32, 768))
+            ("f32_768", torch.float32, 768),
+            # dim=100, feature_samples=12: two code chunks, two sample tiles
+            ("bf16_cc100_s144", torch.bfloat16, 384, dict(cc=100, s=12)))
+# the code widths past one chunk of C1 (96) and C2 (128) that the wide
+# train steps run: dim=100 with feature_samples=12 (S=144), and dim=160
+WIDE_C1 = dict(dim=100, feature_samples=12)
+WIDE_C2_DIM = 160
+# the least gradient whose Adam step the f32-trunk step holds, and the
+# gap its gradients may have (phase_wide)
+ADAM_LIVE = 1e-7
+F32_TRUNK_GRAD_GAP = 1e-4
+# A-f32 against its plain versions: the JAX package's f32 tolerance
+# (tests/test_torch_attention.py), which TF32 products would fail
+F32_RTOL, F32_ATOL = 2e-5, 2e-5
 LOSS_RTOL, LOSS_ATOL = 1e-4, 1e-6  # sampled-loss rows of PARITY_r05.json
 GRAD_RTOL, GRAD_ATOL = 2e-4, 1e-5  # tests/test_fused_sampling.py:265
 # the streamed loss: full-field maps, grid-sampled maps (PARITY_r05's corr
@@ -470,7 +492,8 @@ def phase_attention(dev):
             qh, kh, vh, scale=scale), floor_ms=bnd[0])
         check(ok, f"(B={b}, N={n}, H={heads}): max_abs_err {err:.3e}; "
                   f"{timing_text(t)}; F.scaled_dot_product_attention "
-                  f"{lib:.4f} ms; {bound_text(bnd)}")
+                  f"{lib:.4f} ms (kernel / SDPA {t['device'][0] / lib:.2f}); "
+                  f"{bound_text(bnd)}")
         by_shape[(b, n, heads)] = dict(
             ms=t["device"][0], plain_ms=t["device"][1], library_ms=lib,
             bound=bnd, max_abs_err=err,
@@ -575,7 +598,8 @@ def phase_head_major(dev):
             qh, kh, vh = (x.contiguous() for x in (q, k, v))
             lib = device_ms(lambda: F.scaled_dot_product_attention(
                 qh, kh, vh, scale=scale), floor_ms=bnd[0])
-        lib_text = "" if lib is None else f"; SDPA {lib:.4f} ms"
+        lib_text = "" if lib is None else \
+            f"; SDPA {lib:.4f} ms (kernel / SDPA {t['device'][0] / lib:.2f})"
         check(ok, f"{entry} (B={b}, H={h}, N={n}): max_abs_err "
                   f"{float(diff.max()):.3e}; {timing_text(t)}{lib_text}; "
                   f"{bound_text(bnd)}")
@@ -584,6 +608,151 @@ def phase_head_major(dev):
             max_abs_err=float(diff.max()), ms=t["device"][0],
             plain_ms=t["device"][1], library_ms=lib, bound=bnd))
     return out
+
+
+def phase_attention_f32(dev):
+    """A-f32, kernel A's f32 instantiation, against its plain versions at
+    F32_RTOL / F32_ATOL (no_softmax: F32_RTOL of its largest output, a sum
+    of N unnormalised products), TF32 off for matmuls and cuDNN: the
+    two-pass form token-major at ViT-S's shape (the f32 trunk's path) and
+    every head-major form at ViT-T's, each timed beside f32 SDPA (none for
+    no_softmax) and the f32 bound. Returns the token-major result with the
+    head-major ones under "forms"."""
+    import torch.nn.functional as F
+
+    from stego_torch.ops import flash_attention as fa
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    print(f"kernel A-f32 (attention on f32 q/k/v, f32 FMA) vs plain, "
+          f"d={HEAD_DIM}, q, k ~ N(0, 4), v ~ N(0, 1); rtol {F32_RTOL} atol "
+          f"{F32_ATOL}; library: f32 F.scaled_dot_product_attention; TF32 "
+          f"off")
+    scale = HEAD_DIM ** -0.5
+    results = {}
+    for form, (b, h, n) in (("two_pass", (8, 6, 785)),
+                            ("batch_resident", (8, 3, 785)),
+                            ("resident", (8, 3, 785)),
+                            ("flash", (8, 3, 785)),
+                            ("no_softmax", (8, 3, 785))):
+        g = torch.Generator(device=dev).manual_seed(7 * n + h)
+        qkv = torch.randn(b, n, 3, h, HEAD_DIM, generator=g, device=dev)
+        qkv[:, :, :2] *= 2
+        if form == "two_pass":  # token-major column blocks, as the trunk's
+            q, k, v = (x.flatten(2) for x in qkv.unbind(2))
+
+            def kernel():
+                return fa.token_major_attention(q, k, v, h, scale)
+
+            def plain():
+                return fa.attention_plain(q, k, v, h, scale)
+        else:
+            q, k, v = (x.transpose(1, 2) for x in qkv.unbind(2))
+            fn = getattr(fa, f"{form}_attention")
+
+            def kernel(fn=fn):
+                return fn(q, k, v, scale)
+
+            def plain(fn=fn):
+                return fn(q, k, v, scale, use_kernel=False)
+        before = fa.F32_LAUNCHES
+        got = kernel()
+        torch.cuda.synchronize()
+        launched = fa.F32_LAUNCHES - before
+        want = plain()
+        diff = (got - want).abs()
+        tol = (torch.full_like(want, F32_RTOL * float(want.abs().max()))
+               if form == "no_softmax" else F32_ATOL + F32_RTOL * want.abs())
+        ok = within(diff, tol, want) and launched == 1
+        t = compare_times(kernel, plain)
+        bnd = bound({"f32": 4 * b * h * n * n * HEAD_DIM},
+                    4 * b * n * h * HEAD_DIM * 4)
+        lib = None
+        if form != "no_softmax":
+            qh, kh, vh = (x.reshape(b, n, h, HEAD_DIM).transpose(1, 2)
+                          .contiguous() for x in qkv.unbind(2))
+            lib = device_ms(lambda: F.scaled_dot_product_attention(
+                qh, kh, vh, scale=scale), floor_ms=0.0)
+        lib_text = "" if lib is None else \
+            f"; f32 SDPA {lib:.4f} ms (kernel / SDPA {t['device'][0] / lib:.2f})"
+        layout = "token-major" if form == "two_pass" else "head-major"
+        check(ok, f"A-f32 {form}, {layout} (B={b}, H={h}, N={n}): "
+                  f"max_abs_err {float(diff.max()):.3e}, {launched} f32 "
+                  f"launch; {timing_text(t)}{lib_text}; {bound_text(bnd)}")
+        results[form] = dict(
+            shape=f"B={b} H={h} N={n} d={HEAD_DIM} f32 {layout}",
+            max_abs_err=float(diff.max()), ms=t["device"][0],
+            plain_ms=t["device"][1], library_ms=lib, bound=bnd)
+    out = results.pop("two_pass")
+    out["forms"] = {
+        form: {**{k: v for k, v in r.items() if k != "bound"},
+               "bound_ms": r["bound"][0], "bound_by": r["bound"][1]}
+        for form, r in results.items()}
+    return out
+
+
+def phase_wide(dev):
+    """Train paths at shapes the parent's kernels refused, each step
+    launching exactly its kernels, one step held against its plain
+    version (train_run's gates; 3 steps, no loss-fall gate): the sampled
+    loss at dim=100, feature_samples=12 (C1 with two code chunks and two
+    sample tiles a side) and the full-field loss at dim=160 (C2 with two
+    code chunks), each with the parameter gate of the other train runs;
+    and an f32 ViT-S/8 trunk with use_flash_attention (A-f32, 12 launches a
+    step; LayerNorm plain, as in JAX) with the sampled loss (C1 on f32
+    features), held against the same step with no kernel. A-f32 differs
+    from its plain version by up to 2e-5 and the trunk carries that
+    through 12 blocks, and Adam's first step moves a parameter by
+    lr g / (|g| + 1e-8), so a gradient difference of a rounding below
+    ~ADAM_LIVE moves a parameter by more than the parameter tolerance:
+    that step holds the updated parameters where |g| >= ADAM_LIVE and the
+    gradients everywhere, |g_kernel - g_plain| / |g_plain| within
+    F32_TRUNK_GRAD_GAP, and two controls must fail that gradient gate: the
+    same step with the trunk's attention computed by its plain version in
+    TF32 and on bf16-rounded q, k, v (ATTENTION_CONTROLS). The launches of
+    each run."""
+    runs = {}
+    _, _, runs["cc100_s144"] = train_run(
+        dev, "sampled loss (kernel C1), dim=100, 12x12 samples", 3, (0,),
+        (12, 25, 1, 1, 0, 0), None, **WIDE_C1)
+    _, _, runs["cc160"] = train_run(
+        dev, f"full-field loss (kernel C2), dim={WIDE_C2_DIM}", 3, (0,),
+        (12, 25, 0, 0, 1, 1), None, full_field_loss=True, dim=WIDE_C2_DIM)
+    _, _, runs["f32_trunk"] = train_run(
+        dev, "sampled loss (kernel C1 on f32 features), use_flash_attention "
+        "(kernel A-f32)", 3, (0,), (12, 0, 1, 1, 0, 0), None,
+        backbone_dtype="float32", use_flash_attention=True,
+        adam_live=ADAM_LIVE, grad_gap_max=F32_TRUNK_GRAD_GAP,
+        controls=ATTENTION_CONTROLS)
+    return runs
+
+
+def tf32_attention(q, k, v, heads, scale):
+    """The trunk's token-major attention by its plain version with TF32
+    matmuls (10-bit mantissas): a control of the f32-trunk step's gate."""
+    from stego_torch.ops import flash_attention as fa
+
+    torch.backends.cuda.matmul.allow_tf32 = True
+    try:
+        return fa.attention_plain(q, k, v, heads, scale)
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = False
+
+
+def bf16_attention(q, k, v, heads, scale):
+    """The trunk's token-major attention by its plain version on
+    bf16-rounded q, k, v, back in f32: a control of the f32-trunk step's
+    gate."""
+    from stego_torch.ops import flash_attention as fa
+
+    return fa.attention_plain(*(x.bfloat16() for x in (q, k, v)), heads,
+                              scale).float()
+
+
+# the f32-trunk step's controls: its attention replaced, each must fail the
+# step's gradient gate
+ATTENTION_CONTROLS = {"TF32 attention": tf32_attention,
+                      "bf16 attention": bf16_attention}
 
 
 def images(gen, res, dev, batch=BATCH):
@@ -748,18 +917,21 @@ def phase_corr(dev):
     {case: (errors, device times, bounds)}."""
     from stego_torch.ops import corr_fused_sampling as c1
 
-    kinds = ", ".join(f"{cf} {n.split('_')[0]}" for n, _, cf in C1_CASES)
+    kinds = ", ".join(f"{c[2]} {c[0].split('_')[0]}" for c in C1_CASES)
     print(f"kernel C1 (corr_sampled) vs plain: B={CORR_SHAPE['b']}, "
           f"{CORR_SHAPE['hw']}x{CORR_SHAPE['hw']} maps, feats {kinds}, code "
           f"{CORR_SHAPE['cc']} f32, {CORR_SHAPE['s']}x{CORR_SHAPE['s']} "
-          f"samples, {CORR_SHAPE['neg']} negatives; losses and cd rtol "
+          f"samples (and code 100, 12x12 samples), {CORR_SHAPE['neg']} "
+          f"negatives; losses and cd rtol "
           f"{LOSS_RTOL} atol {LOSS_ATOL}, code grads rtol {GRAD_RTOL} atol "
           f"{GRAD_ATOL}")
     out = {}
-    for name, feat_dtype, cf in C1_CASES:
-        sh = dict(CORR_SHAPE, cf=cf)
-        feats, code, coords, perms, wts = corr_inputs(
-            dev, **sh, seed=3 if cf == 384 else cf)
+    for name, feat_dtype, cf, *shape in C1_CASES:
+        sh = dict(CORR_SHAPE, cf=cf, **(shape[0] if shape else {}))
+        seed = 3 if cf == 384 else cf
+        if shape:
+            seed = 1000 * sh["cc"] + sh["s"]
+        feats, code, coords, perms, wts = corr_inputs(dev, **sh, seed=seed)
         shifts = [0.18, 0.12] + [0.46] * sh["neg"]
         errs = {"fwd": 0.0, "bwd": 0.0}
         times = {}
@@ -782,8 +954,9 @@ def phase_corr(dev):
             got = run(c1.sampled_corr_fused)
             torch.cuda.synchronize()
             want = run(c1.sampled_corr_plain)
-            label = f"{name.split('_')[0]} features, cf={cf}, " + ", ".join(
-                f"{k}={v}" for k, v in opts.items())
+            label = (f"{name.split('_')[0]} features, cf={cf}, "
+                     f"cc={sh['cc']}, S={sh['s'] ** 2}, " + ", ".join(
+                         f"{k}={v}" for k, v in opts.items()))
             hold_to_plain(label, got, want, errs, (LOSS_RTOL, LOSS_ATOL),
                           (GRAD_RTOL, GRAD_ATOL))
             if feat_dtype == torch.float32:
@@ -801,7 +974,8 @@ def phase_corr(dev):
                 times = time_fwd_bwd(forward, run, c1.sampled_corr_fused,
                                      c1.sampled_corr_plain)
         bounds = c1_bounds(**sh, feat_bytes=torch.finfo(feat_dtype).bits // 8)
-        print(f"  {name.split('_')[0]} features, cf={cf}: forward "
+        print(f"  {name.split('_')[0]} features, cf={cf}, cc={sh['cc']}, "
+              f"S={sh['s'] ** 2}: forward "
               f"{bound_text(bounds['fwd'])}; backward "
               f"{bound_text(bounds['bwd'])}")
         out[name] = (errs, times, bounds)
@@ -968,7 +1142,8 @@ def phase_corr_stream(dev):
     sh = CORR_SHAPE
     b, cc, neg = sh["b"], sh["cc"], sh["neg"]
     print(f"kernel C2 (corr_stream) vs plain: B={b}, feats {sh['cf']} in "
-          f"bf16 and in f32 (and ViT-B's 768 full-field), code {cc} f32, "
+          f"bf16 and in f32 (and ViT-B's 768 full-field), code {cc} f32 "
+          f"(and {WIDE_C2_DIM}), "
           f"{neg} negatives; losses and cd rtol "
           f"{STREAM_RTOL} atol {STREAM_ATOL}, code grads rtol {GRAD_RTOL} "
           f"atol {GRAD_ATOL}")
@@ -992,12 +1167,19 @@ def phase_corr_stream(dev):
     cases += [(*full, False, False, 768, opts)
               for opts in (zero_clamp, stabalize)]
     cases += [(*full, False, True, 768, zero_clamp)]
-    for name, hw, code_bf16, feat_f32, cf, opts in cases:
-        key = (name, code_bf16, feat_f32, cf)
+    # past one code chunk (128): dim=160, full-field (its train path) and
+    # grid-sampled with code_bf16; keyed with their code channels
+    cases += [(*full, False, False, cf, opts, WIDE_C2_DIM)
+              for opts in (zero_clamp, stabalize)]
+    cases += [(*STREAM_SHAPES[1], True, False, cf, zero_clamp, WIDE_C2_DIM)]
+    for name, hw, code_bf16, feat_f32, cf, opts, *wide in cases:
+        key = (name, code_bf16, feat_f32, cf) + tuple(wide)
+        cc = wide[0] if wide else sh["cc"]
         distinct = name == "grid-sampled"
         feats, code, idx1, idx2, wts = stream_inputs(
             dev, b, hw, cf, cc, neg, distinct,
-            seed=hw + code_bf16 + (cf if cf != sh["cf"] else 0),
+            seed=hw + code_bf16 + (cf if cf != sh["cf"] else 0)
+            + (1000 * cc if wide else 0),
             feat_dtype=torch.float32 if feat_f32 else torch.bfloat16)
 
         def forward(use_kernel, code_in=code, bf16=code_bf16, feats_in=feats):
@@ -1022,7 +1204,7 @@ def phase_corr_stream(dev):
         grad_tol = (GRAD_RTOL, BF16_GRAD_ATOL if code_bf16 else GRAD_ATOL)
         share = BF16_GRAD_SHARE if code_bf16 else None
         label = (f"{name} (N={hw * hw}, {idx1.numel()} pair rows, "
-                 f"{feats.shape[0]} maps, {cf} channels)"
+                 f"{feats.shape[0]} maps, {cf}/{cc} channels)"
                  f"{', f32 features' if feat_f32 else ''}"
                  f"{', code_bf16' if code_bf16 else ''}, "
                  + ", ".join(f"{k}={v}" for k, v in opts.items())
@@ -1095,6 +1277,7 @@ def path_counts():
 
     out = dict(zip(COUNTS, train_counts()))
     out.update({f"attention_{e}": fa.ENTRY_LAUNCHES[e] for e in ENTRIES})
+    out["attention_f32"] = fa.F32_LAUNCHES  # of the attention launches
     out["add_layer_norm"] = ln.ADD_LAUNCHES
     return out
 
@@ -1108,32 +1291,55 @@ def add_counts(*runs):
     return out
 
 
-def launches_of(attention=0, layer_norm=0, entry="pair", **counts):
+def launches_of(attention=0, layer_norm=0, entry="pair", f32=False,
+                **counts):
     """The path_counts of ``attention`` launches of kernel A, all at
-    ``entry``, ``layer_norm`` of L and ``counts`` of the others."""
+    ``entry`` (and on f32 q/k/v with ``f32``), ``layer_norm`` of L and
+    ``counts`` of the others."""
     out = dict.fromkeys(path_counts(), 0)
     out.update(attention=attention, layer_norm=layer_norm, **counts)
     out[f"attention_{entry}"] += attention
+    out["attention_f32"] += attention if f32 else 0
     return out
 
 
-def compare_steps(ref, make_step, kernel, param_atol=GRAD_ATOL):
+def compare_steps(ref, make_step, kernel, param_atol=GRAD_ATOL,
+                  plain_trunk=False, adam_live=None, grad_gap_max=None,
+                  controls=None):
     """One train step from ``ref``'s state with the loss's kernel
     (``kernel``, C1 or C2) and one with its plain version (trunk kernels on
-    in both): metrics within rtol LOSS_RTOL, atol LOSS_ATOL, updated
+    in both; with ``plain_trunk`` off in the plain step, so that the step
+    with every kernel is held against the step with none): metrics within
+    rtol LOSS_RTOL, atol LOSS_ATOL, updated
     parameters within rtol GRAD_RTOL, atol ``param_atol``; then one with
-    every kernel off, reported only. ``make_step(seg)`` builds the step of a
+    every kernel off, reported only, and for C2 on f32 code the gradients of
+    both against the step with C2's plain version in f64 (stream_loss_f64),
+    reported only. ``make_step(seg)`` builds the step of a
     copy of ``ref`` as a call without arguments. With ``pallas_loss_bf16``,
     a step with the kernel ignoring it (the f32 kernel) must fail the
-    parameter gate."""
-    def one_step(use_kernels, use_corr_kernel, ignore_code_bf16=False):
+    parameter gate. With ``adam_live`` the parameters are held only where
+    the plain step's gradient is at least that, and the gradients instead:
+    |g_kernel - g_plain| / |g_plain| within ``grad_gap_max``; then each of
+    ``controls`` ({name: function}), the step with every kernel but the
+    trunk's token-major attention replaced by the function, must fail that
+    gradient gate."""
+    def one_step(use_kernels, use_corr_kernel, ignore_code_bf16=False,
+                 f64=False):
+        from stego_torch.ops import corr_stream as c2
+
         seg = copy.deepcopy(ref)
         seg.net.model.use_kernels = use_kernels
         seg.use_corr_kernel = use_corr_kernel
         step = make_step(seg)
         if ignore_code_bf16:  # the sampler stays the one resolved above
             seg.cfg = dataclasses.replace(seg.cfg, pallas_loss_bf16=False)
-        metrics = step()
+        kept = c2.fused_correlation_loss_plain
+        if f64:
+            c2.fused_correlation_loss_plain = stream_loss_f64
+        try:
+            metrics = step()
+        finally:
+            c2.fused_correlation_loss_plain = kept
         return metrics, {n: p.detach() for n, p in seg.named_parameters()}, \
             {n: p.grad for n, p in seg.named_parameters()}
 
@@ -1147,10 +1353,38 @@ def compare_steps(ref, make_step, kernel, param_atol=GRAD_ATOL):
         return max(float((pa[n] - pb[n]).abs().max()) for n in pb)
 
     mk, pk, gk = one_step(True, True)
-    mp, pp, gp = one_step(True, False)
+    mp, pp, gp = one_step(not plain_trunk, False)
+    if plain_trunk:
+        kernel = f"{kernel} and the trunk's kernels"
     m0, _, _ = one_step(False, False)
-    print(f"  gradients with {kernel} vs {kernel} plain: |g_kernel - "
-          f"g_plain| / |g_plain| = {grad_gap(gk, gp):.3e} (report only)")
+    if kernel == "C2" and not ref.cfg.pallas_loss_bf16:
+        _, _, g64 = one_step(True, False, f64=True)
+        print(f"  gradients against the step with C2's plain version in "
+              f"f64: |g - g_f64| / |g_f64| = {grad_gap(gk, g64):.3e} with "
+              f"C2, {grad_gap(gp, g64):.3e} with its f32 plain version "
+              f"(report only)")
+    if adam_live is None:
+        print(f"  gradients with {kernel} vs {kernel} plain: |g_kernel - "
+              f"g_plain| / |g_plain| = {grad_gap(gk, gp):.3e} (report only)")
+    else:
+        check(grad_gap(gk, gp) <= grad_gap_max,
+              f"step with {kernel} vs {kernel} plain: gradients, |g_kernel "
+              f"- g_plain| / |g_plain| = {grad_gap(gk, gp):.3e} (<= "
+              f"{grad_gap_max})")
+    for name, attention in (controls or {}).items():
+        from stego_torch.models import vit
+
+        kept = vit.token_major_attention
+        vit.token_major_attention = attention
+        try:
+            _, pc, gc = one_step(True, True)
+        finally:
+            vit.token_major_attention = kept
+        check(grad_gap(gc, gp) > grad_gap_max,
+              f"control, the step with {name} vs {kernel} plain fails the "
+              f"gradient gate: |g_control - g_plain| / |g_plain| = "
+              f"{grad_gap(gc, gp):.3e} (> {grad_gap_max}); updated "
+              f"parameters max abs diff {param_gap(pc, pp):.3e}")
     if ref.cfg.pallas_loss_bf16:
         _, pc, gc = one_step(True, True, ignore_code_bf16=True)
         inside = all(bool(((pc[n] - pp[n]).abs()
@@ -1174,11 +1408,15 @@ def compare_steps(ref, make_step, kernel, param_atol=GRAD_ATOL):
     ok = True
     for n in pk:
         d = (pk[n] - pp[n]).abs()
+        if adam_live is not None and gp[n] is not None:
+            d = torch.where(gp[n].abs() >= adam_live, d, 0.0)
         if float(d.max()) > worst:
             worst, where = float(d.max()), (n, int(torch.argmax(d)))
         ok &= within(d, param_atol + GRAD_RTOL * pp[n].abs(), pp[n])
-    check(ok, f"step with {kernel} vs {kernel} plain: updated parameters, "
-              f"max abs diff {worst:.3e} (rtol {GRAD_RTOL}, atol "
+    live = "" if adam_live is None else \
+        f", where the gradient is at least {adam_live}"
+    check(ok, f"step with {kernel} vs {kernel} plain: updated parameters"
+              f"{live}, max abs diff {worst:.3e} (rtol {GRAD_RTOL}, atol "
               f"{param_atol})")
     if where is not None:
         n, i = where
@@ -1190,6 +1428,24 @@ def compare_steps(ref, make_step, kernel, param_atol=GRAD_ATOL):
           f"{float(m0['loss/total']):.6f}, with kernels "
           f"{float(mk['loss/total']):.6f}, diff "
           f"{float(m0['loss/total'] - mk['loss/total']):.3e} (report only)")
+
+
+def stream_loss_f64(f1, f2, c1, c2, shifts, group_sizes, pointwise=True,
+                    zero_clamp=True, stabalize=False, code_bf16=False):
+    """C2's plain version (ops/corr_stream.py:fused_correlation_loss_plain)
+    with fd, cd and the row sums in f64, f32 code only: the reference that
+    compare_steps holds C2's kernel and its f32 plain version to."""
+    from stego_torch.ops import corr_stream as c2mod
+
+    if code_bf16:
+        raise ValueError("the f64 reference takes f32 code")
+    fd = torch.bmm(f1.detach().double(), f2.detach().double().transpose(1, 2))
+    cd = torch.bmm(c1.double(), c2.double().transpose(1, 2))
+    cdc = torch.clamp(cd, *c2mod.clamp_bounds(zero_clamp, stabalize))
+    losses, cd_means, _ = c2mod.finalize_rows(
+        (cdc * fd).sum(-1), cdc.sum(-1), fd.sum(-1), cd.sum(-1), shifts,
+        group_sizes, pointwise)
+    return losses.float(), cd_means.float()
 
 
 def run_steps(steps, hist_steps, expect, fall_window, hist_logged, step):
@@ -1245,7 +1501,8 @@ def report_steps(step_ms, images, one_step, peak_gb):
 
 def train_run(dev, label, steps, hist_steps, expect, fall_window,
               time_plain=False, model_type="vit_small", preset=None,
-              **cfg_kw):
+              backbone_dtype="bfloat16", adam_live=None, grad_gap_max=None,
+              controls=None, **cfg_kw):
     """``steps`` train steps of a seeded segmenter (``model_type``'s /8
     trunk in bf16, cocostuff27 head, the config ``preset`` where one is
     named) at the reference footprint on one fixed batch, the
@@ -1255,7 +1512,9 @@ def train_run(dev, label, steps, hist_steps, expect, fall_window,
     that of the first. Reports the median step, images/s, device busy, the
     top 6 kernels and peak memory (with ``time_plain`` also the step's time
     with the loss's plain version), then holds one step with the loss's
-    kernel against the same step with its plain version. Returns the
+    kernel against the same step with its plain version (an f32
+    ``backbone_dtype``: the step with every kernel against the step with
+    none, ``use_kernels=False``). Returns the
     trained segmenter, the batch, the generator and the launches of the
     steps (the main path; the comparison's launches are not counted)."""
     from stego_torch.train.segmenter import (draw_step_randomness,
@@ -1264,10 +1523,12 @@ def train_run(dev, label, steps, hist_steps, expect, fall_window,
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     print(f"train, {label}: seeded {MODEL_NAMES[model_type]} segmenter, "
-          f"cocostuff27 head{f' ({preset} preset)' if preset else ''}, bf16 "
-          f"trunk, res {TRAIN_RES}, batch {TRAIN_BATCH}, 5 negatives, "
+          f"cocostuff27 head{f' ({preset} preset)' if preset else ''}, "
+          f"{'bf16' if backbone_dtype == 'bfloat16' else 'f32'} trunk, "
+          f"res {TRAIN_RES}, batch {TRAIN_BATCH}, 5 negatives, "
           f"dropout; {steps} steps on one fixed batch")
-    seg = cocostuff_segmenter(dev, "bfloat16", model_type, preset, **cfg_kw)
+    seg = cocostuff_segmenter(dev, backbone_dtype, model_type, preset,
+                              **cfg_kw)
     cfg = seg.cfg
     ref = copy.deepcopy(seg)
     gen = torch.Generator(device=dev).manual_seed(4)
@@ -1311,7 +1572,9 @@ def train_run(dev, label, steps, hist_steps, expect, fall_window,
     compare_steps(ref, lambda s: functools.partial(
         make_train_step(s, with_hist=False), batch, rand),
         "C2" if expect[4] else "C1",
-        BF16_PARAM_ATOL if cfg.pallas_loss_bf16 else GRAD_ATOL)
+        BF16_PARAM_ATOL if cfg.pallas_loss_bf16 else GRAD_ATOL,
+        plain_trunk=backbone_dtype == "float32", adam_live=adam_live,
+        grad_gap_max=grad_gap_max, controls=controls)
     return seg, gen, launches
 
 
@@ -1398,15 +1661,17 @@ def phase_train_models(dev):
 def cocostuff_segmenter(dev, backbone_dtype="bfloat16",
                         model_type="vit_small", preset=None, **cfg_kw):
     """A seeded segmenter (``model_type``'s /8 trunk) with the cocostuff27
-    head (dim 70, nonlinear, 27 classes) at the reference train footprint
+    head (dim 70 unless ``cfg_kw`` names one, nonlinear, 27 classes) at the
+    reference train footprint
     (res 224, batch 16, 11 x 11 samples, 5 negatives, dropout), the config
     ``preset`` applied where one is named, on ``dev``; a bf16 trunk keeps
     its block weights in bf16."""
     from stego_torch.config import Config, apply_preset
     from stego_torch.train.segmenter import UnsupervisedSegmenter
 
+    cfg_kw = {"dim": 70, **cfg_kw}
     cfg = Config(dataset_name="cocostuff27", model_type=model_type,
-                 dino_patch_size=8, dim=70, projection_type="nonlinear",
+                 dino_patch_size=8, projection_type="nonlinear",
                  backbone_dtype=backbone_dtype, res=TRAIN_RES,
                  batch_size=TRAIN_BATCH, run_crf=False, **cfg_kw)
     if preset is not None:
@@ -1797,7 +2062,8 @@ def main() -> int:
     log = build.BUILD_DIR / "build.log"
     if log.exists():
         for line in log.read_text().splitlines():
-            if "registers" in line or "Compiling entry" in line:
+            if any(w in line for w in ("registers", "Compiling entry",
+                                       "spill stores", "C7513")):
                 print(f"  ptxas: {line.strip()}")
 
     dev = torch.device("cuda", 0)
@@ -1805,6 +2071,7 @@ def main() -> int:
     add_ln = phase_add_layer_norm(dev)
     at_err, at = phase_attention(dev)
     hm = phase_head_major(dev)
+    at_f32 = phase_attention_f32(dev)
     serving = {}
     with tempfile.TemporaryDirectory() as tmp:
         for model_type in ("vit_small", "vit_tiny"):
@@ -1820,6 +2087,7 @@ def main() -> int:
     train, val = phase_train(dev)
     stream = phase_train_stream(dev)
     models = phase_train_models(dev)
+    wide = phase_wide(dev)
 
     # the feature-cache path: KNN, caches, cached train and val steps
     t0 = time.perf_counter()
@@ -1875,13 +2143,20 @@ def main() -> int:
             ("vit_base", per_step(WIDE_STEPS, (1, 1, 0, 0))),
             ("vit_base_full_field", per_step(WIDE_FULL_STEPS, (0, 0, 1, 1)))):
         check(models[name] == want, f"{name} path launches: {models[name]}")
+    for name, want in (
+            ("cc100_s144", per_step(3, (1, 1, 0, 0))),
+            ("cc160", per_step(3, (0, 0, 1, 1))),
+            ("f32_trunk", launches_of(12 * 3, 0, f32=True,
+                                      corr_sampled_fwd=3,
+                                      corr_sampled_bwd=3))):
+        check(wide[name] == want, f"{name} path launches: {wide[name]}")
     # launches summed over the paths of each trunk: ViT-S (eval, train
     # with the sampled, full-field, grid-sampled and bf16-code losses, val,
     # the KNN, the cache builds, cached train and val), ViT-T (eval, train,
     # val), ViT-B (train, sampled and full-field), and the layout ladder
     vit_s = add_counts(serving["vit_small"], train, val, *stream.values(),
                        knn_launches, cache_launches, *cached.values(),
-                       cached_val)
+                       cached_val, *wide.values())
     vit_t = add_counts(serving["vit_tiny"], models["vit_tiny"],
                        models["vit_tiny_val"])
     vit_b = add_counts(models["vit_base"], models["vit_base_full_field"])
@@ -1900,7 +2175,8 @@ def main() -> int:
         return row(name, source, replaces, launches_, r["max_abs_err"],
                    (r["ms"], r["plain_ms"]), r["bound"], r["library_ms"],
                    shape=r["shape"],
-                   **{k: r[k] for k in ("cold_ms", "two_call_ms") if k in r})
+                   **{k: r[k] for k in ("cold_ms", "two_call_ms", "forms")
+                      if k in r})
 
     ln_src, ln_ref = "stego_torch/csrc/layer_norm.cu", "stego_tpu/ops/layer_norm.py"
     at_src = "stego_torch/csrc/attention.cu"
@@ -1924,8 +2200,13 @@ def main() -> int:
                              "add_layer_norm" + ("" if d == 384 else f"_{d}")))
     rows += [
         measured(at[(8, 785, HEADS)], vit_s["attention_pair"]
+                 - vit_s["attention_f32"]
                  + ladder["vit_small"]["attention_pair"],
                  f"{at_ref}:391", at_src, "attention"),
+        # A-f32: the f32 trunk's token-major path; the head-major forms,
+        # which no f32 path runs, under "forms"
+        measured(at_f32, vit_s["attention_f32"], f"{at_ref}:391", at_src,
+                 "attention_f32_two_pass"),
         measured(at[(8, 1601, HEADS)], vit_s["attention_pair_kv"],
                  f"{at_ref}:470", at_src, "attention_pair_kv"),
         measured(at[(32, 785, 12)], vit_b["attention_pair"]
@@ -1947,14 +2228,20 @@ def main() -> int:
           "every kernel A launch is at one entry point")
     # C1's forward by feature type and channels, each launched by its own
     # trunk's paths; the backward reads no features
-    c1_fwd = {"bf16": vit_s["corr_sampled_fwd"] - cached["f32"]
-              ["corr_sampled_fwd"], "f32": cached["f32"]["corr_sampled_fwd"],
+    c1_fwd = {"bf16": vit_s["corr_sampled_fwd"]
+              - cached["f32"]["corr_sampled_fwd"]
+              - wide["f32_trunk"]["corr_sampled_fwd"]
+              - wide["cc100_s144"]["corr_sampled_fwd"],
+              "f32": cached["f32"]["corr_sampled_fwd"]
+              + wide["f32_trunk"]["corr_sampled_fwd"],
               "bf16_192": vit_t["corr_sampled_fwd"],
-              "bf16_768": vit_b["corr_sampled_fwd"]}
+              "bf16_768": vit_b["corr_sampled_fwd"],
+              "bf16_cc100_s144": wide["cc100_s144"]["corr_sampled_fwd"]}
     check(total["corr_sampled_fwd"] == sum(c1_fwd.values()),
           "every C1 forward launch is on a path of one feature type")
     for case, suffix in (("bf16", ""), ("f32", "_f32"), ("bf16_192", "_192"),
-                         ("bf16_768", "_768")):
+                         ("bf16_768", "_768"),
+                         ("bf16_cc100_s144", "_cc100_s144")):
         errs, times, bnds = c1[case]
         extra = {}
         if case == "f32":  # f32 at ViT-B's 768: no path runs it yet
@@ -1965,10 +2252,14 @@ def main() -> int:
                         c1_fwd[case], errs["fwd"], times["fwd"], bnds["fwd"],
                         **extra))
     errs, times, bnds = c1["bf16"]
+    wide_bwd = wide["cc100_s144"]["corr_sampled_bwd"]
     rows.append(row("corr_sampled_bwd", c1_src, f"{c1_ref}:187",
-                    total["corr_sampled_bwd"],
+                    total["corr_sampled_bwd"] - wide_bwd,
                     max(c1[case][0]["bwd"] for case in c1), times["bwd"],
                     bnds["bwd"]))
+    errs, times, bnds = c1["bf16_cc100_s144"]
+    rows.append(row("corr_sampled_bwd_cc100_s144", c1_src, f"{c1_ref}:187",
+                    wide_bwd, errs["bwd"], times["bwd"], bnds["bwd"]))
     # C2 by the path that runs it, each row measured at that path's shape
     # (phase C2's full-field code_bf16 case runs on no path: printed only)
     for suffix, key, run in (
@@ -1981,7 +2272,9 @@ def main() -> int:
             ("_f32_gather", ("grid-sampled", False, True, 384),
              cached["f32_gather"]),
             ("_768", ("full-field", False, False, 768),
-             models["vit_base_full_field"])):
+             models["vit_base_full_field"]),
+            ("_cc160", ("full-field", False, False, 384, WIDE_C2_DIM),
+             wide["cc160"])):
         for what, line in (("fwd", 106), ("bwd", 229)):
             extra = {}
             if suffix == "_f32":  # f32 at ViT-B's 768: no path runs it yet

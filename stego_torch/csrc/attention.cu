@@ -1,5 +1,6 @@
 // Kernel A: forward-only attention softmax(q k^T * scale) v, one head of
-// d = 64 at a time, bf16 in and out, f32 logits and accumulator.
+// d = 64 at a time: bf16 in and out with f32 logits and accumulator, and an
+// f32 instantiation (A-f32) for an f32 trunk.
 //
 // Replaces the attention kernels of stego_tpu/ops/flash_attention.py:
 // _pair_kernel (:391, pallas_call :453 in pair_attention) and
@@ -11,59 +12,81 @@
 // q/k/v of an odd head count (ViT-T's 3); _flash_kernel (:29, :94 in
 // flash_attention) and _packed_kernel (:589, :651 in packed_attention); and
 // the layout experiments of scripts/bench_attncore.py (:95, :134) and
-// scripts/bench_attn_vitb.py (:114, :150, :183). The TPU needs one kernel
-// for each layout because a Pallas block is cut by lane slices; here every
-// tensor comes with its own (batch, token, head) element strides, so
-// token-major (B, N, H * 64), head-major (B, H, N, 64) and the packed
-// (B, N, 3, H * 64) qkv are all the same kernel reading other strides.
+// scripts/bench_attn_vitb.py (:114, :150, :183). The JAX trunk sends f32
+// q/k/v through the same kernels (stego_tpu/models/vit.py:186-239). The TPU
+// needs one kernel for each layout because a Pallas block is cut by lane
+// slices; here every tensor comes with its own (batch, token, head) element
+// strides, so token-major (B, N, H * 64), head-major (B, H, N, 64) and the
+// packed (B, N, 3, H * 64) qkv are all the same kernel reading other
+// strides.
 //
 // Bound: at the trunk's shapes (N = 785 .. 3137, d = 64) the work is
-// 4 * N^2 * d flops a head against 4 * N * d * 2 bytes of q, k, v and out, so
-// the tensor cores, not memory, set the floor; what costs time in a simple
-// kernel is the softmax between the two products and waiting on loads.
+// 4 N^2 d operations a head against 4 N d 2 bytes of q, k, v and out, so
+// the tensor cores, not memory, set the floor.
 //
-// The TPU kernels keep a head's whole K/V in VMEM and take one softmax over
-// the whole row. One head's K and V at N = 3137 are 803 KB, above the 227 KB
-// of shared memory a block can have, so this kernel does not: each block
-// owns 64 query rows of one (batch, head) and streams K/V through shared
-// memory in 64-key tiles, with the row max, row sum and accumulator in f32
-// registers. Products are mma.sync m16n8k16 bf16 with f32 accumulation; each
-// of the 4 warps owns 16 query rows. The key tail (N is never a multiple of
-// 64 here) is masked to -inf, query rows past N are computed on zeros and
-// not stored.
+// The bf16 kernel, designed for Hopper. A block is one producer warpgroup
+// and kConsumers consumer warpgroups (2 or 3, chosen by the grid's waves:
+// consumers_for), each owning 64 query rows of one (batch, head); a
+// consumer whose rows all lie past N exits at once. One thread of the
+// producer issues every copy through the Tensor Memory Accelerator (TMA):
+// the block's q tiles once, then K (and V) tiles of 128 keys into a ring of
+// kStages shared-memory stages, each with a "full" mbarrier that the copy
+// completes and an "empty" one that every consumer thread arrives on when
+// it is done with the stage. One tensor map an operand is built on the
+// host for each launch from the (d, N, H, B) dims and the caller's
+// strides, with 128-byte swizzle; rows past N load as zeros. The producer
+// gives its registers to the consumers (setmaxnreg). The consumers take
+// both products on wgmma: s = q k^T as m64n128k16 with q and k read from
+// shared memory (K-major descriptors of the swizzled tiles), f32 logits in
+// registers; then p = exp(..) rounded to bf16 in the accumulator's layout,
+// which is the register layout of wgmma's A operand, and acc += p v as
+// m64n64k16 with v read from shared memory through an MN-major
+// (transposed) descriptor. A pass that takes p v issues tile t's q k^T
+// and tile t - 1's p v together; the other consumer warpgroups' softmax
+// runs meanwhile. exp is 2^x on the special-function unit (ex2.approx)
+// after one FMA. The key tail is masked to -inf; query rows past N are computed
+// on zeros and not stored.
 //
 // The form (a template parameter) keeps the rounding points of the TPU
 // kernel it replaces:
 //   kTwoPass (pair, pair_kv, batch_resident, kv_resident, packed and the
-//     layout experiments): q is multiplied by scale in bf16, logits and the
-//     row sum are f32, p = exp(s - max) is rounded to bf16 before the PV
-//     product, the f32 accumulator is divided by the sum at the end. An
-//     online softmax rounds p against a running max and rescales the
-//     accumulator later; on peaked rows its outputs differed from the
-//     one-pass form by more than the 5e-3 atol in the tail (measured on an
-//     H100 at B=8, N=785 and 1601, H=6). So the first pass streams K and
-//     keeps only each row's max; the second streams K and V and takes p
-//     against that final max, as the TPU kernels do. The price is a second
-//     q k^T product: half again as much tensor-core work.
+//     layout experiments): q is multiplied by scale in q's dtype, logits
+//     and the row sum are f32, p = exp(s - max) is rounded to v's dtype
+//     before the PV product, the f32 accumulator is divided by the sum at
+//     the end. An online softmax rounds p against a running max and
+//     rescales the accumulator later; on peaked rows its outputs differed
+//     from the one-pass form by more than the 5e-3 atol in the tail
+//     (measured on an H100 at B=8, N=785 and 1601, H=6). So the first pass
+//     streams K and keeps only each row's max; the second streams K and V
+//     and takes p against that final max, as the TPU kernels do. The price
+//     is a second q k^T product: half again as much tensor-core work.
 //   kResident (_resident_kernel): the scale multiplies the f32 logits, and
-//     p is the normalised softmax, rounded to bf16 before the PV product,
-//     whose f32 sum is the output. The first pass keeps each row's max and
-//     its sum of exp(s - max), rescaled when the max grows; the second takes
-//     p = exp(s - max) / sum.
+//     p is the normalised softmax, rounded before the PV product, whose f32
+//     sum is the output. The first pass keeps each row's max and its sum of
+//     exp(s - max), rescaled when the max grows; the second takes
+//     p = exp(s - max) / sum (the bf16 kernel: times 1 / sum).
 //   kFlash (_flash_kernel): the scale multiplies the f32 logits, and the
 //     softmax is online over 128-key blocks, as on the TPU (TK = 128): each
 //     block takes the row max over its 128 keys, p = exp(s - running max) is
-//     rounded to bf16, and the sum and the accumulator are rescaled by
-//     exp(old max - new max). One pass; the K/V tile is 128 keys.
+//     rounded, and the sum and the accumulator are rescaled by
+//     exp(old max - new max). One pass.
 //   kNoSoftmax (bench_attncore.py:84-85, do_softmax=False): p = s, the
-//     logits of the bf16-scaled q, rounded to bf16, and no division. One
-//     pass.
+//     logits of the scaled q, rounded, and no division. One pass.
 // At d = 64 the scale is 0.125, exact in bf16, so where it is applied
-// changes nothing; the forms differ in p.
+// changes nothing in bf16; the forms differ in p.
+//
+// The f32 kernel (A-f32) keeps the same forms; in f32 p is not rounded
+// (p.astype(v.dtype) is a no-op), so the forms differ only in where the
+// scale and the division fall. It runs on f32 FMA, not the tensor cores:
+// TF32 keeps about three digits, outside the JAX package's f32 tolerance
+// (2e-5). Simple first: each thread owns one query row (q and the
+// accumulator in registers) and the block streams 128-key K/V tiles through
+// shared memory, every thread reading each key row as a broadcast.
 //
 // No atomics: every output element is written by one thread, so runs are
 // deterministic.
 
+#include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
@@ -72,26 +95,176 @@
 namespace {
 
 constexpr int kHeadDim = 64;
-constexpr int kWarps = 4;
-constexpr int kThreads = kWarps * 32;
-constexpr int kBlockQ = kWarps * 16;  // query rows per block
-constexpr int kBlockK = 64;           // keys per shared-memory tile
-// Shared-memory rows are padded from 64 to 72 bf16 (144 bytes, 36 words):
-// consecutive rows start 4 banks apart, so the fragment loads below are free
-// of bank conflicts and every row stays 16-byte aligned.
-constexpr int kRow = kHeadDim + 8;
+constexpr int kRowBytes = kHeadDim * 2;          // one 128-byte swizzle row
+constexpr int kBlockM = 64;                      // query rows a warpgroup
+constexpr int kBlockN = 128;                     // keys a K/V tile
+constexpr int kStages = 4;                       // K/V stages of the ring
+constexpr int kQBytes = kBlockM * kRowBytes;     // 8 KB
+constexpr int kKVBytes = kBlockN * kRowBytes;    // 16 KB
+constexpr int kWarpgroup = 128;
+// Registers a thread of the producer and of a consumer warpgroup holds
+// after setmaxnreg: with two consumers 128 x 24 + 256 x 240 = 64512, within
+// the 384 x 168 that a block of 384 threads is launched with; with three
+// 128 x 24 + 384 x 160 = 64512, within 512 x 128.
+constexpr int kProducerRegs = 24;
+template <int kConsumers>
+__host__ __device__ constexpr int consumer_regs() {
+  return kConsumers == 2 ? 240 : 160;
+}
+// Devices whose launch set-up is remembered.
+constexpr int kMaxDevices = 64;
+// Reported by stego_attention when the driver refuses a tensor map.
+constexpr int kTensorMapError = 20001;
+
+enum Form : int { kTwoPass = 0, kResident = 1, kFlash = 2, kNoSoftmax = 3 };
 
 struct Strides {
   long long b, n, h;  // in elements; the head-dim stride is 1
 };
 
-__device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4],
-                                         uint32_t b0, uint32_t b1) {
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar),
+               "r"(count)
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
   asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+      "mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar),
+      "r"(bytes)
+      : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar)
+               : "memory");
+}
+
+// Spins until the phase of the given parity has completed.
+__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
+  uint32_t done = 0;
+  do {
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(bar), "r"(parity)
+        : "memory");
+  } while (!done);
+}
+
+// The box at (dim 0, row, head, batch) of a 4-d tensor map into shared
+// memory, completing on the mbarrier bar.
+__device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map,
+                                         uint32_t bar, int row, int head,
+                                         int batch) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes [%0], [%1, {%3, %4, %5, %6}], [%2];\n" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(0), "r"(row),
+      "r"(head), "r"(batch)
+      : "memory");
+}
+
+// A wgmma shared-memory descriptor of a 128-byte swizzled tile at addr
+// (1024-byte aligned): leading and stride byte offsets, layout 1 (B128).
+__device__ __forceinline__ uint64_t smem_desc(uint32_t addr, uint32_t lbo,
+                                              uint32_t sbo) {
+  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) |
+         (static_cast<uint64_t>(lbo >> 4) << 16) |
+         (static_cast<uint64_t>(sbo >> 4) << 32) | (1ull << 62);
+}
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+// Waits until at most N committed groups of wgmma are still running.
+template <int N>
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
+}
+
+// Keeps the compiler from moving accesses to r across the asynchronous
+// wgmma that reads or writes it.
+template <int N>
+__device__ __forceinline__ void fence_regs(float (&r)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(r[i])::"memory");
+}
+template <int N>
+__device__ __forceinline__ void fence_regs(uint32_t (&r)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+r"(r[i])::"memory");
+}
+
+// d (64 x 128) = A B^T (+ d when accumulate): A and B from shared memory,
+// both K-major, by descriptor.
+__device__ __forceinline__ void wgmma_ss_n128(float (&d)[64], uint64_t da,
+                                           uint64_t db, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+      "{"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, "
+      "%40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, "
+      "%56, %57, %58, %59, %60, %61, %62, %63"
+      "}, %64, %65, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
+        "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]),
+        "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "l"(da), "l"(db), "r"(accumulate));
+}
+
+// d (64 x 64) += A B: A (64 x 16, bf16) from registers in the accumulator
+// layout's pairs, B from shared memory, MN-major (transposed), by descriptor.
+__device__ __forceinline__ void wgmma_rs_n64(float (&d)[32],
+                                           const uint32_t* a, uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31"
+      "}, {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
 }
 
 __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
@@ -99,60 +272,7 @@ __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   return *reinterpret_cast<uint32_t*>(&v);
 }
 
-// Two bf16 from p[0] (low half) and p[stride] (high half).
-__device__ __forceinline__ uint32_t pack_column(const __nv_bfloat16* p,
-                                                int stride) {
-  const uint32_t lo = *reinterpret_cast<const uint16_t*>(p);
-  const uint32_t hi = *reinterpret_cast<const uint16_t*>(p + stride);
-  return lo | (hi << 16);
-}
-
-// Copies rows row0 .. row0 + 63 of one head (row stride sn elements) into a
-// padded shared tile, with zeros for rows at or past n.
-__device__ __forceinline__ void load_tile(__nv_bfloat16* dst,
-                                          const __nv_bfloat16* head,
-                                          long long sn, int row0, int n) {
-  constexpr int kChunks = kHeadDim / 8;  // 16-byte chunks a row
-  for (int c = threadIdx.x; c < kBlockK * kChunks; c += kThreads) {
-    const int r = c / kChunks;
-    const int col = (c % kChunks) * 8;
-    uint4 val = make_uint4(0u, 0u, 0u, 0u);
-    if (row0 + r < n) {
-      val = *reinterpret_cast<const uint4*>(head + (row0 + r) * sn + col);
-    }
-    *reinterpret_cast<uint4*>(dst + r * kRow + col) = val;
-  }
-}
-
-// s = (q * scale) k^T for this warp's 16 rows and the 64 keys of the tile
-// at k0: 8 tiles of 8 keys, keys at or past n set to -inf.
-__device__ __forceinline__ void score_tile(float (&s)[8][4],
-                                           const uint32_t (&qf)[4][4],
-                                           const __nv_bfloat16* s_k, int g,
-                                           int t, int k0, int n) {
-#pragma unroll
-  for (int j = 0; j < 8; ++j) {
-#pragma unroll
-    for (int e = 0; e < 4; ++e) s[j][e] = 0.f;
-#pragma unroll
-    for (int kc = 0; kc < 4; ++kc) {
-      const __nv_bfloat16* kp = s_k + (j * 8 + g) * kRow + kc * 16 + t * 2;
-      mma_bf16(s[j], qf[kc], *reinterpret_cast<const uint32_t*>(kp),
-               *reinterpret_cast<const uint32_t*>(kp + 8));
-    }
-  }
-  if (k0 + kBlockK > n) {
-#pragma unroll
-    for (int j = 0; j < 8; ++j) {
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        if (k0 + j * 8 + t * 2 + (e & 1) >= n) s[j][e] = -INFINITY;
-      }
-    }
-  }
-}
-
-// Reduces over the four threads of a fragment row group.
+// Reduces over the four threads of an accumulator row group.
 __device__ __forceinline__ float group_max(float v) {
   v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, 1));
   return fmaxf(v, __shfl_xor_sync(0xffffffffu, v, 2));
@@ -163,169 +283,278 @@ __device__ __forceinline__ float group_sum(float v) {
   return v + __shfl_xor_sync(0xffffffffu, v, 2);
 }
 
-// acc += bf16(p) v over the 64 keys of the tile s_v: the p accumulators of
-// key tiles 2 kc and 2 kc + 1 are the A fragment of k-step kc; B is v read
-// down a column of the tile.
-__device__ __forceinline__ void pv_tile(float (&acc)[8][4],
-                                        const float (&p)[8][4],
-                                        const __nv_bfloat16* s_v, int g,
-                                        int t) {
-#pragma unroll
-  for (int kc = 0; kc < 4; ++kc) {
-    const uint32_t pf[4] = {
-        pack_bf16(p[2 * kc][0], p[2 * kc][1]),
-        pack_bf16(p[2 * kc][2], p[2 * kc][3]),
-        pack_bf16(p[2 * kc + 1][0], p[2 * kc + 1][1]),
-        pack_bf16(p[2 * kc + 1][2], p[2 * kc + 1][3]),
-    };
-#pragma unroll
-    for (int j = 0; j < 8; ++j) {
-      const __nv_bfloat16* vp = s_v + (kc * 16 + t * 2) * kRow + j * 8 + g;
-      mma_bf16(acc[j], pf, pack_column(vp, kRow),
-               pack_column(vp + 8 * kRow, kRow));
-    }
-  }
+// The wgmma accumulator of a warpgroup's 64 rows against 8-column blocks:
+// element [4 j + e] of warp w, lane l is row 16 w + l / 4 + 8 (e >> 1),
+// column 8 j + 2 (l % 4) + (e & 1). A thread holds two rows, r = e >> 1.
+
+// 2^a on the special-function unit (ex2.approx, relative error ~2^-22).
+// exp(x - m) is taken as 2^(x log2 e - m log2 e), one FMA and one ex2; p
+// is rounded to bf16 after it. -inf gives 0.
+constexpr float kLog2e = 1.4426950408889634f;
+__device__ __forceinline__ float exp2_fast(float a) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(a));
+  return y;
 }
 
-// This thread's largest logit of row r (0: row g, 1: row g + 8) in a tile.
-__device__ __forceinline__ float tile_max(const float (&s)[8][4], int r) {
+// This thread's largest logit of row r in a 128-key tile.
+__device__ __forceinline__ float tile_max(const float (&s)[64], int r) {
   float m = -INFINITY;
 #pragma unroll
-  for (int j = 0; j < 8; ++j) m = fmaxf(m, fmaxf(s[j][2 * r], s[j][2 * r + 1]));
+  for (int j = 0; j < 16; ++j) {
+    m = fmaxf(m, fmaxf(s[4 * j + 2 * r], s[4 * j + 2 * r + 1]));
+  }
   return m;
 }
 
-enum Form : int { kTwoPass = 0, kResident = 1, kFlash = 2, kNoSoftmax = 3 };
+// Shared memory of a block: the consumers' q tiles, the K and V stages,
+// then the mbarriers (q, full x kStages, empty x kStages), from a
+// 1024-byte aligned base.
+template <int kConsumers>
+struct Layout {
+  static constexpr int kQ = 0;
+  static constexpr int kK = kConsumers * kQBytes;
+  static constexpr int kV = kK + kStages * kKVBytes;
+  static constexpr int kBars = kV + kStages * kKVBytes;
+  static constexpr int kBytes = kBars + (1 + 2 * kStages) * 8;
+  static constexpr int kAlloc = kBytes + 1024;  // room to align the base
+};
 
-template <int kForm>
-__global__ void __launch_bounds__(kThreads)
-attention_kernel(const __nv_bfloat16* __restrict__ q,
-                 const __nv_bfloat16* __restrict__ k,
-                 const __nv_bfloat16* __restrict__ v,
-                 __nv_bfloat16* __restrict__ o, int n, Strides qs, Strides ks,
-                 Strides vs, Strides os, float scale) {
-  // the online form takes 128 keys a step, the others 64
-  constexpr int kKeys = kForm == kFlash ? 2 * kBlockK : kBlockK;
+template <int kForm, int kConsumers>
+__global__ void __launch_bounds__((kConsumers + 1) * kWarpgroup, 1)
+attention_kernel(const __grid_constant__ CUtensorMap tq,
+                 const __grid_constant__ CUtensorMap tk,
+                 const __grid_constant__ CUtensorMap tv,
+                 __nv_bfloat16* __restrict__ o, Strides os, int n,
+                 float scale) {
+  using L = Layout<kConsumers>;
   // q scaled in bf16 before the product, or the f32 logits after it
   constexpr bool kScaleQ = kForm == kTwoPass || kForm == kNoSoftmax;
-  __shared__ __align__(16) __nv_bfloat16 s_q[kBlockQ * kRow];
-  __shared__ __align__(16) __nv_bfloat16 s_k[kKeys * kRow];
-  __shared__ __align__(16) __nv_bfloat16 s_v[kKeys * kRow];
+  // a first pass over K alone (the row max, and the sum for kResident)
+  constexpr bool kTwoPasses = kForm == kTwoPass || kForm == kResident;
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* smem = reinterpret_cast<uint8_t*>(
+      (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~uintptr_t(1023));
+  const uint32_t base = smem_u32(smem);
+  const uint32_t bar_q = base + L::kBars;
+  const uint32_t bar_full = bar_q + 8;
+  const uint32_t bar_empty = bar_full + 8 * kStages;
 
-  const int q0 = blockIdx.x * kBlockQ;
+  const int q0 = blockIdx.x * kConsumers * kBlockM;
   const int h = blockIdx.y;
   const int b = blockIdx.z;
-  const int warp = threadIdx.x >> 5;
-  const int lane = threadIdx.x & 31;
-  const int g = lane >> 2;  // fragment row group
-  const int t = lane & 3;   // thread within the group
+  const int tiles = (n + kBlockN - 1) / kBlockN;
+  const int loads = kTwoPasses ? 2 * tiles : tiles;
+  const int wg = threadIdx.x / kWarpgroup;
+  // consumers with a query row below n; the others exit at once
+  const int active = min(kConsumers, (n - q0 + kBlockM - 1) / kBlockM);
 
-  const __nv_bfloat16* qh = q + b * qs.b + h * qs.h;
-  const __nv_bfloat16* kh = k + b * ks.b + h * ks.h;
-  const __nv_bfloat16* vh = v + b * vs.b + h * vs.h;
-
-  load_tile(s_q, qh, qs.n, q0, n);
+  if (threadIdx.x == 0) {
+    mbar_init(bar_q, 1);
+    for (int st = 0; st < kStages; ++st) {
+      mbar_init(bar_full + 8 * st, 1);
+      mbar_init(bar_empty + 8 * st, active * kWarpgroup);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
   __syncthreads();
 
-  // A fragments of this warp's 16 query rows, 4 k-steps of 16 dims each;
-  // with kScaleQ multiplied by scale and rounded to bf16 as the TPU kernel
-  // does.
-  const float sc = kScaleQ ? __bfloat162float(__float2bfloat16(scale)) : 1.f;
-  uint32_t qf[4][4];
-  const __nv_bfloat16* qw = s_q + warp * 16 * kRow;
-#pragma unroll
-  for (int kc = 0; kc < 4; ++kc) {
-#pragma unroll
-    for (int r = 0; r < 4; ++r) {
-      const int row = g + (r & 1) * 8;
-      const int col = kc * 16 + (r >> 1) * 8 + t * 2;
-      const float2 x = __bfloat1622float2(
-          *reinterpret_cast<const __nv_bfloat162*>(qw + row * kRow + col));
-      qf[kc][r] = kScaleQ ? pack_bf16(x.x * sc, x.y * sc)
-                          : pack_bf16(x.x, x.y);
+  if (wg == kConsumers) {
+    // the producer: one thread issues every copy, on few registers
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(kProducerRegs));
+    if (threadIdx.x % kWarpgroup == 0) {
+      mbar_expect_tx(bar_q, active * kQBytes);
+      for (int c = 0; c < active; ++c) {
+        tma_load(base + L::kQ + c * kQBytes, &tq, bar_q, q0 + c * kBlockM, h,
+                 b);
+      }
+      for (int i = 0; i < loads; ++i) {
+        const int st = i % kStages;
+        mbar_wait(bar_empty + 8 * st, ((i / kStages) & 1) ^ 1);
+        const bool with_v = !kTwoPasses || i >= tiles;
+        const int k0 = (i >= tiles ? i - tiles : i) * kBlockN;
+        mbar_expect_tx(bar_full + 8 * st, with_v ? 2 * kKVBytes : kKVBytes);
+        tma_load(base + L::kK + st * kKVBytes, &tk, bar_full + 8 * st, k0, h,
+                 b);
+        if (with_v) {
+          tma_load(base + L::kV + st * kKVBytes, &tv, bar_full + 8 * st, k0,
+                   h, b);
+        }
+      }
     }
+    return;
   }
 
-  // logits of the 64 keys of a shared tile at key k0, masked keys -inf
-  auto scores = [&](float (&s)[8][4], const __nv_bfloat16* tile, int k0) {
-    score_tile(s, qf, tile, g, t, k0, n);
-    if (!kScaleQ) {
+  // a consumer warpgroup: query rows q0 + 64 wg .., on the registers the
+  // producer gave up
+  if (wg >= active) return;
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n"
+               ::"n"(consumer_regs<kConsumers>()));
+  const int tid = threadIdx.x % kWarpgroup;
+  const int warp = tid >> 5;
+  const int lane = tid & 31;
+  const int g = lane >> 2;
+  const int t = lane & 3;
+  uint8_t* my_q = smem + L::kQ + wg * kQBytes;
+  mbar_wait(bar_q, 0);
+  if (kScaleQ) {
+    // q * scale, rounded to bf16, as the TPU kernel does
+    const __nv_bfloat162 sc2 = __float2bfloat162_rn(scale);
+    for (int i = tid; i < kQBytes / 16; i += kWarpgroup) {
+      uint4 v = reinterpret_cast<uint4*>(my_q)[i];
+      __nv_bfloat162* p = reinterpret_cast<__nv_bfloat162*>(&v);
 #pragma unroll
-      for (int j = 0; j < 8; ++j) {
+      for (int u = 0; u < 4; ++u) {
+        const float2 x = __bfloat1622float2(p[u]);
+        const float2 y = __bfloat1622float2(sc2);
+        p[u] = __floats2bfloat162_rn(x.x * y.x, x.y * y.y);
+      }
+      reinterpret_cast<uint4*>(my_q)[i] = v;
+    }
+    // the generic-proxy writes, seen by wgmma's reads
+    asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+    asm volatile("bar.sync %0, %1;\n" ::"r"(wg + 1), "r"(kWarpgroup)
+                 : "memory");
+  }
+  const uint64_t dq = smem_desc(base + L::kQ + wg * kQBytes, 16, 1024);
+
+  float s[64];     // logits, then p, of a tile: 64 rows x 128 keys
+  uint32_t p[32];  // bf16 p of the tile whose p v product is in flight, in
+                   // wgmma's A-operand layout
+  float acc[32];   // the output's 64 rows x 64 dims
 #pragma unroll
-        for (int e = 0; e < 4; ++e) s[j][e] *= scale;
+  for (int i = 0; i < 32; ++i) acc[i] = 0.f;
+
+  auto full_wait = [&](int i) {
+    mbar_wait(bar_full + 8 * (i % kStages), (i / kStages) & 1);
+  };
+  auto release = [&](int i) { mbar_arrive(bar_empty + 8 * (i % kStages)); };
+  // issues s = q k^T over the K tile of load i
+  auto issue_s = [&](int i) {
+    const uint64_t dk = smem_desc(base + L::kK + (i % kStages) * kKVBytes,
+                                  16, 1024);
+    fence_regs(s);
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < kHeadDim / 16; ++kk) {
+      // a 16-channel step is 32 bytes along the swizzled row
+      wgmma_ss_n128(s, dq + 2 * kk, dk + 2 * kk, kk > 0);
+    }
+    wgmma_commit();
+  };
+  // issues acc += p v over the V tile of load i. The caller fences acc and
+  // p before the first wgmma it issues with this one: a register defined
+  // between two wgmma of one stage makes ptxas serialise them.
+  auto issue_pv = [&](int i) {
+    const uint64_t dv = smem_desc(base + L::kV + (i % kStages) * kKVBytes,
+                                  8192, 1024);
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < kBlockN / 16; ++kk) {
+      // 16 keys are two 8-row groups, 2048 bytes
+      wgmma_rs_n64(acc, p + 4 * kk, dv + 128 * kk);
+    }
+    wgmma_commit();
+  };
+  // the logits of tile kt in s: the scale unless q carries it, keys at or
+  // past n set to -inf
+  auto finish_s = [&](int kt) {
+    const int k0 = kt * kBlockN;
+#pragma unroll
+    for (int u = 0; u < 64; ++u) {
+      if (!kScaleQ) s[u] *= scale;
+    }
+    if (k0 + kBlockN > n) {
+#pragma unroll
+      for (int u = 0; u < 64; ++u) {
+        if (k0 + (u >> 2) * 8 + 2 * t + (u & 1) >= n) s[u] = -INFINITY;
       }
     }
   };
+  auto pack = [&](uint32_t (&dst)[32]) {
+#pragma unroll
+    for (int u = 0; u < 32; ++u) dst[u] = pack_bf16(s[2 * u], s[2 * u + 1]);
+  };
+  // Loads first .. first + tiles - 1, one pass with p v products: soft(kt)
+  // turns tile kt's logits in s into p (f32, in s), and rescale(kt) may
+  // then touch acc. The q k^T of tile kt and the p v product of tile
+  // kt - 1 are issued together and waited for together: working out tile
+  // kt's softmax while the p v product still ran made ptxas serialise the
+  // wgmma (its warning C7513), and the kernel slower.
+  auto stream_pv = [&](int first, auto&& soft, auto&& rescale) {
+    full_wait(first);
+    issue_s(first);
+    wgmma_wait<0>();
+    fence_regs(s);
+    finish_s(0);
+    soft(0);
+    pack(p);
+    rescale(0);
+    for (int kt = 1; kt < tiles; ++kt) {
+      const int i = first + kt;
+      full_wait(i);
+      fence_regs(acc);
+      fence_regs(p);
+      issue_s(i);
+      issue_pv(i - 1);
+      wgmma_wait<0>();
+      fence_regs(s);
+      fence_regs(acc);
+      fence_regs(p);
+      release(i - 1);
+      finish_s(kt);
+      soft(kt);
+      pack(p);
+      rescale(kt);
+    }
+    fence_regs(acc);
+    fence_regs(p);
+    issue_pv(first + tiles - 1);
+    wgmma_wait<0>();
+    fence_regs(acc);
+    fence_regs(p);
+    release(first + tiles - 1);
+  };
+  auto no_rescale = [](int) {};
 
-  // This thread's two rows are g and g + 8 of the warp's 16: index 0 and 1
-  // below, held in s[j][2r] and s[j][2r + 1].
-  float s[8][4];
-  float acc[8][4];  // 8 column tiles of 8 dims
-#pragma unroll
-  for (int j = 0; j < 8; ++j) {
-#pragma unroll
-    for (int e = 0; e < 4; ++e) acc[j][e] = 0.f;
-  }
   // what the accumulator is divided by at the end
   float row_div[2] = {1.f, 1.f};
 
   if constexpr (kForm == kNoSoftmax) {
-    for (int k0 = 0; k0 < n; k0 += kBlockK) {
-      __syncthreads();
-      load_tile(s_k, kh, ks.n, k0, n);
-      load_tile(s_v, vh, vs.n, k0, n);
-      __syncthreads();
-      scores(s, s_k, k0);
+    stream_pv(0, [&](int kt) {
+      if ((kt + 1) * kBlockN > n) {
 #pragma unroll
-      for (int j = 0; j < 8; ++j) {
-#pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          if (s[j][e] == -INFINITY) s[j][e] = 0.f;  // a key past n
+        for (int u = 0; u < 64; ++u) {
+          if (s[u] == -INFINITY) s[u] = 0.f;  // a key past n
         }
       }
-      pv_tile(acc, s, s_v, g, t);
-    }
+    }, no_rescale);
   } else if constexpr (kForm == kFlash) {
-    float s2[8][4];
     float run_max[2] = {-INFINITY, -INFINITY};
     float run_sum[2] = {0.f, 0.f};
-    for (int k0 = 0; k0 < n; k0 += 2 * kBlockK) {
-      __syncthreads();
-      load_tile(s_k, kh, ks.n, k0, n);
-      load_tile(s_k + kBlockK * kRow, kh, ks.n, k0 + kBlockK, n);
-      load_tile(s_v, vh, vs.n, k0, n);
-      load_tile(s_v + kBlockK * kRow, vh, vs.n, k0 + kBlockK, n);
-      __syncthreads();
-      scores(s, s_k, k0);
-      scores(s2, s_k + kBlockK * kRow, k0 + kBlockK);
+    float corr[2];
+    stream_pv(0, [&](int) {
 #pragma unroll
       for (int r = 0; r < 2; ++r) {
         // the row's max over the block's 128 keys (key k0 is real)
-        const float m_new = fmaxf(
-            run_max[r], group_max(fmaxf(tile_max(s, r), tile_max(s2, r))));
-        const float corr = expf(run_max[r] - m_new);
+        const float m_new = fmaxf(run_max[r], group_max(tile_max(s, r)));
+        corr[r] = exp2_fast((run_max[r] - m_new) * kLog2e);
         run_max[r] = m_new;
-        run_sum[r] *= corr;
+        run_sum[r] *= corr[r];
+        const float mlog = m_new * kLog2e;
 #pragma unroll
-        for (int j = 0; j < 8; ++j) {
-          acc[j][2 * r] *= corr;
-          acc[j][2 * r + 1] *= corr;
+        for (int j = 0; j < 16; ++j) {
 #pragma unroll
           for (int e = 2 * r; e < 2 * r + 2; ++e) {
-            s[j][e] = expf(s[j][e] - m_new);
-            s2[j][e] = expf(s2[j][e] - m_new);
-            run_sum[r] += s[j][e];
+            s[4 * j + e] = exp2_fast(fmaf(s[4 * j + e], kLog2e, -mlog));
+            run_sum[r] += s[4 * j + e];
           }
         }
-#pragma unroll
-        for (int j = 0; j < 8; ++j) {
-          run_sum[r] += s2[j][2 * r] + s2[j][2 * r + 1];
-        }
       }
-      pv_tile(acc, s, s_v, g, t);
-      pv_tile(acc, s2, s_v + kBlockK * kRow, g, t);
-    }
+    }, [&](int) {
+#pragma unroll
+      for (int u = 0; u < 32; ++u) acc[u] *= corr[(u >> 1) & 1];
+    });
     row_div[0] = group_sum(run_sum[0]);
     row_div[1] = group_sum(run_sum[1]);
   } else {
@@ -333,103 +562,411 @@ attention_kernel(const __nv_bfloat16* __restrict__ q,
     // exp(s - max), rescaled when this thread's max grows.
     float row_max[2] = {-INFINITY, -INFINITY};
     float row_sum[2] = {0.f, 0.f};
-    for (int k0 = 0; k0 < n; k0 += kBlockK) {
-      __syncthreads();  // every warp is done with the previous tile
-      load_tile(s_k, kh, ks.n, k0, n);
-      __syncthreads();
-      scores(s, s_k, k0);
+    for (int kt = 0; kt < tiles; ++kt) {
+      full_wait(kt);
+      issue_s(kt);
+      wgmma_wait<0>();
+      fence_regs(s);
+      release(kt);
+      finish_s(kt);
 #pragma unroll
       for (int r = 0; r < 2; ++r) {
         const float m_new = fmaxf(row_max[r], tile_max(s, r));
         if (kForm == kResident && m_new != -INFINITY) {
           // -inf until one of this thread's keys is real
-          row_sum[r] *= row_max[r] == -INFINITY ? 0.f
-                                                : expf(row_max[r] - m_new);
+          row_sum[r] *= exp2_fast((row_max[r] - m_new) * kLog2e);
+          const float mlog = m_new * kLog2e;
 #pragma unroll
-          for (int j = 0; j < 8; ++j) {
-            row_sum[r] += expf(s[j][2 * r] - m_new) +
-                          expf(s[j][2 * r + 1] - m_new);
+          for (int j = 0; j < 16; ++j) {
+            row_sum[r] += exp2_fast(fmaf(s[4 * j + 2 * r], kLog2e, -mlog)) +
+                          exp2_fast(fmaf(s[4 * j + 2 * r + 1], kLog2e, -mlog));
           }
         }
         row_max[r] = m_new;
       }
     }
+    float mlog[2], inv_sum[2];
 #pragma unroll
     for (int r = 0; r < 2; ++r) {
       const float m = group_max(row_max[r]);
       if (kForm == kResident) {
-        row_sum[r] = group_sum(row_max[r] == -INFINITY
-                                   ? 0.f
-                                   : row_sum[r] * expf(row_max[r] - m));
+        row_sum[r] =
+            group_sum(row_sum[r] * exp2_fast((row_max[r] - m) * kLog2e));
+        inv_sum[r] = __frcp_rn(row_sum[r]);
       }
-      row_max[r] = m;
+      mlog[r] = m * kLog2e;
     }
 
-    // Pass 2: p = exp(s - max) (kResident: divided by the row's sum),
+    // Pass 2: p = exp(s - max) (kResident: times 1 / the row's sum),
     // acc += bf16(p) v; kTwoPass sums p in f32 for the end.
     float p_sum[2] = {0.f, 0.f};
-    for (int k0 = 0; k0 < n; k0 += kBlockK) {
-      __syncthreads();
-      load_tile(s_k, kh, ks.n, k0, n);
-      load_tile(s_v, vh, vs.n, k0, n);
-      __syncthreads();
-      scores(s, s_k, k0);
+    stream_pv(tiles, [&](int) {
 #pragma unroll
-      for (int j = 0; j < 8; ++j) {
-#pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          s[j][e] = expf(s[j][e] - row_max[e >> 1]);
-          if (kForm == kResident) {
-            s[j][e] = __fdiv_rn(s[j][e], row_sum[e >> 1]);
-          } else {
-            p_sum[e >> 1] += s[j][e];
-          }
+      for (int u = 0; u < 64; ++u) {
+        const int r = (u >> 1) & 1;
+        s[u] = exp2_fast(fmaf(s[u], kLog2e, -mlog[r]));
+        if (kForm == kResident) {
+          s[u] *= inv_sum[r];
+        } else {
+          p_sum[r] += s[u];
         }
       }
-      pv_tile(acc, s, s_v, g, t);
-    }
+    }, no_rescale);
     if (kForm == kTwoPass) {
       row_div[0] = group_sum(p_sum[0]);
       row_div[1] = group_sum(p_sum[1]);
     }
   }
 
+  // no division where the divisor is 1 (kResident, kNoSoftmax)
+  constexpr bool kDivide = kForm == kTwoPass || kForm == kFlash;
 #pragma unroll
   for (int r = 0; r < 2; ++r) {
-    const int row = q0 + warp * 16 + g + r * 8;
+    const int row = q0 + wg * kBlockM + warp * 16 + g + r * 8;
     if (row >= n) continue;
     __nv_bfloat16* op = o + b * os.b + row * os.n + h * os.h + t * 2;
-    // no division where the divisor is 1 (kResident, kNoSoftmax)
-    const bool divide = kForm == kTwoPass || kForm == kFlash;
 #pragma unroll
     for (int j = 0; j < 8; ++j) {
-      const float lo = acc[j][2 * r], hi = acc[j][2 * r + 1];
+      const float lo = acc[4 * j + 2 * r], hi = acc[4 * j + 2 * r + 1];
       *reinterpret_cast<uint32_t*>(op + j * 8) =
-          divide ? pack_bf16(lo / row_div[r], hi / row_div[r])
-                 : pack_bf16(lo, hi);
+          kDivide ? pack_bf16(lo / row_div[r], hi / row_div[r])
+                  : pack_bf16(lo, hi);
     }
   }
 }
 
+// A-f32: one thread a query row, kF32Rows rows a block; K and V stream
+// through shared memory in tiles of kBlockN keys (64 KB).
+constexpr int kF32Rows = 128;
+constexpr int kF32Smem = 2 * kBlockN * kHeadDim * 4;
+
+// Rows k0 .. k0 + kBlockN - 1 of one head (row stride sn elements) into a
+// dense shared tile, zeros at or past n.
+__device__ __forceinline__ void load_tile_f32(float* dst, const float* head,
+                                              long long sn, int k0, int n) {
+  constexpr int kChunks = kHeadDim / 4;  // float4 a row
+  for (int c = threadIdx.x; c < kBlockN * kChunks; c += blockDim.x) {
+    const int r = c / kChunks;
+    const int col = (c % kChunks) * 4;
+    float4 v = make_float4(0.f, 0.f, 0.f, 0.f);
+    if (k0 + r < n) v = *reinterpret_cast<const float4*>(head + (k0 + r) * sn + col);
+    *reinterpret_cast<float4*>(dst + r * kHeadDim + col) = v;
+  }
+}
+
+// q . k of this thread's (scaled) query row against a shared key row.
+__device__ __forceinline__ float dot64(const float (&qr)[kHeadDim],
+                                       const float* kr) {
+  float d = 0.f;
+#pragma unroll
+  for (int c = 0; c < kHeadDim; c += 4) {
+    const float4 k4 = *reinterpret_cast<const float4*>(kr + c);
+    d = fmaf(qr[c], k4.x, d);
+    d = fmaf(qr[c + 1], k4.y, d);
+    d = fmaf(qr[c + 2], k4.z, d);
+    d = fmaf(qr[c + 3], k4.w, d);
+  }
+  return d;
+}
+
+__device__ __forceinline__ void axpy64(float (&acc)[kHeadDim], float p,
+                                       const float* vr) {
+#pragma unroll
+  for (int c = 0; c < kHeadDim; c += 4) {
+    const float4 v4 = *reinterpret_cast<const float4*>(vr + c);
+    acc[c] = fmaf(p, v4.x, acc[c]);
+    acc[c + 1] = fmaf(p, v4.y, acc[c + 1]);
+    acc[c + 2] = fmaf(p, v4.z, acc[c + 2]);
+    acc[c + 3] = fmaf(p, v4.w, acc[c + 3]);
+  }
+}
+
 template <int kForm>
-cudaError_t launch(const void* q, const void* k, const void* v, void* o,
-                   int batch, int n, int heads, Strides qs, Strides ks,
-                   Strides vs, Strides os, float scale, cudaStream_t stream) {
-  const dim3 grid((n + kBlockQ - 1) / kBlockQ, heads, batch);
-  attention_kernel<kForm><<<grid, kThreads, 0, stream>>>(
-      static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k),
-      static_cast<const __nv_bfloat16*>(v), static_cast<__nv_bfloat16*>(o), n,
-      qs, ks, vs, os, scale);
+__global__ void __launch_bounds__(kF32Rows)
+attention_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                     const float* __restrict__ v, float* __restrict__ o,
+                     int n, Strides qs, Strides ks, Strides vs, Strides os,
+                     float scale) {
+  constexpr bool kScaleQ = kForm == kTwoPass || kForm == kNoSoftmax;
+  extern __shared__ __align__(16) float smem_f32[];
+  float* s_k = smem_f32;
+  float* s_v = smem_f32 + kBlockN * kHeadDim;
+  const int row = blockIdx.x * kF32Rows + threadIdx.x;
+  const int h = blockIdx.y;
+  const int b = blockIdx.z;
+  const bool live = row < n;
+  const float* kh = k + b * ks.b + h * ks.h;
+  const float* vh = v + b * vs.b + h * vs.h;
+
+  float qr[kHeadDim];
+  float acc[kHeadDim];
+  {
+    const float* qp = q + b * qs.b + static_cast<long long>(live ? row : 0) * qs.n + h * qs.h;
+#pragma unroll
+    for (int c = 0; c < kHeadDim; ++c) {
+      qr[c] = live ? qp[c] : 0.f;
+      if (kScaleQ) qr[c] *= scale;  // q * scale in f32, as q's dtype
+      acc[c] = 0.f;
+    }
+  }
+  // the logit of key row kr: the scale after the product unless q has it
+  auto logit = [&](const float* kr) {
+    const float d = dot64(qr, kr);
+    return kScaleQ ? d : d * scale;
+  };
+  auto load = [&](int k0, bool with_v) {
+    __syncthreads();  // every thread is done with the previous tile
+    load_tile_f32(s_k, kh, ks.n, k0, n);
+    if (with_v) load_tile_f32(s_v, vh, vs.n, k0, n);
+    __syncthreads();
+  };
+  float row_div = 1.f;
+
+  if constexpr (kForm == kNoSoftmax) {
+    for (int k0 = 0; k0 < n; k0 += kBlockN) {
+      load(k0, true);
+      const int kn = min(kBlockN, n - k0);
+      for (int j = 0; j < kn; ++j) {
+        axpy64(acc, logit(s_k + j * kHeadDim), s_v + j * kHeadDim);
+      }
+    }
+  } else if constexpr (kForm == kFlash) {
+    float run_max = -INFINITY, run_sum = 0.f;
+    for (int k0 = 0; k0 < n; k0 += kBlockN) {
+      load(k0, true);
+      const int kn = min(kBlockN, n - k0);
+      float m_blk = -INFINITY;
+      for (int j = 0; j < kn; ++j) m_blk = fmaxf(m_blk, logit(s_k + j * kHeadDim));
+      const float m_new = fmaxf(run_max, m_blk);
+      const float corr = expf(run_max - m_new);
+      run_max = m_new;
+      run_sum *= corr;
+#pragma unroll
+      for (int c = 0; c < kHeadDim; ++c) acc[c] *= corr;
+      for (int j = 0; j < kn; ++j) {
+        const float p = expf(logit(s_k + j * kHeadDim) - m_new);
+        run_sum += p;
+        axpy64(acc, p, s_v + j * kHeadDim);
+      }
+    }
+    row_div = run_sum;
+  } else {
+    // pass 1: the row max; kResident also the sum of exp(s - max),
+    // rescaled when the max grows
+    float row_max = -INFINITY, row_sum = 0.f;
+    for (int k0 = 0; k0 < n; k0 += kBlockN) {
+      load(k0, false);
+      const int kn = min(kBlockN, n - k0);
+      for (int j = 0; j < kn; ++j) {
+        const float x = logit(s_k + j * kHeadDim);
+        if (kForm == kResident) {
+          if (x > row_max) {
+            row_sum = row_sum * expf(row_max - x) + 1.f;
+            row_max = x;
+          } else {
+            row_sum += expf(x - row_max);
+          }
+        } else {
+          row_max = fmaxf(row_max, x);
+        }
+      }
+    }
+    // pass 2: p = exp(s - max) (kResident: divided by the sum)
+    float p_sum = 0.f;
+    for (int k0 = 0; k0 < n; k0 += kBlockN) {
+      load(k0, true);
+      const int kn = min(kBlockN, n - k0);
+      for (int j = 0; j < kn; ++j) {
+        float p = expf(logit(s_k + j * kHeadDim) - row_max);
+        if (kForm == kResident) {
+          p = __fdiv_rn(p, row_sum);
+        } else {
+          p_sum += p;
+        }
+        axpy64(acc, p, s_v + j * kHeadDim);
+      }
+    }
+    if (kForm == kTwoPass) row_div = p_sum;
+  }
+  if (!live) return;
+  float* op = o + b * os.b + static_cast<long long>(row) * os.n + h * os.h;
+  constexpr bool kDivide = kForm == kTwoPass || kForm == kFlash;
+#pragma unroll
+  for (int c = 0; c < kHeadDim; c += 4) {
+    float4 r4 = make_float4(acc[c], acc[c + 1], acc[c + 2], acc[c + 3]);
+    if (kDivide) {
+      r4.x /= row_div;
+      r4.y /= row_div;
+      r4.z /= row_div;
+      r4.w /= row_div;
+    }
+    *reinterpret_cast<float4*>(op + c) = r4;
+  }
+}
+
+// A 4-d tensor map (64, n, heads, batch) of bf16 rows with the given
+// element strides, boxes of box_rows rows of one head, 128-byte swizzle.
+bool make_map(CUtensorMap* map, const void* base, int n, int heads,
+              int batch, Strides st, int box_rows) {
+  cuuint64_t dims[4] = {static_cast<cuuint64_t>(kHeadDim),
+                        static_cast<cuuint64_t>(n),
+                        static_cast<cuuint64_t>(heads),
+                        static_cast<cuuint64_t>(batch)};
+  cuuint64_t strides[3] = {static_cast<cuuint64_t>(st.n) * 2,
+                           static_cast<cuuint64_t>(st.h) * 2,
+                           static_cast<cuuint64_t>(st.b) * 2};
+  cuuint32_t box[4] = {static_cast<cuuint32_t>(kHeadDim),
+                       static_cast<cuuint32_t>(box_rows), 1, 1};
+  cuuint32_t elem[4] = {1, 1, 1, 1};
+  return cuTensorMapEncodeTiled(
+             map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(base),
+             dims, strides, box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE,
+             CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+// Two or three consumers a block, whichever the grid's waves favour: the
+// blocks of c consumers take ceil(blocks / SMs) waves of c x 64 rows, and a
+// block of three did its rows ~10% faster than one of two on an H100 (B=32,
+// N=785, H=12 and B=8, N=785, H=6: PERF.md). By that count three win at
+// ViT-T's and ViT-S's N = 785 and ViT-B's train trunk, two at N = 1601.
+int consumers_for(int n, int heads, int batch) {
+  static int sms[kMaxDevices] = {};
+  int device = 0;
+  if (cudaGetDevice(&device) != cudaSuccess || device >= kMaxDevices) return 2;
+  if (sms[device] == 0 &&
+      cudaDeviceGetAttribute(&sms[device], cudaDevAttrMultiProcessorCount,
+                             device) != cudaSuccess) {
+    return 2;
+  }
+  const long long pairs = static_cast<long long>(heads) * batch;
+  auto cost = [&](int c) {
+    const long long blocks = (n + c * kBlockM - 1) / (c * kBlockM) * pairs;
+    return static_cast<double>((blocks + sms[device] - 1) / sms[device]) * c;
+  };
+  return cost(3) * 0.9 < cost(2) ? 3 : 2;
+}
+
+template <int kForm, int kConsumers>
+cudaError_t launch_bf16(const CUtensorMap& tq, const CUtensorMap& tk,
+                        const CUtensorMap& tv, void* o, int batch, int n,
+                        int heads, Strides os, float scale,
+                        cudaStream_t stream) {
+  constexpr int kSmem = Layout<kConsumers>::kAlloc;
+  auto kernel = attention_kernel<kForm, kConsumers>;
+  // set up once a device (a host call costs microseconds a launch)
+  static bool ready[kMaxDevices] = {};
+  int device = 0;
+  cudaError_t err = cudaGetDevice(&device);
+  if (err != cudaSuccess) return err;
+  if (device >= kMaxDevices || !ready[device]) {
+    err = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kSmem);
+    if (err != cudaSuccess) return err;
+    // setmaxnreg.inc waits for registers the block does not have, so a
+    // build that launched with fewer than the pool above would hang
+    cudaFuncAttributes attr;
+    err = cudaFuncGetAttributes(&attr, kernel);
+    if (err != cudaSuccess) return err;
+    if (attr.numRegs * (kConsumers + 1) <
+        kProducerRegs + kConsumers * consumer_regs<kConsumers>()) {
+      return cudaErrorInvalidConfiguration;
+    }
+    if (device < kMaxDevices) ready[device] = true;
+  }
+  const int rows = kConsumers * kBlockM;
+  const dim3 grid((n + rows - 1) / rows, heads, batch);
+  kernel<<<grid, (kConsumers + 1) * kWarpgroup, kSmem, stream>>>(
+      tq, tk, tv, static_cast<__nv_bfloat16*>(o), os, n, scale);
   return cudaGetLastError();
+}
+
+// consumers: 2 or 3 consumer warpgroups a block, or 0 to choose by the
+// grid (consumers_for).
+template <int kForm>
+cudaError_t launch_form(const CUtensorMap& tq, const CUtensorMap& tk,
+                        const CUtensorMap& tv, void* o, int batch, int n,
+                        int heads, Strides os, float scale, int consumers,
+                        cudaStream_t stream) {
+  switch (consumers ? consumers : consumers_for(n, heads, batch)) {
+    case 3:
+      return launch_bf16<kForm, 3>(tq, tk, tv, o, batch, n, heads, os, scale,
+                                   stream);
+    default:
+      return launch_bf16<kForm, 2>(tq, tk, tv, o, batch, n, heads, os, scale,
+                                   stream);
+  }
+}
+
+template <int kForm>
+cudaError_t launch_f32(const void* q, const void* k, const void* v, void* o,
+                       int batch, int n, int heads, Strides qs, Strides ks,
+                       Strides vs, Strides os, float scale,
+                       cudaStream_t stream) {
+  auto kernel = attention_f32_kernel<kForm>;
+  static bool ready[kMaxDevices] = {};
+  int device = 0;
+  cudaError_t err = cudaGetDevice(&device);
+  if (err != cudaSuccess) return err;
+  if (device >= kMaxDevices || !ready[device]) {
+    err = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kF32Smem);
+    if (err != cudaSuccess) return err;
+    if (device < kMaxDevices) ready[device] = true;
+  }
+  const dim3 grid((n + kF32Rows - 1) / kF32Rows, heads, batch);
+  kernel<<<grid, kF32Rows, kF32Smem, stream>>>(
+      static_cast<const float*>(q), static_cast<const float*>(k),
+      static_cast<const float*>(v), static_cast<float*>(o), n, qs, ks, vs, os,
+      scale);
+  return cudaGetLastError();
+}
+
+bool bad_args(int batch, int n, int heads, int form) {
+  return batch <= 0 || n <= 0 || heads <= 0 || heads > 65535 ||
+         batch > 65535 || form < kTwoPass || form > kNoSoftmax;
+}
+
+int attention_bf16(const void* q, const void* k, const void* v, void* o,
+                   int batch, int n, int heads, Strides qs, Strides ks,
+                   Strides vs, Strides os, float scale, int form,
+                   int consumers, int device, cudaStream_t st) {
+  if (bad_args(batch, n, heads, form)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  CUtensorMap tq, tk, tv;
+  if (!make_map(&tq, q, n, heads, batch, qs, kBlockM) ||
+      !make_map(&tk, k, n, heads, batch, ks, kBlockN) ||
+      !make_map(&tv, v, n, heads, batch, vs, kBlockN)) {
+    return kTensorMapError;
+  }
+  const int c = consumers;
+  switch (form) {
+    case kResident:
+      err = launch_form<kResident>(tq, tk, tv, o, batch, n, heads, os, scale, c, st);
+      break;
+    case kFlash:
+      err = launch_form<kFlash>(tq, tk, tv, o, batch, n, heads, os, scale, c, st);
+      break;
+    case kNoSoftmax:
+      err = launch_form<kNoSoftmax>(tq, tk, tv, o, batch, n, heads, os, scale, c, st);
+      break;
+    default:
+      err = launch_form<kTwoPass>(tq, tk, tv, o, batch, n, heads, os, scale, c, st);
+  }
+  return static_cast<int>(err);
 }
 
 }  // namespace
 
 // q, k, v, o: bf16 with element strides (batch, token, head) per tensor and
 // a contiguous head dimension of 64. Every base pointer must be 16-byte
-// aligned and the q/k/v token strides multiples of 8. form: 0 two-pass, 1
-// resident (normalised p), 2 flash (online over 128-key blocks), 3 no
-// softmax. Returns the CUDA error code of the launch (0 on success).
+// aligned and the strides multiples of 8 (the tensor maps' 16 bytes). form:
+// 0 two-pass, 1 resident (normalised p), 2 flash (online over 128-key
+// blocks), 3 no softmax. Returns the CUDA error code of the launch (0 on
+// success), or 20001 when the driver refuses a tensor map.
 extern "C" int stego_attention(const void* q, const void* k, const void* v,
                                void* o, int batch, int n, int heads,
                                long long q_sb, long long q_sn, long long q_sh,
@@ -438,8 +975,39 @@ extern "C" int stego_attention(const void* q, const void* k, const void* v,
                                long long o_sb, long long o_sn, long long o_sh,
                                float scale, int form, int device,
                                void* stream) {
-  if (batch <= 0 || n <= 0 || heads <= 0 || heads > 65535 || batch > 65535 ||
-      form < kTwoPass || form > kNoSoftmax) {
+  return attention_bf16(q, k, v, o, batch, n, heads, Strides{q_sb, q_sn, q_sh},
+                        Strides{k_sb, k_sn, k_sh}, Strides{v_sb, v_sn, v_sh},
+                        Strides{o_sb, o_sn, o_sh}, scale, form, 0, device,
+                        static_cast<cudaStream_t>(stream));
+}
+
+// stego_attention with the consumer warpgroups a block (64 query rows
+// each) given: 2 or 3, or 0 to choose by the grid as stego_attention does.
+// The outputs do not depend on it. For timing the choice
+// (stego_torch/tools/attention_consumers.py).
+extern "C" int stego_attention_consumers(
+    const void* q, const void* k, const void* v, void* o, int batch, int n,
+    int heads, long long q_sb, long long q_sn, long long q_sh, long long k_sb,
+    long long k_sn, long long k_sh, long long v_sb, long long v_sn,
+    long long v_sh, long long o_sb, long long o_sn, long long o_sh,
+    float scale, int form, int consumers, int device, void* stream) {
+  if (consumers != 0 && consumers != 2 && consumers != 3) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  return attention_bf16(q, k, v, o, batch, n, heads, Strides{q_sb, q_sn, q_sh},
+                        Strides{k_sb, k_sn, k_sh}, Strides{v_sb, v_sn, v_sh},
+                        Strides{o_sb, o_sn, o_sh}, scale, form, consumers,
+                        device, static_cast<cudaStream_t>(stream));
+}
+
+// The same on f32 q, k, v and o (A-f32): the same strides and forms.
+extern "C" int stego_attention_f32(
+    const void* q, const void* k, const void* v, void* o, int batch, int n,
+    int heads, long long q_sb, long long q_sn, long long q_sh, long long k_sb,
+    long long k_sn, long long k_sh, long long v_sb, long long v_sn,
+    long long v_sh, long long o_sb, long long o_sn, long long o_sh,
+    float scale, int form, int device, void* stream) {
+  if (bad_args(batch, n, heads, form)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   cudaError_t err = cudaSetDevice(device);
@@ -449,20 +1017,16 @@ extern "C" int stego_attention(const void* q, const void* k, const void* v,
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   switch (form) {
     case kResident:
-      err = launch<kResident>(q, k, v, o, batch, n, heads, qs, ks, vs, os,
-                              scale, st);
+      err = launch_f32<kResident>(q, k, v, o, batch, n, heads, qs, ks, vs, os, scale, st);
       break;
     case kFlash:
-      err = launch<kFlash>(q, k, v, o, batch, n, heads, qs, ks, vs, os, scale,
-                           st);
+      err = launch_f32<kFlash>(q, k, v, o, batch, n, heads, qs, ks, vs, os, scale, st);
       break;
     case kNoSoftmax:
-      err = launch<kNoSoftmax>(q, k, v, o, batch, n, heads, qs, ks, vs, os,
-                               scale, st);
+      err = launch_f32<kNoSoftmax>(q, k, v, o, batch, n, heads, qs, ks, vs, os, scale, st);
       break;
     default:
-      err = launch<kTwoPass>(q, k, v, o, batch, n, heads, qs, ks, vs, os,
-                             scale, st);
+      err = launch_f32<kTwoPass>(q, k, v, o, batch, n, heads, qs, ks, vs, os, scale, st);
   }
   return static_cast<int>(err);
 }

@@ -24,7 +24,8 @@
 // dc1 = coeff c2 and dc2 = coeff^T c1 (pallas_corr.py:200-264).
 //
 // Rounding points of the TPU kernel, kept: fd is a bf16 x bf16 product with
-// f32 accumulation (mma.sync m16n8k16, every product exact in f32), or with
+// f32 accumulation (mma.sync m16n8k16, every product exact in f32, each 16
+// channels added to the running f32 sum with round to nearest), or with
 // f32 features (an f32 trunk, feat_dtype=float32) f32 x f32 with f32 FMA in
 // channel order; cd is f32 with f32 FMA in channel order (no tensor cores,
 // so no TF32), or with code_bf16 a bf16 x bf16 product with f32 accumulation (mma.sync), and then
@@ -64,6 +65,12 @@
 // The price is fd and cd computed twice in the backward. Ragged n (784 and
 // 121 are not multiples of 64): tile rows past n are zeros in shared memory
 // and masked out of the sums; nothing is padded in device memory.
+//
+// Code channels in chunks: up to 128 (kCodeChunk) the code tiles hold every
+// channel, as above. Past that both code tiles come 128 channels at a time
+// and cd accumulates over the chunks in channel order (the same sums as
+// one tile would give); the backward adds a grid axis over the chunks of
+// the gradient's channels, each block recomputing fd and cd for its chunk.
 //
 // Feature channels in chunks. The block's own 64 rows (side 1 in the
 // forward, its map's rows in the backward) stay in shared memory with every
@@ -105,11 +112,11 @@ constexpr int kWholeBf16 = 384;    // bf16 channels the other tile takes whole
 constexpr int kChunkBf16 = 256;    // bf16 channels of a chunk above that
 constexpr int kChunkF32 = 64;      // f32 feature channels of a chunk
 constexpr int kOwnMaxF32 = 384;    // f32 channels of a resident own tile
-constexpr int kMaxCode = 128;      // code channels
+constexpr int kCodeChunk = 128;    // code channels of a code tile
 constexpr int kCodePitchF32 = kTile + 2;  // channel-major f32 tile row
 constexpr int kCodePitchBf16 = kTile + 8; // channel-major bf16 code tile row
 constexpr int kCoeffPitch = kTile + 1;
-constexpr int kOutCols = kMaxCode / 8;    // gradient columns a thread owns
+constexpr int kOutCols = kCodeChunk / 8;  // gradient columns a thread owns
 constexpr int kOutRows = kTile * 8 / kThreads;  // gradient rows a thread owns
 constexpr unsigned kFull = 0xffffffffu;
 
@@ -157,7 +164,8 @@ __device__ __forceinline__ float to_float(__nv_bfloat16 v) {
 struct Geometry {
   int n, cf, cc;
   int cfp;          // cf rounded up to 16 (mma depth)
-  int ccp;          // cc rounded up to 16
+  int ccp;          // code channels of a code tile (a chunk of up to
+                    // kCodeChunk) rounded up to 16
   int chunk;        // feature channels of the other side's tile a step
   bool own_chunked; // f32 above kOwnMaxF32: the own rows in chunks too
   int feat_pitch;   // bf16 elements an own feature tile row
@@ -175,7 +183,7 @@ __host__ __device__ Geometry make_geometry(int n, int cf, int cc) {
   g.cf = cf;
   g.cc = cc;
   g.cfp = (cf + 15) & ~15;
-  g.ccp = (cc + 15) & ~15;
+  g.ccp = (min(cc, kCodeChunk) + 15) & ~15;
   g.feat_pitch = g.cfp + 8;
   g.own_chunked = kFeatF32 && cf > kOwnMaxF32;
   if (kFeatF32) {
@@ -265,12 +273,12 @@ __device__ void load_feat_tile_f32(float* dst, const float* map, int row0,
   }
 }
 
-// Rows row0 .. row0 + 63 of one (n, cc) f32 map into a channel-major tile
-// (ccp rows of the code pitch), zeros past n and past cc; bf16 tiles round
-// each value.
+// Rows row0 .. row0 + 63, channels c0 .. c0 + ccp - 1 of one (n, cc) f32
+// map into a channel-major tile (ccp rows of the code pitch), zeros past n
+// and past cc; bf16 tiles round each value.
 template <typename T>
 __device__ void load_code_tile(T* dst, const float* map, int row0,
-                               const Geometry& g) {
+                               const Geometry& g, int c0 = 0) {
   constexpr int pitch =
       sizeof(T) == 4 ? kCodePitchF32 : kCodePitchBf16;
   const int total = kTile * g.ccp;
@@ -282,8 +290,8 @@ __device__ void load_code_tile(T* dst, const float* map, int row0,
       const int r = idx / g.ccp;
       const int c = idx - r * g.ccp;
       const int row = row0 + r;
-      v[u] = (idx < total && row < g.n && c < g.cc)
-                 ? map[static_cast<size_t>(row) * g.cc + c]
+      v[u] = (idx < total && row < g.n && c0 + c < g.cc)
+                 ? map[static_cast<size_t>(row) * g.cc + c0 + c]
                  : 0.f;
     }
 #pragma unroll
@@ -315,7 +323,13 @@ __device__ __forceinline__ void zero_tile(float (&x)[4][4]) {
 }
 
 // fd += fa fb^T over ``depth`` channels (a multiple of 16) of row-major
-// bf16 feature tiles of row pitches pa and pb, by mma.sync.
+// bf16 feature tiles of row pitches pa and pb, by mma.sync: each 16
+// channels into a zeroed accumulator, then added to fd in f32 (round to
+// nearest). A chain of mma.sync accumulating into fd itself drops the low
+// bits of every step the same way: over 768 channels (48 steps) that bias
+// put the ViT-B full-field step's gradients 36x further from the plain
+// version's than with this order (chip_smoke.py reports both against an
+// f64 loss; PERF.md).
 __device__ __forceinline__ void fd_bf16(const __nv_bfloat16* fa, int pa,
                                         const __nv_bfloat16* fb, int pb,
                                         int depth, float (&fd)[4][4]) {
@@ -335,8 +349,11 @@ __device__ __forceinline__ void fd_bf16(const __nv_bfloat16* fa, int pa,
     for (int nt = 0; nt < 4; ++nt) {
       const __nv_bfloat16* bp =
           fb + (col0 + nt * 8 + g) * pb + kc * 16 + 2 * t;
-      mma_bf16(fd[nt], a, *reinterpret_cast<const uint32_t*>(bp),
+      float part[4] = {0.f, 0.f, 0.f, 0.f};
+      mma_bf16(part, a, *reinterpret_cast<const uint32_t*>(bp),
                *reinterpret_cast<const uint32_t*>(bp + 8));
+#pragma unroll
+      for (int e = 0; e < 4; ++e) fd[nt][e] = __fadd_rn(fd[nt][e], part[e]);
     }
   }
 }
@@ -366,12 +383,12 @@ __device__ __forceinline__ void fd_f32(const float* a, const float* b,
   }
 }
 
-// cd += ca cb^T from channel-major code tiles: bf16 by mma.sync, f32 by
-// f32 FMA in channel order.
+// cd += ca cb^T over the first ``depth`` channels of channel-major code
+// tiles: bf16 by mma.sync (depth rounded up to 16; the tiles hold zeros
+// there), f32 by f32 FMA in channel order.
 template <bool kBf16>
 __device__ __forceinline__ void cd_tile(const void* ca, const void* cb,
-                                        const Geometry& geo,
-                                        float (&cd)[4][4]) {
+                                        int depth, float (&cd)[4][4]) {
   const int row0 = warp_row0();
   const int col0 = warp_col0();
   const int lane = threadIdx.x & 31;
@@ -381,7 +398,7 @@ __device__ __forceinline__ void cd_tile(const void* ca, const void* cb,
     constexpr int P = kCodePitchBf16;
     const __nv_bfloat16* cab = static_cast<const __nv_bfloat16*>(ca);
     const __nv_bfloat16* cbb = static_cast<const __nv_bfloat16*>(cb);
-    for (int kc = 0; kc < geo.ccp / 16; ++kc) {
+    for (int kc = 0; kc < (depth + 15) / 16; ++kc) {
       const __nv_bfloat16* ap = cab + (kc * 16 + 2 * t) * P + row0 + g;
       const uint32_t a[4] = {pack_column(ap, P), pack_column(ap + 8, P),
                              pack_column(ap + 8 * P, P),
@@ -397,7 +414,7 @@ __device__ __forceinline__ void cd_tile(const void* ca, const void* cb,
     constexpr int P = kCodePitchF32;
     const float* caf = static_cast<const float*>(ca);
     const float* cbf = static_cast<const float*>(cb);
-    for (int k = 0; k < geo.cc; ++k) {
+    for (int k = 0; k < depth; ++k) {
       const float a0 = caf[k * P + row0 + g];
       const float a1 = caf[k * P + row0 + g + 8];
 #pragma unroll
@@ -468,15 +485,20 @@ __device__ void load_own_feats(const Smem& s, const FeatType<kFeatF32>* map,
 // loads into s.fb and s.cb: the own rows are the i tile when own_first,
 // else the j tile. Starts with a barrier, so every thread is done with the
 // previous other tile (and the own tile is loaded); ends with the other
-// code tile in s.cb. The other side's channels come geo.chunk at a time
-// (and the own rows' too when geo.own_chunked), fd accumulating over the
-// chunks in channel order.
+// code tile in s.cb (above kCodeChunk code channels: its chunk ``keep``,
+// when keep >= 0).
+// The other side's feature channels come geo.chunk at a time (and the own
+// rows' too when geo.own_chunked), fd accumulating over the chunks in
+// channel order. Above kCodeChunk code channels both code tiles come a
+// chunk at a time too (the own rows' from c_own), cd accumulating over them
+// in channel order.
 template <bool kBf16, bool kFeatF32>
 __device__ void tile_against(const Smem& s, const FeatType<kFeatF32>* f_own,
-                             int own0, const FeatType<kFeatF32>* f_other,
+                             const float* c_own, int own0,
+                             const FeatType<kFeatF32>* f_other,
                              const float* c_other, int o0, bool own_first,
                              const Geometry& geo, float (&fd)[4][4],
-                             float (&cd)[4][4]) {
+                             float (&cd)[4][4], int keep = -1) {
   using CodeT = typename std::conditional<kBf16, __nv_bfloat16, float>::type;
   zero_tile(fd);
   zero_tile(cd);
@@ -511,10 +533,26 @@ __device__ void tile_against(const Smem& s, const FeatType<kFeatF32>* f_own,
       }
     }
   }
-  if (own_first) {
-    cd_tile<kBf16>(s.ca, s.cb, geo, cd);
-  } else {
-    cd_tile<kBf16>(s.cb, s.ca, geo, cd);
+  const void* ci = own_first ? s.ca : s.cb;
+  const void* cj = own_first ? s.cb : s.ca;
+  if (geo.cc <= kCodeChunk) {
+    cd_tile<kBf16>(ci, cj, geo.cc, cd);
+    return;
+  }
+  int last = 0;
+  for (int k0 = 0; k0 < geo.cc; k0 += kCodeChunk) {
+    __syncthreads();  // every thread is done with the last code tiles
+    load_code_tile(static_cast<CodeT*>(s.ca), c_own, own0, geo, k0);
+    load_code_tile(static_cast<CodeT*>(s.cb), c_other, o0, geo, k0);
+    __syncthreads();
+    cd_tile<kBf16>(ci, cj, min(kCodeChunk, geo.cc - k0), cd);
+    last = k0 / kCodeChunk;
+  }
+  if (keep >= 0 && keep != last) {
+    __syncthreads();
+    load_code_tile(static_cast<CodeT*>(s.cb), c_other, o0, geo,
+                   keep * kCodeChunk);
+    __syncthreads();
   }
 }
 
@@ -556,7 +594,8 @@ corr_stream_fwd_kernel(const FeatType<kFeatF32>* __restrict__ feats,
   float sums[4][2] = {};  // s1, s2, s3, sum cd of rows g and g + 8
   float fd[4][4], cd[4][4];
   for (int j0 = 0; j0 < n; j0 += kTile) {
-    tile_against<kBf16, kFeatF32>(s, feats + m1 * fstride, i0,
+    tile_against<kBf16, kFeatF32>(s, feats + m1 * fstride,
+                                  code + m1 * cstride, i0,
                                   feats + m2 * fstride, code + m2 * cstride,
                                   j0, true, geo, fd, cd);
 #pragma unroll
@@ -599,7 +638,8 @@ corr_stream_fwd_kernel(const FeatType<kFeatF32>* __restrict__ feats,
   }
 }
 
-// grid (ceil(n / 64), maps). The block owns rows t0 .. t0 + 63 of map m and
+// grid (ceil(n / 64), maps, code chunks). The block owns rows t0 .. t0 + 63
+// of map m, code channels kCodeChunk blockIdx.z .. + kCodeChunk - 1, and
 // takes the entries order[offsets[m] .. offsets[m + 1]) of the pair-row
 // list: entry e < rows is pair row e reading map m as side 1, e >= rows is
 // pair row e - rows reading it as side 2. scal (groups, 5): g_loss, g_cdm,
@@ -635,7 +675,8 @@ corr_stream_bwd_kernel(const FeatType<kFeatF32>* __restrict__ feats,
   // gradient tile: this thread's rows rg * kOutRows + a, columns cg + 8 q
   const int rg = tid >> 3;
   const int cg = tid & 7;
-  const int nq = (cc + 7) / 8;
+  const int q0 = blockIdx.z * kCodeChunk;  // the block's first code channel
+  const int nq = (min(kCodeChunk, cc - q0) + 7) / 8;
   float out[kOutRows][kOutCols];
 #pragma unroll
   for (int a = 0; a < kOutRows; ++a) {
@@ -662,10 +703,11 @@ corr_stream_bwd_kernel(const FeatType<kFeatF32>* __restrict__ feats,
     const float* s3 = acc + (static_cast<size_t>(r) * 4 + 2) * n;
     for (int o0 = 0; o0 < n; o0 += kTile) {
       // the forward's function: fd and cd equal the forward's bit for bit
-      tile_against<kBf16, kFeatF32>(s, feats + m * fstride, t0,
+      tile_against<kBf16, kFeatF32>(s, feats + m * fstride,
+                                    code + m * cstride, t0,
                                     feats + other * fstride,
                                     code + other * cstride, o0, side1, geo,
-                                    fd, cd);
+                                    fd, cd, blockIdx.z);
       const int i0 = side1 ? t0 : o0;
       const int j0 = side1 ? o0 : t0;
       // coeff of this warp's rows into the shared tile [i][j]
@@ -729,7 +771,7 @@ corr_stream_bwd_kernel(const FeatType<kFeatF32>* __restrict__ feats,
     if (row >= n) continue;
 #pragma unroll
     for (int q = 0; q < kOutCols; ++q) {
-      const int c = cg + 8 * q;
+      const int c = q0 + cg + 8 * q;
       if (q < nq && c < cc) dst[static_cast<size_t>(row) * cc + c] = out[a][q];
     }
   }
@@ -737,7 +779,8 @@ corr_stream_bwd_kernel(const FeatType<kFeatF32>* __restrict__ feats,
 
 bool bad_shape(int rows, int maps, int n, int cf, int cc) {
   return rows <= 0 || rows > 65535 || maps <= 0 || maps > 65535 || n <= 0 ||
-         cf <= 0 || cf > kMaxFeat || cc <= 0 || cc > kMaxCode;
+         cf <= 0 || cf > kMaxFeat || cc <= 0 ||
+         (cc + kCodeChunk - 1) / kCodeChunk > 65535;
 }
 
 template <typename Kernel>
@@ -778,7 +821,8 @@ cudaError_t launch_bwd(const void* feats, const void* code, const void* idx1,
   cudaError_t err =
       prepare(corr_stream_bwd_kernel<kBf16, kFeatF32>, device, smem);
   if (err != cudaSuccess) return err;
-  const dim3 grid((n + kTile - 1) / kTile, maps);
+  const dim3 grid((n + kTile - 1) / kTile, maps,
+                  (cc + kCodeChunk - 1) / kCodeChunk);
   corr_stream_bwd_kernel<kBf16, kFeatF32><<<grid, kThreads, smem, stream>>>(
       static_cast<const FeatType<kFeatF32>*>(feats),
       static_cast<const float*>(code), static_cast<const int*>(idx1),
@@ -794,8 +838,9 @@ cudaError_t launch_bwd(const void* feats, const void* code, const void* idx1,
 // feats (maps, n, cf), bf16 (feat_f32 = 0) or f32 (feat_f32 = 1), and code
 // (maps, n, cc) f32, both l2-normalised rows; idx1, idx2 (rows,) int32 map
 // indices of each pair row's two sides. Writes acc (rows, 4, n) f32: s1,
-// s2, s3 and sum cd of every side-1 row. cf <= 768, cc <= 128, rows and maps <= 65535. code_bf16 rounds the code to bf16 for
-// cd. Returns the CUDA error code of the launch (0 on success).
+// s2, s3 and sum cd of every side-1 row. cf <= 768, rows and maps <=
+// 65535; code channels above 128 come in chunks of 128. code_bf16 rounds
+// the code to bf16 for cd. Returns the CUDA error code of the launch (0 on success).
 extern "C" int stego_corr_stream_fwd(const void* feats, const void* code,
                                      const void* idx1, const void* idx2,
                                      void* acc, int rows, int maps, int n,

@@ -10,7 +10,10 @@ kernel added to ``csrc/`` lengthens it only when it is the slowest one
     nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 \
          -Xcompiler -fPIC -Xptxas -v -c -o <name>.o stego_torch/csrc/<name>.cu
     nvcc -gencode arch=compute_90a,code=sm_90a -shared \
-         -o build/stego_torch/libstego_torch_<hash>.so *.o
+         -o build/stego_torch/libstego_torch_<hash>.so *.o -lcuda
+
+(``-lcuda``: kernel A builds its TMA tensor maps with the driver's
+``cuTensorMapEncodeTiled``.)
 
 The library is built at first use, into ``build/stego_torch/`` at the root of
 the checkout (listed in ``.gitignore``), and named by a hash of the sources
@@ -41,6 +44,8 @@ NVCC_FLAGS = ARCH_FLAGS + (
     "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
 
+LINK_LIBS = ("-lcuda",)
+
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _L = ctypes.c_longlong
@@ -51,6 +56,10 @@ SIGNATURES = {
     "stego_add_layer_norm": (_P,) * 6 + (_I, _I, _I, _F, _I, _P),
     "stego_attention": (_P, _P, _P, _P, _I, _I, _I) + (_L,) * 12
     + (_F, _I, _I, _P),
+    "stego_attention_f32": (_P, _P, _P, _P, _I, _I, _I) + (_L,) * 12
+    + (_F, _I, _I, _P),
+    "stego_attention_consumers": (_P, _P, _P, _P, _I, _I, _I) + (_L,) * 12
+    + (_F, _I, _I, _I, _P),
     "stego_corr_sampled_fwd": (_P,) * 10 + (_I,) * 8 + (_F, _F, _I, _P),
     "stego_corr_sampled_bwd": (_P,) * 10 + (_I,) * 6 + (_F, _F, _I, _F, _I,
                                                         _P),
@@ -81,7 +90,7 @@ def sources() -> list[Path]:
 
 
 def library_path() -> Path:
-    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    h = hashlib.sha256(" ".join(NVCC_FLAGS + LINK_LIBS).encode())
     for src in sources():
         h.update(src.name.encode())
         h.update(src.read_bytes())
@@ -117,7 +126,8 @@ def build() -> Path:
         stdout, stderr = proc.communicate()  # sets returncode
         record(cmd, proc.returncode, stdout, stderr)
     if error is None:
-        link = [nvcc, *ARCH_FLAGS, "-shared", "-o", str(tmp), *map(str, objs)]
+        link = [nvcc, *ARCH_FLAGS, "-shared", "-o", str(tmp),
+                *map(str, objs), *LINK_LIBS]
         proc = subprocess.run(link, capture_output=True, text=True,
                               check=False)
         record(link, proc.returncode, proc.stdout, proc.stderr)

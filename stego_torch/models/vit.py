@@ -18,8 +18,9 @@ Numerics follow the JAX trunk:
   form.
 * f32 trunk: erf GELU, einsum-form attention and the plain LayerNorm. With
   ``use_flash`` (which the JAX package runs through its Pallas kernels) the
-  attention goes to kernel A, which takes bf16 only: on the card it raises,
-  on the CPU the plain versions run.
+  attention goes to kernel A's f32 instantiation (A-f32) by the same
+  dispatch as the bf16 trunk's, and LayerNorm stays plain, as in JAX
+  (``vit.py:166``); on the CPU the plain versions run.
 * Weights are cast to the compute dtype where they are used, as the JAX
   trunk's ``.astype(x.dtype)`` does, so storing the block weights in bf16
   (:meth:`VisionTransformer.cast_blocks`) changes no result. Patch embed, cls

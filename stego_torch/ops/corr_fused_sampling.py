@@ -34,10 +34,11 @@ from stego_torch.ops.corr_stream import (clamp_bounds, device_vector,
 from stego_torch.ops.math import l2_normalize
 from stego_torch.ops.sampling import bilinear_sample_weights
 
-# What the CUDA kernel is built for (csrc/corr_sampled.cu).
-MAX_FEAT_CHANNELS = 768  # ViT-B
-MAX_CODE_CHANNELS = 96
-MAX_SAMPLES = 128
+# What the CUDA kernel is built for (csrc/corr_sampled.cu): feature
+# channels up to ViT-B's 768; any number of code channels (in chunks of 96)
+# and samples (in tiles of SAMPLE_TILE on both sides).
+MAX_FEAT_CHANNELS = 768
+SAMPLE_TILE = 128
 # Launches of the CUDA kernel's two entries in this process (plain-version
 # calls do not count). Read and reset by chip_smoke.py to show the main path
 # used them.
@@ -225,12 +226,9 @@ class _SampledCorr(torch.autograd.Function):
                     or coords1.shape[0] != b or coords1.shape[-1] != 2:
                 raise ValueError(f"{name} must be (B, S1, S2, 2) with B={b}; "
                                  f"got {tuple(tensors[name].shape)}")
-        if not (cf <= MAX_FEAT_CHANNELS and cc <= MAX_CODE_CHANNELS
-                and s <= MAX_SAMPLES):
-            raise ValueError(
-                f"kernel C1 takes <= {MAX_FEAT_CHANNELS} feature channels, "
-                f"<= {MAX_CODE_CHANNELS} code channels and <= {MAX_SAMPLES} "
-                f"samples; got {cf}, {cc}, {s}")
+        if cf > MAX_FEAT_CHANNELS:
+            raise ValueError(f"kernel C1 takes <= {MAX_FEAT_CHANNELS} "
+                             f"feature channels; got {cf}")
         f1, f2 = _flat(feats, feat_dtype), _flat(feats_pos, feat_dtype)
         c1, c2 = _flat(code, torch.float32), _flat(code_pos, torch.float32)
         grid1 = _grid(coords1).float().reshape(b, s, 2).contiguous()
@@ -240,7 +238,9 @@ class _SampledCorr(torch.autograd.Function):
                                 for p in perms]).contiguous()
         else:
             perm = torch.zeros(1, dtype=torch.int32, device=dev)
-        acc = torch.empty((b * g, 5, s), dtype=torch.float32, device=dev)
+        tiles = -(-s // SAMPLE_TILE)
+        acc = torch.empty((b * g, tiles, 5, s), dtype=torch.float32,
+                          device=dev)
         z2cn = torch.empty((b * g, s, cc), dtype=torch.float32, device=dev)
         fd = torch.empty((b * g, s, s), dtype=torch.float32, device=dev)
         lo, hi = clamp_bounds(zero_clamp, stabalize)
@@ -253,6 +253,12 @@ class _SampledCorr(torch.autograd.Function):
         build.check(err, "corr_sampled forward kernel")
         global FWD_LAUNCHES
         FWD_LAUNCHES += 1
+        # each row's sums over the sample tiles of side 2 (in tile order);
+        # the side-2 code norms are in tile 0
+        if tiles == 1:
+            acc = acc[:, 0]
+        else:
+            acc = torch.cat([acc[:, :, :4].sum(1), acc[:, 0, 4:]], 1)
         # slot-major (b, g) rows -> group-major (g, b)
         accg = acc.reshape(b, g, 5, s).transpose(0, 1)
         losses, cd_means, gm = finalize(accg[:, :, 0], accg[:, :, 1],
@@ -272,7 +278,9 @@ class _SampledCorr(torch.autograd.Function):
         shift = device_vector(shifts, dev)
         scal = torch.stack([g_losses.float(), g_cdms.float(), gm, shift,
                             inv_m], dim=1).contiguous()          # (G, 5)
-        dz = torch.empty((b * g, 2, s, cc), dtype=torch.float32, device=dev)
+        tiles = -(-s // SAMPLE_TILE)
+        dz = torch.empty((b * g, tiles, 2, s, cc), dtype=torch.float32,
+                         device=dev)
         dcode = torch.zeros((b, h * w, cc), dtype=torch.float32, device=dev)
         dcode_pos = torch.zeros_like(dcode)
         err = build.library().stego_corr_sampled_bwd(

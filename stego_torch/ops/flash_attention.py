@@ -35,9 +35,11 @@ version of every form:
   division (``bench_attncore.py:84-85``).
 
 A CPU tensor takes the plain version; a CUDA tensor launches the kernel or
-raises (bf16 and d = 64 only; an f32 trunk's attention raises on the card).
-The kernel has no sequence bound; the N bounds below are the JAX package's
-dispatch, kept so that both run the same numerics at every resolution.
+raises (d = 64 only): bf16 q/k/v the wgmma kernel, f32 ones (an f32 trunk
+with ``use_flash_attention``, which the JAX package also sends through its
+Pallas kernels) the f32 instantiation A-f32, on f32 FMA. The kernel has no
+sequence bound; the N bounds below are the JAX package's dispatch, kept so
+that both run the same numerics at every resolution.
 """
 
 from __future__ import annotations
@@ -58,19 +60,25 @@ HEAD_DIM = 64  # the only head width kernel A is built for
 # The kernel's forms (csrc/attention.cu), by name.
 FORMS = {"two_pass": 0, "resident": 1, "flash": 2, "no_softmax": 3}
 
+# The C entry of each dtype the kernel takes (csrc/attention.cu).
+ENTRIES = {torch.bfloat16: "stego_attention",
+           torch.float32: "stego_attention_f32"}
 # Launches of the CUDA kernel in this process (plain-version calls do not
-# count): all of them, and by the JAX entry point each stands for (the
-# token-major ones by N: pair up to RESIDENT_MAX_N, pair_kv beyond). Read
-# and reset by chip_smoke.py to show the main path used it.
+# count): all of them, those on f32 q/k/v (A-f32), and by the JAX entry
+# point each stands for (the token-major ones by N: pair up to
+# RESIDENT_MAX_N, pair_kv beyond). Read and reset by chip_smoke.py to show
+# the main path used it.
 LAUNCHES = 0
+F32_LAUNCHES = 0
 ENTRY_LAUNCHES = dict.fromkeys(
     ("pair", "pair_kv", "packed", "resident", "batch_resident",
      "kv_resident", "flash", "no_softmax"), 0)
 
 
 def reset_launches() -> None:
-    global LAUNCHES
+    global LAUNCHES, F32_LAUNCHES
     LAUNCHES = 0
+    F32_LAUNCHES = 0
     for name in ENTRY_LAUNCHES:
         ENTRY_LAUNCHES[name] = 0
 
@@ -282,16 +290,19 @@ def trunk_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 def _launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
             out: torch.Tensor, scale: float, form: str, entry: str) -> None:
     """Kernel A on (B, N, H, 64) views of q, k, v and ``out``, any strides
-    with a contiguous last axis."""
-    global LAUNCHES
+    with a contiguous last axis, all bf16 or all f32."""
+    global LAUNCHES, F32_LAUNCHES
     b, n, h, d = q.shape
+    if q.dtype not in ENTRIES:
+        raise ValueError(f"attention kernel takes bf16 or f32, q is "
+                         f"{q.dtype}")
     for name, x in (("q", q), ("k", k), ("v", v), ("out", out)):
         if x.device.type != "cuda" or x.device != q.device:
             raise ValueError(f"attention kernel needs {name} on {q.device} "
                              f"(CUDA), got {x.device}")
-        if x.dtype != torch.bfloat16:
-            raise ValueError(f"attention kernel takes bf16, {name} is "
-                             f"{x.dtype}")
+        if x.dtype != q.dtype:
+            raise ValueError(f"attention kernel takes q, k, v and out of "
+                             f"one dtype; q is {q.dtype}, {name} {x.dtype}")
         if x.shape != (b, n, h, d):
             raise ValueError(f"{name} shape {tuple(x.shape)} != "
                              f"{(b, n, h, d)}")
@@ -310,11 +321,12 @@ def _launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     def strides(x):
         return x.stride(0), x.stride(1), x.stride(2)
 
-    err = build.library().stego_attention(
+    err = getattr(build.library(), ENTRIES[q.dtype])(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
         b, n, h, *strides(q), *strides(k), *strides(v), *strides(out),
         float(scale), FORMS[form], q.device.index,
         torch.cuda.current_stream(q.device).cuda_stream)
     build.check(err, "attention kernel")
     LAUNCHES += 1
+    F32_LAUNCHES += q.dtype == torch.float32
     ENTRY_LAUNCHES[entry] += 1

@@ -1,0 +1,164 @@
+"""Kernels C1 and C2 of this checkout against another checkout's, on the card.
+
+    python -m stego_torch.tools.loss_kernels_diff <other checkout>
+
+Runs C1 (the sampled loss, at the train step's shape: B=16, 28x28 maps, 70
+code channels, 11x11 samples, 5 negatives; bf16 features at 192, 384 and
+768 channels and f32 at 384) and C2 (the streamed loss: full-field and
+grid-sampled, f32 and bf16 code, 70 and 128 code channels, bf16 and f32
+features) of each checkout, in a process of its own, on the same seeded
+inputs, and prints for every output whether the two are bitwise equal
+and their largest difference. C1's code gradients add with atomics, so
+their last bits follow the order of the adds; every other output of a
+change that keeps the kernels' arithmetic is bitwise equal. It also
+prints each case's kernel time, forward and backward, in both checkouts:
+the summed device time of the kernels named ``corr_*`` (the profiler's
+trace, 20 calls after a warm-up), so that the two are timed in one run on
+one card.
+"""
+
+from __future__ import annotations
+
+import os
+import subprocess
+import sys
+import tempfile
+
+import torch
+
+C1_OUTPUTS = ("losses", "cd means", "z2cn", "fd", "acc", "dcode",
+              "dcode_pos")
+C2_OUTPUTS = ("losses", "cd means", "dcode")
+
+
+def kernel_ms(fn, iters: int = 20) -> float:
+    """Device ms per call of ``fn`` in kernels named ``corr_*`` (C1 and
+    C2), from the profiler's trace, after one warm-up call."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    us = sum(e.time_range.elapsed_us() for e in prof.events()
+             if e.device_type == DeviceType.CUDA and "corr_" in e.name)
+    return us / iters / 1e3
+
+
+def produce(out: str) -> None:
+    """Every output of both kernels on the seeded inputs, saved to out."""
+    from stego_torch.ops import corr_fused_sampling as c1
+    from stego_torch.ops import corr_stream as c2
+    from stego_torch.ops.math import super_perm
+
+    dev = torch.device("cuda")
+    res, times = {}, {}
+    g = torch.Generator(device=dev).manual_seed(3)
+    b, hw, cc, s, neg = 16, 28, 70, 11, 5
+    shifts = [0.18, 0.12] + [0.46] * neg
+    for fdt, cf in ((torch.bfloat16, 384), (torch.float32, 384),
+                    (torch.bfloat16, 768), (torch.bfloat16, 192)):
+        feats = [torch.randn(b, hw, hw, cf, generator=g, device=dev)
+                 for _ in range(2)]
+        code = [torch.randn(b, hw, hw, cc, generator=g, device=dev)
+                .requires_grad_(True) for _ in range(2)]
+        coords = [torch.rand(b, s, s, 2, generator=g, device=dev) * 2 - 1
+                  for _ in range(2)]
+        perms = [super_perm(b, g) for _ in range(neg)]
+
+        def forward():
+            return c1.sampled_corr_fused(
+                feats[0], feats[1], code[0], code[1], coords[0], coords[1],
+                perms, shifts, feat_dtype=fdt)
+
+        losses, cds = forward()
+        saved = losses.grad_fn.saved_tensors  # grid1, grid2, perm, z2cn, ...
+        grads = torch.autograd.grad(losses.sum() + cds.sum(), code)
+        key = f"C1, {str(fdt)[6:]} features, {cf} channels"
+        res[key] = [losses, cds, saved[3], saved[4], saved[5], *grads]
+        times[key] = time_fwd_bwd(forward, code)
+    groups = [b] * (2 + neg)
+    for hw2, distinct, code_bf16, cc2, fdt in (
+            (28, False, False, 70, torch.bfloat16),
+            (11, True, True, 70, torch.bfloat16),
+            (11, True, False, 128, torch.bfloat16),
+            (28, False, False, 70, torch.float32)):
+        m = (2 + neg if distinct else 2) * b
+        feats = c2.prep(torch.randn(m, hw2, hw2, 384, generator=g,
+                                    device=dev), fdt)
+        code = c2.prep(torch.randn(m, hw2, hw2, cc2, generator=g, device=dev))
+        ar = torch.arange(b, device=dev)
+        idx1 = ar.repeat(2 + neg)
+        idx2 = (torch.arange(m, device=dev) if distinct else torch.cat(
+            [ar, ar + b] + [super_perm(b, g) for _ in range(neg)]))
+        c = code.clone().requires_grad_(True)
+
+        def forward(c=c, feats=feats, idx2=idx2, code_bf16=code_bf16):
+            return c2.stream_loss(feats, c, idx1, idx2, shifts, groups,
+                                  code_bf16=code_bf16, use_kernel=True,
+                                  pointwise=True, zero_clamp=True)
+
+        losses, cds = forward()
+        grads = torch.autograd.grad(losses.sum() + cds.sum(), c)
+        key = (f"C2, N={hw2 * hw2}, {cc2} code channels"
+               f"{', code_bf16' if code_bf16 else ''}, {str(fdt)[6:]} "
+               f"features")
+        res[key] = [losses, cds, *grads]
+        times[key] = time_fwd_bwd(forward, [c])
+    torch.save({"outputs": {k: [t.detach().cpu() for t in v]
+                            for k, v in res.items()}, "ms": times}, out)
+
+
+def time_fwd_bwd(forward, inputs) -> tuple:
+    """(forward, backward) kernel ms of the loss ``forward()`` returns,
+    differentiated in ``inputs``."""
+    fwd = kernel_ms(forward)
+    losses, cds = forward()
+    total = losses.sum() + cds.sum()
+    bwd = kernel_ms(lambda: torch.autograd.grad(total, inputs,
+                                                retain_graph=True))
+    return fwd, bwd
+
+
+def main(argv=None) -> int:
+    argv = sys.argv[1:] if argv is None else argv
+    if len(argv) == 2 and argv[0] == "--produce":
+        produce(argv[1])
+        return 0
+    if len(argv) != 1:
+        print(__doc__, file=sys.stderr)
+        return 2
+    if not torch.cuda.is_available():
+        print("loss_kernels_diff: no CUDA device", file=sys.stderr)
+        return 1
+    here = os.path.dirname(os.path.dirname(os.path.dirname(
+        os.path.abspath(__file__))))
+    results = []
+    with tempfile.TemporaryDirectory() as tmp:
+        for name, root in (("other", argv[0]), ("this", here)):
+            out = os.path.join(tmp, f"{name}.pt")
+            env = dict(os.environ, PYTHONPATH=os.path.abspath(root))
+            # this file as a script, so that stego_torch is the checkout's
+            subprocess.run([sys.executable, os.path.abspath(__file__),
+                            "--produce", out], check=True, env=env,
+                           cwd=os.path.abspath(root))
+            results.append(torch.load(out))
+    other, this = results
+    for key, tensors in this["outputs"].items():
+        names = C1_OUTPUTS if key.startswith("C1") else C2_OUTPUTS
+        for name, x, y in zip(names, other["outputs"][key], tensors):
+            print(f"{key}: {name}: bitwise equal {torch.equal(x, y)}, max "
+                  f"abs diff {float((x - y).abs().max()):.3e}")
+    for key, (fwd, bwd) in this["ms"].items():
+        fwd_o, bwd_o = other["ms"][key]
+        print(f"{key}: kernel ms forward {fwd:.4f} (other {fwd_o:.4f}, "
+              f"{fwd / fwd_o:.3f}x), backward {bwd:.4f} (other {bwd_o:.4f}, "
+              f"{bwd / bwd_o:.3f}x)")
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -622,3 +622,47 @@ def test_stream_plain_matches_jax_kernel_vit_base_channels(
     want = jax_stream(fs, cs, shifts, feat_dtype=getattr(jnp, fdt), **opts)
     got = port_stream(fs, cs, shifts, feat_dtype=getattr(torch, fdt), **opts)
     assert_stream_close(got, want)
+
+
+@pytest.mark.parametrize("fdt", ["float32", "bfloat16"])
+@pytest.mark.parametrize("pointwise,zero_clamp,stabalize", [
+    (True, True, False), (False, False, True)])
+def test_sampled_corr_plain_matches_jax_kernel_wide_code_many_samples(
+        fdt, pointwise, zero_clamp, stabalize):
+    """C1's plain version at 100 code channels and 12 x 12 = 144 samples
+    (``dim=100, feature_samples=12``: on the card the kernel takes the code
+    in two chunks and the samples in two tiles a side) against the JAX
+    kernel, which pads both to multiples of 128
+    (pallas_corr_fused_sampling.py:434-437), on 2 images of 8 x 8: the
+    losses' and gradients' tolerances above."""
+    arrs = maps(30, b=2, cc=100)
+    cs = coords(31, b=2, s1=12, s2=12)
+    perms = [np.array([1, 0])]
+    shifts = [0.18, 0.12, 0.46]
+    opts = dict(pointwise=pointwise, zero_clamp=zero_clamp,
+                stabalize=stabalize)
+    want = jax_sampled(arrs, cs, perms, shifts, getattr(jnp, fdt), **opts)
+    got = port_sampled(sampled_corr_plain, arrs, cs, perms, shifts,
+                       getattr(torch, fdt), **opts)
+    np.testing.assert_allclose(got[0], want[0], **LOSS_TOL)
+    np.testing.assert_allclose(got[1], want[1], **LOSS_TOL)
+    for g, w in zip(got[2], want[2]):
+        np.testing.assert_allclose(g, w, **GRAD_TOL)
+
+
+@pytest.mark.parametrize("fdt", ["float32", "bfloat16"])
+@pytest.mark.parametrize("pointwise,zero_clamp,stabalize", [
+    (True, True, False), (False, False, True)])
+def test_stream_plain_matches_jax_kernel_wide_code(fdt, pointwise,
+                                                   zero_clamp, stabalize):
+    """C2's plain version at 160 code channels (``dim=160``: on the card
+    the kernel takes them in chunks of 128) against the JAX kernel, which
+    pads every channel axis to 128 (pallas_corr.py:356-361), 8 x 8 maps,
+    one negative: the streamed loss's tolerances above."""
+    fs, cs = stream_pairs(32, cc=160, neg=1)
+    shifts = [0.18, 0.12, 0.46]
+    opts = dict(pointwise=pointwise, zero_clamp=zero_clamp,
+                stabalize=stabalize)
+    want = jax_stream(fs, cs, shifts, feat_dtype=getattr(jnp, fdt), **opts)
+    got = port_stream(fs, cs, shifts, feat_dtype=getattr(torch, fdt), **opts)
+    assert_stream_close(got, want)

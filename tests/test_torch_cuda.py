@@ -219,9 +219,114 @@ def test_attention_kernel_rejects_other_head_widths(cuda):
 
 
 def test_attention_kernel_rejects_f32(cuda):
+    """f32 q/k/v run A-f32; f32 mixed with bf16, and other dtypes, are
+    refused."""
     q = torch.zeros(1, 8, 128, device=cuda)
-    with pytest.raises(ValueError, match="bf16"):
-        fa.token_major_attention(q, q, q, 2, 0.125)
+    with pytest.raises(ValueError, match="one dtype"):
+        fa.token_major_attention(q, q.bfloat16(), q.bfloat16(), 2, 0.125)
+    with pytest.raises(ValueError, match="bf16 or f32"):
+        fa.token_major_attention(q.half(), q.half(), q.half(), 2, 0.125)
+
+
+# every stride layout kernel A is handed: token-major (B, N, H*64),
+# head-major (B, H, N, 64), a head-major view written into a token-major
+# out (the ViT-T trunk), and the packed (B, N, 3, H*64) qkv
+LAYOUTS = ("token_major", "head_major", "head_major_into_token_major",
+           "packed")
+# A-f32 against its plain version: the JAX package's f32 tolerance
+# (tests/test_torch_attention.py); TF32 would fail it
+F32_TOL = dict(rtol=2e-5, atol=2e-5)
+
+
+def _layout_run(layout, form, qkv, h, use_kernel):
+    """``form``'s attention of the (B, N, 3, H, 64) qkv in ``layout``,
+    the output as (B, N, H*64)."""
+    b, n = qkv.shape[:2]
+    scale = 0.125
+    if layout == "packed":
+        return fa.packed_attention(qkv.flatten(3), h, scale,
+                                   use_kernel=use_kernel)
+    q, k, v = qkv.unbind(2)
+    if layout == "token_major":
+        q, k, v = (x.flatten(2) for x in (q, k, v))
+        if not use_kernel:
+            return fa.attention_plain(q, k, v, h, scale)
+        return fa.token_major_attention(q, k, v, h, scale)
+    q, k, v = (x.transpose(1, 2) for x in (q, k, v))
+    if layout == "head_major":
+        q, k, v = (x.contiguous() for x in (q, k, v))
+        out = None
+    else:
+        tok = torch.empty(b, n, h * 64, dtype=qkv.dtype, device=qkv.device)
+        out = tok.unflatten(-1, (h, 64)).transpose(1, 2)
+    fn = {"two_pass": fa.kv_resident_attention,
+          "resident": fa.resident_attention, "flash": fa.flash_attention,
+          "no_softmax": fa.no_softmax_attention}[form]
+    got = fn(q, k, v, scale, out=out, use_kernel=use_kernel)
+    return got.transpose(1, 2).flatten(2)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("layout", LAYOUTS)
+@pytest.mark.parametrize("n", [17, 200, 785, 1601, 3137])
+def test_attention_kernel_layouts_at_ragged_n(cuda, n, layout, dtype):
+    """Kernel A at ragged N (one partial 128-key tile and query tile, and
+    the trunk's 785, 1601 and 3137) through every stride layout and every
+    form the layout takes (token-major and packed: two-pass; head-major:
+    each form, resident only within N_pad <= 1152), bf16 against its plain
+    version at the attention tolerance (no_softmax: two bf16 ulps of its
+    largest output), f32 (A-f32) at 2e-5; one launch a call. q, k ~ N(0,
+    4), v ~ N(0, 1)."""
+    b, h = (2, 6) if n < 3137 else (1, 2)
+    g = torch.Generator(device=cuda).manual_seed(n)
+    qkv = torch.randn(b, n, 3, h, 64, generator=g, device=cuda)
+    qkv[:, :, :2] *= 2
+    qkv = qkv.to(dtype)
+    forms = ["two_pass"]
+    if layout.startswith("head_major"):
+        forms += ["flash", "no_softmax"]
+        if -(-n // 128) * 128 <= fa.RESIDENT_MAX_N:
+            forms.append("resident")
+    for form in forms:
+        before = fa.LAUNCHES
+        got = _layout_run(layout, form, qkv, h, True).float()
+        torch.cuda.synchronize()
+        assert fa.LAUNCHES == before + 1
+        want = _layout_run(layout, form, qkv, h, False).float()
+        if dtype == torch.float32:
+            torch.testing.assert_close(got, want, **F32_TOL)
+            continue
+        name = f"{form}_attention" if form != "two_pass" else "kv"
+        diff = (got - want).abs()
+        assert torch.all(diff <= attention_tolerance(name, want)), \
+            (form, float(diff.max()))
+
+
+def test_f32_trunk_runs_attention_kernel(cuda):
+    """An f32 ViT-S/8-shaped trunk (6 heads, 2 blocks) with use_flash runs
+    kernel A's f32 instantiation once a block, and LayerNorm stays plain,
+    within the f32 tolerance of the same trunk through the plain versions."""
+    from stego_torch.models.vit import ViTConfig, VisionTransformer
+    from stego_torch.ops import layer_norm as ln_ops
+
+    torch.manual_seed(0)
+    vit = VisionTransformer(ViTConfig(patch_size=8, embed_dim=384, depth=2,
+                                      num_heads=6, img_size=64)).to(cuda)
+    img = torch.randn(2, 64, 64, 3, device=cuda)
+    f32_before, ln_before = fa.F32_LAUNCHES, ln_ops.LAUNCHES
+    def feats():
+        return vit.get_intermediate_feat(img, 1, want_attn_qkv=False,
+                                         dtype=torch.float32,
+                                         use_flash=True)[0]
+
+    got = feats()
+    torch.cuda.synchronize()
+    assert fa.F32_LAUNCHES == f32_before + 2
+    assert ln_ops.LAUNCHES == ln_before
+    vit.use_kernels = False
+    want = feats()
+    for a, w in zip(got, want):
+        torch.testing.assert_close(a, w, rtol=1e-4, atol=1e-4)
 
 
 def _corr_inputs(dev, b, hw, cf, cc, s, neg, seed):
@@ -291,6 +396,11 @@ def _corr_run(fn, feats, code, coords, perms, shifts, weights, **kw):
     (16, 28, 768, 70, 11, 5, dict(pointwise=True, zero_clamp=True)),
     (16, 28, 768, 70, 11, 5, dict(pointwise=False, stabalize=True)),
     (2, 6, 500, 8, 5, 1, dict(pointwise=True, zero_clamp=True)),
+    # past one code chunk (96) and one sample tile (128) a side: dim=100,
+    # feature_samples=12, and a third tile with a ragged chunk
+    (16, 28, 384, 100, 12, 5, dict(pointwise=True, zero_clamp=True)),
+    (16, 28, 768, 100, 12, 5, dict(pointwise=False, stabalize=True)),
+    (2, 9, 64, 200, 17, 1, dict(pointwise=True, zero_clamp=True)),
 ])
 def test_corr_sampled_kernel_matches_plain(cuda, b, hw, cf, cc, s, neg,
                                            opts, feat_dtype):
@@ -456,6 +566,12 @@ def _code_bf16_grads_agree(got, want):
     (16, 11, 768, 70, 5, True, dict(pointwise=False, stabalize=True)),
     (2, 7, 440, 16, 1, False, dict(pointwise=True, zero_clamp=True)),
     (2, 7, 768, 128, 1, False, dict(pointwise=True, zero_clamp=True)),
+    # past one code chunk of 128: dim=160, and 300 (a third, ragged chunk)
+    (16, 28, 384, 160, 5, False, dict(pointwise=True, zero_clamp=True)),
+    (16, 11, 384, 160, 5, True, dict(pointwise=True, zero_clamp=True,
+                                     code_bf16=True)),
+    (16, 28, 768, 160, 5, False, dict(pointwise=False, stabalize=True)),
+    (2, 7, 40, 300, 1, False, dict(pointwise=True, zero_clamp=True)),
 ])
 def test_corr_stream_kernel_matches_plain(cuda, b, hw, cf, cc, neg, distinct,
                                           opts, feat_dtype):

@@ -32,6 +32,8 @@ MODULES = [
     "stego_torch.utils.metrics", "stego_torch.data.synthetic",
     "stego_torch.train.knn", "stego_torch.train.feat_cache",
     "stego_torch.tools.attention_layouts",
+    "stego_torch.tools.attention_consumers",
+    "stego_torch.tools.loss_kernels_diff",
 ]
 for name in MODULES:
     importlib.import_module(name)

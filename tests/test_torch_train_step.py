@@ -190,6 +190,15 @@ def test_train_step_vit_tiny_matches_jax_two_steps():
     assert seg.net.model.cfg.num_heads == 3
 
 
+def test_train_step_wide_code_many_samples_matches_jax_two_steps():
+    """``dim=100, feature_samples=12``: 100 code channels and 144 samples
+    an image, past one chunk of C1's code channels and one tile of its
+    samples on the card (here C1's plain version; JAX: its kernel in
+    interpret mode, padding both to 128); the same gates over two steps."""
+    seg, _ = run_both(make_cfg(dim=100, feature_samples=12))
+    assert seg.step == 2
+
+
 def test_train_step_without_hist_matches_jax():
     run_both(make_cfg(), n_steps=1, with_hist=False)
 
