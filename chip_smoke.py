@@ -31,7 +31,9 @@
    and with bf16 code (code_bf16), with f32 features, and at ViT-B's 768
    channels (bf16 and f32 features), and times it; the f32 kernel, which
    ignores code_bf16, must fail the code_bf16 gate, and the bf16 kernel on
-   f32 features the f32 elementwise gates.
+   f32 features the f32 elementwise gates, and so must, at the full-field
+   shape, the plain version on TF32-rounded features and code (one TF32
+   pass a product, where the kernel takes three).
 6. Trains: 20 steps of make_train_step at the reference footprint
    (src/configs/train_config.yml: ViT-S/8, res 224, batch 16, 11 x 11
    samples, 5 negatives, dropout) on one fixed synthetic batch, each
@@ -65,9 +67,11 @@
    val steps at res 320; and a seeded ViT-B/8 segmenter with the
    cocostuff27_vit_base preset 10 steps with the sampled loss (C1 at 768
    channels) and 3 full-field steps (C2 at 768), each with the same gates.
-10. Past the parent's caps: A-f32 (kernel A on f32 q/k/v, TF32 off)
-   against its plain versions at 2e-5, token-major at ViT-S's shape and
-   every head-major form at ViT-T's, beside f32 SDPA; C1 at 100 code
+10. Past the parent's caps: A-f32 (kernel A on f32 q/k/v, its products by
+   3xTF32 on the tensor cores; TF32 off in the plain versions) against its
+   plain versions at 2e-5, token-major at ViT-S's shape and every
+   head-major form at ViT-T's, beside f32 SDPA, with the plain version in
+   one TF32 pass a product as a control that must fail; C1 at 100 code
    channels and 12x12 samples and C2 at 160 code channels in phases C1
    and C2; 3 ViT-S/8 train steps each at dim=100 with 12x12 samples (C1),
    full-field at dim=160 (C2) and with an f32 trunk through A-f32 (12
@@ -158,6 +162,9 @@ F32_TRUNK_GRAD_GAP = 1e-4
 # A-f32 against its plain versions: the JAX package's f32 tolerance
 # (tests/test_torch_attention.py), which TF32 products would fail
 F32_RTOL, F32_ATOL = 2e-5, 2e-5
+# the plain version's form of each head-major entry A-f32 is held on (the
+# others' are their names)
+FORM_OF = {"batch_resident": "two_pass"}
 LOSS_RTOL, LOSS_ATOL = 1e-4, 1e-6  # sampled-loss rows of PARITY_r05.json
 GRAD_RTOL, GRAD_ATOL = 2e-4, 1e-5  # tests/test_fused_sampling.py:265
 # the streamed loss: full-field maps, grid-sampled maps (PARITY_r05's corr
@@ -215,8 +222,12 @@ RUNG_ENTRY = {"head-major, copies outside": "batch_resident",
               "token-major, add+LN fused": "pair",
               "head-major views, add+LN fused": "batch_resident"}
 # H100 SXM at 700 W, dense (NVIDIA data sheet): FLOP/s by operand
-# type and HBM bytes/s, for the least time a kernel's work could take
-PEAK_FLOPS = {"bf16": 989e12, "f32": 67e12}
+# type and HBM bytes/s, for the least time a kernel's work could take.
+# "tf32x3": f32 products on the tensor cores by 3xTF32 (csrc/tf32x3.cuh),
+# three TF32 products each at 495 TFLOP/s, the rate at which A-f32 and C2
+# count every f32 product; "f32": f32 FMA outside the tensor cores (C1,
+# and the f32-FMA bound printed beside each 3xTF32 one)
+PEAK_FLOPS = {"bf16": 989e12, "tf32x3": 495e12 / 3, "f32": 67e12}
 HBM_BYTES_PER_S = 3.35e12
 L2_BYTES = 50 * 2**20
 
@@ -624,10 +635,13 @@ def phase_attention_f32(dev):
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    print(f"kernel A-f32 (attention on f32 q/k/v, f32 FMA) vs plain, "
-          f"d={HEAD_DIM}, q, k ~ N(0, 4), v ~ N(0, 1); rtol {F32_RTOL} atol "
-          f"{F32_ATOL}; library: f32 F.scaled_dot_product_attention; TF32 "
-          f"off")
+    from stego_torch.ops import tf32
+
+    print(f"kernel A-f32 (attention on f32 q/k/v, 3xTF32 on the tensor "
+          f"cores) vs plain, d={HEAD_DIM}, q, k ~ N(0, 4), v ~ N(0, 1); rtol "
+          f"{F32_RTOL} atol {F32_ATOL}; library: f32 "
+          f"F.scaled_dot_product_attention; TF32 off; control: the plain "
+          f"version with one TF32 pass a product (ops/tf32.py) must fail")
     scale = HEAD_DIM ** -0.5
     results = {}
     for form, (b, h, n) in (("two_pass", (8, 6, 785)),
@@ -644,8 +658,8 @@ def phase_attention_f32(dev):
             def kernel():
                 return fa.token_major_attention(q, k, v, h, scale)
 
-            def plain():
-                return fa.attention_plain(q, k, v, h, scale)
+            def plain(matmul=torch.matmul):
+                return fa.attention_plain(q, k, v, h, scale, matmul=matmul)
         else:
             q, k, v = (x.transpose(1, 2) for x in qkv.unbind(2))
             fn = getattr(fa, f"{form}_attention")
@@ -653,8 +667,9 @@ def phase_attention_f32(dev):
             def kernel(fn=fn):
                 return fn(q, k, v, scale)
 
-            def plain(fn=fn):
-                return fn(q, k, v, scale, use_kernel=False)
+            def plain(matmul=torch.matmul, form=FORM_OF.get(form, form)):
+                return fa.attention_heads_plain(q, k, v, scale, form,
+                                                matmul=matmul)
         before = fa.F32_LAUNCHES
         got = kernel()
         torch.cuda.synchronize()
@@ -664,9 +679,19 @@ def phase_attention_f32(dev):
         tol = (torch.full_like(want, F32_RTOL * float(want.abs().max()))
                if form == "no_softmax" else F32_ATOL + F32_RTOL * want.abs())
         ok = within(diff, tol, want) and launched == 1
+        ctl = (plain(tf32.matmul_tf32) - want).abs()
+        check(bool((ctl > tol).any()),
+              f"control, A-f32 {form} by its plain version with one TF32 "
+              f"pass a product: max_abs_err {float(ctl.max()):.3e}, "
+              f"{int((ctl > tol).sum())} of {ctl.numel()} elements out of "
+              f"the gate (must fail)")
         t = compare_times(kernel, plain)
-        bnd = bound({"f32": 4 * b * h * n * n * HEAD_DIM},
-                    4 * b * n * h * HEAD_DIM * 4)
+        flops = 4 * b * h * n * n * HEAD_DIM
+        nbytes = 4 * b * n * h * HEAD_DIM * 4
+        # every form at the 3xTF32 rate, no_softmax too, though its kernel
+        # stays on f32 FMA (csrc/attention.cu says why)
+        bnd = bound({"tf32x3": flops}, nbytes)
+        fma = bound({"f32": flops}, nbytes)
         lib = None
         if form != "no_softmax":
             qh, kh, vh = (x.reshape(b, n, h, HEAD_DIM).transpose(1, 2)
@@ -678,7 +703,8 @@ def phase_attention_f32(dev):
         layout = "token-major" if form == "two_pass" else "head-major"
         check(ok, f"A-f32 {form}, {layout} (B={b}, H={h}, N={n}): "
                   f"max_abs_err {float(diff.max()):.3e}, {launched} f32 "
-                  f"launch; {timing_text(t)}{lib_text}; {bound_text(bnd)}")
+                  f"launch; {timing_text(t)}{lib_text}; {bound_text(bnd)}; "
+                  f"at f32 FMA {fma[0]:.4f} ms")
         results[form] = dict(
             shape=f"B={b} H={h} N={n} d={HEAD_DIM} f32 {layout}",
             max_abs_err=float(diff.max()), ms=t["device"][0],
@@ -983,22 +1009,27 @@ def phase_corr(dev):
 
 
 def c1_bounds(b, hw, cf, cc, s, neg, feat_bytes=2):
-    """C1's least times, forward and backward, all f32 FMA (the kernel
-    keeps the TPU's rounding points, so no tensor cores). Forward: fd and
-    cd of every slot (S x S x (cf + cc) multiply-adds, S = s * s samples)
-    and the 4-tap sampling of both sides; it reads the feature maps
+    """C1's least times, forward and backward. Forward: fd and cd of every
+    slot (S x S x (cf + cc) multiply-adds, S = s * s samples) and the
+    4-tap sampling of both sides; it reads the feature maps
     (``feat_bytes`` an element) and f32 code maps and the coordinates and
     writes the row sums, z2cn and fd. Backward: cd again, dz1 and dz2, the
     normalise Jacobian and the 4-tap scatter; it reads the residuals and
-    writes the code gradients."""
+    writes the code gradients. Products count at their type's fastest
+    rate (fd on bf16 features at bf16, every f32 product at 3xTF32), the
+    sampling and the Jacobian at f32 FMA; the kernel itself keeps every
+    product on FMA."""
     n, ss, slots = hw * hw, s * s, (2 + neg) * b
     coords = 2 * b * ss * 2 * 4
     resid = slots * (5 * ss + ss * cc + ss * ss) * 4
-    fwd = bound({"f32": 2 * slots * ss * ss * (cf + cc)
-                 + 2 * slots * 2 * ss * 4 * (cf + cc)},
+    fd = 2 * slots * ss * ss * cf
+    fwd_ops = {"bf16": 0, "tf32x3": 2 * slots * ss * ss * cc,
+               "f32": 2 * slots * 2 * ss * 4 * (cf + cc)}
+    fwd_ops["bf16" if feat_bytes == 2 else "tf32x3"] += fd
+    fwd = bound(fwd_ops,
                 2 * b * n * (feat_bytes * cf + 4 * cc) + coords + resid)
-    bwd = bound({"f32": 3 * 2 * slots * ss * ss * cc
-                 + 2 * slots * 2 * ss * 6 * cc},
+    bwd = bound({"tf32x3": 3 * 2 * slots * ss * ss * cc,
+                 "f32": 2 * slots * 2 * ss * 6 * cc},
                 resid + coords + 2 * b * n * cc * 4)
     return {"fwd": fwd, "bwd": bwd}
 
@@ -1069,6 +1100,27 @@ def f32_control(label, what, err, atol, ctl):
           f"{verdict['bwd']} ({ctl['bwd'][1]})")
 
 
+def tf32_control(label, feats, code, idx1, idx2, plain_sums, run, want,
+                 grad_tol):
+    """The control of C2's f32 gates for one TF32 pass a product: the plain
+    version with fd and cd from TF32-rounded features and code
+    (ops/tf32.py:round_tf32) must fail the fd row-sum gate."""
+    from stego_torch.ops.tf32 import round_tf32
+
+    f = round_tf32(feats)
+    err = float((torch.bmm(f[idx1], f[idx2].transpose(1, 2)).sum(-1)
+                 - plain_sums).abs().max())
+    ctl = agreement(run(False, code_in=round_tf32(code), feats_in=f), want,
+                    (STREAM_RTOL, STREAM_ATOL), grad_tol, verbose=False)
+    verdict = {k: "passes" if v[0] else "fails" for k, v in ctl.items()}
+    check(err > ROW_SUM_ATOL,
+          f"control, one TF32 pass (the plain version on TF32-rounded "
+          f"features and code) against the f32 plain version: fd row sums "
+          f"max_abs_err {err:.3e} (must fail <= {ROW_SUM_ATOL}); losses and "
+          f"cd {verdict['fwd']} ({ctl['fwd'][1]}); code gradients "
+          f"{verdict['bwd']} ({ctl['bwd'][1]})")
+
+
 def time_fwd_bwd(forward, run, kernel, plain):
     """Device and per-call times of the forward, forward+backward and
     backward alone of a kernel and its plain version; returns the device
@@ -1111,20 +1163,25 @@ def stream_inputs(dev, b, hw, cf, cc, neg, distinct, seed,
     return feats, code, idx1, idx2, weights
 
 
-def c2_bounds(rows, maps, n, cf, cc, code_bf16, feat_f32=False):
+def c2_bounds(rows, maps, n, cf, cc, code_bf16, feat_f32=False,
+              f32_kind="tf32x3"):
     """C2's least times, forward and backward. Forward: fd, a product of
     n x n x cf a pair row (bf16, or f32 for an f32 trunk's features), and
     cd, n x n x cc in f32 (bf16 with code_bf16); it reads the maps and
     writes the row sums. Backward: fd and cd again and the two contractions
     coeff c2 and coeff^T c1 (n x n x cc each); it reads the maps and the
-    row sums and writes the code gradients."""
+    row sums and writes the code gradients. Every f32 product counts at
+    the rate of ``f32_kind`` (3xTF32, the card's fastest f32-accurate
+    rate; or f32 FMA for the bound beside it), whatever unit the kernel
+    uses: its f32 cd stays on FMA, and this bound does not excuse that."""
     fd = 2 * rows * n * n * cf
     cd = 2 * rows * n * n * cc
-    code_type = "bf16" if code_bf16 else "f32"
-    feat_type = "f32" if feat_f32 else "bf16"
+    feat_type = f32_kind if feat_f32 else "bf16"
+    code_type = "bf16" if code_bf16 else f32_kind
     maps_bytes = maps * n * ((4 if feat_f32 else 2) * cf + 4 * cc)
     sums = rows * 4 * n * 4
-    fwd_ops, bwd_ops = {"bf16": 0, "f32": 0}, {"bf16": 0, "f32": 0}
+    fwd_ops = dict.fromkeys(("bf16", f32_kind), 0)
+    bwd_ops = dict(fwd_ops)
     fwd_ops[feat_type] += fd
     bwd_ops[feat_type] += fd
     fwd_ops[code_type] += cd
@@ -1223,6 +1280,9 @@ def phase_corr_stream(dev):
                         agreement(run(True, feats_in=feats.bfloat16()), want,
                                   (STREAM_RTOL, STREAM_ATOL), grad_tol,
                                   verbose=False))
+            if name == "full-field":
+                tf32_control(label, feats, code, idx1, idx2, plain_sums,
+                             run, want, grad_tol)
         if code_bf16:
             # controls: kernels that ignore code_bf16 must fail the gate
             for what, code_in in (("raw", code),
@@ -1242,8 +1302,11 @@ def phase_corr_stream(dev):
         res["times"] = time_fwd_bwd(forward, run, True, False)
         res["bounds"] = c2_bounds(idx1.numel(), feats.shape[0], hw * hw, cf,
                                   cc, code_bf16, feat_f32)
+        fma = c2_bounds(idx1.numel(), feats.shape[0], hw * hw, cf, cc,
+                        code_bf16, feat_f32, f32_kind="f32")
         print(f"  forward {bound_text(res['bounds']['fwd'])}; backward "
-              f"{bound_text(res['bounds']['bwd'])}")
+              f"{bound_text(res['bounds']['bwd'])}; at f32 FMA "
+              f"{fma['fwd'][0]:.4f} / {fma['bwd'][0]:.4f} ms")
     return out
 
 
@@ -1371,6 +1434,12 @@ def compare_steps(ref, make_step, kernel, param_atol=GRAD_ATOL,
               f"step with {kernel} vs {kernel} plain: gradients, |g_kernel "
               f"- g_plain| / |g_plain| = {grad_gap(gk, gp):.3e} (<= "
               f"{grad_gap_max})")
+    if controls and plain_trunk:
+        _, _, ga = one_step(True, False)
+        print(f"  gradients with the trunk's kernels alone ({kernel.split()[0]}"
+              f" plain) vs {kernel} plain: |g - g_plain| / |g_plain| = "
+              f"{grad_gap(ga, gp):.3e} (report only: the trunk is frozen, so "
+              f"attention reaches the gradients through the features)")
     for name, attention in (controls or {}).items():
         from stego_torch.models import vit
 

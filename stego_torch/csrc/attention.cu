@@ -77,11 +77,22 @@
 //
 // The f32 kernel (A-f32) keeps the same forms; in f32 p is not rounded
 // (p.astype(v.dtype) is a no-op), so the forms differ only in where the
-// scale and the division fall. It runs on f32 FMA, not the tensor cores:
-// TF32 keeps about three digits, outside the JAX package's f32 tolerance
-// (2e-5). Simple first: each thread owns one query row (q and the
-// accumulator in registers) and the block streams 128-key K/V tiles through
-// shared memory, every thread reading each key row as a broadcast.
+// scale and the division fall. So the softmax forms take one pass with an
+// online softmax (the two passes' sums up to f32 rounding), the scale on q
+// (two-pass) or on the logits (flash, and resident: dividing each p by the
+// row's sum before the product, or the product's sum after it, differs only
+// by f32 rounding, so resident runs the flash form). They take both products
+// on the tensor cores by 3xTF32 (tf32x3.cuh): one TF32 product keeps about
+// three digits, outside the JAX package's f32 tolerance (2e-5), but the
+// three products of split operands keep ~2^-22 of each product, about f32's
+// own rounding. Bound: 4 N^2 d operations a head at 3xTF32's ~165 TFLOP/s on
+// an H100 SXM (a third of 495 TFLOP/s of TF32). It takes the products on
+// mma.sync, not wgmma, and spends instructions on splitting every K and V
+// element in each warp that reads it and on adding each step's product in
+// f32; those instructions and the latency of their chains, not the tensor
+// cores, set its time. Its design: the A-f32 note further down. The
+// no_softmax form stays on f32 FMA in depth, then key order
+// (attention_f32_fma_kernel says why).
 //
 // No atomics: every output element is written by one thread, so runs are
 // deterministic.
@@ -91,6 +102,8 @@
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
+
+#include "tf32x3.cuh"
 
 namespace {
 
@@ -635,172 +648,319 @@ attention_kernel(const __grid_constant__ CUtensorMap tq,
   }
 }
 
-// A-f32: one thread a query row, kF32Rows rows a block; K and V stream
-// through shared memory in tiles of kBlockN keys (64 KB).
-constexpr int kF32Rows = 128;
-constexpr int kF32Smem = 2 * kBlockN * kHeadDim * 4;
+// A-f32: one block a (64 query rows, head, image), 4 warps of 16 rows, both
+// products by 3xTF32 on mma.sync m16n8k8 (tf32x3.cuh). K and V come in tiles
+// of kF32Keys keys through a two-stage cp.async ring, so that tile t + 1
+// loads while tile t is used. Each warp keeps its q fragment in registers
+// (scaled where the form scales q, split at each use), takes s = q k^T for a
+// tile (8 depth steps), the softmax in registers (each row's max and sum
+// over the 4 threads that hold it, by shuffles), and acc += p v (8 key
+// steps), p split after its exp. The depth index of both products is
+// permuted (mma column t is depth 2t, t + 4 is 2t + 1): a K fragment is then
+// one 8-byte load, and the accumulator of s, which holds keys 2t and 2t + 1
+// of rows g and g + 8, is already p's A fragment. Row pitches of 72 (K) and
+// 68 (V) floats make both fragment loads free of bank conflicts.
+constexpr int kF32Rows = 64;        // query rows a block
+constexpr int kF32Threads = 128;    // 4 warps, 16 rows each
+constexpr int kF32Keys = 64;        // keys a K/V tile
+constexpr int kKPitch = kHeadDim + 8;
+constexpr int kVPitch = kHeadDim + 4;
+constexpr int kF32Stage = kF32Keys * (kKPitch + kVPitch);   // floats a stage
+constexpr int kF32Smem = 2 * kF32Stage * 4;                 // 70 KB
+
+__device__ __forceinline__ void cp_async16(float* dst, const float* src,
+                                           bool valid) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(
+                   smem_u32(dst)),
+               "l"(src), "r"(valid ? 16 : 0)
+               : "memory");
+}
+
+// Keys k0 .. k0 + kF32Keys - 1 of one head (row stride sn elements) into a
+// shared tile of the given row pitch by cp.async, 16 bytes a copy; rows at
+// or past n are zeros.
+__device__ __forceinline__ void load_tile_f32(float* dst, int pitch,
+                                              const float* head, long long sn,
+                                              int k0, int n) {
+  constexpr int kChunks = kHeadDim / 4;  // 16-byte copies a row
+  for (int c = threadIdx.x; c < kF32Keys * kChunks; c += kF32Threads) {
+    const int r = c / kChunks;
+    const int col = (c % kChunks) * 4;
+    const bool valid = k0 + r < n;
+    cp_async16(dst + r * pitch + col, head + (valid ? (k0 + r) * sn : 0) + col,
+               valid);
+  }
+}
+
+// Streams the K and V tiles of keys 0 .. n - 1 through the ring, calling
+// body(k0, k tile, v tile) on each once every warp can read it; every warp
+// is done with a stage before it is refilled.
+template <typename Body>
+__device__ __forceinline__ void stream_f32(float* smem, const float* kh,
+                                           long long ksn, const float* vh,
+                                           long long vsn, int n, Body&& body) {
+  const int tiles = (n + kF32Keys - 1) / kF32Keys;
+  auto issue = [&](int i) {
+    float* st = smem + (i & 1) * kF32Stage;
+    load_tile_f32(st, kKPitch, kh, ksn, i * kF32Keys, n);
+    load_tile_f32(st + kF32Keys * kKPitch, kVPitch, vh, vsn, i * kF32Keys,
+                  n);
+    asm volatile("cp.async.commit_group;\n" ::: "memory");
+  };
+  issue(0);
+  for (int i = 0; i < tiles; ++i) {
+    if (i + 1 < tiles) {
+      issue(i + 1);
+      asm volatile("cp.async.wait_group 1;\n" ::: "memory");
+    } else {
+      asm volatile("cp.async.wait_group 0;\n" ::: "memory");
+    }
+    __syncthreads();
+    const float* st = smem + (i & 1) * kF32Stage;
+    body(i * kF32Keys, st, st + kF32Keys * kKPitch);
+    __syncthreads();
+  }
+}
+
+// Blocks an SM. On an H100 (B=8, N=785), three (168 registers a thread)
+// ran faster than two (255 registers), and 4 warps a block faster than 2
+// or 8; q split at each use ran as fast as q held split.
+constexpr int kF32MinBlocks = 3;
+
+// exp(x - m) as 2^((x - m) log2 e) on the special-function unit
+// (ex2.approx, relative error ~2^-22): the difference first, so that the
+// product's rounding scales with it (p near 1 is where the sums' weight
+// is); -inf gives 0.
+__device__ __forceinline__ float exp_diff(float x, float m) {
+  return exp2_fast((x - m) * kLog2e);
+}
+
+template <int kForm>
+__global__ void __launch_bounds__(kF32Threads, kF32MinBlocks)
+attention_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                     const float* __restrict__ v, float* __restrict__ o,
+                     int n, Strides qs, Strides ks, Strides vs, Strides os,
+                     float scale) {
+  constexpr bool kScaleQ = kForm == kTwoPass;
+  extern __shared__ __align__(16) float smem_f32[];
+  const int warp = threadIdx.x >> 5;
+  const int lane = threadIdx.x & 31;
+  const int g = lane >> 2;
+  const int t = lane & 3;
+  const int h = blockIdx.y;
+  const int b = blockIdx.z;
+  const int row0 = blockIdx.x * kF32Rows + warp * 16;
+  const float* kh = k + b * ks.b + h * ks.h;
+  const float* vh = v + b * vs.b + h * vs.h;
+
+  // q's A fragments of the 8 depth steps: rows g and g + 8 (zeros past n),
+  // depths 8 st + 2t and 8 st + 2t + 1; q * scale in f32 where the form
+  // scales q. Kept in f32 and split at each use (32 registers fewer than
+  // the split fragments).
+  float qf[8][4];
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int row = row0 + g + 8 * r;
+    const bool live = row < n;
+    const float* qp = q + b * qs.b +
+                      static_cast<long long>(live ? row : 0) * qs.n +
+                      h * qs.h + 2 * t;
+#pragma unroll
+    for (int st = 0; st < 8; ++st) {
+      float2 x = live ? *reinterpret_cast<const float2*>(qp + 8 * st)
+                      : make_float2(0.f, 0.f);
+      if (kScaleQ) {
+        x.x *= scale;
+        x.y *= scale;
+      }
+      qf[st][r] = x.x;
+      qf[st][2 + r] = x.y;
+    }
+  }
+
+  // s[nt][e]: the logit of row g + 8 (e >> 1) and key k0 + 8 nt + 2t +
+  // (e & 1), the scale after the product unless q has it; keys past n
+  // -inf
+  float s[8][4];
+  auto logits = [&](int k0, const float* sk) {
+#pragma unroll
+    for (int nt = 0; nt < 8; ++nt) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) s[nt][e] = 0.f;
+    }
+#pragma unroll
+    for (int st = 0; st < 8; ++st) {
+      uint32_t q_hi[4], q_lo[4];
+      tf32x3::split(qf[st], q_hi, q_lo);
+#pragma unroll
+      for (int nt = 0; nt < 8; ++nt) {
+        const float2 kk = *reinterpret_cast<const float2*>(
+            sk + (nt * 8 + g) * kKPitch + st * 8 + 2 * t);
+        tf32x3::mma3(s[nt], q_hi, q_lo, kk.x, kk.y);
+      }
+    }
+#pragma unroll
+    for (int nt = 0; nt < 8; ++nt) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        if (!kScaleQ) s[nt][e] *= scale;
+        if (k0 + nt * 8 + 2 * t + (e & 1) >= n) {
+          s[nt][e] = -INFINITY;
+        }
+      }
+    }
+  };
+  // acc[nt][e]: row g + 8 (e >> 1), output column 8 nt + 2t + (e & 1)
+  float acc[8][4];
+#pragma unroll
+  for (int nt = 0; nt < 8; ++nt) {
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[nt][e] = 0.f;
+  }
+  // acc += p v over the tile, p = s
+  auto pv = [&](const float* sv) {
+#pragma unroll
+    for (int st = 0; st < 8; ++st) {
+      const float a[4] = {s[st][0], s[st][2], s[st][1], s[st][3]};
+      uint32_t a_hi[4], a_lo[4];
+      tf32x3::split(a, a_hi, a_lo);
+      const float* vp = sv + (st * 8 + 2 * t) * kVPitch + g;
+#pragma unroll
+      for (int nt = 0; nt < 8; ++nt) {
+        tf32x3::mma3(acc[nt], a_hi, a_lo, vp[nt * 8], vp[kVPitch + nt * 8]);
+      }
+    }
+  };
+  // this thread's largest logit of row r in the tile, over the row's threads
+  auto row_max = [&](int r) {
+    float m = -INFINITY;
+#pragma unroll
+    for (int nt = 0; nt < 8; ++nt) {
+      m = fmaxf(m, fmaxf(s[nt][2 * r], s[nt][2 * r + 1]));
+    }
+    return group_max(m);
+  };
+  static_assert(kForm == kTwoPass || kForm == kFlash,
+                "resident runs as kFlash, no_softmax on attention_f32_fma_kernel");
+  // one pass with an online softmax: in f32 p is not rounded, so p against a
+  // running max, with the sum and acc rescaled when it grows, is the
+  // two-pass form up to f32 rounding
+  float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f};
+  stream_f32(smem_f32, kh, ks.n, vh, vs.n, n,
+             [&](int k0, const float* sk, const float* sv) {
+               logits(k0, sk);
+#pragma unroll
+               for (int r = 0; r < 2; ++r) {
+                 const float m_new = fmaxf(m[r], row_max(r));
+                 const float corr = exp_diff(m[r], m_new);
+                 m[r] = m_new;
+                 l[r] *= corr;
+#pragma unroll
+                 for (int nt = 0; nt < 8; ++nt) {
+                   acc[nt][2 * r] *= corr;
+                   acc[nt][2 * r + 1] *= corr;
+#pragma unroll
+                   for (int e = 2 * r; e < 2 * r + 2; ++e) {
+                     s[nt][e] = exp_diff(s[nt][e], m_new);
+                     l[r] += s[nt][e];
+                   }
+                 }
+               }
+               pv(sv);
+             });
+  const float row_div[2] = {group_sum(l[0]), group_sum(l[1])};
+
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int row = row0 + g + 8 * r;
+    if (row >= n) continue;
+    float* op = o + b * os.b + static_cast<long long>(row) * os.n + h * os.h +
+                2 * t;
+#pragma unroll
+    for (int nt = 0; nt < 8; ++nt) {
+      const float2 x = make_float2(acc[nt][2 * r] / row_div[r],
+                                   acc[nt][2 * r + 1] / row_div[r]);
+      *reinterpret_cast<float2*>(op + nt * 8) = x;
+    }
+  }
+}
+
+// A-f32's no_softmax form (p = the logits of the scaled q, no division):
+// one thread a query row, kFmaRows rows a block, K and V streaming through
+// shared memory in tiles of kBlockN keys, both products by f32 FMA in
+// depth, then key order, which agrees with the plain version within the
+// gate on the tested shapes (cuBLAS promises no order). Its output is a sum of N
+// unnormalised products with cancellation, so the elementwise 2e-5 gate it
+// is held to measures the order of the f32 sums, not their accuracy: the
+// plain f32 version itself misses that gate against an f64 evaluation at
+// N = 785 (tests/test_torch_tf32x3.py), and so does any other order, 3xTF32
+// included. This form is off every model path (the layout ladder runs it
+// in bf16).
+constexpr int kFmaRows = 128;
+constexpr int kFmaSmem = 2 * kBlockN * kHeadDim * 4;
 
 // Rows k0 .. k0 + kBlockN - 1 of one head (row stride sn elements) into a
 // dense shared tile, zeros at or past n.
-__device__ __forceinline__ void load_tile_f32(float* dst, const float* head,
+__device__ __forceinline__ void load_tile_fma(float* dst, const float* head,
                                               long long sn, int k0, int n) {
   constexpr int kChunks = kHeadDim / 4;  // float4 a row
   for (int c = threadIdx.x; c < kBlockN * kChunks; c += blockDim.x) {
     const int r = c / kChunks;
     const int col = (c % kChunks) * 4;
     float4 v = make_float4(0.f, 0.f, 0.f, 0.f);
-    if (k0 + r < n) v = *reinterpret_cast<const float4*>(head + (k0 + r) * sn + col);
+    if (k0 + r < n) {
+      v = *reinterpret_cast<const float4*>(head + (k0 + r) * sn + col);
+    }
     *reinterpret_cast<float4*>(dst + r * kHeadDim + col) = v;
   }
 }
 
-// q . k of this thread's (scaled) query row against a shared key row.
-__device__ __forceinline__ float dot64(const float (&qr)[kHeadDim],
-                                       const float* kr) {
-  float d = 0.f;
-#pragma unroll
-  for (int c = 0; c < kHeadDim; c += 4) {
-    const float4 k4 = *reinterpret_cast<const float4*>(kr + c);
-    d = fmaf(qr[c], k4.x, d);
-    d = fmaf(qr[c + 1], k4.y, d);
-    d = fmaf(qr[c + 2], k4.z, d);
-    d = fmaf(qr[c + 3], k4.w, d);
-  }
-  return d;
-}
-
-__device__ __forceinline__ void axpy64(float (&acc)[kHeadDim], float p,
-                                       const float* vr) {
-#pragma unroll
-  for (int c = 0; c < kHeadDim; c += 4) {
-    const float4 v4 = *reinterpret_cast<const float4*>(vr + c);
-    acc[c] = fmaf(p, v4.x, acc[c]);
-    acc[c + 1] = fmaf(p, v4.y, acc[c + 1]);
-    acc[c + 2] = fmaf(p, v4.z, acc[c + 2]);
-    acc[c + 3] = fmaf(p, v4.w, acc[c + 3]);
-  }
-}
-
-template <int kForm>
-__global__ void __launch_bounds__(kF32Rows)
-attention_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
-                     const float* __restrict__ v, float* __restrict__ o,
-                     int n, Strides qs, Strides ks, Strides vs, Strides os,
-                     float scale) {
-  constexpr bool kScaleQ = kForm == kTwoPass || kForm == kNoSoftmax;
-  extern __shared__ __align__(16) float smem_f32[];
-  float* s_k = smem_f32;
-  float* s_v = smem_f32 + kBlockN * kHeadDim;
-  const int row = blockIdx.x * kF32Rows + threadIdx.x;
+__global__ void __launch_bounds__(kFmaRows)
+attention_f32_fma_kernel(const float* __restrict__ q,
+                         const float* __restrict__ k,
+                         const float* __restrict__ v, float* __restrict__ o,
+                         int n, Strides qs, Strides ks, Strides vs,
+                         Strides os, float scale) {
+  extern __shared__ __align__(16) float smem_fma[];
+  float* s_k = smem_fma;
+  float* s_v = smem_fma + kBlockN * kHeadDim;
+  const int row = blockIdx.x * kFmaRows + threadIdx.x;
   const int h = blockIdx.y;
   const int b = blockIdx.z;
   const bool live = row < n;
   const float* kh = k + b * ks.b + h * ks.h;
   const float* vh = v + b * vs.b + h * vs.h;
-
   float qr[kHeadDim];
   float acc[kHeadDim];
-  {
-    const float* qp = q + b * qs.b + static_cast<long long>(live ? row : 0) * qs.n + h * qs.h;
+  const float* qp = q + b * qs.b +
+                    static_cast<long long>(live ? row : 0) * qs.n + h * qs.h;
 #pragma unroll
-    for (int c = 0; c < kHeadDim; ++c) {
-      qr[c] = live ? qp[c] : 0.f;
-      if (kScaleQ) qr[c] *= scale;  // q * scale in f32, as q's dtype
-      acc[c] = 0.f;
-    }
+  for (int c = 0; c < kHeadDim; ++c) {
+    qr[c] = live ? qp[c] * scale : 0.f;  // q * scale in f32, as q's dtype
+    acc[c] = 0.f;
   }
-  // the logit of key row kr: the scale after the product unless q has it
-  auto logit = [&](const float* kr) {
-    const float d = dot64(qr, kr);
-    return kScaleQ ? d : d * scale;
-  };
-  auto load = [&](int k0, bool with_v) {
+  for (int k0 = 0; k0 < n; k0 += kBlockN) {
     __syncthreads();  // every thread is done with the previous tile
-    load_tile_f32(s_k, kh, ks.n, k0, n);
-    if (with_v) load_tile_f32(s_v, vh, vs.n, k0, n);
+    load_tile_fma(s_k, kh, ks.n, k0, n);
+    load_tile_fma(s_v, vh, vs.n, k0, n);
     __syncthreads();
-  };
-  float row_div = 1.f;
-
-  if constexpr (kForm == kNoSoftmax) {
-    for (int k0 = 0; k0 < n; k0 += kBlockN) {
-      load(k0, true);
-      const int kn = min(kBlockN, n - k0);
-      for (int j = 0; j < kn; ++j) {
-        axpy64(acc, logit(s_k + j * kHeadDim), s_v + j * kHeadDim);
-      }
-    }
-  } else if constexpr (kForm == kFlash) {
-    float run_max = -INFINITY, run_sum = 0.f;
-    for (int k0 = 0; k0 < n; k0 += kBlockN) {
-      load(k0, true);
-      const int kn = min(kBlockN, n - k0);
-      float m_blk = -INFINITY;
-      for (int j = 0; j < kn; ++j) m_blk = fmaxf(m_blk, logit(s_k + j * kHeadDim));
-      const float m_new = fmaxf(run_max, m_blk);
-      const float corr = expf(run_max - m_new);
-      run_max = m_new;
-      run_sum *= corr;
+    const int kn = min(kBlockN, n - k0);
+    for (int j = 0; j < kn; ++j) {
+      const float* kr = s_k + j * kHeadDim;
+      const float* vr = s_v + j * kHeadDim;
+      float p = 0.f;
 #pragma unroll
-      for (int c = 0; c < kHeadDim; ++c) acc[c] *= corr;
-      for (int j = 0; j < kn; ++j) {
-        const float p = expf(logit(s_k + j * kHeadDim) - m_new);
-        run_sum += p;
-        axpy64(acc, p, s_v + j * kHeadDim);
-      }
+      for (int c = 0; c < kHeadDim; ++c) p = fmaf(qr[c], kr[c], p);
+#pragma unroll
+      for (int c = 0; c < kHeadDim; ++c) acc[c] = fmaf(p, vr[c], acc[c]);
     }
-    row_div = run_sum;
-  } else {
-    // pass 1: the row max; kResident also the sum of exp(s - max),
-    // rescaled when the max grows
-    float row_max = -INFINITY, row_sum = 0.f;
-    for (int k0 = 0; k0 < n; k0 += kBlockN) {
-      load(k0, false);
-      const int kn = min(kBlockN, n - k0);
-      for (int j = 0; j < kn; ++j) {
-        const float x = logit(s_k + j * kHeadDim);
-        if (kForm == kResident) {
-          if (x > row_max) {
-            row_sum = row_sum * expf(row_max - x) + 1.f;
-            row_max = x;
-          } else {
-            row_sum += expf(x - row_max);
-          }
-        } else {
-          row_max = fmaxf(row_max, x);
-        }
-      }
-    }
-    // pass 2: p = exp(s - max) (kResident: divided by the sum)
-    float p_sum = 0.f;
-    for (int k0 = 0; k0 < n; k0 += kBlockN) {
-      load(k0, true);
-      const int kn = min(kBlockN, n - k0);
-      for (int j = 0; j < kn; ++j) {
-        float p = expf(logit(s_k + j * kHeadDim) - row_max);
-        if (kForm == kResident) {
-          p = __fdiv_rn(p, row_sum);
-        } else {
-          p_sum += p;
-        }
-        axpy64(acc, p, s_v + j * kHeadDim);
-      }
-    }
-    if (kForm == kTwoPass) row_div = p_sum;
   }
   if (!live) return;
   float* op = o + b * os.b + static_cast<long long>(row) * os.n + h * os.h;
-  constexpr bool kDivide = kForm == kTwoPass || kForm == kFlash;
 #pragma unroll
   for (int c = 0; c < kHeadDim; c += 4) {
-    float4 r4 = make_float4(acc[c], acc[c + 1], acc[c + 2], acc[c + 3]);
-    if (kDivide) {
-      r4.x /= row_div;
-      r4.y /= row_div;
-      r4.z /= row_div;
-      r4.w /= row_div;
-    }
-    *reinterpret_cast<float4*>(op + c) = r4;
+    *reinterpret_cast<float4*>(op + c) =
+        make_float4(acc[c], acc[c + 1], acc[c + 2], acc[c + 3]);
   }
 }
 
@@ -898,24 +1058,35 @@ cudaError_t launch_form(const CUtensorMap& tq, const CUtensorMap& tk,
   }
 }
 
+// kForm's A-f32 kernel: the tensor-core one, or the FMA one for kNoSoftmax.
 template <int kForm>
 cudaError_t launch_f32(const void* q, const void* k, const void* v, void* o,
                        int batch, int n, int heads, Strides qs, Strides ks,
                        Strides vs, Strides os, float scale,
                        cudaStream_t stream) {
-  auto kernel = attention_f32_kernel<kForm>;
+  constexpr bool kFma = kForm == kNoSoftmax;
+  constexpr int kRows = kFma ? kFmaRows : kF32Rows;
+  constexpr int kThreads = kFma ? kFmaRows : kF32Threads;
+  constexpr int kSmem = kFma ? kFmaSmem : kF32Smem;
+  void (*kernel)(const float*, const float*, const float*, float*, int,
+                 Strides, Strides, Strides, Strides, float);
+  if constexpr (kFma) {
+    kernel = attention_f32_fma_kernel;
+  } else {
+    kernel = attention_f32_kernel<kForm>;
+  }
   static bool ready[kMaxDevices] = {};
   int device = 0;
   cudaError_t err = cudaGetDevice(&device);
   if (err != cudaSuccess) return err;
   if (device >= kMaxDevices || !ready[device]) {
     err = cudaFuncSetAttribute(
-        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kF32Smem);
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kSmem);
     if (err != cudaSuccess) return err;
     if (device < kMaxDevices) ready[device] = true;
   }
-  const dim3 grid((n + kF32Rows - 1) / kF32Rows, heads, batch);
-  kernel<<<grid, kF32Rows, kF32Smem, stream>>>(
+  const dim3 grid((n + kRows - 1) / kRows, heads, batch);
+  kernel<<<grid, kThreads, kSmem, stream>>>(
       static_cast<const float*>(q), static_cast<const float*>(k),
       static_cast<const float*>(v), static_cast<float*>(o), n, qs, ks, vs, os,
       scale);
@@ -1016,9 +1187,7 @@ extern "C" int stego_attention_f32(
       vs{v_sb, v_sn, v_sh}, os{o_sb, o_sn, o_sh};
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   switch (form) {
-    case kResident:
-      err = launch_f32<kResident>(q, k, v, o, batch, n, heads, qs, ks, vs, os, scale, st);
-      break;
+    case kResident:  // in f32 the flash form's arithmetic (the header says why)
     case kFlash:
       err = launch_f32<kFlash>(q, k, v, o, batch, n, heads, qs, ks, vs, os, scale, st);
       break;

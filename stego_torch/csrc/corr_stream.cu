@@ -26,45 +26,61 @@
 // Rounding points of the TPU kernel, kept: fd is a bf16 x bf16 product with
 // f32 accumulation (mma.sync m16n8k16, every product exact in f32, each 16
 // channels added to the running f32 sum with round to nearest), or with
-// f32 features (an f32 trunk, feat_dtype=float32) f32 x f32 with f32 FMA in
-// channel order; cd is f32 with f32 FMA in channel order (no tensor cores,
-// so no TF32), or with code_bf16 a bf16 x bf16 product with f32 accumulation (mma.sync), and then
-// the backward rounds coeff and the code to bf16 before its f32 sums
-// (pallas_corr.py:251-260). The backward computes cd with the forward's
-// function, so every cd, and so the clamp mask, equals the forward's bit for
-// bit.
+// f32 features (an f32 trunk, feat_dtype=float32) an f32 x f32 product; cd
+// is f32 x f32, or with code_bf16 a bf16 x bf16 product with f32
+// accumulation (mma.sync), and then the backward rounds coeff and the code
+// to bf16 before its f32 sums (pallas_corr.py:251-260). fd on f32 features
+// and the backward's dc1 and dc2 on f32 code run on the tensor cores by
+// 3xTF32 (tf32x3.cuh: operands split into TF32 high and low parts, three
+// m16n8k8 products an 8-channel step, ~2^-22 of each product left, about
+// f32's own rounding; one TF32 product would keep ~2^-11, which the f32
+// row-sum gate rejects), each step added to its f32 sum in channel order.
+// The f32 cd stays f32 FMA in channel order, whose clamp masks agree with
+// the plain version's on the tested shapes (cd_tile says why). code_bf16's dc1
+// and dc2 run as bf16 m16n8k16 on the bf16-rounded coefficients and code,
+// every product exact in f32. The backward computes fd and cd with the
+// forward's function, so every cd, and so the clamp mask, equals the
+// forward's bit for bit.
 //
 // Bound, at the full-field step's shapes (112 pair rows, n = 784, cf = 384,
 // cc = 70, 32 distinct maps) on an H100 SXM: the forward is 52.9 GFLOP of
-// bf16 products (0.053 ms at 989 TFLOP/s) and 9.6 GFLOP of f32 FMA (0.144 ms
-// at 67 TFLOP/s), so ~0.20 ms of compute against ~28 MB of input (0.008 ms
-// at 3.35 TB/s): compute-bound. The backward recomputes fd and cd and forms
-// dc1 and dc2: ~0.49 ms. With code_bf16 every product has bf16 operands,
-// so the bound counts cd, dc1 and dc2 at the tensor cores' rate: ~0.063 ms
-// forward, ~0.083 ms backward. This kernel runs only cd on mma.sync there:
-// dc1 and dc2 are scalar f32 FMA from shared memory in both instantiations
-// (with code_bf16 on bf16-rounded coefficients and code), so its code_bf16
-// backward is about as slow as its f32 one.
+// bf16 products (0.053 ms at 989 TFLOP/s) and 9.6 GFLOP of cd on f32 FMA
+// (0.144 ms at 67 TFLOP/s), so ~0.20 ms of compute against ~28 MB of input
+// (0.008 ms at 3.35 TB/s): compute-bound. The backward recomputes fd and cd
+// and forms dc1 and dc2, 19.3 GFLOP at 3xTF32's ~165 TFLOP/s (a third of
+// 495 TFLOP/s of TF32): ~0.31 ms. With f32 features fd is 3xTF32 too:
+// ~0.46 ms forward, ~0.58 ms backward. With code_bf16 every product has
+// bf16 operands: ~0.063 ms forward, ~0.083 ms backward. The kernel is
+// further from these than A: its products are mma.sync, not wgmma, and a
+// block is 8 warps, one an SM, whose phases (loads, products, coefficients,
+// the gradient's products) are separated by barriers, so the latency of
+// each phase, more than the tensor cores, sets its time (PERF.md).
 //
 // Design, right before fast. Forward: one block a (64 rows of side 1, pair
 // row); 8 warps, each 16 rows by 32 columns of a tile; the block loops over
-// 64-column tiles of side 2 through shared memory, which every thread
-// fills with 4 loads in flight. fd and cd of a tile are held in the mma
-// fragment layout (a thread owns rows g and g + 8 and 8 columns), the row
-// sums in registers, reduced over the 4 threads of a row and then over the
-// two column halves at the end; each block writes only its own rows, so
-// the forward has no atomics. The shared memory (142 KB at the full-field
-// shape) allows one block an SM. Backward: one
-// block a (64 rows, map) owns the code gradient of those rows and takes
-// every pair row that reads the map, in a fixed order (a list the wrapper
-// sorts): as side 1 it sums coeff c2 over all column tiles, as side 2 it
-// sums coeff^T c1 over all row tiles, recomputing the tile each time. Every
-// gradient element is written once, by one thread, after a sum in a fixed
-// order, so runs are deterministic (a first Adam step maps any gradient
-// above 1e-8 to +-lr, so run-to-run atomics noise would show in the step).
-// The price is fd and cd computed twice in the backward. Ragged n (784 and
-// 121 are not multiples of 64): tile rows past n are zeros in shared memory
-// and masked out of the sums; nothing is padded in device memory.
+// 64-column tiles of side 2 through shared memory, which cp.async fills with
+// every copy of a tile in flight at once (the bf16 code tiles of code_bf16,
+// rounded on the way, by loads of 4 a thread in flight). A two-stage ring,
+// the next tile's copies in flight during this tile's products, took
+// 0.97-1.11x this kernel's time on an H100 (PERF.md), so the block waits for
+// its copies. fd and cd of a tile are held in the mma fragment layout (a
+// thread owns rows g and g + 8 and 8 columns), the row sums in registers,
+// reduced over the 4 threads of a row and then over the two column halves at
+// the end; each block writes only its own rows, so the forward has no
+// atomics. The shared memory (143 KB at the full-field shape) allows one
+// block an SM. Backward: one block a (64 rows, map) owns the code gradient
+// of those rows and takes every pair row that reads the map, in a fixed
+// order (a list the wrapper sorts): as side 1 it sums coeff c2 over all
+// column tiles, as side 2 it sums coeff^T c1 over all row tiles, recomputing
+// the tile each time; the coefficient tile goes to shared memory as [own
+// row][other row] and the gradient tile stays in registers as mma
+// accumulators (dc_tile). Every gradient element is written once, by one
+// thread, after a sum in a fixed order, so runs are deterministic (a first
+// Adam step maps any gradient above 1e-8 to +-lr, so run-to-run atomics
+// noise would show in the step). The price is fd and cd computed twice in
+// the backward. Ragged n (784 and 121 are not multiples of 64): tile rows
+// past n are zeros in shared memory and masked out of the sums; nothing is
+// padded in device memory.
 //
 // Code channels in chunks: up to 128 (kCodeChunk) the code tiles hold every
 // channel, as above. Past that both code tiles come 128 channels at a time
@@ -81,17 +97,14 @@
 // as it was) and above that in chunks of 256 channels (34 KB); two whole
 // 768-channel tiles, 198 KB, would not fit beside the code tiles, and
 // 384-channel chunks would not beside f32 code tiles of 128 channels and
-// the backward's coefficients (234 KB). f32 features: the
-// own tile channel-major (101 KB at 384), the other side in chunks of 64
-// channels (17 KB), fd by f32 FMA in channel order in the mma fragment
-// layout, as cd does; above 384 channels (202 KB of own tile at 768) the own
-// rows come in the same 64-channel chunks too, read again from device
-// memory (L2) for every tile. The backward's recomputed fd comes from the
-// same function in the same order, so the pointwise fd' = fd - rowmean + gm
-// uses the forward's values. Bound at the full-field shape: fd alone is
-// 52.9 GFLOP of f32 FMA, 0.79 ms at 67 TFLOP/s; this first f32 kernel reads
-// both fd operands from shared memory for every 16 FMAs of a thread, so it
-// is bound by shared-memory bandwidth well above that.
+// the backward's coefficients (236 KB). f32 features: the
+// own tile channel-major (108 KB at 384), the other side in chunks of 64
+// channels (18 KB), fd by 3xTF32 in the mma fragment layout; above
+// 384 channels (216 KB of own tile at 768) the own rows come in the same
+// 64-channel chunks too, read again from device memory (L2) for every tile.
+// The backward's recomputed fd comes from the same function in the same
+// order, so the pointwise fd' = fd - rowmean + gm uses the forward's
+// values.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -99,6 +112,8 @@
 #include <stdint.h>
 
 #include <type_traits>
+
+#include "tf32x3.cuh"
 
 namespace {
 
@@ -113,11 +128,15 @@ constexpr int kChunkBf16 = 256;    // bf16 channels of a chunk above that
 constexpr int kChunkF32 = 64;      // f32 feature channels of a chunk
 constexpr int kOwnMaxF32 = 384;    // f32 channels of a resident own tile
 constexpr int kCodeChunk = 128;    // code channels of a code tile
-constexpr int kCodePitchF32 = kTile + 2;  // channel-major f32 tile row
+// Row pitches, in elements, that make the fragment loads free of bank
+// conflicts: 72 = 8 mod 32 for the channel-major f32 tiles (a 4-byte load
+// per thread at channel t, row g: banks 8 t + g) and for the coefficient
+// tile (an 8-byte load per thread at row g, columns 2t and 2t + 1: each
+// half warp on 32 distinct banks), and for the bf16 code tile (a 4-byte
+// pair per thread at channel g, rows 2t and 2t + 1: banks 4 g + t).
+constexpr int kCodePitchF32 = kTile + 8;  // channel-major f32 tile row
 constexpr int kCodePitchBf16 = kTile + 8; // channel-major bf16 code tile row
-constexpr int kCoeffPitch = kTile + 1;
-constexpr int kOutCols = kCodeChunk / 8;  // gradient columns a thread owns
-constexpr int kOutRows = kTile * 8 / kThreads;  // gradient rows a thread owns
+constexpr int kCoeffPitch = kTile + 8;
 constexpr unsigned kFull = 0xffffffffu;
 
 __device__ __forceinline__ float bf16_round(float v) {
@@ -141,6 +160,12 @@ __device__ __forceinline__ uint32_t pack_column(const __nv_bfloat16* p,
   return lo | (hi << 16);
 }
 
+// Two bf16-exact f32 values as a bf16 pair, x in the low half.
+__device__ __forceinline__ uint32_t pack_bf16(float2 v) {
+  __nv_bfloat162 p = __floats2bfloat162_rn(v.x, v.y);
+  return *reinterpret_cast<uint32_t*>(&p);
+}
+
 __device__ __forceinline__ float group_sum(float v) {
   v += __shfl_xor_sync(kFull, v, 1);
   return v + __shfl_xor_sync(kFull, v, 2);
@@ -153,11 +178,6 @@ __device__ __forceinline__ float from_float<float>(float v) { return v; }
 template <>
 __device__ __forceinline__ __nv_bfloat16 from_float<__nv_bfloat16>(float v) {
   return __float2bfloat16_rn(v);
-}
-
-__device__ __forceinline__ float to_float(float v) { return v; }
-__device__ __forceinline__ float to_float(__nv_bfloat16 v) {
-  return __bfloat162float(v);
 }
 
 // Shared-memory geometry of one launch.
@@ -203,17 +223,61 @@ __host__ __device__ Geometry make_geometry(int n, int cf, int cc) {
   return g;
 }
 
+// kBytes (4 or 16) from device memory at src to shared memory at dst by
+// cp.async, or zeros where !valid (src is then not read). The copies of a
+// tile are all in flight at once and take no registers; cp_async_wait,
+// then a barrier, makes every thread's copies visible.
+template <int kBytes>
+__device__ __forceinline__ void cp_async(void* dst, const void* src,
+                                         bool valid) {
+  const uint32_t d = static_cast<uint32_t>(__cvta_generic_to_shared(dst));
+  if constexpr (kBytes == 16) {
+    asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(d),
+                 "l"(src), "r"(valid ? 16 : 0)
+                 : "memory");
+  } else {
+    asm volatile("cp.async.ca.shared.global [%0], [%1], %2, %3;\n" ::"r"(d),
+                 "l"(src), "n"(kBytes), "r"(valid ? kBytes : 0)
+                 : "memory");
+  }
+}
+
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_all;\n" ::: "memory");
+}
+
 // Rows row0 .. row0 + 63, channels c0 .. c0 + ncp - 1 (ncp: nc rounded up
 // to 16, c0 a multiple of 16) of one (n, cf) bf16 map into a row-major tile
-// of ``pitch``, zeros past n and past cf.
-// Loads run in batches of kLoadBatch a thread, all issued before their
-// stores, so that a thread waits on one round trip a batch.
+// of ``pitch``, zeros past n and past cf: 16-byte cp.async copies where cf
+// is a multiple of 8 (the caller waits for them), else element loads in
+// batches of kLoadBatch a thread, all issued before their stores.
 __device__ void load_feat_tile(__nv_bfloat16* dst,
                                const __nv_bfloat16* map, int row0, int c0,
                                int nc, int pitch, const Geometry& g) {
   const int chunks = ((nc + 15) & ~15) / 8;  // 16-byte chunks a row
   const int total = kTile * chunks;
-  const bool vec = (g.cf % 8) == 0;
+  if (g.cf % 8 == 0) {
+    // (r, c) of idx = r chunks + c, stepped without a division a copy
+    int r = threadIdx.x / chunks;
+    int c = threadIdx.x - r * chunks;
+    const int dr = kThreads / chunks;
+    const int dc = kThreads - dr * chunks;
+    for (int idx = threadIdx.x; idx < total; idx += kThreads) {
+      const int row = row0 + r;
+      const int c8 = c0 + c * 8;
+      const bool valid = row < g.n && c8 < g.cf;
+      cp_async<16>(dst + r * pitch + c * 8,
+                   valid ? map + static_cast<size_t>(row) * g.cf + c8 : map,
+                   valid);
+      r += dr;
+      c += dc;
+      if (c >= chunks) {
+        c -= chunks;
+        ++r;
+      }
+    }
+    return;
+  }
   for (int base = threadIdx.x; base < total; base += kLoadBatch * kThreads) {
     uint4 v[kLoadBatch];
 #pragma unroll
@@ -226,12 +290,8 @@ __device__ void load_feat_tile(__nv_bfloat16* dst,
       if (idx < total && row < g.n) {
         const __nv_bfloat16* src =
             map + static_cast<size_t>(row) * g.cf + c8;
-        if (vec) {
-          if (c8 < g.cf) v[u] = *reinterpret_cast<const uint4*>(src);
-        } else {
-          __nv_bfloat16* e = reinterpret_cast<__nv_bfloat16*>(&v[u]);
-          for (int k = 0; k < 8 && c8 + k < g.cf; ++k) e[k] = src[k];
-        }
+        __nv_bfloat16* e = reinterpret_cast<__nv_bfloat16*>(&v[u]);
+        for (int k = 0; k < 8 && c8 + k < g.cf; ++k) e[k] = src[k];
       }
     }
 #pragma unroll
@@ -246,60 +306,70 @@ __device__ void load_feat_tile(__nv_bfloat16* dst,
   }
 }
 
-// Rows row0 .. row0 + 63, channels c0 .. c0 + nc - 1 of one (n, cf) f32
-// map into a channel-major tile (nc rows of kCodePitchF32), zeros past n.
-__device__ void load_feat_tile_f32(float* dst, const float* map, int row0,
-                                   int c0, int nc, const Geometry& g) {
-  const int total = kTile * nc;
-  for (int base = threadIdx.x; base < total; base += kLoadBatch * kThreads) {
-    float v[kLoadBatch];
-#pragma unroll
-    for (int u = 0; u < kLoadBatch; ++u) {
-      const int idx = base + u * kThreads;
-      const int r = idx / nc;
+// Rows row0 .. row0 + 63, columns c0 .. c0 + ncols - 1 of a row-major f32
+// matrix (row stride ld; rows valid below n, columns below climit) into a
+// channel-major shared tile, dst[c * kCodePitchF32 + r], by 4-byte
+// cp.async (the caller waits for them), zeros where not valid. A warp
+// copies 4 rows x 8 columns at a time: 32-byte pieces of device memory,
+// shared-memory banks 8 c + r (two threads a bank at most).
+__device__ void load_transposed_f32(float* dst, const float* map, int ld,
+                                    int row0, int n, int c0, int ncols,
+                                    int climit) {
+  const int lane = threadIdx.x & 31;
+  const int units = (kTile / 4) * ((ncols + 7) / 8);
+  for (int u = threadIdx.x >> 5; u < units; u += kWarps) {
+    const int r = (u % (kTile / 4)) * 4 + (lane >> 3);
+    const int c = (u / (kTile / 4)) * 8 + (lane & 7);
+    if (c < ncols) {
       const int row = row0 + r;
-      v[u] = (idx < total && row < g.n)
-                 ? map[static_cast<size_t>(row) * g.cf + c0 + idx - r * nc]
-                 : 0.f;
-    }
-#pragma unroll
-    for (int u = 0; u < kLoadBatch; ++u) {
-      const int idx = base + u * kThreads;
-      if (idx < total) {
-        const int r = idx / nc;
-        dst[(idx - r * nc) * kCodePitchF32 + r] = v[u];
-      }
+      const int col = c0 + c;
+      const bool valid = row < n && col < climit;
+      cp_async<4>(dst + c * kCodePitchF32 + r,
+                  valid ? map + static_cast<size_t>(row) * ld + col : map,
+                  valid);
     }
   }
 }
 
+// Rows row0 .. row0 + 63, channels c0 .. c0 + nc - 1 of one (n, cf) f32
+// map into a channel-major tile (nc rows of kCodePitchF32), zeros past n.
+__device__ void load_feat_tile_f32(float* dst, const float* map, int row0,
+                                   int c0, int nc, const Geometry& g) {
+  load_transposed_f32(dst, map, g.cf, row0, g.n, c0, nc, g.cf);
+}
+
 // Rows row0 .. row0 + 63, channels c0 .. c0 + ccp - 1 of one (n, cc) f32
 // map into a channel-major tile (ccp rows of the code pitch), zeros past n
-// and past cc; bf16 tiles round each value.
+// and past cc: f32 tiles by cp.async (the caller waits for them), bf16
+// tiles rounding each value, by loads in batches of kLoadBatch a thread.
 template <typename T>
 __device__ void load_code_tile(T* dst, const float* map, int row0,
                                const Geometry& g, int c0 = 0) {
-  constexpr int pitch =
-      sizeof(T) == 4 ? kCodePitchF32 : kCodePitchBf16;
-  const int total = kTile * g.ccp;
-  for (int base = threadIdx.x; base < total; base += kLoadBatch * kThreads) {
-    float v[kLoadBatch];
+  if constexpr (sizeof(T) == 4) {
+    load_transposed_f32(dst, map, g.cc, row0, g.n, c0, g.ccp, g.cc);
+  } else {
+    const int total = kTile * g.ccp;
+    for (int base = threadIdx.x; base < total;
+         base += kLoadBatch * kThreads) {
+      float v[kLoadBatch];
 #pragma unroll
-    for (int u = 0; u < kLoadBatch; ++u) {
-      const int idx = base + u * kThreads;
-      const int r = idx / g.ccp;
-      const int c = idx - r * g.ccp;
-      const int row = row0 + r;
-      v[u] = (idx < total && row < g.n && c0 + c < g.cc)
-                 ? map[static_cast<size_t>(row) * g.cc + c0 + c]
-                 : 0.f;
-    }
-#pragma unroll
-    for (int u = 0; u < kLoadBatch; ++u) {
-      const int idx = base + u * kThreads;
-      if (idx < total) {
+      for (int u = 0; u < kLoadBatch; ++u) {
+        const int idx = base + u * kThreads;
         const int r = idx / g.ccp;
-        dst[(idx - r * g.ccp) * pitch + r] = from_float<T>(v[u]);
+        const int c = idx - r * g.ccp;
+        const int row = row0 + r;
+        v[u] = (idx < total && row < g.n && c0 + c < g.cc)
+                   ? map[static_cast<size_t>(row) * g.cc + c0 + c]
+                   : 0.f;
+      }
+#pragma unroll
+      for (int u = 0; u < kLoadBatch; ++u) {
+        const int idx = base + u * kThreads;
+        if (idx < total) {
+          const int r = idx / g.ccp;
+          dst[(idx - r * g.ccp) * kCodePitchBf16 + r] =
+              from_float<T>(v[u]);
+        }
       }
     }
   }
@@ -359,7 +429,8 @@ __device__ __forceinline__ void fd_bf16(const __nv_bfloat16* fa, int pa,
 }
 
 // fd += a b^T over channels 0 .. depth - 1 of channel-major f32 tiles (rows
-// of kCodePitchF32), by f32 FMA in channel order.
+// of kCodePitchF32), by 3xTF32 mma.sync (tf32x3.cuh) in 8-channel steps in
+// channel order; channels at or past depth read as zeros.
 __device__ __forceinline__ void fd_f32(const float* a, const float* b,
                                        int depth, float (&fd)[4][4]) {
   constexpr int P = kCodePitchF32;
@@ -368,24 +439,34 @@ __device__ __forceinline__ void fd_f32(const float* a, const float* b,
   const int lane = threadIdx.x & 31;
   const int g = lane >> 2;
   const int t = lane & 3;
-  for (int k = 0; k < depth; ++k) {
-    const float a0 = a[k * P + row0 + g];
-    const float a1 = a[k * P + row0 + g + 8];
+  for (int k0 = 0; k0 < depth; k0 += 8) {
+    const bool k_lo = k0 + t < depth;      // mma columns t and t + 4
+    const bool k_hi = k0 + t + 4 < depth;
+    const float* ap = a + (k0 + t) * P + row0 + g;
+    const float av[4] = {k_lo ? ap[0] : 0.f, k_lo ? ap[8] : 0.f,
+                         k_hi ? ap[4 * P] : 0.f, k_hi ? ap[4 * P + 8] : 0.f};
+    uint32_t a_hi[4], a_lo[4];
+    tf32x3::split(av, a_hi, a_lo);
 #pragma unroll
     for (int nt = 0; nt < 4; ++nt) {
-      const float2 v = *reinterpret_cast<const float2*>(
-          b + k * P + col0 + nt * 8 + 2 * t);
-      fd[nt][0] = fmaf(a0, v.x, fd[nt][0]);
-      fd[nt][1] = fmaf(a0, v.y, fd[nt][1]);
-      fd[nt][2] = fmaf(a1, v.x, fd[nt][2]);
-      fd[nt][3] = fmaf(a1, v.y, fd[nt][3]);
+      const float* bp = b + (k0 + t) * P + col0 + nt * 8 + g;
+      tf32x3::mma3(fd[nt], a_hi, a_lo, k_lo ? bp[0] : 0.f,
+                   k_hi ? bp[4 * P] : 0.f);
     }
   }
 }
 
 // cd += ca cb^T over the first ``depth`` channels of channel-major code
 // tiles: bf16 by mma.sync (depth rounded up to 16; the tiles hold zeros
-// there), f32 by f32 FMA in channel order.
+// there), f32 by f32 FMA in channel order. The f32 cd stays off the tensor
+// cores on purpose: the clamp mask (lo <= cd <= hi) is a step, and a cd
+// that differs from the plain version's by a rounding flips it wherever cd
+// lies that close to a bound. With FMA in channel order the masks agree
+// with the plain version's (a cuBLAS bmm at K = 70, whose order is not
+// promised) on every tested shape; with cd by 3xTF32 a few
+// of the full-field shape's 69M cd values fell across the zero bound and
+// moved their rows' code gradients past the gradient gate
+// (tests/test_torch_cuda.py:test_corr_stream_kernel_matches_plain).
 template <bool kBf16>
 __device__ __forceinline__ void cd_tile(const void* ca, const void* cb,
                                         int depth, float (&cd)[4][4]) {
@@ -425,6 +506,71 @@ __device__ __forceinline__ void cd_tile(const void* ca, const void* cb,
         cd[nt][1] = fmaf(a0, b.y, cd[nt][1]);
         cd[nt][2] = fmaf(a1, b.x, cd[nt][2]);
         cd[nt][3] = fmaf(a1, b.y, cd[nt][3]);
+      }
+    }
+  }
+}
+
+// out += coeff x^T over the 64 other-side rows of a tile (zeros past n):
+// coeff is the shared coefficient tile [own row][other row] (pitch
+// kCoeffPitch, f32; with kBf16 bf16-rounded values) and x the other side's
+// channel-major code tile. Warp w takes own rows 16 (w % 4) .. + 15 and the
+// 8-channel groups w / 4 + 2 j (j < 8) below ``groups``, the chunk's
+// channels over 8 rounded up, so the two halves of the warps share the
+// chunk's groups evenly; out[j] is group j's accumulator in the mma
+// fragment layout. f32 code: 3xTF32 in 8-row steps, with the depth index
+// permuted (mma column t is row 2t, t + 4 is 2t + 1) so that both fragments
+// are 8-byte loads; bf16 code: m16n8k16 on the bf16 coefficients and code,
+// whose every product is exact in f32. Each step goes into a zeroed
+// accumulator, added to out in f32.
+template <bool kBf16>
+__device__ __forceinline__ void dc_tile(const float* coeff, const void* x,
+                                        int groups, float (&out)[8][4]) {
+  const int lane = threadIdx.x & 31;
+  const int g = lane >> 2;
+  const int t = lane & 3;
+  const int half = (threadIdx.x >> 5) / 4;
+  const float* c0 = coeff + (warp_row0() + g) * kCoeffPitch + 2 * t;
+  const float* c1 = c0 + 8 * kCoeffPitch;
+  if constexpr (kBf16) {
+    const __nv_bfloat16* xb = static_cast<const __nv_bfloat16*>(x);
+    for (int k0 = 0; k0 < kTile; k0 += 16) {
+      const float2 p0 = *reinterpret_cast<const float2*>(c0 + k0);
+      const float2 p1 = *reinterpret_cast<const float2*>(c1 + k0);
+      const float2 p2 = *reinterpret_cast<const float2*>(c0 + k0 + 8);
+      const float2 p3 = *reinterpret_cast<const float2*>(c1 + k0 + 8);
+      const uint32_t a[4] = {pack_bf16(p0), pack_bf16(p1), pack_bf16(p2),
+                             pack_bf16(p3)};
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        const int grp = half + 2 * j;
+        if (grp < groups) {
+          const __nv_bfloat16* xp =
+              xb + (grp * 8 + g) * kCodePitchBf16 + k0 + 2 * t;
+          float part[4] = {0.f, 0.f, 0.f, 0.f};
+          mma_bf16(part, a, *reinterpret_cast<const uint32_t*>(xp),
+                   *reinterpret_cast<const uint32_t*>(xp + 8));
+#pragma unroll
+          for (int e = 0; e < 4; ++e) out[j][e] = __fadd_rn(out[j][e], part[e]);
+        }
+      }
+    }
+  } else {
+    const float* xf = static_cast<const float*>(x);
+    for (int k0 = 0; k0 < kTile; k0 += 8) {
+      const float2 p0 = *reinterpret_cast<const float2*>(c0 + k0);
+      const float2 p1 = *reinterpret_cast<const float2*>(c1 + k0);
+      const float av[4] = {p0.x, p1.x, p0.y, p1.y};
+      uint32_t a_hi[4], a_lo[4];
+      tf32x3::split(av, a_hi, a_lo);
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        const int grp = half + 2 * j;
+        if (grp < groups) {
+          const float2 xv = *reinterpret_cast<const float2*>(
+              xf + (grp * 8 + g) * kCodePitchF32 + k0 + 2 * t);
+          tf32x3::mma3(out[j], a_hi, a_lo, xv.x, xv.y);
+        }
       }
     }
   }
@@ -511,6 +657,7 @@ __device__ void tile_against(const Smem& s, const FeatType<kFeatF32>* f_own,
       load_feat_tile_f32(other, f_other, o0, c0, nc, geo);
       if (geo.own_chunked) load_feat_tile_f32(own, f_own, own0, c0, nc, geo);
       if (c0 == 0) load_code_tile(static_cast<CodeT*>(s.cb), c_other, o0, geo);
+      cp_async_wait();
       __syncthreads();
       const float* mine = geo.own_chunked ? own : own + c0 * kCodePitchF32;
       if (own_first) {
@@ -525,6 +672,7 @@ __device__ void tile_against(const Smem& s, const FeatType<kFeatF32>* f_own,
       const int depth = (nc + 15) & ~15;
       load_feat_tile(other, f_other, o0, c0, nc, pb, geo);
       if (c0 == 0) load_code_tile(static_cast<CodeT*>(s.cb), c_other, o0, geo);
+      cp_async_wait();
       __syncthreads();
       if (own_first) {
         fd_bf16(own, pa, other, pb, depth, fd);
@@ -544,6 +692,7 @@ __device__ void tile_against(const Smem& s, const FeatType<kFeatF32>* f_own,
     __syncthreads();  // every thread is done with the last code tiles
     load_code_tile(static_cast<CodeT*>(s.ca), c_own, own0, geo, k0);
     load_code_tile(static_cast<CodeT*>(s.cb), c_other, o0, geo, k0);
+    cp_async_wait();
     __syncthreads();
     cd_tile<kBf16>(ci, cj, min(kCodeChunk, geo.cc - k0), cd);
     last = k0 / kCodeChunk;
@@ -552,6 +701,7 @@ __device__ void tile_against(const Smem& s, const FeatType<kFeatF32>* f_own,
     __syncthreads();
     load_code_tile(static_cast<CodeT*>(s.cb), c_other, o0, geo,
                    keep * kCodeChunk);
+    cp_async_wait();
     __syncthreads();
   }
 }
@@ -658,7 +808,6 @@ corr_stream_bwd_kernel(const FeatType<kFeatF32>* __restrict__ feats,
                        float* __restrict__ dcode, int rows, int maps, int n,
                        int cf, int cc, float lo, float hi, int pointwise) {
   using CodeT = typename std::conditional<kBf16, __nv_bfloat16, float>::type;
-  constexpr int CP = kBf16 ? kCodePitchBf16 : kCodePitchF32;
   extern __shared__ __align__(16) unsigned char smem[];
   const Geometry geo = make_geometry<kBf16, kFeatF32>(n, cf, cc);
   const Smem s = carve(smem, geo);
@@ -672,20 +821,18 @@ corr_stream_bwd_kernel(const FeatType<kFeatF32>* __restrict__ feats,
   const int t = lane & 3;
   const int row0 = warp_row0();
   const int col0 = warp_col0();
-  // gradient tile: this thread's rows rg * kOutRows + a, columns cg + 8 q
-  const int rg = tid >> 3;
-  const int cg = tid & 7;
   const int q0 = blockIdx.z * kCodeChunk;  // the block's first code channel
-  const int nq = (min(kCodeChunk, cc - q0) + 7) / 8;
-  float out[kOutRows][kOutCols];
+  const int groups = (min(kCodeChunk, cc - q0) + 7) / 8;
+  // the gradient tile of the block's rows (dc_tile's layout): rows row0 +
+  // g + 8 (e >> 1), channels q0 + 8 (warp / 4 + 2 j) + 2t + (e & 1)
+  float out[8][4];
 #pragma unroll
-  for (int a = 0; a < kOutRows; ++a) {
+  for (int j = 0; j < 8; ++j) {
 #pragma unroll
-    for (int q = 0; q < kOutCols; ++q) out[a][q] = 0.f;
+    for (int e = 0; e < 4; ++e) out[j][e] = 0.f;
   }
 
   // the block's own rows: side 1 of a side-1 entry, side 2 of a side-2 one
-  const CodeT* c_other = static_cast<const CodeT*>(s.cb);
   load_own_feats<kFeatF32>(s, feats + m * fstride, t0, geo);
   load_code_tile(static_cast<CodeT*>(s.ca), code + m * cstride, t0, geo);
 
@@ -710,7 +857,8 @@ corr_stream_bwd_kernel(const FeatType<kFeatF32>* __restrict__ feats,
                                     fd, cd, blockIdx.z);
       const int i0 = side1 ? t0 : o0;
       const int j0 = side1 ? o0 : t0;
-      // coeff of this warp's rows into the shared tile [i][j]
+      // coeff of this warp's rows into the shared tile [own row][other
+      // row]: [i][j] for side 1, [j][i] for side 2
 #pragma unroll
       for (int h = 0; h < 2; ++h) {
         const int il = row0 + g + 8 * h;
@@ -734,45 +882,26 @@ corr_stream_bwd_kernel(const FeatType<kFeatF32>* __restrict__ feats,
               v = __fmul_rn(__fadd_rn(__fmul_rn(v, g_loss), g_cdm), inv_m);
               if (kBf16) v = bf16_round(v);
             }
-            s.coeff[il * kCoeffPitch + jl] = v;
+            s.coeff[side1 ? il * kCoeffPitch + jl : jl * kCoeffPitch + il] =
+                v;
           }
         }
       }
       __syncthreads();
-      // side 1: out[i][c] += sum_j coeff[i][j] c2[j][c] (c_other holds j);
-      // side 2: out[j][c] += sum_i coeff[i][j] c1[i][c] (c_other holds i);
-      // scalar f32 FMA in both instantiations
-      const int a_m = side1 ? kCoeffPitch : 1;
-      const int a_k = side1 ? 1 : kCoeffPitch;
-      const int kn = min(kTile, n - o0);
-      for (int k = 0; k < kn; ++k) {
-        float cv[kOutRows];
-#pragma unroll
-        for (int a = 0; a < kOutRows; ++a) {
-          cv[a] = s.coeff[(rg * kOutRows + a) * a_m + k * a_k];
-        }
-#pragma unroll
-        for (int q = 0; q < kOutCols; ++q) {
-          if (q < nq) {
-            const float x = to_float(c_other[(cg + 8 * q) * CP + k]);
-#pragma unroll
-            for (int a = 0; a < kOutRows; ++a) {
-              out[a][q] = fmaf(cv[a], x, out[a][q]);
-            }
-          }
-        }
-      }
+      // side 1: out[i][c] += sum_j coeff[i][j] c2[j][c] (s.cb holds j);
+      // side 2: out[j][c] += sum_i coeff[i][j] c1[i][c] (s.cb holds i);
+      // both are out += coeff c_other^T with coeff as [own][other]
+      dc_tile<kBf16>(s.coeff, s.cb, groups, out);
     }
   }
   float* dst = dcode + m * cstride;
 #pragma unroll
-  for (int a = 0; a < kOutRows; ++a) {
-    const int row = t0 + rg * kOutRows + a;
-    if (row >= n) continue;
+  for (int j = 0; j < 8; ++j) {
 #pragma unroll
-    for (int q = 0; q < kOutCols; ++q) {
-      const int c = q0 + cg + 8 * q;
-      if (q < nq && c < cc) dst[static_cast<size_t>(row) * cc + c] = out[a][q];
+    for (int e = 0; e < 4; ++e) {
+      const int row = t0 + row0 + g + 8 * (e >> 1);
+      const int c = q0 + 8 * (tid / 128 + 2 * j) + 2 * t + (e & 1);
+      if (row < n && c < cc) dst[static_cast<size_t>(row) * cc + c] = out[j][e];
     }
   }
 }

@@ -16,8 +16,9 @@ kernel added to ``csrc/`` lengthens it only when it is the slowest one
 ``cuTensorMapEncodeTiled``.)
 
 The library is built at first use, into ``build/stego_torch/`` at the root of
-the checkout (listed in ``.gitignore``), and named by a hash of the sources
-and flags, so an edited source is rebuilt and an unchanged one is not. The
+the checkout (listed in ``.gitignore``), and named by a hash of the flags,
+the sources and the headers they include (``csrc/*.cuh``), so an edited
+source or header is rebuilt and an unchanged one is not. The
 compiler's output, ``-Xptxas -v`` register and shared-memory counts
 included, goes to ``build/stego_torch/build.log``.
 
@@ -86,12 +87,19 @@ def find_nvcc() -> str:
 
 
 def sources() -> list[Path]:
+    """The sources nvcc compiles, one object each."""
     return sorted(CSRC_DIR.glob("*.cu"))
+
+
+def hashed_files() -> list[Path]:
+    """Every file the build reads: the sources and the headers they
+    include (``csrc/*.cuh``)."""
+    return sorted([*CSRC_DIR.glob("*.cu"), *CSRC_DIR.glob("*.cuh")])
 
 
 def library_path() -> Path:
     h = hashlib.sha256(" ".join(NVCC_FLAGS + LINK_LIBS).encode())
-    for src in sources():
+    for src in hashed_files():
         h.update(src.name.encode())
         h.update(src.read_bytes())
     return BUILD_DIR / f"libstego_torch_{h.hexdigest()[:16]}.so"

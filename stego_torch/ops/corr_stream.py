@@ -14,7 +14,9 @@ sample: the reference recenters fd with the mean of each helper() call
 
 * :func:`fused_correlation_loss_plain` is C2's plain PyTorch version, on
   normalized (R, N, C) pair rows, with the kernel's rounding points: fd from
-  ``feat_dtype`` values with f32 accumulation, cd in f32 (with
+  ``feat_dtype`` values with f32 accumulation, cd in f32 (the kernel takes
+  fd on f32 features and the backward's f32 products by 3xTF32 on the
+  tensor cores, ``ops/tf32.py``; with
   ``code_bf16``, from bf16-rounded code, and the backward's dL/dcd rounded
   to bf16 before its products, ``pallas_corr.py:251-260``). Autograd gives
   its backward.

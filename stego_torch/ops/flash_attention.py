@@ -37,7 +37,9 @@ version of every form:
 A CPU tensor takes the plain version; a CUDA tensor launches the kernel or
 raises (d = 64 only): bf16 q/k/v the wgmma kernel, f32 ones (an f32 trunk
 with ``use_flash_attention``, which the JAX package also sends through its
-Pallas kernels) the f32 instantiation A-f32, on f32 FMA. The kernel has no
+Pallas kernels) the f32 instantiation A-f32, whose softmax forms take
+their products on the tensor cores by 3xTF32 (``ops/tf32.py`` emulates that
+arithmetic) and whose no-softmax form stays on f32 FMA. The kernel has no
 sequence bound; the N bounds below are the JAX package's dispatch, kept so
 that both run the same numerics at every resolution.
 """
@@ -105,14 +107,17 @@ def _scaled(q: torch.Tensor, scale: float) -> torch.Tensor:
 
 
 def attention_heads_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                          scale: float, form: str = "two_pass"
-                          ) -> torch.Tensor:
+                          scale: float, form: str = "two_pass",
+                          matmul=torch.matmul) -> torch.Tensor:
     """Head-major (B, H, N, d) attention in v's dtype with the rounding
-    points of ``form`` (see the module docstring)."""
+    points of ``form`` (see the module docstring). ``matmul`` takes both
+    f32 products. It is a seam for tests and ``chip_smoke.py`` only, which
+    pass ``ops/tf32.py``'s emulations of the card's TF32 arithmetic through
+    every form's own rounding points; no entry point passes it."""
     vf = v.float()
 
     def pv(p):
-        return p.to(v.dtype).float() @ vf
+        return matmul(p.to(v.dtype).float(), vf)
 
     if form == "flash":
         qf = q.float()
@@ -121,18 +126,20 @@ def attention_heads_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         l = torch.zeros(shape, device=q.device)
         acc = torch.zeros(q.shape[:-1] + (v.shape[-1],), device=q.device)
         for k0 in range(0, k.shape[2], TK):
-            s = (qf @ k[:, :, k0:k0 + TK].float().transpose(-1, -2)) * scale
+            s = matmul(qf, k[:, :, k0:k0 + TK].float().transpose(-1, -2)) \
+                * scale
             m_new = torch.maximum(m, s.amax(-1, keepdim=True))
             p = torch.exp(s - m_new)
             corr = torch.exp(m - m_new)
             l = l * corr + p.sum(-1, keepdim=True)
-            acc = acc * corr + p.to(v.dtype).float() @ vf[:, :, k0:k0 + TK]
+            acc = acc * corr + matmul(p.to(v.dtype).float(),
+                                      vf[:, :, k0:k0 + TK])
             m = m_new
         return (acc / l).to(v.dtype)
     if form == "resident":
-        s = (q.float() @ k.float().transpose(-1, -2)) * scale
+        s = matmul(q.float(), k.float().transpose(-1, -2)) * scale
         return pv(torch.softmax(s, dim=-1)).to(v.dtype)
-    s = _scaled(q, scale).float() @ k.float().transpose(-1, -2)
+    s = matmul(_scaled(q, scale).float(), k.float().transpose(-1, -2))
     if form == "no_softmax":
         return pv(s).to(v.dtype)
     if form != "two_pass":
@@ -143,11 +150,12 @@ def attention_heads_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 
 def attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                    num_heads: int, scale: float) -> torch.Tensor:
+                    num_heads: int, scale: float, matmul=torch.matmul
+                    ) -> torch.Tensor:
     """softmax(q*scale . k^T) v per head, token-major in and out (the
     two-pass form)."""
     out = attention_heads_plain(_heads(q, num_heads), _heads(k, num_heads),
-                                _heads(v, num_heads), scale)
+                                _heads(v, num_heads), scale, matmul=matmul)
     return out.transpose(1, 2).flatten(2)
 
 

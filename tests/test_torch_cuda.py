@@ -302,6 +302,33 @@ def test_attention_kernel_layouts_at_ragged_n(cuda, n, layout, dtype):
             (form, float(diff.max()))
 
 
+@pytest.mark.parametrize("form", ["two_pass", "resident", "flash",
+                                  "no_softmax"])
+def test_attention_f32_gate_rejects_single_tf32_pass(cuda, form):
+    """A-f32 takes its products by 3xTF32 and holds the 2e-5 gate against
+    its plain version; the plain version with one TF32 pass a product
+    (ops/tf32.py) misses it (no_softmax: 2e-5 of its largest output).
+    Head-major, B=2, H=3, N=785, q, k ~ N(0, 4), v ~ N(0, 1)."""
+    from stego_torch.ops.tf32 import matmul_tf32
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    g = torch.Generator(device=cuda).manual_seed(785)
+    q, k, v = (torch.randn(2, 3, 785, 64, generator=g, device=cuda)
+               for _ in range(3))
+    q, k = 2 * q, 2 * k
+    fn = {"two_pass": fa.batch_resident_attention,
+          "resident": fa.resident_attention, "flash": fa.flash_attention,
+          "no_softmax": fa.no_softmax_attention}[form]
+    want = fn(q, k, v, 0.125, use_kernel=False)
+    tol = (torch.full_like(want, 2e-5 * float(want.abs().max()))
+           if form == "no_softmax" else 2e-5 + 2e-5 * want.abs())
+    got = fn(q, k, v, 0.125)
+    control = fa.attention_heads_plain(q, k, v, 0.125, form,
+                                       matmul=matmul_tf32)
+    assert bool(((got - want).abs() <= tol).all())
+    assert not bool(((control - want).abs() <= tol).all())
+
+
 def test_f32_trunk_runs_attention_kernel(cuda):
     """An f32 ViT-S/8-shaped trunk (6 heads, 2 blocks) with use_flash runs
     kernel A's f32 instantiation once a block, and LayerNorm stays plain,
@@ -662,6 +689,54 @@ def test_corr_stream_f32_row_sum_gate_rejects_bf16_kernel(cuda, hw,
 
     assert row_sum_err(torch.float32) <= 1e-4
     assert row_sum_err(torch.bfloat16) > 1e-4
+
+
+def test_corr_stream_f32_row_sum_gate_rejects_single_tf32_pass(cuda):
+    """The kernel takes f32 products by 3xTF32; one TF32 pass a product, the
+    plain version's fd from TF32-rounded features (ops/tf32.py), misses the
+    1e-4 row-sum gate at the full-field shape, which the kernel holds."""
+    from stego_torch.ops import corr_stream as c2
+    from stego_torch.ops.tf32 import round_tf32
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    feats, code, idx1, idx2, shifts = _stream_inputs(
+        cuda, 16, 28, 384, 70, 5, seed=28, feat_dtype=torch.float32)
+    want = torch.bmm(feats[idx1], feats[idx2].transpose(1, 2)).sum(-1)
+    losses, _ = c2.stream_loss(feats, code.requires_grad_(True), idx1, idx2,
+                               shifts, [16] * 7)
+    assert float((c2.kernel_row_sums(losses)[:, 2] - want).abs().max()) \
+        <= 1e-4
+    f = round_tf32(feats)
+    tf32_sums = torch.bmm(f[idx1], f[idx2].transpose(1, 2)).sum(-1)
+    assert float((tf32_sums - want).abs().max()) > 1e-4
+
+
+@pytest.mark.parametrize("feat_dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("code_bf16", [False, True])
+def test_corr_stream_kernel_is_deterministic(cuda, feat_dtype, code_bf16):
+    """Every instantiation of C2 at the full-field shape gives the same
+    bits twice: the forward's row sums (all four) and the code gradient,
+    which the backward sums in a fixed order without atomics."""
+    from stego_torch.ops import corr_stream as c2
+
+    feats, code, idx1, idx2, shifts = _stream_inputs(
+        cuda, 16, 28, 384, 70, 5, seed=3, feat_dtype=feat_dtype)
+    wts = torch.randn(2, 7, generator=torch.Generator(device=cuda)
+                      .manual_seed(7), device=cuda)
+
+    def run():
+        c = code.clone().requires_grad_(True)
+        losses, cds = c2.stream_loss(feats, c, idx1, idx2, shifts, [16] * 7,
+                                     code_bf16=code_bf16)
+        sums = c2.kernel_row_sums(losses).clone()
+        total = (losses * wts[0]).sum() + (cds * wts[1]).sum()
+        (grad,) = torch.autograd.grad(total, [c])
+        return sums, grad
+
+    first, second = run(), run()
+    torch.cuda.synchronize()
+    for x, y in zip(first, second):
+        assert torch.equal(x, y)
 
 
 def test_corr_stream_kernel_rejects_other_feature_types(cuda):
