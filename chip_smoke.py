@@ -271,11 +271,12 @@ def call_ms(fn, iters: int = 20) -> float:
     return start.elapsed_time(end) / iters
 
 
-def kernel_times(fn, iters: int = 1, attempts: int = 3) -> dict:
+def kernel_times(fn, iters: int = 1, attempts: int = 5) -> dict:
     """Device microseconds by kernel name over ``iters`` calls of ``fn``,
     from the profiler's CUDA trace (after one warm-up call). The trace
-    now and then comes back without device events; the window is then
-    traced again, up to ``attempts`` times."""
+    now and then comes back without device events, sometimes several
+    times in a row; the window is then traced again, up to ``attempts``
+    times."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -1165,30 +1166,58 @@ def stream_inputs(dev, b, hw, cf, cc, neg, distinct, seed,
 
 def c2_bounds(rows, maps, n, cf, cc, code_bf16, feat_f32=False,
               f32_kind="tf32x3"):
-    """C2's least times, forward and backward. Forward: fd, a product of
-    n x n x cf a pair row (bf16, or f32 for an f32 trunk's features), and
-    cd, n x n x cc in f32 (bf16 with code_bf16); it reads the maps and
-    writes the row sums. Backward: fd and cd again and the two contractions
-    coeff c2 and coeff^T c1 (n x n x cc each); it reads the maps and the
-    row sums and writes the code gradients. Every f32 product counts at
-    the rate of ``f32_kind`` (3xTF32, the card's fastest f32-accurate
+    """C2's least times. Forward ("fwd"): fd, a product of n x n x cf a pair
+    row (bf16, or f32 for an f32 trunk's features), and cd, n x n x cc in
+    f32 (bf16 with code_bf16); it reads the maps and writes the row sums.
+    "fwd_keep" adds the writes of this design's forward when a gradient is
+    taken: fd (4 bytes) and the clamp mask (a bit) of every entry.
+    Backward: "bwd_stored" on the stored fd and mask, the two contractions
+    coeff c2 and coeff^T c1 (n x n x cc each) against one read of each
+    stored entry, the code maps and the row means, and the code gradient's
+    write; "bwd_recompute" recomputing fd and cd instead (the design
+    whose forward wrote neither); "bwd", the least time
+    of the same gradient, is the lower of the two. "fwd_bwd": forward and
+    backward together, the lower of the stored design (fd and mask written
+    once and read once) and the recompute. "bwd_design_ms": the bytes that
+    this backward moves, each stored tile read once for each gradient side
+    and code chunk of 128 channels (its ownership's repeats, which the
+    gradient does not need), over the memory rate. Every f32 product counts
+    at the rate of ``f32_kind`` (3xTF32, the card's fastest f32-accurate
     rate; or f32 FMA for the bound beside it), whatever unit the kernel
     uses: its f32 cd stays on FMA, and this bound does not excuse that."""
     fd = 2 * rows * n * n * cf
     cd = 2 * rows * n * n * cc
     feat_type = f32_kind if feat_f32 else "bf16"
     code_type = "bf16" if code_bf16 else f32_kind
-    maps_bytes = maps * n * ((4 if feat_f32 else 2) * cf + 4 * cc)
+    code_bytes = maps * n * cc * 4
+    maps_bytes = maps * n * (4 if feat_f32 else 2) * cf + code_bytes
     sums = rows * 4 * n * 4
+    means = rows * n * 4
+    kept = rows * n * n * 4 + rows * n * n / 8  # fd and the mask's bits
+    chunks = -(-cc // 128)
     fwd_ops = dict.fromkeys(("bf16", f32_kind), 0)
-    bwd_ops = dict(fwd_ops)
     fwd_ops[feat_type] += fd
-    bwd_ops[feat_type] += fd
     fwd_ops[code_type] += cd
-    bwd_ops[code_type] += 3 * cd
-    fwd = bound(fwd_ops, maps_bytes + sums)
-    bwd = bound(bwd_ops, maps_bytes + sums + maps * n * cc * 4)
-    return {"fwd": fwd, "bwd": bwd}
+    recompute_ops = dict(fwd_ops)
+    recompute_ops[code_type] += 2 * cd
+    stored_ops = {code_type: 2 * cd}
+    both_stored = dict(fwd_ops)
+    both_stored[code_type] += 2 * cd
+    both_recompute = {k: fwd_ops[k] + recompute_ops[k] for k in fwd_ops}
+    out = {"fwd": bound(fwd_ops, maps_bytes + sums),
+           "fwd_keep": bound(fwd_ops, maps_bytes + sums + kept),
+           "bwd_stored": bound(stored_ops,
+                               kept + code_bytes + means + code_bytes),
+           "bwd_recompute": bound(recompute_ops,
+                                  maps_bytes + sums + code_bytes),
+           "bwd_design_ms": (2 * chunks * kept + code_bytes + means
+                             + code_bytes) / HBM_BYTES_PER_S * 1e3}
+    out["bwd"] = min(out["bwd_stored"], out["bwd_recompute"])
+    out["fwd_bwd"] = min(
+        bound(both_stored, maps_bytes + sums + 2 * kept + 2 * code_bytes
+              + means),
+        bound(both_recompute, 2 * (maps_bytes + sums) + 2 * code_bytes))
+    return out
 
 
 def phase_corr_stream(dev):
@@ -1204,6 +1233,13 @@ def phase_corr_stream(dev):
           f"{neg} negatives; losses and cd rtol "
           f"{STREAM_RTOL} atol {STREAM_ATOL}, code grads rtol {GRAD_RTOL} "
           f"atol {GRAD_ATOL}")
+    for width in (cc, WIDE_C2_DIM):
+        for bf16 in (False, True):
+            occ = c2.backward_occupancy(width, bf16, dev)
+            print(f"  backward at {width} code channels "
+                  f"({'bf16' if bf16 else 'f32'} code): {occ['stages']} ring "
+                  f"stages, {occ['smem_bytes']} bytes of shared memory, "
+                  f"{occ['blocks_per_sm']} blocks an SM (occupancy API)")
     shifts = [0.18, 0.12] + [0.46] * neg
     groups = [b] * (2 + neg)
     out = {}
@@ -1270,6 +1306,12 @@ def phase_corr_stream(dev):
                       (STREAM_RTOL, STREAM_ATOL), grad_tol, share)
         check(all(torch.equal(x, y) for x, y in zip(got, again)),
               f"{label}: two kernel runs bitwise equal")
+        stored = stored_backward(forward, wts, shifts, groups, opts,
+                                 code_bf16, timed="times" not in res)
+        res["errs"]["bwd_stored"] = max(res["errs"].get("bwd_stored", 0.0),
+                                        stored["err"])
+        check(stored["ok"], f"{label}: backward on the stored fd and mask vs "
+                            f"stream_backward_plain, {stored['text']}")
         if feat_f32 and opts is zero_clamp:
             plain_sums = torch.bmm(feats[idx1],
                                    feats[idx2].transpose(1, 2)).sum(-1)
@@ -1300,14 +1342,58 @@ def phase_corr_stream(dev):
         if "times" in res:
             continue
         res["times"] = time_fwd_bwd(forward, run, True, False)
-        res["bounds"] = c2_bounds(idx1.numel(), feats.shape[0], hw * hw, cf,
-                                  cc, code_bf16, feat_f32)
+        res["times"]["bwd_stored_plain"] = stored["plain_ms"]
+        print(f"  backward alone, stream_backward_plain on the stored fd and "
+              f"mask: device {stored['plain_ms']:.4f} ms")
+        res["bounds"] = bnd = c2_bounds(idx1.numel(), feats.shape[0],
+                                        hw * hw, cf, cc, code_bf16, feat_f32)
         fma = c2_bounds(idx1.numel(), feats.shape[0], hw * hw, cf, cc,
                         code_bf16, feat_f32, f32_kind="f32")
-        print(f"  forward {bound_text(res['bounds']['fwd'])}; backward "
-              f"{bound_text(res['bounds']['bwd'])}; at f32 FMA "
+        print(f"  forward {bound_text(bnd['fwd'])} (with this design's "
+              f"fd and mask writes {bnd['fwd_keep'][0]:.4f} ms); backward "
+              f"on the stored fd and mask {bound_text(bnd['bwd_stored'])} "
+              f"(this design's reads, each tile once a side and code chunk, "
+              f"{bnd['bwd_design_ms']:.4f} ms), recomputing fd and cd "
+              f"{bound_text(bnd['bwd_recompute'])}; "
+              f"forward+backward {bound_text(bnd['fwd_bwd'])}; at f32 FMA "
               f"{fma['fwd'][0]:.4f} / {fma['bwd'][0]:.4f} ms")
     return out
+
+
+def stored_backward(forward, wts, shifts, groups, opts, code_bf16,
+                    timed):
+    """C2's backward kernel against its plain version on the same stored
+    fd and clamp mask (ops/corr_stream.py:stream_backward_plain), after one
+    kernel forward of ``forward(True)`` at the weights ``wts``: the code
+    gradients within (GRAD_RTOL, GRAD_ATOL), code_bf16 too (the same
+    coefficients, summed in another order); {"ok", "text", "err", and
+    with ``timed`` "plain_ms": the plain backward's device time}."""
+    from stego_torch.ops import corr_stream as c2
+
+    losses, cds, _, c = forward(True)
+    saved = c2.kernel_saved(losses)
+    (got,) = torch.autograd.grad((losses * wts[0]).sum()
+                                 + (cds * wts[1]).sum(), c)
+    n = saved["code"].shape[1]
+    scal = c2.backward_scalars(wts[0], wts[1], saved["gm"], shifts, groups,
+                               n)[c2.row_groups(groups, c.device).long()]
+
+    def plain():
+        return c2.stream_backward_plain(
+            saved["fd"], saved["mask"], saved["code"].detach(),
+            saved["idx1"], saved["idx2"], saved["acc"], scal,
+            opts.get("pointwise", True), code_bf16)
+
+    want = plain()
+    diff = (got - want).abs()
+    tol = GRAD_ATOL + GRAD_RTOL * want.abs()
+    return {"ok": bool(torch.isfinite(got).all()) and within(diff, tol, want),
+            "err": float(diff.max()),
+            "text": (f"max_abs_err {float(diff.max()):.3e} (largest |value| "
+                     f"{float(want.abs().max()):.3e}; worst error / "
+                     f"tolerance {float((diff / tol).max()):.3f}), bitwise "
+                     f"equal {torch.equal(got, want)}"),
+            "plain_ms": device_ms(plain, iters=3) if timed else None}
 
 
 def train_counts():
@@ -2345,7 +2431,13 @@ def main() -> int:
             ("_cc160", ("full-field", False, False, 384, WIDE_C2_DIM),
              wide["cc160"])):
         for what, line in (("fwd", 106), ("bwd", 229)):
-            extra = {}
+            r = c2[key]
+            extra = {} if what == "fwd" else dict(
+                bound_stored_ms=r["bounds"]["bwd_stored"][0],
+                bound_recompute_ms=r["bounds"]["bwd_recompute"][0],
+                bound_fwd_bwd_ms=r["bounds"]["fwd_bwd"][0],
+                stored_plain_ms=r["times"]["bwd_stored_plain"],
+                stored_max_abs_err=r["errs"]["bwd_stored"])
             if suffix == "_f32":  # f32 at ViT-B's 768: no path runs it yet
                 r = c2[("full-field", False, True, 768)]
                 extra["cf768"] = dict(

@@ -227,7 +227,8 @@ extern "C" int stego_add_layer_norm(const void* x, const void* y,
 }
 
 extern "C" const char* stego_error_string(int err) {
-  // kernel A's code for a tensor map the driver refused (csrc/attention.cu)
+  // kernels A's and C2's code for a tensor map the CUDA driver refused
+  // (csrc/attention.cu, csrc/corr_stream.cu)
   if (err == 20001) return "cuTensorMapEncodeTiled refused a tensor map";
   return cudaGetErrorString(static_cast<cudaError_t>(err));
 }

@@ -12,8 +12,8 @@ kernel added to ``csrc/`` lengthens it only when it is the slowest one
     nvcc -gencode arch=compute_90a,code=sm_90a -shared \
          -o build/stego_torch/libstego_torch_<hash>.so *.o -lcuda
 
-(``-lcuda``: kernel A builds its TMA tensor maps with the driver's
-``cuTensorMapEncodeTiled``.)
+(``-lcuda``: kernel A and C2's backward build their TMA tensor maps with
+the CUDA driver's ``cuTensorMapEncodeTiled``.)
 
 The library is built at first use, into ``build/stego_torch/`` at the root of
 the checkout (listed in ``.gitignore``), and named by a hash of the flags,
@@ -64,8 +64,9 @@ SIGNATURES = {
     "stego_corr_sampled_fwd": (_P,) * 10 + (_I,) * 8 + (_F, _F, _I, _P),
     "stego_corr_sampled_bwd": (_P,) * 10 + (_I,) * 6 + (_F, _F, _I, _F, _I,
                                                         _P),
-    "stego_corr_stream_fwd": (_P,) * 5 + (_I,) * 7 + (_F, _F, _I, _P),
-    "stego_corr_stream_bwd": (_P,) * 10 + (_I,) * 7 + (_F, _F, _I, _I, _P),
+    "stego_corr_stream_fwd": (_P,) * 7 + (_I,) * 7 + (_F, _F, _I, _P),
+    "stego_corr_stream_bwd": (_P,) * 11 + (_I,) * 7 + (_P,),
+    "stego_corr_stream_bwd_occupancy": (_I, _I, _I, _P),
 }
 
 _lock = threading.Lock()
@@ -97,18 +98,20 @@ def hashed_files() -> list[Path]:
     return sorted([*CSRC_DIR.glob("*.cu"), *CSRC_DIR.glob("*.cuh")])
 
 
-def library_path() -> Path:
-    h = hashlib.sha256(" ".join(NVCC_FLAGS + LINK_LIBS).encode())
+def library_path(defines: tuple = ()) -> Path:
+    h = hashlib.sha256(" ".join(NVCC_FLAGS + defines + LINK_LIBS).encode())
     for src in hashed_files():
         h.update(src.name.encode())
         h.update(src.read_bytes())
     return BUILD_DIR / f"libstego_torch_{h.hexdigest()[:16]}.so"
 
 
-def build() -> Path:
+def build(defines: tuple = ()) -> Path:
     """Compile ``csrc/*.cu`` unless the library for these sources exists;
-    returns its path. Raises RuntimeError when nvcc is missing or fails."""
-    out = library_path()
+    returns its path. ``defines`` (``-DNAME=VALUE`` flags) builds a variant
+    of the kernels for a tool that times one against another; the port's
+    kernels take none. Raises RuntimeError when nvcc is missing or fails."""
+    out = library_path(defines)
     if out.exists():
         return out
     nvcc = find_nvcc()
@@ -116,7 +119,7 @@ def build() -> Path:
     tag = f"{out.stem}.{os.getpid()}"
     objs = [BUILD_DIR / f"{tag}.{src.stem}.o" for src in sources()]
     tmp = out.with_name(f"{tag}.so.tmp")
-    compiles = [[nvcc, *NVCC_FLAGS, "-c", "-o", str(obj), str(src)]
+    compiles = [[nvcc, *NVCC_FLAGS, *defines, "-c", "-o", str(obj), str(src)]
                 for src, obj in zip(sources(), objs)]
     procs = [subprocess.Popen(cmd, stdout=subprocess.PIPE,
                               stderr=subprocess.PIPE, text=True)
@@ -141,7 +144,8 @@ def build() -> Path:
         record(link, proc.returncode, proc.stdout, proc.stderr)
     for obj in objs:
         obj.unlink(missing_ok=True)
-    (BUILD_DIR / "build.log").write_text("".join(log))
+    (BUILD_DIR / f"build{'' if not defines else '.' + out.stem}.log"
+     ).write_text("".join(log))
     if error is not None:
         tmp.unlink(missing_ok=True)
         raise RuntimeError(error)
@@ -149,19 +153,24 @@ def build() -> Path:
     return out
 
 
+def load(path: Path) -> ctypes.CDLL:
+    """The library at ``path`` with the C signatures of its entries."""
+    lib = ctypes.CDLL(str(path))
+    for name, argtypes in SIGNATURES.items():
+        fn = getattr(lib, name)
+        fn.argtypes = list(argtypes)
+        fn.restype = ctypes.c_int
+    lib.stego_error_string.argtypes = [ctypes.c_int]
+    lib.stego_error_string.restype = ctypes.c_char_p
+    return lib
+
+
 def library() -> ctypes.CDLL:
     """The loaded kernel library, built on the first call."""
     global _lib
     with _lock:
         if _lib is None:
-            lib = ctypes.CDLL(str(build()))
-            for name, argtypes in SIGNATURES.items():
-                fn = getattr(lib, name)
-                fn.argtypes = list(argtypes)
-                fn.restype = ctypes.c_int
-            lib.stego_error_string.argtypes = [ctypes.c_int]
-            lib.stego_error_string.restype = ctypes.c_char_p
-            _lib = lib
+            _lib = load(build())
         return _lib
 
 

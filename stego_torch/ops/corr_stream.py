@@ -26,6 +26,10 @@ sample: the reference recenters fd with the mean of each helper() call
   whose forward and backward are the kernel's two entries, or raise. Each
   distinct map is normalized once and the pair rows read it by index.
   Gradients flow to the code only; the features are detached (:440-443).
+  When a gradient is taken the forward also keeps fd and the clamp mask of
+  every pair row, and the backward reads them instead of the features.
+* :func:`stream_backward_plain` is the plain version of that backward, on
+  the stored fd and mask, for the tests and ``chip_smoke.py``.
 * :func:`contrastive_correlation_loss_fused` is the three-pair front end
   (:485-704): full-field (every pixel against every pixel, C2), sampled
   with the sampling inside kernel C1 (``sampling_impl="fused"``,
@@ -42,6 +46,7 @@ rows ``_finalize`` slices away).
 
 from __future__ import annotations
 
+import ctypes
 import math
 from typing import Dict, Sequence, Tuple
 
@@ -58,6 +63,8 @@ from stego_torch.ops.sampling import (bilinear_sample_weights,
 # up to ViT-B's 768, bf16 or f32; any number of code channels (in chunks of
 # 128).
 MAX_FEAT_CHANNELS = 768
+# Rows and columns of the kernel's tiles (csrc/corr_stream.cu:kTile).
+TILE = 64
 # Launches of the CUDA kernel's two entries in this process (plain-version
 # calls do not count). Read and reset by chip_smoke.py to show the main path
 # used them.
@@ -195,16 +202,19 @@ def stream_loss(feats: torch.Tensor, code: torch.Tensor, idx1: torch.Tensor,
     """Losses and cd means of the pair rows (idx1[r], idx2[r]) over the
     normalized maps ``feats`` (M, N, CF) and ``code`` (M, N, CC): kernel C2
     for CUDA tensors (``use_kernel=False`` takes the plain version there
-    too), the plain version for CPU tensors."""
+    too), the plain version for CPU tensors. The kernel's forward keeps fd
+    and the clamp mask for the backward only when a gradient can be taken
+    (not under ``torch.no_grad()``, as in the val steps)."""
     if code.device.type == "cpu" or not use_kernel:
         return fused_correlation_loss_plain(
             feats[idx1], feats[idx2], code[idx1], code[idx2], shifts,
             group_sizes, pointwise, zero_clamp, stabalize, code_bf16)
+    keep = torch.is_grad_enabled() and code.requires_grad
     return _StreamCorr.apply(code, feats.detach(), idx1, idx2,
                              tuple(float(s) for s in shifts),
                              tuple(int(g) for g in group_sizes),
                              bool(pointwise), bool(zero_clamp),
-                             bool(stabalize), bool(code_bf16))
+                             bool(stabalize), bool(code_bf16), keep)
 
 
 def _split(sizes: Sequence[int], shifts: Sequence[float], split_groups: int):
@@ -303,12 +313,132 @@ def kernel_row_sums(losses: torch.Tensor) -> torch.Tensor:
     return losses.grad_fn.saved_tensors[4]
 
 
+def kernel_saved(losses: torch.Tensor) -> Dict[str, torch.Tensor]:
+    """What the kernel's forward kept for ``losses``' backward: the code
+    maps, the pair rows' map indices ``idx1`` and ``idx2``, the row sums
+    ``acc`` (:func:`kernel_row_sums`), each group's fd mean ``gm``, and fd
+    (R, N, N) and the clamp mask (R, N, N) bool of every pair row (those of
+    a row with an out-of-range map index are not written)."""
+    code, fd, i1, i2, acc, gm, mask = losses.grad_fn.saved_tensors
+    n = code.shape[1]
+    return {"code": code, "idx1": i1, "idx2": i2, "acc": acc, "gm": gm,
+            "fd": fd[..., :n], "mask": unpack_mask(mask, n)}
+
+
+def fd_pitch(n: int) -> int:
+    """Row pitch (f32 elements) of the forward's stored fd: n rounded up to
+    4, a multiple of 16 bytes, as a TMA box row needs
+    (``csrc/corr_stream.cu:fd_pitch``)."""
+    return -(-n // 4) * 4
+
+
+def mask_words(n: int) -> int:
+    """32-bit words a row of the stored clamp mask: ceil(n / 32) rounded up
+    to 4 (``csrc/corr_stream.cu:mask_words``); bit j % 32 of word j // 32
+    is column j."""
+    words = -(-n // 32)
+    return -(-words // 4) * 4
+
+
+def unpack_mask(words: torch.Tensor, n: int) -> torch.Tensor:
+    """(..., N, W) int32 mask words -> (..., N, n) bool."""
+    shifts = torch.arange(32, dtype=torch.int32, device=words.device)
+    bits = (words.unsqueeze(-1) >> shifts) & 1
+    return bits.flatten(-2)[..., :n].bool()
+
+
+def code_tiles(code: torch.Tensor, code_bf16: bool) -> torch.Tensor:
+    """The code maps (M, N, CC) as the backward kernel's TMA reads them:
+    (M, ceil(N / 64), CC, 64), each 64-row tile channel-major, zeros past
+    N; bf16 (rounded to nearest even, as the kernel rounded its tiles) with
+    ``code_bf16``. A code row of 70 f32 is 280 bytes, which a TMA box row
+    (a multiple of 16 bytes) cannot address; a channel row of a tile is 256
+    (f32) or 128 (bf16) bytes."""
+    m, n, cc = code.shape
+    tiles = -(-n // TILE)
+    padded = torch.nn.functional.pad(code, (0, 0, 0, tiles * TILE - n))
+    out = torch.empty((m, tiles, cc, TILE), device=code.device,
+                      dtype=torch.bfloat16 if code_bf16 else torch.float32)
+    return out.copy_(padded.view(m, tiles, TILE, cc).transpose(2, 3))
+
+
+def backward_scalars(g_losses: torch.Tensor, g_cdms: torch.Tensor,
+                     gm: torch.Tensor, shifts: Sequence[float],
+                     group_sizes: Sequence[int], n: int) -> torch.Tensor:
+    """(G, 5) f32 per group: g_loss, g_cdm, fd mean gm, shift, 1/m (m =
+    size * n * n), the backward's scalars (``pallas_corr.py:230-236``)."""
+    dev = gm.device
+    inv_m = device_vector([1.0 / (size * n * n) for size in group_sizes], dev)
+    return torch.stack([g_losses.float(), g_cdms.float(), gm,
+                        device_vector(shifts, dev), inv_m],
+                       dim=1).contiguous()
+
+
+def row_groups(group_sizes: Sequence[int], device) -> torch.Tensor:
+    """(R,) int32: the group of each pair row."""
+    return device_ints([gi for gi, size in enumerate(group_sizes)
+                        for _ in range(size)], device)
+
+
+def stream_backward_plain(fd: torch.Tensor, mask: torch.Tensor,
+                          code: torch.Tensor, idx1: torch.Tensor,
+                          idx2: torch.Tensor, acc: torch.Tensor,
+                          scal: torch.Tensor, pointwise: bool,
+                          code_bf16: bool) -> torch.Tensor:
+    """The plain version of C2's backward on the forward's stored fd (R, N,
+    N) f32 and clamp mask (R, N, N) bool: the code gradient (M, N, CC) of
+    the normalized code maps ``code`` (M, N, CC) f32. ``acc``: the row sums
+    (R, 4, N); ``scal`` (R, 5): each pair row's group scalars
+    (:func:`backward_scalars`). The kernel's arithmetic: per entry
+    v = ((-(fd' - shift) mask) g_loss + g_cdm) / m, fd' = (fd - s3 / N) + gm
+    when pointwise, bf16-rounded with ``code_bf16`` (and the code too);
+    then dc1 = v c2 and dc2 = v^T c1 added to each map's gradient in the
+    kernel's entry order (by map, side-1 rows, then side-2 rows). A pair row
+    with an out-of-range map index adds nothing."""
+    r, n = fd.shape[:2]
+    g_loss, g_cdm, gm, shift, inv_m = (scal[:, k, None, None].float()
+                                       for k in range(5))
+    fdp = fd - (acc[:, 2] / n)[..., None] + gm if pointwise else fd
+    v = (-(fdp - shift) * mask.float() * g_loss + g_cdm) * inv_m
+    c = code.float()
+    if code_bf16:
+        v, c = v.bfloat16().float(), c.bfloat16().float()
+    m = code.shape[0]
+    valid = ((idx1 >= 0) & (idx1 < m) & (idx2 >= 0) & (idx2 < m)).tolist()
+    i1, i2 = idx1.tolist(), idx2.tolist()
+    dcode = torch.zeros_like(c)
+    order = torch.sort(torch.cat([idx1, idx2]).cpu(), stable=True)[1]
+    for e in order.tolist():
+        row = e % r
+        if not valid[row]:
+            continue
+        if e < r:
+            dcode[i1[row]] += v[row] @ c[i2[row]]
+        else:
+            dcode[i2[row]] += v[row].T @ c[i1[row]]
+    return dcode
+
+
+def backward_occupancy(cc: int, code_bf16: bool,
+                       device: torch.device) -> Dict[str, int]:
+    """The backward kernel's launch at ``cc`` code channels on ``device``
+    (a CUDA device): its ring stages, dynamic shared memory (bytes) and the
+    blocks an SM holds (the occupancy API)."""
+    out = (ctypes.c_int * 3)()
+    build.check(build.library().stego_corr_stream_bwd_occupancy(
+        cc, int(code_bf16), torch.device(device).index or 0, out),
+        "corr_stream backward occupancy")
+    return dict(zip(("stages", "smem_bytes", "blocks_per_sm"), out))
+
+
 class _StreamCorr(torch.autograd.Function):
-    """Kernel C2 as an autograd function of the normalized code maps."""
+    """Kernel C2 as an autograd function of the normalized code maps. With
+    ``keep`` (a gradient will be taken) the forward also writes fd and the
+    clamp mask, which the backward reads in place of the features."""
 
     @staticmethod
     def forward(ctx, code, feats, idx1, idx2, shifts, group_sizes,
-                pointwise, zero_clamp, stabalize, code_bf16):
+                pointwise, zero_clamp, stabalize, code_bf16, keep):
         dev = code.device
         if feats.dtype not in (torch.bfloat16, torch.float32):
             raise ValueError(
@@ -339,54 +469,66 @@ class _StreamCorr(torch.autograd.Function):
         i1 = idx1.to(torch.int32).contiguous()
         i2 = idx2.to(torch.int32).contiguous()
         acc = torch.empty((r, 4, n), dtype=torch.float32, device=dev)
+        fd = torch.empty((r, n, fd_pitch(n)) if keep else (0,),
+                         dtype=torch.float32, device=dev)
+        mask = torch.empty((r, n, mask_words(n)) if keep else (0,),
+                           dtype=torch.int32, device=dev)
         lo, hi = clamp_bounds(zero_clamp, stabalize)
         err = build.library().stego_corr_stream_fwd(
             feats.data_ptr(), code.data_ptr(), i1.data_ptr(), i2.data_ptr(),
-            acc.data_ptr(), r, m, n, cf, cc, int(code_bf16), int(feat_f32),
-            lo, hi, dev.index, torch.cuda.current_stream(dev).cuda_stream)
+            acc.data_ptr(), fd.data_ptr() if keep else None,
+            mask.data_ptr() if keep else None, r, m, n, cf, cc,
+            int(code_bf16), int(feat_f32), lo, hi, dev.index,
+            torch.cuda.current_stream(dev).cuda_stream)
         build.check(err, "corr_stream forward kernel")
         global FWD_LAUNCHES
         FWD_LAUNCHES += 1
         losses, cd_means, gm = finalize_rows(acc[:, 0], acc[:, 1], acc[:, 2],
                                              acc[:, 3], shifts, group_sizes,
                                              pointwise)
-        ctx.save_for_backward(code, feats, i1, i2, acc, gm)
-        ctx.static = (shifts, group_sizes, pointwise, code_bf16, lo, hi)
+        ctx.save_for_backward(code, fd, i1, i2, acc, gm, mask)
+        ctx.static = (shifts, group_sizes, pointwise, code_bf16)
         return losses, cd_means
 
     @staticmethod
     def backward(ctx, g_losses, g_cdms):
-        code, feats, i1, i2, acc, gm = ctx.saved_tensors
-        shifts, group_sizes, pointwise, code_bf16, lo, hi = ctx.static
-        dev = code.device
-        m, n, cc = code.shape
-        r = i1.shape[0]
-        inv_m = device_vector([1.0 / (size * n * n) for size in group_sizes],
-                              dev)
-        scal = torch.stack([g_losses.float(), g_cdms.float(), gm,
-                            device_vector(shifts, dev), inv_m],
-                           dim=1).contiguous()                   # (G, 5)
-        row_group = device_ints([gi for gi, size in enumerate(group_sizes)
-                                 for _ in range(size)], dev)
-        # every map's pair rows, side 1 (entry r) then side 2 (entry R + r),
-        # in a fixed order: a stable sort by map, no host synchronisation
-        keys, order = torch.sort(torch.cat([i1, i2]), stable=True)
-        order = order.to(torch.int32)
-        offsets = torch.searchsorted(
-            keys, torch.arange(m + 1, dtype=torch.int32, device=dev)
-        ).to(torch.int32)
-        dcode = torch.empty_like(code)
-        err = build.library().stego_corr_stream_bwd(
-            feats.data_ptr(), code.data_ptr(), i1.data_ptr(), i2.data_ptr(),
-            acc.data_ptr(), scal.data_ptr(), row_group.data_ptr(),
-            order.data_ptr(), offsets.data_ptr(), dcode.data_ptr(), r, m, n,
-            feats.shape[-1], cc, int(code_bf16),
-            int(feats.dtype == torch.float32), lo, hi, int(pointwise),
-            dev.index, torch.cuda.current_stream(dev).cuda_stream)
-        build.check(err, "corr_stream backward kernel")
+        dcode = backward_launch(build.library(), ctx.saved_tensors,
+                                ctx.static, g_losses, g_cdms)
         global BWD_LAUNCHES
         BWD_LAUNCHES += 1
-        return (dcode, None, None, None, None, None, None, None, None, None)
+        return (dcode,) + (None,) * 10
+
+
+def backward_launch(lib, saved: Sequence[torch.Tensor], static: tuple,
+                    g_losses: torch.Tensor, g_cdms: torch.Tensor
+                    ) -> torch.Tensor:
+    """The code gradient from C2's backward entry in ``lib`` (the port's
+    library, or a variant that ``tools/c2_ablation.py`` times), given
+    what the forward saved and its static arguments."""
+    code, fd, i1, i2, acc, gm, mask = saved
+    shifts, group_sizes, pointwise, code_bf16 = static
+    dev = code.device
+    m, n, cc = code.shape
+    r = i1.shape[0]
+    scal = backward_scalars(g_losses, g_cdms, gm, shifts, group_sizes, n)
+    row_group = row_groups(group_sizes, dev)
+    # every map's pair rows, side 1 (entry r) then side 2 (entry R + r), in
+    # a fixed order: a stable sort by map, no host synchronisation
+    keys, order = torch.sort(torch.cat([i1, i2]), stable=True)
+    order = order.to(torch.int32)
+    offsets = torch.searchsorted(
+        keys, torch.arange(m + 1, dtype=torch.int32, device=dev)
+    ).to(torch.int32)
+    tiles = code_tiles(code, code_bf16)
+    dcode = torch.empty_like(code)
+    err = lib.stego_corr_stream_bwd(
+        fd.data_ptr(), mask.data_ptr(), tiles.data_ptr(), i1.data_ptr(),
+        i2.data_ptr(), acc.data_ptr(), scal.data_ptr(), row_group.data_ptr(),
+        order.data_ptr(), offsets.data_ptr(), dcode.data_ptr(), r, m, n, cc,
+        int(code_bf16), int(pointwise), dev.index,
+        torch.cuda.current_stream(dev).cuda_stream)
+    build.check(err, "corr_stream backward kernel")
+    return dcode
 
 
 def _full_field(cfg: CorrLossCfg, orig_feats, orig_feats_pos, orig_code,

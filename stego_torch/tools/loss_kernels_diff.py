@@ -5,16 +5,19 @@
 Runs C1 (the sampled loss, at the train step's shape: B=16, 28x28 maps, 70
 code channels, 11x11 samples, 5 negatives; bf16 features at 192, 384 and
 768 channels and f32 at 384) and C2 (the streamed loss: full-field and
-grid-sampled, f32 and bf16 code, 70 and 128 code channels, bf16 and f32
-features) of each checkout, in a process of its own, on the same seeded
-inputs, and prints for every output whether the two are bitwise equal
-and their largest difference. C1's code gradients add with atomics, so
-their last bits follow the order of the adds; every other output of a
-change that keeps the kernels' arithmetic is bitwise equal. It also
-prints each case's kernel time, forward and backward, in both checkouts:
-the summed device time of the kernels named ``corr_*`` (the profiler's
-trace, 20 calls after a warm-up), so that the two are timed in one run on
-one card.
+grid-sampled, f32 and bf16 code, 70, 128 and 160 code channels, bf16
+features at 384 and 768 channels and f32 at 384) of each checkout, in a
+process of its own, on the same seeded inputs, and prints for every
+output whether the two are bitwise equal and their largest difference.
+Both checkouts are driven through their public functions only, so their
+C entry points may differ (C2's backward took the features until it read
+the fd and mask that its forward keeps). C1's code gradients add with
+atomics, so their last bits follow the order of the adds; every other
+output of a change that keeps the kernels' arithmetic is bitwise equal.
+It also prints each case's kernel time, forward and backward, in both
+checkouts: the summed device time of the kernels named ``corr_*`` (the
+profiler's trace, 20 calls after a warm-up), so that the two are timed
+in one run on one card.
 """
 
 from __future__ import annotations
@@ -81,13 +84,16 @@ def produce(out: str) -> None:
         res[key] = [losses, cds, saved[3], saved[4], saved[5], *grads]
         times[key] = time_fwd_bwd(forward, code)
     groups = [b] * (2 + neg)
-    for hw2, distinct, code_bf16, cc2, fdt in (
-            (28, False, False, 70, torch.bfloat16),
-            (11, True, True, 70, torch.bfloat16),
-            (11, True, False, 128, torch.bfloat16),
-            (28, False, False, 70, torch.float32)):
+    for hw2, distinct, code_bf16, cc2, fdt, cf in (
+            (28, False, False, 70, torch.bfloat16, 384),
+            (11, True, True, 70, torch.bfloat16, 384),
+            (11, True, False, 128, torch.bfloat16, 384),
+            (28, False, False, 70, torch.float32, 384),
+            (28, False, True, 70, torch.bfloat16, 384),
+            (28, False, False, 70, torch.bfloat16, 768),
+            (28, False, False, 160, torch.bfloat16, 384)):
         m = (2 + neg if distinct else 2) * b
-        feats = c2.prep(torch.randn(m, hw2, hw2, 384, generator=g,
+        feats = c2.prep(torch.randn(m, hw2, hw2, cf, generator=g,
                                     device=dev), fdt)
         code = c2.prep(torch.randn(m, hw2, hw2, cc2, generator=g, device=dev))
         ar = torch.arange(b, device=dev)
@@ -104,7 +110,7 @@ def produce(out: str) -> None:
         losses, cds = forward()
         grads = torch.autograd.grad(losses.sum() + cds.sum(), c)
         key = (f"C2, N={hw2 * hw2}, {cc2} code channels"
-               f"{', code_bf16' if code_bf16 else ''}, {str(fdt)[6:]} "
+               f"{', code_bf16' if code_bf16 else ''}, {cf} {str(fdt)[6:]} "
                f"features")
         res[key] = [losses, cds, *grads]
         times[key] = time_fwd_bwd(forward, [c])

@@ -46,3 +46,13 @@ def test_library_name_ignores_other_files(csrc):
     before = build.library_path()
     _touch_byte(csrc / "notes.txt")
     assert build.library_path() == before
+
+
+def test_library_name_changes_with_defines(csrc):
+    """A variant built with -D flags (tools/c2_ablation.py) is a library
+    of its own, never the port's."""
+    port = build.library_path()
+    a = build.library_path(("-DSTEGO_C2_BWD_ABLATION=1",))
+    b = build.library_path(("-DSTEGO_C2_BWD_ABLATION=2",))
+    assert len({port, a, b}) == 3
+    assert build.library_path(("-DSTEGO_C2_BWD_ABLATION=1",)) == a

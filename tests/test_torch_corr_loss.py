@@ -666,3 +666,123 @@ def test_stream_plain_matches_jax_kernel_wide_code(fdt, pointwise,
     want = jax_stream(fs, cs, shifts, feat_dtype=getattr(jnp, fdt), **opts)
     got = port_stream(fs, cs, shifts, feat_dtype=getattr(torch, fdt), **opts)
     assert_stream_close(got, want)
+
+
+def plain_forward(feats, code, idx1, idx2, lo, hi, code_bf16):
+    """Kernel C2's forward by its plain arithmetic, with what it keeps for
+    the backward: the row sums (R, 4, N), fd (R, N, N) f32 and the clamp
+    mask (R, N, N) bool; a pair row with an out-of-range map index gets NaN
+    row sums (its fd and mask are not read)."""
+    m = code.shape[0]
+    bad = (idx1 < 0) | (idx1 >= m) | (idx2 < 0) | (idx2 >= m)
+    i1, i2 = idx1.clamp(0, m - 1), idx2.clamp(0, m - 1)
+    fd = torch.bmm(feats[i1].float(), feats[i2].float().transpose(1, 2))
+    c = code.bfloat16().float() if code_bf16 else code
+    cd = torch.bmm(c[i1], c[i2].transpose(1, 2))
+    cdc = torch.clamp(cd, lo, hi)
+    acc = torch.stack([(cdc * fd).sum(-1), cdc.sum(-1), fd.sum(-1),
+                       cd.sum(-1)], dim=1)
+    acc[bad] = float("nan")
+    return acc, fd, (cd >= lo) & (cd <= hi)
+
+
+@pytest.mark.parametrize("fdt,hw,cc,opts,bad_row", [
+    ("float32", 8, CC, dict(pointwise=True, zero_clamp=True), False),
+    ("bfloat16", 8, CC, dict(pointwise=False, zero_clamp=False,
+                             stabalize=True), False),
+    ("bfloat16", 11, CC, dict(pointwise=True, zero_clamp=True), False),
+    ("bfloat16", 8, CC, dict(pointwise=True, zero_clamp=True,
+                             code_bf16=True), False),
+    ("float32", 11, CC, dict(pointwise=False, zero_clamp=True,
+                             code_bf16=True), False),
+    ("float32", 8, 160, dict(pointwise=True, zero_clamp=True), False),
+    ("bfloat16", 11, 160, dict(pointwise=False, stabalize=True), False),
+    ("float32", 8, CC, dict(pointwise=True, zero_clamp=True), True),
+    ("bfloat16", 11, CC, dict(pointwise=False, zero_clamp=False), True),
+])
+def test_stream_backward_plain_matches_jax_kernel(fdt, hw, cc, opts,
+                                                  bad_row):
+    """C2's backward as the card runs it, on the forward's fd and clamp
+    mask (corr_stream.stream_backward_plain), against the JAX streamed
+    kernel's gradient (interpret mode) and the autograd gradient of C2's
+    plain version (fused_correlation_loss_plain), both within rtol 2e-4,
+    atol 1e-5 (PARITY_r05's corr rows): bf16 and f32 features, pointwise
+    on and off, both clamps, code_bf16, ragged n (121), 160 code channels
+    (two of the kernel's chunks) and a pair row with an out-of-range map
+    index in a group of its own, which adds nothing."""
+    fs, cs = stream_pairs(40 + hw + cc, hw=hw, cc=cc)
+    shifts = [0.18, 0.12, 0.46, 0.46]
+    code_bf16 = opts.get("code_bf16", False)
+    want = jax_stream(fs, cs, shifts, feat_dtype=getattr(jnp, fdt), **opts)
+    autograd = port_stream(fs, cs, shifts, feat_dtype=getattr(torch, fdt),
+                           **opts)
+    wl, wc = weights(len(shifts))
+    c = [t(x).requires_grad_(True) for x in cs]
+    feats = torch.cat([corr_stream.prep(t(f), getattr(torch, fdt))
+                       for f in fs])
+    code = torch.cat([corr_stream.prep(x) for x in c])
+    b, m = fs[0].shape[0], code.shape[0]
+    ar = torch.arange(b)
+    idx1 = ar.repeat(len(fs))
+    idx2 = torch.cat([ar + k * b for k in range(len(fs))])
+    groups, g_losses, g_cdms = [b] * len(fs), list(wl), list(wc)
+    if bad_row:
+        idx1, idx2 = torch.cat([idx1, t([0])]), torch.cat([idx2, t([m])])
+        groups, shifts = groups + [1], shifts + [0.3]
+        g_losses, g_cdms = g_losses + [1.0], g_cdms + [1.0]
+    n = code.shape[1]
+    lo, hi = corr_stream.clamp_bounds(opts.get("zero_clamp", True),
+                                      opts.get("stabalize", False))
+    acc, fd, mask = plain_forward(feats, code.detach(), idx1, idx2, lo, hi,
+                                  code_bf16)
+    losses, _, gm = corr_stream.finalize_rows(
+        acc[:, 0], acc[:, 1], acc[:, 2], acc[:, 3], shifts, groups,
+        opts.get("pointwise", True))
+    np.testing.assert_allclose(losses[:len(fs)].numpy(), want[0],
+                               **STREAM_LOSS_TOL)
+    scal = corr_stream.backward_scalars(
+        t(np.float32(g_losses)), t(np.float32(g_cdms)), gm, shifts, groups,
+        n)[corr_stream.row_groups(groups, "cpu").long()]
+    dcode = corr_stream.stream_backward_plain(
+        fd, mask, code.detach(), idx1, idx2, acc, scal,
+        opts.get("pointwise", True), code_bf16)
+    assert bool(torch.isfinite(dcode).all())
+    grads = [g.numpy() for g in torch.autograd.grad(code, c, dcode)]
+    for g, w, a in zip(grads, want[2], autograd[2]):
+        np.testing.assert_allclose(g, w, **GRAD_TOL)
+        np.testing.assert_allclose(g, a, **GRAD_TOL)
+
+
+@pytest.mark.parametrize("n", [25, 121, 784])
+def test_stream_mask_words_unpack_in_bit_order(n):
+    """The forward's mask words (corr_stream.mask_words a row, a multiple
+    of 4 for a 16-byte pitch): bit j % 32 of word j // 32 is column j, as
+    numpy's little-endian unpacking reads them."""
+    words = corr_stream.mask_words(n)
+    assert words % 4 == 0 and 32 * words >= n > 32 * (words - 4)
+    assert corr_stream.fd_pitch(n) % 4 == 0 and corr_stream.fd_pitch(n) >= n
+    rng = np.random.default_rng(n)
+    w = rng.integers(-2 ** 31, 2 ** 31, (3, 5, words), dtype=np.int64) \
+        .astype(np.int32)
+    want = np.unpackbits(w.view(np.uint8), bitorder="little") \
+        .reshape(3, 5, 32 * words)[..., :n].astype(bool)
+    np.testing.assert_array_equal(
+        corr_stream.unpack_mask(torch.from_numpy(w), n).numpy(), want)
+
+
+@pytest.mark.parametrize("n,cc,code_bf16", [(121, 70, False), (784, 70, True),
+                                            (25, 160, False)])
+def test_stream_code_tiles_layout(n, cc, code_bf16):
+    """The backward's code tiles (corr_stream.code_tiles): (maps, tiles of
+    64 rows, channels, 64) channel-major and contiguous, each value the
+    code's (bf16 rounded to nearest even with code_bf16), zeros past n."""
+    rng = np.random.default_rng(cc)
+    code = t(rng.standard_normal((3, n, cc)).astype(np.float32))
+    tiles = corr_stream.code_tiles(code, code_bf16)
+    nt = -(-n // 64)
+    assert tiles.shape == (3, nt, cc, 64) and tiles.is_contiguous()
+    assert tiles.dtype == (torch.bfloat16 if code_bf16 else torch.float32)
+    back = tiles.transpose(2, 3).reshape(3, nt * 64, cc).float()
+    want = code.bfloat16().float() if code_bf16 else code
+    assert torch.equal(back[:, :n], want)
+    assert not bool(back[:, n:].any())

@@ -739,6 +739,115 @@ def test_corr_stream_kernel_is_deterministic(cuda, feat_dtype, code_bf16):
         assert torch.equal(x, y)
 
 
+@pytest.mark.parametrize("b,hw,cf,cc,neg,distinct,opts,feat_dtype", [
+    (16, 28, 384, 70, 5, False, dict(pointwise=True, zero_clamp=True),
+     torch.bfloat16),
+    (16, 28, 384, 70, 5, False, dict(pointwise=False, stabalize=True),
+     torch.float32),
+    (16, 28, 384, 70, 5, False, dict(pointwise=True, zero_clamp=True,
+                                     code_bf16=True), torch.bfloat16),
+    (16, 11, 384, 70, 5, True, dict(pointwise=True, zero_clamp=True,
+                                    code_bf16=True), torch.bfloat16),
+    (16, 11, 384, 70, 5, True, dict(pointwise=True, zero_clamp=True),
+     torch.float32),
+    (16, 28, 384, 160, 5, False, dict(pointwise=True, zero_clamp=True),
+     torch.bfloat16),
+    (3, 8, 40, 16, 0, False, dict(pointwise=True, zero_clamp=False),
+     torch.bfloat16),
+    (2, 9, 32, 300, 1, False, dict(pointwise=False, zero_clamp=True,
+                                   code_bf16=True), torch.float32),
+])
+@pytest.mark.parametrize("bad_row", [False, True])
+def test_corr_stream_backward_matches_plain_on_stored_fd(
+        cuda, b, hw, cf, cc, neg, distinct, opts, feat_dtype, bad_row):
+    """The backward kernel reads the fd and clamp mask that the forward
+    stored; its code gradient against stream_backward_plain on the same
+    stored fd and mask, within rtol 2e-4, atol 1e-5 at weights that make
+    the largest gradient 1 (the same coefficients, summed in another
+    order; with code_bf16 too, since the mask is the same), at the
+    full-field and grid-sampled shapes, past one code chunk (160, and 300
+    in three), ragged n (64, 81) and with an extra pair row whose map index
+    is out of range, in a group of its own: its row sums are NaN, and the
+    backward reads none of its fd and adds nothing for it. The stored fd
+    and mask agree with the plain version's wherever cd is not within 1e-6
+    of a clamp bound."""
+    from stego_torch.ops import corr_stream as c2
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    feats, code, idx1, idx2, shifts = _stream_inputs(
+        cuda, b, hw, cf, cc, neg, seed=b + hw + cc, distinct=distinct,
+        feat_dtype=feat_dtype)
+    groups = [b] * (2 + neg)
+    if bad_row:
+        idx1 = torch.cat([idx1, idx1[:1]])
+        idx2 = torch.cat([idx2, idx2.new_full((1,), code.shape[0])])
+        groups, shifts = groups + [1], shifts + [0.3]
+    code_bf16 = opts.get("code_bf16", False)
+    wts = torch.randn(2, len(groups), generator=torch.Generator(device=cuda)
+                      .manual_seed(7), device=cuda)
+    c = code.clone().requires_grad_(True)
+    losses, cds = c2.stream_loss(feats, c, idx1, idx2, shifts, groups,
+                                 **opts)
+    saved = c2.kernel_saved(losses)
+    ok = torch.isfinite(losses)
+    assert bool(ok[:2 + neg].all()) and not (bad_row and bool(ok[-1]))
+    live = torch.where(ok, wts, torch.zeros_like(wts))
+    total = (losses * live[0]).nan_to_num().sum() \
+        + (cds * live[1]).nan_to_num().sum()
+    (got,) = torch.autograd.grad(total, [c])
+    scal = c2.backward_scalars(live[0], live[1], saved["gm"], shifts, groups,
+                               code.shape[1])
+    want = c2.stream_backward_plain(
+        saved["fd"], saved["mask"], code, idx1, idx2, saved["acc"],
+        scal[c2.row_groups(groups, cuda).long()], opts.get("pointwise", True),
+        code_bf16)
+    scale = float(want.abs().max())
+    assert bool(torch.isfinite(got).all())
+    torch.testing.assert_close(got / scale, want / scale, rtol=2e-4,
+                               atol=1e-5)
+    # what the forward stored, against the plain products
+    rows = slice(0, len(idx1) - int(bad_row))
+    i1, i2 = idx1[rows], idx2[rows]
+    fd = torch.bmm(feats[i1].float(), feats[i2].float().transpose(1, 2))
+    cq = code.bfloat16().float() if code_bf16 else code
+    cd = torch.bmm(cq[i1], cq[i2].transpose(1, 2))
+    lo, hi = c2.clamp_bounds(opts.get("zero_clamp", True),
+                             opts.get("stabalize", False))
+    torch.testing.assert_close(saved["fd"][rows], fd, rtol=0, atol=2e-5)
+    clear = ((cd - lo).abs() > 1e-6) & ((cd - hi).abs() > 1e-6)
+    plain_mask = (cd >= lo) & (cd <= hi)
+    assert torch.equal(saved["mask"][rows][clear], plain_mask[clear])
+
+
+def test_corr_stream_forward_keeps_fd_only_for_a_gradient(cuda):
+    """At the full-field shape the forward allocates fd (112 x 784 x 784
+    f32, 275 MB) and the mask only when a gradient can be taken: under
+    torch.no_grad() (the val steps) its peak device memory stays below a
+    tenth of fd's bytes above what it started from; with a code that
+    requires grad it rises by at least fd's bytes."""
+    from stego_torch.ops import corr_stream as c2
+
+    feats, code, idx1, idx2, shifts = _stream_inputs(cuda, 16, 28, 384, 70,
+                                                     5, seed=5)
+    fd_bytes = idx1.numel() * 784 * c2.fd_pitch(784) * 4
+    c = code.clone().requires_grad_(True)
+
+    def peak_rise(grad):
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        with torch.set_grad_enabled(grad):
+            out = c2.stream_loss(feats, c, idx1, idx2, shifts, [16] * 7)
+        torch.cuda.synchronize()
+        rise = torch.cuda.max_memory_allocated() - base
+        del out
+        return rise
+
+    peak_rise(False)  # the library is loaded and the allocator warm
+    assert peak_rise(False) < fd_bytes / 10
+    assert peak_rise(True) >= fd_bytes
+
+
 def test_corr_stream_kernel_rejects_other_feature_types(cuda):
     """A CUDA tensor never falls back to the plain version: f16 features,
     and features wider than the kernel takes, raise before a launch."""
