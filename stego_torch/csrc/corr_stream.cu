@@ -222,6 +222,20 @@ __device__ __forceinline__ __nv_bfloat16 from_float<__nv_bfloat16>(float v) {
   return __float2bfloat16_rn(v);
 }
 
+// Parts of the forward left out, for timing what each costs
+// (tools/c2_ablation.py builds this file with STEGO_C2_FWD_ABLATION set;
+// the port's own build leaves it 0): bit kFwdNoFd the fd products, bit
+// kFwdNoCd the cd products, bit kFwdNoKeep the stores of fd and the mask;
+// all three leave the loads alone. The outputs of a build with any bit set
+// are wrong.
+#ifndef STEGO_C2_FWD_ABLATION
+#define STEGO_C2_FWD_ABLATION 0
+#endif
+constexpr int kFwdAblation = STEGO_C2_FWD_ABLATION;
+constexpr int kFwdNoFd = 1;
+constexpr int kFwdNoCd = 2;
+constexpr int kFwdNoKeep = 4;
+
 // Shared-memory geometry of one launch.
 struct Geometry {
   int n, cf, cc;
@@ -702,7 +716,10 @@ __device__ void tile_against(const Smem& s, const FeatType<kFeatF32>* f_own,
       if (c0 == 0) load_code_tile(static_cast<CodeT*>(s.cb), c_other, o0, geo);
       cp_async_wait();
       __syncthreads();
-      fd_f32(geo.own_chunked ? own : own + c0 * kCodePitchF32, other, nc, fd);
+      if constexpr ((kFwdAblation & kFwdNoFd) == 0) {
+        fd_f32(geo.own_chunked ? own : own + c0 * kCodePitchF32, other, nc,
+               fd);
+      }
     } else {
       const auto* own = static_cast<const __nv_bfloat16*>(s.fa) + c0;
       auto* other = static_cast<__nv_bfloat16*>(s.fb);
@@ -712,11 +729,15 @@ __device__ void tile_against(const Smem& s, const FeatType<kFeatF32>* f_own,
       if (c0 == 0) load_code_tile(static_cast<CodeT*>(s.cb), c_other, o0, geo);
       cp_async_wait();
       __syncthreads();
-      fd_bf16(own, pa, other, pb, depth, fd);
+      if constexpr ((kFwdAblation & kFwdNoFd) == 0) {
+        fd_bf16(own, pa, other, pb, depth, fd);
+      }
     }
   }
   if (geo.cc <= kCodeChunk) {
-    cd_tile<kBf16>(s.ca, s.cb, geo.cc, cd);
+    if constexpr ((kFwdAblation & kFwdNoCd) == 0) {
+      cd_tile<kBf16>(s.ca, s.cb, geo.cc, cd);
+    }
     return;
   }
   for (int k0 = 0; k0 < geo.cc; k0 += kCodeChunk) {
@@ -725,7 +746,9 @@ __device__ void tile_against(const Smem& s, const FeatType<kFeatF32>* f_own,
     load_code_tile(static_cast<CodeT*>(s.cb), c_other, o0, geo, k0);
     cp_async_wait();
     __syncthreads();
-    cd_tile<kBf16>(s.ca, s.cb, min(kCodeChunk, geo.cc - k0), cd);
+    if constexpr ((kFwdAblation & kFwdNoCd) == 0) {
+      cd_tile<kBf16>(s.ca, s.cb, min(kCodeChunk, geo.cc - k0), cd);
+    }
   }
 }
 
@@ -823,7 +846,7 @@ corr_stream_fwd_kernel(const FeatType<kFeatF32>* __restrict__ feats,
                                   code + m1 * cstride, i0,
                                   feats + m2 * fstride, code + m2 * cstride,
                                   j0, geo, fd, cd);
-    if (fd_out != nullptr) {
+    if ((kFwdAblation & kFwdNoKeep) == 0 && fd_out != nullptr) {
       keep_tile(fd_out + static_cast<size_t>(r) * n * fd_pitch(n),
                 mask_out + static_cast<size_t>(r) * n * mask_words(n), i0, j0,
                 n, fd, cd, lo, hi);
@@ -1269,6 +1292,24 @@ cudaError_t launch_fwd(const void* feats, const void* code, const void* idx1,
   return cudaGetLastError();
 }
 
+template <bool kBf16, bool kFeatF32>
+int fwd_occupancy(int n, int cf, int cc, int device, int* out) {
+  const auto kernel = corr_stream_fwd_kernel<kBf16, kFeatF32>;
+  const size_t smem = smem_bytes<kBf16, kFeatF32>(n, cf, cc);
+  cudaError_t err = prepare(kernel, device, smem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  cudaFuncAttributes attr;
+  err = cudaFuncGetAttributes(&attr, kernel);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  int blocks = 0;
+  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, kernel,
+                                                      kThreads, smem);
+  out[0] = attr.numRegs;
+  out[1] = static_cast<int>(smem);
+  out[2] = blocks;
+  return static_cast<int>(err);
+}
+
 // A 3-d tensor map (d0, d1, d2) of elem_bytes-byte elements whose rows (dim
 // 0) are ``pitch`` elements apart and slices (dim 2) d1 rows, with boxes of
 // (b0, b1, 1) and zeros out of bounds; false when the CUDA driver refuses
@@ -1393,6 +1434,24 @@ extern "C" int stego_corr_stream_bwd(const void* fd, const void* mask,
   return (code_bf16 ? &launch_bwd<true> : &launch_bwd<false>)(
       fd, mask, code_tiles, idx1, idx2, acc, scal, row_group, order, offsets,
       dcode, rows, maps, n, cc, pointwise, device, st);
+}
+
+// The forward's launch at (n, cf, cc) and its feature and code types:
+// registers a thread, dynamic shared memory (bytes) and the blocks an SM
+// holds by the occupancy API, into out[0..2]. Returns the CUDA error code
+// (0 on success).
+extern "C" int stego_corr_stream_fwd_occupancy(int n, int cf, int cc,
+                                               int code_bf16, int feat_f32,
+                                               int device, int* out) {
+  if (n <= 0 || cf <= 0 || cf > kMaxFeat || cc <= 0) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  if (code_bf16) {
+    return feat_f32 ? fwd_occupancy<true, true>(n, cf, cc, device, out)
+                    : fwd_occupancy<true, false>(n, cf, cc, device, out);
+  }
+  return feat_f32 ? fwd_occupancy<false, true>(n, cf, cc, device, out)
+                  : fwd_occupancy<false, false>(n, cf, cc, device, out);
 }
 
 // The backward's launch at cc code channels (f32 or, with code_bf16, bf16

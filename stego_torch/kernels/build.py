@@ -67,6 +67,7 @@ SIGNATURES = {
     "stego_corr_stream_fwd": (_P,) * 7 + (_I,) * 7 + (_F, _F, _I, _P),
     "stego_corr_stream_bwd": (_P,) * 11 + (_I,) * 7 + (_P,),
     "stego_corr_stream_bwd_occupancy": (_I, _I, _I, _P),
+    "stego_corr_stream_fwd_occupancy": (_I,) * 6 + (_P,),
 }
 
 _lock = threading.Lock()

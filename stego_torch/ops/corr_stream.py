@@ -431,6 +431,49 @@ def backward_occupancy(cc: int, code_bf16: bool,
     return dict(zip(("stages", "smem_bytes", "blocks_per_sm"), out))
 
 
+def forward_occupancy(n: int, cf: int, cc: int, code_bf16: bool,
+                      feat_f32: bool, device: torch.device) -> Dict[str, int]:
+    """The forward kernel's launch at (n, cf, cc) on ``device`` (a CUDA
+    device): registers a thread, dynamic shared memory (bytes) and the
+    blocks an SM holds (the occupancy API)."""
+    out = (ctypes.c_int * 3)()
+    build.check(build.library().stego_corr_stream_fwd_occupancy(
+        n, cf, cc, int(code_bf16), int(feat_f32),
+        torch.device(device).index or 0, out),
+        "corr_stream forward occupancy")
+    return dict(zip(("registers", "smem_bytes", "blocks_per_sm"), out))
+
+
+def forward_launch(lib, feats: torch.Tensor, code: torch.Tensor,
+                   i1: torch.Tensor, i2: torch.Tensor, zero_clamp: bool,
+                   stabalize: bool, code_bf16: bool, keep: bool
+                   ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """C2's forward entry in ``lib`` (the port's library, or a variant
+    that ``tools/c2_ablation.py`` times) on contiguous normalized maps
+    ``feats`` (M, N, CF) bf16 or f32 and ``code`` (M, N, CC) f32 and int32
+    pair-row indices: (acc (R, 4, N), fd, mask), fd and mask empty unless
+    ``keep``."""
+    dev = code.device
+    m, n, cc = code.shape
+    cf = feats.shape[-1]
+    r = i1.shape[0]
+    feats = feats.contiguous()
+    acc = torch.empty((r, 4, n), dtype=torch.float32, device=dev)
+    fd = torch.empty((r, n, fd_pitch(n)) if keep else (0,),
+                     dtype=torch.float32, device=dev)
+    mask = torch.empty((r, n, mask_words(n)) if keep else (0,),
+                       dtype=torch.int32, device=dev)
+    lo, hi = clamp_bounds(zero_clamp, stabalize)
+    err = lib.stego_corr_stream_fwd(
+        feats.data_ptr(), code.data_ptr(), i1.data_ptr(), i2.data_ptr(),
+        acc.data_ptr(), fd.data_ptr() if keep else None,
+        mask.data_ptr() if keep else None, r, m, n, cf, cc, int(code_bf16),
+        int(feats.dtype == torch.float32), lo, hi, dev.index,
+        torch.cuda.current_stream(dev).cuda_stream)
+    build.check(err, "corr_stream forward kernel")
+    return acc, fd, mask
+
+
 class _StreamCorr(torch.autograd.Function):
     """Kernel C2 as an autograd function of the normalized code maps. With
     ``keep`` (a gradient will be taken) the forward also writes fd and the
@@ -444,13 +487,11 @@ class _StreamCorr(torch.autograd.Function):
             raise ValueError(
                 f"kernel C2 takes bf16 or f32 features (the trunk's "
                 f"feat_dtype); got {feats.dtype}")
-        feat_f32 = feats.dtype == torch.float32
         if code.dim() != 3 or feats.dim() != 3 \
                 or feats.shape[:2] != code.shape[:2]:
             raise ValueError(f"feats {tuple(feats.shape)} and code "
                              f"{tuple(code.shape)} must be (M, N, C) of one "
                              f"(M, N)")
-        m, n, cc = code.shape
         cf = feats.shape[-1]
         r = idx1.shape[0]
         for name, t in (("feats", feats), ("idx1", idx1), ("idx2", idx2)):
@@ -464,23 +505,11 @@ class _StreamCorr(torch.autograd.Function):
             raise ValueError(f"kernel C2 takes <= {MAX_FEAT_CHANNELS} "
                              f"feature and any number of code channels; "
                              f"got {cf} feature channels")
-        feats = feats.contiguous()
         code = code.float().contiguous()
         i1 = idx1.to(torch.int32).contiguous()
         i2 = idx2.to(torch.int32).contiguous()
-        acc = torch.empty((r, 4, n), dtype=torch.float32, device=dev)
-        fd = torch.empty((r, n, fd_pitch(n)) if keep else (0,),
-                         dtype=torch.float32, device=dev)
-        mask = torch.empty((r, n, mask_words(n)) if keep else (0,),
-                           dtype=torch.int32, device=dev)
-        lo, hi = clamp_bounds(zero_clamp, stabalize)
-        err = build.library().stego_corr_stream_fwd(
-            feats.data_ptr(), code.data_ptr(), i1.data_ptr(), i2.data_ptr(),
-            acc.data_ptr(), fd.data_ptr() if keep else None,
-            mask.data_ptr() if keep else None, r, m, n, cf, cc,
-            int(code_bf16), int(feat_f32), lo, hi, dev.index,
-            torch.cuda.current_stream(dev).cuda_stream)
-        build.check(err, "corr_stream forward kernel")
+        acc, fd, mask = forward_launch(build.library(), feats, code, i1, i2,
+                                       zero_clamp, stabalize, code_bf16, keep)
         global FWD_LAUNCHES
         FWD_LAUNCHES += 1
         losses, cd_means, gm = finalize_rows(acc[:, 0], acc[:, 1], acc[:, 2],

@@ -2,7 +2,14 @@
 
     python -m stego_torch.tools.c2_ablation [--iters 20]
 
-C2's backward (``csrc/corr_stream.cu``) streams the forward's stored fd and
+C2's forward (``csrc/corr_stream.cu``) takes fd and cd tile by tile, sums
+the rows and, when a gradient is taken, keeps fd and the clamp mask. This
+builds variants of the kernel library with parts of the forward left out
+(``STEGO_C2_FWD_ABLATION``: 1 the fd products, 2 the cd products, 4 the
+stores of fd and the mask, 7 all three, which leaves the loads alone) and
+times each variant's forward, with a gradient kept, beside the port's, and
+prints the forward's registers, shared memory and blocks an SM (the
+occupancy API). C2's backward (``csrc/corr_stream.cu``) streams the forward's stored fd and
 clamp mask through a TMA ring, forms the coefficients from them and runs
 dc_tile's products on the tensor cores. This builds variants of the kernel
 library with parts of the backward left out (``STEGO_C2_BWD_ABLATION``:
@@ -12,13 +19,14 @@ constant one) and times each variant's backward beside the port's on the
 same saved tensors, at the shapes of ``chip_smoke.py``'s C2 rows: B=16,
 five negatives, 70 code channels f32 and bf16 (``code_bf16``) at 28x28
 (full-field) and 11x11 (grid-sampled), and 160 f32 at 28x28, bf16 features
-at 384. It also times the forward with a gradient (keeping fd and the
+at 384; and at 28x28 with 70 f32 code channels, f32 features at 384 and
+bf16 features at 768. It also times the forward with a gradient (keeping fd and the
 mask) and under ``torch.no_grad()`` (keeping neither). Times are device ms
 per launch of the kernels named ``corr_stream_*`` (the profiler's trace,
 ``--iters`` launches after a warm-up), each variant timed twice, in the
-order 0 1 2 3 4 4 3 2 1 0, and averaged. The port's backward must give the
-autograd gradient bit for bit; the variants' outputs are not checked (they
-are wrong by design). Exits 1 when there is no CUDA device.
+order 0 1 2 3 4 4 3 2 1 0 (the forward's 0 1 2 4 7 7 4 2 1 0), and averaged.
+The port's backward must give the autograd gradient bit for bit; the
+variants' outputs are not checked (they are wrong by design). Exits 1 when there is no CUDA device.
 """
 
 from __future__ import annotations
@@ -35,9 +43,16 @@ from stego_torch.ops.math import super_perm
 
 VARIANTS = {0: "the kernel", 1: "no products", 2: "no coefficients",
             3: "ring alone", 4: "run-time slots"}
-# (maps' side, code channels, code_bf16, name)
-SHAPES = ((28, 70, False, "full-field"), (28, 70, True, "full-field"),
-          (11, 70, False, "grid-sampled"), (28, 160, False, "full-field"))
+FWD_VARIANTS = {0: "the kernel", 1: "no fd products", 2: "no cd products",
+                4: "no fd or mask stores", 7: "loads alone"}
+# (maps' side, code channels, code_bf16, name, feature type, channels)
+BF16, F32 = torch.bfloat16, torch.float32
+SHAPES = ((28, 70, False, "full-field", BF16, 384),
+          (28, 70, True, "full-field", BF16, 384),
+          (11, 70, False, "grid-sampled", BF16, 384),
+          (28, 160, False, "full-field", BF16, 384),
+          (28, 70, False, "full-field", F32, 384),
+          (28, 70, False, "full-field", BF16, 768))
 
 
 def kernel_ms(fn, prefix: str, iters: int) -> float:
@@ -59,17 +74,22 @@ def kernel_ms(fn, prefix: str, iters: int) -> float:
     return us / iters / 1e3
 
 
-def libraries() -> dict:
-    """The port's library and one variant a bit pattern, built in
+def libraries() -> tuple:
+    """The port's library and one variant a bit pattern of the backward
+    and of the forward, ({bits: backward's}, {bits: forward's}), built in
     parallel (one nvcc a source each)."""
-    def one(bits):
+    def one(key):
+        name, bits = key
         if bits == 0:
             return build.library()
-        return build.load(build.build(
-            (f"-DSTEGO_C2_BWD_ABLATION={bits}",)))
+        return build.load(build.build((f"-D{name}={bits}",)))
 
-    with ThreadPoolExecutor(len(VARIANTS)) as pool:
-        return dict(zip(VARIANTS, pool.map(one, VARIANTS)))
+    keys = ([("STEGO_C2_BWD_ABLATION", b) for b in VARIANTS]
+            + [("STEGO_C2_FWD_ABLATION", b) for b in FWD_VARIANTS])
+    with ThreadPoolExecutor(len(keys)) as pool:
+        libs = list(pool.map(one, keys))
+    return (dict(zip(VARIANTS, libs[:len(VARIANTS)])),
+            dict(zip(FWD_VARIANTS, libs[len(VARIANTS):])))
 
 
 def main(argv=None) -> int:
@@ -80,15 +100,15 @@ def main(argv=None) -> int:
         print("c2_ablation: no CUDA device", file=sys.stderr)
         return 1
     dev = torch.device("cuda")
-    libs = libraries()
+    libs, fwd_libs = libraries()
     g = torch.Generator(device=dev).manual_seed(5)
-    b, neg, cf = 16, 5, 384
+    b, neg = 16, 5
     shifts = [0.18, 0.12] + [0.46] * neg
     groups = [b] * (2 + neg)
-    for hw, cc, code_bf16, name in SHAPES:
+    for hw, cc, code_bf16, name, fdt, cf in SHAPES:
         m = 2 * b
         feats = c2.prep(torch.randn(m, hw, hw, cf, generator=g, device=dev),
-                        torch.bfloat16)
+                        fdt)
         code = c2.prep(torch.randn(m, hw, hw, cc, generator=g, device=dev))
         ar = torch.arange(b, device=dev)
         idx1 = ar.repeat(2 + neg)
@@ -122,12 +142,27 @@ def main(argv=None) -> int:
         with torch.no_grad():
             no_keep = kernel_ms(forward, "corr_stream_fwd", args.iters)
         keep2 = kernel_ms(forward, "corr_stream_fwd", args.iters)
+        fwd = {bits: [] for bits in FWD_VARIANTS}
+        i1, i2 = idx1.to(torch.int32), idx2.to(torch.int32)
+        for bits in [*FWD_VARIANTS, *reversed(FWD_VARIANTS)]:
+            fwd[bits].append(kernel_ms(
+                lambda lib=fwd_libs[bits]: c2.forward_launch(
+                    lib, feats, code, i1, i2, True, False, code_bf16, True),
+                "corr_stream_fwd", args.iters))
+        occ = c2.forward_occupancy(hw * hw, cf, cc, code_bf16,
+                                   fdt == F32, dev)
         print(f"C2 {name} (N={hw * hw}), {cc} code channels "
-              f"{'bf16' if code_bf16 else 'f32'}: backward ms "
+              f"{'bf16' if code_bf16 else 'f32'}, {cf} {str(fdt)[6:]} "
+              f"features: backward ms "
               + ", ".join(f"{VARIANTS[bits]} {sum(t) / 2:.4f}"
                           for bits, t in bwd.items())
               + f"; forward ms keeping fd and mask {(keep + keep2) / 2:.4f}, "
-              f"keeping neither {no_keep:.4f}")
+              f"keeping neither {no_keep:.4f}; forward variants ms "
+              + ", ".join(f"{FWD_VARIANTS[bits]} {sum(t) / 2:.4f}"
+                          for bits, t in fwd.items())
+              + f"; forward occupancy {occ['registers']} registers, "
+              f"{occ['smem_bytes']} bytes of shared memory, "
+              f"{occ['blocks_per_sm']} blocks an SM")
     return 0
 
 
