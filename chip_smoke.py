@@ -192,6 +192,14 @@ BF16_GRAD_ATOL, BF16_GRAD_SHARE, BF16_PARAM_ATOL = 2 ** -7, 0.99, 5e-5
 # ROW_SUM_ATOL; the bf16 instantiation on the same f32 features, the
 # control, must fail.
 FD_ATOL, ROW_SUM_ATOL = 1e-5, 1e-4
+# The full-field steps' gradient distance to the step with C2's plain
+# version in f64 with the previous forward, whose f32 cd was f32 FMA
+# throughout (its chip_smoke.py on an NVIDIA H100 80GB HBM3 at 700 W): C2's
+# by 3xTF32 with the fix-up is held to at most twice it.
+F64_GAP_FMA_CD = {"ViT-S full-field": 9.862e-08, "ViT-B full-field": 3.056e-07,
+               "cached f32 full-field": 7.681e-08}
+# C2's control build without the fix-up, started in main (a future)
+NO_FIXUP_BUILD = None
 # A cd within CLAMP_TIE of a clamp bound may be clamped in the kernel and not
 # in the plain version (they sum it in other orders): one such coefficient
 # moves ~560 code gradients by up to ~4e-3 at unit scale (seen on the card
@@ -1233,6 +1241,14 @@ def phase_corr_stream(dev):
           f"{neg} negatives; losses and cd rtol "
           f"{STREAM_RTOL} atol {STREAM_ATOL}, code grads rtol {GRAD_RTOL} "
           f"atol {GRAD_ATOL}")
+    for bf16 in (False, True):
+        for feat_f32 in (False, True):
+            occ = c2.forward_occupancy(bf16, feat_f32, dev)
+            print(f"  forward, {'bf16' if bf16 else 'f32'} code, "
+                  f"{'f32' if feat_f32 else 'bf16'} features: "
+                  f"{occ['registers']} registers, {occ['stages']} ring "
+                  f"stages, {occ['smem_bytes']} bytes of shared memory, "
+                  f"{occ['blocks_per_sm']} blocks an SM (occupancy API)")
     for width in (cc, WIDE_C2_DIM):
         for bf16 in (False, True):
             occ = c2.backward_occupancy(width, bf16, dev)
@@ -1240,6 +1256,7 @@ def phase_corr_stream(dev):
                   f"({'bf16' if bf16 else 'f32'} code): {occ['stages']} ring "
                   f"stages, {occ['smem_bytes']} bytes of shared memory, "
                   f"{occ['blocks_per_sm']} blocks an SM (occupancy API)")
+    near_bound_masks(dev)
     shifts = [0.18, 0.12] + [0.46] * neg
     groups = [b] * (2 + neg)
     out = {}
@@ -1360,6 +1377,51 @@ def phase_corr_stream(dev):
     return out
 
 
+def near_bound_masks(dev):
+    """C2's forward takes the f32 cd by 3xTF32 and recomputes by f32 FMA
+    in channel order every entry within fixup_eps of a clamp bound
+    (csrc/corr_stream.cu): on code built to put many cd within 1e-6 of 0
+    and 0.8 (ops/tf32.py:near_bound_code; full-field pair rows of 8 maps of
+    81 rows, 70 channels) its stored clamp mask must equal the FMA chain's
+    (ops/tf32.py:cd_fma, emulated exactly) bit for bit, with bf16 and f32
+    features, zero_clamp and stabalize; the control, a build without the
+    fix-up (STEGO_C2_FWD_ABLATION=8, its cd by 3xTF32 alone), must not."""
+    from stego_torch.kernels import build
+    from stego_torch.ops import corr_stream as c2
+    from stego_torch.ops import tf32
+    from stego_torch.ops.math import super_perm
+
+    control = build.load(NO_FIXUP_BUILD.result())
+    b, hw, cc = 4, 9, CORR_SHAPE["cc"]
+    g = torch.Generator(device=dev).manual_seed(cc)
+    code = tf32.near_bound_code(2 * b, hw * hw, cc, cc).to(dev)
+    ar = torch.arange(b, device=dev)
+    idx1 = ar.repeat(3).int()
+    idx2 = torch.cat([ar, ar + b, super_perm(b, g)]).int()
+    cd = tf32.cd_fma(code[idx1.long()], code[idx2.long()])
+    for feat_dtype in (torch.bfloat16, torch.float32):
+        feats = c2.prep(torch.randn(2 * b, hw, hw, 64, generator=g,
+                                    device=dev), feat_dtype)
+        for zero_clamp, stabalize in ((True, False), (False, True)):
+            lo, hi = c2.clamp_bounds(zero_clamp, stabalize)
+            bound = lo if zero_clamp else hi
+            want = (cd >= lo) & (cd <= hi)
+            near = int(((cd - bound).abs() < 1e-6).sum())
+            got, ctl = (c2.unpack_mask(c2.forward_launch(
+                lib, feats, code, idx1, idx2, zero_clamp, stabalize, False,
+                True)[2], hw * hw) for lib in (build.library(), control))
+            label = (f"near-bound clamp masks ({str(feat_dtype)[6:]} "
+                     f"features, {'zero_clamp' if zero_clamp else 'stabalize'}"
+                     f", {near} of {cd.numel()} cd within 1e-6 of {bound})")
+            check(torch.equal(got, want),
+                  f"{label}: the kernel's stored mask equals the FMA "
+                  f"chain's bit for bit ({int((got != want).sum())} differ)")
+            check(not torch.equal(ctl, want),
+                  f"control, {label}: the build without the fix-up differs "
+                  f"from the FMA chain's mask in {int((ctl != want).sum())} "
+                  f"bits (must differ)")
+
+
 def stored_backward(forward, wts, shifts, groups, opts, code_bf16,
                     timed):
     """C2's backward kernel against its plain version on the same stored
@@ -1454,7 +1516,7 @@ def launches_of(attention=0, layer_norm=0, entry="pair", f32=False,
 
 def compare_steps(ref, make_step, kernel, param_atol=GRAD_ATOL,
                   plain_trunk=False, adam_live=None, grad_gap_max=None,
-                  controls=None):
+                  controls=None, f64_run=None):
     """One train step from ``ref``'s state with the loss's kernel
     (``kernel``, C1 or C2) and one with its plain version (trunk kernels on
     in both; with ``plain_trunk`` off in the plain step, so that the step
@@ -1463,7 +1525,8 @@ def compare_steps(ref, make_step, kernel, param_atol=GRAD_ATOL,
     parameters within rtol GRAD_RTOL, atol ``param_atol``; then one with
     every kernel off, reported only, and for C2 on f32 code the gradients of
     both against the step with C2's plain version in f64 (stream_loss_f64),
-    reported only. ``make_step(seg)`` builds the step of a
+    reported only, and for the runs named in F64_GAP_FMA_CD (``f64_run``)
+    held to at most twice the previous forward's distance. ``make_step(seg)`` builds the step of a
     copy of ``ref`` as a call without arguments. With ``pallas_loss_bf16``,
     a step with the kernel ignoring it (the f32 kernel) must fail the
     parameter gate. With ``adam_live`` the parameters are held only where
@@ -1508,10 +1571,17 @@ def compare_steps(ref, make_step, kernel, param_atol=GRAD_ATOL,
     m0, _, _ = one_step(False, False)
     if kernel == "C2" and not ref.cfg.pallas_loss_bf16:
         _, _, g64 = one_step(True, False, f64=True)
-        print(f"  gradients against the step with C2's plain version in "
-              f"f64: |g - g_f64| / |g_f64| = {grad_gap(gk, g64):.3e} with "
-              f"C2, {grad_gap(gp, g64):.3e} with its f32 plain version "
-              f"(report only)")
+        gap = grad_gap(gk, g64)
+        text = (f"gradients against the step with C2's plain version in "
+                f"f64: |g - g_f64| / |g_f64| = {gap:.3e} with C2, "
+                f"{grad_gap(gp, g64):.3e} with its f32 plain version")
+        if f64_run in F64_GAP_FMA_CD:
+            before = F64_GAP_FMA_CD[f64_run]
+            check(gap <= 2 * before,
+                  f"{f64_run}: {text}; the forward with its f32 cd on FMA "
+                  f"throughout {before:.3e} (<= 2x it)")
+        else:
+            print(f"  {text} (report only)")
     if adam_live is None:
         print(f"  gradients with {kernel} vs {kernel} plain: |g_kernel - "
               f"g_plain| / |g_plain| = {grad_gap(gk, gp):.3e} (report only)")
@@ -1657,7 +1727,7 @@ def report_steps(step_ms, images, one_step, peak_gb):
 def train_run(dev, label, steps, hist_steps, expect, fall_window,
               time_plain=False, model_type="vit_small", preset=None,
               backbone_dtype="bfloat16", adam_live=None, grad_gap_max=None,
-              controls=None, **cfg_kw):
+              controls=None, f64_run=None, **cfg_kw):
     """``steps`` train steps of a seeded segmenter (``model_type``'s /8
     trunk in bf16, cocostuff27 head, the config ``preset`` where one is
     named) at the reference footprint on one fixed batch, the
@@ -1729,7 +1799,7 @@ def train_run(dev, label, steps, hist_steps, expect, fall_window,
         "C2" if expect[4] else "C1",
         BF16_PARAM_ATOL if cfg.pallas_loss_bf16 else GRAD_ATOL,
         plain_trunk=backbone_dtype == "float32", adam_live=adam_live,
-        grad_gap_max=grad_gap_max, controls=controls)
+        grad_gap_max=grad_gap_max, controls=controls, f64_run=f64_run)
     return seg, gen, launches
 
 
@@ -1778,7 +1848,8 @@ def phase_train_stream(dev):
     expect = (12, 25, 0, 0, 1, 1)
     _, _, runs["full_field"] = train_run(
         dev, "full-field loss (kernel C2, 7 dense 784x784 fields)",
-        FULL_STEPS, (0,), expect, 3, time_plain=True, full_field_loss=True)
+        FULL_STEPS, (0,), expect, 3, time_plain=True, full_field_loss=True,
+        f64_run="ViT-S full-field")
     _, _, runs["gather"] = train_run(
         dev, "fused_sampling=off (grid-sampled 11x11, kernel C2)",
         SHORT_STEPS, (0,), expect, 0, fused_sampling="off")
@@ -1809,7 +1880,7 @@ def phase_train_models(dev):
     _, _, runs["vit_base_full_field"] = train_run(
         dev, "full-field loss (kernel C2 at 768 channels, 7 dense 784x784 "
         "fields)", WIDE_FULL_STEPS, (0,), streamed, 1, full_field_loss=True,
-        **vit_base)
+        f64_run="ViT-B full-field", **vit_base)
     return runs
 
 
@@ -2012,7 +2083,7 @@ def index_batches(dev, split, count):
 
 
 def cached_run(dev, label, base, cache, batches, steps, hist_steps, expect,
-               fall_window, **cfg_kw):
+               fall_window, f64_run=None, **cfg_kw):
     """``steps`` cached train steps (make_cached_train_step) of a copy of
     ``base`` with ``cfg_kw``, over ``batches`` in turn (as many as the loss
     windows hold, so that both windows see the same images); the checks and
@@ -2045,7 +2116,7 @@ def cached_run(dev, label, base, cache, batches, steps, hist_steps, expect,
     rand = draw_step_randomness(ref, TRAIN_BATCH, gen)
     compare_steps(ref, lambda s: functools.partial(
         make_cached_train_step(s, with_hist=False), cache, batches[0], rand),
-        "C2" if expect[4] else "C1")
+        "C2" if expect[4] else "C1", f64_run=f64_run)
     return seg, launches
 
 
@@ -2064,7 +2135,8 @@ def phase_cached_train(dev, bases, caches, batches):
     _, runs["f32_full_field"] = cached_run(
         dev, "f32 trunk, full-field loss (C2, f32 features, 7 dense 784x784 "
         "fields)", bases["f32"], caches[("f32", "train")], batches[:3],
-        FULL_STEPS, (0,), streamed, 3, full_field_loss=True)
+        FULL_STEPS, (0,), streamed, 3, full_field_loss=True,
+        f64_run="cached f32 full-field")
     _, runs["f32_gather"] = cached_run(
         dev, "f32 trunk, fused_sampling=off (grid-sampled 11x11, C2, f32 "
         "features)", bases["f32"], caches[("f32", "train")], batches[:1],
@@ -2214,6 +2286,11 @@ def main() -> int:
     lib_path = build.build()
     build.library()
     print(f"build: {time.perf_counter() - t0:.1f} s -> {lib_path.name}")
+    # C2's control build without the fix-up (near_bound_masks), built
+    # while the phases before it run
+    global NO_FIXUP_BUILD
+    NO_FIXUP_BUILD = concurrent.futures.ThreadPoolExecutor(1).submit(
+        build.build, ("-DSTEGO_C2_FWD_ABLATION=8",))
     log = build.BUILD_DIR / "build.log"
     if log.exists():
         for line in log.read_text().splitlines():

@@ -41,21 +41,24 @@
 // full-field shape, a third of a GiB on an 80 GB card) and 0.08 ms of writes.
 //
 // Rounding points of the TPU kernel, kept: fd is a bf16 x bf16 product with
-// f32 accumulation (mma.sync m16n8k16, every product exact in f32, each 16
-// channels added to the running f32 sum with round to nearest), or with
-// f32 features (an f32 trunk, feat_dtype=float32) an f32 x f32 product; cd
-// is f32 x f32, or with code_bf16 a bf16 x bf16 product with f32
-// accumulation (mma.sync), and then the backward rounds coeff and the code
-// to bf16 before its f32 sums (pallas_corr.py:251-260). fd on f32 features
-// and the backward's dc1 and dc2 on f32 code run on the tensor cores by
+// f32 accumulation (every product exact in f32, each 16 channels added to
+// the running f32 sum with round to nearest), or with f32 features (an f32
+// trunk, feat_dtype=float32) an f32 x f32 product; cd is f32 x f32, or with
+// code_bf16 a bf16 x bf16 product with f32 accumulation, and then the
+// backward rounds coeff and the code to bf16 before its f32 sums
+// (pallas_corr.py:251-260). The f32 products run on the tensor cores by
 // 3xTF32 (tf32x3.cuh: operands split into TF32 high and low parts, three
-// m16n8k8 products an 8-channel step, ~2^-22 of each product left, about
-// f32's own rounding; one TF32 product would keep ~2^-11, which the f32
-// row-sum gate rejects), each step added to its f32 sum in channel order.
-// The f32 cd stays f32 FMA in channel order, whose clamp masks agree with
-// the plain version's on the tested shapes (cd_tile says why). code_bf16's dc1
-// and dc2 run as bf16 m16n8k16 on the bf16-rounded coefficients and code,
-// every product exact in f32.
+// products an 8-channel step, ~2^-22 of each product left, about f32's own
+// rounding; one TF32 product would keep ~2^-11, which the f32 row-sum gate
+// rejects), each step added to its f32 sum in channel order: fd on f32
+// features, the f32 cd and the backward's dc1 and dc2. The clamp mask (lo
+// <= cd <= hi) is a step, and a cd that moves by a rounding flips it where
+// cd lies that close to a bound; so every f32 cd within fixup_eps of a
+// bound is recomputed by f32 FMA in channel order, the forward's cd before
+// 3xTF32 (fixup_eps derives the margin), and every stored mask bit and
+// every clamped value near a bound is that FMA's. code_bf16's dc1 and dc2
+// run as bf16 m16n8k16 on the bf16-rounded coefficients and code, every
+// product exact in f32.
 //
 // Bounds, at the full-field step's shapes (112 pair rows, n = 784, cf = 384,
 // cc = 70, 32 distinct maps) on an H100 SXM. Forward: 52.9 GFLOP of bf16 fd
@@ -70,25 +73,49 @@
 // gradient side (and code chunk), 0.174 ms of bytes, which its ownership
 // needs and the gradient does not.
 //
-// Forward design, right before fast: one block a (64 rows of side 1, pair
-// row); 8 warps, each 16 rows by 32 columns of a tile; the block loops over
-// 64-column tiles of side 2 through shared memory, which cp.async fills with
-// every copy of a tile in flight at once (the bf16 code tiles of code_bf16,
-// rounded on the way, by loads of 4 a thread in flight). A two-stage ring,
-// the next tile's copies in flight during this tile's products, took
-// 0.97-1.11x this kernel's time on an H100 (PERF.md), so the block waits for
-// its copies. fd and cd of a tile are held in the mma fragment layout (a
-// thread owns rows g and g + 8 and 8 columns), the row sums in registers,
-// reduced over the 4 threads of a row and then over the two column halves at
-// the end; each block writes only its own rows, so the forward has no
-// atomics. A warp's 32 columns are one mask word of each of its rows: the 4
-// threads of a row OR their bits together and one stores the word; fd goes
-// out as 8-byte stores, the 4 threads of a row on 32 contiguous bytes (a
-// whole 32-byte sector). Two ways of writing whole rows instead were slower
-// on an H100 (PERF.md): staging the block's tile in shared memory for
-// 16-byte stores, which costs two barriers a tile, and each warp's rows by
-// bulk copies of 128 bytes. The shared memory (143 KB at the full-field
-// shape) allows one block an SM.
+// Forward design, Hopper's shape (a TMA ring, a producer warp, wgmma).
+// Persistent blocks, one an SM (min(items, SMs)), walk the items: 128 rows
+// of side 1 of a pair row, row tiles fastest, so that the blocks at work
+// read the same side-2 maps from L2. A block is two consumer warpgroups of
+// 64 side-1 rows (one warpgroup a block took about 1.5x the time: each
+// side-2 box then feeds 64 rows, not 128) and a producer warp. For every
+// 64-column tile of side 2 the producer's one thread puts the tile's
+// stages, features first and then code, into a ring of three 48 KB stages
+// by TMA; a stage is boxes of 64 rows x 128 bytes (one 128-byte swizzle
+// row of channels) of each consumer's side-1 rows and of side 2's rows:
+// bf16 two panels of 64 channels, f32 the TF32 high and low parts of one
+// panel of 32. The entry's first launches copy the operands as the tensor
+// maps read them (corr_stream_fwd_prep_kernel: the f32 features' and
+// code's TF32 parts, code_bf16's bf16 code; a TMA box row is a multiple of
+// 16 bytes and a code row of 70 f32 is 280, so the code is copied anyway;
+// splitting in shared memory instead, in a consumer pass over each f32
+// stage, halved those bytes and was slower). The consumers wait
+// on a stage's full mbarrier, take fd on wgmma m64n64k16 (bf16) or
+// m64n64k8 .tf32 (three products a step), both operands K-major from the
+// swizzled boxes, each k-step into a zeroed accumulator added to fd by
+// __fadd_rn, two accumulators taking turns so that one's adds overlap the
+// next step's products; the f32 cd the same way and code_bf16's cd chained
+// in its accumulator; then each warp arrives on the stage's empty
+// mbarrier. Code channels past one panel simply take more stages, summed
+// in channel order; so do feature channels, up to 768. A tile's epilogue:
+// the fix-up (the warp takes its entries near a bound one at a time: its
+// lanes copy both code rows from device memory into the warp's shared
+// memory and every lane runs the chain on broadcast reads), then fd staged
+// in shared memory as two swizzled 32-column boxes for TMA stores, which
+// clip rows and columns past n (plain 8-byte stores, with room for a
+// fourth stage, were slower), the mask words by plain stores, and the row
+// sums in registers.
+// The wgmma accumulator gives each thread rows g and g + 8 at columns
+// 8 j + 2 t and 8 j + 2 t + 1, the mma.sync layout, so each row's sums go
+// over the columns in a thread, then over the 4 threads of its fragment
+// group: every block writes only its own rows, without atomics, and runs
+// are deterministic. What sets its pace (tools/c2_ablation.py; PERF.md):
+// the ring's loads alone take about half of the full-field kernel's time
+// (side 1's boxes are read again for every column tile, and f32 operands
+// as their TF32 parts, 8 bytes a channel), the fix-up a fifth at 70 code
+// channels and two fifths at 160 (each entry waits on device memory and a
+// chain of cc FMAs, and the block's warpgroups wait for each other at the
+// next stage), fd's and cd's products and their adds most of the rest.
 //
 // Backward design, Hopper's shape (a TMA-fed ring, a producer warp,
 // consumer warps). One block a (64 rows t0 of map m, code chunk) owns the
@@ -127,25 +154,10 @@
 // past n are zeros or masked out of the sums (a zero fd is not a zero
 // coefficient); the forward's buffers are padded only to their pitches.
 //
-// Code channels in chunks: up to 128 (kCodeChunk) the code tiles hold every
-// channel, as above. Past that both of the forward's code tiles come 128
-// channels at a time and cd accumulates over the chunks in channel order
-// (the same sums as one tile would give); the backward adds a grid axis over
-// the chunks of the gradient's channels, each block reading fd and the mask
-// again for its chunk.
-//
-// Feature channels in chunks (forward). The block's own 64 rows (side 1)
-// stay in shared memory with every channel; the other side's tile comes a
-// chunk of channels at a time, and fd accumulates over the chunks in
-// registers in channel order, so the chunks change no sum. bf16: the own
-// tile row-major (99 KB at ViT-B's 768 channels), the other side whole up
-// to 384 channels (one chunk) and above that in chunks of 256 channels (34
-// KB); two whole 768-channel tiles, 198 KB, would not fit beside the code
-// tiles. f32 features: the own tile channel-major (108 KB at 384), the
-// other side in chunks of 64 channels (18 KB), fd by 3xTF32 in the mma
-// fragment layout; above 384 channels (216 KB of own tile at 768) the own
-// rows come in the same 64-channel chunks too, read again from device
-// memory (L2) for every tile.
+// Code channels in chunks (backward): up to 128 (kCodeChunk) the code tiles
+// hold every channel, as above; past that the backward adds a grid axis
+// over the chunks of the gradient's channels, each block reading fd and
+// the mask again for its chunk.
 
 #include <cuda.h>
 #include <cuda_bf16.h>
@@ -153,23 +165,17 @@
 #include <math.h>
 #include <stdint.h>
 
-#include <type_traits>
+#include <algorithm>
 
 #include "tf32x3.cuh"
 
 namespace {
 
 constexpr int kTile = 64;          // rows and columns of a tile
-constexpr int kWarps = 8;          // 16 rows x 32 columns of a tile each
+constexpr int kWarps = 8;          // the backward's consumer warps
 constexpr int kThreads = kWarps * 32;
-constexpr int kHalf = kTile / 2;   // columns of a warp
-constexpr int kLoadBatch = 4;      // loads a thread has in flight
 constexpr int kMaxFeat = 768;      // feature channels (ViT-B)
-constexpr int kWholeBf16 = 384;    // bf16 channels the other tile takes whole
-constexpr int kChunkBf16 = 256;    // bf16 channels of a chunk above that
-constexpr int kChunkF32 = 64;      // f32 feature channels of a chunk
-constexpr int kOwnMaxF32 = 384;    // f32 channels of a resident own tile
-constexpr int kCodeChunk = 128;    // code channels of a code tile
+constexpr int kCodeChunk = 128;    // code channels of a backward code tile
 // Row pitches, in elements, that make the fragment loads free of bank
 // conflicts: 72 = 8 mod 32 for the channel-major f32 tiles (a 4-byte load
 // per thread at channel t, row g: banks 8 t + g) and for the coefficient
@@ -194,14 +200,6 @@ __device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4],
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
 
-// Two bf16 from p[0] (low half) and p[stride] (high half).
-__device__ __forceinline__ uint32_t pack_column(const __nv_bfloat16* p,
-                                                int stride) {
-  const uint32_t lo = *reinterpret_cast<const uint16_t*>(p);
-  const uint32_t hi = *reinterpret_cast<const uint16_t*>(p + stride);
-  return lo | (hi << 16);
-}
-
 // Two bf16-exact f32 values as a bf16 pair, x in the low half.
 __device__ __forceinline__ uint32_t pack_bf16(float2 v) {
   __nv_bfloat162 p = __floats2bfloat162_rn(v.x, v.y);
@@ -213,359 +211,8 @@ __device__ __forceinline__ float group_sum(float v) {
   return v + __shfl_xor_sync(kFull, v, 2);
 }
 
-template <typename T>
-__device__ __forceinline__ T from_float(float v);
-template <>
-__device__ __forceinline__ float from_float<float>(float v) { return v; }
-template <>
-__device__ __forceinline__ __nv_bfloat16 from_float<__nv_bfloat16>(float v) {
-  return __float2bfloat16_rn(v);
-}
-
-// Parts of the forward left out, for timing what each costs
-// (tools/c2_ablation.py builds this file with STEGO_C2_FWD_ABLATION set;
-// the port's own build leaves it 0): bit kFwdNoFd the fd products, bit
-// kFwdNoCd the cd products, bit kFwdNoKeep the stores of fd and the mask;
-// all three leave the loads alone. The outputs of a build with any bit set
-// are wrong.
-#ifndef STEGO_C2_FWD_ABLATION
-#define STEGO_C2_FWD_ABLATION 0
-#endif
-constexpr int kFwdAblation = STEGO_C2_FWD_ABLATION;
-constexpr int kFwdNoFd = 1;
-constexpr int kFwdNoCd = 2;
-constexpr int kFwdNoKeep = 4;
-
-// Shared-memory geometry of one launch.
-struct Geometry {
-  int n, cf, cc;
-  int cfp;          // cf rounded up to 16 (mma depth)
-  int ccp;          // code channels of a code tile (a chunk of up to
-                    // kCodeChunk) rounded up to 16
-  int chunk;        // feature channels of the other side's tile a step
-  bool own_chunked; // f32 above kOwnMaxF32: the own rows in chunks too
-  int feat_pitch;   // bf16 elements an own feature tile row
-  int chunk_pitch;  // bf16 elements an other-side feature tile row
-  // feature tiles a (the block's own rows) and b (the other side's): bf16
-  // row-major, a with every channel and b with a chunk; f32 channel-major,
-  // a with every channel (or a chunk) and b with a chunk
-  size_t feat_a_bytes, feat_b_bytes, code_bytes;
-};
-
-template <bool kBf16, bool kFeatF32>
-__host__ __device__ Geometry make_geometry(int n, int cf, int cc) {
-  Geometry g;
-  g.n = n;
-  g.cf = cf;
-  g.cc = cc;
-  g.cfp = (cf + 15) & ~15;
-  g.ccp = (min(cc, kCodeChunk) + 15) & ~15;
-  g.feat_pitch = g.cfp + 8;
-  g.own_chunked = kFeatF32 && cf > kOwnMaxF32;
-  if (kFeatF32) {
-    g.chunk = kChunkF32;
-    g.chunk_pitch = 0;
-    g.feat_a_bytes = static_cast<size_t>(g.own_chunked ? kChunkF32 : cf) *
-                     kCodePitchF32 * 4;
-    g.feat_b_bytes = static_cast<size_t>(kChunkF32) * kCodePitchF32 * 4;
-  } else {
-    g.chunk = g.cfp <= kWholeBf16 ? g.cfp : kChunkBf16;
-    g.chunk_pitch = g.chunk + 8;
-    g.feat_a_bytes = static_cast<size_t>(kTile) * g.feat_pitch * 2;
-    g.feat_b_bytes = static_cast<size_t>(kTile) * g.chunk_pitch * 2;
-  }
-  g.code_bytes = kBf16 ? static_cast<size_t>(g.ccp) * kCodePitchBf16 * 2
-                       : static_cast<size_t>(g.ccp) * kCodePitchF32 * 4;
-  return g;
-}
-
-// kBytes (4 or 16) from device memory at src to shared memory at dst by
-// cp.async, or zeros where !valid (src is then not read). The copies of a
-// tile are all in flight at once and take no registers; cp_async_wait,
-// then a barrier, makes every thread's copies visible.
-template <int kBytes>
-__device__ __forceinline__ void cp_async(void* dst, const void* src,
-                                         bool valid) {
-  const uint32_t d = static_cast<uint32_t>(__cvta_generic_to_shared(dst));
-  if constexpr (kBytes == 16) {
-    asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(d),
-                 "l"(src), "r"(valid ? 16 : 0)
-                 : "memory");
-  } else {
-    asm volatile("cp.async.ca.shared.global [%0], [%1], %2, %3;\n" ::"r"(d),
-                 "l"(src), "n"(kBytes), "r"(valid ? kBytes : 0)
-                 : "memory");
-  }
-}
-
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_all;\n" ::: "memory");
-}
-
-// Rows row0 .. row0 + 63, channels c0 .. c0 + ncp - 1 (ncp: nc rounded up
-// to 16, c0 a multiple of 16) of one (n, cf) bf16 map into a row-major tile
-// of ``pitch``, zeros past n and past cf: 16-byte cp.async copies where cf
-// is a multiple of 8 (the caller waits for them), else element loads in
-// batches of kLoadBatch a thread, all issued before their stores.
-__device__ void load_feat_tile(__nv_bfloat16* dst,
-                               const __nv_bfloat16* map, int row0, int c0,
-                               int nc, int pitch, const Geometry& g) {
-  const int chunks = ((nc + 15) & ~15) / 8;  // 16-byte chunks a row
-  const int total = kTile * chunks;
-  if (g.cf % 8 == 0) {
-    // (r, c) of idx = r chunks + c, stepped without a division a copy
-    int r = threadIdx.x / chunks;
-    int c = threadIdx.x - r * chunks;
-    const int dr = kThreads / chunks;
-    const int dc = kThreads - dr * chunks;
-    for (int idx = threadIdx.x; idx < total; idx += kThreads) {
-      const int row = row0 + r;
-      const int c8 = c0 + c * 8;
-      const bool valid = row < g.n && c8 < g.cf;
-      cp_async<16>(dst + r * pitch + c * 8,
-                   valid ? map + static_cast<size_t>(row) * g.cf + c8 : map,
-                   valid);
-      r += dr;
-      c += dc;
-      if (c >= chunks) {
-        c -= chunks;
-        ++r;
-      }
-    }
-    return;
-  }
-  for (int base = threadIdx.x; base < total; base += kLoadBatch * kThreads) {
-    uint4 v[kLoadBatch];
-#pragma unroll
-    for (int u = 0; u < kLoadBatch; ++u) {
-      const int idx = base + u * kThreads;
-      const int r = idx / chunks;
-      const int c8 = c0 + (idx - r * chunks) * 8;
-      const int row = row0 + r;
-      v[u] = make_uint4(0u, 0u, 0u, 0u);
-      if (idx < total && row < g.n) {
-        const __nv_bfloat16* src =
-            map + static_cast<size_t>(row) * g.cf + c8;
-        __nv_bfloat16* e = reinterpret_cast<__nv_bfloat16*>(&v[u]);
-        for (int k = 0; k < 8 && c8 + k < g.cf; ++k) e[k] = src[k];
-      }
-    }
-#pragma unroll
-    for (int u = 0; u < kLoadBatch; ++u) {
-      const int idx = base + u * kThreads;
-      if (idx < total) {
-        const int r = idx / chunks;
-        *reinterpret_cast<uint4*>(dst + r * pitch +
-                                  (idx - r * chunks) * 8) = v[u];
-      }
-    }
-  }
-}
-
-// Rows row0 .. row0 + 63, columns c0 .. c0 + ncols - 1 of a row-major f32
-// matrix (row stride ld; rows valid below n, columns below climit) into a
-// channel-major shared tile, dst[c * kCodePitchF32 + r], by 4-byte
-// cp.async (the caller waits for them), zeros where not valid. A warp
-// copies 4 rows x 8 columns at a time: 32-byte pieces of device memory,
-// shared-memory banks 8 c + r (two threads a bank at most).
-__device__ void load_transposed_f32(float* dst, const float* map, int ld,
-                                    int row0, int n, int c0, int ncols,
-                                    int climit) {
-  const int lane = threadIdx.x & 31;
-  const int units = (kTile / 4) * ((ncols + 7) / 8);
-  for (int u = threadIdx.x >> 5; u < units; u += kWarps) {
-    const int r = (u % (kTile / 4)) * 4 + (lane >> 3);
-    const int c = (u / (kTile / 4)) * 8 + (lane & 7);
-    if (c < ncols) {
-      const int row = row0 + r;
-      const int col = c0 + c;
-      const bool valid = row < n && col < climit;
-      cp_async<4>(dst + c * kCodePitchF32 + r,
-                  valid ? map + static_cast<size_t>(row) * ld + col : map,
-                  valid);
-    }
-  }
-}
-
-// Rows row0 .. row0 + 63, channels c0 .. c0 + nc - 1 of one (n, cf) f32
-// map into a channel-major tile (nc rows of kCodePitchF32), zeros past n.
-__device__ void load_feat_tile_f32(float* dst, const float* map, int row0,
-                                   int c0, int nc, const Geometry& g) {
-  load_transposed_f32(dst, map, g.cf, row0, g.n, c0, nc, g.cf);
-}
-
-// Rows row0 .. row0 + 63, channels c0 .. c0 + ccp - 1 of one (n, cc) f32
-// map into a channel-major tile (ccp rows of the code pitch), zeros past n
-// and past cc: f32 tiles by cp.async (the caller waits for them), bf16
-// tiles rounding each value, by loads in batches of kLoadBatch a thread.
-template <typename T>
-__device__ void load_code_tile(T* dst, const float* map, int row0,
-                               const Geometry& g, int c0 = 0) {
-  if constexpr (sizeof(T) == 4) {
-    load_transposed_f32(dst, map, g.cc, row0, g.n, c0, g.ccp, g.cc);
-  } else {
-    const int total = kTile * g.ccp;
-    for (int base = threadIdx.x; base < total;
-         base += kLoadBatch * kThreads) {
-      float v[kLoadBatch];
-#pragma unroll
-      for (int u = 0; u < kLoadBatch; ++u) {
-        const int idx = base + u * kThreads;
-        const int r = idx / g.ccp;
-        const int c = idx - r * g.ccp;
-        const int row = row0 + r;
-        v[u] = (idx < total && row < g.n && c0 + c < g.cc)
-                   ? map[static_cast<size_t>(row) * g.cc + c0 + c]
-                   : 0.f;
-      }
-#pragma unroll
-      for (int u = 0; u < kLoadBatch; ++u) {
-        const int idx = base + u * kThreads;
-        if (idx < total) {
-          const int r = idx / g.ccp;
-          dst[(idx - r * g.ccp) * kCodePitchBf16 + r] =
-              from_float<T>(v[u]);
-        }
-      }
-    }
-  }
-}
-
-// Warp w owns rows 16 (w % 4) .. + 15 of the i tile and columns
-// 32 (w / 4) .. + 31 of the j tile.
+// The backward's warp w owns rows 16 (w % 4) .. + 15 of a tile.
 __device__ __forceinline__ int warp_row0() { return (threadIdx.x >> 5) % 4 * 16; }
-__device__ __forceinline__ int warp_col0() { return (threadIdx.x >> 5) / 4 * kHalf; }
-
-// The tiles below hold this warp's 16 rows of the i tile against its 32
-// rows of the j tile in the mma fragment layout: element [nt][e] is row
-// warp_row0() + g + 8 * (e >> 1), column warp_col0() + nt * 8 + 2 t +
-// (e & 1).
-__device__ __forceinline__ void zero_tile(float (&x)[4][4]) {
-#pragma unroll
-  for (int nt = 0; nt < 4; ++nt) {
-#pragma unroll
-    for (int e = 0; e < 4; ++e) x[nt][e] = 0.f;
-  }
-}
-
-// fd += fa fb^T over ``depth`` channels (a multiple of 16) of row-major
-// bf16 feature tiles of row pitches pa and pb, by mma.sync: each 16
-// channels into a zeroed accumulator, then added to fd in f32 (round to
-// nearest). A chain of mma.sync accumulating into fd itself drops the low
-// bits of every step the same way: over 768 channels (48 steps) that bias
-// put the ViT-B full-field step's gradients 36x further from the plain
-// version's than with this order (chip_smoke.py reports both against an
-// f64 loss; PERF.md).
-__device__ __forceinline__ void fd_bf16(const __nv_bfloat16* fa, int pa,
-                                        const __nv_bfloat16* fb, int pb,
-                                        int depth, float (&fd)[4][4]) {
-  const int row0 = warp_row0();
-  const int col0 = warp_col0();
-  const int lane = threadIdx.x & 31;
-  const int g = lane >> 2;
-  const int t = lane & 3;
-  for (int kc = 0; kc < depth / 16; ++kc) {
-    const __nv_bfloat16* ap = fa + (row0 + g) * pa + kc * 16 + 2 * t;
-    const uint32_t a[4] = {
-        *reinterpret_cast<const uint32_t*>(ap),
-        *reinterpret_cast<const uint32_t*>(ap + 8 * pa),
-        *reinterpret_cast<const uint32_t*>(ap + 8),
-        *reinterpret_cast<const uint32_t*>(ap + 8 * pa + 8)};
-#pragma unroll
-    for (int nt = 0; nt < 4; ++nt) {
-      const __nv_bfloat16* bp =
-          fb + (col0 + nt * 8 + g) * pb + kc * 16 + 2 * t;
-      float part[4] = {0.f, 0.f, 0.f, 0.f};
-      mma_bf16(part, a, *reinterpret_cast<const uint32_t*>(bp),
-               *reinterpret_cast<const uint32_t*>(bp + 8));
-#pragma unroll
-      for (int e = 0; e < 4; ++e) fd[nt][e] = __fadd_rn(fd[nt][e], part[e]);
-    }
-  }
-}
-
-// fd += a b^T over channels 0 .. depth - 1 of channel-major f32 tiles (rows
-// of kCodePitchF32), by 3xTF32 mma.sync (tf32x3.cuh) in 8-channel steps in
-// channel order; channels at or past depth read as zeros.
-__device__ __forceinline__ void fd_f32(const float* a, const float* b,
-                                       int depth, float (&fd)[4][4]) {
-  constexpr int P = kCodePitchF32;
-  const int row0 = warp_row0();
-  const int col0 = warp_col0();
-  const int lane = threadIdx.x & 31;
-  const int g = lane >> 2;
-  const int t = lane & 3;
-  for (int k0 = 0; k0 < depth; k0 += 8) {
-    const bool k_lo = k0 + t < depth;      // mma columns t and t + 4
-    const bool k_hi = k0 + t + 4 < depth;
-    const float* ap = a + (k0 + t) * P + row0 + g;
-    const float av[4] = {k_lo ? ap[0] : 0.f, k_lo ? ap[8] : 0.f,
-                         k_hi ? ap[4 * P] : 0.f, k_hi ? ap[4 * P + 8] : 0.f};
-    uint32_t a_hi[4], a_lo[4];
-    tf32x3::split(av, a_hi, a_lo);
-#pragma unroll
-    for (int nt = 0; nt < 4; ++nt) {
-      const float* bp = b + (k0 + t) * P + col0 + nt * 8 + g;
-      tf32x3::mma3(fd[nt], a_hi, a_lo, k_lo ? bp[0] : 0.f,
-                   k_hi ? bp[4 * P] : 0.f);
-    }
-  }
-}
-
-// cd += ca cb^T over the first ``depth`` channels of channel-major code
-// tiles: bf16 by mma.sync (depth rounded up to 16; the tiles hold zeros
-// there), f32 by f32 FMA in channel order. The f32 cd stays off the tensor
-// cores on purpose: the clamp mask (lo <= cd <= hi) is a step, and a cd
-// that differs from the plain version's by a rounding flips it wherever cd
-// lies that close to a bound. With FMA in channel order the masks agree
-// with the plain version's (a cuBLAS bmm at K = 70, whose order is not
-// promised) on every tested shape; with cd by 3xTF32 a few
-// of the full-field shape's 69M cd values fell across the zero bound and
-// moved their rows' code gradients past the gradient gate
-// (tests/test_torch_cuda.py:test_corr_stream_kernel_matches_plain).
-template <bool kBf16>
-__device__ __forceinline__ void cd_tile(const void* ca, const void* cb,
-                                        int depth, float (&cd)[4][4]) {
-  const int row0 = warp_row0();
-  const int col0 = warp_col0();
-  const int lane = threadIdx.x & 31;
-  const int g = lane >> 2;
-  const int t = lane & 3;
-  if constexpr (kBf16) {
-    constexpr int P = kCodePitchBf16;
-    const __nv_bfloat16* cab = static_cast<const __nv_bfloat16*>(ca);
-    const __nv_bfloat16* cbb = static_cast<const __nv_bfloat16*>(cb);
-    for (int kc = 0; kc < (depth + 15) / 16; ++kc) {
-      const __nv_bfloat16* ap = cab + (kc * 16 + 2 * t) * P + row0 + g;
-      const uint32_t a[4] = {pack_column(ap, P), pack_column(ap + 8, P),
-                             pack_column(ap + 8 * P, P),
-                             pack_column(ap + 8 * P + 8, P)};
-#pragma unroll
-      for (int nt = 0; nt < 4; ++nt) {
-        const __nv_bfloat16* bp =
-            cbb + (kc * 16 + 2 * t) * P + col0 + nt * 8 + g;
-        mma_bf16(cd[nt], a, pack_column(bp, P), pack_column(bp + 8 * P, P));
-      }
-    }
-  } else {
-    constexpr int P = kCodePitchF32;
-    const float* caf = static_cast<const float*>(ca);
-    const float* cbf = static_cast<const float*>(cb);
-    for (int k = 0; k < depth; ++k) {
-      const float a0 = caf[k * P + row0 + g];
-      const float a1 = caf[k * P + row0 + g + 8];
-#pragma unroll
-      for (int nt = 0; nt < 4; ++nt) {
-        const float2 b = *reinterpret_cast<const float2*>(
-            cbf + k * P + col0 + nt * 8 + 2 * t);
-        cd[nt][0] = fmaf(a0, b.x, cd[nt][0]);
-        cd[nt][1] = fmaf(a0, b.y, cd[nt][1]);
-        cd[nt][2] = fmaf(a1, b.x, cd[nt][2]);
-        cd[nt][3] = fmaf(a1, b.y, cd[nt][3]);
-      }
-    }
-  }
-}
 
 // out += coeff x^T over the 64 other-side rows of a tile (zeros past n):
 // coeff is the shared coefficient tile [own row][other row] (pitch
@@ -639,256 +286,12 @@ __device__ __forceinline__ void dc_tile(const float* coeff, const void* x,
   }
 }
 
-// Carves the forward's dynamic shared memory: feature tiles a (the block's
-// own rows) and b (the other side's) and code tiles a and b.
-struct Smem {
-  void* fa;
-  void* fb;
-  void* ca;
-  void* cb;
-};
-
-__device__ Smem carve(unsigned char* base, const Geometry& g) {
-  const size_t feat = g.feat_a_bytes + g.feat_b_bytes;
-  Smem s;
-  s.fa = base;
-  s.fb = base + g.feat_a_bytes;
-  s.ca = base + feat;
-  s.cb = base + feat + g.code_bytes;
-  return s;
-}
-
-template <bool kBf16, bool kFeatF32>
-size_t smem_bytes(int n, int cf, int cc) {
-  const Geometry g = make_geometry<kBf16, kFeatF32>(n, cf, cc);
-  return g.feat_a_bytes + g.feat_b_bytes + 2 * g.code_bytes;
-}
-
-template <bool kFeatF32>
-using FeatType = typename std::conditional<kFeatF32, float,
-                                           __nv_bfloat16>::type;
-
-// Rows row0 .. row0 + 63 of one feature map into the own tile s.fa, every
-// channel, unless the own rows come in chunks (f32 above kOwnMaxF32).
-template <bool kFeatF32>
-__device__ void load_own_feats(const Smem& s, const FeatType<kFeatF32>* map,
-                               int row0, const Geometry& geo) {
-  if constexpr (kFeatF32) {
-    if (!geo.own_chunked) {
-      load_feat_tile_f32(static_cast<float*>(s.fa), map, row0, 0, geo.cf,
-                         geo);
-    }
-  } else {
-    load_feat_tile(static_cast<__nv_bfloat16*>(s.fa), map, row0, 0, geo.cf,
-                   geo.feat_pitch, geo);
-  }
-}
-
-// fd and cd of the block's own 64 rows (rows own0 .. own0 + 63 of f_own; the
-// code in s.ca and, unless chunked, the features in s.fa, loaded) against
-// rows o0 .. o0 + 63 of the other side's maps f_other and c_other, which it
-// loads into s.fb and s.cb: the own rows are the i tile, the other's the j
-// tile. Starts with a barrier, so every thread is done with the previous
-// other tile (and the own tile is loaded).
-// The other side's feature channels come geo.chunk at a time (and the own
-// rows' too when geo.own_chunked), fd accumulating over the chunks in
-// channel order. Above kCodeChunk code channels both code tiles come a
-// chunk at a time too (the own rows' from c_own), cd accumulating over them
-// in channel order.
-template <bool kBf16, bool kFeatF32>
-__device__ void tile_against(const Smem& s, const FeatType<kFeatF32>* f_own,
-                             const float* c_own, int own0,
-                             const FeatType<kFeatF32>* f_other,
-                             const float* c_other, int o0,
-                             const Geometry& geo, float (&fd)[4][4],
-                             float (&cd)[4][4]) {
-  using CodeT = typename std::conditional<kBf16, __nv_bfloat16, float>::type;
-  zero_tile(fd);
-  zero_tile(cd);
-  for (int c0 = 0; c0 < geo.cf; c0 += geo.chunk) {
-    const int nc = min(geo.chunk, geo.cf - c0);
-    __syncthreads();  // every thread is done with the last chunk
-    if constexpr (kFeatF32) {
-      float* own = static_cast<float*>(s.fa);
-      float* other = static_cast<float*>(s.fb);
-      load_feat_tile_f32(other, f_other, o0, c0, nc, geo);
-      if (geo.own_chunked) load_feat_tile_f32(own, f_own, own0, c0, nc, geo);
-      if (c0 == 0) load_code_tile(static_cast<CodeT*>(s.cb), c_other, o0, geo);
-      cp_async_wait();
-      __syncthreads();
-      if constexpr ((kFwdAblation & kFwdNoFd) == 0) {
-        fd_f32(geo.own_chunked ? own : own + c0 * kCodePitchF32, other, nc,
-               fd);
-      }
-    } else {
-      const auto* own = static_cast<const __nv_bfloat16*>(s.fa) + c0;
-      auto* other = static_cast<__nv_bfloat16*>(s.fb);
-      const int pa = geo.feat_pitch, pb = geo.chunk_pitch;
-      const int depth = (nc + 15) & ~15;
-      load_feat_tile(other, f_other, o0, c0, nc, pb, geo);
-      if (c0 == 0) load_code_tile(static_cast<CodeT*>(s.cb), c_other, o0, geo);
-      cp_async_wait();
-      __syncthreads();
-      if constexpr ((kFwdAblation & kFwdNoFd) == 0) {
-        fd_bf16(own, pa, other, pb, depth, fd);
-      }
-    }
-  }
-  if (geo.cc <= kCodeChunk) {
-    if constexpr ((kFwdAblation & kFwdNoCd) == 0) {
-      cd_tile<kBf16>(s.ca, s.cb, geo.cc, cd);
-    }
-    return;
-  }
-  for (int k0 = 0; k0 < geo.cc; k0 += kCodeChunk) {
-    __syncthreads();  // every thread is done with the last code tiles
-    load_code_tile(static_cast<CodeT*>(s.ca), c_own, own0, geo, k0);
-    load_code_tile(static_cast<CodeT*>(s.cb), c_other, o0, geo, k0);
-    cp_async_wait();
-    __syncthreads();
-    if constexpr ((kFwdAblation & kFwdNoCd) == 0) {
-      cd_tile<kBf16>(s.ca, s.cb, min(kCodeChunk, geo.cc - k0), cd);
-    }
-  }
-}
-
 // Row pitches of the forward's stored fd (f32 elements) and mask (32-bit
 // words) for n columns: multiples of 16 bytes, as a TMA box row needs
 // (ops/corr_stream.py:fd_pitch and mask_words give the same).
 __host__ __device__ __forceinline__ int fd_pitch(int n) { return (n + 3) & ~3; }
 __host__ __device__ __forceinline__ int mask_words(int n) {
   return ((n + 31) / 32 + 3) & ~3;
-}
-
-// The fd tile and clamp mask of this warp's fragments (rows i0 + warp_row0()
-// .., columns j0 + warp_col0() ..) into fd_r (n rows of fd_pitch(n)) and
-// mask_r (n rows of mask_words(n)), the rows of pair row r: fd as 8-byte
-// stores, and a row's 32 columns, the warp's, as one word that the 4
-// threads of the row OR together. Rows and columns past n are not stored.
-__device__ __forceinline__ void keep_tile(float* fd_r, uint32_t* mask_r,
-                                          int i0, int j0, int n,
-                                          const float (&fd)[4][4],
-                                          const float (&cd)[4][4], float lo,
-                                          float hi) {
-  const int lane = threadIdx.x & 31;
-  const int g = lane >> 2;
-  const int t = lane & 3;
-  const int jw = j0 + warp_col0();  // the warp's first column, word jw / 32
-  const int np = fd_pitch(n);
-#pragma unroll
-  for (int h = 0; h < 2; ++h) {
-    const int i = i0 + warp_row0() + g + 8 * h;
-    uint32_t bits = 0;
-#pragma unroll
-    for (int nt = 0; nt < 4; ++nt) {
-      const int c = nt * 8 + 2 * t;  // the pair's first column in the word
-#pragma unroll
-      for (int u = 0; u < 2; ++u) {
-        const float x = cd[nt][2 * h + u];
-        if (jw + c + u < n && x >= lo && x <= hi) bits |= 1u << (c + u);
-      }
-      if (i < n && jw + c < n) {
-        *reinterpret_cast<float2*>(fd_r + static_cast<size_t>(i) * np + jw +
-                                   c) =
-            make_float2(fd[nt][2 * h], fd[nt][2 * h + 1]);
-      }
-    }
-    bits |= __shfl_xor_sync(kFull, bits, 1);
-    bits |= __shfl_xor_sync(kFull, bits, 2);
-    if (t == 0 && i < n && jw < n) {
-      mask_r[static_cast<size_t>(i) * mask_words(n) + jw / 32] = bits;
-    }
-  }
-}
-
-// grid (ceil(n / 64), rows); acc (rows, 4, n); fd_out and mask_out, when not
-// null, the fd and clamp mask of every valid entry (keep_tile).
-template <bool kBf16, bool kFeatF32>
-__global__ void __launch_bounds__(kThreads, 1)
-corr_stream_fwd_kernel(const FeatType<kFeatF32>* __restrict__ feats,
-                       const float* __restrict__ code,
-                       const int* __restrict__ idx1,
-                       const int* __restrict__ idx2, float* __restrict__ acc,
-                       float* __restrict__ fd_out,
-                       uint32_t* __restrict__ mask_out, int maps, int n,
-                       int cf, int cc, float lo, float hi) {
-  using CodeT = typename std::conditional<kBf16, __nv_bfloat16, float>::type;
-  extern __shared__ __align__(16) unsigned char smem[];
-  const Geometry geo = make_geometry<kBf16, kFeatF32>(n, cf, cc);
-  const Smem s = carve(smem, geo);
-  const int i0 = blockIdx.x * kTile;
-  const int r = blockIdx.y;
-  const int m1 = idx1[r];
-  const int m2 = idx2[r];
-  float* acc_r = acc + static_cast<size_t>(r) * 4 * n;
-  if (m1 < 0 || m1 >= maps || m2 < 0 || m2 >= maps) {
-    // an out-of-range map index: NaN row sums, no read, no fd or mask
-    for (int i = threadIdx.x; i < kTile; i += blockDim.x) {
-      if (i0 + i < n) {
-#pragma unroll
-        for (int q = 0; q < 4; ++q) acc_r[q * n + i0 + i] = NAN;
-      }
-    }
-    return;
-  }
-  const size_t fstride = static_cast<size_t>(n) * cf;
-  const size_t cstride = static_cast<size_t>(n) * cc;
-  load_own_feats<kFeatF32>(s, feats + m1 * fstride, i0, geo);
-  load_code_tile(static_cast<CodeT*>(s.ca), code + m1 * cstride, i0, geo);
-
-  const int lane = threadIdx.x & 31;
-  const int t = lane & 3;
-  const int col0 = warp_col0();
-  float sums[4][2] = {};  // s1, s2, s3, sum cd of rows g and g + 8
-  float fd[4][4], cd[4][4];
-  for (int j0 = 0; j0 < n; j0 += kTile) {
-    tile_against<kBf16, kFeatF32>(s, feats + m1 * fstride,
-                                  code + m1 * cstride, i0,
-                                  feats + m2 * fstride, code + m2 * cstride,
-                                  j0, geo, fd, cd);
-    if ((kFwdAblation & kFwdNoKeep) == 0 && fd_out != nullptr) {
-      keep_tile(fd_out + static_cast<size_t>(r) * n * fd_pitch(n),
-                mask_out + static_cast<size_t>(r) * n * mask_words(n), i0, j0,
-                n, fd, cd, lo, hi);
-    }
-#pragma unroll
-    for (int nt = 0; nt < 4; ++nt) {
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        if (j0 + col0 + nt * 8 + 2 * t + (e & 1) < n) {
-          const float c = cd[nt][e];
-          const float cdc = fminf(fmaxf(c, lo), hi);
-          const int h = e >> 1;
-          sums[0][h] = fmaf(cdc, fd[nt][e], sums[0][h]);
-          sums[1][h] += cdc;
-          sums[2][h] += fd[nt][e];
-          sums[3][h] += c;
-        }
-      }
-    }
-  }
-  // each row's sums over the 4 threads of its fragment group, then over
-  // the two column halves, in that order
-  const int g = lane >> 2;
-  float* part = reinterpret_cast<float*>(s.fb);  // [half][row][4]
-  __syncthreads();  // every warp is done with the last j tile
-#pragma unroll
-  for (int h = 0; h < 2; ++h) {
-    const int il = warp_row0() + g + 8 * h;
-#pragma unroll
-    for (int q = 0; q < 4; ++q) {
-      const float v = group_sum(sums[q][h]);
-      if (t == 0) part[((col0 / kHalf) * kTile + il) * 4 + q] = v;
-    }
-  }
-  __syncthreads();
-  for (int idx = threadIdx.x; idx < kTile * 4; idx += kThreads) {
-    const int il = idx / 4;
-    const int q = idx - il * 4;
-    if (i0 + il < n) {
-      acc_r[q * n + i0 + il] = part[il * 4 + q] + part[(kTile + il) * 4 + q];
-    }
-  }
 }
 
 // dc_tile with kSlots = slots (1 to 8), chosen at run time.
@@ -907,38 +310,7 @@ __device__ __forceinline__ void dc_slots(int slots, const float* coeff,
   }
 }
 
-// ---- The backward: a TMA-fed ring of stored fd, mask and code tiles ----
-
-constexpr int kConsumerThreads = kThreads;   // the 8 warps of dc_tile
-constexpr int kBwdThreads = kThreads + 32;   // and one producer warp
-constexpr int kFdTileBytes = kTile * kTile * 4;
-// A row of the mask box: 4 words, the 128 columns from a multiple of 128
-// that hold the tile's 64 (a box starts on 16 bytes and is a multiple of 16
-// bytes long); the tile's are words (j0 / 32) % 4 and the next.
-constexpr int kMaskBoxWords = 4;
-constexpr int kMaskTileBytes = kTile * kMaskBoxWords * 4;
-constexpr int kCoeffBytes = kTile * kCoeffPitch * 4;
-constexpr int kMaxStages = 4;
-constexpr int kTmaAlign = 128;  // of every box in shared memory
-// The most shared memory a block may take for two blocks an SM: (228 KB of
-// the SM less 1 KB reserved a block) / 2.
-constexpr size_t kTwoBlockSmem = (228 * 1024 - 2 * 1024) / 2;
-constexpr int kTensorMapError = 20001;  // as kernel A's (csrc/attention.cu)
-constexpr int kCoeffBarrier = 1;        // the consumers' named barrier
-
-// Parts of the backward left out, for timing what each costs
-// (tools/c2_ablation.py builds this file with STEGO_C2_BWD_ABLATION set;
-// the port's own build leaves it 0): bit kAblateDc the products (dc_tile),
-// bit kAblateCoeff the coefficients (the tile keeps what it held), bit
-// kAblateSlots dc_tile's constant slot count (a run-time count of up to 8
-// instead). The outputs of a build with any bit set are wrong.
-#ifndef STEGO_C2_BWD_ABLATION
-#define STEGO_C2_BWD_ABLATION 0
-#endif
-constexpr int kAblation = STEGO_C2_BWD_ABLATION;
-constexpr int kAblateDc = 1;
-constexpr int kAblateCoeff = 2;
-constexpr int kAblateSlots = 4;
+// ---- TMA, mbarriers and wgmma (the forward's and the backward's ring) ----
 
 __device__ __forceinline__ uint32_t smem_u32(const void* p) {
   return static_cast<uint32_t>(__cvta_generic_to_shared(p));
@@ -987,6 +359,702 @@ __device__ __forceinline__ void tma_load_3d(uint32_t dst, const CUtensorMap* map
       "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(x), "r"(y), "r"(z)
       : "memory");
 }
+
+// A wgmma shared-memory descriptor of a K-major box of 64 rows of 128
+// bytes with TMA's 128-byte swizzle at addr (1024-byte aligned): stride
+// byte offset 1024 (8 rows), layout 1 (B128); the leading byte offset is
+// not read for a swizzled K-major operand. A k-step of 32 bytes along the
+// rows adds 2.
+__device__ __forceinline__ uint64_t smem_desc(uint32_t addr) {
+  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) |
+         (static_cast<uint64_t>(16 >> 4) << 16) |
+         (static_cast<uint64_t>(1024 >> 4) << 32) | (1ull << 62);
+}
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+// Waits until at most N committed groups of wgmma are still running.
+template <int N>
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
+}
+
+// Keeps the compiler from moving accesses to r across the asynchronous
+// wgmma that reads or writes it.
+__device__ __forceinline__ void fence_regs(float (&r)[32]) {
+#pragma unroll
+  for (int i = 0; i < 32; ++i) asm volatile("" : "+f"(r[i])::"memory");
+}
+
+#define STEGO_WGMMA_D32                                                     \
+  "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, " \
+  "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, "  \
+  "%30, %31}"
+#define STEGO_WGMMA_OUT32(d)                                                \
+  "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),   \
+      "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]),          \
+      "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),      \
+      "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]),      \
+      "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]),      \
+      "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]),      \
+      "+f"(d[31])
+
+// d (64 x 64) = A B^T (+ d when accumulate), one 16-deep bf16 step: A and B
+// from shared memory, both K-major, by descriptor.
+__device__ __forceinline__ void wgmma_bf16(float (&d)[32], uint64_t da,
+                                           uint64_t db, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 " STEGO_WGMMA_D32
+      ", %32, %33, p, 1, 1, 0, 0;\n}\n"
+      : STEGO_WGMMA_OUT32(d)
+      : "l"(da), "l"(db), "r"(accumulate));
+}
+
+// The same, one 8-deep TF32 step (tf32 operands are K-major only).
+__device__ __forceinline__ void wgmma_tf32(float (&d)[32], uint64_t da,
+                                           uint64_t db, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k8.f32.tf32.tf32 " STEGO_WGMMA_D32
+      ", %32, %33, p, 1, 1;\n}\n"
+      : STEGO_WGMMA_OUT32(d)
+      : "l"(da), "l"(db), "r"(accumulate));
+}
+
+// ---- The forward: a TMA ring of 128-byte channel panels, wgmma ----
+
+// Parts of the forward left out or added, for timing and checking
+// (tools/c2_ablation.py and tests/test_torch_cuda.py build this file with
+// STEGO_C2_FWD_ABLATION set; the port's own build leaves it 0): bit
+// kFwdNoFd the fd products, bit kFwdNoCd the cd products (and the fix-up),
+// bit kFwdNoKeep the stores of fd and the mask (all three leave the ring's
+// loads alone), bit kFwdNoFixup the fix-up of cd near the clamp bounds, bit
+// kFwdCountFixup a count of the entries the fix-up recomputes
+// (stego_corr_stream_fwd_fixups reads it). The outputs of a build with any
+// of the first four bits set are wrong.
+#ifndef STEGO_C2_FWD_ABLATION
+#define STEGO_C2_FWD_ABLATION 0
+#endif
+constexpr int kFwdAblation = STEGO_C2_FWD_ABLATION;
+constexpr int kFwdNoFd = 1;
+constexpr int kFwdNoCd = 2;
+constexpr int kFwdNoKeep = 4;
+constexpr int kFwdNoFixup = 8;
+constexpr int kFwdCountFixup = 16;
+
+// Consumer warpgroups a block, each 64 rows of side 1 (a build flag so that
+// tools/c2_ablation.py can time one against two).
+#ifndef STEGO_C2_FWD_CONSUMERS
+#define STEGO_C2_FWD_CONSUMERS 2
+#endif
+constexpr int kConsumers = STEGO_C2_FWD_CONSUMERS;
+constexpr int kWarpgroup = 128;
+constexpr int kFwdThreads = kConsumers * kWarpgroup + 32;  // and a producer
+constexpr int kBlockRows = kConsumers * kTile;
+constexpr int kPanelBytes = 128;  // channels a box row: one swizzle row
+constexpr int kBoxBytes = kTile * kPanelBytes;  // a box: 64 rows, 8 KB
+// A stage is two halves of kSideBoxes boxes: each consumer's side-1 rows,
+// then side 2's rows. Unsplit operands (bf16) fill the halves with two
+// consecutive panels of 64 channels; split ones (f32 by 3xTF32) with the
+// TF32 high and low parts of one panel of 32 channels.
+constexpr int kSideBoxes = kConsumers + 1;
+constexpr int kFwdStageBytes = 2 * kSideBoxes * kBoxBytes;
+// The kept fd tile staged in shared memory, 16 KB a consumer, and written by
+// TMA stores, which leaves room for three ring stages; or (a build flag, so
+// that tools/c2_ablation.py can time one against the other) by plain stores
+// from the accumulators, with four.
+#ifndef STEGO_C2_FWD_TMA_STORE
+#define STEGO_C2_FWD_TMA_STORE 1
+#endif
+constexpr bool kTmaStore = STEGO_C2_FWD_TMA_STORE != 0;
+
+constexpr int kOutTileBytes = kTile * kTile * 4;
+constexpr int kOutBytes = kTmaStore ? kConsumers * kOutTileBytes : 0;
+constexpr int kFixupBytes = kConsumers * 4 * 256 * 4;  // 1 KB a warp
+// Ring stages: as many as fit beside the rest (4 with two consumers and
+// plain stores), or STEGO_C2_FWD_STAGES (a build flag, so that
+// tools/c2_ablation.py can time the ring's depth apart from the stores).
+#ifndef STEGO_C2_FWD_STAGES
+#define STEGO_C2_FWD_STAGES ((192 * 1024 - kOutBytes) / kFwdStageBytes)
+#endif
+constexpr int kFwdStages = STEGO_C2_FWD_STAGES;
+constexpr size_t kFwdSmem = 1024 +
+                            static_cast<size_t>(kFwdStages) * kFwdStageBytes +
+                            kOutBytes + kFixupBytes + 2 * 8 * kFwdStages;
+static_assert(kFwdStages >= 2 && kFwdSmem <= 232448, "the forward's ring");
+constexpr int kStepsBf16 = 8;  // 16-channel steps of a bf16 stage
+constexpr int kStepsTf32 = 4;  // 8-channel steps of a split stage
+
+__device__ unsigned long long g_fixups;  // kFwdCountFixup's count
+
+// The fix-up's margin for cc code channels. The f32 cd is taken by 3xTF32
+// on the tensor cores, and every entry within eps of a clamp bound is
+// recomputed by f32 FMA in channel order, the cd of the forward before (and the
+// plain version's order where that is the same), so every stored mask bit
+// and every clamped value near a bound is that FMA's. For code rows of norm
+// <= 1 (prep's l2 normalisation, eps 1e-10: S = sum_k |a_k b_k| <= 1 up to
+// its rounding), with u = 2^-24 and K = cc:
+//   FMA in channel order: |cd_fma - a.b| <= K u S (one rounding a step);
+//   3xTF32: the split's dropped a_lo b_lo and the rounding of lo, <= 12 u S
+//     (hi and lo keep 11 bits each: 2^-22 of each product, three terms);
+//     the sums of each 8-channel step, <= 24 u S (the tensor core's three
+//     products into a zeroed accumulator, or the plain emulation's f32
+//     sums of 8 exact products, ops/tf32.py); each step's add to cd, <=
+//     ceil(K / 8) u S;
+// so |cd_3x - cd_fma| <= (36 + ceil(K / 8) + K) u (1 + 2^-10), and eps, 8x
+// that with room to spare, is (300 + 10 K) u: 2^-14 at K = 70, 2^-12.2 at
+// K = 300. An entry at least eps from every bound has cd_3x and cd_fma on
+// the same side of it, so its mask bit and clamped value agree; inside eps
+// the FMA value replaces cd (in the mask, clamp(cd) and sum cd).
+// ops/tf32.py:fixup_eps gives the same.
+__host__ __device__ __forceinline__ float fixup_eps(int cc) {
+  return (300.f + 10.f * static_cast<float>(cc)) * 5.9604645e-8f;
+}
+
+// What one column tile of one launch streams: the feature and code
+// operands' stages and k-steps and the channels of their tensor maps.
+struct FwdPlan {
+  int feat_dim, feat_stages, feat_steps;
+  int code_dim, code_stages, code_steps;
+};
+
+template <bool kBf16, bool kFeatF32>
+__host__ __device__ FwdPlan fwd_plan(int cf, int cc) {
+  FwdPlan p;
+  if (kFeatF32) {
+    p.feat_dim = (cf + 3) & ~3;  // a 16-byte row
+    p.feat_stages = (cf + 31) / 32;
+    p.feat_steps = (cf + 7) / 8;
+  } else {
+    p.feat_dim = (cf + 7) & ~7;
+    p.feat_stages = (cf + 127) / 128;
+    p.feat_steps = (cf + 15) / 16;
+  }
+  if (kBf16) {
+    p.code_dim = (cc + 7) & ~7;
+    p.code_stages = (cc + 127) / 128;
+    p.code_steps = (cc + 15) / 16;
+  } else {
+    p.code_dim = (cc + 3) & ~3;
+    p.code_stages = (cc + 31) / 32;
+    p.code_steps = (cc + 7) / 8;
+  }
+  return p;
+}
+
+// Box b (b < kConsumers: that consumer's rows; kConsumers: side 2's) of
+// half h of the stage at address stage.
+__device__ __forceinline__ uint32_t box_addr(uint32_t stage, int h, int b) {
+  return stage + static_cast<uint32_t>((h * kSideBoxes + b) * kBoxBytes);
+}
+
+// The producer's loads of stage s of an operand (tensor maps hi and lo, dim
+// channels) for side-1 rows i0 of map m1 (the live consumers' boxes) and
+// side-2 rows j0 of map m2, completing on the mbarrier full: an f32 stage
+// (kSplit) the TF32 high and low parts of one panel of 32 channels; a bf16
+// stage two panels of 64, the second not loaded where it lies past the
+// channels.
+template <bool kSplit>
+__device__ __forceinline__ void load_stage(uint32_t stage, uint32_t full,
+                                           const CUtensorMap* hi,
+                                           const CUtensorMap* lo, int s,
+                                           int dim, int live, int i0, int m1,
+                                           int j0, int m2) {
+  const int halves = (kSplit || 64 * (2 * s + 1) < dim) ? 2 : 1;
+  mbar_expect_tx(full, halves * (live + 1) * kBoxBytes);
+  for (int h = 0; h < halves; ++h) {
+    const CUtensorMap* map = (kSplit && h == 1) ? lo : hi;
+    const int c0 = kSplit ? 32 * s : 64 * (2 * s + h);
+    for (int b = 0; b < live; ++b) {
+      tma_load_3d(box_addr(stage, h, b), map, full, c0, i0 + kTile * b, m1);
+    }
+    tma_load_3d(box_addr(stage, h, kConsumers), map, full, c0, j0, m2);
+  }
+}
+
+// One k-step s of a stage into d (accumulate: add to d, else overwrite):
+// bf16, panel s / 4, 32 bytes a step; split, the three products of 3xTF32
+// (tf32x3.cuh: a_lo b_hi, then a_hi b_lo and a_hi b_hi added) of step s.
+template <bool kSplit>
+__device__ __forceinline__ void step_products(float (&d)[32], uint32_t stage,
+                                           int wg, int s, int accumulate) {
+  if constexpr (kSplit) {
+    const uint32_t k = 2 * s;
+    const uint64_t a_hi = smem_desc(box_addr(stage, 0, wg)) + k;
+    const uint64_t a_lo = smem_desc(box_addr(stage, 1, wg)) + k;
+    const uint64_t b_hi = smem_desc(box_addr(stage, 0, kConsumers)) + k;
+    const uint64_t b_lo = smem_desc(box_addr(stage, 1, kConsumers)) + k;
+    wgmma_tf32(d, a_lo, b_hi, accumulate);
+    wgmma_tf32(d, a_hi, b_lo, 1);
+    wgmma_tf32(d, a_hi, b_hi, 1);
+  } else {
+    const int h = s / 4;
+    const uint32_t k = 2 * (s % 4);
+    wgmma_bf16(d, smem_desc(box_addr(stage, h, wg)) + k,
+               smem_desc(box_addr(stage, h, kConsumers)) + k, accumulate);
+  }
+}
+
+// acc += the first `steps` k-steps of a stage, each into a zeroed
+// accumulator that is then added to acc in f32 (round to nearest), the
+// order that removed a bias: a chain of tensor-core steps accumulating into acc
+// itself drops the low bits of every step the same way (over ViT-B's 768
+// channels that bias put the full-field step's gradients 36x further from
+// the plain version's). Two accumulators take turns, so that one step's
+// adds overlap the next step's products.
+template <bool kSplit>
+__device__ __forceinline__ void promote_stage(float (&acc)[32],
+                                              float (&p0)[32],
+                                              float (&p1)[32], uint32_t stage,
+                                              int wg, int steps) {
+  constexpr int kMax = kSplit ? kStepsTf32 : kStepsBf16;
+  fence_regs(p0);
+  wgmma_fence();
+  step_products<kSplit>(p0, stage, wg, 0, 0);
+  wgmma_commit();
+#pragma unroll
+  for (int s = 0; s < kMax; ++s) {
+    if (s < steps) {
+      float(&cur)[32] = (s & 1) ? p1 : p0;
+      float(&nxt)[32] = (s & 1) ? p0 : p1;
+      if (s + 1 < steps) {
+        fence_regs(nxt);
+        wgmma_fence();
+        step_products<kSplit>(nxt, stage, wg, s + 1, 0);
+        wgmma_commit();
+        wgmma_wait<1>();
+      } else {
+        wgmma_wait<0>();
+      }
+      fence_regs(cur);
+#pragma unroll
+      for (int i = 0; i < 32; ++i) acc[i] = __fadd_rn(acc[i], cur[i]);
+    }
+  }
+}
+
+// code_bf16's cd += the first `steps` 16-channel steps of a stage, chained
+// in the accumulator (accumulate false on the first step of the first
+// stage): the order of the mma.sync chain before; every product is exact in
+// f32.
+__device__ __forceinline__ void chain_stage(float (&acc)[32], uint32_t stage,
+                                            int wg, int steps, bool first) {
+  fence_regs(acc);
+  wgmma_fence();
+#pragma unroll
+  for (int s = 0; s < kStepsBf16; ++s) {
+    if (s < steps) step_products<false>(acc, stage, wg, s, !(first && s == 0));
+  }
+  wgmma_commit();
+  wgmma_wait<0>();
+  fence_regs(acc);
+}
+
+// cd of code rows a and b by f32 FMA over their cc channels in channel
+// order, v = fmaf(a_k, b_k, v) from 0: the FMA cd of the forward before,
+// the fix-up's arithmetic. The whole warp takes one entry: its lanes copy
+// both rows, 128 channels at a time, into the warp's 1 KB of shared memory
+// (coalesced loads, all in flight at once, so an entry waits on L2 about
+// once a chunk), and every lane runs the chain on broadcast reads of them,
+// so all lanes end with the same v.
+__device__ __forceinline__ float warp_cd_fma(const float* __restrict__ a,
+                                             const float* __restrict__ b,
+                                             int cc, int lane, float* rows) {
+  float v = 0.f;
+  for (int c0 = 0; c0 < cc; c0 += 128) {
+    const int m = min(128, cc - c0);
+    float av[4], bv[4];
+#pragma unroll
+    for (int q = 0; q < 4; ++q) {
+      const int k = 32 * q + lane;
+      av[q] = k < m ? a[c0 + k] : 0.f;
+      bv[q] = k < m ? b[c0 + k] : 0.f;
+    }
+    __syncwarp();  // every lane is done with the last chunk
+#pragma unroll
+    for (int q = 0; q < 4; ++q) {
+      rows[32 * q + lane] = av[q];
+      rows[128 + 32 * q + lane] = bv[q];
+    }
+    __syncwarp();
+#pragma unroll 8
+    for (int k = 0; k < m; ++k) v = fmaf(rows[k], rows[128 + k], v);
+  }
+  return v;
+}
+
+// grid: persistent blocks over the items (row tile of kBlockRows side-1
+// rows, pair row), row tiles fastest; kFwdThreads threads: kConsumers
+// consumer warpgroups, then one producer warp. acc (rows, 4, n); fd_out and
+// mask_out, when not null, the fd and clamp mask of every valid entry.
+// Tensor maps (channels, n, maps), 128-byte swizzle: tf_hi and tf_lo over
+// the features (bf16, or f32's TF32 parts), tc_hi and tc_lo over the code
+// (f32's TF32 parts, or bf16 with code_bf16); tfd over fd_out (n, n,
+// rows; boxes of 32 x 64), read only by a build with STEGO_C2_FWD_TMA_STORE;
+// code is the f32 code, which the fix-up reads.
+template <bool kBf16, bool kFeatF32>
+__global__ void __launch_bounds__(kFwdThreads, 1)
+corr_stream_fwd_kernel(const __grid_constant__ CUtensorMap tf_hi,
+                       const __grid_constant__ CUtensorMap tf_lo,
+                       const __grid_constant__ CUtensorMap tc_hi,
+                       const __grid_constant__ CUtensorMap tc_lo,
+                       const __grid_constant__ CUtensorMap tfd,
+                       const float* __restrict__ code,
+                       const int* __restrict__ idx1,
+                       const int* __restrict__ idx2, float* __restrict__ acc,
+                       float* __restrict__ fd_out,
+                       uint32_t* __restrict__ mask_out, int rows, int maps,
+                       int n, int cf, int cc, float lo, float hi) {
+  // f32 cd near a bound recomputed by FMA (not code_bf16's, not ablated)
+  constexpr bool kFixup =
+      !kBf16 && (kFwdAblation & (kFwdNoCd | kFwdNoFixup)) == 0;
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* smem = reinterpret_cast<uint8_t*>(
+      (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~uintptr_t(1023));
+  const uint32_t base = smem_u32(smem);
+  const uint32_t out_tiles = base + kFwdStages * kFwdStageBytes;
+  const uint32_t bar_full = out_tiles + kOutBytes + kFixupBytes;
+  const uint32_t bar_empty = bar_full + 8 * kFwdStages;
+  const FwdPlan plan = fwd_plan<kBf16, kFeatF32>(cf, cc);
+  const int row_tiles = (n + kBlockRows - 1) / kBlockRows;
+  const int items = row_tiles * rows;
+  const int tid = threadIdx.x;
+  const int wg = tid / kWarpgroup;
+
+  if (tid == 0) {
+    for (int st = 0; st < kFwdStages; ++st) {
+      mbar_init(bar_full + 8 * st, 1);
+      mbar_init(bar_empty + 8 * st, kConsumers * 4);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  if (wg == kConsumers) {
+    // the producer: one thread walks the consumers' stages and starts each
+    // one's boxes into the next free slot of the ring
+    if (tid % 32 == 0) {
+      int k = 0;
+      for (int it = blockIdx.x; it < items; it += gridDim.x) {
+        const int r = it / row_tiles;
+        const int i0 = (it - r * row_tiles) * kBlockRows;
+        const int m1 = idx1[r];
+        const int m2 = idx2[r];
+        if (m1 < 0 || m1 >= maps || m2 < 0 || m2 >= maps) continue;
+        const int live = min(kConsumers, (n - i0 + kTile - 1) / kTile);
+        for (int j0 = 0; j0 < n; j0 += kTile) {
+          for (int s = 0; s < plan.feat_stages + plan.code_stages; ++s, ++k) {
+            const int st = k % kFwdStages;
+            mbar_wait(bar_empty + 8 * st, ((k / kFwdStages) & 1) ^ 1);
+            const uint32_t stage = base + st * kFwdStageBytes;
+            if (s < plan.feat_stages) {
+              load_stage<kFeatF32>(stage, bar_full + 8 * st, &tf_hi, &tf_lo,
+                                   s, plan.feat_dim, live, i0, m1, j0, m2);
+            } else {
+              load_stage<!kBf16>(stage, bar_full + 8 * st, &tc_hi, &tc_lo,
+                                 s - plan.feat_stages, plan.code_dim, live,
+                                 i0, m1, j0, m2);
+            }
+          }
+        }
+      }
+    }
+    return;
+  }
+
+  // a consumer warpgroup: side-1 rows i0 + 64 wg .. + 63 of each item
+  const int warp = (tid / 32) % 4;
+  const int lane = tid & 31;
+  const int g = lane >> 2;
+  const int t = lane & 3;
+  const float eps = fixup_eps(cc);
+  // the warp's 1 KB for the fix-up's code rows
+  float* fixup_rows = reinterpret_cast<float*>(
+      smem + kFwdStages * kFwdStageBytes + kOutBytes) + (tid / 32) * 256;
+  const int np = fd_pitch(n);
+  const int words = mask_words(n);
+  float p0[32] = {}, p1[32] = {};  // the products' turns
+  int k = 0;
+  for (int it = blockIdx.x; it < items; it += gridDim.x) {
+    const int r = it / row_tiles;
+    const int i0 = (it - r * row_tiles) * kBlockRows;
+    const int m1 = idx1[r];
+    const int m2 = idx2[r];
+    float* acc_r = acc + static_cast<size_t>(r) * 4 * n;
+    if (m1 < 0 || m1 >= maps || m2 < 0 || m2 >= maps) {
+      // an out-of-range map index: NaN row sums, no read, no fd or mask
+      for (int i = tid; i < kBlockRows; i += kConsumers * kWarpgroup) {
+        if (i0 + i < n) {
+#pragma unroll
+          for (int q = 0; q < 4; ++q) acc_r[q * n + i0 + i] = NAN;
+        }
+      }
+      continue;
+    }
+    const int row_base = i0 + kTile * wg + 16 * warp + g;  // rows h = 0, 1: +8h
+    const bool live = i0 + kTile * wg < n;
+    const float* code1 = code + static_cast<size_t>(m1) * n * cc;
+    const float* code2 = code + static_cast<size_t>(m2) * n * cc;
+    float sums[4][2] = {};  // s1, s2, s3, sum cd of rows row_base + 8h
+    for (int j0 = 0; j0 < n; j0 += kTile) {
+      float fd[32], cd[32];
+#pragma unroll
+      for (int i = 0; i < 32; ++i) {
+        fd[i] = 0.f;
+        cd[i] = 0.f;
+      }
+      for (int s = 0; s < plan.feat_stages; ++s, ++k) {
+        const int st = k % kFwdStages;
+        mbar_wait(bar_full + 8 * st, (k / kFwdStages) & 1);
+        if ((kFwdAblation & kFwdNoFd) == 0 && live) {
+          const int per = kFeatF32 ? kStepsTf32 : kStepsBf16;
+          promote_stage<kFeatF32>(fd, p0, p1, base + st * kFwdStageBytes, wg,
+                                  min(per, plan.feat_steps - s * per));
+        }
+        __syncwarp();
+        if (lane == 0) mbar_arrive(bar_empty + 8 * st);
+      }
+      for (int s = 0; s < plan.code_stages; ++s, ++k) {
+        const int st = k % kFwdStages;
+        mbar_wait(bar_full + 8 * st, (k / kFwdStages) & 1);
+        if ((kFwdAblation & kFwdNoCd) == 0 && live) {
+          const uint32_t stage = base + st * kFwdStageBytes;
+          if constexpr (kBf16) {
+            chain_stage(cd, stage, wg,
+                        min(kStepsBf16, plan.code_steps - s * kStepsBf16),
+                        s == 0);
+          } else {
+            promote_stage<true>(cd, p0, p1, stage, wg,
+                                min(kStepsTf32,
+                                    plan.code_steps - s * kStepsTf32));
+          }
+        }
+        __syncwarp();
+        if (lane == 0) mbar_arrive(bar_empty + 8 * st);
+      }
+      if (!live) continue;
+      // the accumulators' element 4 c + e: row row_base + 8 (e >> 1),
+      // column j0 + 8 c + 2 t + (e & 1)
+      if constexpr (kFixup) {
+        // the fix-up: this thread's entries within eps of a bound, as bits
+        // of its 32 slots; then the warp's, one entry at a time
+        uint32_t near = 0;
+#pragma unroll
+        for (int u = 0; u < 32; ++u) {
+          const float x = cd[u];
+          const int i = row_base + 8 * ((u & 3) >> 1);
+          const int j = j0 + 8 * (u >> 2) + 2 * t + (u & 1);
+          if ((fabsf(x - lo) < eps || fabsf(x - hi) < eps) && i < n &&
+              j < n) {
+            near |= 1u << u;
+          }
+        }
+        for (uint32_t todo = __ballot_sync(kFull, near != 0); todo != 0;
+             todo = __ballot_sync(kFull, near != 0)) {
+          const int src = __ffs(todo) - 1;
+          const int u = __ffs(__shfl_sync(kFull, near, src)) - 1;
+          const int i = row_base - g + (src >> 2) + 8 * ((u & 3) >> 1);
+          const int j = j0 + 8 * (u >> 2) + 2 * (src & 3) + (u & 1);
+          const float v = warp_cd_fma(code1 + static_cast<size_t>(i) * cc,
+                                      code2 + static_cast<size_t>(j) * cc,
+                                      cc, lane, fixup_rows);
+          if (lane == src) {
+#pragma unroll
+            for (int q = 0; q < 32; ++q) {
+              if (q == u) cd[q] = v;
+            }
+            near &= near - 1;
+            if constexpr ((kFwdAblation & kFwdCountFixup) != 0) {
+              atomicAdd(&g_fixups, 1ull);
+            }
+          }
+        }
+      }
+      if ((kFwdAblation & kFwdNoKeep) == 0 && fd_out != nullptr) {
+        // fd staged in shared memory for the TMA stores (the plain-store
+        // build: 8-byte streaming stores, the 4 threads of a row on 32
+        // contiguous bytes, so that the 275 MB of a full-field step do not
+        // evict the panels from L2); a row's 64 columns as two mask words,
+        // each the OR of the 4 threads' bits
+        float* fd_r = fd_out + static_cast<size_t>(r) * n * np;
+        uint32_t* mask_r = mask_out + static_cast<size_t>(r) * n * words;
+        [[maybe_unused]] const uint32_t out = out_tiles + wg * kOutTileBytes;
+        if constexpr (kTmaStore) {
+          // the tile's last stores have read the staging tile
+          if (tid % kWarpgroup == 0) {
+            asm volatile("cp.async.bulk.wait_group.read 0;\n" ::: "memory");
+          }
+          asm volatile("bar.sync %0, %1;\n" ::"r"(1 + wg), "n"(kWarpgroup)
+                       : "memory");
+        }
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          const int i = row_base + 8 * h;
+          uint32_t bits[2] = {0u, 0u};
+#pragma unroll
+          for (int c = 0; c < 8; ++c) {
+            const int col = 8 * c + 2 * t;  // the pair's first column
+#pragma unroll
+            for (int v = 0; v < 2; ++v) {
+              const float x = cd[4 * c + 2 * h + v];
+              if (j0 + col + v < n && x >= lo && x <= hi) {
+                bits[c / 4] |= 1u << ((col + v) % 32);
+              }
+            }
+            const float2 pair = make_float2(fd[4 * c + 2 * h],
+                                            fd[4 * c + 2 * h + 1]);
+            if constexpr (kTmaStore) {
+              // two 128-byte swizzled boxes of 32 columns: row rr's
+              // 16-byte chunk q sits at chunk q ^ (rr % 8)
+              const int rr = 16 * warp + g + 8 * h;
+              const uint32_t at = out + (c / 4) * (kOutTileBytes / 2) +
+                                  rr * 128 +
+                                  ((((col % 32) / 4) ^ (rr % 8)) * 16) +
+                                  (col % 4) * 4;
+              asm volatile("st.shared.v2.f32 [%0], {%1, %2};\n" ::"r"(at),
+                           "f"(pair.x), "f"(pair.y)
+                           : "memory");
+            } else if (i < n && j0 + col < n) {
+              __stcs(reinterpret_cast<float2*>(
+                         fd_r + static_cast<size_t>(i) * np + j0 + col),
+                     pair);
+            }
+          }
+#pragma unroll
+          for (int w = 0; w < 2; ++w) {
+            bits[w] |= __shfl_xor_sync(kFull, bits[w], 1);
+            bits[w] |= __shfl_xor_sync(kFull, bits[w], 2);
+          }
+          if (t < 2 && i < n && j0 + 32 * t < n) {
+            __stcs(mask_r + static_cast<size_t>(i) * words + j0 / 32 + t,
+                   t == 0 ? bits[0] : bits[1]);
+          }
+        }
+        if constexpr (kTmaStore) {
+          // the staged tile, seen by the TMA's reads; the box clips rows
+          // and columns past n
+          asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+          asm volatile("bar.sync %0, %1;\n" ::"r"(1 + wg), "n"(kWarpgroup)
+                       : "memory");
+          if (tid % kWarpgroup == 0) {
+#pragma unroll
+            for (int b = 0; b < 2; ++b) {
+              if (j0 + 32 * b >= n) break;  // the box lies past the columns
+              asm volatile(
+                  "cp.async.bulk.tensor.3d.global.shared::cta.bulk_group"
+                  " [%0, {%2, %3, %4}], [%1];\n" ::"l"(
+                      reinterpret_cast<uint64_t>(&tfd)),
+                  "r"(out + b * (kOutTileBytes / 2)), "r"(j0 + 32 * b),
+                  "r"(i0 + kTile * wg), "r"(r)
+                  : "memory");
+            }
+            asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
+          }
+        }
+      }
+#pragma unroll
+      for (int u = 0; u < 32; ++u) {
+        if (j0 + 8 * (u >> 2) + 2 * t + (u & 1) < n) {
+          const float c = cd[u];
+          const float cdc = fminf(fmaxf(c, lo), hi);
+          const int h = (u & 3) >> 1;
+          sums[0][h] = fmaf(cdc, fd[u], sums[0][h]);
+          sums[1][h] += cdc;
+          sums[2][h] += fd[u];
+          sums[3][h] += c;
+        }
+      }
+    }
+    if (!live) continue;
+    // each row's sums over the 4 threads of its fragment group
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int i = row_base + 8 * h;
+#pragma unroll
+      for (int q = 0; q < 4; ++q) {
+        const float v = group_sum(sums[q][h]);
+        if (t == 0 && i < n) acc_r[q * n + i] = v;
+      }
+    }
+  }
+  if (kTmaStore && tid % kWarpgroup == 0) {
+    asm volatile("cp.async.bulk.wait_group 0;\n" ::: "memory");
+  }
+}
+
+// The forward's copies of its inputs as the tensor maps read them, rows of
+// c channels into rows of cp (zeros past c): kSplitF32 the TF32 high and
+// low parts of f32 values (tf32x3.cuh's split), kRoundBf16 f32 rounded to
+// bf16 (code_bf16), kPadBf16 bf16 copied (rows not a multiple of 16 bytes).
+enum PrepMode : int { kSplitF32 = 0, kRoundBf16 = 1, kPadBf16 = 2 };
+
+template <int kMode>
+__global__ void corr_stream_fwd_prep_kernel(const void* __restrict__ src,
+                                            void* __restrict__ hi,
+                                            float* __restrict__ lo,
+                                            long long rows, int c, int cp) {
+  const long long total = rows * cp;
+  for (long long idx = blockIdx.x * static_cast<long long>(blockDim.x) +
+                       threadIdx.x;
+       idx < total; idx += static_cast<long long>(gridDim.x) * blockDim.x) {
+    const long long row = idx / cp;
+    const int k = static_cast<int>(idx - row * cp);
+    const long long from = row * c + k;
+    if constexpr (kMode == kPadBf16) {
+      static_cast<__nv_bfloat16*>(hi)[idx] =
+          k < c ? static_cast<const __nv_bfloat16*>(src)[from]
+                : __float2bfloat16_rn(0.f);
+    } else {
+      const float x = k < c ? static_cast<const float*>(src)[from] : 0.f;
+      if constexpr (kMode == kSplitF32) {
+        uint32_t h, l;
+        tf32x3::split(x, h, l);
+        static_cast<float*>(hi)[idx] = __uint_as_float(h);
+        lo[idx] = __uint_as_float(l);
+      } else {
+        static_cast<__nv_bfloat16*>(hi)[idx] = __float2bfloat16_rn(x);
+      }
+    }
+  }
+}
+
+// ---- The backward: a TMA-fed ring of stored fd, mask and code tiles ----
+
+constexpr int kConsumerThreads = kThreads;   // the 8 warps of dc_tile
+constexpr int kBwdThreads = kThreads + 32;   // and one producer warp
+constexpr int kFdTileBytes = kTile * kTile * 4;
+// A row of the mask box: 4 words, the 128 columns from a multiple of 128
+// that hold the tile's 64 (a box starts on 16 bytes and is a multiple of 16
+// bytes long); the tile's are words (j0 / 32) % 4 and the next.
+constexpr int kMaskBoxWords = 4;
+constexpr int kMaskTileBytes = kTile * kMaskBoxWords * 4;
+constexpr int kCoeffBytes = kTile * kCoeffPitch * 4;
+constexpr int kMaxStages = 4;
+constexpr int kTmaAlign = 128;  // of every box in shared memory
+// The most shared memory a block may take for two blocks an SM: (228 KB of
+// the SM less 1 KB reserved a block) / 2.
+constexpr size_t kTwoBlockSmem = (228 * 1024 - 2 * 1024) / 2;
+constexpr int kTensorMapError = 20001;  // as kernel A's (csrc/attention.cu)
+constexpr int kCoeffBarrier = 1;        // the consumers' named barrier
+
+// Parts of the backward left out, for timing what each costs
+// (tools/c2_ablation.py builds this file with STEGO_C2_BWD_ABLATION set;
+// the port's own build leaves it 0): bit kAblateDc the products (dc_tile),
+// bit kAblateCoeff the coefficients (the tile keeps what it held), bit
+// kAblateSlots dc_tile's constant slot count (a run-time count of up to 8
+// instead). The outputs of a build with any bit set are wrong.
+#ifndef STEGO_C2_BWD_ABLATION
+#define STEGO_C2_BWD_ABLATION 0
+#endif
+constexpr int kAblation = STEGO_C2_BWD_ABLATION;
+constexpr int kAblateDc = 1;
+constexpr int kAblateCoeff = 2;
+constexpr int kAblateSlots = 4;
 
 // Bytes of one code tile box: the chunk's channels (at most kCodeChunk,
 // rounded up to 16) of 64 rows at the code pitch.
@@ -1273,50 +1341,14 @@ cudaError_t prepare(Kernel kernel, int device, size_t smem) {
                               static_cast<int>(smem));
 }
 
-template <bool kBf16, bool kFeatF32>
-cudaError_t launch_fwd(const void* feats, const void* code, const void* idx1,
-                       const void* idx2, void* acc, void* fd, void* mask,
-                       int rows, int maps, int n, int cf, int cc, float lo,
-                       float hi, int device, cudaStream_t stream) {
-  const size_t smem = smem_bytes<kBf16, kFeatF32>(n, cf, cc);
-  cudaError_t err =
-      prepare(corr_stream_fwd_kernel<kBf16, kFeatF32>, device, smem);
-  if (err != cudaSuccess) return err;
-  const dim3 grid((n + kTile - 1) / kTile, rows);
-  corr_stream_fwd_kernel<kBf16, kFeatF32><<<grid, kThreads, smem, stream>>>(
-      static_cast<const FeatType<kFeatF32>*>(feats),
-      static_cast<const float*>(code), static_cast<const int*>(idx1),
-      static_cast<const int*>(idx2), static_cast<float*>(acc),
-      static_cast<float*>(fd), static_cast<uint32_t*>(mask), maps, n, cf, cc,
-      lo, hi);
-  return cudaGetLastError();
-}
-
-template <bool kBf16, bool kFeatF32>
-int fwd_occupancy(int n, int cf, int cc, int device, int* out) {
-  const auto kernel = corr_stream_fwd_kernel<kBf16, kFeatF32>;
-  const size_t smem = smem_bytes<kBf16, kFeatF32>(n, cf, cc);
-  cudaError_t err = prepare(kernel, device, smem);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  cudaFuncAttributes attr;
-  err = cudaFuncGetAttributes(&attr, kernel);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  int blocks = 0;
-  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, kernel,
-                                                      kThreads, smem);
-  out[0] = attr.numRegs;
-  out[1] = static_cast<int>(smem);
-  out[2] = blocks;
-  return static_cast<int>(err);
-}
-
 // A 3-d tensor map (d0, d1, d2) of elem_bytes-byte elements whose rows (dim
 // 0) are ``pitch`` elements apart and slices (dim 2) d1 rows, with boxes of
-// (b0, b1, 1) and zeros out of bounds; false when the CUDA driver refuses
-// it.
+// (b0, b1, 1) and zeros out of bounds, swizzled as ``swizzle`` says; false
+// when cuTensorMapEncodeTiled refuses it.
 bool make_map(CUtensorMap* map, CUtensorMapDataType type, int elem_bytes,
               const void* base, int d0, int d1, int d2, int pitch, int b0,
-              int b1) {
+              int b1,
+              CUtensorMapSwizzle swizzle = CU_TENSOR_MAP_SWIZZLE_NONE) {
   const cuuint64_t row = static_cast<cuuint64_t>(pitch) * elem_bytes;
   cuuint64_t dims[3] = {static_cast<cuuint64_t>(d0),
                         static_cast<cuuint64_t>(d1),
@@ -1327,9 +1359,118 @@ bool make_map(CUtensorMap* map, CUtensorMapDataType type, int elem_bytes,
   cuuint32_t elem[3] = {1, 1, 1};
   return cuTensorMapEncodeTiled(
              map, type, 3, const_cast<void*>(base), dims, strides, box, elem,
-             CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_NONE,
+             CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle,
              CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
              CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+// The copy kernel of one input (corr_stream_fwd_prep_kernel): rows rows of
+// c channels into rows of cp.
+template <int kMode>
+cudaError_t prep(const void* src, void* hi, void* lo, long long rows, int c,
+                 int cp, int sms, cudaStream_t stream) {
+  const long long total = rows * cp;
+  const int blocks = static_cast<int>(
+      std::min<long long>((total + 255) / 256, 8LL * sms));
+  corr_stream_fwd_prep_kernel<kMode><<<blocks, 256, 0, stream>>>(
+      src, hi, static_cast<float*>(lo), rows, c, cp);
+  return cudaGetLastError();
+}
+
+// The forward's launch: the copies its tensor maps read (the f32 operands'
+// TF32 parts into hi and lo, code_bf16's bf16 code into code_hi, bf16
+// features whose rows are not a multiple of 16 bytes padded into feat_hi),
+// the tensor maps, then the kernel on min(items, SMs) persistent blocks.
+template <bool kBf16, bool kFeatF32>
+int launch_fwd(const void* feats, const void* code, const void* idx1,
+               const void* idx2, void* acc, void* fd, void* mask,
+               void* feat_hi, void* feat_lo, void* code_hi, void* code_lo,
+               int rows, int maps, int n, int cf, int cc, float lo, float hi,
+               int device, cudaStream_t stream) {
+  const auto kernel = corr_stream_fwd_kernel<kBf16, kFeatF32>;
+  cudaError_t err = prepare(kernel, device, kFwdSmem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  int sms = 0;
+  err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const FwdPlan plan = fwd_plan<kBf16, kFeatF32>(cf, cc);
+  const long long map_rows = static_cast<long long>(maps) * n;
+  const void* f_hi = feats;
+  const void* f_lo = feats;
+  if (kFeatF32) {
+    if (feat_hi == nullptr || feat_lo == nullptr) {
+      return static_cast<int>(cudaErrorInvalidValue);
+    }
+    err = prep<kSplitF32>(feats, feat_hi, feat_lo, map_rows, cf,
+                          plan.feat_dim, sms, stream);
+    f_hi = feat_hi;
+    f_lo = feat_lo;
+  } else if (plan.feat_dim != cf) {
+    if (feat_hi == nullptr) return static_cast<int>(cudaErrorInvalidValue);
+    err = prep<kPadBf16>(feats, feat_hi, nullptr, map_rows, cf,
+                         plan.feat_dim, sms, stream);
+    f_hi = f_lo = feat_hi;
+  }
+  if (err != cudaSuccess) return static_cast<int>(err);
+  if (code_hi == nullptr || (!kBf16 && code_lo == nullptr)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  err = kBf16 ? prep<kRoundBf16>(code, code_hi, nullptr, map_rows, cc,
+                                 plan.code_dim, sms, stream)
+              : prep<kSplitF32>(code, code_hi, code_lo, map_rows, cc,
+                                plan.code_dim, sms, stream);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const void* c_lo = kBf16 ? code_hi : code_lo;
+  const auto f32 = CU_TENSOR_MAP_DATA_TYPE_FLOAT32;
+  const auto bf16 = CU_TENSOR_MAP_DATA_TYPE_BFLOAT16;
+  const auto sw = CU_TENSOR_MAP_SWIZZLE_128B;
+  // a box row is one 128-byte panel: 32 f32 or 64 bf16 channels
+  const int fe = kFeatF32 ? 4 : 2;
+  const int ce = kBf16 ? 2 : 4;
+  CUtensorMap tf_hi, tf_lo, tc_hi, tc_lo;
+  if (!make_map(&tf_hi, kFeatF32 ? f32 : bf16, fe, f_hi, plan.feat_dim, n,
+                maps, plan.feat_dim, kPanelBytes / fe, kTile, sw) ||
+      !make_map(&tf_lo, kFeatF32 ? f32 : bf16, fe, f_lo, plan.feat_dim, n,
+                maps, plan.feat_dim, kPanelBytes / fe, kTile, sw) ||
+      !make_map(&tc_hi, kBf16 ? bf16 : f32, ce, code_hi, plan.code_dim, n,
+                maps, plan.code_dim, kPanelBytes / ce, kTile, sw) ||
+      !make_map(&tc_lo, kBf16 ? bf16 : f32, ce, c_lo, plan.code_dim, n, maps,
+                plan.code_dim, kPanelBytes / ce, kTile, sw)) {
+    return kTensorMapError;
+  }
+  CUtensorMap tfd = tf_hi;  // read only by a TMA-store build, with fd
+  if (kTmaStore && fd != nullptr &&
+      !make_map(&tfd, f32, 4, fd, n, n, rows, fd_pitch(n), kTile / 2, kTile,
+                sw)) {
+    return kTensorMapError;
+  }
+  const long long items =
+      static_cast<long long>((n + kBlockRows - 1) / kBlockRows) * rows;
+  const int grid = static_cast<int>(std::min<long long>(items, sms));
+  kernel<<<grid, kFwdThreads, kFwdSmem, stream>>>(
+      tf_hi, tf_lo, tc_hi, tc_lo, tfd, static_cast<const float*>(code),
+      static_cast<const int*>(idx1), static_cast<const int*>(idx2),
+      static_cast<float*>(acc), static_cast<float*>(fd),
+      static_cast<uint32_t*>(mask), rows, maps, n, cf, cc, lo, hi);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <bool kBf16, bool kFeatF32>
+int fwd_occupancy(int device, int* out) {
+  const auto kernel = corr_stream_fwd_kernel<kBf16, kFeatF32>;
+  cudaError_t err = prepare(kernel, device, kFwdSmem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  cudaFuncAttributes attr;
+  err = cudaFuncGetAttributes(&attr, kernel);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  int blocks = 0;
+  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, kernel,
+                                                      kFwdThreads, kFwdSmem);
+  out[0] = attr.numRegs;
+  out[1] = static_cast<int>(kFwdSmem);
+  out[2] = blocks;
+  out[3] = kFwdStages;
+  return static_cast<int>(err);
 }
 
 static_assert(kCodePitchF32 == kCodePitchBf16, "one code-tile pitch");
@@ -1378,34 +1519,69 @@ int launch_bwd(const void* fd, const void* mask, const void* code_tiles,
 // s2, s3 and sum cd of every side-1 row; and, unless fd and mask are null
 // (no gradient is taken), fd (rows, n, fd_pitch(n)) f32 and the clamp mask
 // (rows, n, mask_words(n)) of 32-bit words (bit j % 32 of word j / 32) of
-// every pair row whose map indices are in range, columns below n. cf <=
-// 768, rows and maps <= 65535; code channels above 128 come in chunks of
-// 128. code_bf16 rounds the code to bf16 for cd. Returns the CUDA error
-// code of the launch (0 on success).
+// every pair row whose map indices are in range, columns below n. The
+// buffers the caller prepares for the copies the tensor maps read (row
+// pitches: f32 channels rounded up to 4, bf16 to 8): f32 features' TF32
+// parts feat_hi and feat_lo (maps, n, cf4) f32, or bf16 features of cf not
+// a multiple of 8 padded into feat_hi (maps, n, cf8) bf16 (else both may be
+// null); f32 code's TF32 parts code_hi and code_lo (maps, n, cc4) f32, or
+// with code_bf16 the bf16 code in code_hi (maps, n, cc8) (code_lo may then
+// be null). cf <= 768, rows and maps <= 65535, any cc. code_bf16 rounds the
+// code to bf16 for cd. Returns the CUDA error code of the launches (0 on
+// success), or 20001 when cuTensorMapEncodeTiled refuses a tensor map.
 extern "C" int stego_corr_stream_fwd(const void* feats, const void* code,
                                      const void* idx1, const void* idx2,
                                      void* acc, void* fd, void* mask,
-                                     int rows, int maps, int n, int cf,
-                                     int cc, int code_bf16, int feat_f32,
-                                     float lo, float hi, int device,
-                                     void* stream) {
+                                     void* feat_hi, void* feat_lo,
+                                     void* code_hi, void* code_lo, int rows,
+                                     int maps, int n, int cf, int cc,
+                                     int code_bf16, int feat_f32, float lo,
+                                     float hi, int device, void* stream) {
   if (bad_shape(rows, maps, n, cc) || cf <= 0 || cf > kMaxFeat ||
       (fd == nullptr) != (mask == nullptr)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  using Launch = cudaError_t (*)(const void*, const void*, const void*,
-                                 const void*, void*, void*, void*, int, int,
-                                 int, int, int, float, float, int,
-                                 cudaStream_t);
+  using Launch = int (*)(const void*, const void*, const void*, const void*,
+                         void*, void*, void*, void*, void*, void*, void*, int,
+                         int, int, int, int, float, float, int, cudaStream_t);
   Launch launch;
   if (code_bf16) {
     launch = feat_f32 ? &launch_fwd<true, true> : &launch_fwd<true, false>;
   } else {
     launch = feat_f32 ? &launch_fwd<false, true> : &launch_fwd<false, false>;
   }
-  return static_cast<int>(launch(feats, code, idx1, idx2, acc, fd, mask,
-                                 rows, maps, n, cf, cc, lo, hi, device, st));
+  return launch(feats, code, idx1, idx2, acc, fd, mask, feat_hi, feat_lo,
+                code_hi, code_lo, rows, maps, n, cf, cc, lo, hi, device, st);
+}
+
+// The forward kernel's registers a thread, dynamic shared memory (bytes),
+// blocks an SM by the occupancy API and ring stages, into out[0..3], for
+// its f32 or bf16 code and features. Returns the CUDA error code (0 on
+// success).
+extern "C" int stego_corr_stream_fwd_occupancy(int code_bf16, int feat_f32,
+                                               int device, int* out) {
+  if (code_bf16) {
+    return feat_f32 ? fwd_occupancy<true, true>(device, out)
+                    : fwd_occupancy<true, false>(device, out);
+  }
+  return feat_f32 ? fwd_occupancy<false, true>(device, out)
+                  : fwd_occupancy<false, false>(device, out);
+}
+
+// The entries the forward's fix-up recomputed since the last call, into
+// *out, and the count set to 0: a build with STEGO_C2_FWD_ABLATION's bit 16
+// counts them; every other build reads 0. Returns the CUDA error code.
+extern "C" int stego_corr_stream_fwd_fixups(int device, void* out) {
+  cudaError_t err = cudaSetDevice(device);
+  if (err == cudaSuccess) {
+    err = cudaMemcpyFromSymbol(out, g_fixups, sizeof(unsigned long long));
+  }
+  const unsigned long long zero = 0;
+  if (err == cudaSuccess) {
+    err = cudaMemcpyToSymbol(g_fixups, &zero, sizeof(zero));
+  }
+  return static_cast<int>(err);
 }
 
 // The forward's fd and mask (as it writes them) and acc; code_tiles (maps,
@@ -1434,24 +1610,6 @@ extern "C" int stego_corr_stream_bwd(const void* fd, const void* mask,
   return (code_bf16 ? &launch_bwd<true> : &launch_bwd<false>)(
       fd, mask, code_tiles, idx1, idx2, acc, scal, row_group, order, offsets,
       dcode, rows, maps, n, cc, pointwise, device, st);
-}
-
-// The forward's launch at (n, cf, cc) and its feature and code types:
-// registers a thread, dynamic shared memory (bytes) and the blocks an SM
-// holds by the occupancy API, into out[0..2]. Returns the CUDA error code
-// (0 on success).
-extern "C" int stego_corr_stream_fwd_occupancy(int n, int cf, int cc,
-                                               int code_bf16, int feat_f32,
-                                               int device, int* out) {
-  if (n <= 0 || cf <= 0 || cf > kMaxFeat || cc <= 0) {
-    return static_cast<int>(cudaErrorInvalidValue);
-  }
-  if (code_bf16) {
-    return feat_f32 ? fwd_occupancy<true, true>(n, cf, cc, device, out)
-                    : fwd_occupancy<true, false>(n, cf, cc, device, out);
-  }
-  return feat_f32 ? fwd_occupancy<false, true>(n, cf, cc, device, out)
-                  : fwd_occupancy<false, false>(n, cf, cc, device, out);
 }
 
 // The backward's launch at cc code channels (f32 or, with code_bf16, bf16

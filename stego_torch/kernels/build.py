@@ -12,8 +12,8 @@ kernel added to ``csrc/`` lengthens it only when it is the slowest one
     nvcc -gencode arch=compute_90a,code=sm_90a -shared \
          -o build/stego_torch/libstego_torch_<hash>.so *.o -lcuda
 
-(``-lcuda``: kernel A and C2's backward build their TMA tensor maps with
-the CUDA driver's ``cuTensorMapEncodeTiled``.)
+(``-lcuda``: kernels A and C2 build their TMA tensor maps with
+``cuTensorMapEncodeTiled`` from libcuda.)
 
 The library is built at first use, into ``build/stego_torch/`` at the root of
 the checkout (listed in ``.gitignore``), and named by a hash of the flags,
@@ -64,10 +64,11 @@ SIGNATURES = {
     "stego_corr_sampled_fwd": (_P,) * 10 + (_I,) * 8 + (_F, _F, _I, _P),
     "stego_corr_sampled_bwd": (_P,) * 10 + (_I,) * 6 + (_F, _F, _I, _F, _I,
                                                         _P),
-    "stego_corr_stream_fwd": (_P,) * 7 + (_I,) * 7 + (_F, _F, _I, _P),
+    "stego_corr_stream_fwd": (_P,) * 11 + (_I,) * 7 + (_F, _F, _I, _P),
     "stego_corr_stream_bwd": (_P,) * 11 + (_I,) * 7 + (_P,),
     "stego_corr_stream_bwd_occupancy": (_I, _I, _I, _P),
-    "stego_corr_stream_fwd_occupancy": (_I,) * 6 + (_P,),
+    "stego_corr_stream_fwd_occupancy": (_I, _I, _I, _P),
+    "stego_corr_stream_fwd_fixups": (_I, _P),
 }
 
 _lock = threading.Lock()

@@ -15,8 +15,10 @@ sample: the reference recenters fd with the mean of each helper() call
 * :func:`fused_correlation_loss_plain` is C2's plain PyTorch version, on
   normalized (R, N, C) pair rows, with the kernel's rounding points: fd from
   ``feat_dtype`` values with f32 accumulation, cd in f32 (the kernel takes
-  fd on f32 features and the backward's f32 products by 3xTF32 on the
-  tensor cores, ``ops/tf32.py``; with
+  fd on f32 features, the f32 cd and the backward's f32 products by
+  3xTF32 on the tensor cores, ``ops/tf32.py``, and recomputes by f32 FMA
+  in channel order every cd within a margin of a clamp bound, so that its
+  clamp masks are that FMA's, ``ops/tf32.py:cd_tf32x3_fixup``; with
   ``code_bf16``, from bf16-rounded code, and the backward's dL/dcd rounded
   to bf16 before its products, ``pallas_corr.py:251-260``). Autograd gives
   its backward.
@@ -431,17 +433,30 @@ def backward_occupancy(cc: int, code_bf16: bool,
     return dict(zip(("stages", "smem_bytes", "blocks_per_sm"), out))
 
 
-def forward_occupancy(n: int, cf: int, cc: int, code_bf16: bool,
-                      feat_f32: bool, device: torch.device) -> Dict[str, int]:
-    """The forward kernel's launch at (n, cf, cc) on ``device`` (a CUDA
-    device): registers a thread, dynamic shared memory (bytes) and the
-    blocks an SM holds (the occupancy API)."""
-    out = (ctypes.c_int * 3)()
+def forward_occupancy(code_bf16: bool, feat_f32: bool,
+                      device: torch.device) -> Dict[str, int]:
+    """The forward kernel's launch on ``device`` (a CUDA device) for its
+    code and feature types: registers a thread, dynamic shared memory
+    (bytes), the blocks an SM holds (the occupancy API) and its ring
+    stages."""
+    out = (ctypes.c_int * 4)()
     build.check(build.library().stego_corr_stream_fwd_occupancy(
-        n, cf, cc, int(code_bf16), int(feat_f32),
-        torch.device(device).index or 0, out),
-        "corr_stream forward occupancy")
-    return dict(zip(("registers", "smem_bytes", "blocks_per_sm"), out))
+        int(code_bf16), int(feat_f32), torch.device(device).index or 0,
+        out), "corr_stream forward occupancy")
+    return dict(zip(("registers", "smem_bytes", "blocks_per_sm", "stages"),
+                    out))
+
+
+def fixup_count(lib, device: torch.device) -> int:
+    """The entries whose cd the forward's fix-up recomputed by FMA since
+    the last call, in a library built to count them
+    (``-DSTEGO_C2_FWD_ABLATION=16``, ``tools/c2_ablation.py``); 0 in any
+    other build. Resets the count."""
+    out = ctypes.c_ulonglong(0)
+    build.check(lib.stego_corr_stream_fwd_fixups(
+        torch.device(device).index or 0, ctypes.byref(out)),
+        "corr_stream forward fix-up count")
+    return int(out.value)
 
 
 def forward_launch(lib, feats: torch.Tensor, code: torch.Tensor,
@@ -452,23 +467,51 @@ def forward_launch(lib, feats: torch.Tensor, code: torch.Tensor,
     that ``tools/c2_ablation.py`` times) on contiguous normalized maps
     ``feats`` (M, N, CF) bf16 or f32 and ``code`` (M, N, CC) f32 and int32
     pair-row indices: (acc (R, 4, N), fd, mask), fd and mask empty unless
-    ``keep``."""
+    ``keep``. It allocates the copies that the kernel's TMA reads
+    (``csrc/corr_stream.cu:stego_corr_stream_fwd``), which its first
+    launches fill: the f32 code as its TF32 high and low parts, padded to 4
+    channels, since a TMA box row is a multiple of 16 bytes and a code row
+    of 70 f32 is 280 (``code_bf16``: the bf16 code padded to 8; 14.5 and
+    3.6 MB at the full-field shape); f32 features as their TF32 parts too
+    (+2x their bytes, 77 MB at the full-field shape); bf16 features padded
+    to 8 channels where they are not (100 channels: a 200-byte row)."""
     dev = code.device
     m, n, cc = code.shape
     cf = feats.shape[-1]
     r = i1.shape[0]
     feats = feats.contiguous()
-    acc = torch.empty((r, 4, n), dtype=torch.float32, device=dev)
-    fd = torch.empty((r, n, fd_pitch(n)) if keep else (0,),
-                     dtype=torch.float32, device=dev)
+    feat_f32 = feats.dtype == torch.float32
+    f32, bf16 = torch.float32, torch.bfloat16
+
+    def padded(c, mult, dtype):
+        return torch.empty((m, n, -(-c // mult) * mult), dtype=dtype,
+                           device=dev)
+
+    feat_hi = feat_lo = None
+    if feat_f32:
+        feat_hi, feat_lo = padded(cf, 4, f32), padded(cf, 4, f32)
+    elif cf % 8:
+        feat_hi = padded(cf, 8, bf16)
+    if code_bf16:
+        code_hi, code_lo = padded(cc, 8, bf16), None
+    else:
+        code_hi, code_lo = padded(cc, 4, f32), padded(cc, 4, f32)
+    acc = torch.empty((r, 4, n), dtype=f32, device=dev)
+    fd = torch.empty((r, n, fd_pitch(n)) if keep else (0,), dtype=f32,
+                     device=dev)
     mask = torch.empty((r, n, mask_words(n)) if keep else (0,),
                        dtype=torch.int32, device=dev)
     lo, hi = clamp_bounds(zero_clamp, stabalize)
+
+    def ptr(t):
+        return None if t is None else t.data_ptr()
+
     err = lib.stego_corr_stream_fwd(
         feats.data_ptr(), code.data_ptr(), i1.data_ptr(), i2.data_ptr(),
         acc.data_ptr(), fd.data_ptr() if keep else None,
-        mask.data_ptr() if keep else None, r, m, n, cf, cc, int(code_bf16),
-        int(feats.dtype == torch.float32), lo, hi, dev.index,
+        mask.data_ptr() if keep else None, ptr(feat_hi), ptr(feat_lo),
+        ptr(code_hi), ptr(code_lo), r, m, n, cf, cc, int(code_bf16),
+        int(feat_f32), lo, hi, dev.index,
         torch.cuda.current_stream(dev).cuda_stream)
     build.check(err, "corr_stream forward kernel")
     return acc, fd, mask

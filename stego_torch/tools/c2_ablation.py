@@ -2,31 +2,40 @@
 
     python -m stego_torch.tools.c2_ablation [--iters 20]
 
-C2's forward (``csrc/corr_stream.cu``) takes fd and cd tile by tile, sums
-the rows and, when a gradient is taken, keeps fd and the clamp mask. This
-builds variants of the kernel library with parts of the forward left out
-(``STEGO_C2_FWD_ABLATION``: 1 the fd products, 2 the cd products, 4 the
-stores of fd and the mask, 7 all three, which leaves the loads alone) and
-times each variant's forward, with a gradient kept, beside the port's, and
-prints the forward's registers, shared memory and blocks an SM (the
-occupancy API). C2's backward (``csrc/corr_stream.cu``) streams the forward's stored fd and
-clamp mask through a TMA ring, forms the coefficients from them and runs
-dc_tile's products on the tensor cores. This builds variants of the kernel
-library with parts of the backward left out (``STEGO_C2_BWD_ABLATION``:
-1 the products, 2 the coefficients, 3 both, which leaves the ring's
-reads and barriers; 4 dc_tile with a run-time slot count in place of its
-constant one) and times each variant's backward beside the port's on the
-same saved tensors, at the shapes of ``chip_smoke.py``'s C2 rows: B=16,
-five negatives, 70 code channels f32 and bf16 (``code_bf16``) at 28x28
-(full-field) and 11x11 (grid-sampled), and 160 f32 at 28x28, bf16 features
-at 384; and at 28x28 with 70 f32 code channels, f32 features at 384 and
-bf16 features at 768. It also times the forward with a gradient (keeping fd and the
-mask) and under ``torch.no_grad()`` (keeping neither). Times are device ms
-per launch of the kernels named ``corr_stream_*`` (the profiler's trace,
-``--iters`` launches after a warm-up), each variant timed twice, in the
-order 0 1 2 3 4 4 3 2 1 0 (the forward's 0 1 2 4 7 7 4 2 1 0), and averaged.
-The port's backward must give the autograd gradient bit for bit; the
-variants' outputs are not checked (they are wrong by design). Exits 1 when there is no CUDA device.
+C2's forward (``csrc/corr_stream.cu``) streams feature and code panels
+through a TMA ring into wgmma, fixes up the f32 cd near the clamp bounds,
+sums the rows and, when a gradient is taken, keeps fd and the clamp mask.
+This builds variants of the kernel library (each its own hashed ``.so``)
+with parts of the forward left out (``STEGO_C2_FWD_ABLATION``: 1 the fd
+products, 2 the cd products, 4 the stores of fd and the mask, 7 all three,
+which leaves the ring's loads alone, 8 the fix-up), with one consumer
+warpgroup a block (64 side-1 rows, ``STEGO_C2_FWD_CONSUMERS=1``) in place
+of two, and with the kept fd tile written by plain stores from the
+accumulators in place of the port's TMA stores from shared memory
+(``STEGO_C2_FWD_TMA_STORE=0``), with the four ring stages that leaves room
+for and with the port's three (``STEGO_C2_FWD_STAGES=3``), and times each
+variant's forward, with a gradient kept, beside the port's (the last three
+must give the port's outputs bit for bit); it prints how many entries the fix-up recomputed (a counting build,
+``STEGO_C2_FWD_ABLATION=16``) and the forward's registers, shared memory,
+blocks an SM and ring stages (the occupancy API). C2's backward streams the
+forward's stored fd and clamp mask through a TMA ring, forms the
+coefficients from them and runs dc_tile's products on the tensor cores;
+its variants (``STEGO_C2_BWD_ABLATION``: 1 the products, 2 the
+coefficients, 3 both, which leaves the ring's reads and barriers; 4
+dc_tile with a run-time slot count in place of its constant one) are timed
+beside the port's backward on the same saved tensors. The shapes are those
+of ``chip_smoke.py``'s C2 rows: B=16, five negatives, 70 code channels f32
+and bf16 (``code_bf16``) at 28x28 (full-field) and 11x11 (grid-sampled),
+and 160 f32 at 28x28, bf16 features at 384; and at 28x28 with 70 f32 code
+channels, f32 features at 384 and bf16 features at 768. It also times the
+forward with a gradient (keeping fd and the mask) and under
+``torch.no_grad()`` (keeping neither). Times are device ms per launch of
+the kernels named ``corr_stream_*`` (the profiler's trace, ``--iters``
+launches after a warm-up; the forward's input copies count with it), each
+variant timed twice, the second pass in reverse order, and averaged. The
+port's backward must give the autograd gradient bit for bit; the
+variants' outputs are not checked (the ablated ones are wrong by design).
+Exits 1 when there is no CUDA device.
 """
 
 from __future__ import annotations
@@ -43,8 +52,23 @@ from stego_torch.ops.math import super_perm
 
 VARIANTS = {0: "the kernel", 1: "no products", 2: "no coefficients",
             3: "ring alone", 4: "run-time slots"}
-FWD_VARIANTS = {0: "the kernel", 1: "no fd products", 2: "no cd products",
-                4: "no fd or mask stores", 7: "loads alone"}
+# the forward's variants: their build flags
+FWD_VARIANTS = {
+    "the kernel": (),
+    "no fd products": ("-DSTEGO_C2_FWD_ABLATION=1",),
+    "no cd products": ("-DSTEGO_C2_FWD_ABLATION=2",),
+    "no fd or mask stores": ("-DSTEGO_C2_FWD_ABLATION=4",),
+    "loads alone": ("-DSTEGO_C2_FWD_ABLATION=7",),
+    "no fix-up": ("-DSTEGO_C2_FWD_ABLATION=8",),
+    "one consumer warpgroup": ("-DSTEGO_C2_FWD_CONSUMERS=1",),
+    "plain fd stores (4 ring stages)": ("-DSTEGO_C2_FWD_TMA_STORE=0",),
+    "plain fd stores, 3 ring stages": ("-DSTEGO_C2_FWD_TMA_STORE=0",
+                                       "-DSTEGO_C2_FWD_STAGES=3"),
+}
+# the variants whose outputs must be the port's bit for bit
+SAME_OUTPUTS = ("one consumer warpgroup", "plain fd stores (4 ring stages)",
+                "plain fd stores, 3 ring stages")
+COUNT_FIXUPS = ("-DSTEGO_C2_FWD_ABLATION=16",)
 # (maps' side, code channels, code_bf16, name, feature type, channels)
 BF16, F32 = torch.bfloat16, torch.float32
 SHAPES = ((28, 70, False, "full-field", BF16, 384),
@@ -75,21 +99,21 @@ def kernel_ms(fn, prefix: str, iters: int) -> float:
 
 
 def libraries() -> tuple:
-    """The port's library and one variant a bit pattern of the backward
-    and of the forward, ({bits: backward's}, {bits: forward's}), built in
-    parallel (one nvcc a source each)."""
-    def one(key):
-        name, bits = key
-        if bits == 0:
-            return build.library()
-        return build.load(build.build((f"-D{name}={bits}",)))
+    """The port's library and the variants, ({bits: backward's}, {label:
+    forward's}, the counting build), built in parallel (one nvcc a source
+    each)."""
+    def one(flags):
+        return build.load(build.build(flags)) if flags else build.library()
 
-    keys = ([("STEGO_C2_BWD_ABLATION", b) for b in VARIANTS]
-            + [("STEGO_C2_FWD_ABLATION", b) for b in FWD_VARIANTS])
+    keys = ([(f"-DSTEGO_C2_BWD_ABLATION={b}",) if b else ()
+             for b in VARIANTS] + list(FWD_VARIANTS.values())
+            + [COUNT_FIXUPS])
     with ThreadPoolExecutor(len(keys)) as pool:
         libs = list(pool.map(one, keys))
-    return (dict(zip(VARIANTS, libs[:len(VARIANTS)])),
-            dict(zip(FWD_VARIANTS, libs[len(VARIANTS):])))
+    nb = len(VARIANTS)
+    return (dict(zip(VARIANTS, libs[:nb])),
+            dict(zip(FWD_VARIANTS, libs[nb:nb + len(FWD_VARIANTS)])),
+            libs[-1])
 
 
 def main(argv=None) -> int:
@@ -100,7 +124,15 @@ def main(argv=None) -> int:
         print("c2_ablation: no CUDA device", file=sys.stderr)
         return 1
     dev = torch.device("cuda")
-    libs, fwd_libs = libraries()
+    libs, fwd_libs, counting = libraries()
+    for code_bf16 in (False, True):
+        for feat_f32 in (False, True):
+            occ = c2.forward_occupancy(code_bf16, feat_f32, dev)
+            print(f"C2 forward, {'bf16' if code_bf16 else 'f32'} code, "
+                  f"{'f32' if feat_f32 else 'bf16'} features: "
+                  f"{occ['registers']} registers, {occ['smem_bytes']} bytes "
+                  f"of shared memory, {occ['blocks_per_sm']} blocks an SM, "
+                  f"{occ['stages']} ring stages (occupancy API)")
     g = torch.Generator(device=dev).manual_seed(5)
     b, neg = 16, 5
     shifts = [0.18, 0.12] + [0.46] * neg
@@ -142,15 +174,33 @@ def main(argv=None) -> int:
         with torch.no_grad():
             no_keep = kernel_ms(forward, "corr_stream_fwd", args.iters)
         keep2 = kernel_ms(forward, "corr_stream_fwd", args.iters)
-        fwd = {bits: [] for bits in FWD_VARIANTS}
+        fwd = {label: [] for label in FWD_VARIANTS}
         i1, i2 = idx1.to(torch.int32), idx2.to(torch.int32)
-        for bits in [*FWD_VARIANTS, *reversed(FWD_VARIANTS)]:
-            fwd[bits].append(kernel_ms(
-                lambda lib=fwd_libs[bits]: c2.forward_launch(
+        for label in [*FWD_VARIANTS, *reversed(FWD_VARIANTS)]:
+            fwd[label].append(kernel_ms(
+                lambda lib=fwd_libs[label]: c2.forward_launch(
                     lib, feats, code, i1, i2, True, False, code_bf16, True),
                 "corr_stream_fwd", args.iters))
-        occ = c2.forward_occupancy(hw * hw, cf, cc, code_bf16,
-                                   fdt == F32, dev)
+        def outputs(lib):
+            acc, fd, mask = c2.forward_launch(lib, feats, code, i1, i2, True,
+                                              False, code_bf16, True)
+            n = hw * hw
+            return acc, fd[..., :n], c2.unpack_mask(mask, n)
+
+        port = outputs(fwd_libs["the kernel"])
+        for label in SAME_OUTPUTS:
+            if not all(torch.equal(x, y) for x, y in
+                       zip(port, outputs(fwd_libs[label]))):
+                print(f"c2_ablation: the forward's variant {label!r} at "
+                      f"{name}, {cc} channels differs from the port's",
+                      file=sys.stderr)
+                return 1
+        c2.fixup_count(counting, dev)
+        c2.forward_launch(counting, feats, code, i1, i2, True, False,
+                          code_bf16, True)
+        torch.cuda.synchronize()
+        fixed = c2.fixup_count(counting, dev)
+        entries = idx1.numel() * (hw * hw) ** 2
         print(f"C2 {name} (N={hw * hw}), {cc} code channels "
               f"{'bf16' if code_bf16 else 'f32'}, {cf} {str(fdt)[6:]} "
               f"features: backward ms "
@@ -158,11 +208,10 @@ def main(argv=None) -> int:
                           for bits, t in bwd.items())
               + f"; forward ms keeping fd and mask {(keep + keep2) / 2:.4f}, "
               f"keeping neither {no_keep:.4f}; forward variants ms "
-              + ", ".join(f"{FWD_VARIANTS[bits]} {sum(t) / 2:.4f}"
-                          for bits, t in fwd.items())
-              + f"; forward occupancy {occ['registers']} registers, "
-              f"{occ['smem_bytes']} bytes of shared memory, "
-              f"{occ['blocks_per_sm']} blocks an SM")
+              + ", ".join(f"{label} {sum(t) / 2:.4f}"
+                          for label, t in fwd.items())
+              + f"; the fix-up recomputed {fixed} of {entries} entries "
+              f"(zero_clamp)")
     return 0
 
 

@@ -12,8 +12,14 @@ output whether the two are bitwise equal and their largest difference.
 Both checkouts are driven through their public functions only, so their
 C entry points may differ (C2's backward took the features until it read
 the fd and mask that its forward keeps). C1's code gradients add with
-atomics, so their last bits follow the order of the adds; every other
-output of a change that keeps the kernels' arithmetic is bitwise equal.
+atomics, so their last bits follow the order of the adds. C2's forward
+takes its f32 cd by 3xTF32 with an FMA fix-up near the clamp bounds (PR
+10; before it, f32 FMA throughout) and sums each row's columns in another
+order, so its losses, cd means and code gradients differ from an older
+checkout's in their last bits, by design: each line gives whether two
+outputs are bitwise equal and their largest difference, absolute and
+relative to the larger output's largest value. Every other output of a
+change that keeps the kernels' arithmetic is bitwise equal.
 It also prints each case's kernel time, forward and backward, in both
 checkouts: the summed device time of the kernels named ``corr_*`` (the
 profiler's trace, 20 calls after a warm-up), so that the two are timed
@@ -156,8 +162,11 @@ def main(argv=None) -> int:
     for key, tensors in this["outputs"].items():
         names = C1_OUTPUTS if key.startswith("C1") else C2_OUTPUTS
         for name, x, y in zip(names, other["outputs"][key], tensors):
+            diff = float((x - y).abs().max())
+            scale = max(float(x.abs().max()), float(y.abs().max()), 1e-30)
             print(f"{key}: {name}: bitwise equal {torch.equal(x, y)}, max "
-                  f"abs diff {float((x - y).abs().max()):.3e}")
+                  f"abs diff {diff:.3e} ({diff / scale:.3e} of the largest "
+                  f"|value|)")
     for key, (fwd, bwd) in this["ms"].items():
         fwd_o, bwd_o = other["ms"][key]
         print(f"{key}: kernel ms forward {fwd:.4f} (other {fwd_o:.4f}, "

@@ -819,6 +819,78 @@ def test_corr_stream_backward_matches_plain_on_stored_fd(
     assert torch.equal(saved["mask"][rows][clear], plain_mask[clear])
 
 
+def _near_bound_inputs(dev, cc, feat_dtype, b=4, hw=9, neg=1, cf=64,
+                       seed=0):
+    """C2's full-field pair rows over code maps whose cd lie many within
+    1e-6 of the clamp bounds 0 and 0.8 (ops/tf32.py:near_bound_code) and
+    seeded normalized features; and the clamp mask of each bound pair of
+    the FMA chain in channel order (ops/tf32.py:cd_fma, emulated exactly)."""
+    from stego_torch.ops import corr_stream as c2
+    from stego_torch.ops import tf32
+    from stego_torch.ops.math import super_perm
+
+    g = torch.Generator(device=dev).manual_seed(seed)
+    m = 2 * b
+    code = tf32.near_bound_code(m, hw * hw, cc, seed).to(dev)
+    feats = c2.prep(torch.randn(m, hw, hw, cf, generator=g, device=dev),
+                    feat_dtype)
+    ar = torch.arange(b, device=dev)
+    idx1 = ar.repeat(2 + neg)
+    idx2 = torch.cat([ar, ar + b] + [super_perm(b, g) for _ in range(neg)])
+    cd = tf32.cd_fma(code[idx1], code[idx2])
+    masks = {}
+    for zero_clamp, stabalize in ((True, False), (False, True)):
+        lo, hi = c2.clamp_bounds(zero_clamp, stabalize)
+        near = ((cd - (lo if zero_clamp else hi)).abs() < 1e-6).sum()
+        assert int(near) > 100
+        masks[(zero_clamp, stabalize)] = (cd >= lo) & (cd <= hi)
+    return feats, code, idx1, idx2, [0.18, 0.12] + [0.46] * neg, masks
+
+
+@pytest.mark.parametrize("feat_dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("zero_clamp,stabalize", [(True, False),
+                                                  (False, True)])
+@pytest.mark.parametrize("cc", [70, 160])
+def test_corr_stream_stored_mask_is_the_fma_mask_near_bounds(
+        cuda, cc, zero_clamp, stabalize, feat_dtype):
+    """The forward takes the f32 cd by 3xTF32 and recomputes by FMA in
+    channel order every entry within fixup_eps of a clamp bound: its
+    stored clamp mask equals the FMA chain's bit for bit on code built to
+    put many cd within 1e-6 of 0 and 0.8, at 70 code channels and past one
+    chunk of 128 (160), with bf16 and f32 features."""
+    from stego_torch.ops import corr_stream as c2
+
+    feats, code, idx1, idx2, shifts, masks = _near_bound_inputs(
+        cuda, cc, feat_dtype, seed=cc)
+    c = code.clone().requires_grad_(True)
+    losses, _ = c2.stream_loss(feats, c, idx1, idx2, shifts,
+                               [4] * len(shifts), zero_clamp=zero_clamp,
+                               stabalize=stabalize)
+    assert torch.equal(c2.kernel_saved(losses)["mask"],
+                       masks[(zero_clamp, stabalize)])
+
+
+@pytest.mark.parametrize("feat_dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("zero_clamp,stabalize", [(True, False),
+                                                  (False, True)])
+def test_corr_stream_fma_mask_control_without_fixup_fails(
+        cuda, zero_clamp, stabalize, feat_dtype):
+    """The control of the near-bound mask check: a build of the forward
+    without the fix-up (STEGO_C2_FWD_ABLATION=8, as tools/c2_ablation.py
+    builds its variants), its cd by 3xTF32 alone, stores masks that differ
+    from the FMA chain's on the same inputs."""
+    from stego_torch.kernels import build
+    from stego_torch.ops import corr_stream as c2
+
+    lib = build.load(build.build(("-DSTEGO_C2_FWD_ABLATION=8",)))
+    feats, code, idx1, idx2, _, masks = _near_bound_inputs(
+        cuda, 70, feat_dtype, seed=70)
+    _, _, mask = c2.forward_launch(lib, feats, code, idx1.int(), idx2.int(),
+                                   zero_clamp, stabalize, False, True)
+    got = c2.unpack_mask(mask, code.shape[1])
+    assert not torch.equal(got, masks[(zero_clamp, stabalize)])
+
+
 def test_corr_stream_forward_keeps_fd_only_for_a_gradient(cuda):
     """At the full-field shape the forward allocates fd (112 x 784 x 784
     f32, 275 MB) and the mask only when a gradient can be taken: under
