@@ -73,18 +73,20 @@
 // gradient side (and code chunk), 0.174 ms of bytes, which its ownership
 // needs and the gradient does not.
 //
-// Forward design, Hopper's shape (a TMA ring, a producer warp, wgmma).
+// Forward design, Hopper's shape (a TMA ring, a producer, wgmma).
 // Persistent blocks, one an SM (min(items, SMs)), walk the items: 128 rows
 // of side 1 of a pair row, row tiles fastest, so that the blocks at work
 // read the same side-2 maps from L2. A block is two consumer warpgroups of
 // 64 side-1 rows (one warpgroup a block took about 1.5x the time: each
-// side-2 box then feeds 64 rows, not 128) and a producer warp. For every
-// 64-column tile of side 2 the producer's one thread puts the tile's
-// stages, features first and then code, into a ring of three 48 KB stages
-// by TMA; a stage is boxes of 64 rows x 128 bytes (one 128-byte swizzle
-// row of channels) of each consumer's side-1 rows and of side 2's rows:
-// bf16 two panels of 64 channels, f32 the TF32 high and low parts of one
-// panel of 32. The entry's first launches copy the operands as the tensor
+// side-2 box then feeds 64 rows, not 128) and a producer warpgroup, which
+// gives its registers to the consumers (setmaxnreg, up to 240 a consumer
+// thread: with a producer warp, ptxas held the kernel to 168, spilled 52
+// bytes and took 1.01-1.06x the time). For every 64-column tile of side 2
+// the producer's one thread puts the tile's stages, features first and
+// then code, into a ring of three 48 KB stages by TMA; a stage is boxes of
+// 64 rows x 128 bytes (one 128-byte swizzle row of channels) of each
+// consumer's side-1 rows and of side 2's rows: bf16 two panels of 64
+// channels, f32 the TF32 high and low parts of one panel of 32. The entry's first launches copy the operands as the tensor
 // maps read them (corr_stream_fwd_prep_kernel: the f32 features' and
 // code's TF32 parts, code_bf16's bf16 code; a TMA box row is a multiple of
 // 16 bytes and a code row of 70 f32 is 280, so the code is copied anyway;
@@ -454,7 +456,15 @@ constexpr int kFwdCountFixup = 16;
 #endif
 constexpr int kConsumers = STEGO_C2_FWD_CONSUMERS;
 constexpr int kWarpgroup = 128;
-constexpr int kFwdThreads = kConsumers * kWarpgroup + 32;  // and a producer
+// and a producer warpgroup, one thread of which starts every copy: a whole
+// warpgroup, so that setmaxnreg can hand its registers to the consumers
+constexpr int kFwdThreads = (kConsumers + 1) * kWarpgroup;
+// Registers a thread of the producer and of a consumer holds after
+// setmaxnreg: 128 x 24 + 256 x 240 = 64512 with two consumers, within the
+// 384 x 168 that a block of 384 threads is launched with.
+constexpr int kProducerRegs = 24;
+constexpr int kConsumerRegs = kConsumers == 1 ? 256 : kConsumers == 2 ? 240
+                                                                      : 160;
 constexpr int kBlockRows = kConsumers * kTile;
 constexpr int kPanelBytes = 128;  // channels a box row: one swizzle row
 constexpr int kBoxBytes = kTile * kPanelBytes;  // a box: 64 rows, 8 KB
@@ -690,13 +700,13 @@ __device__ __forceinline__ float warp_cd_fma(const float* __restrict__ a,
 
 // grid: persistent blocks over the items (row tile of kBlockRows side-1
 // rows, pair row), row tiles fastest; kFwdThreads threads: kConsumers
-// consumer warpgroups, then one producer warp. acc (rows, 4, n); fd_out and
+// consumer warpgroups, then the producer's. acc (rows, 4, n); fd_out and
 // mask_out, when not null, the fd and clamp mask of every valid entry.
 // Tensor maps (channels, n, maps), 128-byte swizzle: tf_hi and tf_lo over
 // the features (bf16, or f32's TF32 parts), tc_hi and tc_lo over the code
 // (f32's TF32 parts, or bf16 with code_bf16); tfd over fd_out (n, n,
-// rows; boxes of 32 x 64), read only by a build with STEGO_C2_FWD_TMA_STORE;
-// code is the f32 code, which the fix-up reads.
+// rows; boxes of 32 x 64), which the TMA stores write (not read by the
+// plain-store build); code is the f32 code, which the fix-up reads.
 template <bool kBf16, bool kFeatF32>
 __global__ void __launch_bounds__(kFwdThreads, 1)
 corr_stream_fwd_kernel(const __grid_constant__ CUtensorMap tf_hi,
@@ -737,8 +747,9 @@ corr_stream_fwd_kernel(const __grid_constant__ CUtensorMap tf_hi,
 
   if (wg == kConsumers) {
     // the producer: one thread walks the consumers' stages and starts each
-    // one's boxes into the next free slot of the ring
-    if (tid % 32 == 0) {
+    // one's boxes into the next free slot of the ring, on few registers
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(kProducerRegs));
+    if (tid % kWarpgroup == 0) {
       int k = 0;
       for (int it = blockIdx.x; it < items; it += gridDim.x) {
         const int r = it / row_tiles;
@@ -767,7 +778,9 @@ corr_stream_fwd_kernel(const __grid_constant__ CUtensorMap tf_hi,
     return;
   }
 
-  // a consumer warpgroup: side-1 rows i0 + 64 wg .. + 63 of each item
+  // a consumer warpgroup: side-1 rows i0 + 64 wg .. + 63 of each item, on
+  // the registers the producer gave up
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(kConsumerRegs));
   const int warp = (tid / 32) % 4;
   const int lane = tid & 31;
   const int g = lane >> 2;
