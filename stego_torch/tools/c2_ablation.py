@@ -8,7 +8,9 @@ sums the rows and, when a gradient is taken, keeps fd and the clamp mask.
 This builds variants of the kernel library (each its own hashed ``.so``)
 with parts of the forward left out (``STEGO_C2_FWD_ABLATION``: 1 the fd
 products, 2 the cd products, 4 the stores of fd and the mask, 7 all three,
-which leaves the ring's loads alone, 8 the fix-up), with one consumer
+which leaves the ring's loads alone, 8 the fix-up), with fd added to its
+f32 sum after every second k-step in place of every one
+(``STEGO_C2_FWD_FD_CHAIN=2``; its outputs differ), with one consumer
 warpgroup a block (64 side-1 rows, ``STEGO_C2_FWD_CONSUMERS=1``) in place
 of two, and with the kept fd tile written by plain stores from the
 accumulators in place of the port's TMA stores from shared memory
@@ -64,6 +66,7 @@ FWD_VARIANTS = {
     "plain fd stores (4 ring stages)": ("-DSTEGO_C2_FWD_TMA_STORE=0",),
     "plain fd stores, 3 ring stages": ("-DSTEGO_C2_FWD_TMA_STORE=0",
                                        "-DSTEGO_C2_FWD_STAGES=3"),
+    "fd added every second k-step": ("-DSTEGO_C2_FWD_FD_CHAIN=2",),
 }
 # the variants whose outputs must be the port's bit for bit
 SAME_OUTPUTS = ("one consumer warpgroup", "plain fd stores (4 ring stages)",
@@ -79,23 +82,26 @@ SHAPES = ((28, 70, False, "full-field", BF16, 384),
           (28, 70, False, "full-field", BF16, 768))
 
 
-def kernel_ms(fn, prefix: str, iters: int) -> float:
+def kernel_ms(fn, prefix: str, iters: int, attempts: int = 5) -> float:
     """Device ms per call of ``fn`` in kernels whose name holds ``prefix``,
-    from the profiler's trace, after one warm-up call."""
+    from the profiler's trace, after one warm-up call. The trace now and
+    then holds no device events: it is taken again, ``attempts`` times in
+    all, before this raises."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(iters):
-            fn()
-        torch.cuda.synchronize()
-    us = sum(e.time_range.elapsed_us() for e in prof.events()
-             if e.device_type == DeviceType.CUDA and prefix in e.name)
-    if us == 0.0:
-        raise RuntimeError(f"the profiler's trace holds no {prefix} kernel")
-    return us / iters / 1e3
+    for _ in range(attempts):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(iters):
+                fn()
+            torch.cuda.synchronize()
+        us = sum(e.time_range.elapsed_us() for e in prof.events()
+                 if e.device_type == DeviceType.CUDA and prefix in e.name)
+        if us > 0.0:
+            return us / iters / 1e3
+    raise RuntimeError(f"the profiler's trace holds no {prefix} kernel")
 
 
 def libraries() -> tuple:
