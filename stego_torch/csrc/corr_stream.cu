@@ -96,8 +96,8 @@
 // m64n64k8 .tf32 (three products a step), both operands K-major from the
 // swizzled boxes, each k-step into a zeroed accumulator added to fd by
 // __fadd_rn, two accumulators taking turns so that one's adds overlap the
-// next step's products; the f32 cd the same way, and code_bf16's cd
-// chained in its accumulator; then each warp arrives on the stage's empty
+// next step's products; the f32 cd the same way and code_bf16's cd chained
+// in its accumulator; then each warp arrives on the stage's empty
 // mbarrier. Code channels past one panel simply take more stages, summed
 // in channel order; so do feature channels, up to 768. A tile's epilogue:
 // the fix-up (the warp takes its entries near a bound one at a time: its
@@ -497,15 +497,6 @@ constexpr size_t kFwdSmem = 1024 +
                             static_cast<size_t>(kFwdStages) * kFwdStageBytes +
                             kOutBytes + kFixupBytes + 2 * 8 * kFwdStages;
 static_assert(kFwdStages >= 2 && kFwdSmem <= 232448, "the forward's ring");
-// fd's k-steps chained in one accumulator before each add to fd in f32:
-// one; or (a build flag, for tools/c2_ablation.py) two, which took
-// 0.85-0.97x the time but moved the cached f32 full-field step's gradients
-// 3x further from an f64 loss, past chip_smoke.py's gate. cd's stay one,
-// as fixup_eps assumes.
-#ifndef STEGO_C2_FWD_FD_CHAIN
-#define STEGO_C2_FWD_FD_CHAIN 1
-#endif
-constexpr int kFdChain = STEGO_C2_FWD_FD_CHAIN;
 constexpr int kStepsBf16 = 8;  // 16-channel steps of a bf16 stage
 constexpr int kStepsTf32 = 4;  // 8-channel steps of a split stage
 
@@ -619,41 +610,32 @@ __device__ __forceinline__ void step_products(float (&d)[32], uint32_t stage,
   }
 }
 
-// acc += the first `steps` k-steps of a stage, kChain at a time into a
-// zeroed accumulator that is then added to acc in f32 (round to nearest):
-// a chain of tensor-core steps accumulating into acc itself drops the low
-// bits of every step the same way (over ViT-B's 768 channels that bias put
-// the full-field step's gradients 36x further from the plain version's).
-// Two accumulators take turns, so that one group's adds overlap the next
-// group's products.
-template <bool kSplit, int kChain>
+// acc += the first `steps` k-steps of a stage, each into a zeroed
+// accumulator that is then added to acc in f32 (round to nearest), the
+// order that removed a bias: a chain of tensor-core steps accumulating into acc
+// itself drops the low bits of every step the same way (over ViT-B's 768
+// channels that bias put the full-field step's gradients 36x further from
+// the plain version's). Two accumulators take turns, so that one step's
+// adds overlap the next step's products.
+template <bool kSplit>
 __device__ __forceinline__ void promote_stage(float (&acc)[32],
                                               float (&p0)[32],
                                               float (&p1)[32], uint32_t stage,
                                               int wg, int steps) {
-  constexpr int kMax = (kSplit ? kStepsTf32 : kStepsBf16) / kChain;
-  const int groups = (steps + kChain - 1) / kChain;
-  // group grp: steps kChain grp .. + kChain - 1 into one accumulator
-  auto issue = [&](float (&d)[32], int grp) {
-#pragma unroll
-    for (int c = 0; c < kChain; ++c) {
-      const int st = grp * kChain + c;
-      if (st < steps) step_products<kSplit>(d, stage, wg, st, c > 0);
-    }
-  };
+  constexpr int kMax = kSplit ? kStepsTf32 : kStepsBf16;
   fence_regs(p0);
   wgmma_fence();
-  issue(p0, 0);
+  step_products<kSplit>(p0, stage, wg, 0, 0);
   wgmma_commit();
 #pragma unroll
-  for (int grp = 0; grp < kMax; ++grp) {
-    if (grp < groups) {
-      float(&cur)[32] = (grp & 1) ? p1 : p0;
-      float(&nxt)[32] = (grp & 1) ? p0 : p1;
-      if (grp + 1 < groups) {
+  for (int s = 0; s < kMax; ++s) {
+    if (s < steps) {
+      float(&cur)[32] = (s & 1) ? p1 : p0;
+      float(&nxt)[32] = (s & 1) ? p0 : p1;
+      if (s + 1 < steps) {
         fence_regs(nxt);
         wgmma_fence();
-        issue(nxt, grp + 1);
+        step_products<kSplit>(nxt, stage, wg, s + 1, 0);
         wgmma_commit();
         wgmma_wait<1>();
       } else {
@@ -844,9 +826,8 @@ corr_stream_fwd_kernel(const __grid_constant__ CUtensorMap tf_hi,
         mbar_wait(bar_full + 8 * st, (k / kFwdStages) & 1);
         if ((kFwdAblation & kFwdNoFd) == 0 && live) {
           const int per = kFeatF32 ? kStepsTf32 : kStepsBf16;
-          promote_stage<kFeatF32, kFdChain>(
-              fd, p0, p1, base + st * kFwdStageBytes, wg,
-              min(per, plan.feat_steps - s * per));
+          promote_stage<kFeatF32>(fd, p0, p1, base + st * kFwdStageBytes, wg,
+                                  min(per, plan.feat_steps - s * per));
         }
         __syncwarp();
         if (lane == 0) mbar_arrive(bar_empty + 8 * st);
@@ -861,7 +842,7 @@ corr_stream_fwd_kernel(const __grid_constant__ CUtensorMap tf_hi,
                         min(kStepsBf16, plan.code_steps - s * kStepsBf16),
                         s == 0);
           } else {
-            promote_stage<true, 1>(cd, p0, p1, stage, wg,
+            promote_stage<true>(cd, p0, p1, stage, wg,
                                 min(kStepsTf32,
                                     plan.code_steps - s * kStepsTf32));
           }

@@ -8,9 +8,7 @@ sums the rows and, when a gradient is taken, keeps fd and the clamp mask.
 This builds variants of the kernel library (each its own hashed ``.so``)
 with parts of the forward left out (``STEGO_C2_FWD_ABLATION``: 1 the fd
 products, 2 the cd products, 4 the stores of fd and the mask, 7 all three,
-which leaves the ring's loads alone, 8 the fix-up), with fd added to its
-f32 sum after every second k-step in place of every one
-(``STEGO_C2_FWD_FD_CHAIN=2``; its outputs differ), with one consumer
+which leaves the ring's loads alone, 8 the fix-up), with one consumer
 warpgroup a block (64 side-1 rows, ``STEGO_C2_FWD_CONSUMERS=1``) in place
 of two, and with the kept fd tile written by plain stores from the
 accumulators in place of the port's TMA stores from shared memory
@@ -66,7 +64,6 @@ FWD_VARIANTS = {
     "plain fd stores (4 ring stages)": ("-DSTEGO_C2_FWD_TMA_STORE=0",),
     "plain fd stores, 3 ring stages": ("-DSTEGO_C2_FWD_TMA_STORE=0",
                                        "-DSTEGO_C2_FWD_STAGES=3"),
-    "fd added every second k-step": ("-DSTEGO_C2_FWD_FD_CHAIN=2",),
 }
 # the variants whose outputs must be the port's bit for bit
 SAME_OUTPUTS = ("one consumer warpgroup", "plain fd stores (4 ring stages)",
