@@ -33,7 +33,11 @@
    ignores code_bf16, must fail the code_bf16 gate, and the bf16 kernel on
    f32 features the f32 elementwise gates, and so must, at the full-field
    shape, the plain version on TF32-rounded features and code (one TF32
-   pass a product, where the kernel takes three).
+   pass a product, where the kernel takes three). Its stored clamp masks
+   on code built near the clamp bounds must be f32 FMA's in channel order
+   bit for bit (a build without the fix-up must fail that), and a build
+   that records the entries the fix-up recomputes must find their 3xTF32
+   cd within an eighth of the fix-up's margin of the FMA's.
 6. Trains: 20 steps of make_train_step at the reference footprint
    (src/configs/train_config.yml: ViT-S/8, res 224, batch 16, 11 x 11
    samples, 5 negatives, dropout) on one fixed synthetic batch, each
@@ -198,8 +202,11 @@ FD_ATOL, ROW_SUM_ATOL = 1e-5, 1e-4
 # by 3xTF32 with the fix-up is held to at most twice it.
 F64_GAP_FMA_CD = {"ViT-S full-field": 9.862e-08, "ViT-B full-field": 3.056e-07,
                "cached f32 full-field": 7.681e-08}
-# C2's control build without the fix-up, started in main (a future)
-NO_FIXUP_BUILD = None
+# C2's check builds, built in main before the first phase: without the
+# fix-up (near_bound_masks' control) and recording what it recomputes
+# (fixup_margin); {build flag: library path}
+NO_FIXUP, COUNT_FIXUPS = "-DSTEGO_C2_FWD_ABLATION=8", "-DSTEGO_C2_FWD_ABLATION=16"
+CHECK_BUILDS = {}
 # A cd within CLAMP_TIE of a clamp bound may be clamped in the kernel and not
 # in the plain version (they sum it in other orders): one such coefficient
 # moves ~560 code gradients by up to ~4e-3 at unit scale (seen on the card
@@ -1257,6 +1264,7 @@ def phase_corr_stream(dev):
                   f"stages, {occ['smem_bytes']} bytes of shared memory, "
                   f"{occ['blocks_per_sm']} blocks an SM (occupancy API)")
     near_bound_masks(dev)
+    fixup_margin(dev)
     shifts = [0.18, 0.12] + [0.46] * neg
     groups = [b] * (2 + neg)
     out = {}
@@ -1391,7 +1399,7 @@ def near_bound_masks(dev):
     from stego_torch.ops import tf32
     from stego_torch.ops.math import super_perm
 
-    control = build.load(NO_FIXUP_BUILD.result())
+    control = build.load(CHECK_BUILDS[NO_FIXUP])
     b, hw, cc = 4, 9, CORR_SHAPE["cc"]
     g = torch.Generator(device=dev).manual_seed(cc)
     code = tf32.near_bound_code(2 * b, hw * hw, cc, cc).to(dev)
@@ -1420,6 +1428,59 @@ def near_bound_masks(dev):
                   f"control, {label}: the build without the fix-up differs "
                   f"from the FMA chain's mask in {int((ctl != want).sum())} "
                   f"bits (must differ)")
+
+
+def fixup_margin(dev):
+    """The fix-up's margin against the card's 3xTF32: a build that records
+    the entries the fix-up recomputes and the largest |cd by 3xTF32 - cd by
+    FMA| over them (STEGO_C2_FWD_ABLATION=16) must find that gap below
+    fixup_eps / 8, at the full-field shape (B=16, 28x28, five negatives, 384
+    feature channels, seeded normalized code, zero_clamp) with 70 and 160
+    code channels, bf16 and f32 features, and on the near-bound code (70
+    channels) at both clamp bounds."""
+    from stego_torch.kernels import build
+    from stego_torch.ops import corr_stream as c2
+    from stego_torch.ops import tf32
+    from stego_torch.ops.math import super_perm
+
+    lib = build.load(CHECK_BUILDS[COUNT_FIXUPS])
+    sh = CORR_SHAPE
+    b, hw, neg, cf = sh["b"], sh["hw"], sh["neg"], sh["cf"]
+    g = torch.Generator(device=dev).manual_seed(10)
+    ar = torch.arange(b, device=dev)
+    idx1 = ar.repeat(2 + neg).int()
+    idx2 = torch.cat([ar, ar + b] + [super_perm(b, g)
+                                     for _ in range(neg)]).int()
+    runs = []
+    for cc in (sh["cc"], WIDE_C2_DIM):
+        code = c2.prep(torch.randn(2 * b, hw, hw, cc, generator=g,
+                                   device=dev))
+        runs.append((f"full-field, {cc} code channels", code, idx1, idx2,
+                     True, False))
+    nb = 4  # near_bound_masks' pair rows
+    code = tf32.near_bound_code(2 * nb, 81, sh["cc"], sh["cc"]).to(dev)
+    ar = torch.arange(nb, device=dev)
+    nb1 = ar.repeat(3).int()
+    nb2 = torch.cat([ar, ar + nb, super_perm(nb, g)]).int()
+    runs += [(f"near-bound code, {'zero_clamp' if zc else 'stabalize'}",
+              code, nb1, nb2, zc, not zc) for zc in (True, False)]
+    c2.fixup_stats(lib, dev)
+    for label, code, i1, i2, zero_clamp, stabalize in runs:
+        m, n, cc = code.shape
+        side = math.isqrt(n)
+        eps = tf32.fixup_eps(cc)
+        for feat_dtype in (torch.bfloat16, torch.float32):
+            feats = c2.prep(torch.randn(m, side, side, cf, generator=g,
+                                        device=dev), feat_dtype)
+            c2.forward_launch(lib, feats, code, i1, i2, zero_clamp,
+                              stabalize, False, True)
+            torch.cuda.synchronize()
+            count, gap = c2.fixup_stats(lib, dev)
+            check(count > 0 and gap < eps / 8,
+                  f"fix-up margin, {label}, {str(feat_dtype)[6:]} features: "
+                  f"{count} of {i1.numel() * n * n} entries recomputed, "
+                  f"largest |3xTF32 cd - FMA cd| over them {gap:.3e} < "
+                  f"fixup_eps / 8 = {eps / 8:.3e}")
 
 
 def stored_backward(forward, wts, shifts, groups, opts, code_bf16,
@@ -2283,14 +2344,15 @@ def main() -> int:
     print(f"card: {smi}")
     print(f"torch {torch.__version__}, CUDA {torch.version.cuda}")
     t0 = time.perf_counter()
-    lib_path = build.build()
+    # the port's library and C2's two check builds, compiled together
+    # before any phase is timed
+    with concurrent.futures.ThreadPoolExecutor(3) as pool:
+        lib_path, *checks = pool.map(
+            build.build, ((), (NO_FIXUP,), (COUNT_FIXUPS,)))
+    CHECK_BUILDS.update(zip((NO_FIXUP, COUNT_FIXUPS), checks))
     build.library()
-    print(f"build: {time.perf_counter() - t0:.1f} s -> {lib_path.name}")
-    # C2's control build without the fix-up (near_bound_masks), built
-    # while the phases before it run
-    global NO_FIXUP_BUILD
-    NO_FIXUP_BUILD = concurrent.futures.ThreadPoolExecutor(1).submit(
-        build.build, ("-DSTEGO_C2_FWD_ABLATION=8",))
+    print(f"build: {time.perf_counter() - t0:.1f} s -> {lib_path.name} "
+          f"(and C2's check builds {', '.join(p.name for p in checks)})")
     log = build.BUILD_DIR / "build.log"
     if log.exists():
         for line in log.read_text().splitlines():

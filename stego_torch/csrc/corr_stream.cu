@@ -436,9 +436,10 @@ __device__ __forceinline__ void wgmma_tf32(float (&d)[32], uint64_t da,
 // kFwdNoFd the fd products, bit kFwdNoCd the cd products (and the fix-up),
 // bit kFwdNoKeep the stores of fd and the mask (all three leave the ring's
 // loads alone), bit kFwdNoFixup the fix-up of cd near the clamp bounds, bit
-// kFwdCountFixup a count of the entries the fix-up recomputes
-// (stego_corr_stream_fwd_fixups reads it). The outputs of a build with any
-// of the first four bits set are wrong.
+// kFwdCountFixup a count of the entries the fix-up recomputes and the
+// largest |cd_3x - cd_fma| over them (stego_corr_stream_fwd_fixups reads
+// both). The outputs of a build with any of the first four bits set are
+// wrong.
 #ifndef STEGO_C2_FWD_ABLATION
 #define STEGO_C2_FWD_ABLATION 0
 #endif
@@ -449,12 +450,8 @@ constexpr int kFwdNoKeep = 4;
 constexpr int kFwdNoFixup = 8;
 constexpr int kFwdCountFixup = 16;
 
-// Consumer warpgroups a block, each 64 rows of side 1 (a build flag so that
-// tools/c2_ablation.py can time one against two).
-#ifndef STEGO_C2_FWD_CONSUMERS
-#define STEGO_C2_FWD_CONSUMERS 2
-#endif
-constexpr int kConsumers = STEGO_C2_FWD_CONSUMERS;
+// Consumer warpgroups a block, each 64 rows of side 1
+constexpr int kConsumers = 2;
 constexpr int kWarpgroup = 128;
 // and a producer warpgroup, one thread of which starts every copy: a whole
 // warpgroup, so that setmaxnreg can hand its registers to the consumers
@@ -463,8 +460,7 @@ constexpr int kFwdThreads = (kConsumers + 1) * kWarpgroup;
 // setmaxnreg: 128 x 24 + 256 x 240 = 64512 with two consumers, within the
 // 384 x 168 that a block of 384 threads is launched with.
 constexpr int kProducerRegs = 24;
-constexpr int kConsumerRegs = kConsumers == 1 ? 256 : kConsumers == 2 ? 240
-                                                                      : 160;
+constexpr int kConsumerRegs = 240;
 constexpr int kBlockRows = kConsumers * kTile;
 constexpr int kPanelBytes = 128;  // channels a box row: one swizzle row
 constexpr int kBoxBytes = kTile * kPanelBytes;  // a box: 64 rows, 8 KB
@@ -475,24 +471,12 @@ constexpr int kBoxBytes = kTile * kPanelBytes;  // a box: 64 rows, 8 KB
 constexpr int kSideBoxes = kConsumers + 1;
 constexpr int kFwdStageBytes = 2 * kSideBoxes * kBoxBytes;
 // The kept fd tile staged in shared memory, 16 KB a consumer, and written by
-// TMA stores, which leaves room for three ring stages; or (a build flag, so
-// that tools/c2_ablation.py can time one against the other) by plain stores
-// from the accumulators, with four.
-#ifndef STEGO_C2_FWD_TMA_STORE
-#define STEGO_C2_FWD_TMA_STORE 1
-#endif
-constexpr bool kTmaStore = STEGO_C2_FWD_TMA_STORE != 0;
-
+// TMA stores.
 constexpr int kOutTileBytes = kTile * kTile * 4;
-constexpr int kOutBytes = kTmaStore ? kConsumers * kOutTileBytes : 0;
+constexpr int kOutBytes = kConsumers * kOutTileBytes;
 constexpr int kFixupBytes = kConsumers * 4 * 256 * 4;  // 1 KB a warp
-// Ring stages: as many as fit beside the rest (4 with two consumers and
-// plain stores), or STEGO_C2_FWD_STAGES (a build flag, so that
-// tools/c2_ablation.py can time the ring's depth apart from the stores).
-#ifndef STEGO_C2_FWD_STAGES
-#define STEGO_C2_FWD_STAGES ((192 * 1024 - kOutBytes) / kFwdStageBytes)
-#endif
-constexpr int kFwdStages = STEGO_C2_FWD_STAGES;
+// Ring stages: as many as fit beside the rest (3)
+constexpr int kFwdStages = (192 * 1024 - kOutBytes) / kFwdStageBytes;
 constexpr size_t kFwdSmem = 1024 +
                             static_cast<size_t>(kFwdStages) * kFwdStageBytes +
                             kOutBytes + kFixupBytes + 2 * 8 * kFwdStages;
@@ -500,7 +484,11 @@ static_assert(kFwdStages >= 2 && kFwdSmem <= 232448, "the forward's ring");
 constexpr int kStepsBf16 = 8;  // 16-channel steps of a bf16 stage
 constexpr int kStepsTf32 = 4;  // 8-channel steps of a split stage
 
-__device__ unsigned long long g_fixups;  // kFwdCountFixup's count
+// kFwdCountFixup's count, and the largest |cd_3x - cd_fma| over the
+// entries counted (the bits of a non-negative float, which order as the
+// float does)
+__device__ unsigned long long g_fixups;
+__device__ unsigned int g_fixup_gap;
 
 // The fix-up's margin for cc code channels. The f32 cd is taken by 3xTF32
 // on the tensor cores, and every entry within eps of a clamp bound is
@@ -705,8 +693,8 @@ __device__ __forceinline__ float warp_cd_fma(const float* __restrict__ a,
 // Tensor maps (channels, n, maps), 128-byte swizzle: tf_hi and tf_lo over
 // the features (bf16, or f32's TF32 parts), tc_hi and tc_lo over the code
 // (f32's TF32 parts, or bf16 with code_bf16); tfd over fd_out (n, n,
-// rows; boxes of 32 x 64), which the TMA stores write (not read by the
-// plain-store build); code is the f32 code, which the fix-up reads.
+// rows; boxes of 32 x 64), which the TMA stores write; code is the f32
+// code, which the fix-up reads.
 template <bool kBf16, bool kFeatF32>
 __global__ void __launch_bounds__(kFwdThreads, 1)
 corr_stream_fwd_kernel(const __grid_constant__ CUtensorMap tf_hi,
@@ -789,7 +777,6 @@ corr_stream_fwd_kernel(const __grid_constant__ CUtensorMap tf_hi,
   // the warp's 1 KB for the fix-up's code rows
   float* fixup_rows = reinterpret_cast<float*>(
       smem + kFwdStages * kFwdStageBytes + kOutBytes) + (tid / 32) * 256;
-  const int np = fd_pitch(n);
   const int words = mask_words(n);
   float p0[32] = {}, p1[32] = {};  // the products' turns
   int k = 0;
@@ -877,34 +864,33 @@ corr_stream_fwd_kernel(const __grid_constant__ CUtensorMap tf_hi,
                                       code2 + static_cast<size_t>(j) * cc,
                                       cc, lane, fixup_rows);
           if (lane == src) {
+            [[maybe_unused]] float x = 0.f;  // cd by 3xTF32
 #pragma unroll
             for (int q = 0; q < 32; ++q) {
-              if (q == u) cd[q] = v;
+              if (q == u) {
+                x = cd[q];
+                cd[q] = v;
+              }
             }
             near &= near - 1;
             if constexpr ((kFwdAblation & kFwdCountFixup) != 0) {
               atomicAdd(&g_fixups, 1ull);
+              atomicMax(&g_fixup_gap, __float_as_uint(fabsf(x - v)));
             }
           }
         }
       }
       if ((kFwdAblation & kFwdNoKeep) == 0 && fd_out != nullptr) {
-        // fd staged in shared memory for the TMA stores (the plain-store
-        // build: 8-byte streaming stores, the 4 threads of a row on 32
-        // contiguous bytes, so that the 275 MB of a full-field step do not
-        // evict the panels from L2); a row's 64 columns as two mask words,
-        // each the OR of the 4 threads' bits
-        float* fd_r = fd_out + static_cast<size_t>(r) * n * np;
+        // fd staged in shared memory for the TMA stores; a row's 64
+        // columns as two mask words, each the OR of the 4 threads' bits
         uint32_t* mask_r = mask_out + static_cast<size_t>(r) * n * words;
-        [[maybe_unused]] const uint32_t out = out_tiles + wg * kOutTileBytes;
-        if constexpr (kTmaStore) {
-          // the tile's last stores have read the staging tile
-          if (tid % kWarpgroup == 0) {
-            asm volatile("cp.async.bulk.wait_group.read 0;\n" ::: "memory");
-          }
-          asm volatile("bar.sync %0, %1;\n" ::"r"(1 + wg), "n"(kWarpgroup)
-                       : "memory");
+        const uint32_t out = out_tiles + wg * kOutTileBytes;
+        // the tile's last stores have read the staging tile
+        if (tid % kWarpgroup == 0) {
+          asm volatile("cp.async.bulk.wait_group.read 0;\n" ::: "memory");
         }
+        asm volatile("bar.sync %0, %1;\n" ::"r"(1 + wg), "n"(kWarpgroup)
+                     : "memory");
 #pragma unroll
         for (int h = 0; h < 2; ++h) {
           const int i = row_base + 8 * h;
@@ -919,24 +905,16 @@ corr_stream_fwd_kernel(const __grid_constant__ CUtensorMap tf_hi,
                 bits[c / 4] |= 1u << ((col + v) % 32);
               }
             }
-            const float2 pair = make_float2(fd[4 * c + 2 * h],
-                                            fd[4 * c + 2 * h + 1]);
-            if constexpr (kTmaStore) {
-              // two 128-byte swizzled boxes of 32 columns: row rr's
-              // 16-byte chunk q sits at chunk q ^ (rr % 8)
-              const int rr = 16 * warp + g + 8 * h;
-              const uint32_t at = out + (c / 4) * (kOutTileBytes / 2) +
-                                  rr * 128 +
-                                  ((((col % 32) / 4) ^ (rr % 8)) * 16) +
-                                  (col % 4) * 4;
-              asm volatile("st.shared.v2.f32 [%0], {%1, %2};\n" ::"r"(at),
-                           "f"(pair.x), "f"(pair.y)
-                           : "memory");
-            } else if (i < n && j0 + col < n) {
-              __stcs(reinterpret_cast<float2*>(
-                         fd_r + static_cast<size_t>(i) * np + j0 + col),
-                     pair);
-            }
+            // two 128-byte swizzled boxes of 32 columns: row rr's 16-byte
+            // chunk q sits at chunk q ^ (rr % 8)
+            const int rr = 16 * warp + g + 8 * h;
+            const uint32_t at = out + (c / 4) * (kOutTileBytes / 2) +
+                                rr * 128 +
+                                ((((col % 32) / 4) ^ (rr % 8)) * 16) +
+                                (col % 4) * 4;
+            asm volatile("st.shared.v2.f32 [%0], {%1, %2};\n" ::"r"(at),
+                         "f"(fd[4 * c + 2 * h]), "f"(fd[4 * c + 2 * h + 1])
+                         : "memory");
           }
 #pragma unroll
           for (int w = 0; w < 2; ++w) {
@@ -948,26 +926,24 @@ corr_stream_fwd_kernel(const __grid_constant__ CUtensorMap tf_hi,
                    t == 0 ? bits[0] : bits[1]);
           }
         }
-        if constexpr (kTmaStore) {
-          // the staged tile, seen by the TMA's reads; the box clips rows
-          // and columns past n
-          asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
-          asm volatile("bar.sync %0, %1;\n" ::"r"(1 + wg), "n"(kWarpgroup)
-                       : "memory");
-          if (tid % kWarpgroup == 0) {
+        // the staged tile, seen by the TMA's reads; the box clips rows and
+        // columns past n
+        asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+        asm volatile("bar.sync %0, %1;\n" ::"r"(1 + wg), "n"(kWarpgroup)
+                     : "memory");
+        if (tid % kWarpgroup == 0) {
 #pragma unroll
-            for (int b = 0; b < 2; ++b) {
-              if (j0 + 32 * b >= n) break;  // the box lies past the columns
-              asm volatile(
-                  "cp.async.bulk.tensor.3d.global.shared::cta.bulk_group"
-                  " [%0, {%2, %3, %4}], [%1];\n" ::"l"(
-                      reinterpret_cast<uint64_t>(&tfd)),
-                  "r"(out + b * (kOutTileBytes / 2)), "r"(j0 + 32 * b),
-                  "r"(i0 + kTile * wg), "r"(r)
-                  : "memory");
-            }
-            asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
+          for (int b = 0; b < 2; ++b) {
+            if (j0 + 32 * b >= n) break;  // the box lies past the columns
+            asm volatile(
+                "cp.async.bulk.tensor.3d.global.shared::cta.bulk_group"
+                " [%0, {%2, %3, %4}], [%1];\n" ::"l"(
+                    reinterpret_cast<uint64_t>(&tfd)),
+                "r"(out + b * (kOutTileBytes / 2)), "r"(j0 + 32 * b),
+                "r"(i0 + kTile * wg), "r"(r)
+                : "memory");
           }
+          asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
         }
       }
 #pragma unroll
@@ -995,7 +971,7 @@ corr_stream_fwd_kernel(const __grid_constant__ CUtensorMap tf_hi,
       }
     }
   }
-  if (kTmaStore && tid % kWarpgroup == 0) {
+  if (tid % kWarpgroup == 0) {
     asm volatile("cp.async.bulk.wait_group 0;\n" ::: "memory");
   }
 }
@@ -1451,8 +1427,8 @@ int launch_fwd(const void* feats, const void* code, const void* idx1,
                 plan.code_dim, kPanelBytes / ce, kTile, sw)) {
     return kTensorMapError;
   }
-  CUtensorMap tfd = tf_hi;  // read only by a TMA-store build, with fd
-  if (kTmaStore && fd != nullptr &&
+  CUtensorMap tfd = tf_hi;  // read only with fd
+  if (fd != nullptr &&
       !make_map(&tfd, f32, 4, fd, n, n, rows, fd_pitch(n), kTile / 2, kTile,
                 sw)) {
     return kTensorMapError;
@@ -1583,16 +1559,25 @@ extern "C" int stego_corr_stream_fwd_occupancy(int code_bf16, int feat_f32,
 }
 
 // The entries the forward's fix-up recomputed since the last call, into
-// *out, and the count set to 0: a build with STEGO_C2_FWD_ABLATION's bit 16
-// counts them; every other build reads 0. Returns the CUDA error code.
-extern "C" int stego_corr_stream_fwd_fixups(int device, void* out) {
+// *count (unsigned long long), and the largest |cd by 3xTF32 - cd by FMA|
+// over them, into *gap (float); both then set to 0. A build with
+// STEGO_C2_FWD_ABLATION's bit 16 records them; every other build reads 0.
+// Returns the CUDA error code.
+extern "C" int stego_corr_stream_fwd_fixups(int device, void* count,
+                                            void* gap) {
   cudaError_t err = cudaSetDevice(device);
   if (err == cudaSuccess) {
-    err = cudaMemcpyFromSymbol(out, g_fixups, sizeof(unsigned long long));
+    err = cudaMemcpyFromSymbol(count, g_fixups, sizeof(unsigned long long));
+  }
+  if (err == cudaSuccess) {
+    err = cudaMemcpyFromSymbol(gap, g_fixup_gap, sizeof(unsigned int));
   }
   const unsigned long long zero = 0;
   if (err == cudaSuccess) {
     err = cudaMemcpyToSymbol(g_fixups, &zero, sizeof(zero));
+  }
+  if (err == cudaSuccess) {
+    err = cudaMemcpyToSymbol(g_fixup_gap, &zero, sizeof(unsigned int));
   }
   return static_cast<int>(err);
 }

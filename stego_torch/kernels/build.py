@@ -68,7 +68,7 @@ SIGNATURES = {
     "stego_corr_stream_bwd": (_P,) * 11 + (_I,) * 7 + (_P,),
     "stego_corr_stream_bwd_occupancy": (_I, _I, _I, _P),
     "stego_corr_stream_fwd_occupancy": (_I, _I, _I, _P),
-    "stego_corr_stream_fwd_fixups": (_I, _P),
+    "stego_corr_stream_fwd_fixups": (_I, _P, _P),
 }
 
 _lock = threading.Lock()

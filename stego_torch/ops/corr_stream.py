@@ -447,16 +447,16 @@ def forward_occupancy(code_bf16: bool, feat_f32: bool,
                     out))
 
 
-def fixup_count(lib, device: torch.device) -> int:
+def fixup_stats(lib, device: torch.device) -> Tuple[int, float]:
     """The entries whose cd the forward's fix-up recomputed by FMA since
-    the last call, in a library built to count them
-    (``-DSTEGO_C2_FWD_ABLATION=16``, ``tools/c2_ablation.py``); 0 in any
-    other build. Resets the count."""
-    out = ctypes.c_ulonglong(0)
+    the last call, and the largest |cd by 3xTF32 - cd by FMA| over them,
+    in a library built to record them (``-DSTEGO_C2_FWD_ABLATION=16``,
+    ``tools/c2_ablation.py``); (0, 0.0) in any other build. Resets both."""
+    count, gap = ctypes.c_ulonglong(0), ctypes.c_float(0.0)
     build.check(lib.stego_corr_stream_fwd_fixups(
-        torch.device(device).index or 0, ctypes.byref(out)),
-        "corr_stream forward fix-up count")
-    return int(out.value)
+        torch.device(device).index or 0, ctypes.byref(count),
+        ctypes.byref(gap)), "corr_stream forward fix-up count")
+    return int(count.value), float(gap.value)
 
 
 def forward_launch(lib, feats: torch.Tensor, code: torch.Tensor,

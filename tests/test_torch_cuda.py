@@ -891,6 +891,46 @@ def test_corr_stream_fma_mask_control_without_fixup_fails(
     assert not torch.equal(got, masks[(zero_clamp, stabalize)])
 
 
+@pytest.mark.parametrize("feat_dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("cc", [70, 160])
+def test_corr_stream_fixup_margin_holds_on_the_tensor_cores(cuda, cc,
+                                                           feat_dtype):
+    """The fix-up's margin is wide enough for the card's 3xTF32: a build
+    that records the entries it recomputes (STEGO_C2_FWD_ABLATION=16)
+    finds |cd by 3xTF32 - cd by FMA| below fixup_eps / 8 over every one,
+    at the full-field shape (B=16, 28x28, five negatives, 384 feature
+    channels, seeded normalized code, zero_clamp) and on the near-bound
+    inputs at both clamp bounds."""
+    from stego_torch.kernels import build
+    from stego_torch.ops import corr_stream as c2
+    from stego_torch.ops import tf32
+    from stego_torch.ops.math import super_perm
+
+    lib = build.load(build.build(("-DSTEGO_C2_FWD_ABLATION=16",)))
+    g = torch.Generator(device=cuda).manual_seed(cc)
+    b, hw, neg = 16, 28, 5
+    feats = c2.prep(torch.randn(2 * b, hw, hw, 384, generator=g,
+                                device=cuda), feat_dtype)
+    code = c2.prep(torch.randn(2 * b, hw, hw, cc, generator=g, device=cuda))
+    ar = torch.arange(b, device=cuda)
+    idx1 = ar.repeat(2 + neg)
+    idx2 = torch.cat([ar, ar + b] + [super_perm(b, g) for _ in range(neg)])
+    runs = [(feats, code, idx1, idx2, True, False)]
+    nb_feats, nb_code, nb_idx1, nb_idx2, _, _ = _near_bound_inputs(
+        cuda, cc, feat_dtype, seed=cc)
+    runs += [(nb_feats, nb_code, nb_idx1, nb_idx2, zero_clamp, stabalize)
+             for zero_clamp, stabalize in ((True, False), (False, True))]
+    eps = tf32.fixup_eps(cc)
+    c2.fixup_stats(lib, cuda)
+    for f, c, i1, i2, zero_clamp, stabalize in runs:
+        c2.forward_launch(lib, f, c, i1.int(), i2.int(), zero_clamp,
+                          stabalize, False, True)
+        torch.cuda.synchronize()
+        count, gap = c2.fixup_stats(lib, cuda)
+        assert count > 0
+        assert gap < eps / 8, (count, gap, eps)
+
+
 def test_corr_stream_forward_keeps_fd_only_for_a_gradient(cuda):
     """At the full-field shape the forward allocates fd (112 x 784 x 784
     f32, 275 MB) and the mask only when a gradient can be taken: under
