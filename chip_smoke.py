@@ -21,10 +21,15 @@
    times (ViT-S: token-major attention; ViT-T: head-major, batch-resident at
    224 and kv-resident at 320), and its code and predictions must agree
    with the same batch through the plain versions on the card.
-4. Holds kernel C1 (the sampled correlation loss, forward and backward)
+4. Holds kernel C1 (the sampled correlation loss, forward and backward:
+   the gather kernel, C2's forward, C2's backward and the adjoint kernel)
    against its plain version at the train step's shapes, with bf16
    features at ViT-T's 192, ViT-S's 384 and ViT-B's 768 channels and f32
-   features at 384 and 768 (an f32 trunk), and times it.
+   features at 384 and 768 (an f32 trunk), the gather and the adjoint
+   each against their own plain versions, two calls' outputs bit for bit,
+   and times it whole and by part; on f32 features its fd elementwise, with
+   the bf16 instantiation and one TF32 pass a product as controls that
+   must fail.
 5. Holds kernel C2 (the streamed correlation loss, forward and backward)
    against its plain version at the full-field shape (7 dense 784 x 784
    fields of 16 images) and the grid-sampled shape (121 samples), with f32
@@ -196,6 +201,17 @@ BF16_GRAD_ATOL, BF16_GRAD_SHARE, BF16_PARAM_ATOL = 2 ** -7, 0.99, 5e-5
 # ROW_SUM_ATOL; the bf16 instantiation on the same f32 features, the
 # control, must fail.
 FD_ATOL, ROW_SUM_ATOL = 1e-5, 1e-4
+# C1's gather against sample_sets_plain (rtol, atol), by the sets' type: the
+# plain version sums the four taps inside a GEMM over the map's weight row,
+# which may group them otherwise (an f32 rounding); a bf16 sample that
+# moves by a rounding step moves by one bf16 step (2^-8 to 2^-7 of its
+# size), and its normalised value rounds once more. Its adjoint against
+# unsample_plain on the same inputs: f32 sums of a few terms of the
+# gradients' size, which phase C1 scales to a largest code gradient of 1.
+GATHER_TOL = {torch.bfloat16: (2 ** -6, 1e-6), torch.float32: (1e-5, 1e-6)}
+ADJOINT_TOL = (1e-5, 1e-5)
+# the parts of C1's forward in c1_parts (the others are its backward's)
+C1_FWD_PARTS = ("inputs", "gather", "c2_copies", "c2_fwd_kernel", "finalize")
 # The full-field steps' gradient distance to the step with C2's plain
 # version in f64 with the previous forward, whose f32 cd was f32 FMA
 # throughout (its chip_smoke.py on an NVIDIA H100 80GB HBM3 at 700 W): C2's
@@ -953,11 +969,102 @@ def corr_inputs(dev, b, hw, cf, cc, s, neg, seed):
                        "bound")
 
 
+def c1_parts(feats, code, coords, perms, shifts, feat_dtype, opts, wts):
+    """Kernel C1's route part by part, as its autograd function runs it
+    (ops/corr_fused_sampling.py:_SampledCorr): the gather and the adjoint
+    each held against their own plain versions (sample_sets_plain within
+    GATHER_TOL, unsample_plain within ADJOINT_TOL on the kernel's own
+    inputs), C2's backward on the gather's pair-row layout against C2's
+    own sort, and each part's device ms: the wrapper's casts and stacks,
+    the gather, C2's operand copies, C2's forward kernel, finalize; C2's
+    backward kernel, its scalars and code tiles, the Jacobian kernel and
+    the adjoint kernel. ``wts``: the losses' and cd means' weights, the
+    backward's incoming gradients. Returns {part: ms}."""
+    from stego_torch.kernels import build
+    from stego_torch.ops import corr_fused_sampling as c1
+    from stego_torch.ops import corr_stream as c2
+
+    lib = build.library()
+    b, h, w, _ = feats[0].shape
+    g = 2 + len(perms)
+    args = (feats[0], feats[1], code[0], code[1], coords[0], coords[1],
+            perms)
+    inputs = c1.gather_inputs(*args, feat_dtype)
+    fsets, csets, norms, keys, tap_wts, i1, i2, *layout = c1.gather_launch(
+        lib, *inputs, g, (h, w))
+    perm = inputs[-1]
+    lo_hi = (opts.get("zero_clamp", True), opts.get("stabalize", False))
+    acc, fd, mask = c2.forward_launch(lib, fsets, csets, i1, i2, *lo_hi,
+                                      False, True)
+    groups, pointwise = [b] * g, opts.get("pointwise", True)
+    _, _, gm = c2.finalize_rows(acc[:, 0], acc[:, 1], acc[:, 2], acc[:, 3],
+                                shifts, groups, pointwise)
+    saved = (csets, fd, i1, i2, acc, gm, mask)
+    static = (shifts, groups, pointwise, False)
+    dsets = c2.backward_launch(lib, saved, static, wts[0], wts[1], layout)
+    check(torch.equal(dsets, c2.backward_launch(lib, saved, static, wts[0],
+                                                wts[1])),
+          "C1's pair-row layout from the gather gives C2's backward the "
+          "code gradient of C2's own sort, bit for bit")
+    dcode = c1.adjoint_launch(lib, dsets, csets, norms, keys, tap_wts, perm,
+                              b, (h, w))
+    label = (f"{str(feat_dtype)[6:]} features, cf={feats[0].shape[-1]}, "
+             f"cc={code[0].shape[-1]}, S={csets.shape[1]}")
+    want = c1.sample_sets_plain(*args, feat_dtype)
+    for name, x, y, (rtol, atol) in (
+            ("feature sets", fsets, want[0], GATHER_TOL[feat_dtype]),
+            ("code sets", csets, want[1], GATHER_TOL[torch.float32]),
+            ("code norms", norms, want[2], GATHER_TOL[torch.float32])):
+        x, y = x.float(), y.float()
+        err = float((x - y).abs().max())
+        check(within((x - y).abs(), atol + rtol * y.abs(), y),
+              f"{label}: gather's {name} against sample_sets_plain, "
+              f"max_abs_err {err:.3e} (rtol {rtol:.2e} atol {atol:.0e})")
+    rtol, atol = ADJOINT_TOL
+    want = torch.cat(c1.unsample_plain(dsets, csets, norms, coords[0],
+                                       coords[1], perms, (h, w)))
+    got = dcode.reshape(want.shape)
+    check(within((got - want).abs(), atol + rtol * want.abs(), want),
+          f"{label}: adjoint's code gradients against unsample_plain, "
+          f"max_abs_err {float((got - want).abs().max()):.3e} (largest "
+          f"{float(want.abs().max()):.3e}; rtol {rtol} atol {atol})")
+
+    def split(fn, own):
+        """Device ms of ``fn``'s kernels whose names hold ``own`` and of
+        the others."""
+        t = kernel_times(fn, 20)
+        mine = sum(v for k, v in t.items() if own in k) / 20e3
+        return mine, sum(t.values()) / 20e3 - mine
+
+    c2_kernel, c2_copies = split(lambda: c2.forward_launch(
+        lib, fsets, csets, i1, i2, *lo_hi, False, True),
+        "corr_stream_fwd_kernel")
+    c2_bwd_kernel, c2_bwd_rest = split(lambda: c2.backward_launch(
+        lib, saved, static, wts[0], wts[1], layout), "corr_stream_bwd_kernel")
+    adjoint, jacobian = split(lambda: c1.adjoint_launch(
+        lib, dsets, csets, norms, keys, tap_wts, perm, b, (h, w)),
+        "corr_sampled_adjoint_kernel")
+    parts = {
+        "inputs": device_ms(lambda: c1.gather_inputs(*args, feat_dtype)),
+        "gather": device_ms(lambda: c1.gather_launch(lib, *inputs, g,
+                                                     (h, w))),
+        "c2_copies": c2_copies, "c2_fwd_kernel": c2_kernel,
+        "finalize": device_ms(lambda: c2.finalize_rows(
+            acc[:, 0], acc[:, 1], acc[:, 2], acc[:, 3], shifts, groups,
+            pointwise)),
+        "c2_bwd_kernel": c2_bwd_kernel, "c2_bwd_scalars_tiles": c2_bwd_rest,
+        "jacobian": jacobian, "adjoint": adjoint}
+    print(f"  {label}: device ms by part: " + ", ".join(
+        f"{k} {v:.4f}" for k, v in parts.items()))
+    return parts
+
+
 def phase_corr(dev):
     """Kernel C1 against its plain version with bf16 features (a bf16
     trunk) and f32 features (an f32 trunk) at the channels of C1_CASES;
-    {case: (errors, device times, bounds)}."""
+    {case: (errors, device times, bounds, device ms by part)}."""
     from stego_torch.ops import corr_fused_sampling as c1
+    from stego_torch.ops.tf32 import round_tf32
 
     kinds = ", ".join(f"{c[2]} {c[0].split('_')[0]}" for c in C1_CASES)
     print(f"kernel C1 (corr_sampled) vs plain: B={CORR_SHAPE['b']}, "
@@ -994,6 +1101,7 @@ def phase_corr(dev):
 
             wts = unit_gradient_weights(wts, run, c1.sampled_corr_plain)
             got = run(c1.sampled_corr_fused)
+            again = run(c1.sampled_corr_fused)
             torch.cuda.synchronize()
             want = run(c1.sampled_corr_plain)
             label = (f"{name.split('_')[0]} features, cf={cf}, "
@@ -1001,6 +1109,9 @@ def phase_corr(dev):
                          f"{k}={v}" for k, v in opts.items()))
             hold_to_plain(label, got, want, errs, (LOSS_RTOL, LOSS_ATOL),
                           (GRAD_RTOL, GRAD_ATOL))
+            check(all(torch.equal(x, y) for x, y in zip(got, again)),
+                  f"{label}: two calls' losses, cd means and code gradients "
+                  f"bit for bit")
             if feat_dtype == torch.float32:
                 plain_fd = c1.sampled_products_plain(
                     feats[0], feats[1], code[0], code[1], coords[0],
@@ -1012,15 +1123,27 @@ def phase_corr(dev):
                     run(c1.sampled_corr_fused, torch.bfloat16), want,
                     (LOSS_RTOL, LOSS_ATOL), (GRAD_RTOL, GRAD_ATOL),
                     verbose=False))
+                f = round_tf32(c1.sample_sets_plain(
+                    feats[0], feats[1], code[0], code[1], coords[0],
+                    coords[1], perms)[0])
+                i1, i2 = c1.pair_rows(sh["b"], 2 + sh["neg"], dev)
+                err = float((torch.bmm(f[i1], f[i2].transpose(1, 2))
+                             - plain_fd).abs().max())
+                check(err > FD_ATOL,
+                      f"control, one TF32 pass (the plain version's fd from "
+                      f"TF32-rounded sets) against the f32 plain version: "
+                      f"fd max_abs_err {err:.3e} (must fail <= {FD_ATOL})")
             if not times:
                 times = time_fwd_bwd(forward, run, c1.sampled_corr_fused,
                                      c1.sampled_corr_plain)
+                parts = c1_parts(feats, code, coords, perms, shifts,
+                                 feat_dtype, opts, wts)
         bounds = c1_bounds(**sh, feat_bytes=torch.finfo(feat_dtype).bits // 8)
         print(f"  {name.split('_')[0]} features, cf={cf}, cc={sh['cc']}, "
               f"S={sh['s'] ** 2}: forward "
               f"{bound_text(bounds['fwd'])}; backward "
               f"{bound_text(bounds['bwd'])}")
-        out[name] = (errs, times, bounds)
+        out[name] = (errs, times, bounds, parts)
     return out
 
 
@@ -1033,8 +1156,9 @@ def c1_bounds(b, hw, cf, cc, s, neg, feat_bytes=2):
     normalise Jacobian and the 4-tap scatter; it reads the residuals and
     writes the code gradients. Products count at their type's fastest
     rate (fd on bf16 features at bf16, every f32 product at 3xTF32), the
-    sampling and the Jacobian at f32 FMA; the kernel itself keeps every
-    product on FMA."""
+    sampling and the Jacobian at f32 FMA: the function's work, whatever
+    implements it (the products run on C2's tensor cores, and its backward
+    reads the fd and mask its forward kept instead of taking cd again)."""
     n, ss, slots = hw * hw, s * s, (2 + neg) * b
     coords = 2 * b * ss * 2 * 4
     resid = slots * (5 * ss + ss * cc + ss * ss) * 4
@@ -2536,24 +2660,26 @@ def main() -> int:
     for case, suffix in (("bf16", ""), ("f32", "_f32"), ("bf16_192", "_192"),
                          ("bf16_768", "_768"),
                          ("bf16_cc100_s144", "_cc100_s144")):
-        errs, times, bnds = c1[case]
-        extra = {}
+        errs, times, bnds, parts = c1[case]
+        extra = {"parts_ms": {k: parts[k] for k in C1_FWD_PARTS}}
         if case == "f32":  # f32 at ViT-B's 768: no path runs it yet
-            e, t, b = c1["f32_768"]
+            e, t, b, _ = c1["f32_768"]
             extra["cf768"] = dict(max_abs_err=e["fwd"], ms=t["fwd"][0],
                                   plain_ms=t["fwd"][1], bound_ms=b["fwd"][0])
         rows.append(row(f"corr_sampled_fwd{suffix}", c1_src, f"{c1_ref}:93",
                         c1_fwd[case], errs["fwd"], times["fwd"], bnds["fwd"],
                         **extra))
-    errs, times, bnds = c1["bf16"]
     wide_bwd = wide["cc100_s144"]["corr_sampled_bwd"]
-    rows.append(row("corr_sampled_bwd", c1_src, f"{c1_ref}:187",
-                    total["corr_sampled_bwd"] - wide_bwd,
-                    max(c1[case][0]["bwd"] for case in c1), times["bwd"],
-                    bnds["bwd"]))
-    errs, times, bnds = c1["bf16_cc100_s144"]
-    rows.append(row("corr_sampled_bwd_cc100_s144", c1_src, f"{c1_ref}:187",
-                    wide_bwd, errs["bwd"], times["bwd"], bnds["bwd"]))
+    for case, suffix, launches_ in (
+            ("bf16", "", total["corr_sampled_bwd"] - wide_bwd),
+            ("bf16_cc100_s144", "_cc100_s144", wide_bwd)):
+        errs, times, bnds, parts = c1[case]
+        err = (max(c1[k][0]["bwd"] for k in c1) if case == "bf16"
+               else errs["bwd"])
+        rows.append(row(f"corr_sampled_bwd{suffix}", c1_src, f"{c1_ref}:187",
+                        launches_, err, times["bwd"], bnds["bwd"],
+                        parts_ms={k: v for k, v in parts.items()
+                                  if k not in C1_FWD_PARTS}))
     # C2 by the path that runs it, each row measured at that path's shape
     # (phase C2's full-field code_bf16 case runs on no path: printed only)
     for suffix, key, run in (

@@ -1,106 +1,110 @@
 // Kernel C1: the sampled contrastive-correlation loss with the bilinear
-// sampling inside the kernel, forward (stego_corr_sampled_fwd) and backward
-// to the code maps (stego_corr_sampled_bwd).
+// sampling on the card, as gather -> C2 -> adjoint: the gather kernel
+// (stego_corr_sampled_gather) samples every distinct set of samples once,
+// kernel C2's forward and backward (csrc/corr_stream.cu) take the products and
+// their gradient, and the adjoint kernel (stego_corr_sampled_adjoint) carries
+// that gradient back through the normalisation and the taps to the code maps.
 //
 // Replaces stego_tpu/ops/pallas_corr_fused_sampling.py:sampled_corr_fused
-// (:389): the forward replaces _sfwd_kernel (:93, pallas_call :171 in
-// _run_sfwd), the backward _sbwd_kernel (:187, pallas_call :296 in
-// _run_sbwd) and the one-hot fold of the negatives' gradients (:365-374).
-// The train step calls each once (ops/corr_fused_sampling.py).
+// (:389): its forward _sfwd_kernel (:93, pallas_call :171 in _run_sfwd), its
+// backward _sbwd_kernel (:187, pallas_call :296 in _run_sbwd) and the one-hot
+// fold of the negatives' gradients (:365-374). The train step calls the
+// forward and the backward once each (ops/corr_fused_sampling.py).
 //
-// What it computes. A slot is one pair (image b, pair type g): g = 0 is the
-// image with itself, g = 1 the image with its KNN positive, g = 2 + k the
-// image with image perm_k(b). Side 1 is image b sampled at its coordinates
-// grid1[b]; side 2 is the slot's other image sampled at grid2[b] (grid1[b]
-// for g = 0). Sampling is bilinear with border clamping and
-// align_corners=True, as four taps (stego_tpu/ops/sampling.py:33-59; the
-// reference's grid transpose is done by the wrapper). Per sample the
-// features (bf16 or f32) and the code (f32) are l2-normalised, and
-// fd = f1n f2n^T, cd = c1n c2n^T (S x S). The forward writes the row sums
-// s1 = sum_j clamp(cd) fd, s2 = sum_j clamp(cd), s3 = sum_j fd and
-// sum_j cd, the side-2 raw code norms, and the residuals c2n (S x CC) and fd
-// (S x S); ops/corr_stream.py:finalize turns the sums into the losses.
+// What it computes. A slot (pair type g, image b) is pair row g * B + b,
+// group-major, one group per pair type. Its side 1 is image b's feature and
+// code maps sampled at coords1[b]; its side 2 is the same for g = 0, the KNN
+// positive's maps (feats_pos[b], code_pos[b]) at coords2[b] for g = 1, and
+// image perm_k(b)'s maps at coords2[b] for g = 2 + k. So there are G * B
+// distinct sets of S samples (G = 2 + neg): set b is side 1, set B + b the
+// positive, set (2 + k) B + b a negative, and row g * B + b pairs set b with
+// set b (g = 0) or with set g * B + b. Sampling is bilinear with border
+// clamping and align_corners=True, as four taps
+// (stego_tpu/ops/sampling.py:33-59), at the points of the reference's
+// transposed grid (src/modules.py:287). Per sample the features and the code
+// are l2-normalised (eps 1e-10), and fd = f1n f2n^T, cd = c1n c2n^T (S x S);
+// the loss is C2's closed form in the row sums of clamp(cd) fd, clamp(cd), fd
+// and cd.
 //
-// Rounding points of _sfwd_kernel (:101-135). Feature side, bf16 features
-// (a bf16 trunk): tap weights rounded to bf16, products with the bf16
-// features accumulated in f32, the sampled value rounded to bf16,
-// l2-normalised in f32 (eps 1e-10) and stored as bf16; fd is a bf16 x bf16
-// product with f32 accumulation (every such product is exact in f32, so an
-// f32 FMA per term is the f32 sum of exact products). f32 features (an f32
-// trunk, feat_dtype=float32): f32 tap weights and sampled values, no
-// rounding, l2-normalised in f32 (eps 1e-10); fd is f32 x f32 with f32 FMA.
-// Code side: f32 throughout, with f32 FMA (no tensor cores, so no TF32).
+// Rounding points of _sfwd_kernel (:101-135), kept by the gather. bf16
+// features (a bf16 trunk): tap weights rounded to bf16, the four products
+// added by f32 FMA in tap order, the sample rounded to bf16, l2-normalised in
+// f32 and stored as bf16. f32 features (an f32 trunk): f32 throughout. Code:
+// f32 throughout. Each norm is the warp's sum of squares (each lane's channels
+// by FMA, then a butterfly over the lanes).
 //
-// Bound: at the train step's shapes (B = 16, 28 x 28 maps, 384 feature and
-// 70 code channels, S = 121, 7 slots an image) the forward is about 1.5
-// GFLOP, nearly all of it fd (121 x 121 x 384 a slot), and it reads a few MB
-// of maps (L2-resident: every map is read by the 7 slots of its image) and
-// writes 7 MB of residuals. Neither bound is near: at this size a simple
-// kernel is bound by its own instruction issue. Design: one block a slot
-// (112 blocks) and pair of sample tiles, no block waits on another (side 1
-// is sampled again in each of its image's 7 blocks). Up to 128 samples a
-// side a block takes them all; past that the samples come in tiles of up
-// to 128 a side, a block for each pair of tiles, and each block writes its
-// rows' sums over its side-2 tile to a slot of its own, which the wrapper
-// adds in tile order (finalize's pointwise mean needs every row's full
-// sums). Up to 384 bf16 channels, a block samples both
-// sides' features into two k-major bf16 panels in shared memory (2 x 384 x
-// 136 x 2 B = 204 KB), one warp a sample keeping its samples in registers
-// for the l2 norm. Every channel at once would not fit beside the taps
-// above that (408 KB of bf16 panels at ViT-B's 768 channels, 418 KB of f32
-// at 384): the block first computes every sample's norm over all channels
-// (one warp a sample), then samples the channels a chunk at a time again
-// with the same FMA order, divided by the norms (bf16: 384 channels a
-// chunk; f32: 128, 2 x 128 x 136 x 4 B = 139 KB). Each of the 256 threads
-// accumulates an 8 x 8 tile of fd in registers with f32 FMA across the
-// chunks in channel order; then the block samples the code into the same
-// shared memory (f32 panels, 96 channels at a time after a norm pass over
-// all of them) and accumulates the matching 8 x 8 tile of cd over the
-// chunks in channel order; row sums reduce over the 16 threads of a row
-// group by warp shuffles. Up to 96 code channels and 128 samples (the
-// default shapes) the kOne instantiations sample the code in one pass,
-// its norm from the values held in registers, as before the chunks: the
-// chunked form cost 7% of the forward there.
-// The chunks change no sum: at ViT-B's 768 channels fd is the channel-order
-// f32 sum it would be in one panel.
+// Why the products go through C2. Once sampled, C1's products are C2's at N =
+// S: 112 pair rows of 121 samples, 384 feature and 70 code channels at the
+// train step's shape, the grid-sampled C2 shape. C2's Hopper forward and
+// backward take them on the tensor cores (fd by bf16 wgmma, or 3xTF32 on f32
+// features; cd by 3xTF32 with every cd near a clamp bound recomputed by f32
+// FMA in channel order, so that each clamp mask is that FMA's), and its
+// backward reads the fd and mask the forward keeps, in a fixed order, without
+// atomics. The forward C1 had before (one block a slot, fd and cd by f32 FMA
+// on 8 x 8 register tiles, side 1 sampled again in each of its image's blocks,
+// 112 blocks on 132 SMs) took 0.2553 ms there on an H100 SXM at 700 W, and its
+// backward 0.1015 (PERF.md). C2's forward needs code rows of norm at most 1
+// for its fix-up's margin: the gather's rows are z / max(|z|, 1e-10), of norm
+// 1 to within a few roundings, or 0 below eps.
 //
-// Backward (_sbwd_kernel, :187-307), in two kernels. The first, one block
-// a slot and pair of sample tiles as the forward, recomputes
-// cd from the residual code panels (the same FMA order as the forward, so
-// the clamp mask is the forward's), forms
-// coeff = (-(fd' - shift) mask g_loss + g_cdm) / m with the pointwise
-// fd' = fd - rowmean + the group's fd mean, then its tiles' parts of
-// dz1 = coeff c2n and dz2 = coeff^T c1n (96 code channels at a time), each
-// written once to a slot of its own. The second, one block a slot, adds
-// the parts in tile order (the self slot's dz2 is side 1's too), applies
-// the l2-normalise Jacobian (_norm_jac, :69-76; the projection is dropped
-// below eps), which needs the whole row, and scatters each sample's
-// gradient through its four taps into the code maps with atomicAdd: side 1
-// into dcode[b], side 2 into dcode_pos[b]
-// (g = 1) or dcode[perm_k(b)]. The TPU kernel folds the negatives with a
-// one-hot matmul because scatters serialise there; here f32 atomics make
-// the gradient's last bits depend on the order of the adds. With one code
-// chunk and one tile (the default shapes) corr_sampled_bwd_one_kernel does
-// both in one block a slot, the backward as it was before the tiles: the
-// two kernels cost 16% more there.
+// Gather: one warp a sample, lanes over groups of 4 channels (an 8- or 16-byte
+// load a tap and group, where the widths allow), 8 samples a block: 1694
+// blocks at the train step's shape (13,552 samples), more than a wave of 8
+// blocks an SM. It reads each of the sample's four tap rows of the feature and
+// code maps once (56.8 MB at the train step's shape, bf16 at 384 channels:
+// hits in L2, which holds the 19 MB of maps) and writes the sets (10.4 MB of
+// features and 3.8 MB of code), the raw code norms (the normalisation's
+// Jacobian needs them) and each tap's code-map row and weight. Bound by bytes:
+// ~0.012 ms at HBM rate for the maps read once (26 MB) and what it must write
+// (15 MB). A sample's values wait in the warp's slice of shared memory between
+// the sum of squares and the divide, so the taps are read once (any width:
+// max(cf, cc) floats a warp). It reads the coordinates in place, in the
+// reference's transposed order. Its first warp also writes the pair rows'
+// layout that C2's forward and backward read (map indices, groups, and each
+// map's entries in the order C2's wrapper would sort them), so no sort or copy
+// runs for them. A slot whose permutation entry is out of range reads nothing:
+// its set is written as zeros, its pair row's side-2 index is -1, so C2 gives
+// it NaN row sums and no gradient, and its taps carry no code-map row.
+//
+// Adjoint: C2's backward gives dL/d(normalised code) of every set. A Jacobian
+// kernel (one warp a sample) takes each sample's gradient once through the
+// l2-normalise Jacobian (_norm_jac, :69-76: (g - [n > eps] vn (vn . g)) /
+// max(n, eps)); the adjoint kernel then carries it through the sample's four
+// taps into the code maps: set b into code[b], set B + b into code_pos[b], set
+// (2 + k) B + b into code[perm_k(b)]. The TPU kernel folds the negatives with
+// a one-hot matmul because scatters serialise there; C1 before added with f32
+// atomics, so the gradient's last bits followed the order of the adds. Here
+// the adjoint pulls: a warp owns 8 consecutive rows of one code map, walks the
+// sets that land on that map (its own set, and for code[b] the negatives whose
+// permutation entry is b) 32 samples at a time, finds by the gather's tap rows
+// the samples with a tap on its rows, and adds each one's row, times the tap's
+// weight, to its rows in shared memory, in entry order (set, sample, tap).
+// Every element of the gradient is written once, after a sum in a fixed order,
+// so two runs give the same bits, and no sort of the 54,208 taps runs (a
+// stable device sort of them took 0.048 ms on an H100 SXM at 700 W, twice a
+// first adjoint that read the sorted order). Bound by bytes: the function
+// reads the sets' gradient and code (3.8 MB each at the train step's shape)
+// and writes both code maps' gradient once (7.0 MB), ~0.0045 ms at HBM rate;
+// the Jacobian's rows (3.8 MB) pass between the two kernels through L2, and
+// the adjoint reads a sample's row again for each warp it lands on.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
 
+#include <initializer_list>
 #include <type_traits>
 
 namespace {
 
-constexpr int kSMax = 128;         // samples of a side a block takes
-constexpr int kPitch = kSMax + 8;  // k-major panel row, in elements
-constexpr int kMaxFeat = 768;      // feature channels (ViT-B)
-constexpr int kWholeBf16 = 384;    // bf16 channels a panel takes at once
-constexpr int kCodeChunk = 96;     // code channels a panel takes at once
-constexpr int kFwdThreads = 256;   // 16 x 16 threads, one 8 x 8 tile each
-constexpr int kBwdThreads = 288;   // 9 warps
-constexpr int kCoeffPitch = kSMax + 1;
+constexpr int kWarps = 8;  // a block: one warp a sample or code-map row
+constexpr int kThreads = kWarps * 32;
+constexpr int kMaxFeat = 768;       // feature channels (ViT-B)
+constexpr int kLaneChannels = 4;    // adjoint: channels a lane sums a pass
+constexpr int kPix = 8;             // adjoint: code-map rows a warp owns
+constexpr int kChunks = 4;          // adjoint: 32-sample key chunks at once
+constexpr int kBatch = 2;           // adjoint: landing samples loaded at once
 constexpr float kEps = 1e-10f;
 constexpr unsigned kFull = 0xffffffffu;
 
@@ -110,16 +114,14 @@ __device__ __forceinline__ float warp_sum(float v) {
   return v;
 }
 
-// Sum over the 16 lanes of a half warp (the threads of one row group).
-__device__ __forceinline__ float half_warp_sum(float v) {
-#pragma unroll
-  for (int off = 8; off > 0; off >>= 1) v += __shfl_xor_sync(kFull, v, off);
-  return v;
-}
-
 __device__ __forceinline__ float bf16_round(float v) {
   return __bfloat162float(__float2bfloat16_rn(v));
 }
+
+__device__ __forceinline__ void store_as(float v, __nv_bfloat16* p) {
+  *p = __float2bfloat16_rn(v);
+}
+__device__ __forceinline__ void store_as(float v, float* p) { *p = v; }
 
 // The four bilinear taps of grid point (gx, gy) on an h x w map: flat
 // indices and f32 weights (1-fy)(1-fx), (1-fy)fx, fy(1-fx), fy fx, in the
@@ -154,1153 +156,561 @@ __device__ void make_taps(const float* grid_point, int h, int w, int* idx,
   wt[3] = __fmul_rn(fy, fx);
 }
 
-// Taps of both sides' samples into shared memory: side 0, na samples from
-// grid_a, at entries 0 ..; side 1, nb samples from grid_b, at entries kSMax
-// ..; each grid (samples, 2) f32.
-__device__ void load_taps(const float* grid_a, int na, const float* grid_b,
-                          int nb, int h, int w, int* tap_idx, float* tap_w) {
-  for (int i = threadIdx.x; i < 2 * kSMax; i += blockDim.x) {
-    const int side = i / kSMax;
-    const int k = i - side * kSMax;
-    if (k >= (side == 0 ? na : nb)) continue;
-    const float* gp = (side == 0 ? grid_a : grid_b) + 2 * k;
-    make_taps(gp, h, w, tap_idx + i * 4, tap_w + i * 4);
-  }
-}
-
-// Channel c of the feature sample at taps (idx, wt): sum_t w_t f[idx_t]
-// with f32 FMA, the same order wherever it is called. bf16 features take
-// the weights rounded to bf16 and round the sum to bf16 (_sfwd_kernel
-// :101-110); f32 features neither.
-__device__ __forceinline__ float sample_at(const __nv_bfloat16* f,
-                                           const int* idx, const float* wt,
-                                           int cf, int c) {
-  float v = 0.f;
-#pragma unroll
-  for (int t = 0; t < 4; ++t) {
-    v = fmaf(bf16_round(wt[t]),
-             __bfloat162float(f[static_cast<size_t>(idx[t]) * cf + c]), v);
-  }
-  return bf16_round(v);
-}
-
-__device__ __forceinline__ float sample_at(const float* f, const int* idx,
-                                           const float* wt, int cf, int c) {
-  float v = 0.f;
-#pragma unroll
-  for (int t = 0; t < 4; ++t) {
-    v = fmaf(wt[t], f[static_cast<size_t>(idx[t]) * cf + c], v);
-  }
-  return v;
-}
-
-// The l2 norms max(|z|, eps) of the feature map f (hw, cf) sampled at s
-// points, over all cf channels, into norm (s). One warp a sample, lanes over
-// channels: lane l sums channels l, l + 32, ... in order.
-template <typename FeatT>
-__device__ void feat_norms(const FeatT* f, const int* tap_idx,
-                           const float* tap_w, int s, int cf, float* norm) {
-  const int lane = threadIdx.x & 31;
-  const int warps = blockDim.x >> 5;
-  for (int k = threadIdx.x >> 5; k < s; k += warps) {
-    int idx[4];
-    float wt[4];
-#pragma unroll
-    for (int t = 0; t < 4; ++t) {
-      idx[t] = tap_idx[k * 4 + t];
-      wt[t] = tap_w[k * 4 + t];
-    }
-    float sq = 0.f;
-    for (int c = lane; c < cf; c += 32) {
-      const float v = sample_at(f, idx, wt, cf, c);
-      sq = fmaf(v, v, sq);
-    }
-    const float d = fmaxf(sqrtf(warp_sum(sq)), kEps);
-    if (lane == 0) norm[k] = d;
-  }
-}
-
-// Channels c0 .. c0 + depth - 1 of the feature map f sampled at s points and
-// divided by their norms (feat_norms), into the k-major panel (depth rows of
-// kPitch) in the feature type. One warp a sample, lanes over channels.
-template <typename FeatT>
-__device__ void sample_feats(const FeatT* f, const int* tap_idx,
-                             const float* tap_w, int s, int cf, int c0,
-                             int depth, const float* norm, FeatT* panel) {
-  const int lane = threadIdx.x & 31;
-  const int warps = blockDim.x >> 5;
-  for (int k = threadIdx.x >> 5; k < s; k += warps) {
-    int idx[4];
-    float wt[4];
-#pragma unroll
-    for (int t = 0; t < 4; ++t) {
-      idx[t] = tap_idx[k * 4 + t];
-      wt[t] = tap_w[k * 4 + t];
-    }
-    const float d = norm[k];
-    for (int cl = lane; cl < depth; cl += 32) {
-      const float z = sample_at(f, idx, wt, cf, c0 + cl) / d;
-      if constexpr (std::is_same<FeatT, float>::value) {
-        panel[cl * kPitch + k] = z;
-      } else {
-        panel[cl * kPitch + k] = __float2bfloat16_rn(z);
-      }
-    }
-  }
-}
-
-// Every channel (cf <= kWholeBf16) of the bf16 feature map f sampled at s
-// points, l2-normalised, into the k-major bf16 panel in one pass: each lane
-// keeps its channels' samples in registers for the norm. The same values as
-// feat_norms and then sample_feats, which read the features twice.
-__device__ void sample_feats_whole(const __nv_bfloat16* f, const int* tap_idx,
-                                   const float* tap_w, int s, int cf,
-                                   __nv_bfloat16* panel) {
-  const int lane = threadIdx.x & 31;
-  const int warps = blockDim.x >> 5;
-  for (int k = threadIdx.x >> 5; k < s; k += warps) {
-    int idx[4];
-    float wb[4];
-#pragma unroll
-    for (int t = 0; t < 4; ++t) {
-      idx[t] = tap_idx[k * 4 + t];
-      wb[t] = bf16_round(tap_w[k * 4 + t]);
-    }
-    float z[kWholeBf16 / 32];
-    float sq = 0.f;
-#pragma unroll
-    for (int u = 0; u < kWholeBf16 / 32; ++u) {
-      const int c = lane + 32 * u;
-      float v = 0.f;
-      if (c < cf) {
-#pragma unroll
-        for (int t = 0; t < 4; ++t) {
-          v = fmaf(wb[t],
-                   __bfloat162float(f[static_cast<size_t>(idx[t]) * cf + c]),
-                   v);
-        }
-        v = bf16_round(v);
-      }
-      z[u] = v;
-      sq = fmaf(v, v, sq);
-    }
-    const float d = fmaxf(sqrtf(warp_sum(sq)), kEps);
-#pragma unroll
-    for (int u = 0; u < kWholeBf16 / 32; ++u) {
-      const int c = lane + 32 * u;
-      if (c < cf) panel[c * kPitch + k] = __float2bfloat16_rn(z[u] / d);
-    }
-  }
-}
-
-// Samples the f32 code map c (hw, cc <= kCodeChunk) at s points into the
-// k-major f32 panel (cc rows of kPitch): z = sum_t w_t c[idx_t],
-// l2-normalised, in one pass with z held in registers. When z_out is given,
-// also writes the normalised rows (s, cc), and when norm_out is, the raw
-// norms (s). The same sums as code_norms and sample_code.
-__device__ void sample_code_whole(const float* code, const int* tap_idx,
-                                  const float* tap_w, int s, int cc,
-                                  float* panel, float* z_out,
-                                  float* norm_out) {
-  const int lane = threadIdx.x & 31;
-  const int warps = blockDim.x >> 5;
-  for (int k = threadIdx.x >> 5; k < s; k += warps) {
-    int idx[4];
-    float wt[4];
-#pragma unroll
-    for (int t = 0; t < 4; ++t) {
-      idx[t] = tap_idx[k * 4 + t];
-      wt[t] = tap_w[k * 4 + t];
-    }
-    float z[kCodeChunk / 32];
-    float sq = 0.f;
-#pragma unroll
-    for (int u = 0; u < kCodeChunk / 32; ++u) {
-      const int c = lane + 32 * u;
-      float v = 0.f;
-      if (c < cc) {
-#pragma unroll
-        for (int t = 0; t < 4; ++t) {
-          v = fmaf(wt[t], code[static_cast<size_t>(idx[t]) * cc + c], v);
-        }
-      }
-      z[u] = v;
-      sq = fmaf(v, v, sq);
-    }
-    const float n = sqrtf(warp_sum(sq));
-    const float d = fmaxf(n, kEps);
-#pragma unroll
-    for (int u = 0; u < kCodeChunk / 32; ++u) {
-      const int c = lane + 32 * u;
-      if (c < cc) {
-        const float zn = z[u] / d;
-        panel[c * kPitch + k] = zn;
-        if (z_out != nullptr) z_out[k * cc + c] = zn;
-      }
-    }
-    if (norm_out != nullptr && lane == 0) norm_out[k] = n;
-  }
-}
-
-// The raw l2 norms |z| of the f32 code map (hw, cc) sampled at s points,
-// z = sum_t w_t c[idx_t] over all cc channels, into norm (s). One warp a
-// sample, lanes over channels: lane l sums channels l, l + 32, ... in order.
-__device__ void code_norms(const float* code, const int* tap_idx,
-                           const float* tap_w, int s, int cc, float* norm) {
-  const int lane = threadIdx.x & 31;
-  const int warps = blockDim.x >> 5;
-  for (int k = threadIdx.x >> 5; k < s; k += warps) {
-    int idx[4];
-    float wt[4];
-#pragma unroll
-    for (int t = 0; t < 4; ++t) {
-      idx[t] = tap_idx[k * 4 + t];
-      wt[t] = tap_w[k * 4 + t];
-    }
-    float sq = 0.f;
-    for (int c = lane; c < cc; c += 32) {
-      float v = 0.f;
-#pragma unroll
-      for (int t = 0; t < 4; ++t) {
-        v = fmaf(wt[t], code[static_cast<size_t>(idx[t]) * cc + c], v);
-      }
-      sq = fmaf(v, v, sq);
-    }
-    const float n = sqrtf(warp_sum(sq));
-    if (lane == 0) norm[k] = n;
-  }
-}
-
-// Code channels c0 .. c0 + depth - 1 of the f32 code map sampled at s points
-// and divided by max(norm, eps) (code_norms), into the k-major f32 panel
-// (depth rows of kPitch). When z_out is given, also writes the normalised
-// values into its rows (s, cc).
-__device__ void sample_code(const float* code, const int* tap_idx,
-                            const float* tap_w, int s, int cc, int c0,
-                            int depth, const float* norm, float* panel,
-                            float* z_out) {
-  const int lane = threadIdx.x & 31;
-  const int warps = blockDim.x >> 5;
-  for (int k = threadIdx.x >> 5; k < s; k += warps) {
-    int idx[4];
-    float wt[4];
-#pragma unroll
-    for (int t = 0; t < 4; ++t) {
-      idx[t] = tap_idx[k * 4 + t];
-      wt[t] = tap_w[k * 4 + t];
-    }
-    const float d = fmaxf(norm[k], kEps);
-    for (int cl = lane; cl < depth; cl += 32) {
-      const int c = c0 + cl;
-      float v = 0.f;
-#pragma unroll
-      for (int t = 0; t < 4; ++t) {
-        v = fmaf(wt[t], code[static_cast<size_t>(idx[t]) * cc + c], v);
-      }
-      const float zn = v / d;
-      panel[cl * kPitch + k] = zn;
-      if (z_out != nullptr) z_out[k * cc + c] = zn;
-    }
-  }
-}
-
-__device__ __forceinline__ void unpack8(uint4 v, float* out) {
-  const uint32_t words[4] = {v.x, v.y, v.z, v.w};
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const __nv_bfloat162 p = *reinterpret_cast<const __nv_bfloat162*>(
-        &words[i]);
-    const float2 f = __bfloat1622float2(p);
-    out[2 * i] = f.x;
-    out[2 * i + 1] = f.y;
-  }
-}
-
-// acc[i][j] = sum_k a[k][r0 + i] b[k][c0 + j] over k-major bf16 panels.
-__device__ __forceinline__ void tile_dot_bf16(const __nv_bfloat16* a,
-                                              const __nv_bfloat16* b,
-                                              int depth, int r0, int c0,
-                                              float (&acc)[8][8]) {
-  for (int k = 0; k < depth; ++k) {
-    float av[8], bv[8];
-    unpack8(*reinterpret_cast<const uint4*>(a + k * kPitch + r0), av);
-    unpack8(*reinterpret_cast<const uint4*>(b + k * kPitch + c0), bv);
-#pragma unroll
-    for (int i = 0; i < 8; ++i) {
-#pragma unroll
-      for (int j = 0; j < 8; ++j) acc[i][j] = fmaf(av[i], bv[j], acc[i][j]);
-    }
-  }
-}
-
-// acc[i][j] = sum_k a[k][r0 + i] b[k][c0 + j] over k-major f32 panels.
-__device__ __forceinline__ void tile_dot_f32(const float* a, const float* b,
-                                             int depth, int r0, int c0,
-                                             float (&acc)[8][8]) {
-  for (int k = 0; k < depth; ++k) {
-    const float4 a0 = *reinterpret_cast<const float4*>(a + k * kPitch + r0);
-    const float4 a1 =
-        *reinterpret_cast<const float4*>(a + k * kPitch + r0 + 4);
-    const float4 b0 = *reinterpret_cast<const float4*>(b + k * kPitch + c0);
-    const float4 b1 =
-        *reinterpret_cast<const float4*>(b + k * kPitch + c0 + 4);
-    const float av[8] = {a0.x, a0.y, a0.z, a0.w, a1.x, a1.y, a1.z, a1.w};
-    const float bv[8] = {b0.x, b0.y, b0.z, b0.w, b1.x, b1.y, b1.z, b1.w};
-#pragma unroll
-    for (int i = 0; i < 8; ++i) {
-#pragma unroll
-      for (int j = 0; j < 8; ++j) acc[i][j] = fmaf(av[i], bv[j], acc[i][j]);
-    }
-  }
-}
-
-// true for the f32 feature instantiation
-template <typename FeatT>
-__host__ __device__ constexpr bool f32_feats() {
-  return std::is_same<FeatT, float>::value;
-}
-
-// Feature channels of a panel: 384 bf16 (every channel of ViT-S in one
-// chunk) or 128 f32.
-template <typename FeatT>
-__host__ __device__ constexpr int feat_chunk() {
-  return f32_feats<FeatT>() ? 128 : kWholeBf16;
-}
-
-// Bytes of the forward's panel region: two feature panels of a chunk of
-// channels, later two f32 code panels.
-template <typename FeatT>
-__host__ __device__ __forceinline__ size_t panels_bytes(int cf, int cc) {
-  const int rows = cf > feat_chunk<FeatT>() ? feat_chunk<FeatT>() : cf;
-  const size_t feat = 2 * static_cast<size_t>(rows) * kPitch * sizeof(FeatT);
-  const size_t code =
-      2 * static_cast<size_t>(min(cc, kCodeChunk)) * kPitch * sizeof(float);
-  return feat > code ? feat : code;
-}
-
-__device__ void zero_shared(void* p, size_t bytes) {
-  uint4* q = static_cast<uint4*>(p);
-  const uint4 z = make_uint4(0, 0, 0, 0);
-  for (size_t i = threadIdx.x; i < bytes / 16; i += blockDim.x) q[i] = z;
-}
-
-// Image, grid and code map of a slot's side 2; false when the slot's
-// permutation entry is out of range.
-struct Side2 {
-  int image;     // index into feats/code (0 <= image < batch)
-  bool pos;      // side 2 is the positive map (feats_pos, code_pos)
-  bool self;     // g == 0: side 2 is side 1, sampled at grid1
-};
-
-__device__ bool side2_of(int b, int g, int batch, const int* perms,
-                         Side2* out) {
-  out->image = b;
-  out->pos = g == 1;
-  out->self = g == 0;
-  if (g >= 2) {
-    const int p = perms[(g - 2) * batch + b];
-    if (p < 0 || p >= batch) return false;
-    out->image = p;
-  }
-  return true;
-}
-
-// fd (8 x 8 a thread at rows r0, columns c0) of the slot whose side 1 is
-// map f1 sampled at the first kSMax taps (s1 of them) and side 2 map f2 at
-// the next (s2), over
-// the panel region p (the panels_bytes<FeatT> bytes at the start of shared
-// memory, zeroed; on return it may be reused). kWhole (bf16, cf <=
-// kWholeBf16): every channel sampled and normalised in one pass. Otherwise
-// the norms (2 kSMax floats of shared memory) come first, then the channels
-// in chunks, fd accumulating over them in channel order. The two are
-// separate instantiations: compiled into one kernel with the chunked path,
-// the one-pass path ran about 1.3x slower on an H100 (PERF.md).
-template <typename FeatT, bool kWhole>
-__device__ void feature_fd(const FeatT* f1, const FeatT* f2,
-                           const int* tap_idx, const float* tap_w, int s1,
-                           int s2, int cf, unsigned char* p, float* norm,
-                           int r0, int c0, float (&fd)[8][8]) {
-  constexpr int kChunk = feat_chunk<FeatT>();
-#pragma unroll
-  for (int i = 0; i < 8; ++i) {
-#pragma unroll
-    for (int j = 0; j < 8; ++j) fd[i][j] = 0.f;
-  }
-  FeatT* p1 = reinterpret_cast<FeatT*>(p);
-  FeatT* p2 = p1 + static_cast<size_t>(min(kChunk, cf)) * kPitch;
-  if constexpr (kWhole) {
-    sample_feats_whole(f1, tap_idx, tap_w, s1, cf, p1);
-    sample_feats_whole(f2, tap_idx + kSMax * 4, tap_w + kSMax * 4, s2, cf, p2);
-    __syncthreads();
-    tile_dot_bf16(p1, p2, cf, r0, c0, fd);
+// kVec consecutive elements at p (an aligned vector) as floats.
+template <int kVec>
+__device__ __forceinline__ void load_vec(const float* p, float (&v)[kVec]) {
+  if constexpr (kVec == 4) {
+    const float4 q = *reinterpret_cast<const float4*>(p);
+    v[0] = q.x, v[1] = q.y, v[2] = q.z, v[3] = q.w;
+  } else if constexpr (kVec == 2) {
+    const float2 q = *reinterpret_cast<const float2*>(p);
+    v[0] = q.x, v[1] = q.y;
   } else {
-    feat_norms(f1, tap_idx, tap_w, s1, cf, norm);
-    feat_norms(f2, tap_idx + kSMax * 4, tap_w + kSMax * 4, s2, cf,
-               norm + kSMax);
-    for (int ch0 = 0; ch0 < cf; ch0 += kChunk) {
-      const int depth = min(kChunk, cf - ch0);
-      // the norms are written, every thread is done with the last chunk
-      __syncthreads();
-      sample_feats(f1, tap_idx, tap_w, s1, cf, ch0, depth, norm, p1);
-      sample_feats(f2, tap_idx + kSMax * 4, tap_w + kSMax * 4, s2, cf, ch0,
-                   depth, norm + kSMax, p2);
-      __syncthreads();
-      if constexpr (f32_feats<FeatT>()) {
-        tile_dot_f32(p1, p2, depth, r0, c0, fd);
-      } else {
-        tile_dot_bf16(p1, p2, depth, r0, c0, fd);
-      }
-    }
+    v[0] = *p;
   }
 }
 
-// grid (slots, tiles, tiles): the block takes side 1's samples of tile
-// blockIdx.y and side 2's of tile blockIdx.z, up to kSMax each. acc (slots,
-// tiles, 5, s): rows 0-3 of tile t hold the row sums over side 2's samples
-// of tile t (the wrapper adds the tiles), row 4 of tile 0 the side-2 code
-// norms. kOne (cc <= kCodeChunk, one tile): the code in one pass.
-template <typename FeatT, bool kWhole, bool kOne>
-__global__ void __launch_bounds__(kFwdThreads, 1)
-corr_sampled_fwd_kernel(const FeatT* __restrict__ feats,
-                        const FeatT* __restrict__ feats_pos,
-                        const float* __restrict__ code,
-                        const float* __restrict__ code_pos,
-                        const float* __restrict__ grid1,
-                        const float* __restrict__ grid2,
-                        const int* __restrict__ perms, float* __restrict__ acc,
-                        float* __restrict__ z2cn, float* __restrict__ fd_out,
-                        int batch, int h, int w, int cf, int cc, int s, int g,
-                        float lo, float hi) {
-  extern __shared__ __align__(16) unsigned char smem[];
-  const int slot = blockIdx.x;
-  const int b = slot / g;
-  const int gi = slot - b * g;
-  const int hw = h * w;
-  const int tiles = gridDim.y;
-  const int i0 = blockIdx.y * kSMax;  // side 1's first sample
-  const int j0 = blockIdx.z * kSMax;  // side 2's first sample
-  const int s1n = min(kSMax, s - i0);
-  const int s2n = min(kSMax, s - j0);
-  const bool first_row_tile = blockIdx.y == 0;
-  float* acc_s = acc + (static_cast<size_t>(slot) * tiles + blockIdx.z) * 5 * s;
-  float* norm_s = acc + static_cast<size_t>(slot) * tiles * 5 * s + 4 * s;
+__device__ __forceinline__ float2 unpack_bf16x2(uint32_t u) {
+  return __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&u));
+}
 
-  Side2 side2;
-  if (!side2_of(b, gi, batch, perms, &side2)) {
-    // an out-of-range permutation entry: NaN row sums, no read
-    for (int i = threadIdx.x; i < 4 * s1n; i += blockDim.x) {
-      acc_s[(i / s1n) * s + i0 + i % s1n] = NAN;
+__device__ __forceinline__ uint32_t pack_bf16x2(float a, float b) {
+  const __nv_bfloat162 q = __floats2bfloat162_rn(a, b);
+  return *reinterpret_cast<const uint32_t*>(&q);
+}
+
+template <int kVec>
+__device__ __forceinline__ void load_vec(const __nv_bfloat16* p,
+                                         float (&v)[kVec]) {
+  if constexpr (kVec == 4) {
+    const uint2 u = *reinterpret_cast<const uint2*>(p);
+    const float2 a = unpack_bf16x2(u.x), b = unpack_bf16x2(u.y);
+    v[0] = a.x, v[1] = a.y, v[2] = b.x, v[3] = b.y;
+  } else if constexpr (kVec == 2) {
+    const float2 a = unpack_bf16x2(*reinterpret_cast<const uint32_t*>(p));
+    v[0] = a.x, v[1] = a.y;
+  } else {
+    v[0] = __bfloat162float(*p);
+  }
+}
+
+template <int kVec>
+__device__ __forceinline__ void store_vec(const float (&v)[kVec], float* p) {
+  if constexpr (kVec == 4) {
+    *reinterpret_cast<float4*>(p) = make_float4(v[0], v[1], v[2], v[3]);
+  } else if constexpr (kVec == 2) {
+    *reinterpret_cast<float2*>(p) = make_float2(v[0], v[1]);
+  } else {
+    *p = v[0];
+  }
+}
+
+template <int kVec>
+__device__ __forceinline__ void store_vec(const float (&v)[kVec],
+                                          __nv_bfloat16* p) {
+  if constexpr (kVec == 4) {
+    *reinterpret_cast<uint2*>(p) =
+        make_uint2(pack_bf16x2(v[0], v[1]), pack_bf16x2(v[2], v[3]));
+  } else if constexpr (kVec == 2) {
+    *reinterpret_cast<uint32_t*>(p) = pack_bf16x2(v[0], v[1]);
+  } else {
+    *p = __float2bfloat16_rn(v[0]);
+  }
+}
+
+// One warp samples the map m (rows of c channels, c a multiple of kVec)
+// at the taps (idx, wt), lanes over groups of kVec channels (lane l:
+// groups l, l + 32, ..., one vector load a tap and group): z = sum_t wt_t
+// m[idx_t] by f32 FMA in tap order, kept in the warp's buffer buf (c
+// floats, 16-byte aligned; a lane reads back only its own channels), then
+// z / max(|z|, eps) stored to out. kBf16: the weights and z rounded to
+// bf16 (bf16 features). The sum of squares goes over a lane's channels in
+// order, then a butterfly over the lanes. Returns |z| on every lane.
+template <bool kBf16, int kVec, typename InT, typename OutT>
+__device__ float sample_row(const InT* m, const int* idx, const float* wt,
+                            int c, float* buf, OutT* out) {
+  const int lane = threadIdx.x & 31;
+  const int groups = c / kVec;
+  const InT* r[4];
+  float w[4];
+#pragma unroll
+  for (int t = 0; t < 4; ++t) {
+    r[t] = m + static_cast<size_t>(idx[t]) * c;
+    w[t] = kBf16 ? bf16_round(wt[t]) : wt[t];
+  }
+  float sq = 0.f;
+  for (int q = lane; q < groups; q += 32) {
+    float x[4][kVec];
+#pragma unroll
+    for (int t = 0; t < 4; ++t) load_vec(r[t] + q * kVec, x[t]);
+    float z[kVec];
+#pragma unroll
+    for (int e = 0; e < kVec; ++e) {
+      float v = 0.f;
+#pragma unroll
+      for (int t = 0; t < 4; ++t) v = fmaf(w[t], x[t][e], v);
+      if (kBf16) v = bf16_round(v);
+      z[e] = v;
+      sq = fmaf(v, v, sq);
     }
-    if (first_row_tile) {
-      for (int i = threadIdx.x; i < s2n; i += blockDim.x) norm_s[j0 + i] = NAN;
+    store_vec(z, buf + q * kVec);
+  }
+  const float n = sqrtf(warp_sum(sq));
+  const float d = fmaxf(n, kEps);
+  for (int q = lane; q < groups; q += 32) {
+    float z[kVec];
+    load_vec(buf + q * kVec, z);
+#pragma unroll
+    for (int e = 0; e < kVec; ++e) z[e] = z[e] / d;
+    store_vec(z, out + q * kVec);
+  }
+  return n;
+}
+
+// Floats of a warp's buffer in the gather: the wider of the two rows,
+// rounded up to 4 so that each warp's slice stays 16-byte aligned.
+__host__ __device__ __forceinline__ int buf_floats(int cf, int cc) {
+  return ((cf > cc ? cf : cc) + 3) & ~3;
+}
+
+// The pair rows' layout as C2 reads it, written by the gather's first
+// threads for the R = batch * g rows (row r = gi * batch + b). idx1[r] = b;
+// idx2[r] = b (gi = 0), r, or -1 for an out-of-range permutation entry;
+// row_group[r] = gi. C2's backward takes each map's entries (e < R: row e
+// reads the map as side 1; e >= R: row e - R as side 2) from order, in the
+// order a stable sort of [idx1; idx2] gives (ops/corr_stream.py:
+// backward_launch), set m's at offsets[m] .. offsets[m + 1]: set m < batch
+// is side 1 of rows m, batch + m, ..., then side 2 of row m (g + 1
+// entries); a later set is side 2 of its own row, or nothing when that
+// row's entry is out of range (the sort's leading -1 keys are left out).
+__device__ void pair_layout(const long long* perms, int* idx1, int* idx2,
+                            int* row_group, int* order, int* offsets,
+                            int batch, int g) {
+  if (blockIdx.x != 0 || threadIdx.x >= 32) return;  // one warp
+  const int lane = threadIdx.x;
+  const int rows = batch * g;
+  int later = 0;  // valid sets in [batch, r0)
+  for (int r0 = 0; r0 < rows; r0 += 32) {
+    const int r = r0 + lane;
+    const int gi = r / batch;
+    const int b = r - gi * batch;
+    bool valid = r < rows;
+    if (valid && gi >= 2) {
+      const long long p = perms[r - 2 * batch];
+      valid = p >= 0 && p < batch;
     }
+    const unsigned before =
+        __ballot_sync(kFull, valid && r >= batch) & ((1u << lane) - 1);
+    const int at = batch * (g + 1) + later + __popc(before);
+    if (r < rows) {
+      idx1[r] = b;
+      idx2[r] = gi == 0 ? b : valid ? r : -1;
+      row_group[r] = gi;
+      if (r < batch) {
+        offsets[r] = r * (g + 1);
+        for (int j = 0; j < g; ++j) order[r * (g + 1) + j] = j * batch + r;
+        order[r * (g + 1) + g] = rows + r;
+      } else {
+        offsets[r] = at;
+        if (valid) order[at] = rows + r;
+      }
+    }
+    later += __popc(__ballot_sync(kFull, valid && r >= batch));
+  }
+  if (lane == 0) offsets[rows] = batch * (g + 1) + later;
+}
+
+// One warp a (set, sample) item = set * s + sample, sets group-major (set
+// = gi * batch + b); sample k = i * s1 + j of set gi * batch + b is
+// coords[b, j, i], the reference's transposed grid (coords1 for gi = 0,
+// coords2 else). Writes the normalised feature row fsets[item] (cf,
+// FeatT) and code row csets[item] (cc, f32), the raw code norm
+// norms[item], and for each tap t keys[4 item + t], the code-map row it
+// lands on (maps code[0..batch) then code_pos[0..batch), h * w rows each;
+// 2 * batch * h * w, past every row, for a tap of weight 0 or a set whose
+// permutation entry is out of range) and wts[4 item + t], its weight. The
+// first warp of block 0 also writes the pair rows' layout (pair_layout).
+template <typename FeatT, int kFeatVec, int kCodeVec>
+__global__ void __launch_bounds__(kThreads)
+corr_sampled_gather_kernel(const FeatT* __restrict__ feats,
+                           const FeatT* __restrict__ feats_pos,
+                           const float* __restrict__ code,
+                           const float* __restrict__ code_pos,
+                           const float* __restrict__ coords1,
+                           const float* __restrict__ coords2,
+                           const long long* __restrict__ perms,
+                           FeatT* __restrict__ fsets,
+                           float* __restrict__ csets,
+                           float* __restrict__ norms, int* __restrict__ keys,
+                           float* __restrict__ wts, int* __restrict__ idx1,
+                           int* __restrict__ idx2, int* __restrict__ row_group,
+                           int* __restrict__ order, int* __restrict__ offsets,
+                           int batch, int h, int w, int cf, int cc, int s1,
+                           int s2, int g) {
+  extern __shared__ float buf_all[];
+  pair_layout(perms, idx1, idx2, row_group, order, offsets, batch, g);
+  const int s = s1 * s2;
+  const int hw = h * w;
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  const size_t item = static_cast<size_t>(blockIdx.x) * kWarps + warp;
+  if (item >= static_cast<size_t>(batch) * g * s) return;  // a whole warp
+  const int set = static_cast<int>(item / s);
+  const int k = static_cast<int>(item - static_cast<size_t>(set) * s);
+  const int gi = set / batch;
+  const int b = set - gi * batch;
+  long long image = b;
+  if (gi >= 2) image = perms[set - 2 * batch];
+  const bool valid = image >= 0 && image < batch;
+  const bool pos = gi == 1;
+  const int i = k / s1;
+  const int j = k - i * s1;
+  int idx[4];
+  float wt[4];
+  make_taps((gi == 0 ? coords1 : coords2) +
+                ((static_cast<size_t>(b) * s1 + j) * s2 + i) * 2,
+            h, w, idx, wt);
+  if (lane < 4) {
+    const int ti = lane == 0 ? idx[0] : lane == 1 ? idx[1]
+                 : lane == 2 ? idx[2] : idx[3];
+    const float tw = lane == 0 ? wt[0] : lane == 1 ? wt[1]
+                   : lane == 2 ? wt[2] : wt[3];
+    const int map = pos ? batch + b : static_cast<int>(image);
+    keys[4 * item + lane] =
+        valid && tw != 0.f ? map * hw + ti : 2 * batch * hw;
+    wts[4 * item + lane] = tw;
+  }
+  FeatT* fo = fsets + item * cf;
+  float* co = csets + item * cc;
+  if (!valid) {  // no pair row reads this set
+    for (int ch = lane; ch < cf; ch += 32) store_as(0.f, fo + ch);
+    for (int ch = lane; ch < cc; ch += 32) co[ch] = 0.f;
+    if (lane == 0) norms[item] = 0.f;
     return;
   }
-
-  const size_t panel_bytes = panels_bytes<FeatT>(cf, cc);
-  int* tap_idx = reinterpret_cast<int*>(smem + panel_bytes);
-  float* tap_w = reinterpret_cast<float*>(tap_idx + 2 * kSMax * 4);
-  float* cnorm = tap_w + 2 * kSMax * 4;  // 2 kSMax code norms
-  float* norm = cnorm + 2 * kSMax;       // 2 kSMax feature norms unless kWhole
-
-  const float* g1 = grid1 + (static_cast<size_t>(b) * s + i0) * 2;
-  const float* g2 =
-      (side2.self ? grid1 : grid2) + (static_cast<size_t>(b) * s + j0) * 2;
-  zero_shared(smem, panel_bytes);
-  load_taps(g1, s1n, g2, s2n, h, w, tap_idx, tap_w);
-  __syncthreads();
-
-  // features: side 1 from feats[b], side 2 from its image
-  const int tid = threadIdx.x;
-  const int r0 = (tid >> 4) * 8;  // 16 row groups of 8
-  const int c0 = (tid & 15) * 8;  // 16 column groups of 8
-  const FeatT* f2src = side2.pos ? feats_pos : feats;
-  float fd[8][8];
-  feature_fd<FeatT, kWhole>(feats + static_cast<size_t>(b) * hw * cf,
-                    f2src + static_cast<size_t>(side2.image) * hw * cf,
-                    tap_idx, tap_w, s1n, s2n, cf, smem, norm, r0, c0, fd);
-  __syncthreads();  // every thread is done with the feature panels
-
-  // code, f32, into the same shared memory, kCodeChunk channels at a time;
-  // cd accumulates over the chunks in channel order
-  const int cw = min(cc, kCodeChunk);
-  float* q1 = reinterpret_cast<float*>(smem);
-  float* q2 = q1 + static_cast<size_t>(cw) * kPitch;
-  zero_shared(smem, 2 * static_cast<size_t>(cw) * kPitch * sizeof(float));
-  const float* c1map = code + static_cast<size_t>(b) * hw * cc;
-  const float* c2map =
-      (side2.pos ? code_pos : code) + static_cast<size_t>(side2.image) * hw * cc;
-  float* z_out = first_row_tile
-                     ? z2cn + (static_cast<size_t>(slot) * s + j0) * cc
-                     : nullptr;
-  float cd[8][8];
-#pragma unroll
-  for (int i = 0; i < 8; ++i) {
-#pragma unroll
-    for (int j = 0; j < 8; ++j) cd[i][j] = 0.f;
-  }
-  if constexpr (kOne) {
-    __syncthreads();
-    sample_code_whole(c1map, tap_idx, tap_w, s1n, cc, q1, nullptr, nullptr);
-    sample_code_whole(c2map, tap_idx + kSMax * 4, tap_w + kSMax * 4, s2n, cc,
-                      q2, z_out, norm_s);
-    __syncthreads();
-    tile_dot_f32(q1, q2, cc, r0, c0, cd);
-  } else {
-    code_norms(c1map, tap_idx, tap_w, s1n, cc, cnorm);
-    code_norms(c2map, tap_idx + kSMax * 4, tap_w + kSMax * 4, s2n, cc,
-               cnorm + kSMax);
-    for (int ch0 = 0; ch0 < cc; ch0 += kCodeChunk) {
-      const int depth = min(kCodeChunk, cc - ch0);
-      // the norms are written, every thread is done with the last chunk
-      __syncthreads();
-      sample_code(c1map, tap_idx, tap_w, s1n, cc, ch0, depth, cnorm, q1,
-                  nullptr);
-      sample_code(c2map, tap_idx + kSMax * 4, tap_w + kSMax * 4, s2n, cc,
-                  ch0, depth, cnorm + kSMax, q2, z_out);
-      __syncthreads();
-      tile_dot_f32(q1, q2, depth, r0, c0, cd);
-    }
-    if (first_row_tile) {
-      for (int i = tid; i < s2n; i += blockDim.x) {
-        norm_s[j0 + i] = cnorm[kSMax + i];
-      }
-    }
-  }
-
-  float* fd_s = fd_out + static_cast<size_t>(slot) * s * s;
-#pragma unroll
-  for (int i = 0; i < 8; ++i) {
-    const int r = r0 + i;
-    float s1 = 0.f, s2 = 0.f, s3 = 0.f, s4 = 0.f;
-#pragma unroll
-    for (int j = 0; j < 8; ++j) {
-      const int c = c0 + j;
-      if (r < s1n && c < s2n) {
-        const float cdc = fminf(fmaxf(cd[i][j], lo), hi);
-        s1 = fmaf(cdc, fd[i][j], s1);
-        s2 += cdc;
-        s3 += fd[i][j];
-        s4 += cd[i][j];
-        fd_s[static_cast<size_t>(i0 + r) * s + j0 + c] = fd[i][j];
-      }
-    }
-    s1 = half_warp_sum(s1);
-    s2 = half_warp_sum(s2);
-    s3 = half_warp_sum(s3);
-    s4 = half_warp_sum(s4);
-    if ((tid & 15) == 0 && r < s1n) {
-      acc_s[i0 + r] = s1;
-      acc_s[s + i0 + r] = s2;
-      acc_s[2 * s + i0 + r] = s3;
-      acc_s[3 * s + i0 + r] = s4;
-    }
-  }
+  float* buf = buf_all + static_cast<size_t>(warp) * buf_floats(cf, cc);
+  const size_t map = static_cast<size_t>(image) * hw;
+  sample_row<std::is_same<FeatT, __nv_bfloat16>::value, kFeatVec>(
+      (pos ? feats_pos : feats) + map * cf, idx, wt, cf, buf, fo);
+  const float n = sample_row<false, kCodeVec>(
+      (pos ? code_pos : code) + map * cc, idx, wt, cc, buf, co);
+  if (lane == 0) norms[item] = n;
 }
 
-// out tile (8 x 8) at rows m0, columns n0 += sum_k A[m][k] B[k][n], A read
-// as a[m * a_m + k * a_k] (scalar), B row-major with row pitch ldb (two
-// float4 a row, n0 a multiple of 4).
-__device__ __forceinline__ void tile_gemm(const float* a, int a_m, int a_k,
-                                          const float* bm, int ldb, int depth,
-                                          int m0, int n0, float (&out)[8][8]) {
-  for (int k = 0; k < depth; ++k) {
-    float av[8];
-#pragma unroll
-    for (int i = 0; i < 8; ++i) av[i] = a[(m0 + i) * a_m + k * a_k];
-    const float4 b0 = *reinterpret_cast<const float4*>(bm + k * ldb + n0);
-    const float4 b1 = *reinterpret_cast<const float4*>(bm + k * ldb + n0 + 4);
-    const float bv[8] = {b0.x, b0.y, b0.z, b0.w, b1.x, b1.y, b1.z, b1.w};
-#pragma unroll
-    for (int i = 0; i < 8; ++i) {
-#pragma unroll
-      for (int j = 0; j < 8; ++j) out[i][j] = fmaf(av[i], bv[j], out[i][j]);
-    }
-  }
-}
-
-__device__ __forceinline__ void zero8x8(float (&x)[8][8]) {
-#pragma unroll
-  for (int i = 0; i < 8; ++i) {
-#pragma unroll
-    for (int j = 0; j < 8; ++j) x[i][j] = 0.f;
-  }
-}
-
-// Code channels c0 .. c0 + depth - 1 of the residual rows into shared
-// memory: side 1's n1 rows from r1 into z1 and side 2's n2 rows from r2
-// into z2 (row-major, pitch cp) and z2t (k-major, kPitch); rows (s, cc).
-__device__ void load_code_chunk(const float* r1, int n1, const float* r2,
-                                int n2, int cc, int c0, int depth, int cp,
-                                float* z1, float* z2, float* z2t) {
-  for (int i = threadIdx.x; i < kSMax * depth; i += blockDim.x) {
-    const int k = i / depth;
-    const int c = i - k * depth;
-    z1[k * cp + c] = k < n1 ? r1[static_cast<size_t>(k) * cc + c0 + c] : 0.f;
-    const float v = k < n2 ? r2[static_cast<size_t>(k) * cc + c0 + c] : 0.f;
-    z2[k * cp + c] = v;
-    z2t[c * kPitch + k] = v;
-  }
-}
-
-// Channel c of a sample's code gradient: its parts summed over the tiles,
-// tile order (dz rows (slots, tiles, 2, s, cc); part: 0 dz1, 1 dz2).
-__device__ __forceinline__ float dz_sum(const float* dz_slot, int tiles,
-                                        int part, int s, int cc, int k,
-                                        int c) {
-  float v = 0.f;
-  for (int t = 0; t < tiles; ++t) {
-    v += dz_slot[((static_cast<size_t>(t) * 2 + part) * s + k) * cc + c];
-  }
-  return v;
-}
-
-// Cotangent of v / max(|v|, eps) for one sample row, lanes over channels
-// (_norm_jac, :69-76): (g - [n > eps] vn (vn . g)) / max(n, eps), then
-// added into the code map through the sample's four taps. g is the row's
-// dz1 (part 0) and, for the self slot, dz2 too (both = 1, as side 2 is
-// side 1); vn its normalised code, n its raw norm.
-__device__ void jac_scatter_row(const float* dz_slot, int tiles, int part,
-                                bool both, int s, int cc, int k,
-                                const float* vn, float n, float* dst,
-                                const int* idx, const float* wt) {
+// One warp a sample row: gv = dL/d(its normalised code) g (a row of
+// dsets) through the l2-normalise Jacobian, (g - [n > eps] vn (vn . g)) /
+// max(n, eps), vn its normalised code row (csets) and n its raw norm; the
+// dot lane by lane in channel order, then a butterfly.
+__global__ void __launch_bounds__(kThreads)
+corr_sampled_jacobian_kernel(const float* __restrict__ dsets,
+                             const float* __restrict__ csets,
+                             const float* __restrict__ norms,
+                             float* __restrict__ gv, int items, int cc) {
   const int lane = threadIdx.x & 31;
-  auto grad = [&](int c) {
-    const float g0 = dz_sum(dz_slot, tiles, part, s, cc, k, c);
-    return both ? __fadd_rn(g0, dz_sum(dz_slot, tiles, 1, s, cc, k, c)) : g0;
-  };
+  const int item = blockIdx.x * kWarps + (threadIdx.x >> 5);
+  if (item >= items) return;  // a whole warp
+  const float* gr = dsets + static_cast<size_t>(item) * cc;
+  float* out = gv + static_cast<size_t>(item) * cc;
+  const float* vn = csets + static_cast<size_t>(item) * cc;
+  const float n = norms[item];
   float dot = 0.f;
-  for (int c = lane; c < cc; c += 32) dot = fmaf(vn[c], grad(c), dot);
+  for (int ch = lane; ch < cc; ch += 32) dot = fmaf(vn[ch], gr[ch], dot);
   dot = warp_sum(dot);
   const float inv = 1.0f / fmaxf(n, kEps);
-  for (int c = lane; c < cc; c += 32) {
-    const float proj = n > kEps ? __fmul_rn(vn[c], dot) : 0.f;
-    const float gv = __fmul_rn(__fsub_rn(grad(c), proj), inv);
-#pragma unroll
-    for (int t = 0; t < 4; ++t) {
-      if (wt[t] != 0.f) {
-        atomicAdd(dst + static_cast<size_t>(idx[t]) * cc + c,
-                  __fmul_rn(wt[t], gv));
-      }
-    }
+  for (int ch = lane; ch < cc; ch += 32) {
+    const float proj = n > kEps ? __fmul_rn(vn[ch], dot) : 0.f;
+    out[ch] = __fmul_rn(__fsub_rn(gr[ch], proj), inv);
   }
 }
 
-// Backward, first kernel, grid (slots, tiles, tiles) as the forward's: the
-// coefficients of side 1's samples of tile blockIdx.y against side 2's of
-// tile blockIdx.z, then their parts of dz1 = coeff z2 and dz2 = coeff^T z1.
-// acc: the forward's sums added over the tiles, (slots, 5, s). scal: (g, 5)
-// per group: g_loss, g_cdm, fd mean, shift, 1/m. dz: (slots, tiles, 2, s,
-// cc): dz1's part from side-2 tile t at [slot, t, 0], dz2's from side-1
-// tile t at [slot, t, 1]; every element is written once.
-__global__ void __launch_bounds__(kBwdThreads, 1)
-corr_sampled_bwd_kernel(const int* __restrict__ perms,
-                        const float* __restrict__ z2cn,
-                        const float* __restrict__ fd_res,
-                        const float* __restrict__ acc,
-                        const float* __restrict__ scal, float* dz, int batch,
-                        int cc, int s, int g, float lo, float hi,
-                        int pointwise, float inv_n) {
-  extern __shared__ __align__(16) unsigned char smem[];
-  const int slot = blockIdx.x;
-  const int b = slot / g;
-  const int gi = slot - b * g;
-  const int slot0 = b * g;
-  const int tiles = gridDim.y;
-  const int i0 = blockIdx.y * kSMax;
-  const int j0 = blockIdx.z * kSMax;
-  const int s1n = min(kSMax, s - i0);
-  const int s2n = min(kSMax, s - j0);
-  Side2 side2;
-  if (!side2_of(b, gi, batch, perms, &side2)) return;
-
-  const int cw = min(cc, kCodeChunk);
-  const int cp = (cw + 7) & ~7;  // code channels padded to tiles of 8
-  float* z1 = reinterpret_cast<float*>(smem);      // [kSMax][cp] row-major
-  float* z2 = z1 + kSMax * cp;                     // [kSMax][cp]
-  float* z2t = z2 + kSMax * cp;                    // [cp][kPitch] k-major
-  float* coeff = z2t + cp * kPitch;                // [kSMax][kCoeffPitch]
-  const size_t zero_bytes =
-      (2 * static_cast<size_t>(kSMax) * cp + static_cast<size_t>(cp) * kPitch)
-      * sizeof(float);
-  zero_shared(smem, zero_bytes);
-  // side 1's normalised code is the self slot's side 2
-  const float* zr1 = z2cn + (static_cast<size_t>(slot0) * s + i0) * cc;
-  const float* zr2 = z2cn + (static_cast<size_t>(slot) * s + j0) * cc;
-
-  const int tid = threadIdx.x;
-  const int r0 = (tid >> 4) * 8;
-  const int c0 = (tid & 15) * 8;
-  // cd again, with the forward's order of FMAs: k-major side 1 is z1 read
-  // down a column
-  float cd[8][8];
-  zero8x8(cd);
-  for (int ch0 = 0; ch0 < cc; ch0 += kCodeChunk) {
-    const int depth = min(kCodeChunk, cc - ch0);
-    __syncthreads();  // every thread is done with the last chunk
-    load_code_chunk(zr1, s1n, zr2, s2n, cc, ch0, depth, cp, z1, z2, z2t);
-    __syncthreads();
-    if (tid < 256) tile_gemm(z1, cp, 1, z2t, kPitch, depth, r0, c0, cd);
-  }
-
-  const float* sc = scal + gi * 5;
-  const float g_loss = sc[0], g_cdm = sc[1], gm = sc[2], shift = sc[3],
-              inv_m = sc[4];
-  const float* acc_s = acc + static_cast<size_t>(slot) * 5 * s;
-  const float* fd_s = fd_res + static_cast<size_t>(slot) * s * s;
-  if (tid < 256) {
-#pragma unroll
-    for (int i = 0; i < 8; ++i) {
-      const int r = r0 + i;
-      const float rowmean =
-          r < s1n ? __fmul_rn(acc_s[2 * s + i0 + r], inv_n) : 0.f;
-#pragma unroll
-      for (int j = 0; j < 8; ++j) {
-        const int c = c0 + j;
-        float v = 0.f;
-        if (r < s1n && c < s2n) {
-          const float fdv = fd_s[static_cast<size_t>(i0 + r) * s + j0 + c];
-          const float fdp =
-              pointwise ? __fadd_rn(__fsub_rn(fdv, rowmean), gm) : fdv;
-          const float mask = (cd[i][j] >= lo && cd[i][j] <= hi) ? 1.f : 0.f;
-          v = __fmul_rn(-__fsub_rn(fdp, shift), mask);
-          v = __fmul_rn(__fadd_rn(__fmul_rn(v, g_loss), g_cdm), inv_m);
-        }
-        coeff[r * kCoeffPitch + c] = v;
+// One warp kPix consecutive rows of one code map (maps code[0..batch) then
+// code_pos[0..batch), h * w rows each): their gradient, every (set, sample,
+// tap) entry that lands on one of them added in entry order (set, then
+// sample, then tap), which is what makes two runs give the same bits. Map
+// t reads set t (side 1 for t < batch, the positive after) and, for t <
+// batch, the negative sets whose permutation entry is t, in order; a
+// sample's four keys (the gather's) say which of the warp's rows its taps
+// land on, kChunks chunks of 32 samples loaded at once. A sample that lands
+// adds its row of gv (the Jacobian kernel's), times each landing tap's
+// weight, to the warp's rows in shared memory (kPix x 128 floats, lane l
+// owning channels l + 32 u); kBatch such samples have their rows loaded
+// together. Past 128 code channels the warp takes the entries again for
+// each 128. Writes every element of the warp's rows of dcode (zeros where
+// no tap lands).
+__global__ void __launch_bounds__(kThreads)
+corr_sampled_adjoint_kernel(const float* __restrict__ gv,
+                            const int* __restrict__ keys,
+                            const float* __restrict__ wts,
+                            const long long* __restrict__ perms,
+                            float* __restrict__ dcode, int batch, int hw,
+                            int cc, int s, int g) {
+  constexpr int kWidth = 32 * kLaneChannels;  // channels a pass
+  __shared__ float acc_all[kWarps][kPix * kWidth];
+  const int lane = threadIdx.x & 31;
+  float* acc = acc_all[threadIdx.x >> 5];
+  const int tiles = (hw + kPix - 1) / kPix;  // warps a map
+  const int task = blockIdx.x * kWarps + (threadIdx.x >> 5);
+  if (task >= 2 * batch * tiles) return;  // a whole warp
+  const int t = task / tiles;
+  const int p0 = (task - t * tiles) * kPix;
+  const unsigned pix = static_cast<unsigned>(min(kPix, hw - p0));
+  const int base = t * hw + p0;  // the warp's first row, as a key
+  const int negs = (g - 2) * batch;
+  for (int c0 = 0; c0 < cc; c0 += kWidth) {
+    for (int e = lane; e < kPix * kWidth; e += 32) acc[e] = 0.f;
+    // the map's own set (bit 0 of the chunk before the permutations), then
+    // a chunk of 32 permutation entries at a time: the negative sets whose
+    // entry is t, in order
+    for (int e0 = -32; e0 < negs; e0 += 32) {
+      unsigned sets = e0 < 0;
+      if (e0 >= 0 && t < batch) {
+        sets = __ballot_sync(kFull, e0 + lane < negs && perms[e0 + lane] == t);
       }
-    }
-  }
-
-  // dz1 = coeff z2 (rows of side 1), dz2 = coeff^T z1 (rows of side 2),
-  // a chunk of code channels at a time
-  float* dz1 = dz + ((static_cast<size_t>(slot) * tiles + blockIdx.z) * 2 *
-                     s + i0) * cc;
-  float* dz2 = dz + ((static_cast<size_t>(slot) * tiles + blockIdx.y) * 2 *
-                     s + s + j0) * cc;
-  for (int ch0 = 0; ch0 < cc; ch0 += kCodeChunk) {
-    const int depth = min(kCodeChunk, cc - ch0);
-    if (cc > kCodeChunk) {  // else the one chunk is still in place
-      __syncthreads();  // every thread is done with the last chunk
-      load_code_chunk(zr1, s1n, zr2, s2n, cc, ch0, depth, cp, z1, z2, z2t);
-    }
-    __syncthreads();  // the chunk and the coefficients are written
-    const int ncg = (depth + 7) / 8;
-    const int ntiles = 16 * ncg;
-    for (int t = tid; t < 2 * ntiles; t += blockDim.x) {
-      const int which = t / ntiles;
-      const int m0 = ((t - which * ntiles) / ncg) * 8;
-      const int n0 = ((t - which * ntiles) % ncg) * 8;
-      float out[8][8];
-      zero8x8(out);
-      if (which == 0) {
-        tile_gemm(coeff, kCoeffPitch, 1, z2, cp, s2n, m0, n0, out);
-      } else {
-        tile_gemm(coeff, 1, kCoeffPitch, z1, cp, s1n, m0, n0, out);
-      }
-      float* dst = which == 0 ? dz1 : dz2;
-      const int rows = which == 0 ? s1n : s2n;
+      for (; sets != 0; sets &= sets - 1) {
+        const int set = e0 < 0 ? t : 2 * batch + e0 + __ffs(sets) - 1;
+        for (int k0 = 0; k0 < s; k0 += 32 * kChunks) {
+          // lane = sample k0 + 32 c + lane of chunk c
+          const size_t first = static_cast<size_t>(set) * s + k0;
+          int4 key[kChunks];
 #pragma unroll
-      for (int i = 0; i < 8; ++i) {
+          for (int c = 0; c < kChunks; ++c) {
+            key[c] = make_int4(-1, -1, -1, -1);
+            if (k0 + 32 * c + lane < s) {
+              key[c] = reinterpret_cast<const int4*>(keys)[first + 32 * c +
+                                                           lane];
+            }
+          }
 #pragma unroll
-        for (int j = 0; j < 8; ++j) {
-          if (m0 + i < rows && n0 + j < depth) {
-            dst[static_cast<size_t>(m0 + i) * cc + ch0 + n0 + j] = out[i][j];
+          for (int c = 0; c < kChunks; ++c) {
+            const unsigned lands =
+                (static_cast<unsigned>(key[c].x - base) < pix) |
+                (static_cast<unsigned>(key[c].y - base) < pix) << 1 |
+                (static_cast<unsigned>(key[c].z - base) < pix) << 2 |
+                (static_cast<unsigned>(key[c].w - base) < pix) << 3;
+            unsigned m = __ballot_sync(kFull, lands != 0);
+            while (m != 0) {
+              // the next kBatch landing samples (src -1: none), in order
+              int src[kBatch];
+#pragma unroll
+              for (int j = 0; j < kBatch; ++j) {
+                src[j] = m != 0 ? __ffs(m) - 1 : -1;
+                m &= m - 1;
+              }
+              float row[kBatch][kLaneChannels];
+              float tw[kBatch][4];
+              unsigned taps[kBatch];
+#pragma unroll
+              for (int j = 0; j < kBatch; ++j) {
+                const int l = src[j] < 0 ? 0 : src[j];
+                taps[j] = src[j] < 0 ? 0u : __shfl_sync(kFull, lands, l);
+                const size_t item = first + 32 * c + l;
+#pragma unroll
+                for (int u = 0; u < kLaneChannels; ++u) {
+                  const int ch = c0 + lane + 32 * u;
+                  row[j][u] = taps[j] != 0 && ch < cc
+                                  ? gv[item * cc + ch] : 0.f;
+                }
+#pragma unroll
+                for (int i = 0; i < 4; ++i) {
+                  tw[j][i] = (taps[j] >> i) & 1 ? wts[4 * item + i] : 0.f;
+                }
+              }
+#pragma unroll
+              for (int j = 0; j < kBatch; ++j) {
+                const int l = src[j] < 0 ? 0 : src[j];
+                const int at[4] = {__shfl_sync(kFull, key[c].x, l) - base,
+                                   __shfl_sync(kFull, key[c].y, l) - base,
+                                   __shfl_sync(kFull, key[c].z, l) - base,
+                                   __shfl_sync(kFull, key[c].w, l) - base};
+#pragma unroll
+                for (int i = 0; i < 4; ++i) {
+                  if ((taps[j] >> i) & 1) {
+                    float* a = acc + at[i] * kWidth + lane;
+#pragma unroll
+                    for (int u = 0; u < kLaneChannels; ++u) {
+                      a[32 * u] =
+                          __fadd_rn(a[32 * u], __fmul_rn(tw[j][i], row[j][u]));
+                    }
+                  }
+                }
+              }
+            }
           }
         }
       }
     }
-  }
-}
-
-// Backward, second kernel, grid (slots, ceil(s / warps a block)): one warp
-// a sample; the Jacobian of the normalisation, then back through the taps
-// into the code maps.
-__global__ void __launch_bounds__(kBwdThreads)
-corr_sampled_scatter_kernel(const float* __restrict__ grid1,
-                            const float* __restrict__ grid2,
-                            const int* __restrict__ perms,
-                            const float* __restrict__ z2cn,
-                            const float* __restrict__ acc,
-                            const float* __restrict__ dz, float* dcode,
-                            float* dcode_pos, int batch, int h, int w, int cc,
-                            int s, int g, int tiles) {
-  const int slot = blockIdx.x;
-  const int b = slot / g;
-  const int gi = slot - b * g;
-  const int slot0 = b * g;
-  Side2 side2;
-  if (!side2_of(b, gi, batch, perms, &side2)) return;
-  const float* g1 = grid1 + static_cast<size_t>(b) * s * 2;
-  const float* g2 = (side2.self ? grid1 : grid2) + static_cast<size_t>(b) * s * 2;
-  const float* n1 = acc + static_cast<size_t>(slot0) * 5 * s + 4 * s;
-  const float* n2 = acc + static_cast<size_t>(slot) * 5 * s + 4 * s;
-  const float* v1 = z2cn + static_cast<size_t>(slot0) * s * cc;
-  const float* v2 = z2cn + static_cast<size_t>(slot) * s * cc;
-  const float* dz_slot = dz + static_cast<size_t>(slot) * tiles * 2 * s * cc;
-  float* side2_dst =
-      side2.pos ? dcode_pos + static_cast<size_t>(b) * h * w * cc
-                : dcode + static_cast<size_t>(side2.image) * h * w * cc;
-  float* side1_dst = dcode + static_cast<size_t>(b) * h * w * cc;
-  const int k = blockIdx.y * (blockDim.x >> 5) + (threadIdx.x >> 5);
-  if (k >= s) return;  // a whole warp
-  int idx[4];
-  float wt[4];
-  make_taps(g1 + 2 * k, h, w, idx, wt);
-  jac_scatter_row(dz_slot, tiles, 0, gi == 0, s, cc, k,
-                  v1 + static_cast<size_t>(k) * cc, n1[k], side1_dst, idx, wt);
-  if (gi == 0) return;
-  make_taps(g2 + 2 * k, h, w, idx, wt);
-  jac_scatter_row(dz_slot, tiles, 1, false, s, cc, k,
-                  v2 + static_cast<size_t>(k) * cc, n2[k], side2_dst, idx, wt);
-}
-
-// Cotangent of v / max(|v|, eps) for one sample row, lanes over channels
-// (_norm_jac, :69-76): (g - [n > eps] vn (vn . g)) / max(n, eps).
-__device__ __forceinline__ void norm_jac_row(float (&gv)[kCodeChunk / 32],
-                                             const float (&vn)[kCodeChunk / 32],
-                                             float n) {
-  float dot = 0.f;
+    __syncwarp();
+    for (int q = 0; q < static_cast<int>(pix); ++q) {
+      float* out = dcode + static_cast<size_t>(base + q) * cc;
 #pragma unroll
-  for (int u = 0; u < kCodeChunk / 32; ++u) dot = fmaf(vn[u], gv[u], dot);
-  dot = warp_sum(dot);
-  const float inv = 1.0f / fmaxf(n, kEps);
-#pragma unroll
-  for (int u = 0; u < kCodeChunk / 32; ++u) {
-    const float proj = n > kEps ? __fmul_rn(vn[u], dot) : 0.f;
-    gv[u] = __fmul_rn(__fsub_rn(gv[u], proj), inv);
-  }
-}
-
-// Adds one sample row's gradient into the code map through its four taps.
-__device__ __forceinline__ void scatter_row(float* dst, const int* idx,
-                                            const float* wt, int cc,
-                                            const float (&gv)[kCodeChunk / 32]) {
-  const int lane = threadIdx.x & 31;
-#pragma unroll
-  for (int t = 0; t < 4; ++t) {
-    if (wt[t] == 0.f) continue;
-    float* row = dst + static_cast<size_t>(idx[t]) * cc;
-#pragma unroll
-    for (int u = 0; u < kCodeChunk / 32; ++u) {
-      const int c = lane + 32 * u;
-      if (c < cc) atomicAdd(row + c, __fmul_rn(wt[t], gv[u]));
-    }
-  }
-}
-
-// The backward in one kernel, one block a slot, for cc <= kCodeChunk and
-// s <= kSMax (the default shapes): the two kernels above in one block,
-// with the code rows and the taps in shared memory and each row's
-// gradient in registers. scal: (g, 5) per group: g_loss, g_cdm, fd mean,
-// shift, 1/m. dz: (slots, 1, 2, s, cc) scratch for dz1 and dz2.
-__global__ void __launch_bounds__(kBwdThreads, 1)
-corr_sampled_bwd_one_kernel(const float* __restrict__ grid1,
-                        const float* __restrict__ grid2,
-                        const int* __restrict__ perms,
-                        const float* __restrict__ z2cn,
-                        const float* __restrict__ fd_res,
-                        const float* __restrict__ acc,
-                        const float* __restrict__ scal, float* dz,
-                        float* dcode, float* dcode_pos, int batch, int h,
-                        int w, int cc, int s, int g, float lo, float hi,
-                        int pointwise, float inv_n) {
-  extern __shared__ __align__(16) unsigned char smem[];
-  const int slot = blockIdx.x;
-  const int b = slot / g;
-  const int gi = slot - b * g;
-  const int slot0 = b * g;
-  Side2 side2;
-  if (!side2_of(b, gi, batch, perms, &side2)) return;
-
-  const int cp = (cc + 7) & ~7;  // code channels padded to tiles of 8
-  float* z1 = reinterpret_cast<float*>(smem);      // [kSMax][cp] row-major
-  float* z2 = z1 + kSMax * cp;                     // [kSMax][cp]
-  float* z2t = z2 + kSMax * cp;                    // [cp][kPitch] k-major
-  float* coeff = z2t + cp * kPitch;                // [kSMax][kCoeffPitch]
-  int* tap_idx = reinterpret_cast<int*>(coeff + kSMax * kCoeffPitch);
-  float* tap_w = reinterpret_cast<float*>(tap_idx + 2 * kSMax * 4);
-
-  const float* g1 = grid1 + static_cast<size_t>(b) * s * 2;
-  const float* g2 = (side2.self ? grid1 : grid2) + static_cast<size_t>(b) * s * 2;
-  const size_t zero_bytes =
-      (2 * static_cast<size_t>(kSMax) * cp + static_cast<size_t>(cp) * kPitch)
-      * sizeof(float);
-  zero_shared(smem, zero_bytes);
-  load_taps(g1, s, g2, s, h, w, tap_idx, tap_w);
-  __syncthreads();
-  const float* zr1 = z2cn + static_cast<size_t>(slot0) * s * cc;
-  const float* zr2 = z2cn + static_cast<size_t>(slot) * s * cc;
-  for (int i = threadIdx.x; i < s * cc; i += blockDim.x) {
-    const int k = i / cc;
-    const int c = i - k * cc;
-    z1[k * cp + c] = zr1[i];
-    z2[k * cp + c] = zr2[i];
-    z2t[c * kPitch + k] = zr2[i];
-  }
-  __syncthreads();
-
-  const float* sc = scal + gi * 5;
-  const float g_loss = sc[0], g_cdm = sc[1], gm = sc[2], shift = sc[3],
-              inv_m = sc[4];
-  const float* acc_s = acc + static_cast<size_t>(slot) * 5 * s;
-  const float* fd_s = fd_res + static_cast<size_t>(slot) * s * s;
-  const int tid = threadIdx.x;
-  if (tid < 256) {
-    const int r0 = (tid >> 4) * 8;
-    const int c0 = (tid & 15) * 8;
-    // cd again, with the forward's order of FMAs: k-major side 1 is z1
-    // read down a column
-    float cd[8][8];
-    zero8x8(cd);
-    tile_gemm(z1, cp, 1, z2t, kPitch, cc, r0, c0, cd);
-#pragma unroll
-    for (int i = 0; i < 8; ++i) {
-      const int r = r0 + i;
-      const float rowmean = r < s ? __fmul_rn(acc_s[2 * s + r], inv_n) : 0.f;
-#pragma unroll
-      for (int j = 0; j < 8; ++j) {
-        const int c = c0 + j;
-        float v = 0.f;
-        if (r < s && c < s) {
-          const float fdv = fd_s[r * s + c];
-          const float fdp =
-              pointwise ? __fadd_rn(__fsub_rn(fdv, rowmean), gm) : fdv;
-          const float mask = (cd[i][j] >= lo && cd[i][j] <= hi) ? 1.f : 0.f;
-          v = __fmul_rn(-__fsub_rn(fdp, shift), mask);
-          v = __fmul_rn(__fadd_rn(__fmul_rn(v, g_loss), g_cdm), inv_m);
-        }
-        coeff[r * kCoeffPitch + c] = v;
+      for (int u = 0; u < kLaneChannels; ++u) {
+        const int ch = c0 + lane + 32 * u;
+        if (ch < cc) out[ch] = acc[q * kWidth + lane + 32 * u];
       }
     }
-  }
-  __syncthreads();
-
-  // dz1 = coeff z2 (rows of side 1), dz2 = coeff^T z1 (rows of side 2)
-  float* dz_s = dz + static_cast<size_t>(slot) * 2 * s * cc;
-  const int ncg = cp / 8;
-  const int tiles = 16 * ncg;
-  for (int t = tid; t < 2 * tiles; t += blockDim.x) {
-    const int which = t / tiles;
-    const int m0 = ((t - which * tiles) / ncg) * 8;
-    const int n0 = ((t - which * tiles) % ncg) * 8;
-    float out[8][8];
-    zero8x8(out);
-    if (which == 0) {
-      tile_gemm(coeff, kCoeffPitch, 1, z2, cp, s, m0, n0, out);
-    } else {
-      tile_gemm(coeff, 1, kCoeffPitch, z1, cp, s, m0, n0, out);
-    }
-    float* dst = dz_s + static_cast<size_t>(which) * s * cc;
-#pragma unroll
-    for (int i = 0; i < 8; ++i) {
-#pragma unroll
-      for (int j = 0; j < 8; ++j) {
-        if (m0 + i < s && n0 + j < cc) dst[(m0 + i) * cc + n0 + j] = out[i][j];
-      }
-    }
-  }
-  __syncthreads();
-
-  // Jacobian of the normalisation, then back through the taps
-  const float* n1 = acc + static_cast<size_t>(slot0) * 5 * s + 4 * s;
-  const float* n2 = acc_s + 4 * s;
-  float* side2_dst =
-      side2.pos ? dcode_pos + static_cast<size_t>(b) * h * w * cc
-                : dcode + static_cast<size_t>(side2.image) * h * w * cc;
-  float* side1_dst = dcode + static_cast<size_t>(b) * h * w * cc;
-  const int lane = tid & 31;
-  for (int k = tid >> 5; k < s; k += blockDim.x >> 5) {
-    float gv[kCodeChunk / 32], vn[kCodeChunk / 32];
-#pragma unroll
-    for (int u = 0; u < kCodeChunk / 32; ++u) {
-      const int c = lane + 32 * u;
-      gv[u] = 0.f;
-      vn[u] = 0.f;
-      if (c < cc) {
-        gv[u] = dz_s[k * cc + c];
-        if (gi == 0) gv[u] = __fadd_rn(gv[u], dz_s[(s + k) * cc + c]);
-        vn[u] = z1[k * cp + c];
-      }
-    }
-    norm_jac_row(gv, vn, n1[k]);
-    scatter_row(side1_dst, tap_idx + k * 4, tap_w + k * 4, cc, gv);
-    if (gi == 0) continue;
-#pragma unroll
-    for (int u = 0; u < kCodeChunk / 32; ++u) {
-      const int c = lane + 32 * u;
-      gv[u] = c < cc ? dz_s[(s + k) * cc + c] : 0.f;
-      vn[u] = c < cc ? z2[k * cp + c] : 0.f;
-    }
-    norm_jac_row(gv, vn, n2[k]);
-    scatter_row(side2_dst, tap_idx + (kSMax + k) * 4,
-                tap_w + (kSMax + k) * 4, cc, gv);
+    __syncwarp();
   }
 }
 
-template <typename FeatT, bool kWhole>
-size_t fwd_smem_bytes(int cf, int cc) {
-  return panels_bytes<FeatT>(cf, cc)
-         + 2 * kSMax * 4 * (sizeof(int) + sizeof(float))
-         + 2 * kSMax * sizeof(float)
-         + (kWhole ? 0 : 2 * kSMax * sizeof(float));
+// Elements a vector load takes from rows of c elements of size bytes
+// whose buffers all start at addresses in ptrs: 4 (or for f32 code 2)
+// where the rows and buffers allow it, else 1.
+int vec_width(int c, size_t bytes, std::initializer_list<const void*> ptrs,
+              int widest) {
+  for (int v = widest; v > 1; v /= 2) {
+    bool ok = c % v == 0;
+    for (const void* p : ptrs) {
+      ok = ok && reinterpret_cast<uintptr_t>(p) % (v * bytes) == 0;
+    }
+    if (ok) return v;
+  }
+  return 1;
 }
 
-int sample_tiles(int s) { return (s + kSMax - 1) / kSMax; }
-
-// Whether C1 takes the code in one pass and the samples in one tile (the
-// kOne instantiations).
-bool one_tile(int cc, int s) { return cc <= kCodeChunk && s <= kSMax; }
-
-template <typename FeatT, bool kWhole, bool kOne>
-cudaError_t launch_fwd_as(const void* feats, const void* feats_pos,
-                          const void* code, const void* code_pos,
-                          const void* grid1, const void* grid2,
-                          const void* perms, void* acc, void* z2cn, void* fd,
-                          int batch, int h, int w, int cf, int cc, int s,
-                          int g, float lo, float hi, cudaStream_t stream) {
-  const size_t smem = fwd_smem_bytes<FeatT, kWhole>(cf, cc);
+template <typename FeatT, int kFeatVec, int kCodeVec>
+cudaError_t launch_gather_as(const void* feats, const void* feats_pos,
+                             const void* code, const void* code_pos,
+                             const void* coords1, const void* coords2,
+                             const void* perms, void* fsets, void* csets,
+                             void* norms, void* keys, void* wts, void* idx1,
+                             void* idx2, void* row_group, void* order,
+                             void* offsets, int batch, int h, int w, int cf,
+                             int cc, int s1, int s2, int g,
+                             cudaStream_t stream) {
+  auto kernel = corr_sampled_gather_kernel<FeatT, kFeatVec, kCodeVec>;
+  const size_t smem =
+      static_cast<size_t>(kWarps) * buf_floats(cf, cc) * sizeof(float);
   cudaError_t err = cudaFuncSetAttribute(
-      corr_sampled_fwd_kernel<FeatT, kWhole, kOne>,
-      cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(smem));
   if (err != cudaSuccess) return err;
-  const int tiles = sample_tiles(s);
-  corr_sampled_fwd_kernel<FeatT, kWhole, kOne>
-      <<<dim3(batch * g, tiles, tiles), kFwdThreads, smem, stream>>>(
+  const long long items = static_cast<long long>(batch) * g * s1 * s2;
+  const unsigned blocks = static_cast<unsigned>((items + kWarps - 1) / kWarps);
+  kernel<<<blocks, kThreads, smem, stream>>>(
       static_cast<const FeatT*>(feats), static_cast<const FeatT*>(feats_pos),
       static_cast<const float*>(code), static_cast<const float*>(code_pos),
-      static_cast<const float*>(grid1), static_cast<const float*>(grid2),
-      static_cast<const int*>(perms), static_cast<float*>(acc),
-      static_cast<float*>(z2cn), static_cast<float*>(fd), batch, h, w, cf, cc,
-      s, g, lo, hi);
+      static_cast<const float*>(coords1), static_cast<const float*>(coords2),
+      static_cast<const long long*>(perms), static_cast<FeatT*>(fsets),
+      static_cast<float*>(csets), static_cast<float*>(norms),
+      static_cast<int*>(keys), static_cast<float*>(wts),
+      static_cast<int*>(idx1), static_cast<int*>(idx2),
+      static_cast<int*>(row_group), static_cast<int*>(order),
+      static_cast<int*>(offsets), batch, h, w, cf, cc, s1, s2, g);
   return cudaGetLastError();
 }
 
-template <typename FeatT, bool kWhole>
-cudaError_t launch_fwd(const void* feats, const void* feats_pos,
-                       const void* code, const void* code_pos,
-                       const void* grid1, const void* grid2,
-                       const void* perms, void* acc, void* z2cn, void* fd,
-                       int batch, int h, int w, int cf, int cc, int s, int g,
-                       float lo, float hi, cudaStream_t stream) {
-  auto launch = one_tile(cc, s) ? launch_fwd_as<FeatT, kWhole, true>
-                                : launch_fwd_as<FeatT, kWhole, false>;
-  return launch(feats, feats_pos, code, code_pos, grid1, grid2, perms, acc,
-                z2cn, fd, batch, h, w, cf, cc, s, g, lo, hi, stream);
+// The gather's instantiation for its vector widths: features 4 or 1
+// elements a load, code 4, 2 or 1.
+template <typename FeatT, int kFeatVec>
+cudaError_t launch_gather(int code_vec, const void* feats,
+                          const void* feats_pos, const void* code,
+                          const void* code_pos, const void* coords1,
+                          const void* coords2, const void* perms, void* fsets,
+                          void* csets, void* norms, void* keys, void* wts,
+                          void* idx1, void* idx2, void* row_group,
+                          void* order, void* offsets, int batch, int h, int w,
+                          int cf, int cc, int s1, int s2, int g,
+                          cudaStream_t stream) {
+  auto launch = code_vec == 4   ? &launch_gather_as<FeatT, kFeatVec, 4>
+                : code_vec == 2 ? &launch_gather_as<FeatT, kFeatVec, 2>
+                                : &launch_gather_as<FeatT, kFeatVec, 1>;
+  return launch(feats, feats_pos, code, code_pos, coords1, coords2, perms,
+                fsets, csets, norms, keys, wts, idx1, idx2, row_group, order,
+                offsets, batch, h, w, cf, cc, s1, s2, g, stream);
 }
 
-size_t bwd_one_smem_bytes(int cc) {
-  const size_t cp = (cc + 7) & ~7;
-  return (2 * kSMax * cp + cp * kPitch + kSMax * kCoeffPitch) * sizeof(float)
-         + 2 * kSMax * 4 * (sizeof(int) + sizeof(float));
-}
-
-size_t bwd_smem_bytes(int cc) {
-  const size_t cp = (min(cc, kCodeChunk) + 7) & ~7;
-  return (2 * kSMax * cp + cp * kPitch + kSMax * kCoeffPitch) * sizeof(float);
-}
-
+// Shapes the kernels take: every tap entry (4 batch g s) and code-map row
+// (2 batch h w, and the past-the-end key) indexed by an int.
 bool bad_shape(int batch, int h, int w, int cc, int s, int g) {
   return batch <= 0 || h <= 0 || w <= 0 || cc <= 0 || s <= 0 || g < 2 ||
-         static_cast<long long>(batch) * g > 2147483647LL ||
-         sample_tiles(s) > 65535;
+         2LL * batch * h * w >= 2147483647LL ||
+         4LL * batch * g * s >= 2147483647LL;
 }
 
 }  // namespace
 
 // feats, feats_pos: (batch, h * w, cf), bf16 (feat_f32 = 0) or f32
-// (feat_f32 = 1); code, code_pos: (batch, h * w, cc) f32; grid1, grid2:
-// (batch, s, 2) f32 sample points in the reference's transposed order;
-// perms: (g - 2, batch) int32. With T = ceil(s / 128) sample tiles, writes
-// acc (batch * g, T, 5, s): in tile t, s1, s2, s3 and sum cd of each row
-// over the columns of tile t (the caller adds the tiles), and in tile 0 the
-// side-2 code norms (slot = b * g + pair type); z2cn (batch * g, s, cc) and
-// fd (batch * g, s, s). cf <= 768, g >= 2. Returns the CUDA error code of the
-// launch (0 on success).
-extern "C" int stego_corr_sampled_fwd(
+// (feat_f32 = 1); code, code_pos: (batch, h * w, cc) f32; coords1,
+// coords2: (batch, s1, s2, 2) f32 sample points in [-1, 1], (x, y) (the
+// reference's coordinates, sampled in its transposed order); perms: (g -
+// 2, batch) int64. Writes, for the batch * g sets (set gi * batch + b) of s
+// = s1 * s2 samples: fsets (sets, s, cf) in the feature type and csets
+// (sets, s, cc) f32, the l2-normalised samples; norms (sets, s), the raw
+// code norms; keys (sets, s, 4) int32, each tap's row of the code maps
+// [code; code_pos] (2 * batch * h * w rows; that count for no row), and
+// wts (sets, s, 4) f32, its weight; and the pair rows' layout for C2:
+// idx1, idx2, row_group (sets,) int32, order (2 sets,) int32, offsets
+// (sets + 1,) int32 (pair_layout). cf <= 768, g >= 2. Returns the CUDA
+// error code of the launch (0 on success).
+extern "C" int stego_corr_sampled_gather(
     const void* feats, const void* feats_pos, const void* code,
-    const void* code_pos, const void* grid1, const void* grid2,
-    const void* perms, void* acc, void* z2cn, void* fd, int batch, int h,
-    int w, int cf, int cc, int s, int g, int feat_f32, float lo, float hi,
-    int device, void* stream) {
-  if (bad_shape(batch, h, w, cc, s, g) || cf <= 0 || cf > kMaxFeat) {
+    const void* code_pos, const void* coords1, const void* coords2,
+    const void* perms, void* fsets, void* csets, void* norms, void* keys,
+    void* wts, void* idx1, void* idx2, void* row_group, void* order,
+    void* offsets, int batch, int h, int w, int cf, int cc, int s1, int s2,
+    int g, int feat_f32, int device, void* stream) {
+  if (bad_shape(batch, h, w, cc, s1 * s2, g) || s1 <= 0 || s2 <= 0 ||
+      cf <= 0 || cf > kMaxFeat) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const int feat_vec = vec_width(cf, feat_f32 ? 4 : 2,
+                                 {feats, feats_pos, fsets}, 4);
+  const int code_vec = vec_width(cc, 4, {code, code_pos, csets}, 4);
+  using Launch = cudaError_t (*)(
+      int, const void*, const void*, const void*, const void*, const void*,
+      const void*, const void*, void*, void*, void*, void*, void*, void*,
+      void*, void*, void*, void*, int, int, int, int, int, int, int, int,
+      cudaStream_t);
+  Launch launch;
   if (feat_f32) {
-    err = launch_fwd<float, false>(feats, feats_pos, code, code_pos, grid1,
-                                   grid2, perms, acc, z2cn, fd, batch, h, w,
-                                   cf, cc, s, g, lo, hi, st);
-  } else if (cf <= kWholeBf16) {
-    err = launch_fwd<__nv_bfloat16, true>(feats, feats_pos, code, code_pos,
-                                          grid1, grid2, perms, acc, z2cn, fd,
-                                          batch, h, w, cf, cc, s, g, lo, hi,
-                                          st);
+    launch = feat_vec == 4 ? &launch_gather<float, 4>
+                           : &launch_gather<float, 1>;
   } else {
-    err = launch_fwd<__nv_bfloat16, false>(feats, feats_pos, code, code_pos,
-                                           grid1, grid2, perms, acc, z2cn,
-                                           fd, batch, h, w, cf, cc, s, g, lo,
-                                           hi, st);
+    launch = feat_vec == 4 ? &launch_gather<__nv_bfloat16, 4>
+                           : &launch_gather<__nv_bfloat16, 1>;
   }
+  err = launch(code_vec, feats, feats_pos, code, code_pos, coords1, coords2,
+               perms, fsets, csets, norms, keys, wts, idx1, idx2, row_group,
+               order, offsets, batch, h, w, cf, cc, s1, s2, g, st);
   return static_cast<int>(err);
 }
 
-// Residuals of the forward (z2cn, fd, and acc with its tiles added: (batch
-// * g, 5, s)) and scal (g, 5) per group: g_loss, g_cdm, fd mean, shift,
-// 1/m. dz: (batch * g, T, 2, s, cc) f32 scratch, T = ceil(s / 128). Adds the
-// code gradients into dcode and dcode_pos, (batch, h * w, cc) f32, which
-// the caller zeroes. Two kernels: the coefficients and dz by tiles, then
-// the normalisation's Jacobian and the scatter through the taps (one
-// kernel for both when cc <= 96 and s <= 128). Returns
-// the CUDA error code of the launches (0 on success).
-extern "C" int stego_corr_sampled_bwd(
-    const void* grid1, const void* grid2, const void* perms, const void* z2cn,
-    const void* fd, const void* acc, const void* scal, void* dz, void* dcode,
-    void* dcode_pos, int batch, int h, int w, int cc, int s, int g, float lo,
-    float hi, int pointwise, float inv_n, int device, void* stream) {
+// dsets (sets, s, cc) f32: dL/d(the normalised code sets), from C2's
+// backward; csets, norms, keys, wts: the gather's; perms (g - 2, batch)
+// int64; gv (sets, s, cc) f32 scratch (dsets through the normalisation's
+// Jacobian). Writes every element of dcode (2 * batch, h * w, cc) f32, the
+// gradient of the code maps [code; code_pos]. Two launches, the Jacobian
+// kernel and the adjoint kernel. Returns the CUDA error code of the
+// launches (0 on success).
+extern "C" int stego_corr_sampled_adjoint(const void* dsets,
+                                          const void* csets,
+                                          const void* norms, const void* keys,
+                                          const void* wts, const void* perms,
+                                          void* gv, void* dcode, int batch,
+                                          int h, int w, int cc, int s, int g,
+                                          int device, void* stream) {
   if (bad_shape(batch, h, w, cc, s, g)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (one_tile(cc, s)) {
-    const size_t smem = bwd_one_smem_bytes(cc);
-    err = cudaFuncSetAttribute(corr_sampled_bwd_one_kernel,
-                               cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               static_cast<int>(smem));
-    if (err != cudaSuccess) return static_cast<int>(err);
-    corr_sampled_bwd_one_kernel<<<batch * g, kBwdThreads, smem, st>>>(
-        static_cast<const float*>(grid1), static_cast<const float*>(grid2),
-        static_cast<const int*>(perms), static_cast<const float*>(z2cn),
-        static_cast<const float*>(fd), static_cast<const float*>(acc),
-        static_cast<const float*>(scal), static_cast<float*>(dz),
-        static_cast<float*>(dcode), static_cast<float*>(dcode_pos), batch, h,
-        w, cc, s, g, lo, hi, pointwise, inv_n);
-    return static_cast<int>(cudaGetLastError());
-  }
-  const size_t smem = bwd_smem_bytes(cc);
-  err = cudaFuncSetAttribute(corr_sampled_bwd_kernel,
-                             cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             static_cast<int>(smem));
-  if (err != cudaSuccess) return static_cast<int>(err);
-  const int tiles = sample_tiles(s);
-  corr_sampled_bwd_kernel<<<dim3(batch * g, tiles, tiles), kBwdThreads, smem,
-                            st>>>(
-      static_cast<const int*>(perms), static_cast<const float*>(z2cn),
-      static_cast<const float*>(fd), static_cast<const float*>(acc),
-      static_cast<const float*>(scal), static_cast<float*>(dz), batch, cc, s,
-      g, lo, hi, pointwise, inv_n);
+  const int items = batch * g * s;
+  corr_sampled_jacobian_kernel<<<(items + kWarps - 1) / kWarps, kThreads, 0,
+                                 st>>>(static_cast<const float*>(dsets),
+                                       static_cast<const float*>(csets),
+                                       static_cast<const float*>(norms),
+                                       static_cast<float*>(gv), items, cc);
   err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
-  const int warps = kBwdThreads / 32;
-  corr_sampled_scatter_kernel<<<dim3(batch * g, (s + warps - 1) / warps),
-                                kBwdThreads, 0, st>>>(
-      static_cast<const float*>(grid1), static_cast<const float*>(grid2),
-      static_cast<const int*>(perms), static_cast<const float*>(z2cn),
-      static_cast<const float*>(acc), static_cast<const float*>(dz),
-      static_cast<float*>(dcode), static_cast<float*>(dcode_pos), batch, h, w,
-      cc, s, g, tiles);
+  const long long tasks = 2LL * batch * ((h * w + kPix - 1) / kPix);
+  const unsigned blocks = static_cast<unsigned>((tasks + kWarps - 1) / kWarps);
+  corr_sampled_adjoint_kernel<<<blocks, kThreads, 0, st>>>(
+      static_cast<const float*>(gv), static_cast<const int*>(keys),
+      static_cast<const float*>(wts), static_cast<const long long*>(perms),
+      static_cast<float*>(dcode), batch, h * w, cc, s, g);
   return static_cast<int>(cudaGetLastError());
 }

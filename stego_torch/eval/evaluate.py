@@ -2,7 +2,7 @@
 ``stego_tpu/eval/evaluate.py`` (``load_model_for_eval``, ``make_eval_step``).
 
 The grid CRF (``run_crf=True``) and the dataset loop with its metrics are
-not ported yet (ROADMAP.md queue 1, item 8).
+not ported yet (ROADMAP.md queue 1, Dataset eval and the CRF).
 """
 
 from __future__ import annotations
@@ -63,7 +63,7 @@ def make_eval_step(seg: UnsupervisedSegmenter, run_crf: bool = False,
     if run_crf:
         raise NotImplementedError(
             "run_crf=True: the grid CRF is not ported yet (ROADMAP.md queue "
-            "1, item 8); pass run_crf=false")
+            "1, Dataset eval and the CRF); pass run_crf=false")
 
     @torch.inference_mode()
     def eval_step(img: torch.Tensor, label: Union[torch.Tensor,

@@ -61,9 +61,8 @@ SIGNATURES = {
     + (_F, _I, _I, _P),
     "stego_attention_consumers": (_P, _P, _P, _P, _I, _I, _I) + (_L,) * 12
     + (_F, _I, _I, _I, _P),
-    "stego_corr_sampled_fwd": (_P,) * 10 + (_I,) * 8 + (_F, _F, _I, _P),
-    "stego_corr_sampled_bwd": (_P,) * 10 + (_I,) * 6 + (_F, _F, _I, _F, _I,
-                                                        _P),
+    "stego_corr_sampled_gather": (_P,) * 17 + (_I,) * 10 + (_P,),
+    "stego_corr_sampled_adjoint": (_P,) * 8 + (_I,) * 7 + (_P,),
     "stego_corr_stream_fwd": (_P,) * 11 + (_I,) * 7 + (_F, _F, _I, _P),
     "stego_corr_stream_bwd": (_P,) * 11 + (_I,) * 7 + (_P,),
     "stego_corr_stream_bwd_occupancy": (_I, _I, _I, _P),

@@ -108,15 +108,16 @@ def finalize(s1: torch.Tensor, s2: torch.Tensor, s3: torch.Tensor,
     n = s1.shape[-1]
     m = s1.shape[1] * n * n
     shift = device_vector(shifts, s1.device)
-    big_s1 = s1.sum(dim=(1, 2))
-    big_s2 = s2.sum(dim=(1, 2))
-    gm = s3.sum(dim=(1, 2)) / m
+    # every group's sums in one reduction, each over m: s1, s2, s3 (the fd
+    # mean gm), cd and, pointwise, the row-mean term s3 s2 / n
+    parts = [s1, s2, s3, cds] + ([s3 * s2 / n] if pointwise else [])
+    sums = torch.stack(parts).sum(dim=(2, 3)) / m
+    big_s1, big_s2, gm, cd_means = sums[:4]
     if pointwise:
-        rowterm = (s3 * s2).sum(dim=(1, 2)) / n
-        loss_sum = -(big_s1 - rowterm + (gm - shift) * big_s2)
+        loss = sums[4] - big_s1 - (gm - shift) * big_s2
     else:
-        loss_sum = -(big_s1 - shift * big_s2)
-    return loss_sum / m, cds.sum(dim=(1, 2)) / m, gm
+        loss = shift * big_s2 - big_s1
+    return loss, cd_means, gm
 
 
 def finalize_rows(s1: torch.Tensor, s2: torch.Tensor, s3: torch.Tensor,
@@ -298,6 +299,16 @@ def fused_correlation_loss_multi(
         if n_real is not None and n_real != feats[0].shape[1]:
             raise ValueError(f"n_real {n_real} != {feats[0].shape[1]} rows: "
                              f"the port pads nothing")
+        # the fix-up of the kernel's f32 cd has a margin that holds for
+        # code rows of norm <= 1 (csrc/corr_stream.cu:fixup_eps), which
+        # prep guarantees and the caller's rows might not; a host sync on
+        # this path only (code_bf16's cd has no fix-up)
+        worst = 0.0 if code_bf16 else max(
+            float(torch.linalg.vector_norm(c.detach().float(), dim=-1).max())
+            for c in code)
+        if worst > 1 + 2 ** -20:
+            raise ValueError(f"pre_prepped code rows must be l2-normalised "
+                             f"(norm <= 1); the largest norm is {worst}")
     else:
         feats = [prep(f, feat_dtype).detach() for f, _, _ in maps]
         code = [prep(c) for _, c, _ in maps]
@@ -572,25 +583,31 @@ class _StreamCorr(torch.autograd.Function):
 
 
 def backward_launch(lib, saved: Sequence[torch.Tensor], static: tuple,
-                    g_losses: torch.Tensor, g_cdms: torch.Tensor
+                    g_losses: torch.Tensor, g_cdms: torch.Tensor,
+                    layout: Tuple[torch.Tensor, ...] | None = None
                     ) -> torch.Tensor:
     """The code gradient from C2's backward entry in ``lib`` (the port's
     library, or a variant that ``tools/c2_ablation.py`` times), given
-    what the forward saved and its static arguments."""
+    what the forward saved and its static arguments. ``layout``: the pair
+    rows' (row_group, order, offsets) int32, where the caller has them
+    (kernel C1's gather writes them for its rows); else made here."""
     code, fd, i1, i2, acc, gm, mask = saved
     shifts, group_sizes, pointwise, code_bf16 = static
     dev = code.device
     m, n, cc = code.shape
     r = i1.shape[0]
     scal = backward_scalars(g_losses, g_cdms, gm, shifts, group_sizes, n)
-    row_group = row_groups(group_sizes, dev)
-    # every map's pair rows, side 1 (entry r) then side 2 (entry R + r), in
-    # a fixed order: a stable sort by map, no host synchronisation
-    keys, order = torch.sort(torch.cat([i1, i2]), stable=True)
-    order = order.to(torch.int32)
-    offsets = torch.searchsorted(
-        keys, torch.arange(m + 1, dtype=torch.int32, device=dev)
-    ).to(torch.int32)
+    if layout is None:
+        row_group = row_groups(group_sizes, dev)
+        # every map's pair rows, side 1 (entry r) then side 2 (entry R + r),
+        # in a fixed order: a stable sort by map, no host synchronisation
+        keys, order = torch.sort(torch.cat([i1, i2]), stable=True)
+        order = order.to(torch.int32)
+        offsets = torch.searchsorted(
+            keys, torch.arange(m + 1, dtype=torch.int32, device=dev)
+        ).to(torch.int32)
+    else:
+        row_group, order, offsets = layout
     tiles = code_tiles(code, code_bf16)
     dcode = torch.empty_like(code)
     err = lib.stego_corr_stream_bwd(

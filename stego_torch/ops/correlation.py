@@ -69,7 +69,7 @@ def salience_not_ported() -> NotImplementedError:
     return NotImplementedError(
         "use_salience=True: the salience-biased coordinate draw "
         "(stego_tpu/ops/correlation.py:115-155) is not ported yet "
-        "(ROADMAP.md queue 1, item 3)")
+        "(ROADMAP.md queue 1, Training branches that raise today)")
 
 
 def corr_loss_helper(f1: torch.Tensor, f2: torch.Tensor, c1: torch.Tensor,

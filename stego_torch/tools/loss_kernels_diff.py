@@ -11,8 +11,13 @@ process of its own, on the same seeded inputs, and prints for every
 output whether the two are bitwise equal and their largest difference.
 Both checkouts are driven through their public functions only, so their
 C entry points may differ (C2's backward took the features until it read
-the fd and mask that its forward keeps). C1's code gradients add with
-atomics, so their last bits follow the order of the adds. C2's forward
+the fd and mask that its forward keeps; C1's products became C2's). C1's
+outputs also include what its forward keeps, in one layout whatever the
+checkout's: each pair row's side-2 normalised code, fd and row sums,
+group-major (pair row g * B + b). A C1 with products of its own added its
+code gradients with atomics, so their last bits followed the order of the
+adds, and took fd and cd by f32 FMA; so C1's outputs differ from such a
+checkout's in their last bits. C2's forward
 takes its f32 cd by 3xTF32 with an FMA fix-up near the clamp bounds (PR
 10; before it, f32 FMA throughout) and sums each row's columns in another
 order, so its losses, cd means and code gradients differ from an older
@@ -20,10 +25,11 @@ checkout's in their last bits, by design: each line gives whether two
 outputs are bitwise equal and their largest difference, absolute and
 relative to the larger output's largest value. Every other output of a
 change that keeps the kernels' arithmetic is bitwise equal.
-It also prints each case's kernel time, forward and backward, in both
-checkouts: the summed device time of the kernels named ``corr_*`` (the
-profiler's trace, 20 calls after a warm-up), so that the two are timed
-in one run on one card.
+It also prints each case's times, forward and backward, in both
+checkouts: the summed device time of the kernels named ``corr_*`` and of
+every kernel of the call (the wrapper's casts, sorts and ``finalize``
+too; the profiler's trace, 20 calls after a warm-up), so that the two are
+timed in one run on one card.
 """
 
 from __future__ import annotations
@@ -35,14 +41,15 @@ import tempfile
 
 import torch
 
-C1_OUTPUTS = ("losses", "cd means", "z2cn", "fd", "acc", "dcode",
-              "dcode_pos")
+C1_OUTPUTS = ("losses", "cd means", "side-2 code", "fd", "row sums",
+              "dcode", "dcode_pos")
 C2_OUTPUTS = ("losses", "cd means", "dcode")
 
 
-def kernel_ms(fn, iters: int = 20) -> float:
-    """Device ms per call of ``fn`` in kernels named ``corr_*`` (C1 and
-    C2), from the profiler's trace, after one warm-up call."""
+def kernel_ms(fn, iters: int = 20) -> tuple:
+    """Device ms per call of ``fn``: (in kernels named ``corr_*``, C1's and
+    C2's; in all its kernels), from the profiler's trace, after one warm-up
+    call."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -52,9 +59,30 @@ def kernel_ms(fn, iters: int = 20) -> float:
         for _ in range(iters):
             fn()
         torch.cuda.synchronize()
-    us = sum(e.time_range.elapsed_us() for e in prof.events()
-             if e.device_type == DeviceType.CUDA and "corr_" in e.name)
-    return us / iters / 1e3
+    events = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    corr = sum(e.time_range.elapsed_us() for e in events
+               if "corr_" in e.name)
+    every = sum(e.time_range.elapsed_us() for e in events)
+    return corr / iters / 1e3, every / iters / 1e3
+
+
+def c1_kept(losses: torch.Tensor, b: int, g: int) -> list:
+    """What C1's forward kept for ``losses``' backward, in one layout
+    whatever the checkout: each pair row's side-2 normalised code (R, S,
+    CC), fd (R, S, S) and row sums (R, 4, S), group-major (R = g * b). A
+    C1 with products of its own kept them slot-major (b, g), with the
+    side-2 code norms as a fifth row of sums; the route through C2 keeps
+    C2's saved tensors and the sets (pair row r reads set idx2[r])."""
+    saved = losses.grad_fn.saved_tensors
+    if len(saved) == 7:  # grid1, grid2, perm, z2cn, fd, acc, gm
+        def group_major(x):
+            return x.reshape(b, g, *x.shape[1:]).transpose(0, 1) \
+                .reshape(g * b, *x.shape[1:])
+
+        return [group_major(saved[3]), group_major(saved[4]),
+                group_major(saved[5][:, :4])]
+    csets, fd, _, i2, acc = saved[:5]
+    return [csets[i2.long()], fd[..., :fd.shape[1]], acc]
 
 
 def produce(out: str) -> None:
@@ -84,10 +112,10 @@ def produce(out: str) -> None:
                 perms, shifts, feat_dtype=fdt)
 
         losses, cds = forward()
-        saved = losses.grad_fn.saved_tensors  # grid1, grid2, perm, z2cn, ...
+        kept = c1_kept(losses, b, 2 + neg)
         grads = torch.autograd.grad(losses.sum() + cds.sum(), code)
         key = f"C1, {str(fdt)[6:]} features, {cf} channels"
-        res[key] = [losses, cds, saved[3], saved[4], saved[5], *grads]
+        res[key] = [losses, cds, *kept, *grads]
         times[key] = time_fwd_bwd(forward, code)
     groups = [b] * (2 + neg)
     for hw2, distinct, code_bf16, cc2, fdt, cf in (
@@ -125,8 +153,8 @@ def produce(out: str) -> None:
 
 
 def time_fwd_bwd(forward, inputs) -> tuple:
-    """(forward, backward) kernel ms of the loss ``forward()`` returns,
-    differentiated in ``inputs``."""
+    """(forward, backward) :func:`kernel_ms` of the loss ``forward()``
+    returns, differentiated in ``inputs``."""
     fwd = kernel_ms(forward)
     losses, cds = forward()
     total = losses.sum() + cds.sum()
@@ -167,11 +195,15 @@ def main(argv=None) -> int:
             print(f"{key}: {name}: bitwise equal {torch.equal(x, y)}, max "
                   f"abs diff {diff:.3e} ({diff / scale:.3e} of the largest "
                   f"|value|)")
-    for key, (fwd, bwd) in this["ms"].items():
-        fwd_o, bwd_o = other["ms"][key]
-        print(f"{key}: kernel ms forward {fwd:.4f} (other {fwd_o:.4f}, "
-              f"{fwd / fwd_o:.3f}x), backward {bwd:.4f} (other {bwd_o:.4f}, "
-              f"{bwd / bwd_o:.3f}x)")
+    for key, times in this["ms"].items():
+        for what, (fwd, bwd), (fwd_o, bwd_o) in zip(
+                ("corr_* kernel ms", "all device ms"), zip(*times),
+                zip(*other["ms"][key])):
+            print(f"{key}: {what} forward {fwd:.4f} (other {fwd_o:.4f}, "
+                  f"{fwd / fwd_o:.3f}x), backward {bwd:.4f} (other "
+                  f"{bwd_o:.4f}, {bwd / bwd_o:.3f}x), both {fwd + bwd:.4f} "
+                  f"(other {fwd_o + bwd_o:.4f}, "
+                  f"{(fwd + bwd) / (fwd_o + bwd_o):.3f}x)")
     return 0
 
 

@@ -14,8 +14,9 @@ The steps are the image steps' (``_update_from_feats`` is shared), so a
 cached step equals the image step on the same images. The cache refuses
 configurations whose losses need per-step images (aug alignment, CRF loss)
 or whose decoding is random (random loader crops). Not ported: the cache
-sharded over several GPUs (``feat_cache_sharded``, ROADMAP queue 1, item
-6) and the salience masks (``use_salience``, item 3); both raise.
+sharded over several GPUs (``feat_cache_sharded``, ROADMAP.md queue 1,
+Multi-GPU (DDP)) and the salience masks (``use_salience``, Training
+branches that raise today); both raise.
 """
 
 from __future__ import annotations
@@ -58,7 +59,7 @@ def check_not_sharded(cfg: Config) -> None:
     if cfg.feat_cache_sharded:
         raise NotImplementedError(
             "feat_cache_sharded=true: a feature cache sharded over several "
-            "GPUs is not ported yet (ROADMAP.md queue 1, item 6)")
+            "GPUs is not ported yet (ROADMAP.md queue 1, Multi-GPU (DDP))")
 
 
 def estimate_cache_gb(cfg: Config, seg, n_items: int,

@@ -10,8 +10,9 @@ under the reference's file name (:func:`knn_cache_file`), so caches pass
 between the reference, the JAX package and the port.
 
 Everything runs on the device of the featurizer's weights (the card, unless
-the caller put the segmenter on the CPU). Several GPUs are ROADMAP queue 1,
-item 6; the ``knn_app`` entry point waits for the train app (item 7).
+the caller put the segmenter on the CPU). Several GPUs are ROADMAP.md queue
+1, Multi-GPU (DDP); the ``knn_app`` entry point waits for the train app
+(Train app, checkpoints, logging and the app entry points).
 """
 
 from __future__ import annotations

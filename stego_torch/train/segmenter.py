@@ -20,10 +20,11 @@ argument: :func:`draw_step_randomness` draws them from a
 ``torch.Generator``; the tests hand in the JAX package's draws instead,
 since ``jax.random`` streams cannot be reproduced in torch.
 
-Not ported yet (ROADMAP.md queue 1, item 4): the aug-alignment loss
-(``aug_alignment_weight > 0``, needs ``ops/augment.py``), the CRF loss
-(``crf_weight > 0``), the salience-biased draw (``use_salience``) and the
-feature-pyramid arch. Each raises.
+Not ported yet (ROADMAP.md queue 1, Training branches that raise today):
+the aug-alignment loss (``aug_alignment_weight > 0``, needs
+``ops/augment.py``), the CRF loss (``crf_weight > 0``) and the
+salience-biased draw (``use_salience``); nor is the feature-pyramid arch
+(ROADMAP.md queue 1, Other backbones, plots and apps). Each raises.
 """
 
 from __future__ import annotations
@@ -83,7 +84,7 @@ class UnsupervisedSegmenter(nn.Module):
         if cfg.arch != "dino":
             raise NotImplementedError(
                 f"arch {cfg.arch!r} is not ported yet (ROADMAP.md queue 1, "
-                f"item 12)")
+                f"Other backbones, plots and apps)")
         if generator is None:
             generator = torch.Generator().manual_seed(cfg.seed)
         self.cfg = cfg
@@ -265,11 +266,11 @@ def _check_ported(cfg: Config) -> None:
         raise NotImplementedError(
             "aug_alignment_weight > 0: the augmented view (ops/augment.py) "
             "and the aug-alignment loss are not ported yet (ROADMAP.md "
-            "queue 1, item 4)")
+            "queue 1, Training branches that raise today)")
     if cfg.crf_weight > 0:
         raise NotImplementedError(
             "crf_weight > 0: the CRF loss (ops/crf_loss.py) is not ported "
-            "yet (ROADMAP.md queue 1, item 4)")
+            "yet (ROADMAP.md queue 1, Training branches that raise today)")
 
 
 def _update_from_feats(seg: UnsupervisedSegmenter, with_hist: bool,
@@ -402,8 +403,8 @@ def make_cached_train_step(seg: UnsupervisedSegmenter,
     features (as f32) and labels by index and goes through the image step's
     ``_update_from_feats``, so on the same images and draws it is the image
     step. ``steps_per_dispatch > 1`` (``make_cached_multi_step``) is the
-    TPU's workaround for its dispatch latency (ROADMAP queue 1, item 0) and
-    raises."""
+    TPU's workaround for its dispatch latency (ROADMAP.md queue 1, Do not
+    port these TPU workarounds) and raises."""
     cfg = seg.cfg
     _check_ported(cfg)
     check_not_sharded(cfg)
@@ -411,7 +412,8 @@ def make_cached_train_step(seg: UnsupervisedSegmenter,
         raise NotImplementedError(
             "steps_per_dispatch > 1 (make_cached_multi_step) is not ported: "
             "it is the TPU's workaround for its dispatch latency (ROADMAP.md "
-            "queue 1, item 0); a CUDA graph of the step is the GPU's lever")
+            "queue 1, Do not port these TPU workarounds); a CUDA graph of the "
+            "step is the GPU's lever")
     sampling_impl = resolve_corr_sampling(seg)
     use_pos = cfg.correspondence_weight > 0
 

@@ -155,3 +155,29 @@ def test_fixup_losses_match_jax(cc, pointwise, zero_clamp, stabalize):
                                rtol=1e-4, atol=1e-5)
     np.testing.assert_allclose(cd_means.numpy(), np.asarray(want[1]),
                                rtol=1e-4, atol=1e-5)
+
+
+@pytest.mark.parametrize("scale,code_bf16,ok", [
+    (1.0, False, True), (1 + 2 ** -18, False, False), (1.5, False, False),
+    (1.5, True, True)])
+def test_pre_prepped_code_rows_of_norm_above_one_raise(scale, code_bf16, ok):
+    """The fix-up's margin holds for code rows of norm <= 1, which prep
+    gives; fused_correlation_loss_multi(pre_prepped=True) hands the
+    caller's rows to the kernel, so with f32 code (whose cd the fix-up
+    corrects) it raises for a row of norm above 1 + 2^-20 and takes
+    l2-normalised rows; code_bf16's cd has no fix-up."""
+    rng = np.random.default_rng(5)
+    f, c = (corr_stream.prep(torch.from_numpy(
+        rng.standard_normal((2, 4, 4, ch)).astype(np.float32)))
+        for ch in (16, 8))
+    c = c.clone()
+    c[1, 3] *= scale
+    pairs = [(f, f, c, c)]
+    if ok:
+        losses, _ = corr_stream.fused_correlation_loss_multi(
+            pairs, [0.1], pre_prepped=True, code_bf16=code_bf16)
+        assert bool(torch.isfinite(losses).all())
+    else:
+        with pytest.raises(ValueError, match="norm <= 1"):
+            corr_stream.fused_correlation_loss_multi(pairs, [0.1],
+                                                     pre_prepped=True)

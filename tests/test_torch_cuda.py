@@ -439,9 +439,9 @@ def test_corr_sampled_kernel_matches_plain(cuda, b, hw, cf, cc, s, neg,
     with bf16 features (a bf16 trunk) and f32 features (an f32 trunk).
     Losses and cd means within rtol 1e-4, atol 1e-6; code gradients, at
     weights that make the largest 1, within rtol 2e-4, atol 1e-5
-    (PARITY_r05's sampled-loss rows): the two sum in other orders, and the
-    kernel's gradient adds with f32 atomics; no cd at a clamp bound
-    (:func:`_corr_inputs_untied`)."""
+    (PARITY_r05's sampled-loss rows): the two sum in other orders (the
+    kernel's products are C2's, on the tensor cores); no cd at a clamp
+    bound (:func:`_corr_inputs_untied`)."""
     from stego_torch.ops import corr_fused_sampling as c1
 
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -493,6 +493,92 @@ def test_corr_sampled_f32_fd_gate_rejects_bf16_kernel(cuda):
 
     assert fd_err(torch.float32) <= 1e-5
     assert fd_err(torch.bfloat16) > 1e-5
+
+
+def test_corr_sampled_f32_fd_gate_rejects_single_tf32_pass(cuda):
+    """C1's products are C2's, whose fd on f32 features is 3xTF32; one
+    TF32 pass a product (the plain version's fd from TF32-rounded sets,
+    ops/tf32.py) misses the 1e-5 fd gate at the train step's shape, which
+    the kernel holds."""
+    from stego_torch.ops import corr_fused_sampling as c1
+    from stego_torch.ops.tf32 import round_tf32
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    feats, code, coords, perms, shifts = _corr_inputs(cuda, 16, 28, 384, 70,
+                                                      11, 5, seed=3)
+    code = [c.requires_grad_(True) for c in code]
+    args = (feats[0], feats[1], code[0], code[1], coords[0], coords[1],
+            perms)
+    want = c1.sampled_products_plain(*args)[0]
+    losses, _ = c1.sampled_corr_fused(*args, shifts,
+                                      feat_dtype=torch.float32)
+    assert float((c1.kernel_fd(losses) - want).abs().max()) <= 1e-5
+    f = round_tf32(c1.sample_sets_plain(*args)[0])
+    i1, i2 = c1.pair_rows(16, 7, cuda)
+    one_pass = torch.bmm(f[i1], f[i2].transpose(1, 2))
+    assert float((one_pass - want).abs().max()) > 1e-5
+
+
+@pytest.mark.parametrize("feat_dtype,cf,cc,s", [
+    (torch.bfloat16, 384, 70, 11), (torch.float32, 384, 70, 11),
+    (torch.bfloat16, 384, 100, 12)])
+def test_corr_sampled_kernel_is_deterministic(cuda, feat_dtype, cf, cc, s):
+    """C1 gives the same bits twice: the losses, the cd means and both code
+    gradients, which the adjoint adds a code-map row at a time in a fixed
+    order, without atomics (bf16 and f32 features at ViT-S's 384 channels;
+    dim=100 with 12 x 12 samples)."""
+    from stego_torch.ops import corr_fused_sampling as c1
+
+    feats, code, coords, perms, shifts = _corr_inputs(cuda, 16, 28, cf, cc,
+                                                      s, 5, seed=11)
+    wts = torch.randn(2, 7, generator=torch.Generator(device=cuda)
+                      .manual_seed(7), device=cuda)
+
+    def run():
+        losses, cds, grads = _corr_run(c1.sampled_corr_fused, feats, code,
+                                       coords, perms, shifts, wts,
+                                       feat_dtype=feat_dtype)
+        return (losses, cds) + tuple(grads)
+
+    first, second = run(), run()
+    torch.cuda.synchronize()
+    for x, y in zip(first, second):
+        assert torch.equal(x, y)
+
+
+@pytest.mark.parametrize("whole", [False, True])
+def test_corr_sampled_out_of_range_permutation_gives_nan_sums(cuda, whole):
+    """A negative whose permutation entry is out of range reads nothing: its
+    group's loss and cd mean are NaN, the launches raise no fault, and the
+    other groups' losses and cd means are those without it. With the whole
+    permutation out of range its group adds nothing to the code gradients,
+    which are then those without it."""
+    from stego_torch.ops import corr_fused_sampling as c1
+
+    feats, code, coords, perms, shifts = _corr_inputs(cuda, 16, 28, 384, 70,
+                                                      11, 3, seed=5)
+    bad = perms[-1].clone()
+    if whole:
+        bad[:] = 16
+    else:
+        bad[3] = -1
+    wts = torch.randn(2, 5, generator=torch.Generator(device=cuda)
+                      .manual_seed(7), device=cuda)
+    got = _corr_run(c1.sampled_corr_fused, feats, code, coords,
+                    perms[:-1] + [bad], shifts, wts,
+                    feat_dtype=torch.bfloat16)
+    torch.cuda.synchronize()
+    want = _corr_run(c1.sampled_corr_fused, feats, code, coords, perms[:-1],
+                     shifts[:-1], wts[:, :-1], feat_dtype=torch.bfloat16)
+    # the same rows and sums; the groups' means may differ in a last bit
+    # (a reduction over another number of groups)
+    for x, y in zip(got[:2], want[:2]):
+        assert bool(torch.isnan(x[-1]))
+        torch.testing.assert_close(x[:-1], y, rtol=1e-5, atol=1e-7)
+    if whole:
+        for x, y in zip(got[2], want[2]):
+            torch.testing.assert_close(x, y, rtol=1e-5,
+                                       atol=1e-6 * float(y.abs().max()))
 
 
 def test_corr_sampled_kernel_rejects_one_image_batch(cuda):
