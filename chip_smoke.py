@@ -87,7 +87,20 @@
    launches a step, LayerNorm plain), each held against its plain step
    (the f32 trunk by its gradients, with TF32 and bf16 attention as
    controls that must fail).
-11. Runs the attention layout ladder (stego_torch/tools/attention_layouts.py:
+11. The training app (stego_torch/train/app.py: train() through its
+   Trainer) at the same footprint on the scenes and their KNN table:
+   100 steps with validation at res 320 and a checkpoint every 50, a
+   resumed run to 150 and 50 cached steps (cache_backbone_feats). Every
+   step launches 12 A, 25 L and C1 forward and backward once, every
+   validation batch 12 A2 and 25 L; the logged loss must fall, the
+   validations give finite metrics with the JAX app's keys, the kept
+   checkpoints are the JAX manager's top 2 of them, the backbone is saved
+   in f32 beside the bf16 trunk, the newest .ckpt through
+   load_model_for_eval gives the in-memory segmenter's flip-TTA code bit
+   for bit, and the resumed run starts at step 100. Prints the app's
+   median step, images/s, the bare step's, the loader's wait, the
+   validation epochs' seconds and peak device memory.
+12. Runs the attention layout ladder (stego_torch/tools/attention_layouts.py:
    12 chained pre-LN attention sublayers at B=32, N=785 for ViT-S, ViT-B
    and ViT-T), every rung's core held against its plain version and each
    chain launching exactly its kernels: the path of kernel A's resident,
@@ -223,6 +236,8 @@ F64_GAP_FMA_CD = {"ViT-S full-field": 9.862e-08, "ViT-B full-field": 3.056e-07,
 # (fixup_margin); {build flag: library path}
 NO_FIXUP, COUNT_FIXUPS = "-DSTEGO_C2_FWD_ABLATION=8", "-DSTEGO_C2_FWD_ABLATION=16"
 CHECK_BUILDS = {}
+# each train_run's median step (ms), by its label
+STEP_MEDIANS = {}
 # A cd within CLAMP_TIE of a clamp bound may be clamped in the kernel and not
 # in the plain version (they sum it in other orders): one such coefficient
 # moves ~560 code gradients by up to ~4e-3 at unit scale (seen on the card
@@ -1907,6 +1922,7 @@ def report_steps(step_ms, images, one_step, peak_gb):
           f"device memory {peak_gb:.2f} GiB")
     for name, us in sorted(by_kernel.items(), key=lambda kv: -kv[1])[:6]:
         print(f"    {us / 1e3:8.3f} ms  {name[:90]}")
+    return med
 
 
 def train_run(dev, label, steps, hist_steps, expect, fall_window,
@@ -1959,8 +1975,9 @@ def train_run(dev, label, steps, hist_steps, expect, fall_window,
         lambda i, hist: step_fns[hist](
             batch, draw_step_randomness(seg, TRAIN_BATCH, gen)))
     peak_gb = torch.cuda.max_memory_allocated() / 2**30
-    report_steps(step_ms, TRAIN_BATCH, lambda: step_fns[False](
-        batch, draw_step_randomness(seg, TRAIN_BATCH, gen)), peak_gb)
+    STEP_MEDIANS[label] = report_steps(
+        step_ms, TRAIN_BATCH, lambda: step_fns[False](
+            batch, draw_step_randomness(seg, TRAIN_BATCH, gen)), peak_gb)
     if time_plain:
         # the same step with the loss's plain version, after the counted run
         seg.use_corr_kernel = False
@@ -1988,10 +2005,12 @@ def train_run(dev, label, steps, hist_steps, expect, fall_window,
     return seg, gen, launches
 
 
+BARE_STEP = "sampled loss (kernel C1), 11x11 samples"
+
+
 def phase_train(dev):
     seg, gen, launches = train_run(
-        dev, "sampled loss (kernel C1), 11x11 samples", TRAIN_STEPS,
-        HIST_STEPS, (12, 25, 1, 1, 0, 0), 5)
+        dev, BARE_STEP, TRAIN_STEPS, HIST_STEPS, (12, 25, 1, 1, 0, 0), 5)
     return launches, val_run(dev, seg, gen)
 
 
@@ -2455,6 +2474,307 @@ def phase_cached_val(dev, segs, caches, split):
 
 
 
+# the app phase: train() at the reference footprint on the scenes, val at
+# VAL_RES in batches of VAL_BATCH (a short last batch), validation and a
+# checkpoint every APP_FREQ steps, the loss logged every APP_LOG_FREQ and
+# the cd histograms every APP_HIST_FREQ; a first run, a resumed one and a
+# cached one; the steps before the app's median (warmup)
+APP_STEPS, APP_RESUMED_STEPS, APP_CACHED_STEPS = 100, 150, 50
+APP_FREQ, APP_LOG_FREQ, APP_HIST_FREQ, APP_WARMUP = 50, 10, 25, 21
+# the app's profiler window (profile_dir: steps 10-19 traced), before the
+# median's steps
+APP_TRACED = range(10, 20)
+APP_NO_THREADS_STEPS = 50
+APP_METRICS = {f"test/{probe}/{m}" for probe in ("linear", "cluster")
+               for m in ("mIoU", "Accuracy")}  # the JAX app's keys
+
+
+class SceneItems:
+    """The rendered scenes as a base dataset of (img, label, mask) items, as
+    DirectoryDataset gives them (int64 labels, mask = label > 0)."""
+
+    def __init__(self, items):
+        self.items = items
+
+    def __len__(self):
+        return len(self.items)
+
+    def __getitem__(self, i):
+        img, label = self.items[i]
+        label = label.astype(np.int64)
+        return img, label, (label > 0).astype(np.float32)
+
+
+def best_n(metrics_by_step, n):
+    """The steps the JAX package's orbax manager keeps (BestN): the steps in
+    step order, sorted stably by test/cluster/mIoU, the last n."""
+    ranked = sorted(sorted(metrics_by_step),
+                    key=lambda s: metrics_by_step[s]["test/cluster/mIoU"])
+    return sorted(ranked[-n:])
+
+
+def app_run(make, label, want):
+    """``make().run()`` (``make`` builds the Trainer, and the feature caches
+    of a cached run), the main path: the counts are set to 0 just before
+    it and read just after, and must be ``want``. Returns the trainer and
+    the launches."""
+    torch.cuda.synchronize()
+    reset_counts()
+    t0 = time.perf_counter()
+    trainer = make()
+    metrics = trainer.run()
+    torch.cuda.synchronize()
+    sec = time.perf_counter() - t0
+    launches = path_counts()
+    check(launches == want,
+          f"app, {label}: steps {trainer.start_step}-{trainer.seg.step} in "
+          f"{sec:.2f} s, launches attention/LN/C1 fwd/C1 bwd/C2 fwd/C2 bwd "
+          f"{tuple(launches[k] for k in COUNTS)}, attention at pair/pair_kv "
+          f"{launches['attention_pair']}/{launches['attention_pair_kv']}")
+    check(set(metrics) == APP_METRICS
+          and all(math.isfinite(v) for v in metrics.values()),
+          f"app, {label}: last validation " + ", ".join(
+              f"{k}={v:.2f}" for k, v in sorted(metrics.items())))
+    return trainer, launches
+
+
+def trace_breakdown(path, steps):
+    """ms a step, from a chrome trace of ``steps`` steps: the host's time
+    inside cudaMemcpy* calls (a copy from pageable memory returns only when
+    it is done, after the work queued before it) and the device's kernel,
+    copy and memset time."""
+    with open(path) as f:
+        events = [e for e in json.load(f)["traceEvents"]
+                  if e.get("ph") == "X"]
+    memcpy = sum(e["dur"] for e in events if e.get("cat") == "cuda_runtime"
+                 and e["name"].startswith("cudaMemcpy"))
+    device = sum(e["dur"] for e in events
+                 if e.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset"))
+    return memcpy / 1e3 / steps, device / 1e3 / steps
+
+
+def phase_app(dev, train_items, val_items, nns):
+    """The training app (stego_torch/train/app.py) at ViT-S/8's full width
+    on the scenes: APP_STEPS steps of train() from ContrastiveSegDataset
+    over the scenes and their KNN table, a resumed run to
+    APP_RESUMED_STEPS, then APP_CACHED_STEPS cached steps
+    (cache_backbone_feats). Gates: the launches (12 A, 25 L, 1+1 C1 a
+    step, 12 A2 and 25 L a validation batch at res 320; the cached run: the
+    caches' trunk batches and 1+1 C1 a step), the logged loss falls, finite
+    validation metrics with the JAX app's keys, the kept checkpoints are
+    BestN's of the logged metrics, the f32 backbone of the bf16 trunk, the
+    newest .ckpt through load_model_for_eval gives the in-memory segmenter's
+    flip-TTA code bit for bit, and the resumed run starts at step
+    APP_STEPS and logs first at APP_STEPS + APP_LOG_FREQ. Prints the app's
+    median step, images/s, the bare step's median (phase train), the
+    loader's share of the loop, the batch's copy, one batch's host work,
+    a profiled window (profile_dir), the validation epochs' seconds and
+    peak device memory; and the median step of the image and cached loops
+    without the loader's fetch threads (num_workers=0). Returns the
+    launches of every run."""
+    from stego_torch.config import Config
+    from stego_torch.data.contrastive import ContrastiveSegDataset
+    from stego_torch.eval.evaluate import flip_tta_code, load_model_for_eval
+    from stego_torch.train.app import Trainer
+
+    train_ds = ContrastiveSegDataset.from_items(SceneItems(train_items), 27,
+                                                nns=nns, num_neighbors=7)
+    val_ds = ContrastiveSegDataset.from_items(SceneItems(val_items), 27)
+    val_batches = -(-len(val_items) // VAL_BATCH)
+    no_threads = []
+
+    def steps(n, trunk=True):
+        calls = n if trunk else 0
+        return launches_of(12 * calls, 25 * calls, "pair",
+                           corr_sampled_fwd=n, corr_sampled_bwd=n)
+
+    print(f"app: train() on {len(train_items)} scenes at res {TRAIN_RES} "
+          f"(KNN top {KNN_K}, 7 neighbours), ViT-S/8 bf16 trunk, cocostuff27 "
+          f"head, batch {TRAIN_BATCH}, validation on {len(val_items)} scenes "
+          f"at res {VAL_RES} in batches of {VAL_BATCH}")
+    with tempfile.TemporaryDirectory() as tmp:
+        cfg = Config(dataset_name="cocostuff27", model_type="vit_small",
+                     dino_patch_size=8, projection_type="nonlinear", dim=70,
+                     backbone_dtype="bfloat16", res=TRAIN_RES,
+                     val_res=VAL_RES, batch_size=TRAIN_BATCH,
+                     val_batch_size=VAL_BATCH, max_steps=APP_STEPS,
+                     val_freq=APP_FREQ, checkpoint_freq=APP_FREQ,
+                     scalar_log_freq=APP_LOG_FREQ, hist_freq=APP_HIST_FREQ,
+                     save_top_k=2, output_root=tmp, experiment_name="app",
+                     run_crf=False)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        n_val = APP_STEPS // APP_FREQ
+        profile_dir = os.path.join(tmp, "profile")
+        first, run1 = app_run(
+            lambda: Trainer(cfg.replace(profile_dir=profile_dir),
+                            train_dataset=train_ds, val_dataset=val_ds,
+                            device=dev),
+            "first run", add_counts(steps(APP_STEPS), trunk_launches(
+                n_val * val_batches, VAL_RES)))
+        peak_gb = torch.cuda.max_memory_allocated() / 2**30
+        n_val = (APP_RESUMED_STEPS - APP_STEPS) // APP_FREQ
+        resumed, run2 = app_run(
+            lambda: Trainer(cfg.replace(max_steps=APP_RESUMED_STEPS,
+                                        resume=True),
+                            train_dataset=train_ds, val_dataset=val_ds,
+                            device=dev),
+            "resumed run", add_counts(
+                steps(APP_RESUMED_STEPS - APP_STEPS),
+                trunk_launches(n_val * val_batches, VAL_RES)))
+        check(resumed.start_step == APP_STEPS,
+              f"app: the resumed run restored step {resumed.start_step}, "
+              f"its loader fast-forwarded to epoch "
+              f"{APP_STEPS // len(first.train_loader)}, batch "
+              f"{APP_STEPS % len(first.train_loader)}")
+
+        with open(os.path.join(first.log_dir, "metrics.jsonl")) as f:
+            lines = [json.loads(line) for line in f]
+        losses = [ln for ln in lines if "loss/total" in ln]
+        n_first = APP_STEPS // APP_LOG_FREQ
+        check([ln["step"] for ln in losses][n_first:n_first + 1]
+              == [APP_STEPS + APP_LOG_FREQ],
+              f"app: the resumed run's first logged step "
+              f"{losses[n_first]['step'] if len(losses) > n_first else None}")
+        tenth = max(1, len(losses) // 10)
+        head = statistics.mean(ln["loss/total"] for ln in losses[:tenth])
+        tail = statistics.mean(ln["loss/total"] for ln in losses[-tenth:])
+        check(tail < head and len(losses) == APP_RESUMED_STEPS // APP_LOG_FREQ,
+              f"app: loss/total in metrics.jsonl falls: mean of the first "
+              f"{tenth} of {len(losses)} logged steps {head:.6f}, of the last "
+              f"{tenth} {tail:.6f}")
+        vals = {ln["step"]: ln for ln in lines if "test/cluster/mIoU" in ln}
+        check(sorted(vals) == list(range(APP_FREQ, APP_RESUMED_STEPS + 1,
+                                         APP_FREQ))
+              and all(APP_METRICS <= set(v) and all(
+                  math.isfinite(v[k]) for k in APP_METRICS)
+                  for v in vals.values()),
+              "app: validations at steps " + ", ".join(
+                  f"{s} (cluster mIoU {v['test/cluster/mIoU']:.2f})"
+                  for s, v in sorted(vals.items())))
+
+        mgr = resumed.mgr
+        kept = mgr.all_steps()
+        want_kept = best_n(vals, cfg.save_top_k)
+        check(kept == want_kept, f"app: checkpoints kept {kept}, BestN of the "
+              f"logged metrics {want_kept}")
+        backbone = mgr.restore_backbone()
+        qkv = backbone["blocks.0.attn.qkv.weight"]
+        check(all(t.dtype == torch.float32 for t in backbone.values())
+              and not torch.equal(qkv, qkv.bfloat16().float())
+              and resumed.seg.net.model.blocks[0].attn.qkv.weight.dtype
+              == torch.bfloat16
+              and all(torch.equal(backbone[k], v)
+                      for k, v in resumed.backbone_store.items()),
+              "app: backbone.pt holds the f32 source weights of the bf16 "
+              "trunk")
+        newest = {APP_STEPS: first.seg,
+                  APP_RESUMED_STEPS: resumed.seg}.get(kept[-1])
+        check(newest is not None, f"app: the newest kept step {kept[-1]} is "
+              f"one a run ended on")
+        if newest is not None:
+            loaded = load_model_for_eval(mgr.checkpoint_path(kept[-1]), dev)
+            img = torch.from_numpy(np.stack(
+                [val_items[i][0] for i in range(BATCH)])).to(dev)
+            with torch.inference_mode():
+                want = flip_tta_code(newest.eval(), img)
+                got = flip_tta_code(loaded, img)
+            check(torch.equal(got, want),
+                  f"app: step {kept[-1]}'s .ckpt through load_model_for_eval:"
+                  f" a flip-TTA request of {BATCH} at res {VAL_RES} gives the "
+                  f"in-memory segmenter's code bit for bit (max abs diff "
+                  f"{float((got - want).abs().max()):.3e})")
+            del loaded
+
+        intervals = np.diff(first.step_starts)[APP_WARMUP:]
+        med_ms = float(np.median(intervals)) * 1e3
+        loop_s = first.step_starts[-1] - first.step_starts[APP_WARMUP]
+        wait = sum(first.loader_wait[APP_WARMUP:-1]) / loop_s
+        copy_ms = float(np.median(first.copy_seconds[APP_WARMUP:])) * 1e3
+        bare = STEP_MEDIANS.get(BARE_STEP)
+        print(f"  app: median {med_ms:.2f} ms per train step (wall clock, "
+              f"steps {APP_WARMUP}-{APP_STEPS - 1} of the first run), "
+              f"{TRAIN_BATCH / med_ms * 1e3:.1f} images/s; the bare step "
+              f"(phase train, one fixed batch on the device) "
+              f"{bare if bare is None else f'{bare:.2f}'} ms; loader wait "
+              f"{wait:.1%} of the loop's time; the batch's copy to the "
+              f"device (host clock, median) {copy_ms:.2f} ms a step; "
+              f"validation epochs "
+              + ", ".join(f"{s:.3f}" for s in first.val_seconds
+                          + resumed.val_seconds)
+              + f" s; peak device memory {peak_gb:.2f} GiB")
+        # what the prefetch thread does for a batch, alone on the host
+        from stego_torch.data.loader import collate
+
+        t0 = time.perf_counter()
+        items = [train_ds[i] for i in range(TRAIN_BATCH)]
+        t1 = time.perf_counter()
+        host_batch = collate(items)
+        t2 = time.perf_counter()
+        print(f"  app: one batch on the host, alone: {TRAIN_BATCH} items "
+              f"{(t1 - t0) * 1e3:.2f} ms, collate {(t2 - t1) * 1e3:.2f} ms, "
+              f"{sum(v.nbytes for v in host_batch.values()) / 2**20:.1f} MiB")
+        del items, host_batch
+        traced = len(APP_TRACED)
+        memcpy_ms, device_ms_ = trace_breakdown(
+            os.path.join(profile_dir, "train_steps.json"), traced)
+        window_ms = (first.step_starts[APP_TRACED[-1] + 1]
+                     - first.step_starts[APP_TRACED[0]]) / traced * 1e3
+        print(f"  app, steps {APP_TRACED[0]}-{APP_TRACED[-1]} under the "
+              f"profiler (profile_dir): {window_ms:.2f} ms a step, of it "
+              f"{memcpy_ms:.2f} ms on the host inside cudaMemcpy calls (the "
+              f"batch's pageable host-to-device copies); device busy "
+              f"{device_ms_:.3f} ms a step ({device_ms_ / window_ms:.0%})")
+
+        # the same loops without the loader's fetch threads (num_workers=0;
+        # its prefetch thread stays): what those threads cost the main one
+        for label, extra in (("image", {}),
+                             ("cached", {"cache_backbone_feats": True})):
+            def make(extra=extra, label=label):
+                return Trainer(cfg.replace(
+                    num_workers=0, max_steps=APP_NO_THREADS_STEPS,
+                    val_freq=APP_NO_THREADS_STEPS,
+                    checkpoint_freq=APP_NO_THREADS_STEPS,
+                    experiment_name=f"app_no_threads_{label}", **extra),
+                    train_dataset=train_ds, val_dataset=val_ds, device=dev)
+
+            builds = ((trunk_launches(-(-len(train_items) // TRAIN_BATCH)),
+                       trunk_launches(-(-len(val_items) // TRAIN_BATCH),
+                                      VAL_RES)) if extra else
+                      (trunk_launches(val_batches, VAL_RES),))
+            trainer, run = app_run(
+                make, f"{label}, num_workers=0",
+                add_counts(steps(APP_NO_THREADS_STEPS, trunk=not extra),
+                           *builds))
+            no_threads.append(run)
+            print(f"  app, {label}, num_workers=0: median "
+                  f"{float(np.median(np.diff(trainer.step_starts)[APP_WARMUP:])) * 1e3:.2f}"
+                  f" ms per train step (steps {APP_WARMUP}-"
+                  f"{APP_NO_THREADS_STEPS - 1})")
+            del trainer
+
+        # the cached run's constructor builds both caches: a trunk call a
+        # chunk of TRAIN_BATCH images at each split's res
+        cached, run3 = app_run(
+            lambda: Trainer(cfg.replace(cache_backbone_feats=True,
+                                        max_steps=APP_CACHED_STEPS,
+                                        experiment_name="app_cached"),
+                            train_dataset=train_ds, val_dataset=val_ds,
+                            device=dev),
+            "cached run", add_counts(
+                steps(APP_CACHED_STEPS, trunk=False),
+                trunk_launches(-(-len(train_items) // TRAIN_BATCH)),
+                trunk_launches(-(-len(val_items) // TRAIN_BATCH), VAL_RES)))
+        intervals = np.diff(cached.step_starts)[APP_WARMUP:]
+        print(f"  app, cached: median "
+              f"{float(np.median(intervals)) * 1e3:.2f} ms per train step, "
+              f"the index batch's copy to the device (median) "
+              f"{float(np.median(cached.copy_seconds[APP_WARMUP:])) * 1e3:.2f}"
+              f" ms, validation epochs "
+              + ", ".join(f"{s:.3f}" for s in cached.val_seconds) + " s")
+    return add_counts(run1, run2, run3, *no_threads)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; nothing was run", file=sys.stderr)
@@ -2530,6 +2850,7 @@ def main() -> int:
                           train_split, batches[0])
     cached_val = phase_cached_val(dev, trained, caches, val_split)
     del bases, trained, caches
+    app = phase_app(dev, train_items, val_items, nns)
     ladder = phase_layouts(dev)
 
     def per_step(steps, corr, entry="pair", trunk=True):
@@ -2570,11 +2891,11 @@ def main() -> int:
         check(wide[name] == want, f"{name} path launches: {wide[name]}")
     # launches summed over the paths of each trunk: ViT-S (eval, train
     # with the sampled, full-field, grid-sampled and bf16-code losses, val,
-    # the KNN, the cache builds, cached train and val), ViT-T (eval, train,
+    # the KNN, the cache builds, cached train and val, the app), ViT-T (eval, train,
     # val), ViT-B (train, sampled and full-field), and the layout ladder
     vit_s = add_counts(serving["vit_small"], train, val, *stream.values(),
                        knn_launches, cache_launches, *cached.values(),
-                       cached_val, *wide.values())
+                       cached_val, *wide.values(), app)
     vit_t = add_counts(serving["vit_tiny"], models["vit_tiny"],
                        models["vit_tiny_val"])
     vit_b = add_counts(models["vit_base"], models["vit_base_full_field"])

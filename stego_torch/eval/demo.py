@@ -20,34 +20,17 @@ import numpy as np
 import torch
 
 from stego_torch.config import Config
-from stego_torch.data.transforms import channel_stats
+from stego_torch.data.transforms import get_transform
 from stego_torch.eval.evaluate import load_model_for_eval, make_eval_step
 from stego_torch.models.vit import ViTConfig
 
 
 def load_image(path: str, res: int) -> np.ndarray:
-    """(res, res, 3) ImageNet-normalized f32 image, as
-    ``stego_tpu.data.transforms.get_transform(res, False, "center")`` makes
-    it: RGB, short side resized to ``res`` with NEAREST, centre crop."""
-    from PIL import Image
-
-    with Image.open(path) as im:
-        img = im.convert("RGB")
-    w, h = img.size
-    if not ((w <= h and w == res) or (h <= w and h == res)):
-        size = (res, int(res * h / w)) if w < h else (int(res * w / h), res)
-        img = img.resize(size, Image.NEAREST)
-    arr = np.asarray(img).astype(np.float32) / 255.0
-    h, w = arr.shape[:2]
-    if h < res or w < res:
-        ph, pw = max(res - h, 0), max(res - w, 0)
-        arr = np.pad(arr, ((ph // 2, ph - ph // 2), (pw // 2, pw - pw // 2),
-                           (0, 0)))
-        h, w = arr.shape[:2]
-    top, left = (h - res) // 2, (w - res) // 2
-    arr = arr[top:top + res, left:left + res]
-    mean, std = channel_stats(3)
-    return (arr - mean) / std
+    """(res, res, 3) ImageNet-normalized f32 image: ``get_transform(res,
+    False, "center")`` on the file as RGB (short side resized to ``res``
+    with NEAREST, centre crop), as the JAX demo's folder dataset reads
+    it."""
+    return get_transform(res, False, "center")(path, force_rgb=True)
 
 
 def demo(cfg: Config, model_path: str, image_dir: str, result_dir: str,

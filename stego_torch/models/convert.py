@@ -318,11 +318,24 @@ def load_stego_checkpoint(path: str, vit_cfg: Optional[ViTConfig] = None
 
 
 def save_stego_checkpoint(path: str, seg: UnsupervisedSegmenter,
-                          step: int = 0) -> None:
+                          step: int = 0,
+                          backbone_sd: Optional[Mapping[str, torch.Tensor]]
+                          = None) -> None:
     """Write ``seg`` as a Lightning ``.ckpt`` with f32 weights, readable by
-    :func:`load_stego_checkpoint` and by the JAX package's loader."""
+    :func:`load_stego_checkpoint` and by the JAX package's loader.
+    ``backbone_sd`` (the ViT's own state dict, every key of
+    ``seg.net.model``) replaces the ViT's weights, so that a bf16 trunk's
+    checkpoint keeps its f32 source weights."""
     sd = {k: v.detach().float().cpu().clone()
           for k, v in seg.state_dict().items()}
+    if backbone_sd is not None:
+        want = {f"net.model.{k}" for k in backbone_sd}
+        have = {k for k in sd if k.startswith("net.model.")}
+        if want != have:
+            raise ValueError(f"backbone_sd does not fit the segmenter's ViT: "
+                             f"{sorted(want ^ have)[:4]}")
+        sd.update({f"net.model.{k}": v.detach().float().cpu().clone()
+                   for k, v in backbone_sd.items()})
     torch.save({
         "state_dict": sd,
         "hyper_parameters": {"cfg": seg.cfg.to_dict()},

@@ -11,8 +11,8 @@ between the reference, the JAX package and the port.
 
 Everything runs on the device of the featurizer's weights (the card, unless
 the caller put the segmenter on the CPU). Several GPUs are ROADMAP.md queue
-1, Multi-GPU (DDP); the ``knn_app`` entry point waits for the train app
-(Train app, checkpoints, logging and the app entry points).
+1, Multi-GPU (DDP). ``train/knn_app.py`` (``python -m
+stego_torch.train.knn_app``) builds the caches of whole datasets.
 """
 
 from __future__ import annotations

@@ -2,8 +2,10 @@
 fresh interpreter in which those imports fail imports every module of the
 port and runs one eval step, another runs train steps (the sampled loss
 through C1's plain version, full-field and grid-sampled through C2's) and
-one val step, and a third builds a KNN cache and a feature cache and runs a
-cached train step and a cached val epoch, on the CPU."""
+one val step, a third builds a KNN cache and a feature cache and runs a
+cached train step and a cached val epoch, and a fourth runs the train app
+on in-memory datasets (two steps, a validation and a checkpoint, then a
+resumed step), on the CPU."""
 
 import subprocess
 import sys
@@ -34,6 +36,11 @@ MODULES = [
     "stego_torch.tools.attention_layouts",
     "stego_torch.tools.attention_consumers",
     "stego_torch.tools.loss_kernels_diff",
+    "stego_torch.data.datasets", "stego_torch.data.contrastive",
+    "stego_torch.data.loader", "stego_torch.data.crop",
+    "stego_torch.data.native_io", "stego_torch.utils.logging",
+    "stego_torch.train.checkpoint", "stego_torch.train.knn_app",
+    "stego_torch.train.app", "stego_torch.train.__main__",
 ]
 for name in MODULES:
     importlib.import_module(name)
@@ -159,6 +166,60 @@ print("OK", sorted(m for m, mod in sys.modules.items()
 """
 
 
+APP_SCRIPT = """
+import sys
+sys.modules["jax"] = None  # any import of jax raises ImportError
+sys.modules["PIL"] = None
+sys.modules["stego_tpu"] = None  # nor anything of the JAX package
+import math
+import tempfile
+import numpy as np
+import torch
+from stego_torch.config import Config
+from stego_torch.data.contrastive import ContrastiveSegDataset
+from stego_torch.data.synthetic import render_scene
+from stego_torch.models.vit import ViTConfig
+from stego_torch.train.app import Trainer
+rng = np.random.default_rng(0)
+
+def items(n):
+    out = []
+    for _ in range(n):
+        img, label = render_scene(rng, 32, 5)
+        label = label.astype(np.int64)
+        out.append((img, label, (label > 0).astype(np.float32)))
+    return out
+
+nns = np.stack([(np.arange(8) + k) % 8 for k in range(4)], axis=1)
+train_ds = ContrastiveSegDataset.from_items(items(8), 5, nns=nns,
+                                            num_neighbors=3)
+val_ds = ContrastiveSegDataset.from_items(items(4), 5)
+vit = ViTConfig(patch_size=8, embed_dim=128, depth=2, num_heads=2,
+                img_size=32)
+cpu = torch.device("cpu")
+with tempfile.TemporaryDirectory() as tmp:
+    cfg = Config(dataset_name="directory", dim=6, res=32, val_res=32,
+                 feature_samples=3, neg_samples=2, batch_size=4,
+                 max_steps=2, val_freq=2, checkpoint_freq=2,
+                 scalar_log_freq=1, num_neighbors=3,
+                 output_root=tmp)  # bf16 trunk
+    first = Trainer(cfg, vit_cfg=vit, train_dataset=train_ds,
+                    val_dataset=val_ds, device=cpu)
+    metrics = first.run()
+    assert len(metrics) == 4 and all(math.isfinite(v)
+                                     for v in metrics.values())
+    assert first.mgr.all_steps() == [2] and len(first.val_seconds) == 1
+    resumed = Trainer(cfg.replace(max_steps=3, resume=True), vit_cfg=vit,
+                      train_dataset=train_ds, val_dataset=val_ds,
+                      device=cpu)
+    resumed.run()
+    assert resumed.start_step == 2 and resumed.seg.step == 3
+    assert resumed.mgr.all_steps() == [2, 3]
+print("OK", sorted(m for m, mod in sys.modules.items()
+                   if mod is not None and m.split(".")[0] == "stego_tpu"))
+"""
+
+
 def run_without_jax(script):
     proc = subprocess.run([sys.executable, "-c", script], cwd=REPO,
                           capture_output=True, text=True, timeout=300)
@@ -179,4 +240,9 @@ def test_train_and_val_step_run_without_jax_or_pil():
 
 def test_knn_cache_and_cached_steps_run_without_jax_or_pil():
     proc = run_without_jax(CACHED_SCRIPT)
+    assert proc.stdout.strip().endswith("OK []"), proc.stdout
+
+
+def test_train_app_runs_and_resumes_without_jax_or_pil():
+    proc = run_without_jax(APP_SCRIPT)
     assert proc.stdout.strip().endswith("OK []"), proc.stdout
