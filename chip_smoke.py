@@ -100,7 +100,24 @@
    for bit, and the resumed run starts at step 100. Prints the app's
    median step, images/s, the bare step's, the loader's wait, the
    validation epochs' seconds and peak device memory.
-12. Runs the attention layout ladder (stego_torch/tools/attention_layouts.py:
+12. Evaluates the app's newest .ckpt over its 128 val scenes at res 320
+   (stego_torch/eval/evaluate.py: evaluate() through its Evaluator,
+   loader batches of 16, flip-TTA) without a CRF, with the grid CRF on the
+   card and with the exact CRF on the host (one batch). Every batch
+   launches 24 A at pair_kv and 50 L and nothing else; the device-summed
+   confusion matrices equal the host's np.bincount of the predictions; the
+   metrics are finite with the JAX evaluate's keys. The grid CRF of one
+   batch's log-probs on the card is held against the same function on the
+   CPU and in f64, and the grid and exact CRFs must agree on 90% of that
+   batch's argmaxes; save_outputs writes the PNG trees. Prints each run's
+   images/s, the grid CRF's device ms a batch and the exact CRF's host
+   seconds an image.
+13. Trains 10 sampled steps with the in-training CRF loss (crf_weight 0.1:
+   12 A, 25 L and C1 forward and backward once a step; the loss must fall;
+   one step held against the plain loss's), then runs the CRF app
+   (stego_torch/train/crf_app.py: 20 epochs of train_crf_codes on 4
+   scenes), whose loss must be finite and fall.
+14. Runs the attention layout ladder (stego_torch/tools/attention_layouts.py:
    12 chained pre-LN attention sublayers at B=32, N=785 for ViT-S, ViT-B
    and ViT-T), every rung's core held against its plain version and each
    chain launching exactly its kernels: the path of kernel A's resident,
@@ -2553,7 +2570,7 @@ def trace_breakdown(path, steps):
     return memcpy / 1e3 / steps, device / 1e3 / steps
 
 
-def phase_app(dev, train_items, val_items, nns):
+def phase_app(dev, tmp, train_items, val_items, nns):
     """The training app (stego_torch/train/app.py) at ViT-S/8's full width
     on the scenes: APP_STEPS steps of train() from ContrastiveSegDataset
     over the scenes and their KNN table, a resumed run to
@@ -2570,8 +2587,9 @@ def phase_app(dev, train_items, val_items, nns):
     loader's share of the loop, the batch's copy, one batch's host work,
     a profiled window (profile_dir), the validation epochs' seconds and
     peak device memory; and the median step of the image and cached loops
-    without the loader's fetch threads (num_workers=0). Returns the
-    launches of every run."""
+    without the loader's fetch threads (num_workers=0). Writes under
+    ``tmp``. Returns the launches of every run and the newest kept
+    checkpoint's .ckpt."""
     from stego_torch.config import Config
     from stego_torch.data.contrastive import ContrastiveSegDataset
     from stego_torch.eval.evaluate import flip_tta_code, load_model_for_eval
@@ -2592,187 +2610,521 @@ def phase_app(dev, train_items, val_items, nns):
           f"(KNN top {KNN_K}, 7 neighbours), ViT-S/8 bf16 trunk, cocostuff27 "
           f"head, batch {TRAIN_BATCH}, validation on {len(val_items)} scenes "
           f"at res {VAL_RES} in batches of {VAL_BATCH}")
-    with tempfile.TemporaryDirectory() as tmp:
-        cfg = Config(dataset_name="cocostuff27", model_type="vit_small",
-                     dino_patch_size=8, projection_type="nonlinear", dim=70,
-                     backbone_dtype="bfloat16", res=TRAIN_RES,
-                     val_res=VAL_RES, batch_size=TRAIN_BATCH,
-                     val_batch_size=VAL_BATCH, max_steps=APP_STEPS,
-                     val_freq=APP_FREQ, checkpoint_freq=APP_FREQ,
-                     scalar_log_freq=APP_LOG_FREQ, hist_freq=APP_HIST_FREQ,
-                     save_top_k=2, output_root=tmp, experiment_name="app",
-                     run_crf=False)
-        torch.cuda.synchronize()
-        torch.cuda.reset_peak_memory_stats()
-        n_val = APP_STEPS // APP_FREQ
-        profile_dir = os.path.join(tmp, "profile")
-        first, run1 = app_run(
-            lambda: Trainer(cfg.replace(profile_dir=profile_dir),
-                            train_dataset=train_ds, val_dataset=val_ds,
-                            device=dev),
-            "first run", add_counts(steps(APP_STEPS), trunk_launches(
-                n_val * val_batches, VAL_RES)))
-        peak_gb = torch.cuda.max_memory_allocated() / 2**30
-        n_val = (APP_RESUMED_STEPS - APP_STEPS) // APP_FREQ
-        resumed, run2 = app_run(
-            lambda: Trainer(cfg.replace(max_steps=APP_RESUMED_STEPS,
-                                        resume=True),
-                            train_dataset=train_ds, val_dataset=val_ds,
-                            device=dev),
-            "resumed run", add_counts(
-                steps(APP_RESUMED_STEPS - APP_STEPS),
-                trunk_launches(n_val * val_batches, VAL_RES)))
-        check(resumed.start_step == APP_STEPS,
-              f"app: the resumed run restored step {resumed.start_step}, "
-              f"its loader fast-forwarded to epoch "
-              f"{APP_STEPS // len(first.train_loader)}, batch "
-              f"{APP_STEPS % len(first.train_loader)}")
+    cfg = Config(dataset_name="cocostuff27", model_type="vit_small",
+                 dino_patch_size=8, projection_type="nonlinear", dim=70,
+                 backbone_dtype="bfloat16", res=TRAIN_RES,
+                 val_res=VAL_RES, batch_size=TRAIN_BATCH,
+                 val_batch_size=VAL_BATCH, max_steps=APP_STEPS,
+                 val_freq=APP_FREQ, checkpoint_freq=APP_FREQ,
+                 scalar_log_freq=APP_LOG_FREQ, hist_freq=APP_HIST_FREQ,
+                 save_top_k=2, output_root=tmp, experiment_name="app",
+                 run_crf=False)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    n_val = APP_STEPS // APP_FREQ
+    profile_dir = os.path.join(tmp, "profile")
+    first, run1 = app_run(
+        lambda: Trainer(cfg.replace(profile_dir=profile_dir),
+                        train_dataset=train_ds, val_dataset=val_ds,
+                        device=dev),
+        "first run", add_counts(steps(APP_STEPS), trunk_launches(
+            n_val * val_batches, VAL_RES)))
+    peak_gb = torch.cuda.max_memory_allocated() / 2**30
+    n_val = (APP_RESUMED_STEPS - APP_STEPS) // APP_FREQ
+    resumed, run2 = app_run(
+        lambda: Trainer(cfg.replace(max_steps=APP_RESUMED_STEPS,
+                                    resume=True),
+                        train_dataset=train_ds, val_dataset=val_ds,
+                        device=dev),
+        "resumed run", add_counts(
+            steps(APP_RESUMED_STEPS - APP_STEPS),
+            trunk_launches(n_val * val_batches, VAL_RES)))
+    check(resumed.start_step == APP_STEPS,
+          f"app: the resumed run restored step {resumed.start_step}, "
+          f"its loader fast-forwarded to epoch "
+          f"{APP_STEPS // len(first.train_loader)}, batch "
+          f"{APP_STEPS % len(first.train_loader)}")
 
-        with open(os.path.join(first.log_dir, "metrics.jsonl")) as f:
-            lines = [json.loads(line) for line in f]
-        losses = [ln for ln in lines if "loss/total" in ln]
-        n_first = APP_STEPS // APP_LOG_FREQ
-        check([ln["step"] for ln in losses][n_first:n_first + 1]
-              == [APP_STEPS + APP_LOG_FREQ],
-              f"app: the resumed run's first logged step "
-              f"{losses[n_first]['step'] if len(losses) > n_first else None}")
-        tenth = max(1, len(losses) // 10)
-        head = statistics.mean(ln["loss/total"] for ln in losses[:tenth])
-        tail = statistics.mean(ln["loss/total"] for ln in losses[-tenth:])
-        check(tail < head and len(losses) == APP_RESUMED_STEPS // APP_LOG_FREQ,
-              f"app: loss/total in metrics.jsonl falls: mean of the first "
-              f"{tenth} of {len(losses)} logged steps {head:.6f}, of the last "
-              f"{tenth} {tail:.6f}")
-        vals = {ln["step"]: ln for ln in lines if "test/cluster/mIoU" in ln}
-        check(sorted(vals) == list(range(APP_FREQ, APP_RESUMED_STEPS + 1,
-                                         APP_FREQ))
-              and all(APP_METRICS <= set(v) and all(
-                  math.isfinite(v[k]) for k in APP_METRICS)
-                  for v in vals.values()),
-              "app: validations at steps " + ", ".join(
-                  f"{s} (cluster mIoU {v['test/cluster/mIoU']:.2f})"
-                  for s, v in sorted(vals.items())))
+    with open(os.path.join(first.log_dir, "metrics.jsonl")) as f:
+        lines = [json.loads(line) for line in f]
+    losses = [ln for ln in lines if "loss/total" in ln]
+    n_first = APP_STEPS // APP_LOG_FREQ
+    check([ln["step"] for ln in losses][n_first:n_first + 1]
+          == [APP_STEPS + APP_LOG_FREQ],
+          f"app: the resumed run's first logged step "
+          f"{losses[n_first]['step'] if len(losses) > n_first else None}")
+    tenth = max(1, len(losses) // 10)
+    head = statistics.mean(ln["loss/total"] for ln in losses[:tenth])
+    tail = statistics.mean(ln["loss/total"] for ln in losses[-tenth:])
+    check(tail < head and len(losses) == APP_RESUMED_STEPS // APP_LOG_FREQ,
+          f"app: loss/total in metrics.jsonl falls: mean of the first "
+          f"{tenth} of {len(losses)} logged steps {head:.6f}, of the last "
+          f"{tenth} {tail:.6f}")
+    vals = {ln["step"]: ln for ln in lines if "test/cluster/mIoU" in ln}
+    check(sorted(vals) == list(range(APP_FREQ, APP_RESUMED_STEPS + 1,
+                                     APP_FREQ))
+          and all(APP_METRICS <= set(v) and all(
+              math.isfinite(v[k]) for k in APP_METRICS)
+              for v in vals.values()),
+          "app: validations at steps " + ", ".join(
+              f"{s} (cluster mIoU {v['test/cluster/mIoU']:.2f})"
+              for s, v in sorted(vals.items())))
 
-        mgr = resumed.mgr
-        kept = mgr.all_steps()
-        want_kept = best_n(vals, cfg.save_top_k)
-        check(kept == want_kept, f"app: checkpoints kept {kept}, BestN of the "
-              f"logged metrics {want_kept}")
-        backbone = mgr.restore_backbone()
-        qkv = backbone["blocks.0.attn.qkv.weight"]
-        check(all(t.dtype == torch.float32 for t in backbone.values())
-              and not torch.equal(qkv, qkv.bfloat16().float())
-              and resumed.seg.net.model.blocks[0].attn.qkv.weight.dtype
-              == torch.bfloat16
-              and all(torch.equal(backbone[k], v)
-                      for k, v in resumed.backbone_store.items()),
-              "app: backbone.pt holds the f32 source weights of the bf16 "
-              "trunk")
-        newest = {APP_STEPS: first.seg,
-                  APP_RESUMED_STEPS: resumed.seg}.get(kept[-1])
-        check(newest is not None, f"app: the newest kept step {kept[-1]} is "
-              f"one a run ended on")
-        if newest is not None:
-            loaded = load_model_for_eval(mgr.checkpoint_path(kept[-1]), dev)
-            img = torch.from_numpy(np.stack(
-                [val_items[i][0] for i in range(BATCH)])).to(dev)
-            with torch.inference_mode():
-                want = flip_tta_code(newest.eval(), img)
-                got = flip_tta_code(loaded, img)
-            check(torch.equal(got, want),
-                  f"app: step {kept[-1]}'s .ckpt through load_model_for_eval:"
-                  f" a flip-TTA request of {BATCH} at res {VAL_RES} gives the "
-                  f"in-memory segmenter's code bit for bit (max abs diff "
-                  f"{float((got - want).abs().max()):.3e})")
-            del loaded
+    mgr = resumed.mgr
+    kept = mgr.all_steps()
+    want_kept = best_n(vals, cfg.save_top_k)
+    check(kept == want_kept, f"app: checkpoints kept {kept}, BestN of the "
+          f"logged metrics {want_kept}")
+    backbone = mgr.restore_backbone()
+    qkv = backbone["blocks.0.attn.qkv.weight"]
+    check(all(t.dtype == torch.float32 for t in backbone.values())
+          and not torch.equal(qkv, qkv.bfloat16().float())
+          and resumed.seg.net.model.blocks[0].attn.qkv.weight.dtype
+          == torch.bfloat16
+          and all(torch.equal(backbone[k], v)
+                  for k, v in resumed.backbone_store.items()),
+          "app: backbone.pt holds the f32 source weights of the bf16 "
+          "trunk")
+    newest = {APP_STEPS: first.seg,
+              APP_RESUMED_STEPS: resumed.seg}.get(kept[-1])
+    check(newest is not None, f"app: the newest kept step {kept[-1]} is "
+          f"one a run ended on")
+    if newest is not None:
+        loaded = load_model_for_eval(mgr.checkpoint_path(kept[-1]), dev)
+        img = torch.from_numpy(np.stack(
+            [val_items[i][0] for i in range(BATCH)])).to(dev)
+        with torch.inference_mode():
+            want = flip_tta_code(newest.eval(), img)
+            got = flip_tta_code(loaded, img)
+        check(torch.equal(got, want),
+              f"app: step {kept[-1]}'s .ckpt through load_model_for_eval:"
+              f" a flip-TTA request of {BATCH} at res {VAL_RES} gives the "
+              f"in-memory segmenter's code bit for bit (max abs diff "
+              f"{float((got - want).abs().max()):.3e})")
+        del loaded
 
-        intervals = np.diff(first.step_starts)[APP_WARMUP:]
-        med_ms = float(np.median(intervals)) * 1e3
-        loop_s = first.step_starts[-1] - first.step_starts[APP_WARMUP]
-        wait = sum(first.loader_wait[APP_WARMUP:-1]) / loop_s
-        copy_ms = float(np.median(first.copy_seconds[APP_WARMUP:])) * 1e3
-        bare = STEP_MEDIANS.get(BARE_STEP)
-        print(f"  app: median {med_ms:.2f} ms per train step (wall clock, "
-              f"steps {APP_WARMUP}-{APP_STEPS - 1} of the first run), "
-              f"{TRAIN_BATCH / med_ms * 1e3:.1f} images/s; the bare step "
-              f"(phase train, one fixed batch on the device) "
-              f"{bare if bare is None else f'{bare:.2f}'} ms; loader wait "
-              f"{wait:.1%} of the loop's time; the batch's copy to the "
-              f"device (host clock, median) {copy_ms:.2f} ms a step; "
-              f"validation epochs "
-              + ", ".join(f"{s:.3f}" for s in first.val_seconds
-                          + resumed.val_seconds)
-              + f" s; peak device memory {peak_gb:.2f} GiB")
-        # what the prefetch thread does for a batch, alone on the host
-        from stego_torch.data.loader import collate
+    intervals = np.diff(first.step_starts)[APP_WARMUP:]
+    med_ms = float(np.median(intervals)) * 1e3
+    loop_s = first.step_starts[-1] - first.step_starts[APP_WARMUP]
+    wait = sum(first.loader_wait[APP_WARMUP:-1]) / loop_s
+    copy_ms = float(np.median(first.copy_seconds[APP_WARMUP:])) * 1e3
+    bare = STEP_MEDIANS.get(BARE_STEP)
+    print(f"  app: median {med_ms:.2f} ms per train step (wall clock, "
+          f"steps {APP_WARMUP}-{APP_STEPS - 1} of the first run), "
+          f"{TRAIN_BATCH / med_ms * 1e3:.1f} images/s; the bare step "
+          f"(phase train, one fixed batch on the device) "
+          f"{bare if bare is None else f'{bare:.2f}'} ms; loader wait "
+          f"{wait:.1%} of the loop's time; the batch's copy to the "
+          f"device (host clock, median) {copy_ms:.2f} ms a step; "
+          f"validation epochs "
+          + ", ".join(f"{s:.3f}" for s in first.val_seconds
+                      + resumed.val_seconds)
+          + f" s; peak device memory {peak_gb:.2f} GiB")
+    # what the prefetch thread does for a batch, alone on the host
+    from stego_torch.data.loader import collate
 
-        t0 = time.perf_counter()
-        items = [train_ds[i] for i in range(TRAIN_BATCH)]
-        t1 = time.perf_counter()
-        host_batch = collate(items)
-        t2 = time.perf_counter()
-        print(f"  app: one batch on the host, alone: {TRAIN_BATCH} items "
-              f"{(t1 - t0) * 1e3:.2f} ms, collate {(t2 - t1) * 1e3:.2f} ms, "
-              f"{sum(v.nbytes for v in host_batch.values()) / 2**20:.1f} MiB")
-        del items, host_batch
-        traced = len(APP_TRACED)
-        memcpy_ms, device_ms_ = trace_breakdown(
-            os.path.join(profile_dir, "train_steps.json"), traced)
-        window_ms = (first.step_starts[APP_TRACED[-1] + 1]
-                     - first.step_starts[APP_TRACED[0]]) / traced * 1e3
-        print(f"  app, steps {APP_TRACED[0]}-{APP_TRACED[-1]} under the "
-              f"profiler (profile_dir): {window_ms:.2f} ms a step, of it "
-              f"{memcpy_ms:.2f} ms on the host inside cudaMemcpy calls (the "
-              f"batch's pageable host-to-device copies); device busy "
-              f"{device_ms_:.3f} ms a step ({device_ms_ / window_ms:.0%})")
+    t0 = time.perf_counter()
+    items = [train_ds[i] for i in range(TRAIN_BATCH)]
+    t1 = time.perf_counter()
+    host_batch = collate(items)
+    t2 = time.perf_counter()
+    print(f"  app: one batch on the host, alone: {TRAIN_BATCH} items "
+          f"{(t1 - t0) * 1e3:.2f} ms, collate {(t2 - t1) * 1e3:.2f} ms, "
+          f"{sum(v.nbytes for v in host_batch.values()) / 2**20:.1f} MiB")
+    del items, host_batch
+    traced = len(APP_TRACED)
+    memcpy_ms, device_ms_ = trace_breakdown(
+        os.path.join(profile_dir, "train_steps.json"), traced)
+    window_ms = (first.step_starts[APP_TRACED[-1] + 1]
+                 - first.step_starts[APP_TRACED[0]]) / traced * 1e3
+    print(f"  app, steps {APP_TRACED[0]}-{APP_TRACED[-1]} under the "
+          f"profiler (profile_dir): {window_ms:.2f} ms a step, of it "
+          f"{memcpy_ms:.2f} ms on the host inside cudaMemcpy calls (the "
+          f"batch's pageable host-to-device copies); device busy "
+          f"{device_ms_:.3f} ms a step ({device_ms_ / window_ms:.0%})")
 
-        # the same loops without the loader's fetch threads (num_workers=0;
-        # its prefetch thread stays): what those threads cost the main one
-        for label, extra in (("image", {}),
-                             ("cached", {"cache_backbone_feats": True})):
-            def make(extra=extra, label=label):
-                return Trainer(cfg.replace(
-                    num_workers=0, max_steps=APP_NO_THREADS_STEPS,
-                    val_freq=APP_NO_THREADS_STEPS,
-                    checkpoint_freq=APP_NO_THREADS_STEPS,
-                    experiment_name=f"app_no_threads_{label}", **extra),
-                    train_dataset=train_ds, val_dataset=val_ds, device=dev)
+    # the same loops without the loader's fetch threads (num_workers=0;
+    # its prefetch thread stays): what those threads cost the main one
+    for label, extra in (("image", {}),
+                         ("cached", {"cache_backbone_feats": True})):
+        def make(extra=extra, label=label):
+            return Trainer(cfg.replace(
+                num_workers=0, max_steps=APP_NO_THREADS_STEPS,
+                val_freq=APP_NO_THREADS_STEPS,
+                checkpoint_freq=APP_NO_THREADS_STEPS,
+                experiment_name=f"app_no_threads_{label}", **extra),
+                train_dataset=train_ds, val_dataset=val_ds, device=dev)
 
-            builds = ((trunk_launches(-(-len(train_items) // TRAIN_BATCH)),
-                       trunk_launches(-(-len(val_items) // TRAIN_BATCH),
-                                      VAL_RES)) if extra else
-                      (trunk_launches(val_batches, VAL_RES),))
-            trainer, run = app_run(
-                make, f"{label}, num_workers=0",
-                add_counts(steps(APP_NO_THREADS_STEPS, trunk=not extra),
-                           *builds))
-            no_threads.append(run)
-            print(f"  app, {label}, num_workers=0: median "
-                  f"{float(np.median(np.diff(trainer.step_starts)[APP_WARMUP:])) * 1e3:.2f}"
-                  f" ms per train step (steps {APP_WARMUP}-"
-                  f"{APP_NO_THREADS_STEPS - 1})")
-            del trainer
+        builds = ((trunk_launches(-(-len(train_items) // TRAIN_BATCH)),
+                   trunk_launches(-(-len(val_items) // TRAIN_BATCH),
+                                  VAL_RES)) if extra else
+                  (trunk_launches(val_batches, VAL_RES),))
+        trainer, run = app_run(
+            make, f"{label}, num_workers=0",
+            add_counts(steps(APP_NO_THREADS_STEPS, trunk=not extra),
+                       *builds))
+        no_threads.append(run)
+        print(f"  app, {label}, num_workers=0: median "
+              f"{float(np.median(np.diff(trainer.step_starts)[APP_WARMUP:])) * 1e3:.2f}"
+              f" ms per train step (steps {APP_WARMUP}-"
+              f"{APP_NO_THREADS_STEPS - 1})")
+        del trainer
 
-        # the cached run's constructor builds both caches: a trunk call a
-        # chunk of TRAIN_BATCH images at each split's res
-        cached, run3 = app_run(
-            lambda: Trainer(cfg.replace(cache_backbone_feats=True,
-                                        max_steps=APP_CACHED_STEPS,
-                                        experiment_name="app_cached"),
-                            train_dataset=train_ds, val_dataset=val_ds,
-                            device=dev),
-            "cached run", add_counts(
-                steps(APP_CACHED_STEPS, trunk=False),
-                trunk_launches(-(-len(train_items) // TRAIN_BATCH)),
-                trunk_launches(-(-len(val_items) // TRAIN_BATCH), VAL_RES)))
-        intervals = np.diff(cached.step_starts)[APP_WARMUP:]
-        print(f"  app, cached: median "
-              f"{float(np.median(intervals)) * 1e3:.2f} ms per train step, "
-              f"the index batch's copy to the device (median) "
-              f"{float(np.median(cached.copy_seconds[APP_WARMUP:])) * 1e3:.2f}"
-              f" ms, validation epochs "
-              + ", ".join(f"{s:.3f}" for s in cached.val_seconds) + " s")
-    return add_counts(run1, run2, run3, *no_threads)
+    # the cached run's constructor builds both caches: a trunk call a
+    # chunk of TRAIN_BATCH images at each split's res
+    cached, run3 = app_run(
+        lambda: Trainer(cfg.replace(cache_backbone_feats=True,
+                                    max_steps=APP_CACHED_STEPS,
+                                    experiment_name="app_cached"),
+                        train_dataset=train_ds, val_dataset=val_ds,
+                        device=dev),
+        "cached run", add_counts(
+            steps(APP_CACHED_STEPS, trunk=False),
+            trunk_launches(-(-len(train_items) // TRAIN_BATCH)),
+            trunk_launches(-(-len(val_items) // TRAIN_BATCH), VAL_RES)))
+    intervals = np.diff(cached.step_starts)[APP_WARMUP:]
+    print(f"  app, cached: median "
+          f"{float(np.median(intervals)) * 1e3:.2f} ms per train step, "
+          f"the index batch's copy to the device (median) "
+          f"{float(np.median(cached.copy_seconds[APP_WARMUP:])) * 1e3:.2f}"
+          f" ms, validation epochs "
+          + ", ".join(f"{s:.3f}" for s in cached.val_seconds) + " s")
+    return add_counts(run1, run2, run3, *no_threads), \
+        mgr.checkpoint_path(kept[-1])
+
+
+# the eval phase: evaluate() on the app's newest .ckpt over its val scenes
+# at VAL_RES, batch_size EVAL_BATCH (loader batches of twice that), without
+# a CRF, with the grid CRF and with the exact CRF (EXACT_BATCHES batches;
+# the scene logits' exact CRF on EXACT_SCENES images); an input whose
+# argmaxes the grid CRF moves on fewer than MIN_MOVED of the pixels is not
+# counted;
+# the grid CRF on the card against the same function on the CPU: every
+# argmax equal on CRF_ARGMAX of the pixels, CRF_SHARE of the probabilities
+# within CRF_ATOL and a mean |difference| under CRF_MEAN; from the f64
+# evaluation, the card's mean error at most F64_RATIO times the CPU's and
+# its largest under CRF_F64_MAX, what one f32 rounding of a saturating
+# message can move a near-tied pixel (tests/test_torch_crf.py); the grid
+# and exact backends agree on GRID_EXACT of the argmaxes
+# (tests/test_crf.py:101-143)
+EVAL_BATCH, EXACT_BATCHES, EXACT_SCENES, MIN_MOVED = 8, 1, 8, 1e-3
+CRF_ATOL, CRF_SHARE, CRF_MEAN, CRF_ARGMAX, F64_RATIO = 1e-4, 0.995, 2e-6, \
+    0.999, 3.0
+CRF_F64_MAX = 1e-2
+GRID_EXACT = 0.90
+EVAL_METRICS = {f"final/{probe}/{m}" for probe in ("linear", "cluster")
+                for m in ("mIoU", "Accuracy")}  # the JAX evaluate's keys
+# the CRF-loss train run and the CRF app (train_crf_codes: CRF_APP_SCENES
+# scenes at res CRF_APP_RES, the app's res // 2 of TRAIN_RES)
+CRF_WEIGHT, CRF_APP_EPOCHS, CRF_APP_SCENES, CRF_APP_RES = 0.1, 20, 4, 112
+
+
+def recount(kept, n_classes, extra):
+    """The linear and cluster confusion matrices of the kept (label,
+    linear, cluster) batches, counted on the host by np.bincount with the
+    reference's mask (utils/metrics.py:21-28)."""
+    out = []
+    for col, total in ((1, n_classes), (2, n_classes + extra)):
+        stats = np.zeros(total * n_classes, np.int64)
+        for item in kept:
+            label = np.asarray(item[0]).reshape(-1).astype(np.int64)
+            pred = np.asarray(item[col]).reshape(-1).astype(np.int64)
+            ok = (label >= 0) & (label < n_classes) & (pred >= 0) \
+                & (pred < n_classes)
+            stats += np.bincount(pred[ok] * n_classes + label[ok],
+                                 minlength=total * n_classes)
+        out.append(stats.reshape(total, n_classes))
+    return out
+
+
+def eval_run(dev, label, ckpt, val_ds, max_batches=None, **cfg_kw):
+    """evaluate()'s loop (an Evaluator) over ``val_ds``, the main path: the
+    counts are set to 0 just before it and read just after. Gates: 24 A
+    (pair_kv) and 50 L launches a batch and no other, the summed confusion
+    matrices equal the host's recount of the predictions, finite metrics
+    with the JAX keys. Returns the evaluator, the kept (label, linear,
+    cluster) batches as host arrays, the first loader batch, the launches
+    and the images a second."""
+    from stego_torch.config import Config
+    from stego_torch.eval.evaluate import Evaluator
+
+    cfg = Config(dataset_name="cocostuff27", res=VAL_RES,
+                 batch_size=EVAL_BATCH, experiment_name="eval", **cfg_kw)
+    ev = Evaluator(cfg, ckpt, dev, val_dataset=val_ds)
+    kept, first = [], []
+
+    def on_batch(b, lp, cp):
+        kept.append((b["label"], lp, cp))
+        first[:] = first or [b]
+
+    torch.cuda.synchronize()
+    reset_counts()
+    t0 = time.perf_counter()
+    metrics = ev.run(save_outputs=False, max_batches=max_batches,
+                     on_batch=on_batch)
+    torch.cuda.synchronize()
+    sec = time.perf_counter() - t0
+    launches = path_counts()
+    n = len(kept)
+    check(launches == launches_of(2 * 12 * n, 2 * 25 * n, "pair_kv"),
+          f"eval, {label}: {n} batches of {ev.batch_size} at res {VAL_RES} "
+          f"in {sec:.3f} s, {n * ev.batch_size / sec:.1f} images/s; "
+          f"launches attention/LN/C1 fwd/C1 bwd/C2 fwd/C2 bwd "
+          f"{tuple(launches[k] for k in COUNTS)}, attention at pair_kv "
+          f"{launches['attention_pair_kv']}")
+    kept = [tuple(x.cpu().numpy() if isinstance(x, torch.Tensor)
+                  else np.asarray(x) for x in k) for k in kept]
+    lin, clu = recount(kept, ev.seg.n_classes, ev.seg.cfg.extra_clusters)
+    check(np.array_equal(ev.linear_metrics.stats, lin)
+          and np.array_equal(ev.cluster_metrics.stats, clu),
+          f"eval, {label}: the summed confusion matrices ({int(lin.sum())} "
+          f"pixels) equal the host's np.bincount of the predictions")
+    check(set(metrics) == EVAL_METRICS
+          and all(math.isfinite(v) for v in metrics.values()),
+          f"eval, {label}: " + ", ".join(
+              f"{k}={v:.2f}" for k, v in sorted(metrics.items())))
+    return ev, kept, first[0], launches, n * ev.batch_size / sec
+
+
+def crf_agreement(got, want):
+    """(share of equal argmaxes, share within CRF_ATOL, mean |diff|, max
+    |diff|) of two (B, H, W, C) probability tensors."""
+    d = (got - want).abs()
+    return (float((got.argmax(-1) == want.argmax(-1)).float().mean()),
+            float((d <= CRF_ATOL).float().mean()), float(d.mean()),
+            float(d.max()))
+
+
+def crf_moved(probs, logits):
+    """The share of pixels whose argmax the CRF moved from its input's,
+    the logits upsampled as dense_crf upsamples them. Where it moves none,
+    as on a probe that is confident everywhere, the CRF's argmax is the
+    input's in any backend, and agreement tests nothing."""
+    up = torch.nn.functional.interpolate(
+        logits.permute(0, 3, 1, 2).float(), size=tuple(probs.shape[1:3]),
+        mode="bilinear", align_corners=False).argmax(1)
+    return float((probs.argmax(-1) != up).float().mean())
+
+
+def scene_logits(label, n_classes, stride, gen):
+    """(B, h, w, n_classes) logits at the code's resolution (one a patch of
+    ``stride``), 2 at each patch centre's label and N(0, 1) noise
+    (tests/test_crf.py:101-143's inputs); a pixel without a label (-1)
+    gets the noise alone."""
+    lab = label[:, stride // 2::stride, stride // 2::stride].long()
+    onehot = torch.nn.functional.one_hot(lab.clamp_min(0), n_classes)
+    onehot = onehot * (lab >= 0)[..., None]
+    noise = torch.randn(onehot.shape, generator=gen, device=label.device)
+    return 2.0 * onehot.float() + noise
+
+
+def eval_vs_plain(evs, img, label):
+    """The first loader batch through flip_tta_code and each evaluator's
+    eval step with the kernels and with their plain versions (phase
+    serving's gates, at the eval's batch); each evaluator's segmenter is
+    its own copy of the checkpoint."""
+    from stego_torch.eval.evaluate import flip_tta_code
+
+    for name, ev in evs:
+        model = ev.seg.net.model
+        with torch.inference_mode():
+            code = flip_tta_code(ev.seg, img)
+            preds = ev.eval_step(img, label)[:2]
+            model.use_kernels = False
+            try:
+                plain_code = flip_tta_code(ev.seg, img)
+                plain_preds = ev.eval_step(img, label)[:2]
+            finally:
+                model.use_kernels = True
+        diff = (code - plain_code).abs()
+        check(bool(torch.isfinite(code).all())
+              and float(diff.max()) <= CODE_MAX_ABS
+              and float(diff.mean()) <= CODE_MEAN_ABS,
+              f"eval, {name}: the first batch's code {tuple(code.shape)} vs "
+              f"plain versions: max abs {float(diff.max()):.3e} (<= "
+              f"{CODE_MAX_ABS}), mean abs {float(diff.mean()):.3e} (<= "
+              f"{CODE_MEAN_ABS})")
+        for probe, got, want in zip(("linear", "cluster"), preds,
+                                    plain_preds):
+            agree = float((got == want).float().mean())
+            check(got.shape == label.shape and agree >= PRED_AGREE,
+                  f"eval, {name}: the first batch's {probe} predictions "
+                  f"{tuple(got.shape)} agree with plain on {agree:.4%} "
+                  f"(>= {PRED_AGREE:.0%})")
+
+
+def phase_eval(dev, tmp, ckpt, val_items):
+    """The dataset eval (stego_torch/eval/evaluate.py) of the app's newest
+    checkpoint over its VAL_IMAGES val scenes at VAL_RES: without a CRF,
+    with the grid CRF on the card and with the exact CRF on the host
+    (EXACT_BATCHES batches), each with eval_run's gates; the first batch's
+    code and predictions with the kernels against their plain versions;
+    the grid CRF on that batch (both probes' log-probs and scene logits
+    made from its labels) against the same function on the CPU and in
+    f64, its device ms a batch, and against the exact CRF; the PNG trees
+    of save_outputs. A probe whose argmaxes the grid CRF moves on fewer
+    than MIN_MOVED of the pixels is named and not counted: its argmax is no
+    test. Returns the launches of the three runs."""
+    from stego_torch.data.contrastive import ContrastiveSegDataset
+    from stego_torch.eval.evaluate import make_eval_step
+    from stego_torch.ops.crf import bilateral_kernel, dense_crf
+    from stego_torch.ops.crf_exact import dense_crf_exact_batch_multi
+
+    t_phase = time.perf_counter()
+    val_ds = ContrastiveSegDataset.from_items(SceneItems(val_items), 27)
+    print(f"eval: evaluate() of {os.path.basename(os.path.dirname(ckpt))}/"
+          f"{os.path.basename(ckpt)} (the app's newest) over "
+          f"{len(val_items)} val scenes at res {VAL_RES}, batch_size "
+          f"{EVAL_BATCH} (loader batches of {2 * EVAL_BATCH}), flip-TTA, "
+          f"ViT-S/8 bf16 trunk")
+    ev0, _, batch, run1, _ = eval_run(dev, "no CRF", ckpt, val_ds,
+                                      run_crf=False)
+    ev, grid_kept, _, run2, _ = eval_run(dev, "grid CRF", ckpt, val_ds,
+                                         run_crf=True, crf_backend="grid")
+    ev_x, exact_kept, _, run3, _ = eval_run(
+        dev, "exact CRF", ckpt, val_ds, max_batches=EXACT_BATCHES,
+        run_crf=True, crf_backend="exact")
+    n_exact = EXACT_BATCHES * ev_x.batch_size
+    print(f"  eval, exact CRF: host {sum(ev_x.crf_seconds) / n_exact:.3f} s "
+          f"an image ({os.cpu_count()} CPU cores, "
+          f"{len(ev_x.crf_seconds)} batches of {ev_x.batch_size})")
+
+    img = torch.from_numpy(np.asarray(batch["img"])).to(dev)
+    label = torch.from_numpy(np.asarray(batch["label"])).to(dev)
+    eval_vs_plain((("no CRF", ev0), ("grid CRF", ev)), img, label)
+
+    # the grid CRF on the first batch: card, CPU and f64, on the probes'
+    # log-probs and on scene logits that are never flat
+    lp, cp, img01 = make_eval_step(ev.seg, return_probs=True)(img, label)
+    scene = scene_logits(label, ev.seg.n_classes, ev.seg.vit_cfg.patch_size,
+                         torch.Generator(device=dev).manual_seed(5))
+    inputs = {"linear log-probs": lp, "cluster log-probs": cp,
+              "scene logits": scene}
+
+    def grid(device, dtype=torch.float32, names=tuple(inputs)):
+        im = img01.to(device, dtype)
+        kern = bilateral_kernel(im)
+        return {k: dense_crf(im, inputs[k].to(device, dtype), kern=kern)
+                for k in names}
+
+    card = grid(dev)
+    moved = {k: crf_moved(c, inputs[k]) for k, c in card.items()}
+    check(moved["scene logits"] >= MIN_MOVED, f"eval: the grid CRF moves "
+          f"{moved['scene logits']:.4f} of the scene logits' argmaxes (>= "
+          f"{MIN_MOVED:g})")
+    for k in inputs:
+        if moved[k] < MIN_MOVED:
+            print(f"  eval: grid CRF of the {k}: moves {moved[k]:.2e} of "
+                  f"the argmaxes (< {MIN_MOVED:g}), not counted")
+    counted = tuple(k for k in inputs if moved[k] >= MIN_MOVED)
+    t0 = time.perf_counter()
+    cpu = grid("cpu", names=counted)
+    cpu_s = time.perf_counter() - t0
+    ref = grid(dev, torch.float64, names=counted)
+    for k in counted:
+        c, h, r = card[k], cpu[k].to(dev), ref[k]
+        argmax, share, mean, mx = crf_agreement(c, h)
+        card_f64 = [float(f((c.double() - r).abs())) for f in (torch.max,
+                                                              torch.mean)]
+        cpu_f64 = [float(f((h.double() - r).abs())) for f in (torch.max,
+                                                             torch.mean)]
+        check(argmax >= CRF_ARGMAX and share >= CRF_SHARE and mean <= CRF_MEAN
+              and card_f64[1] <= F64_RATIO * max(cpu_f64[1], 1e-12)
+              and card_f64[0] <= CRF_F64_MAX,
+              f"eval: grid CRF of the {k}, card vs CPU "
+              f"({ev.batch_size}x{VAL_RES}x{VAL_RES}, {c.shape[-1]} classes,"
+              f" {moved[k]:.4f} of the argmaxes moved): argmax equal "
+              f"{argmax:.6f}, within {CRF_ATOL:g} {share:.6f}, mean |diff| "
+              f"{mean:.2e}, max {mx:.2e}; from f64: card max "
+              f"{card_f64[0]:.2e} mean {card_f64[1]:.2e}, CPU max "
+              f"{cpu_f64[0]:.2e} mean {cpu_f64[1]:.2e}")
+
+    # grid against exact: the eval runs' first batch, and the scene logits
+    # on its first EXACT_SCENES images
+    for i, k in ((1, "linear log-probs"), (2, "cluster log-probs")):
+        agree = float(np.mean(grid_kept[0][i] == exact_kept[0][i]))
+        if moved[k] < MIN_MOVED:
+            print(f"  eval: grid and exact CRF agree on {agree:.4f} of the "
+                  f"first batch's argmaxes of the {k}: the grid CRF moves "
+                  f"{moved[k]:.2e} of them, not counted")
+            continue
+        check(agree >= GRID_EXACT, f"eval: grid and exact CRF agree on "
+              f"{agree:.4f} of the first batch's argmaxes of the {k}")
+    t0 = time.perf_counter()
+    exact = dense_crf_exact_batch_multi(
+        img01[:EXACT_SCENES].cpu().numpy(),
+        [scene[:EXACT_SCENES].cpu().numpy()])[0]
+    exact_s = time.perf_counter() - t0
+    agree = float(np.mean(exact.argmax(-1) == card["scene logits"]
+                          [:EXACT_SCENES].argmax(-1).cpu().numpy()))
+    check(agree >= GRID_EXACT, f"eval: grid and exact CRF agree on "
+          f"{agree:.4f} of the argmaxes of the scene logits on "
+          f"{EXACT_SCENES} images (exact: {exact_s:.2f} s on the host)")
+
+    del card, cpu, ref
+    by_kernel = kernel_times(lambda: grid(dev, names=("linear log-probs",
+                                                      "cluster log-probs")))
+    crf_ms = sum(by_kernel.values()) / 1e3
+    print(f"  eval: grid CRF of one batch (both probes, the bilateral kernel "
+          f"built once): device {crf_ms:.3f} ms (profiler); on the CPU, "
+          f"{', '.join(counted)}: {cpu_s:.2f} s; top kernels:")
+    for name, us in sorted(by_kernel.items(), key=lambda kv: -kv[1])[:5]:
+        print(f"    {us / 1e3:8.3f} ms  {name[:90]}")
+
+    # save_outputs: the PNG trees; each figure matplotlib cannot draw is
+    # named on a line
+    from stego_torch.config import Config
+    from stego_torch.eval.evaluate import evaluate
+
+    cwd = os.getcwd()
+    os.chdir(tmp)
+    try:
+        evaluate(Config(dataset_name="cocostuff27", res=VAL_RES,
+                        batch_size=EVAL_BATCH, run_crf=False,
+                        experiment_name="eval"),
+                 ckpt, dev, val_dataset=val_ds, max_batches=1)
+    finally:
+        os.chdir(cwd)
+    out = os.path.join(tmp, "results", "predictions", "eval")
+    trees = {t: len(os.listdir(os.path.join(out, t)))
+             for t in ("img", "label", "cluster", "linear")}
+    check(set(trees.values()) == {min(5, ev.batch_size)},
+          f"eval: save_outputs wrote the PNG "
+          f"trees {trees} under results/predictions/eval")
+    print(f"  eval: the phase took {time.perf_counter() - t_phase:.1f} s")
+    return add_counts(run1, run2, run3)
+
+
+def phase_crf_loss(dev):
+    """CRF_WEIGHT of the in-training CRF loss at the reference footprint:
+    WIDE_STEPS sampled steps (train_run's gates: 12 A, 25 L, 1+1 C1 a
+    step, the loss falls, one step against the plain loss's); then the CRF
+    app, CRF_APP_EPOCHS epochs of train_crf_codes on CRF_APP_SCENES
+    scenes, whose loss must be finite and fall. Returns the train run's
+    launches."""
+    from stego_torch.config import Config
+    from stego_torch.train.crf_app import train_crf_codes
+
+    _, _, launches = train_run(
+        dev, f"CRF loss (crf_weight={CRF_WEIGHT}, 1000 samples of 56x56) "
+        f"beside the sampled loss (kernel C1)", WIDE_STEPS, (0,),
+        (12, 25, 1, 1, 0, 0), 3, crf_weight=CRF_WEIGHT)
+    imgs = np.stack([render((2, i, CRF_APP_RES))[0]
+                     for i in range(CRF_APP_SCENES)])
+    cfg = Config(dim=70, res=2 * CRF_APP_RES)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = train_crf_codes(cfg, imgs, epochs=CRF_APP_EPOCHS, log_every=1,
+                          device=dev)
+    sec = time.perf_counter() - t0
+    losses = out["losses"]
+    check(len(losses) == CRF_APP_EPOCHS and bool(np.isfinite(losses).all())
+          and losses[-3:].mean() < losses[:3].mean(),
+          f"CRF app: train_crf_codes, {CRF_APP_EPOCHS} epochs on "
+          f"{CRF_APP_SCENES} scenes at res {CRF_APP_RES} (dim 70, "
+          f"{cfg.crf_samples} samples) in {sec:.2f} s: loss "
+          f"{losses[0]:.6f} -> {losses[-1]:.6f}")
+    return launches
 
 
 def main() -> int:
@@ -2788,15 +3140,20 @@ def main() -> int:
     print(f"card: {smi}")
     print(f"torch {torch.__version__}, CUDA {torch.version.cuda}")
     t0 = time.perf_counter()
-    # the port's library and C2's two check builds, compiled together
-    # before any phase is timed
-    with concurrent.futures.ThreadPoolExecutor(3) as pool:
+    # the port's library, C2's two check builds and the exact CRF's
+    # lattice (g++), compiled together before any phase is timed
+    from stego_torch import native
+
+    with concurrent.futures.ThreadPoolExecutor(4) as pool:
+        lattice = pool.submit(native.load_library)
         lib_path, *checks = pool.map(
             build.build, ((), (NO_FIXUP,), (COUNT_FIXUPS,)))
+        lattice.result()
     CHECK_BUILDS.update(zip((NO_FIXUP, COUNT_FIXUPS), checks))
     build.library()
     print(f"build: {time.perf_counter() - t0:.1f} s -> {lib_path.name} "
-          f"(and C2's check builds {', '.join(p.name for p in checks)})")
+          f"(and C2's check builds {', '.join(p.name for p in checks)}; "
+          f"the permutohedral lattice with g++)")
     log = build.BUILD_DIR / "build.log"
     if log.exists():
         for line in log.read_text().splitlines():
@@ -2850,7 +3207,10 @@ def main() -> int:
                           train_split, batches[0])
     cached_val = phase_cached_val(dev, trained, caches, val_split)
     del bases, trained, caches
-    app = phase_app(dev, train_items, val_items, nns)
+    with tempfile.TemporaryDirectory() as tmp:
+        app, ckpt = phase_app(dev, tmp, train_items, val_items, nns)
+        evals = phase_eval(dev, tmp, ckpt, val_items)
+    crf_loss = phase_crf_loss(dev)
     ladder = phase_layouts(dev)
 
     def per_step(steps, corr, entry="pair", trunk=True):
@@ -2863,6 +3223,8 @@ def main() -> int:
 
     check(train == per_step(TRAIN_STEPS, (1, 1, 0, 0)),
           f"train path launches: {train}")
+    check(crf_loss == per_step(WIDE_STEPS, (1, 1, 0, 0)),
+          f"CRF-loss train path launches: {crf_loss}")
     check(val == per_step(VAL_STEPS, (0, 0, 0, 0), "pair_kv"),
           f"val path launches: {val}")
     for name, run in stream.items():
@@ -2889,13 +3251,14 @@ def main() -> int:
                                       corr_sampled_fwd=3,
                                       corr_sampled_bwd=3))):
         check(wide[name] == want, f"{name} path launches: {wide[name]}")
-    # launches summed over the paths of each trunk: ViT-S (eval, train
+    # launches summed over the paths of each trunk: ViT-S (serving, train
     # with the sampled, full-field, grid-sampled and bf16-code losses, val,
-    # the KNN, the cache builds, cached train and val, the app), ViT-T (eval, train,
-    # val), ViT-B (train, sampled and full-field), and the layout ladder
+    # the KNN, the cache builds, cached train and val, the app, the dataset
+    # eval, the CRF-loss train run), ViT-T (serving, train, val), ViT-B
+    # (train, sampled and full-field), and the layout ladder
     vit_s = add_counts(serving["vit_small"], train, val, *stream.values(),
                        knn_launches, cache_launches, *cached.values(),
-                       cached_val, *wide.values(), app)
+                       cached_val, *wide.values(), app, evals, crf_loss)
     vit_t = add_counts(serving["vit_tiny"], models["vit_tiny"],
                        models["vit_tiny_val"])
     vit_b = add_counts(models["vit_base"], models["vit_base_full_field"])

@@ -333,6 +333,23 @@ PRESETS: Dict[str, Dict[str, Any]] = {
 }
 
 
+def check_one_process(cfg: Config) -> None:
+    """Raise unless this is one process on one device."""
+    import os
+
+    import torch
+
+    world = int(os.environ.get("WORLD_SIZE", "1"))
+    dist = torch.distributed
+    if dist.is_available() and dist.is_initialized():
+        world = max(world, dist.get_world_size())
+    if world > 1 or cfg.num_devices > 1:
+        raise NotImplementedError(
+            f"running on {max(world, cfg.num_devices)} processes or devices "
+            f"is not ported yet (ROADMAP.md queue 1, Multi-GPU (DDP)); run "
+            f"one process with num_devices=0 or 1")
+
+
 def apply_preset(cfg: Config, name: str) -> Config:
     if name not in PRESETS:
         raise ValueError(f"Unknown preset {name!r}; have {sorted(PRESETS)}")

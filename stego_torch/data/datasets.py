@@ -377,3 +377,27 @@ class UnlabeledImageFolder:
         rng = np.random.default_rng((self.seed, index))
         path = join(self.root, self.images[index])
         return self.transform(path, rng, force_rgb=True), self.images[index]
+
+
+def get_class_labels(dataset_name: str):
+    """Human-readable class names (reference train_segmentation.py:20-50)."""
+    if dataset_name.startswith("cityscapes"):
+        return [
+            "road", "sidewalk", "parking", "rail track", "building", "wall",
+            "fence", "guard rail", "bridge", "tunnel", "pole", "polegroup",
+            "traffic light", "traffic sign", "vegetation", "terrain", "sky",
+            "person", "rider", "car", "truck", "bus", "caravan", "trailer",
+            "train", "motorcycle", "bicycle",
+        ]
+    if dataset_name == "cocostuff27":
+        return [
+            "electronic", "appliance", "food", "furniture", "indoor",
+            "kitchen", "accessory", "animal", "outdoor", "person", "sports",
+            "vehicle", "ceiling", "floor", "food", "furniture", "rawmaterial",
+            "textile", "wall", "window", "building", "ground", "plant", "sky",
+            "solid", "structural", "water",
+        ]
+    if dataset_name == "potsdam":
+        return ["roads and cars", "buildings and clutter",
+                "trees and vegetation"]
+    raise ValueError(f"Unknown Dataset {dataset_name}")

@@ -42,6 +42,23 @@ def collate(items) -> Dict[str, Any]:
     return out
 
 
+def pad_batch(batch: Dict[str, Any], size: int) -> Dict[str, Any]:
+    """Pad a short final batch to ``size`` with ignore-labeled copies
+    (ignore-INDEXED in cached-validation index batches)."""
+    n = len(next(iter(batch.values())))
+    if n == size:
+        return batch
+    pad = size - n
+    out = {}
+    for k, v in batch.items():
+        v = np.asarray(v)
+        reps = np.concatenate([v, np.repeat(v[-1:], pad, axis=0)], axis=0)
+        if k.startswith("label") or k == "ind":
+            reps[n:] = -1  # padded pixels/indices are ignored downstream
+        out[k] = reps
+    return out
+
+
 class DataLoader:
     def __init__(
         self,

@@ -1,13 +1,15 @@
 """Demo inference on an unlabeled image folder; counterpart of
 ``stego_tpu/eval/demo.py``.
 
-    python -m stego_torch.eval.demo model_path=<.ckpt> image_dir=<dir> run_crf=false
+    python -m stego_torch.eval.demo model_path=<.ckpt> image_dir=<dir>
 
 Writes ``results/predictions/<experiment_name>/{linear,cluster}/<name>.png``
-(uint8 label maps), the trees the JAX demo writes. ``main`` runs on the
-first CUDA device and exits with an error when there is none; only a
-caller of :func:`demo` can ask for the CPU, by passing a CPU device (the
-kernels' plain versions then run).
+(uint8 label maps), the trees the JAX demo writes. ``run_crf`` (the
+Config's default, true) refines both probes' log-probs with the grid CRF
+on the device (``ops/crf.py``), as ``stego_tpu/eval/demo.py:57`` does.
+``main`` runs on the first CUDA device and exits with an error when there
+is none; only a caller of :func:`demo` can ask for the CPU, by passing a
+CPU device (the kernels' plain versions then run).
 """
 
 from __future__ import annotations

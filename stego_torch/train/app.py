@@ -18,11 +18,12 @@ draws, and the loader's ``fast_forward`` gives it the same batches.
 
 Not ported: ``steps_per_dispatch > 1`` (a workaround for the TPU's dispatch
 latency; ROADMAP.md queue 1, Do not port these TPU workarounds), several
-processes or devices (ROADMAP.md queue 1, Multi-GPU (DDP)), both raise; and
-the validation figures (ROADMAP.md queue 1, Other backbones, plots and
-apps). ``checkify`` and ``debug_nans`` (XLA's sanitizers in the JAX
-package) check that every step's metrics are finite and raise with the
-step's index otherwise.
+processes or devices (ROADMAP.md queue 1, Multi-GPU (DDP)), both raise.
+Each validation writes its figures (panel, confusion matrix, class
+frequencies) beside ``metrics.jsonl``, or, without matplotlib, prints one
+line for each figure it could not write. ``checkify`` and ``debug_nans``
+(XLA's sanitizers in the JAX package) check that every step's metrics are
+finite and raise with the step's index otherwise.
 """
 
 from __future__ import annotations
@@ -37,10 +38,11 @@ from typing import Any, Dict, Iterator, List, Mapping, Optional
 import numpy as np
 import torch
 
-from stego_torch.config import Config
+from stego_torch.config import Config, check_one_process
 from stego_torch.data.contrastive import ContrastiveSegDataset
+from stego_torch.data.datasets import get_class_labels
 from stego_torch.data.loader import (DataLoader, effective_threads,
-                                     infinite_batches)
+                                     infinite_batches, pad_batch)
 from stego_torch.data.transforms import get_transform
 from stego_torch.models.vit import ViTConfig
 from stego_torch.train.checkpoint import CheckpointManager
@@ -49,30 +51,6 @@ from stego_torch.train.segmenter import (UnsupervisedSegmenter,
                                          make_train_step, make_val_step)
 from stego_torch.utils.logging import AsyncMetricWriter, MetricLogger
 from stego_torch.utils.metrics import UnsupervisedMetrics
-
-def get_class_labels(dataset_name: str):
-    """Human-readable class names (reference train_segmentation.py:20-50)."""
-    if dataset_name.startswith("cityscapes"):
-        return [
-            "road", "sidewalk", "parking", "rail track", "building", "wall",
-            "fence", "guard rail", "bridge", "tunnel", "pole", "polegroup",
-            "traffic light", "traffic sign", "vegetation", "terrain", "sky",
-            "person", "rider", "car", "truck", "bus", "caravan", "trailer",
-            "train", "motorcycle", "bicycle",
-        ]
-    if dataset_name == "cocostuff27":
-        return [
-            "electronic", "appliance", "food", "furniture", "indoor",
-            "kitchen", "accessory", "animal", "outdoor", "person", "sports",
-            "vehicle", "ceiling", "floor", "food", "furniture", "rawmaterial",
-            "textile", "wall", "window", "building", "ground", "plant", "sky",
-            "solid", "structural", "water",
-        ]
-    if dataset_name == "potsdam":
-        return ["roads and cars", "buildings and clutter",
-                "trees and vegetation"]
-    raise ValueError(f"Unknown Dataset {dataset_name}")
-
 
 def load_dino_weights(path: str, in_chans: int = 3
                       ) -> Dict[str, torch.Tensor]:
@@ -197,47 +175,94 @@ def _to_device(batch: Mapping[str, Any], keys, device: torch.device
             for k in keys if k in batch}
 
 
-def _pad_batch(batch: Dict[str, Any], size: int) -> Dict[str, Any]:
-    """Pad a short final batch to ``size`` with ignore-labeled copies
-    (ignore-INDEXED in cached-validation index batches)."""
-    n = len(next(iter(batch.values())))
-    if n == size:
-        return batch
-    pad = size - n
-    out = {}
-    for k, v in batch.items():
-        v = np.asarray(v)
-        reps = np.concatenate([v, np.repeat(v[-1:], pad, axis=0)], axis=0)
-        if k.startswith("label") or k == "ind":
-            reps[n:] = -1  # padded pixels/indices are ignored downstream
-        out[k] = reps
-    return out
+def _panel(seg: UnsupervisedSegmenter, out: Dict[str, torch.Tensor],
+           batch: Dict[str, Any], val_base) -> Dict[str, np.ndarray]:
+    """The first ``n_images`` images of a validation batch, their labels
+    and predictions; an index batch's images come from ``val_base``."""
+    if "ind" in batch and "img" not in batch:
+        idxs = [int(i) for i in np.asarray(batch["ind"])[:seg.cfg.n_images]
+                if int(i) >= 0]
+        items = [val_base[i] for i in idxs]
+        imgs = np.stack([it[0] for it in items])
+        labels = np.stack([it[1] for it in items])
+    else:
+        imgs = np.asarray(batch["img"])[:seg.cfg.n_images]
+        labels = np.asarray(batch["label"])[:seg.cfg.n_images]
+    n = len(imgs)
+    return {"img": imgs, "label": labels,
+            "linear": out["linear_preds"][:n].cpu().numpy(),
+            "cluster": out["cluster_preds"][:n].cpu().numpy()}
+
+
+def save_validation_figures(seg: UnsupervisedSegmenter, figure_prefix: str,
+                            panel: Dict[str, np.ndarray],
+                            cluster_metrics: UnsupervisedMetrics) -> None:
+    """The figures the reference logs to TensorBoard each validation
+    (``stego_tpu/train/app.py:305-343``): the image/label/linear/cluster
+    panel (train_segmentation.py:290-302), the Hungarian-matched cluster
+    confusion matrix (:304-330) and the label and cluster frequencies
+    (:332-359), as ``{prefix}panel.png``, ``{prefix}confusion.png`` and
+    ``{prefix}freqs.png``; without matplotlib, one line names each."""
+    from stego_torch.data.colormaps import colormap_for_dataset
+    from stego_torch.utils.viz import (save_comparison_grid,
+                                       save_confusion_matrix,
+                                       save_frequency_bars, write_figures)
+
+    cmap = colormap_for_dataset(seg.cfg.dataset_name)
+    mapped = cluster_metrics.map_clusters(panel["cluster"])
+    try:
+        names = get_class_labels(seg.cfg.dataset_name)[:seg.n_classes]
+    except ValueError:
+        names = [f"class {i}" for i in range(seg.n_classes)]
+    if seg.cfg.extra_clusters:
+        names = names + ["Extra"]
+    hist = cluster_metrics.histogram
+    write_figures([
+        (figure_prefix + "panel.png",
+         lambda p: save_comparison_grid(
+             p, {"Image": panel["img"], "Label": panel["label"],
+                 "Linear Probe": panel["linear"],
+                 "Cluster Probe": np.asarray(mapped)}, cmap)),
+        (figure_prefix + "confusion.png",
+         lambda p: save_confusion_matrix(p, hist, names)),
+        (figure_prefix + "freqs.png",
+         lambda p: save_frequency_bars(p, hist, names, cmap)),
+    ])
 
 
 def run_validation(seg: UnsupervisedSegmenter, val_step, val_loader,
                    batch_size: int, device: torch.device, val_cache=None,
-                   val_epoch=None) -> Dict[str, float]:
+                   val_epoch=None, figure_prefix: Optional[str] = None,
+                   val_base=None) -> Dict[str, float]:
     """A validation epoch (reference validation_step/epoch_end,
     train_segmentation.py:254-283): each batch's confusion matrices are
     added up on the device and fetched once, then Hungarian-matched on the
     host. A short final batch is padded with ignored labels (or indices).
     With a feature cache (``val_cache``), the batches are index batches;
-    ``val_epoch`` then runs the whole epoch in one call."""
+    ``val_epoch`` then runs the whole epoch in one call. ``figure_prefix``
+    also writes the validation figures (:func:`save_validation_figures`)
+    of the first batch; an index batch's images come from ``val_base``."""
     linear_metrics = UnsupervisedMetrics("test/linear/", seg.n_classes, 0,
                                          False)
     cluster_metrics = UnsupervisedMetrics(
         "test/cluster/", seg.n_classes, seg.cfg.extra_clusters, True)
     conf = None
+    panel = None
     if val_epoch is not None and val_cache is not None:
-        batches = [_pad_batch(b, batch_size) for b in val_loader]
+        batches = [pad_batch(b, batch_size) for b in val_loader]
         if batches:
             inds = torch.from_numpy(np.stack(
                 [np.asarray(b["ind"]).astype(np.int64) for b in batches]))
             out = val_epoch(val_cache, inds.to(device))
             conf = (out["conf_linear"], out["conf_cluster"])
+            if figure_prefix is not None:
+                # the panel's predictions: one more step, of the first batch
+                first = val_step(val_cache, _to_device(batches[0], ("ind",),
+                                                       device))
+                panel = _panel(seg, first, batches[0], val_base)
     else:
         for batch in val_loader:
-            batch = _pad_batch(batch, batch_size)
+            batch = pad_batch(batch, batch_size)
             if val_cache is not None:
                 out = val_step(val_cache, _to_device(batch, ("ind",), device))
             else:
@@ -245,10 +270,15 @@ def run_validation(seg: UnsupervisedSegmenter, val_step, val_loader,
             conf = ((out["conf_linear"], out["conf_cluster"]) if conf is None
                     else (conf[0] + out["conf_linear"],
                           conf[1] + out["conf_cluster"]))
+            if panel is None and figure_prefix is not None:
+                panel = _panel(seg, out, batch, val_base)
     if conf is not None:
         linear_metrics.merge_stats(conf[0])
         cluster_metrics.merge_stats(conf[1])
-    return {**linear_metrics.compute(), **cluster_metrics.compute()}
+    metrics = {**linear_metrics.compute(), **cluster_metrics.compute()}
+    if panel is not None:
+        save_validation_figures(seg, figure_prefix, panel, cluster_metrics)
+    return metrics
 
 
 def step_seed(seed: int, step: int) -> int:
@@ -256,19 +286,6 @@ def step_seed(seed: int, step: int) -> int:
     the port's counterpart of ``jax.random.fold_in(key(seed), step)``."""
     state = np.random.SeedSequence([seed, step]).generate_state(1, np.uint64)
     return int(state[0]) >> 1
-
-
-def check_one_process(cfg: Config) -> None:
-    """Raise unless this is one process on one device."""
-    world = int(os.environ.get("WORLD_SIZE", "1"))
-    dist = torch.distributed
-    if dist.is_available() and dist.is_initialized():
-        world = max(world, dist.get_world_size())
-    if world > 1 or cfg.num_devices > 1:
-        raise NotImplementedError(
-            f"training on {max(world, cfg.num_devices)} processes or devices "
-            f"is not ported yet (ROADMAP.md queue 1, Multi-GPU (DDP)); run "
-            f"one process with num_devices=0 or 1")
 
 
 def _check_finite(step: int, metrics: Mapping[str, torch.Tensor]) -> None:
@@ -388,12 +405,17 @@ class Trainer:
         self.copy_seconds: List[float] = []
         self.val_seconds: List[float] = []
 
-    def validate(self) -> Dict[str, float]:
+    def validate(self, step: int) -> Dict[str, float]:
+        """A validation epoch after ``step`` steps, with its figures
+        (``val_<step>_*.png`` in the log directory)."""
         t0 = time.perf_counter()
         out = run_validation(self.seg, self.val_step, self.val_loader,
                              self.val_bs, self.device,
                              val_cache=self.val_cache,
-                             val_epoch=self.val_epoch)
+                             val_epoch=self.val_epoch,
+                             figure_prefix=join(self.log_dir,
+                                                f"val_{step}_"),
+                             val_base=self.val_dataset.dataset)
         self.val_seconds.append(time.perf_counter() - t0)
         return out
 
@@ -486,7 +508,7 @@ class Trainer:
                             logger.log_histogram_counts(done, k, v)
 
                 if done % cfg.val_freq == 0 or done == cfg.max_steps:
-                    metrics_out = self.validate()
+                    metrics_out = self.validate(done)
                     logger.log_scalars(done, metrics_out)
                     print(f"step {done}: " + ", ".join(
                         f"{k}={v:.2f}" for k, v in metrics_out.items()))

@@ -20,11 +20,16 @@ argument: :func:`draw_step_randomness` draws them from a
 ``torch.Generator``; the tests hand in the JAX package's draws instead,
 since ``jax.random`` streams cannot be reproduced in torch.
 
+The CRF loss (``crf_weight > 0``, ``ops/crf_loss.py``) runs in the image
+step on the image and the l2-normalised code, both resized to 56; the
+cached step has no images and raises for it, as the JAX package's feature
+cache does.
+
 Not ported yet (ROADMAP.md queue 1, Training branches that raise today):
 the aug-alignment loss (``aug_alignment_weight > 0``, needs
-``ops/augment.py``), the CRF loss (``crf_weight > 0``) and the
-salience-biased draw (``use_salience``); nor is the feature-pyramid arch
-(ROADMAP.md queue 1, Other backbones, plots and apps). Each raises.
+``ops/augment.py``) and the salience-biased draw (``use_salience``); nor is
+the feature-pyramid arch (ROADMAP.md queue 1, Other backbones, plots and
+apps). Each raises.
 """
 
 from __future__ import annotations
@@ -45,6 +50,8 @@ from stego_torch.ops.corr_stream import contrastive_correlation_loss_fused
 from stego_torch.ops.correlation import (CorrLossCfg,
                                          contrastive_correlation_loss,
                                          salience_not_ported)
+from stego_torch.ops.crf_loss import CRFLossCfg, contrastive_crf_loss
+from stego_torch.ops.interp import interpolate
 from stego_torch.ops.math import (block_local_super_perm, l2_normalize,
                                   one_hot_feats)
 from stego_torch.ops.probe_ce import (upsampled_argmax,
@@ -54,6 +61,7 @@ from stego_torch.utils.metrics import update_conf_matrix
 
 PROBE_LR = 5e-3  # linear and cluster probes (train_segmentation.py:379-381)
 HIST_BINS = 64
+CRF_RES = 56  # the CRF loss's image and code size (segmenter.py:365-373)
 
 
 def masked_cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
@@ -110,6 +118,7 @@ class UnsupervisedSegmenter(nn.Module):
         self.decoder = nn.Conv2d(self.dim, self.net.n_feats, 1)
         init_conv1x1(self.decoder, generator)
         self.corr_cfg = CorrLossCfg.from_config(cfg)
+        self.crf_cfg = CRFLossCfg.from_config(cfg)
         self.step = 0
         self.use_corr_kernel = True
         self._opts: Optional[Dict[str, torch.optim.Adam]] = None
@@ -181,7 +190,9 @@ def draw_step_randomness(seg: UnsupervisedSegmenter, batch_size: int,
     * ``feat1_keep``/``feat2_keep``: the masks of the loss signal, when
       ``cfg.dropout`` (``net.use_dropout``);
     * ``coords1``/``coords2``: (B, S, S, 2) sample points, U(-1, 1);
-    * ``perms``: ``neg_samples`` batch near-derangements (int64).
+    * ``perms``: ``neg_samples`` batch near-derangements (int64);
+    * ``crf_ys``/``crf_xs``: the CRF loss's ``crf_samples`` rows and
+      columns of its 56 x 56 maps (int64), when ``crf_weight > 0``.
 
     The positive image's entries exist when the correspondence loss is on.
     """
@@ -211,6 +222,11 @@ def draw_step_randomness(seg: UnsupervisedSegmenter, batch_size: int,
         out["perms"] = [block_local_super_perm(b, generator,
                                                seg.corr_cfg.neg_blocks)
                         for _ in range(cfg.neg_samples)]
+    if cfg.crf_weight > 0:
+        for axis in ("ys", "xs"):
+            out[f"crf_{axis}"] = torch.randint(
+                0, CRF_RES, (cfg.crf_samples,), generator=generator,
+                device=dev)
     return out
 
 
@@ -267,10 +283,6 @@ def _check_ported(cfg: Config) -> None:
             "aug_alignment_weight > 0: the augmented view (ops/augment.py) "
             "and the aug-alignment loss are not ported yet (ROADMAP.md "
             "queue 1, Training branches that raise today)")
-    if cfg.crf_weight > 0:
-        raise NotImplementedError(
-            "crf_weight > 0: the CRF loss (ops/crf_loss.py) is not ported "
-            "yet (ROADMAP.md queue 1, Training branches that raise today)")
 
 
 def _update_from_feats(seg: UnsupervisedSegmenter, with_hist: bool,
@@ -320,6 +332,17 @@ def _update_from_feats(seg: UnsupervisedSegmenter, with_hist: bool,
             l2_normalize(rec_feats) * l2_normalize(feats), dim=-1))
         loss = loss + cfg.rec_weight * rec_loss
         metrics["loss/rec"] = rec_loss
+
+    if cfg.crf_weight > 0:
+        crf = torch.mean(contrastive_crf_loss(
+            seg.crf_cfg,
+            interpolate(batch["img"], CRF_RES, "bilinear",
+                        align_corners=False),
+            l2_normalize(interpolate(code, CRF_RES, "bilinear",
+                                     align_corners=False)),
+            (rand["crf_ys"], rand["crf_xs"])))
+        loss = loss + cfg.crf_weight * crf
+        metrics["loss/crf"] = crf
 
     detached_code = code.detach()
     linear_logits = linear_probe_logits(seg.linear_probe, detached_code)
@@ -408,6 +431,11 @@ def make_cached_train_step(seg: UnsupervisedSegmenter,
     cfg = seg.cfg
     _check_ported(cfg)
     check_not_sharded(cfg)
+    if cfg.crf_weight > 0:
+        raise ValueError(
+            "crf_weight > 0 needs each step's images, which the feature "
+            "cache does not hold (the JAX package's cache refuses it too, "
+            "feat_cache.py:53-56); train from images, or set crf_weight=0")
     if cfg.steps_per_dispatch > 1:
         raise NotImplementedError(
             "steps_per_dispatch > 1 (make_cached_multi_step) is not ported: "

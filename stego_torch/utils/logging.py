@@ -5,8 +5,8 @@ Reference observability surface: TensorBoardLogger with scalars every
 ``scalar_log_freq`` steps (train_segmentation.py:133,172-177). Scalars go to
 a JSONL stream (``metrics.jsonl``, machine-readable, written without TB) and
 are mirrored to TB events when ``torch.utils.tensorboard`` imports. The
-validation figures (panel, confusion matrix, class frequencies) are not
-ported yet (ROADMAP.md queue 1, Other backbones, plots and apps).
+validation figures (panel, confusion matrix, class frequencies) are PNG
+files beside ``metrics.jsonl`` (``train/app.py:save_validation_figures``).
 """
 
 from __future__ import annotations

@@ -152,6 +152,50 @@ def test_run_validation_matches_jax(data_root, tmp_path, extra):  # noqa: F811
     assert set(got) == KEYS
 
 
+@pytest.mark.parametrize("extra", [0, 2])
+def test_validation_figures_match_jax(data_root, tmp_path, extra,  # noqa: F811
+                                      capsys, monkeypatch):
+    """figure_prefix: the confusion-matrix and frequency figures of the
+    JAX app's validation, byte for byte (the same matched histogram, drawn
+    by the same matplotlib code), and a panel of the same size (the JAX
+    panel draws its images from the uint8 wire format, which the port does
+    not have); without matplotlib, one line names each figure not
+    written."""
+    jcfg = jax_cfg(data_root, tmp_path, extra_clusters=extra)
+    jseg, bb, state, seg = setup(jcfg)
+    kw = dict(pytorch_data_dir=data_root, dataset_name="directory",
+              crop_type=None, image_set="val", mask=True)
+    jds = JaxDataset(transform=jax_get_transform(RES, False, "center"),
+                     target_transform=jax_get_transform(RES, True, "center"),
+                     cfg=jcfg, **kw)
+    ds = ContrastiveSegDataset(
+        transform=get_transform(RES, False, "center"),
+        target_transform=get_transform(RES, True, "center"),
+        cfg=torch_config(jcfg), **kw)
+    jax_app.run_validation(
+        jseg, jax.jit(jax_make_val_step(jseg)), bb, state["params"],
+        JaxLoader(jds, 3, drop_last=False), make_mesh(1), 3,
+        figure_prefix=str(tmp_path / "jax_"))
+    app.run_validation(seg, make_val_step(seg),
+                       DataLoader(ds, 3, drop_last=False), 3, CPU,
+                       figure_prefix=str(tmp_path / "port_"))
+    for name in ("confusion.png", "freqs.png"):
+        assert (tmp_path / f"port_{name}").read_bytes() == \
+            (tmp_path / f"jax_{name}").read_bytes(), name
+    from PIL import Image
+
+    assert Image.open(tmp_path / "port_panel.png").size == \
+        Image.open(tmp_path / "jax_panel.png").size
+    monkeypatch.setitem(sys.modules, "matplotlib", None)
+    capsys.readouterr()
+    app.run_validation(seg, make_val_step(seg),
+                       DataLoader(ds, 3, drop_last=False), 3, CPU,
+                       figure_prefix=str(tmp_path / "none_"))
+    assert capsys.readouterr().out.splitlines() == [
+        f"{tmp_path / ('none_' + n)}: not written, matplotlib does not "
+        f"import" for n in ("panel.png", "confusion.png", "freqs.png")]
+
+
 def test_train_end_to_end(data_root, tmp_path):  # noqa: F811
     """train() on the fixture: finite metrics with the JAX app's keys,
     metrics.jsonl with the losses every scalar_log_freq steps and the
@@ -340,6 +384,12 @@ def test_cached_mode_trains(data_root, tmp_path):  # noqa: F811
     assert all(np.isfinite(v) for v in metrics.values())
     assert trainer.seg.step == 21 and len(trainer.val_seconds) == 3
     assert os.path.exists(tmp_path / "prof" / "train_steps.json")
+    # the cached validation's figures: its panel decodes the first index
+    # batch's images from the val dataset
+    assert sorted(f for f in os.listdir(trainer.log_dir)
+                  if f.endswith(".png")) == [
+        f"val_{s}_{n}.png" for s in (14, 21, 7)
+        for n in ("confusion", "freqs", "panel")]
     assert trainer.mgr.all_steps() == jax_kept_steps(
         tmp_path, {s: {k: ln[k] for k in KEYS} for ln in log_lines(trainer)
                    for s in [ln["step"]] if "test/cluster/mIoU" in ln}, 2)

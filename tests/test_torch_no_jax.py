@@ -3,9 +3,10 @@ fresh interpreter in which those imports fail imports every module of the
 port and runs one eval step, another runs train steps (the sampled loss
 through C1's plain version, full-field and grid-sampled through C2's) and
 one val step, a third builds a KNN cache and a feature cache and runs a
-cached train step and a cached val epoch, and a fourth runs the train app
+cached train step and a cached val epoch, a fourth runs the train app
 on in-memory datasets (two steps, a validation and a checkpoint, then a
-resumed step), on the CPU."""
+resumed step), and a fifth evaluates a checkpoint over an in-memory
+dataset with the grid CRF and with the exact CRF, on the CPU."""
 
 import subprocess
 import sys
@@ -41,6 +42,10 @@ MODULES = [
     "stego_torch.data.native_io", "stego_torch.utils.logging",
     "stego_torch.train.checkpoint", "stego_torch.train.knn_app",
     "stego_torch.train.app", "stego_torch.train.__main__",
+    "stego_torch.ops.crf", "stego_torch.ops.crf_exact",
+    "stego_torch.ops.crf_loss", "stego_torch.native",
+    "stego_torch.utils.viz", "stego_torch.data.colormaps",
+    "stego_torch.train.crf_app", "stego_torch.eval.__main__",
 ]
 for name in MODULES:
     importlib.import_module(name)
@@ -220,6 +225,50 @@ print("OK", sorted(m for m, mod in sys.modules.items()
 """
 
 
+EVAL_SCRIPT = """
+import sys
+sys.modules["jax"] = None  # any import of jax raises ImportError
+sys.modules["PIL"] = None
+sys.modules["stego_tpu"] = None  # nor anything of the JAX package
+import math
+import os
+import tempfile
+import numpy as np
+import torch
+from stego_torch.config import Config
+from stego_torch.data.contrastive import ContrastiveSegDataset
+from stego_torch.data.synthetic import render_scene
+from stego_torch.eval.evaluate import Evaluator
+from stego_torch.models.convert import save_stego_checkpoint
+from stego_torch.models.vit import ViTConfig
+from stego_torch.train.segmenter import UnsupervisedSegmenter
+rng = np.random.default_rng(0)
+items = []
+for _ in range(5):
+    img, label = render_scene(rng, 32, 5)
+    items.append((img.astype(np.float32), label.astype(np.int64),
+                  np.ones((32, 32), np.float32)))
+vit = ViTConfig(patch_size=8, embed_dim=128, depth=2, num_heads=2,
+                img_size=32)
+cfg = Config(dataset_name="directory", dim=6, res=32, batch_size=2)
+with tempfile.TemporaryDirectory() as tmp:
+    path = os.path.join(tmp, "m.ckpt")
+    save_stego_checkpoint(path, UnsupervisedSegmenter(5, cfg, vit_cfg=vit))
+    for backend in ("grid", "exact"):
+        ev = Evaluator(cfg.replace(crf_backend=backend), path, "cpu",
+                       vit_cfg=vit,
+                       val_dataset=ContrastiveSegDataset.from_items(items, 5))
+        metrics = ev.run(save_outputs=False)
+        assert len(metrics) == 4 and all(math.isfinite(v)
+                                         for v in metrics.values())
+        assert int(ev.linear_metrics.stats.sum()) == sum(
+            int((it[1] >= 0).sum()) for it in items)
+        assert (len(ev.crf_seconds) == 2) == (backend == "exact")
+print("OK", sorted(m for m, mod in sys.modules.items()
+                   if mod is not None and m.split(".")[0] == "stego_tpu"))
+"""
+
+
 def run_without_jax(script):
     proc = subprocess.run([sys.executable, "-c", script], cwd=REPO,
                           capture_output=True, text=True, timeout=300)
@@ -245,4 +294,9 @@ def test_knn_cache_and_cached_steps_run_without_jax_or_pil():
 
 def test_train_app_runs_and_resumes_without_jax_or_pil():
     proc = run_without_jax(APP_SCRIPT)
+    assert proc.stdout.strip().endswith("OK []"), proc.stdout
+
+
+def test_eval_with_both_crfs_runs_without_jax_or_pil():
+    proc = run_without_jax(EVAL_SCRIPT)
     assert proc.stdout.strip().endswith("OK []"), proc.stdout

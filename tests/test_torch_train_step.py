@@ -304,7 +304,6 @@ def test_train_step_pallas_loss_bf16_matches_jax_two_steps():
 @pytest.mark.parametrize("kw,at_build", [
     (dict(use_salience=True), True),
     (dict(aug_alignment_weight=0.1), True),
-    (dict(crf_weight=0.1), True),
 ])
 def test_unported_branches_raise(kw, at_build):
     """Each branch that needs an unported piece raises NotImplementedError
