@@ -21,6 +21,19 @@
    times (ViT-S: token-major attention; ViT-T: head-major, batch-resident at
    224 and kv-resident at 320), and its code and predictions must agree
    with the same batch through the plain versions on the card.
+   Then the serving artifact (stego_torch/serve.py, python -m
+   stego_torch.serve): package() of those checkpoints on the card, ViT-S/8
+   at res 320 and 224, ViT-T/8 at 320 and an f32-trunk ViT-S/8 (A-f32) at
+   224, a torch.export program whose trunk reaches kernels A and L through
+   the ops stego_torch::attention and stego_torch::layer_norm; each loaded
+   by ServingModel.load in a fresh python3 process that imports no model
+   code. Each predict of 8 must launch 24 A at the trunk's entry and 50 L
+   (none in f32), its outputs must equal the eager serving module's on the
+   same batch bit for bit (ViT-S at 320 also at batch 5), and the same
+   artifact loaded with device="cpu" must agree with the card. Prints the
+   packaging and load seconds, ms per predict at 320 (artifact, eager
+   module, with host arrays), device ms a predict, images/s and the host
+   cost of a call through an op against the direct call.
 4. Holds kernel C1 (the sampled correlation loss, forward and backward:
    the gather kernel, C2's forward, C2's backward and the adjoint kernel)
    against its plain version at the train step's shapes, with bf16
@@ -863,13 +876,10 @@ def trunk_entry(model_type, res):
     token-major (pair, pair_kv) for an even head count, else head-major
     (batch_resident, kv_resident), each by N as the JAX trunk."""
     from stego_torch.models.vit import VIT_CONFIGS
-    from stego_torch.ops import flash_attention as fa
+    from stego_torch.ops.flash_attention import attention_entry
 
-    vit, n = VIT_CONFIGS[model_type][8], (res // 8) ** 2 + 1
-    resident = -(-n // 128) * 128 <= fa.RESIDENT_MAX_N
-    if fa.use_pair_attention(vit.num_heads, vit.head_dim, n):
-        return "pair" if resident else "pair_kv"
-    return "batch_resident" if resident else "kv_resident"
+    vit = VIT_CONFIGS[model_type][8]
+    return attention_entry(vit.num_heads, vit.head_dim, (res // 8) ** 2 + 1)
 
 
 def phase_slice(dev, tmp, model_type="vit_small"):
@@ -966,6 +976,349 @@ def phase_slice(dev, tmp, model_type="vit_small"):
                   f"agree with plain on {agree:.4%} (>= {PRED_AGREE:.0%})")
     print(f"  peak device memory {peak_gb:.2f} GiB")
     return launches
+
+
+# phase serve: (label, model_type, trunk dtype, res) of each artifact that
+# python -m stego_torch.serve's package() makes from a phase-3 checkpoint;
+# SERVE_TIMED is timed and also serves SERVE_BATCHES[1]; a load with
+# device="cpu" predicts the first SERVE_CPU_IMAGES[label] images
+SERVE_CASES = (("vit_small_320", "vit_small", "bfloat16", 320),
+               ("vit_small_224", "vit_small", "bfloat16", 224),
+               ("vit_tiny_320", "vit_tiny", "bfloat16", 320),
+               ("vit_small_f32_224", "vit_small", "float32", 224))
+SERVE_TIMED, SERVE_BATCHES, SERVE_ITERS = "vit_small_320", (BATCH, 5), 12
+SERVE_CPU_IMAGES = {"vit_small_224": 2, "vit_tiny_320": 1,
+                    "vit_small_f32_224": 2}
+# f32 artifact, card against CPU: log-probs within SERVE_F32_ATOL and
+# predictions equal where the top-two margin exceeds SERVE_F32_MARGIN (the
+# f32 tolerances the port's CPU tests hold its eval and serving to against
+# the JAX package); bf16: PRED_AGREE where the margin exceeds
+# SERVE_BF16_MARGIN
+SERVE_F32_ATOL, SERVE_F32_MARGIN, SERVE_BF16_MARGIN = 1e-4, 1e-3, 5e-2
+# the modules a serving process must not import: the model code
+MODEL_CODE = ("stego_torch.models", "stego_torch.train", "stego_torch.eval",
+              "stego_torch.data", "stego_torch.config")
+
+
+def serve_child(args) -> int:
+    """``chip_smoke.py --serve-child <json>``: a fresh process that loads
+    one artifact with ServingModel.load (cuda:0), predicts each batch of
+    ``batches`` from the saved images, counting the launches of each
+    predict, times it when asked (once the file ``go`` exists) and, when
+    ``cpu_images`` is not 0, loads it again with device="cpu" and predicts
+    that many images; writes the outputs to ``out`` (npz) and prints one
+    JSON line."""
+    opts = json.loads(args[0])
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    from stego_torch.serve import ServingModel
+
+    t0 = time.perf_counter()
+    model = ServingModel.load(opts["artifact"])
+    load_s = time.perf_counter() - t0
+    img = np.load(opts["images"])
+    report = {"load_s": load_s, "launches": {}}
+    outputs = {}
+    for b in opts["batches"]:
+        torch.cuda.synchronize()
+        reset_counts()
+        out = model.predict(img[:b])
+        report["launches"][str(b)] = path_counts()
+        outputs.update({f"{k}_{b}": v for k, v in out.items()})
+    report["model_code"] = sorted(
+        m for m in sys.modules if m.startswith(MODEL_CODE))
+    if opts["timed"]:
+        waited = 0.0
+        while not os.path.exists(opts["go"]) and waited < 300:
+            time.sleep(0.05)
+            waited += 0.05
+        x = torch.from_numpy(img).to(model.device)
+
+        def program():
+            with torch.no_grad():
+                return model.module(x)
+
+        def wall_ms(fn):
+            out = []
+            for _ in range(SERVE_ITERS):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                fn()
+                torch.cuda.synchronize()
+                out.append((time.perf_counter() - t0) * 1e3)
+            return statistics.median(out)
+
+        program()
+        report["predict_ms"] = wall_ms(lambda: model.predict(img))
+        report["program_ms"] = wall_ms(program)
+        by_kernel = kernel_times(program)
+        report["device_ms"] = sum(by_kernel.values()) / 1e3
+        report["top"] = sorted(by_kernel.items(), key=lambda kv: -kv[1])[:5]
+    if opts["cpu_images"]:
+        t0 = time.perf_counter()
+        on_cpu = ServingModel.load(opts["artifact"], device="cpu")
+        report["cpu_load_s"] = time.perf_counter() - t0
+        report["cpu_devices"] = sorted(
+            {str(p.device) for p in on_cpu.module.parameters()}
+            | {str(n.kwargs["device"]) for n in on_cpu.module.graph.nodes
+               if "device" in n.kwargs})
+        t0 = time.perf_counter()
+        out = on_cpu.predict(img[:opts["cpu_images"]])
+        report["cpu_predict_s"] = time.perf_counter() - t0
+        outputs.update({f"{k}_cpu": v for k, v in out.items()})
+    np.savez(opts["out"], **outputs)
+    print(json.dumps(report))
+    return 0
+
+
+def margin(log_probs):
+    """Top-1 minus top-2 of log-probs along the last axis."""
+    top = torch.topk(log_probs, 2, dim=-1).values
+    return top[..., 0] - top[..., 1]
+
+
+def serve_agreement(label, got, want, f32):
+    """``got`` (a CPU load's outputs) against ``want`` (the card's): f32 by
+    SERVE_F32_ATOL and SERVE_F32_MARGIN, bf16 by PRED_AGREE where the
+    margin exceeds SERVE_BF16_MARGIN."""
+    for probe in ("linear", "cluster"):
+        lp, wp = (torch.from_numpy(o[f"{probe}_probs"]) for o in (got, want))
+        g, w = (torch.from_numpy(o[f"{probe}_preds"]) for o in (got, want))
+        m = margin(wp)
+        err = float((lp - wp).abs().max())
+        same = float((g == w).float().mean())
+        if f32:
+            sure = m > SERVE_F32_MARGIN
+            check(err <= SERVE_F32_ATOL and bool((g == w)[sure].all()),
+                  f"{label} {probe}: CPU vs card log-probs max abs "
+                  f"{err:.3e} (<= {SERVE_F32_ATOL}), predictions equal on "
+                  f"the {float(sure.float().mean()):.2%} of pixels with a "
+                  f"margin > {SERVE_F32_MARGIN} ({same:.4%} of all)")
+        else:
+            sure = m > SERVE_BF16_MARGIN
+            agree = float((g == w)[sure].float().mean())
+            check(float(sure.float().mean()) > 0.5 and agree >= PRED_AGREE,
+                  f"{label} {probe}: CPU vs card predictions agree on "
+                  f"{agree:.4%} (>= {PRED_AGREE:.0%}) of the "
+                  f"{float(sure.float().mean()):.2%} of pixels with a margin "
+                  f"> {SERVE_BF16_MARGIN}; log-probs max abs {err:.3e}")
+
+
+def op_host_us(dev):
+    """Host microseconds a call, op route against the direct call, for
+    kernel L at ViT-S's (8 x 1601, 384) and kernel A at ViT-S's token-major
+    (8, 1601, 384) q/k/v: 200 calls enqueued, the host's clock around them
+    (the card runs behind)."""
+    from stego_torch.ops import flash_attention as fa
+    from stego_torch.ops import layer_norm as ln
+
+    gen = torch.Generator(device=dev).manual_seed(5)
+    x = torch.randn(8, 1601, 384, generator=gen, device=dev,
+                    dtype=torch.bfloat16)
+    w = torch.ones(384, device=dev)
+    b = torch.zeros(384, device=dev)
+    qkv = torch.randn(8, 1601, 3 * 384, generator=gen, device=dev,
+                      dtype=torch.bfloat16)
+    q, k, v = qkv.split(384, dim=-1)
+    calls = {
+        "L direct": lambda: ln.fused_layer_norm(x, w, b, 1e-6),
+        "L op": lambda: ln.layer_norm_op(x, w, b, 1e-6),
+        "A direct": lambda: fa.token_major_attention(q, k, v, 6, 0.125),
+        "A op": lambda: fa.attention_op(q, k, v, 6, 0.125),
+    }
+    out = {}
+    with torch.no_grad():
+        for name, fn in calls.items():
+            fn()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(200):
+                fn()
+            out[name] = (time.perf_counter() - t0) / 200 * 1e6
+            torch.cuda.synchronize()
+    return out
+
+
+def phase_serve(dev, tmp):
+    """The serving path (stego_torch/serve.py): package() of phase 3's
+    checkpoints (and an f32-trunk one of the same seeded ViT-S/8) on the
+    card, each artifact loaded in a fresh python3 process (no model code)
+    that predicts with it; gates: exact launches a predict, the outputs
+    equal to the eager serving module's on the same batch bit for bit, the
+    same artifact loaded on the CPU against the card. The untimed
+    processes run beside the next packaging; the timed one runs alone.
+    Returns the launches of the gated predicts, by model type."""
+    from stego_torch import serve
+    from stego_torch.config import Config
+    from stego_torch.eval.evaluate import load_model_for_eval
+    from stego_torch.models import convert
+    from stego_torch.train.segmenter import UnsupervisedSegmenter
+
+    t_phase = time.perf_counter()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    print("serve: package() of phase 3's checkpoints on the card, each "
+          "artifact served from a fresh process")
+    f32_ckpt = os.path.join(tmp, "vit_small_8_seed0_f32.ckpt")
+    convert.save_stego_checkpoint(f32_ckpt, UnsupervisedSegmenter(
+        27, Config(dataset_name="cocostuff27", model_type="vit_small",
+                   dino_patch_size=8, dim=70, projection_type="nonlinear",
+                   backbone_dtype="float32", use_flash_attention=True,
+                   run_crf=False),
+        generator=torch.Generator().manual_seed(0)))
+    rng = np.random.default_rng(3)
+    cases = {}
+
+    def package(label, model_type, dtype, res):
+        """Package the case's checkpoint and save its images."""
+        ckpt = f32_ckpt if dtype == "float32" else os.path.join(
+            tmp, f"{model_type}_8_seed0.ckpt")
+        art = os.path.join(tmp, f"serve_{label}")
+        t0 = time.perf_counter()
+        serve.package(ckpt, art, res=res, batch_size=BATCH)
+        pack_s = time.perf_counter() - t0
+        img = rng.random((BATCH, res, res, 3), dtype=np.float32)
+        path = os.path.join(tmp, label)
+        np.save(path + ".npy", img)
+        timed = label == SERVE_TIMED
+        opts = {"artifact": art, "images": path + ".npy",
+                "out": path + ".npz", "go": path + ".go",
+                "batches": SERVE_BATCHES if timed else SERVE_BATCHES[:1],
+                "timed": timed, "cpu_images": SERVE_CPU_IMAGES.get(label, 0)}
+        cases[label] = dict(model_type=model_type, f32=dtype == "float32",
+                            res=res, ckpt=ckpt, art=art, img=img, path=path,
+                            opts=opts, pack_s=pack_s)
+
+    def launch(label):
+        """Start the case's serving process."""
+        c = cases[label]
+        with open(c["path"] + ".log", "w") as log:
+            c["proc"] = subprocess.Popen(
+                [sys.executable, os.path.abspath(__file__), "--serve-child",
+                 json.dumps(c["opts"])], stdout=log,
+                stderr=subprocess.STDOUT, text=True)
+        c["t0"] = time.perf_counter()
+
+    def finish(label):
+        """Wait for the case's process and hold its outputs; the launches
+        of its gated predicts."""
+        c = cases[label]
+        rc = c["proc"].wait(timeout=600)
+        child_s = time.perf_counter() - c["t0"]
+        with open(c["path"] + ".log") as log:
+            lines = log.read().strip().splitlines()
+        if not check(rc == 0, f"{label}: serving process exit code {rc}"):
+            print("\n".join(lines[-30:]))
+            return []
+        report = json.loads(lines[-1])
+        got = dict(np.load(c["path"] + ".npz"))
+        mb = os.path.getsize(os.path.join(c["art"], serve.MODEL_FILE)) / 2**20
+        n_cpu = c["opts"]["cpu_images"]
+        cpu = (f"; CPU load {report['cpu_load_s']:.2f} s, CPU predict of "
+               f"{n_cpu} {report['cpu_predict_s']:.2f} s" if n_cpu else "")
+        print(f"  {label}: packaged in {c['pack_s']:.2f} s ({mb:.1f} MiB "
+              f"model.pt2), serving process {child_s:.1f} s (load "
+              f"{report['load_s']:.2f} s{cpu})")
+        check(report["model_code"] == [],
+              f"{label}: the serving process imported no model code "
+              f"{report['model_code']}")
+        res, f32 = c["res"], c["f32"]
+        entry = trunk_entry(c["model_type"], res)
+        want_launches = launches_of(ATTN_PER_REQUEST,
+                                    0 if f32 else LN_PER_REQUEST, entry,
+                                    f32=f32)
+        seg = load_model_for_eval(c["ckpt"], dev)
+        c["fn"] = fn = serve.ServeFn(seg).eval()
+        runs = []
+        for b in c["opts"]["batches"]:
+            n = report["launches"][str(b)]
+            check(n == want_launches,
+                  f"{label}: predict of {b}: attention launches "
+                  f"{n['attention']} ({entry}: {n['attention_' + entry]}, "
+                  f"f32 {n['attention_f32']}), layer_norm launches "
+                  f"{n['layer_norm']}")
+            runs.append(n)
+            with torch.no_grad():
+                want = fn(torch.from_numpy(c["img"][:b]).to(dev))
+            same = {k: bool(np.array_equal(got[f"{k}_{b}"],
+                                           want[k].cpu().numpy()))
+                    for k in serve.OUTPUT_KEYS}
+            shapes = {k: (got[f"{k}_{b}"].shape, str(got[f"{k}_{b}"].dtype))
+                      for k in serve.OUTPUT_KEYS}
+            check(all(same.values())
+                  and shapes["linear_probs"][0] == (b, res, res, 27)
+                  and shapes["linear_preds"] == ((b, res, res), "int32"),
+                  f"{label}: predict of {b} equals the eager serving module "
+                  f"bit for bit {same}; {shapes['linear_probs']}, "
+                  f"{shapes['linear_preds']}")
+        if n_cpu:
+            check(report["cpu_devices"] == ["cpu"],
+                  f"{label}: device=\"cpu\" load: the weights and the "
+                  f"devices traced into the graph moved to "
+                  f"{report['cpu_devices']}")
+            keys = serve.OUTPUT_KEYS
+            serve_agreement(label, {k: got[f"{k}_cpu"] for k in keys},
+                            {k: got[f"{k}_{BATCH}"][:n_cpu] for k in keys},
+                            f32)
+        c["report"] = report
+        return runs
+
+    launches = {}
+    untimed = [case[0] for case in SERVE_CASES if case[0] != SERVE_TIMED]
+    for case in SERVE_CASES:  # the timed case last, beside the others
+        if case[0] != SERVE_TIMED:
+            package(*case)
+            launch(case[0])
+    package(*next(case for case in SERVE_CASES if case[0] == SERVE_TIMED))
+    for label in untimed:
+        cases[label]["proc"].wait(timeout=600)
+    # the timed process loads while the others' outputs are held here; it
+    # times once the go file exists, with nothing else on the card
+    launch(SERVE_TIMED)
+    for label in untimed + [SERVE_TIMED]:
+        if label == SERVE_TIMED:
+            open(cases[label]["opts"]["go"], "w").close()
+        launches.setdefault(cases[label]["model_type"], []).extend(
+            finish(label))
+        if label != SERVE_TIMED:
+            cases[label].pop("fn", None)
+    timed = cases[SERVE_TIMED]
+    report = timed.get("report")
+    if report is not None:
+        x = torch.from_numpy(timed["img"]).to(dev)
+
+        def eager():
+            with torch.no_grad():
+                return timed["fn"](x)
+
+        eager()
+        eager_ms = []
+        for _ in range(SERVE_ITERS):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            eager()
+            torch.cuda.synchronize()
+            eager_ms.append((time.perf_counter() - t0) * 1e3)
+        eager_ms = statistics.median(eager_ms)
+        eager_dev = sum(kernel_times(eager).values()) / 1e3
+        print(f"  {SERVE_TIMED}: per predict of {BATCH} (median of "
+              f"{SERVE_ITERS}, synchronised): artifact program "
+              f"{report['program_ms']:.3f} ms "
+              f"({BATCH / report['program_ms'] * 1e3:.1f} images/s), eager "
+              f"serving module {eager_ms:.3f} ms; predict() with host "
+              f"arrays in and out {report['predict_ms']:.3f} ms "
+              f"({BATCH / report['predict_ms'] * 1e3:.1f} images/s); device "
+              f"{report['device_ms']:.3f} ms a predict (eager "
+              f"{eager_dev:.3f}), "
+              f"{report['device_ms'] / report['program_ms']:.0%} of the "
+              f"program's wall time")
+        for name, us in report["top"]:
+            print(f"    {us / 1e3:8.3f} ms  {name[:90]}")
+        host = op_host_us(dev)
+        print("  host us a call: " + ", ".join(
+            f"{k} {v:.1f}" for k, v in host.items()))
+    print(f"  phase serve: {time.perf_counter() - t_phase:.1f} s")
+    return {m: add_counts(*runs) for m, runs in launches.items()}
 
 
 def corr_inputs(dev, b, hw, cf, cc, s, neg, seed):
@@ -3171,6 +3524,7 @@ def main() -> int:
     with tempfile.TemporaryDirectory() as tmp:
         for model_type in ("vit_small", "vit_tiny"):
             serving[model_type] = phase_slice(dev, tmp, model_type)
+        artifacts = phase_serve(dev, tmp)
     for model_type, launches in serving.items():
         want = add_counts(*(launches_of(
             REQUESTS * ATTN_PER_REQUEST, REQUESTS * LN_PER_REQUEST,
@@ -3251,16 +3605,18 @@ def main() -> int:
                                       corr_sampled_fwd=3,
                                       corr_sampled_bwd=3))):
         check(wide[name] == want, f"{name} path launches: {wide[name]}")
-    # launches summed over the paths of each trunk: ViT-S (serving, train
-    # with the sampled, full-field, grid-sampled and bf16-code losses, val,
-    # the KNN, the cache builds, cached train and val, the app, the dataset
-    # eval, the CRF-loss train run), ViT-T (serving, train, val), ViT-B
-    # (train, sampled and full-field), and the layout ladder
+    # launches summed over the paths of each trunk: ViT-S (serving, the
+    # serving artifacts, train with the sampled, full-field, grid-sampled
+    # and bf16-code losses, val, the KNN, the cache builds, cached train and
+    # val, the app, the dataset eval, the CRF-loss train run), ViT-T
+    # (serving, its artifact, train, val), ViT-B (train, sampled and
+    # full-field), and the layout ladder
     vit_s = add_counts(serving["vit_small"], train, val, *stream.values(),
                        knn_launches, cache_launches, *cached.values(),
-                       cached_val, *wide.values(), app, evals, crf_loss)
+                       cached_val, *wide.values(), app, evals, crf_loss,
+                       artifacts.get("vit_small", {}))
     vit_t = add_counts(serving["vit_tiny"], models["vit_tiny"],
-                       models["vit_tiny_val"])
+                       models["vit_tiny_val"], artifacts.get("vit_tiny", {}))
     vit_b = add_counts(models["vit_base"], models["vit_base_full_field"])
     total = add_counts(vit_s, vit_t, vit_b, *ladder.values())
 
@@ -3414,4 +3770,5 @@ def main() -> int:
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    sys.exit(serve_child(sys.argv[2:]) if sys.argv[1:2] == ["--serve-child"]
+             else main())

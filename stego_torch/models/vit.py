@@ -31,7 +31,11 @@ Numerics follow the JAX trunk:
 
 The 12 blocks run as a Python loop. ``use_kernels = False`` makes the trunk
 call each kernel's plain version even on a CUDA tensor, which is how the
-kernels are held against their plain versions on the card.
+kernels are held against their plain versions on the card. While
+``torch.export`` traces the trunk (``serve.py``), the kernels are reached
+through their registered ops, ``stego_torch::attention`` and
+``stego_torch::layer_norm``, which end in the same launches; the eager paths
+call the kernels' wrappers directly.
 """
 
 from __future__ import annotations
@@ -45,13 +49,19 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from stego_torch.ops.flash_attention import (
+    attention_entry,
+    attention_op,
     attention_plain,
     token_major_attention,
     trunk_attention,
     use_pair_attention,
 )
 from stego_torch.ops.interp import interpolate
-from stego_torch.ops.layer_norm import fused_layer_norm, layer_norm_plain
+from stego_torch.ops.layer_norm import (
+    fused_layer_norm,
+    layer_norm_op,
+    layer_norm_plain,
+)
 
 
 @dataclass(frozen=True)
@@ -111,6 +121,8 @@ def _block_ln(ln: LayerNorm, x: torch.Tensor, use_flash: bool,
     """Kernel L on the bf16 flash trunk (``vit.py:160-170``), the plain
     version everywhere else."""
     if use_flash and use_kernels and x.dtype == torch.bfloat16:
+        if torch.compiler.is_exporting():
+            return layer_norm_op(x, ln.weight, ln.bias, ln.eps)
         return fused_layer_norm(x, ln.weight, ln.bias, ln.eps)
     return layer_norm_plain(x, ln.weight, ln.bias, ln.eps)
 
@@ -131,7 +143,13 @@ class Attention(nn.Module):
         hd = d // heads
         scale = hd ** -0.5
         qkv = _linear(x, self.qkv)  # (B, N, 3D)
-        if use_flash and not want_qkv:
+        if use_flash and not want_qkv and use_kernels \
+                and torch.compiler.is_exporting():
+            # export: both layouts through the one functional op
+            if attention_entry(heads, hd, n) is not None:
+                out = attention_op(*qkv.split(d, dim=-1), heads, scale)
+                return _linear(out, self.proj), None, None
+        elif use_flash and not want_qkv:
             if use_pair_attention(heads, hd, n):
                 # token-major: q, k, v are the column blocks of qkv, read in
                 # place through their strides

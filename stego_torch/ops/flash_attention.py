@@ -34,6 +34,11 @@ version of every form:
 * ``no_softmax``: p = s, the logits of q*scale, rounded to v's dtype, no
   division (``bench_attncore.py:84-85``).
 
+:func:`attention_op`, registered as the op ``stego_torch::attention``, is
+the trunk's attention in functional form (token-major in, a new output)
+for ``torch.export``: the serving artifact (``serve.py``) calls kernel A
+through it, and it ends in the same launch as the functions above.
+
 A CPU tensor takes the plain version; a CUDA tensor launches the kernel or
 raises (d = 64 only): bf16 q/k/v the wgmma kernel, f32 ones (an f32 trunk
 with ``use_flash_attention``, which the JAX package also sends through its
@@ -191,6 +196,58 @@ def packed_attention(qkv: torch.Tensor, num_heads: int, scale: float,
     _launch(*(x.unflatten(-1, (num_heads, -1)) for x in (q, k, v, out)),
             scale, "two_pass", "packed")
     return out
+
+
+def attention_entry(num_heads: int, head_dim: int, n: int) -> Optional[str]:
+    """The JAX trunk's attention entry point by head count and N: token-major
+    ``pair``/``pair_kv`` where :func:`use_pair_attention` holds, else
+    head-major ``batch_resident``/``kv_resident`` as :func:`trunk_attention`
+    picks them; None beyond KV_RESIDENT_MAX_N (the caller's einsum path)."""
+    n_pad = _n_pad(n)
+    if use_pair_attention(num_heads, head_dim, n):
+        return "pair" if n_pad <= RESIDENT_MAX_N else "pair_kv"
+    if n_pad <= RESIDENT_MAX_N:
+        return "batch_resident"
+    return "kv_resident" if n_pad <= KV_RESIDENT_MAX_N else None
+
+
+@torch.library.custom_op("stego_torch::attention", mutates_args=(),
+                         device_types="cpu")
+def attention_op(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                 num_heads: int, scale: float) -> torch.Tensor:
+    """The trunk's attention as a registered op, ``stego_torch::attention``:
+    token-major (B, N, H*d) q, k, v (any strides with a contiguous last
+    axis, e.g. the column blocks of one qkv) to a new contiguous (B, N, H*d)
+    output in v's dtype, mutating nothing. It is what ``torch.export``
+    traces (``models/vit.py``), since the direct calls read ``data_ptr``.
+    On a CUDA tensor it launches kernel A at :func:`attention_entry`'s entry
+    (counted there, as the direct calls are); on the CPU it is the plain
+    version, the two-pass form of every one of those entries."""
+    _op_entry(q, num_heads)
+    return attention_plain(q, k, v, num_heads, scale)
+
+
+def _op_entry(q: torch.Tensor, num_heads: int) -> str:
+    b, n, hd = q.shape
+    entry = attention_entry(num_heads, hd // num_heads, n)
+    if entry is None:
+        raise ValueError(f"stego_torch::attention: N={n} pads past "
+                         f"KV_RESIDENT_MAX_N={KV_RESIDENT_MAX_N}")
+    return entry
+
+
+@attention_op.register_kernel("cuda")
+def _attention_op_cuda(q, k, v, num_heads, scale):
+    entry = _op_entry(q, num_heads)
+    out = torch.empty(q.shape, dtype=v.dtype, device=v.device)
+    _launch(*(x.unflatten(-1, (num_heads, -1)) for x in (q, k, v, out)),
+            scale, "two_pass", entry)
+    return out
+
+
+@attention_op.register_fake
+def _attention_op_fake(q, k, v, num_heads, scale):
+    return q.new_empty(q.shape, dtype=v.dtype)
 
 
 def _head_major(q, k, v, scale, form, entry, out, use_kernel):

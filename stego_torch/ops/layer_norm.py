@@ -15,6 +15,9 @@ absorbs there); ``tools/attention_layouts.py`` runs it in its chain.
 * :func:`fused_layer_norm` and :func:`add_layer_norm` dispatch by device: a
   CPU tensor goes to the plain version, a CUDA tensor launches
   ``csrc/layer_norm.cu`` or raises.
+* :func:`layer_norm_op`, the op ``stego_torch::layer_norm``, is
+  :func:`fused_layer_norm`'s forward for ``torch.export`` (the serving
+  artifact, ``serve.py``), by the same dispatch.
 
 Both are ``torch.autograd.Function``s whose backward is the plain form of
 the JAX package's custom VJPs (``_ln_bwd`` :186-202, ``_add_ln_bwd``
@@ -147,6 +150,28 @@ def fused_layer_norm(x: torch.Tensor, weight: torch.Tensor,
     """LayerNorm of ``x`` (..., D) with (D,) f32 ``weight``/``bias``. On a
     CUDA tensor ``x`` must be bf16 with D in KERNEL_WIDTHS."""
     return _LayerNorm.apply(x, weight, bias, eps)
+
+
+@torch.library.custom_op("stego_torch::layer_norm", mutates_args=(),
+                         device_types="cpu")
+def layer_norm_op(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor,
+                  eps: float) -> torch.Tensor:
+    """:func:`fused_layer_norm`'s forward as a registered op,
+    ``stego_torch::layer_norm``, for ``torch.export`` (the direct call reads
+    ``data_ptr``): kernel L on a CUDA tensor (bf16 rows of D in
+    KERNEL_WIDTHS, counted in LAUNCHES), the plain version on the CPU. No
+    gradient: the serving artifact runs the frozen trunk."""
+    return layer_norm_plain(x, weight, bias, eps)
+
+
+@layer_norm_op.register_kernel("cuda")
+def _layer_norm_op_cuda(x, weight, bias, eps):
+    return _launch(x, weight, bias, eps)
+
+
+@layer_norm_op.register_fake
+def _layer_norm_op_fake(x, weight, bias, eps):
+    return torch.empty_like(x)
 
 
 def add_layer_norm(x: torch.Tensor, y: torch.Tensor, weight: torch.Tensor,

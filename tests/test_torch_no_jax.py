@@ -5,8 +5,10 @@ through C1's plain version, full-field and grid-sampled through C2's) and
 one val step, a third builds a KNN cache and a feature cache and runs a
 cached train step and a cached val epoch, a fourth runs the train app
 on in-memory datasets (two steps, a validation and a checkpoint, then a
-resumed step), and a fifth evaluates a checkpoint over an in-memory
-dataset with the grid CRF and with the exact CRF, on the CPU."""
+resumed step), a fifth evaluates a checkpoint over an in-memory
+dataset with the grid CRF and with the exact CRF, on the CPU, and a sixth
+loads a serving artifact packaged in the test's own process and predicts
+with it, importing no model, train, eval, data or config module."""
 
 import subprocess
 import sys
@@ -46,6 +48,7 @@ MODULES = [
     "stego_torch.ops.crf_loss", "stego_torch.native",
     "stego_torch.utils.viz", "stego_torch.data.colormaps",
     "stego_torch.train.crf_app", "stego_torch.eval.__main__",
+    "stego_torch.serve",
 ]
 for name in MODULES:
     importlib.import_module(name)
@@ -269,8 +272,26 @@ print("OK", sorted(m for m, mod in sys.modules.items()
 """
 
 
-def run_without_jax(script):
-    proc = subprocess.run([sys.executable, "-c", script], cwd=REPO,
+SERVE_SCRIPT = """
+import sys
+sys.modules["jax"] = None  # any import of jax raises ImportError
+sys.modules["PIL"] = None
+sys.modules["stego_tpu"] = None  # nor anything of the JAX package
+import numpy as np
+from stego_torch.serve import ServingModel
+artifact, images, outputs = sys.argv[1:]
+model = ServingModel.load(artifact, device="cpu")
+np.savez(outputs, **model.predict(np.load(images)))
+model_code = ("stego_torch.models", "stego_torch.train", "stego_torch.eval",
+              "stego_torch.data", "stego_torch.config")
+print("OK", sorted(m for m, mod in sys.modules.items()
+                   if mod is not None and (m.split(".")[0] == "stego_tpu"
+                                           or m.startswith(model_code))))
+"""
+
+
+def run_without_jax(script, *args):
+    proc = subprocess.run([sys.executable, "-c", script, *args], cwd=REPO,
                           capture_output=True, text=True, timeout=300)
     assert proc.returncode == 0, proc.stderr[-3000:]
     return proc
@@ -300,3 +321,36 @@ def test_train_app_runs_and_resumes_without_jax_or_pil():
 def test_eval_with_both_crfs_runs_without_jax_or_pil():
     proc = run_without_jax(EVAL_SCRIPT)
     assert proc.stdout.strip().endswith("OK []"), proc.stdout
+
+
+def test_serving_artifact_loads_and_predicts_without_model_code(tmp_path):
+    """An artifact packaged here (bf16 trunk, kernels A and L through their
+    ops) serves from a fresh process that cannot import jax, PIL or the JAX
+    package, and imports none of the port's model code; its outputs equal
+    the eager serving module's bit for bit."""
+    import numpy as np
+    import torch
+
+    from stego_torch.config import Config
+    from stego_torch.models.vit import ViTConfig
+    from stego_torch.serve import ServeFn, package_from_parts
+    from stego_torch.train.segmenter import UnsupervisedSegmenter
+
+    vit = ViTConfig(patch_size=8, embed_dim=128, depth=2, num_heads=2,
+                    img_size=32)
+    seg = UnsupervisedSegmenter(
+        5, Config(dataset_name="directory", dim=6, res=32), vit_cfg=vit,
+        generator=torch.Generator().manual_seed(0)).eval()
+    seg.net.model.cast_blocks(torch.bfloat16)
+    artifact = package_from_parts(seg, str(tmp_path / "art"), 32, 2)
+    img = np.random.default_rng(0).random((3, 32, 32, 3), dtype=np.float32)
+    np.save(tmp_path / "img.npy", img)
+    proc = run_without_jax(SERVE_SCRIPT, artifact, str(tmp_path / "img.npy"),
+                           str(tmp_path / "out.npz"))
+    assert proc.stdout.strip().endswith("OK []"), proc.stdout
+    got = np.load(tmp_path / "out.npz")
+    with torch.no_grad():
+        want = ServeFn(seg)(torch.from_numpy(img))
+    assert sorted(got.files) == sorted(want)
+    for k, v in want.items():
+        np.testing.assert_array_equal(got[k], v.numpy())
