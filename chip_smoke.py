@@ -130,7 +130,24 @@
    one step held against the plain loss's), then runs the CRF app
    (stego_torch/train/crf_app.py: 20 epochs of train_crf_codes on 4
    scenes), whose loss must be finite and fall.
-14. Runs the attention layout ladder (stego_torch/tools/attention_layouts.py:
+14. Phase ddp (stego_torch/parallel/dist.py): two ranks on this card over
+   gloo, each a child process (chip_smoke.py --ddp-child), at the train
+   footprint (global batch 16, 8 images a rank): 3 steps with local
+   negatives (C1 on each rank; an f32 trunk through A-f32), 3 with global
+   negatives (C2 over the gathered maps' rows) and 2 full-field (C2),
+   each rank's parameters equal bit for bit after every step, and
+   metrics and parameters within the train step's gates of one process on
+   the whole batch with the same draws (local: C2's emulation of the two
+   blocks); the KNN build (nns equal one process's), the app (16 steps
+   straight, and 8, a checkpoint and a resume to 16, equal bit for bit;
+   the validation's matrices equal one process's) and evaluate() (its
+   matrices equal one process's) on the two ranks; exact launches a rank.
+   Then one rank over NCCL (the global case's one-process step through a
+   group of one), and two ranks over NCCL, one a card, where the machine
+   has two. Prints each rank's ms a step, device busy and the
+   collectives' calls and host ms a step: two processes sharing one card,
+   not a scaling number.
+15. Runs the attention layout ladder (stego_torch/tools/attention_layouts.py:
    12 chained pre-LN attention sublayers at B=32, N=785 for ViT-S, ViT-B
    and ViT-T), every rung's core held against its plain version and each
    chain launching exactly its kernels: the path of kernel A's resident,
@@ -2226,7 +2243,8 @@ def compare_steps(ref, make_step, kernel, param_atol=GRAD_ATOL,
 
 
 def stream_loss_f64(f1, f2, c1, c2, shifts, group_sizes, pointwise=True,
-                    zero_clamp=True, stabalize=False, code_bf16=False):
+                    zero_clamp=True, stabalize=False, code_bf16=False,
+                    over_ranks=False):
     """C2's plain version (ops/corr_stream.py:fused_correlation_loss_plain)
     with fd, cd and the row sums in f64, f32 code only: the reference that
     compare_steps holds C2's kernel and its f32 plain version to."""
@@ -2239,7 +2257,7 @@ def stream_loss_f64(f1, f2, c1, c2, shifts, group_sizes, pointwise=True,
     cdc = torch.clamp(cd, *c2mod.clamp_bounds(zero_clamp, stabalize))
     losses, cd_means, _ = c2mod.finalize_rows(
         (cdc * fd).sum(-1), cdc.sum(-1), fd.sum(-1), cd.sum(-1), shifts,
-        group_sizes, pointwise)
+        group_sizes, pointwise, over_ranks)
     return losses.float(), cd_means.float()
 
 
@@ -3480,6 +3498,501 @@ def phase_crf_loss(dev):
     return launches
 
 
+# phase ddp: the train step, the app, the dataset eval and the KNN build on
+# DDP_WORLD processes of this card over gloo (NCCL refuses two ranks on one
+# device), each a child `chip_smoke.py --ddp-child`, held against one
+# process on the whole global batch; and one rank over NCCL
+DDP_WORLD, DDP_SEED, DDP_TIMEOUT = 2, 1000, 600
+# Local negatives run C1 on each rank and their reference C2's emulation of
+# the blocks; from bf16 features those two round the samples to bf16 at
+# other points (gradients 1.7e-4 of their largest apart, a CPU run at res
+# 32), and a first Adam step turns that into sign flips of the near-zero
+# gradients, past the parameter gate. So that case takes an f32 trunk
+# (kernel A-f32, LayerNorm plain), where they agree to 1e-7.
+DDP_CASES = {"local": dict(negatives_scope="local", backbone_dtype="float32",
+                           use_flash_attention=True),  # C1 on each rank
+             "global": {},  # C2 over the gathered maps' rows
+             "full_field": dict(full_field_loss=True)}  # C2, whole maps
+DDP_STEPS = {"local": 3, "global": 3, "full_field": 2}
+# the app's scenes (the first of the train and val splits), steps (a cut
+# and a resume at half), global validation and eval batches
+DDP_TRAIN, DDP_VAL, DDP_APP_STEPS, DDP_VAL_BATCH, DDP_EVAL_BATCH = \
+    64, 24, 16, 8, 4
+
+
+def ddp_batch(dev):
+    """A seeded global batch at the train footprint: the first half's labels
+    (rank 0's rows) 60% ignore pixels, the second half's 10%, so that a
+    per-rank mean of the probe's loss differs from the global one."""
+    g = torch.Generator().manual_seed(11)
+    img = images(g, TRAIN_RES, "cpu", TRAIN_BATCH)
+    out = {"img": img, "img_pos": img + 0.05 * torch.randn(img.shape,
+                                                           generator=g)}
+    for key in ("label", "label_pos"):
+        label = torch.randint(0, 27, (TRAIN_BATCH, TRAIN_RES, TRAIN_RES),
+                              generator=g, dtype=torch.int32)
+        share = torch.tensor([0.6, 0.1]).repeat_interleave(TRAIN_BATCH // 2)
+        label[torch.rand(label.shape, generator=g) < share[:, None, None]] = -1
+        out[key] = label
+    return {k: v.to(dev) for k, v in out.items()}
+
+
+def trainable_flat(seg):
+    return torch.cat([p.detach().reshape(-1).cpu()
+                      for n, p in seg.named_parameters()
+                      if not n.startswith("net.model.")])
+
+
+def ddp_steps(dev, name, batch, reference=False):
+    """DDP_STEPS[name] train steps of a seeded ViT-S/8 segmenter on this
+    process's rows of ``batch``, with the global batch's draws from
+    generators seeded DDP_SEED + step, the main path (counts and collective
+    time from 0). ``reference``: one process on the whole batch, on C2's
+    route (fused_sampling="off"); for local negatives with C2's emulation
+    of DDP_WORLD blocks (corr_stream.py:687-693). Returns each step's
+    metrics, trainable parameters and wall ms, the launches, the
+    collectives' calls and host ms, and, over several processes, the
+    device busy ms of one more step."""
+    from stego_torch.parallel import dist
+    from stego_torch.train.segmenter import (draw_step_randomness,
+                                             make_train_step)
+
+    kw = dict(DDP_CASES[name])
+    if reference and name != "full_field":
+        kw["fused_sampling"] = "off"
+    seg = cocostuff_segmenter(dev, **kw)
+    if reference and name == "local":
+        seg.corr_cfg = dataclasses.replace(seg.corr_cfg, neg_blocks=DDP_WORLD)
+    step = make_train_step(seg, with_hist=False)
+    rows = dist.local_rows(TRAIN_BATCH)
+    local = {k: v[rows] for k, v in batch.items()}
+    gen = torch.Generator(device=dev)
+    out = {"metrics": [], "params": [], "ms": []}
+    torch.cuda.synchronize()
+    reset_counts()
+    calls, secs = dist.CALLS, dist.SECONDS
+    for i in range(DDP_STEPS[name]):
+        gen.manual_seed(DDP_SEED + i)
+        rand = draw_step_randomness(seg, TRAIN_BATCH, gen)
+        t0 = time.perf_counter()
+        m = step(local, rand)
+        torch.cuda.synchronize()
+        out["ms"].append((time.perf_counter() - t0) * 1e3)
+        out["metrics"].append({k: float(v) for k, v in m.items()})
+        out["params"].append(trainable_flat(seg))
+    out["launches"] = path_counts()
+    out["collective_calls"] = dist.CALLS - calls
+    out["collective_ms"] = (dist.SECONDS - secs) * 1e3
+    if dist.initialized():
+        out["busy_ms"] = sum(kernel_times(lambda: step(local, rand))
+                             .values()) / 1e3
+    return out
+
+
+class ImageItems:
+    """Scenes as a dataset of {"img": ...} items, the KNN loader's."""
+
+    def __init__(self, items):
+        self.items = items
+
+    def __len__(self):
+        return len(self.items)
+
+    def __getitem__(self, i):
+        return {"img": self.items[i][0]}
+
+
+def ddp_knn(dev, tmp, items):
+    """build_knn_cache over this process's stripe of the batches of
+    TRAIN_BATCH scenes (train/knn.py:stripe_loader), a seeded bf16 trunk,
+    the main path. Returns nns and the launches."""
+    from stego_torch.train.knn import build_knn_cache, stripe_loader
+
+    net = cocostuff_segmenter(dev).net
+    loader, rows = stripe_loader(ImageItems(items), TRAIN_BATCH)
+    path = os.path.join(tmp, "nns", "nns_ddp.npz")
+    torch.cuda.synchronize()
+    reset_counts()
+    nns = build_knn_cache(path, net, loader, k=KNN_K, rows=rows,
+                          n=len(items))
+    return nns, path_counts()
+
+
+def ddp_app_cfg(tmp):
+    from stego_torch.config import Config
+
+    return Config(dataset_name="cocostuff27", model_type="vit_small",
+                  dino_patch_size=8, projection_type="nonlinear", dim=70,
+                  backbone_dtype="bfloat16", res=TRAIN_RES, val_res=VAL_RES,
+                  batch_size=TRAIN_BATCH, val_batch_size=DDP_VAL_BATCH,
+                  max_steps=DDP_APP_STEPS, val_freq=DDP_APP_STEPS // 2,
+                  checkpoint_freq=DDP_APP_STEPS // 2, scalar_log_freq=4,
+                  hist_freq=0, save_top_k=2, output_root=tmp,
+                  run_crf=False, num_workers=2)
+
+
+def val_confusion(seg, val_step, batches):
+    """The confusion matrices of ``batches`` (host dicts) through
+    ``val_step``, summed over the ranks (merge_stats)."""
+    from stego_torch.utils.metrics import UnsupervisedMetrics
+
+    dev = next(seg.parameters()).device
+    conf = None
+    for b in batches:
+        out = val_step({k: torch.from_numpy(np.asarray(b[k])).to(dev)
+                        for k in ("img", "label")})
+        pair = (out["conf_linear"], out["conf_cluster"])
+        conf = pair if conf is None else (conf[0] + pair[0],
+                                          conf[1] + pair[1])
+    stats = []
+    for c, extra in zip(conf, (0, seg.cfg.extra_clusters)):
+        m = UnsupervisedMetrics("", seg.n_classes, extra, False)
+        m.merge_stats(c)
+        stats.append(m.stats)
+    return stats
+
+
+def ddp_app(dev, tmp, train, val, nns):
+    """The app on this process's share: train() straight to
+    DDP_APP_STEPS (a validation and a checkpoint at half and at the end),
+    the same cut at half and resumed; the trained segmenter's validation
+    matrices over the ranks; evaluate() of its newest .ckpt. Counts from 0
+    before the runs. Returns what phase ddp holds."""
+    from stego_torch.data.contrastive import ContrastiveSegDataset
+    from stego_torch.data.loader import pad_batch
+    from stego_torch.eval.evaluate import Evaluator
+    from stego_torch.train.app import Trainer
+
+    cfg = ddp_app_cfg(tmp)
+    train_ds = ContrastiveSegDataset.from_items(SceneItems(train), 27,
+                                                nns=nns, num_neighbors=7)
+    val_ds = ContrastiveSegDataset.from_items(SceneItems(val), 27)
+
+    def run(c):
+        t = Trainer(c, train_dataset=train_ds, val_dataset=val_ds,
+                    device=dev)
+        t.run()
+        return t
+
+    torch.cuda.synchronize()
+    reset_counts()
+    t0 = time.perf_counter()
+    straight = run(cfg.replace(experiment_name="ddp_straight"))
+    app_s = time.perf_counter() - t0
+    cut = cfg.replace(experiment_name="ddp_cut",
+                      max_steps=DDP_APP_STEPS // 2)
+    run(cut)
+    resumed = run(cut.replace(max_steps=DDP_APP_STEPS, resume=True))
+    val = val_confusion(straight.seg, straight.val_step,
+                        [pad_batch(b, straight.val_bs)
+                         for b in straight.val_loader])
+    launches = path_counts()
+    sd_a, sd_b = straight.seg.state_dict(), resumed.seg.state_dict()
+    gap = max(float((sd_a[k].float() - sd_b[k].float()).abs().max())
+              for k in sd_a)
+    ckpt = straight.mgr.checkpoint_path()
+    reset_counts()
+    ev = Evaluator(cfg.replace(res=VAL_RES, batch_size=DDP_EVAL_BATCH,
+                               experiment_name="ddp_eval"),
+                   ckpt, dev, val_dataset=val_ds)
+    ev.run(save_outputs=True)
+    return {"app_launches": launches, "eval_launches": path_counts(),
+            "resumed_start": resumed.start_step, "resume_gap": gap,
+            "app_s": app_s, "val": val, "ckpt": ckpt,
+            "eval": (ev.linear_metrics.stats, ev.cluster_metrics.stats),
+            "params": trainable_flat(straight.seg)}
+
+
+def ddp_child(args) -> int:
+    """``chip_smoke.py --ddp-child <json>``: one rank of phase ddp. Joins
+    the group (``backend`` on ``device``), runs the step cases ``cases``,
+    and with ``app`` the KNN build, the app and the eval on the scenes of
+    ``data``, in the working directory ``tmp``; writes its results to
+    ``out`` (torch.save) and prints one JSON line. ``reference``: the
+    cases in their one-process configuration (ddp_steps)."""
+    opts = json.loads(args[0])
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    from stego_torch.kernels import build
+    from stego_torch.parallel import dist
+
+    dev = torch.device(opts["device"])
+    build.library()
+    dist.maybe_initialize_distributed(
+        backend=opts["backend"], device=dev, rank=opts["rank"],
+        world_size=opts["world"], timeout_s=DDP_TIMEOUT,
+        init_method=f"tcp://localhost:{opts['port']}")
+    try:
+        batch = ddp_batch(dev)
+        out = {name: ddp_steps(dev, name, batch, opts["reference"])
+               for name in opts["cases"]}
+        if opts["app"]:
+            with np.load(opts["data"]) as f:
+                train = list(zip(f["train_img"], f["train_label"]))
+                val = list(zip(f["val_img"], f["val_label"]))
+            out["nns"], out["knn_launches"] = ddp_knn(dev, opts["tmp"], train)
+            out["app"] = ddp_app(dev, opts["tmp"], train, val, out["nns"])
+        torch.save(out, opts["out"])
+    finally:
+        dist.destroy()
+    print(json.dumps({name: {"ms": out[name]["ms"],
+                             "busy_ms": out[name].get("busy_ms")}
+                      for name in opts["cases"]}))
+    return 0
+
+
+def start_ddp(tmp, tag, backend, devices, cases, app, data=None,
+              reference=False):
+    """Start one ``--ddp-child`` a device of ``devices`` (its rank), over
+    ``backend``, working in ``tmp``; returns the processes and their
+    output and log paths."""
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        port = s.getsockname()[1]
+    procs = []
+    for rank, device in enumerate(devices):
+        out = os.path.join(tmp, f"ddp_{tag}_{rank}.pt")
+        opts = dict(rank=rank, world=len(devices), port=port,
+                    backend=backend, device=device, cases=cases, app=app,
+                    data=data, tmp=tmp, out=out, reference=reference)
+        log = open(os.path.join(tmp, f"ddp_{tag}_{rank}.log"), "w")
+        procs.append((subprocess.Popen(
+            [sys.executable, os.path.abspath(__file__), "--ddp-child",
+             json.dumps(opts)], cwd=tmp, stdout=log,
+            stderr=subprocess.STDOUT, text=True), out, log))
+    return procs
+
+
+def finish_ddp(tag, procs):
+    """Wait for every rank (at most DDP_TIMEOUT s; a rank still running
+    then is killed); a rank that fails fails the phase. Returns each
+    rank's results, or None."""
+    deadline = time.perf_counter() + DDP_TIMEOUT
+    codes = []
+    for p, _, log in procs:
+        try:
+            codes.append(p.wait(timeout=max(1.0, deadline
+                                            - time.perf_counter())))
+        except subprocess.TimeoutExpired:
+            codes.append("timeout")
+    for p, _, log in procs:
+        if p.poll() is None:
+            p.kill()
+            p.wait()
+        log.close()
+    ok = check(codes == [0] * len(procs),
+               f"ddp {tag}: ranks' exit codes {codes}")
+    if not ok:
+        for p, _, log in procs:
+            with open(log.name) as f:
+                print("\n".join(f.read().splitlines()[-40:]))
+        return None
+    return [torch.load(out, weights_only=False) for _, out, _ in procs]
+
+
+def hold_ddp_steps(tag, ranks, refs, names, step_launches):
+    """Each case's ranks against one process: parameters equal bit for
+    bit between the ranks after every step; every rank's metrics and
+    parameters within the train step's gates of the reference's; each
+    rank's launches. Prints ms a step, device busy and the collectives'
+    time, by rank."""
+    for name in names:
+        ref = refs[name]
+        for i in range(DDP_STEPS[name]):
+            check(all(torch.equal(r[name]["params"][i],
+                                  ranks[0][name]["params"][i])
+                      for r in ranks),
+                  f"ddp {tag} {name}: step {i}, the ranks' parameters are "
+                  f"equal bit for bit")
+        for k, r in enumerate(ranks):
+            got, want = r[name], ref
+            bad = [(i, key) for i, (gm, wm) in enumerate(
+                zip(got["metrics"], want["metrics"]))
+                for key in wm
+                if not math.isclose(gm[key], wm[key], rel_tol=LOSS_RTOL,
+                                    abs_tol=LOSS_ATOL)]
+            gap = max(float(((a - b).abs() - GRAD_ATOL
+                             - GRAD_RTOL * b.abs()).max())
+                      for a, b in zip(got["params"], want["params"]))
+            check(not bad and gap <= 0 and got["metrics"][-1].keys()
+                  == want["metrics"][-1].keys(),
+                  f"ddp {tag} {name}, rank {k}: {DDP_STEPS[name]} steps' "
+                  f"metrics within rtol {LOSS_RTOL} atol {LOSS_ATOL} of one "
+                  f"process on the whole batch (off: {bad[:3]}), parameters "
+                  f"within rtol {GRAD_RTOL} atol {GRAD_ATOL} (worst excess "
+                  f"{gap:.3e}); loss/total "
+                  f"{got['metrics'][-1]['loss/total']:.6f} vs "
+                  f"{want['metrics'][-1]['loss/total']:.6f}")
+            check(got["launches"] == step_launches(name),
+                  f"ddp {tag} {name}, rank {k}: launches attention/LN/C1 "
+                  f"fwd/C1 bwd/C2 fwd/C2 bwd "
+                  f"{tuple(got['launches'][c] for c in COUNTS)}")
+            n = DDP_STEPS[name]
+            busy = got.get("busy_ms")
+            print(f"  ddp {tag} {name}, rank {k}: "
+                  f"{statistics.median(got['ms']):.2f} ms a step (wall clock, median of {n}; steps "
+                  + ", ".join(f"{t:.1f}" for t in got["ms"])
+                  + f"), device busy "
+                  + ("not measured" if busy is None else f"{busy:.3f} ms")
+                  + f" a step, collectives {got['collective_calls'] / n:.1f}"
+                  f" calls and {got['collective_ms'] / n:.2f} ms (host "
+                  f"clock; gloo's collective on a CUDA tensor first waits "
+                  f"for the work queued before it) a step; one process on "
+                  f"the whole batch "
+                  f"{statistics.median(ref['ms']):.2f} ms a step")
+
+
+def phase_ddp(dev, tmp, train_items, val_items, smi):
+    """Phase ddp. One process on the whole batch first (the references:
+    each step case, the KNN table, then, after the ranks, the validation
+    and eval matrices of their checkpoint); then DDP_WORLD ranks on this
+    card over gloo: the step cases, the KNN build, the app (straight, cut
+    and resumed) and the eval; then one rank over NCCL (the global case),
+    and DDP_WORLD ranks over NCCL, one a card, where the machine has that
+    many. Returns the launches of each run, summed over its ranks."""
+    from stego_torch.eval.evaluate import Evaluator, load_model_for_eval
+    from stego_torch.train.segmenter import make_val_step
+
+    train, val = train_items[:DDP_TRAIN], val_items[:DDP_VAL]
+    print(f"ddp: {DDP_WORLD} processes on one card ({smi}) over gloo, each "
+          f"rank {TRAIN_BATCH // DDP_WORLD} of a global batch of "
+          f"{TRAIN_BATCH} at res {TRAIN_RES}, ViT-S/8 bf16, cocostuff27 "
+          f"head, 11x11 samples, 5 negatives; two processes sharing one "
+          f"card: their times are not a scaling number")
+    batch = ddp_batch(dev)
+    refs = {name: ddp_steps(dev, name, batch, reference=True)
+            for name in DDP_CASES}
+    ref_nns, _ = ddp_knn(dev, tmp, train)
+    os.remove(os.path.join(tmp, "nns", "nns_ddp.npz"))
+    data = os.path.join(tmp, "ddp_scenes.npz")
+    np.savez(data, train_img=np.stack([i for i, _ in train]),
+             train_label=np.stack([lb for _, lb in train]),
+             val_img=np.stack([i for i, _ in val]),
+             val_label=np.stack([lb for _, lb in val]))
+    del batch
+    torch.cuda.empty_cache()
+
+    def step_launches(name):
+        n = DDP_STEPS[name]
+        if name == "local":  # the f32 trunk: A-f32, LayerNorm plain
+            return launches_of(12 * n, 0, "pair", f32=True,
+                               corr_sampled_fwd=n, corr_sampled_bwd=n)
+        return launches_of(12 * n, 25 * n, "pair", corr_stream_fwd=n,
+                           corr_stream_bwd=n)
+
+    t0 = time.perf_counter()
+    ranks = finish_ddp("gloo", start_ddp(
+        tmp, "gloo", "gloo", [str(dev)] * DDP_WORLD, list(DDP_CASES), True,
+        data))
+    print(f"  ddp gloo: {DDP_WORLD} ranks ran in "
+          f"{time.perf_counter() - t0:.1f} s (each process's start, its "
+          f"CUDA context and imports included)")
+    runs = {}
+    if ranks is not None:
+        hold_ddp_steps("gloo", ranks, refs, DDP_CASES, step_launches)
+        for name in DDP_CASES:
+            runs[name] = add_counts(*(r[name]["launches"] for r in ranks))
+        check(all(np.array_equal(r["nns"], ref_nns) for r in ranks),
+              f"ddp knn: the {DDP_WORLD} ranks' nns {ref_nns.shape} equal "
+              f"one process's, row for row")
+        per_rank = DDP_TRAIN // TRAIN_BATCH // DDP_WORLD
+        for k, r in enumerate(ranks):
+            check(r["knn_launches"] == trunk_launches(per_rank),
+                  f"ddp knn, rank {k}: {per_rank} batches' launches")
+        runs["knn"] = add_counts(*(r["knn_launches"] for r in ranks))
+        apps = [r["app"] for r in ranks]
+        half = DDP_APP_STEPS // 2
+        steps_run = DDP_APP_STEPS + half + half
+        val_batches = DDP_VAL // DDP_VAL_BATCH  # a rank's, each validation
+        want_app = add_counts(
+            launches_of(12 * steps_run, 25 * steps_run, "pair",
+                        corr_stream_fwd=steps_run,
+                        corr_stream_bwd=steps_run),
+            trunk_launches(5 * val_batches, VAL_RES))
+        eval_batches = -(-DDP_VAL // DDP_WORLD // DDP_EVAL_BATCH)
+        want_eval = launches_of(24 * eval_batches, 50 * eval_batches,
+                                "pair_kv")
+        for k, a in enumerate(apps):
+            check(a["resumed_start"] == half and a["resume_gap"] == 0.0,
+                  f"ddp app, rank {k}: {half} steps, a checkpoint and a "
+                  f"resume to {DDP_APP_STEPS} equal {DDP_APP_STEPS} steps "
+                  f"straight (largest state difference {a['resume_gap']:.3e},"
+                  f" resumed at {a['resumed_start']}); the straight run "
+                  f"took {a['app_s']:.1f} s with its validations and "
+                  f"checkpoints")
+            check(a["app_launches"] == want_app,
+                  f"ddp app, rank {k}: launches attention/LN/C1 fwd/C1 "
+                  f"bwd/C2 fwd/C2 bwd "
+                  f"{tuple(a['app_launches'][c] for c in COUNTS)}, at "
+                  f"pair_kv {a['app_launches']['attention_pair_kv']}")
+            check(a["eval_launches"] == want_eval,
+                  f"ddp eval, rank {k}: launches "
+                  f"{tuple(a['eval_launches'][c] for c in COUNTS)}")
+        check(torch.equal(apps[0]["params"],
+                          apps[1]["params"]),
+              "ddp app: the ranks' trained parameters are equal bit for bit")
+        runs["app"] = add_counts(*(a["app_launches"] for a in apps))
+        runs["eval"] = add_counts(*(a["eval_launches"] for a in apps))
+        # one process on the same images: the validation's and the eval's
+        # matrices of the ranks' checkpoint (batches of a rank's size)
+        seg = load_model_for_eval(apps[0]["ckpt"], dev)
+        step = make_val_step(seg)
+        per = DDP_VAL_BATCH // DDP_WORLD
+        want_val = val_confusion(seg, step, [
+            {"img": np.stack([i for i, _ in val[s:s + per]]),
+             "label": np.stack([lb for _, lb in val[s:s + per]])}
+            for s in range(0, len(val), per)])
+        for k, a in enumerate(apps):
+            check(all(np.array_equal(g, w) for g, w in zip(a["val"],
+                                                            want_val)),
+                  f"ddp app, rank {k}: the validation's confusion matrices "
+                  f"({int(want_val[0].sum())} pixels) equal one process's on "
+                  f"the same {len(val)} images")
+        from stego_torch.data.contrastive import ContrastiveSegDataset
+
+        ev = Evaluator(ddp_app_cfg(tmp).replace(
+            res=VAL_RES, batch_size=DDP_EVAL_BATCH // DDP_WORLD,
+            experiment_name="ddp_eval_one"), apps[0]["ckpt"], dev,
+            val_dataset=ContrastiveSegDataset.from_items(SceneItems(val), 27))
+        ev.run(save_outputs=False)
+        for k, a in enumerate(apps):
+            check(np.array_equal(a["eval"][0], ev.linear_metrics.stats)
+                  and np.array_equal(a["eval"][1], ev.cluster_metrics.stats),
+                  f"ddp eval, rank {k}: the confusion matrices equal one "
+                  f"process's evaluate() of the same {len(val)} images")
+        check(os.path.isdir(os.path.join(tmp, "results", "predictions",
+                                         "ddp_eval", "img")),
+              "ddp eval: rank 0 wrote the PNG trees")
+
+    # one rank over NCCL: the global case's one-process step (C2's route)
+    # through a group of one, whose collectives run and change nothing
+    nccl = finish_ddp("nccl", start_ddp(tmp, "nccl", "nccl", ["cuda:0"],
+                                        ["global"], False, reference=True))
+    if nccl is not None:
+        hold_ddp_steps("nccl, 1 rank", nccl, refs, ["global"], step_launches)
+        runs["nccl"] = nccl[0]["global"]["launches"]
+        check(nccl[0]["global"]["collective_calls"] > 0,
+              f"ddp nccl: {nccl[0]['global']['collective_calls']} collective "
+              f"calls went through NCCL")
+    cards = torch.cuda.device_count()
+    if cards >= DDP_WORLD:
+        multi = finish_ddp("nccl_cards", start_ddp(
+            tmp, "nccl_cards", "nccl",
+            [f"cuda:{i}" for i in range(DDP_WORLD)], ["global"], False))
+        if multi is not None:
+            hold_ddp_steps(f"nccl, {DDP_WORLD} cards", multi, refs,
+                           ["global"], step_launches)
+            runs["nccl_cards"] = add_counts(*(r["global"]["launches"]
+                                              for r in multi))
+    print(f"  ddp: ran {DDP_WORLD} ranks on one card over gloo, 1 rank over "
+          f"nccl" + (f", {DDP_WORLD} ranks on {DDP_WORLD} cards over nccl"
+                     if cards >= DDP_WORLD else
+                     f"; {DDP_WORLD} ranks over nccl not run ({cards} card)"))
+    return runs
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; nothing was run", file=sys.stderr)
@@ -3565,6 +4078,8 @@ def main() -> int:
         app, ckpt = phase_app(dev, tmp, train_items, val_items, nns)
         evals = phase_eval(dev, tmp, ckpt, val_items)
     crf_loss = phase_crf_loss(dev)
+    with tempfile.TemporaryDirectory() as tmp:
+        ddp = phase_ddp(dev, tmp, train_items, val_items, smi)
     ladder = phase_layouts(dev)
 
     def per_step(steps, corr, entry="pair", trunk=True):
@@ -3608,13 +4123,14 @@ def main() -> int:
     # launches summed over the paths of each trunk: ViT-S (serving, the
     # serving artifacts, train with the sampled, full-field, grid-sampled
     # and bf16-code losses, val, the KNN, the cache builds, cached train and
-    # val, the app, the dataset eval, the CRF-loss train run), ViT-T
+    # val, the app, the dataset eval, the CRF-loss train run, phase ddp's
+    # ranks), ViT-T
     # (serving, its artifact, train, val), ViT-B (train, sampled and
     # full-field), and the layout ladder
     vit_s = add_counts(serving["vit_small"], train, val, *stream.values(),
                        knn_launches, cache_launches, *cached.values(),
                        cached_val, *wide.values(), app, evals, crf_loss,
-                       artifacts.get("vit_small", {}))
+                       artifacts.get("vit_small", {}), *ddp.values())
     vit_t = add_counts(serving["vit_tiny"], models["vit_tiny"],
                        models["vit_tiny_val"], artifacts.get("vit_tiny", {}))
     vit_b = add_counts(models["vit_base"], models["vit_base_full_field"])
@@ -3686,12 +4202,13 @@ def main() -> int:
           "every kernel A launch is at one entry point")
     # C1's forward by feature type and channels, each launched by its own
     # trunk's paths; the backward reads no features
+    ddp_f32 = ddp.get("local", {}).get("corr_sampled_fwd", 0)
     c1_fwd = {"bf16": vit_s["corr_sampled_fwd"]
               - cached["f32"]["corr_sampled_fwd"]
               - wide["f32_trunk"]["corr_sampled_fwd"]
-              - wide["cc100_s144"]["corr_sampled_fwd"],
+              - wide["cc100_s144"]["corr_sampled_fwd"] - ddp_f32,
               "f32": cached["f32"]["corr_sampled_fwd"]
-              + wide["f32_trunk"]["corr_sampled_fwd"],
+              + wide["f32_trunk"]["corr_sampled_fwd"] + ddp_f32,
               "bf16_192": vit_t["corr_sampled_fwd"],
               "bf16_768": vit_b["corr_sampled_fwd"],
               "bf16_cc100_s144": wide["cc100_s144"]["corr_sampled_fwd"]}
@@ -3723,8 +4240,12 @@ def main() -> int:
     # C2 by the path that runs it, each row measured at that path's shape
     # (phase C2's full-field code_bf16 case runs on no path: printed only)
     for suffix, key, run in (
-            ("", ("full-field", False, False, 384), stream["full_field"]),
-            ("_gather", ("grid-sampled", False, False, 384), stream["gather"]),
+            ("", ("full-field", False, False, 384),
+             add_counts(stream["full_field"], ddp.get("full_field", {}))),
+            # with phase ddp's global negatives: the sampled sets' rows
+            ("_gather", ("grid-sampled", False, False, 384),
+             add_counts(stream["gather"], *(ddp.get(k, {}) for k in (
+                 "global", "app", "nccl", "nccl_cards")))),
             ("_code_bf16", ("grid-sampled", True, False, 384),
              stream["code_bf16"]),
             ("_f32", ("full-field", False, True, 384),
@@ -3770,5 +4291,6 @@ def main() -> int:
 
 
 if __name__ == "__main__":
-    sys.exit(serve_child(sys.argv[2:]) if sys.argv[1:2] == ["--serve-child"]
-             else main())
+    CHILDREN = {"--serve-child": serve_child, "--ddp-child": ddp_child}
+    sys.exit(CHILDREN[sys.argv[1]](sys.argv[2:]) if sys.argv[1:2]
+             and sys.argv[1] in CHILDREN else main())

@@ -166,7 +166,8 @@ class Config:
     # Full-field correspondence loss (HW x HW) instead of sampled coords; the
     # blockwise Pallas kernel makes this tractable (SURVEY.md §5 "long-context").
     full_field_loss: bool = False
-    # Data-parallel mesh size; 0 = all local devices.
+    # Data-parallel processes, one a GPU; 0 = every visible GPU (the JAX
+    # package: the mesh size, 0 = all local devices).
     num_devices: int = 0
     # jax debug toggles (SURVEY.md §5 sanitizers)
     debug_nans: bool = False
@@ -333,21 +334,23 @@ PRESETS: Dict[str, Dict[str, Any]] = {
 }
 
 
-def check_one_process(cfg: Config) -> None:
-    """Raise unless this is one process on one device."""
-    import os
-
-    import torch
-
-    world = int(os.environ.get("WORLD_SIZE", "1"))
-    dist = torch.distributed
-    if dist.is_available() and dist.is_initialized():
-        world = max(world, dist.get_world_size())
-    if world > 1 or cfg.num_devices > 1:
-        raise NotImplementedError(
-            f"running on {max(world, cfg.num_devices)} processes or devices "
-            f"is not ported yet (ROADMAP.md queue 1, Multi-GPU (DDP)); run "
-            f"one process with num_devices=0 or 1")
+def check_batch_split(cfg: Config, world: int) -> None:
+    """The checks of a run on ``world`` processes
+    (``stego_tpu/train/app.py:475-481``, ``ops/math.py:50-56``): the train
+    and validation batches, which are global, split evenly over the
+    processes, and local negatives have at least 2 images a process to
+    draw from."""
+    val_bs = cfg.val_batch_size or cfg.batch_size
+    if cfg.batch_size % world or val_bs % world:
+        raise ValueError(f"batch sizes ({cfg.batch_size}, val {val_bs}) "
+                         f"must be divisible by the {world} processes")
+    if (world > 1 and cfg.negatives_scope == "local"
+            and cfg.correspondence_weight > 0 and cfg.neg_samples > 0
+            and cfg.batch_size // world < 2):
+        raise ValueError(
+            f"negatives_scope=local needs >=2 images per process to draw a "
+            f"negative from; got batch {cfg.batch_size} over {world} "
+            f"processes. Raise batch_size or use negatives_scope=global.")
 
 
 def apply_preset(cfg: Config, name: str) -> Config:

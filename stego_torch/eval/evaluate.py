@@ -8,14 +8,20 @@ Behavioral reference: src/eval_segmentation.py. The grid CRF
 (``ops/crf.py``) runs batched on the card; the exact CRF
 (``ops/crf_exact.py``, ``crf_backend=exact``) runs on the host's threads
 from the step's log-probs. Without the exact CRF the confusion matrices are
-added up on the device and fetched once. ``main`` runs on the first CUDA
-device and exits with an error when there is none; a caller of
-:func:`evaluate` or :class:`Evaluator` asks for the CPU by passing a CPU
-device.
+added up on the device and fetched once. ``main`` runs on the card and
+exits with an error when there is none; a caller of :func:`evaluate` or
+:class:`Evaluator` asks for the CPU by passing a CPU device.
+
+Over several processes (``num_devices``, or ``python -m
+torch.distributed.run``; ``parallel/dist.py``) each rank evaluates its
+stripe of the set, in batches of its share of ``2 * batch_size``, and the
+confusion matrices are summed over the ranks (``evaluate.py:196-230``):
+a tail of fewer than W images is dropped, so W ranks evaluate the first
+W * floor(n / W) images. Rank 0 writes the kept images of its stripe. The
+exact CRF runs on the host of one process and raises there.
 
 Not ported: the PiCIE baseline rows (``run_picie``, ROADMAP.md queue 1,
-Other backbones, plots and apps), which raise, and evaluation over several
-processes or devices (ROADMAP.md queue 1, Multi-GPU (DDP)), which raises.
+Other backbones, plots and apps), which raise.
 The JAX package's wire compaction is a TPU workaround and has no
 counterpart (ROADMAP.md queue 1, Do not port these TPU workarounds).
 """
@@ -30,7 +36,7 @@ from typing import Any, Callable, Dict, List, Optional, Sequence, Union
 import numpy as np
 import torch
 
-from stego_torch.config import Config, check_one_process
+from stego_torch.config import Config
 from stego_torch.data.loader import DataLoader, effective_threads, pad_batch
 from stego_torch.data.transforms import channel_stats, get_transform
 from stego_torch.models.convert import load_stego_checkpoint
@@ -38,6 +44,7 @@ from stego_torch.models.probes import cluster_lookup, linear_probe_logits
 from stego_torch.models.vit import ViTConfig
 from stego_torch.ops.crf import bilateral_kernel, dense_crf
 from stego_torch.ops.interp import interpolate
+from stego_torch.parallel import dist
 from stego_torch.ops.math import l2_normalize
 from stego_torch.ops.probe_ce import upsampled_argmax
 from stego_torch.train.segmenter import UnsupervisedSegmenter
@@ -148,22 +155,28 @@ class Evaluator:
     eval_segmentation.py:57-214).
 
     The constructor loads the ``.ckpt`` onto ``device`` (default
-    ``cuda:0``), builds the val dataset unless one is given (centre crops at
-    ``eval_cfg.res``), the loader (batches of ``2 * batch_size``, as the
-    reference's eval loader) and the step. After each :meth:`run`,
-    ``linear_metrics`` and ``cluster_metrics`` hold its summed confusion
-    matrices (``.stats``) and ``crf_seconds`` the host's seconds of the
-    exact CRF for each batch."""
+    ``cuda:LOCAL_RANK``), builds the val dataset unless one is given (centre
+    crops at ``eval_cfg.res``), the loader (batches of ``2 * batch_size``,
+    as the reference's eval loader, split over the ranks) and the step.
+    After each :meth:`run`, ``linear_metrics`` and ``cluster_metrics`` hold
+    its summed confusion matrices (``.stats``, summed over the ranks) and
+    ``crf_seconds`` the host's seconds of the exact CRF for each batch."""
 
     def __init__(self, eval_cfg: Config, model_path: str,
                  device: Optional[Union[str, torch.device]] = None,
                  vit_cfg: Optional[ViTConfig] = None, val_dataset=None):
         from stego_torch.data.contrastive import ContrastiveSegDataset
 
-        check_one_process(eval_cfg)
+        w = dist.world()
+        if eval_cfg.num_devices > 0 and eval_cfg.num_devices != w:
+            raise ValueError(
+                f"num_devices={eval_cfg.num_devices} asks for "
+                f"{eval_cfg.num_devices} processes and this is one of {w}: "
+                f"start them with python -m stego_torch.eval (or python -m "
+                f"torch.distributed.run), or set num_devices=0")
         self.cfg = eval_cfg
         self.model_path = model_path
-        self.device = torch.device("cuda", 0) if device is None \
+        self.device = dist.device() if device is None \
             else torch.device(device)
         self.seg = load_model_for_eval(model_path, self.device,
                                        vit_cfg=vit_cfg)
@@ -182,11 +195,18 @@ class Evaluator:
                 target_transform=get_transform(eval_cfg.res, True, "center"),
                 cfg=model_cfg,
             )
-        self.batch_size = eval_cfg.batch_size * 2  # reference eval loader (:88)
+        # the reference eval loader's batch (:88), a rank's share of it
+        self.batch_size = max(1, eval_cfg.batch_size * 2 // w)
         self.loader = DataLoader(
             val_dataset, self.batch_size, shuffle=False, drop_last=False,
+            num_shards=w, shard_index=dist.rank(),
             num_threads=effective_threads(eval_cfg.num_workers))
         self.exact_crf = eval_cfg.run_crf and eval_cfg.crf_backend == "exact"
+        if self.exact_crf and w > 1:
+            raise ValueError(
+                "crf_backend=exact runs on the host of one process and cannot "
+                "merge metrics across processes; use crf_backend=grid for "
+                "an evaluation over several processes")
         if eval_cfg.run_crf and eval_cfg.crf_backend not in ("grid", "exact"):
             raise ValueError(f"crf_backend must be grid or exact, got "
                              f"{eval_cfg.crf_backend!r}")
@@ -264,10 +284,12 @@ class Evaluator:
             self.cluster_metrics.merge_stats(conf_sums[1])
         metrics = {**self.linear_metrics.compute(),
                    **self.cluster_metrics.compute()}
-        print(self.model_path)
-        print(metrics)
-        if save_outputs and saved["img"]:
-            self._save_outputs(saved)
+        if dist.is_primary():
+            print(self.model_path)
+            print(metrics)
+            if save_outputs and saved["img"]:
+                self._save_outputs(saved)
+        dist.barrier()
         return metrics
 
     def _save_outputs(self, saved: Dict[str, list]) -> None:
@@ -315,7 +337,8 @@ def evaluate(eval_cfg: Config, model_path: str,
              save_outputs: bool = True,
              max_batches: Optional[int] = None) -> Dict[str, float]:
     """Evaluate one checkpoint; returns the ``final/`` metrics
-    (``evaluate.py:172-359``). ``device`` defaults to ``cuda:0``."""
+    (``evaluate.py:172-359``). ``device`` defaults to ``cuda:LOCAL_RANK``.
+    Every process of a group calls it."""
     return Evaluator(eval_cfg, model_path, device, vit_cfg,
                      val_dataset).run(save_outputs, max_batches)
 
@@ -338,6 +361,14 @@ def main(argv: Optional[Sequence[str]] = None):
     if not torch.cuda.is_available():
         raise SystemExit("stego_torch.eval runs on a CUDA device and found "
                          "none; nothing was evaluated")
+    from stego_torch.kernels import build
+
+    dist.launch(_evaluate_all, cfg.num_devices, cfg, paths,
+                prepare=build.build)
+
+
+def _evaluate_all(cfg: Config, paths: Sequence[str]) -> None:
+    """One process's part of ``main``."""
     for p in paths:
         evaluate(cfg, p)
 

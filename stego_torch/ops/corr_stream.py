@@ -50,7 +50,7 @@ from __future__ import annotations
 
 import ctypes
 import math
-from typing import Dict, Sequence, Tuple
+from typing import Dict, Optional, Sequence, Tuple
 
 import torch
 
@@ -60,6 +60,7 @@ from stego_torch.ops.correlation import (NEG_INF_MIN, CorrLossCfg,
 from stego_torch.ops.math import l2_normalize, tensor_correlation
 from stego_torch.ops.sampling import (bilinear_sample_weights,
                                       sample_from_coords)
+from stego_torch.parallel import dist
 
 # What the CUDA kernel is built for (csrc/corr_stream.cu): feature channels
 # up to ViT-B's 768, bf16 or f32; any number of code channels (in chunks of
@@ -97,14 +98,18 @@ def device_ints(values: Sequence[int], device: torch.device) -> torch.Tensor:
 
 
 def finalize(s1: torch.Tensor, s2: torch.Tensor, s3: torch.Tensor,
-             cds: torch.Tensor, shifts: Sequence[float], pointwise: bool
+             cds: torch.Tensor, shifts: Sequence[float], pointwise: bool,
+             over_ranks: bool = False
              ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Per-group losses from the row sums (``pallas_corr.py:167-193``).
 
     s1, s2, s3, cds: (G, Bg, n) row sums of each group's Bg pairs of n
     samples. Returns (losses (G,), cd_means (G,), fd means gm (G,)); the
     loss of group g is the mean over its Bg * n * n elements of
-    -clamp(cd) * (fd' - shift), fd' = fd - rowmean + gm when pointwise."""
+    -clamp(cd) * (fd' - shift), fd' = fd - rowmean + gm when pointwise.
+    ``over_ranks``: each rank holds Bg rows of every group and gm is the
+    mean over every rank's rows (one all_reduce; fd carries no gradient),
+    so that the ranks' mean of the losses is the global batch's loss."""
     n = s1.shape[-1]
     m = s1.shape[1] * n * n
     shift = device_vector(shifts, s1.device)
@@ -113,6 +118,8 @@ def finalize(s1: torch.Tensor, s2: torch.Tensor, s3: torch.Tensor,
     parts = [s1, s2, s3, cds] + ([s3 * s2 / n] if pointwise else [])
     sums = torch.stack(parts).sum(dim=(2, 3)) / m
     big_s1, big_s2, gm, cd_means = sums[:4]
+    if pointwise and over_ranks:
+        gm = dist.all_reduce_(gm.detach().clone()) / dist.world()
     if pointwise:
         loss = sums[4] - big_s1 - (gm - shift) * big_s2
     else:
@@ -122,7 +129,8 @@ def finalize(s1: torch.Tensor, s2: torch.Tensor, s3: torch.Tensor,
 
 def finalize_rows(s1: torch.Tensor, s2: torch.Tensor, s3: torch.Tensor,
                   cds: torch.Tensor, shifts: Sequence[float],
-                  group_sizes: Sequence[int], pointwise: bool
+                  group_sizes: Sequence[int], pointwise: bool,
+                  over_ranks: bool = False
                   ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """:func:`finalize` of (R, n) row sums whose rows are consecutive groups
     of ``group_sizes`` pairs (``pallas_corr.py:_finalize``, :167-193)."""
@@ -132,12 +140,12 @@ def finalize_rows(s1: torch.Tensor, s2: torch.Tensor, s3: torch.Tensor,
     if len(set(group_sizes)) == 1:
         g, n = len(group_sizes), s1.shape[-1]
         return finalize(*(t.reshape(g, -1, n) for t in (s1, s2, s3, cds)),
-                        shifts, pointwise)
+                        shifts, pointwise, over_ranks)
     parts, start = [], 0
     for size, shift in zip(group_sizes, shifts):
         parts.append(finalize(*(t[None, start:start + size]
                                 for t in (s1, s2, s3, cds)), [shift],
-                              pointwise))
+                              pointwise, over_ranks))
         start += size
     return tuple(torch.cat(x) for x in zip(*parts))
 
@@ -179,11 +187,13 @@ def fused_correlation_loss_plain(
     zero_clamp: bool = True,
     stabalize: bool = False,
     code_bf16: bool = False,
+    over_ranks: bool = False,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """C2's plain version on normalized (R, N, C) pair rows, side 1 and
     side 2 of every pair row, the rows in consecutive groups of
-    ``group_sizes``. Returns (losses (G,), cd_means (G,)), differentiable in
-    the code rows."""
+    ``group_sizes`` (``over_ranks``: this rank's rows of each group,
+    :func:`finalize`). Returns (losses (G,), cd_means (G,)), differentiable
+    in the code rows."""
     fd = torch.bmm(f1.detach().float(), f2.detach().float().transpose(1, 2))
     if code_bf16:
         cd = _Bf16CodeDot.apply(c1.float(), c2.float())
@@ -192,7 +202,7 @@ def fused_correlation_loss_plain(
     cdc = torch.clamp(cd, *clamp_bounds(zero_clamp, stabalize))
     losses, cd_means, _ = finalize_rows((cdc * fd).sum(-1), cdc.sum(-1),
                                         fd.sum(-1), cd.sum(-1), shifts,
-                                        group_sizes, pointwise)
+                                        group_sizes, pointwise, over_ranks)
     return losses, cd_means
 
 
@@ -200,24 +210,28 @@ def stream_loss(feats: torch.Tensor, code: torch.Tensor, idx1: torch.Tensor,
                 idx2: torch.Tensor, shifts: Sequence[float],
                 group_sizes: Sequence[int], pointwise: bool = True,
                 zero_clamp: bool = True, stabalize: bool = False,
-                code_bf16: bool = False, use_kernel: bool = True
+                code_bf16: bool = False, use_kernel: bool = True,
+                over_ranks: bool = False
                 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Losses and cd means of the pair rows (idx1[r], idx2[r]) over the
     normalized maps ``feats`` (M, N, CF) and ``code`` (M, N, CC): kernel C2
     for CUDA tensors (``use_kernel=False`` takes the plain version there
     too), the plain version for CPU tensors. The kernel's forward keeps fd
     and the clamp mask for the backward only when a gradient can be taken
-    (not under ``torch.no_grad()``, as in the val steps)."""
+    (not under ``torch.no_grad()``, as in the val steps). ``over_ranks``:
+    the rows are this rank's of each group (:func:`finalize`)."""
     if code.device.type == "cpu" or not use_kernel:
         return fused_correlation_loss_plain(
             feats[idx1], feats[idx2], code[idx1], code[idx2], shifts,
-            group_sizes, pointwise, zero_clamp, stabalize, code_bf16)
+            group_sizes, pointwise, zero_clamp, stabalize, code_bf16,
+            over_ranks)
     keep = torch.is_grad_enabled() and code.requires_grad
     return _StreamCorr.apply(code, feats.detach(), idx1, idx2,
                              tuple(float(s) for s in shifts),
                              tuple(int(g) for g in group_sizes),
                              bool(pointwise), bool(zero_clamp),
-                             bool(stabalize), bool(code_bf16), keep)
+                             bool(stabalize), bool(code_bf16), keep,
+                             bool(over_ranks))
 
 
 def _split(sizes: Sequence[int], shifts: Sequence[float], split_groups: int):
@@ -255,6 +269,7 @@ def fused_correlation_loss_multi(
     code_bf16: bool = False,
     split_groups: int = 1,
     use_kernel: bool = True,
+    over_ranks: bool = False,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """All pair types in one launch of each of C2's entries.
 
@@ -270,8 +285,10 @@ def fused_correlation_loss_multi(
     (``pallas_loss_bf16``). ``split_groups``: every pair type cut into that
     many equal groups, each with its own pointwise fd mean, and their losses
     averaged (``negatives_scope=local``). ``use_kernel=False`` takes the
-    plain version on a CUDA tensor. Returns (losses, cd_means), one a pair
-    type (``pallas_corr.py:364-461``)."""
+    plain version on a CUDA tensor. ``over_ranks``: the pairs are this
+    rank's rows of each pair type, and each type's pointwise fd mean is
+    taken over every rank's (:func:`finalize`). Returns (losses, cd_means),
+    one a pair type (``pallas_corr.py:364-461``)."""
     sizes = [p[0].shape[0] for p in pairs]
     group_sizes, shifts = _split(sizes, shifts, split_groups)
     dev = pairs[0][2].device
@@ -315,7 +332,7 @@ def fused_correlation_loss_multi(
     losses, cd_means = stream_loss(
         torch.cat(feats), torch.cat(code), torch.cat(idx1), torch.cat(idx2),
         shifts, group_sizes, pointwise, zero_clamp, stabalize, code_bf16,
-        use_kernel)
+        use_kernel, over_ranks)
     return _merge(losses, cd_means, split_groups)
 
 
@@ -535,7 +552,8 @@ class _StreamCorr(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, code, feats, idx1, idx2, shifts, group_sizes,
-                pointwise, zero_clamp, stabalize, code_bf16, keep):
+                pointwise, zero_clamp, stabalize, code_bf16, keep,
+                over_ranks):
         dev = code.device
         if feats.dtype not in (torch.bfloat16, torch.float32):
             raise ValueError(
@@ -568,7 +586,7 @@ class _StreamCorr(torch.autograd.Function):
         FWD_LAUNCHES += 1
         losses, cd_means, gm = finalize_rows(acc[:, 0], acc[:, 1], acc[:, 2],
                                              acc[:, 3], shifts, group_sizes,
-                                             pointwise)
+                                             pointwise, over_ranks)
         ctx.save_for_backward(code, fd, i1, i2, acc, gm, mask)
         ctx.static = (shifts, group_sizes, pointwise, code_bf16)
         return losses, cd_means
@@ -579,7 +597,7 @@ class _StreamCorr(torch.autograd.Function):
                                 ctx.static, g_losses, g_cdms)
         global BWD_LAUNCHES
         BWD_LAUNCHES += 1
-        return (dcode,) + (None,) * 10
+        return (dcode,) + (None,) * 11
 
 
 def backward_launch(lib, saved: Sequence[torch.Tensor], static: tuple,
@@ -621,26 +639,32 @@ def backward_launch(lib, saved: Sequence[torch.Tensor], static: tuple,
 
 
 def _full_field(cfg: CorrLossCfg, orig_feats, orig_feats_pos, orig_code,
-                orig_code_pos, perms, feat_dtype, code_bf16, use_kernel):
+                orig_code_pos, perms, feat_dtype, code_bf16, use_kernel,
+                rows: Optional[slice]):
     """The dense loss over every (pixel, pixel) pair (:538-565): each
     distinct map normalized once; the pair rows are the self pair, the
     KNN-positive pair and one group per negative, whose side 2 is read as
-    ``code[perm_k(b)]`` by index."""
-    b = orig_feats.shape[0]
+    ``code[perm_k(b)]`` by index; for the images ``rows`` of the global
+    batch of ``orig_feats`` when given
+    (:func:`contrastive_correlation_loss_fused`)."""
     fp = prep(orig_feats, feat_dtype).detach()
     fpp = prep(orig_feats_pos, feat_dtype).detach()
     cp, cpp = prep(orig_code), prep(orig_code_pos)
     dev = cp.device
-    ar = torch.arange(b, device=dev)
-    idx1 = ar.repeat(2 + len(perms))
-    idx2 = torch.cat([ar, ar + b] + [p.to(dev).long() for p in perms])
+    over_ranks = rows is not None
+    rows = rows or slice(0, fp.shape[0])
+    own = torch.arange(rows.start, rows.stop, device=dev)
+    b = own.shape[0]
+    idx1 = own.repeat(2 + len(perms))
+    idx2 = torch.cat([own, own - rows.start + fp.shape[0]]
+                     + [p.to(dev).long()[rows] for p in perms])
     group_sizes, shifts = _split([b] * (2 + len(perms)), cfg.shifts,
                                  cfg.neg_blocks)
     losses, cd_means = stream_loss(torch.cat([fp, fpp]),
                                    torch.cat([cp, cpp]), idx1, idx2, shifts,
                                    group_sizes, cfg.pointwise,
                                    cfg.zero_clamp, cfg.stabalize, code_bf16,
-                                   use_kernel)
+                                   use_kernel, over_ranks)
     return _merge(losses, cd_means, cfg.neg_blocks)
 
 
@@ -659,6 +683,7 @@ def contrastive_correlation_loss_fused(
     code_bf16: bool = False,
     sampling_impl: str = "fused",
     use_kernel: bool = True,
+    rows: Optional[slice] = None,
 ) -> Dict[str, torch.Tensor]:
     """Three-pair loss (``pallas_corr.py:contrastive_correlation_loss_fused``,
     :485-704): scalar losses and cd means of the self pair, the KNN-positive
@@ -671,7 +696,17 @@ def contrastive_correlation_loss_fused(
     ``return_cd_tensors`` (sampled modes) the cd entries are instead the cd
     tensors of the sampled code, for the histograms. ``use_kernel=False``
     calls the kernels' plain versions even on a CUDA tensor, which is how
-    the train step is held against them on the card."""
+    the train step is held against them on the card.
+
+    ``rows`` (global negatives over several processes; C2's routes only):
+    ``orig_feats`` and ``orig_code`` hold the global batch, gathered over
+    the ranks (``parallel/dist.py:gather_rows``), the permutations index
+    it, and this rank's images are its ``rows``, whose positives
+    (``orig_feats_pos``, ``orig_code_pos``) and coordinates the other
+    arguments hold. The loss's pair rows are this rank's, each pair type's
+    pointwise fd mean is the global batch's (one all_reduce), and the
+    returned losses are this rank's share: their mean over the ranks is the
+    one-process loss of the global batch."""
     if cfg.use_salience:
         raise salience_not_ported()
     if len(perms) != cfg.neg_samples:
@@ -679,11 +714,19 @@ def contrastive_correlation_loss_fused(
                          f"{cfg.neg_samples}")
     has_neg = cfg.neg_samples > 0
     code = code_pos = code_neg = None
+    over_ranks = rows is not None
     if full_field:
         losses, cd_means = _full_field(cfg, orig_feats, orig_feats_pos,
                                        orig_code, orig_code_pos, perms,
-                                       feat_dtype, code_bf16, use_kernel)
+                                       feat_dtype, code_bf16, use_kernel,
+                                       rows)
     elif sampling_impl == "fused":
+        if over_ranks:
+            raise ValueError(
+                "kernel C1 (sampling_impl='fused') reads its negatives "
+                "inside one process's batch: global negatives over several "
+                "processes take the streamed path (sampling_impl='gather'), "
+                "local ones (negatives_scope=local) C1 on each rank")
         if cfg.neg_blocks > 1:
             raise ValueError(
                 "neg_blocks>1 (negatives_scope=local) needs one process per "
@@ -721,7 +764,8 @@ def contrastive_correlation_loss_fused(
         # same values as F.grid_sample, but a backward without atomics, so
         # the step's gradient is the same from run to run (a first Adam
         # step turns run-to-run noise on a near-zero gradient into +-lr)
-        b, h, w = orig_feats.shape[:3]
+        h, w = orig_feats.shape[1:3]
+        b = coords1.shape[0]
         grid_hw = coords1.shape[2], coords1.shape[1]  # transposed grid
         w1, w2 = (bilinear_sample_weights((h, w), c.transpose(1, 2))
                   for c in (coords1, coords2))
@@ -730,15 +774,17 @@ def contrastive_correlation_loss_fused(
             out = torch.bmm(wm, t.reshape(t.shape[0], h * w, -1).float())
             return out.reshape(t.shape[0], *grid_hw, t.shape[-1])
 
-        feats = sample(w1, orig_feats)
-        code = sample(w1, orig_code)
+        rows = rows or slice(0, orig_feats.shape[0])
+        feats = sample(w1, orig_feats[rows])
+        code = sample(w1, orig_code[rows])
         feats_pos = sample(w2, orig_feats_pos)
         code_pos = sample(w2, orig_code_pos)
         pairs = [(feats, feats, code, code), (feats, feats_pos, code,
                                               code_pos)]
         if has_neg:
-            feats_neg = torch.cat([sample(w2, orig_feats[p]) for p in perms])
-            code_neg = torch.cat([sample(w2, orig_code[p]) for p in perms])
+            negs = [p.to(orig_feats.device).long()[rows] for p in perms]
+            feats_neg = torch.cat([sample(w2, orig_feats[p]) for p in negs])
+            code_neg = torch.cat([sample(w2, orig_code[p]) for p in negs])
             pairs += [(feats, feats_neg[k * b:(k + 1) * b], code,
                        code_neg[k * b:(k + 1) * b])
                       for k in range(len(perms))]
@@ -746,7 +792,8 @@ def contrastive_correlation_loss_fused(
             pairs, cfg.shifts, pointwise=cfg.pointwise,
             zero_clamp=cfg.zero_clamp, stabalize=cfg.stabalize,
             feat_dtype=feat_dtype, code_bf16=code_bf16,
-            split_groups=cfg.neg_blocks, use_kernel=use_kernel)
+            split_groups=cfg.neg_blocks, use_kernel=use_kernel,
+            over_ranks=over_ranks)
     else:
         raise ValueError(f"sampling_impl must be 'fused' or 'gather', got "
                          f"{sampling_impl!r}")

@@ -18,6 +18,8 @@ from typing import Optional, Sequence
 import torch
 import torch.nn.functional as F
 
+from stego_torch.parallel import dist
+
 
 @functools.lru_cache(maxsize=64)
 def bilinear_matrix(out_size: int, in_size: int,
@@ -52,7 +54,9 @@ def upsampled_masked_cross_entropy(logits: torch.Tensor,
     ``compute_dtype`` (default the logits') is the dtype of the upsampled
     (B, C, H, W) field: the train step passes bf16 for a bf16 trunk and f32
     otherwise (``segmenter.py:386-389``). The softmax sums are f32.
-    Returns a scalar f32 loss."""
+    Returns a scalar f32 loss. Over several processes it is this rank's
+    share of the global batch's loss, whose denominator is the global count
+    of valid pixels (``parallel/dist.py:masked_mean``)."""
     dt = compute_dtype or logits.dtype
     out_hw = (int(labels.shape[1]), int(labels.shape[2]))
     up = logits.to(dt).permute(0, 3, 1, 2)                  # (B, C, h, w)
@@ -69,7 +73,7 @@ def upsampled_masked_cross_entropy(logits: torch.Tensor,
     picked = (up * onehot).float().sum(1)
     mask = (labels >= 0) & (labels < n_classes)
     nll = torch.where(mask, lse - picked, torch.zeros((), device=lse.device))
-    return nll.sum() / torch.clamp_min(mask.sum(), 1)
+    return dist.masked_mean(nll.sum(), mask.sum())
 
 
 def upsampled_argmax(logits: torch.Tensor,

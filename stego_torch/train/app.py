@@ -16,10 +16,20 @@ by ``(cfg.seed, absolute step)``, the counterpart of the JAX package's
 ``fold_in(k_steps, step)``: a resumed run draws what an uninterrupted one
 draws, and the loader's ``fast_forward`` gives it the same batches.
 
+Several processes (``parallel/dist.py``): one a GPU, started by ``python -m
+torch.distributed.run`` or, for ``num_devices`` > 1, by :func:`main`
+itself. ``batch_size`` and ``val_batch_size`` are global, as in the JAX
+package (``stego_tpu/train/app.py:472-497``): each rank's loaders take
+``batch_size // W`` items of their stripe of every epoch's permutation (a
+tail of fewer than W items is dropped), every rank draws the global
+batch's randomness and takes its part, the validation's confusion matrices
+are summed over the ranks, rank 0 writes the logs, figures and
+checkpoints, every rank restores on resume, and a SIGTERM on any rank
+makes every rank checkpoint after the same step.
+
 Not ported: ``steps_per_dispatch > 1`` (a workaround for the TPU's dispatch
-latency; ROADMAP.md queue 1, Do not port these TPU workarounds), several
-processes or devices (ROADMAP.md queue 1, Multi-GPU (DDP)), both raise.
-Each validation writes its figures (panel, confusion matrix, class
+latency; ROADMAP.md queue 1, Do not port these TPU workarounds), which
+raises. Each validation writes its figures (panel, confusion matrix, class
 frequencies) beside ``metrics.jsonl``, or, without matplotlib, prints one
 line for each figure it could not write. ``checkify`` and ``debug_nans``
 (XLA's sanitizers in the JAX package) check that every step's metrics are
@@ -38,18 +48,20 @@ from typing import Any, Dict, Iterator, List, Mapping, Optional
 import numpy as np
 import torch
 
-from stego_torch.config import Config, check_one_process
+from stego_torch.config import Config, check_batch_split
 from stego_torch.data.contrastive import ContrastiveSegDataset
 from stego_torch.data.datasets import get_class_labels
 from stego_torch.data.loader import (DataLoader, effective_threads,
                                      infinite_batches, pad_batch)
 from stego_torch.data.transforms import get_transform
 from stego_torch.models.vit import ViTConfig
+from stego_torch.parallel import dist
 from stego_torch.train.checkpoint import CheckpointManager
 from stego_torch.train.segmenter import (UnsupervisedSegmenter,
                                          draw_step_randomness,
                                          make_train_step, make_val_step)
-from stego_torch.utils.logging import AsyncMetricWriter, MetricLogger
+from stego_torch.utils.logging import (AsyncMetricWriter, MetricLogger,
+                                       NullLogger)
 from stego_torch.utils.metrics import UnsupervisedMetrics
 
 def load_dino_weights(path: str, in_chans: int = 3
@@ -238,10 +250,14 @@ def run_validation(seg: UnsupervisedSegmenter, val_step, val_loader,
     train_segmentation.py:254-283): each batch's confusion matrices are
     added up on the device and fetched once, then Hungarian-matched on the
     host. A short final batch is padded with ignored labels (or indices).
-    With a feature cache (``val_cache``), the batches are index batches;
+    Over several processes every rank runs its stripe of the split and the
+    matrices are summed over the ranks (``merge_stats``); ``batch_size``
+    is a rank's. With a feature cache (``val_cache``), the batches are
+    index batches;
     ``val_epoch`` then runs the whole epoch in one call. ``figure_prefix``
     also writes the validation figures (:func:`save_validation_figures`)
-    of the first batch; an index batch's images come from ``val_base``."""
+    of the first batch, on rank 0; an index batch's images come from
+    ``val_base``."""
     linear_metrics = UnsupervisedMetrics("test/linear/", seg.n_classes, 0,
                                          False)
     cluster_metrics = UnsupervisedMetrics(
@@ -276,7 +292,7 @@ def run_validation(seg: UnsupervisedSegmenter, val_step, val_loader,
         linear_metrics.merge_stats(conf[0])
         cluster_metrics.merge_stats(conf[1])
     metrics = {**linear_metrics.compute(), **cluster_metrics.compute()}
-    if panel is not None:
+    if panel is not None and dist.is_primary():
         save_validation_figures(seg, figure_prefix, panel, cluster_metrics)
     return metrics
 
@@ -303,7 +319,8 @@ class Trainer:
     """One training run of ``cfg`` (:func:`train` is ``Trainer(...).run()``).
 
     The constructor builds the datasets (unless given), the segmenter on
-    ``device`` (default ``cuda:0``; the tests pass the CPU), its backbone,
+    ``device`` (default ``cuda:LOCAL_RANK``; the tests pass the CPU), its
+    backbone,
     the feature caches in the cached mode (``cache_backbone_feats``), the
     steps, the loaders and the checkpoint manager. :meth:`run` trains to
     ``cfg.max_steps`` and returns the last validation's metrics; ``seg``
@@ -311,19 +328,28 @@ class Trainer:
     ``copy_seconds`` and ``val_seconds`` record the loop's host times: the
     clock at each step's start, the seconds each step waited for its batch
     and took to copy it to the device (a copy from pageable memory returns
-    when it is done), and each validation epoch's seconds."""
+    when it is done), and each validation epoch's seconds. It runs on the
+    process group this process is in (every rank constructs and runs one);
+    ``num_devices`` > 0 must be that group's size."""
 
     def __init__(self, cfg: Config, vit_cfg: Optional[ViTConfig] = None,
                  train_dataset=None, val_dataset=None,
                  device: Optional[torch.device] = None):
-        check_one_process(cfg)
+        self.world, self.rank = dist.world(), dist.rank()
+        if cfg.num_devices > 0 and cfg.num_devices != self.world:
+            raise ValueError(
+                f"num_devices={cfg.num_devices} asks for {cfg.num_devices} "
+                f"processes and this is one of {self.world}: start them with "
+                f"python -m stego_torch.train (or python -m "
+                f"torch.distributed.run), or set num_devices=0")
+        check_batch_split(cfg, self.world)
         if cfg.steps_per_dispatch > 1:
             raise NotImplementedError(
                 "steps_per_dispatch > 1 is not ported: it is the TPU's "
                 "workaround for its dispatch latency (ROADMAP.md queue 1, Do "
                 "not port these TPU workarounds)")
         self.cfg = cfg
-        self.device = torch.device("cuda", 0) if device is None \
+        self.device = dist.device() if device is None \
             else torch.device(device)
         self.log_dir = join(cfg.output_root, "logs",
                             f"{cfg.dataset_name}_{cfg.experiment_name}")
@@ -390,13 +416,18 @@ class Trainer:
             if cfg.aug_alignment_weight > 0 and not cfg.device_augs:
                 self.step_keys += ["img_aug", "coord_aug"]
 
-        self.val_bs = cfg.val_batch_size or cfg.batch_size
+        # each rank's loaders: its stripe of every epoch, in batches of its
+        # share of the global batch
+        self.val_bs = (cfg.val_batch_size or cfg.batch_size) // self.world
         nthreads = effective_threads(cfg.num_workers)
-        self.train_loader = DataLoader(train_items, cfg.batch_size,
-                                       shuffle=True, seed=cfg.seed,
-                                       num_threads=nthreads)
-        self.val_loader = DataLoader(val_items, self.val_bs, shuffle=False,
-                                     drop_last=False, num_threads=nthreads)
+        self.train_loader = DataLoader(
+            train_items, cfg.batch_size // self.world, shuffle=True,
+            seed=cfg.seed, num_shards=self.world, shard_index=self.rank,
+            num_threads=nthreads)
+        self.val_loader = DataLoader(
+            val_items, self.val_bs, shuffle=False, drop_last=False,
+            num_shards=self.world, shard_index=self.rank,
+            num_threads=nthreads)
         self.mgr = CheckpointManager(self.ckpt_dir, cfg,
                                      save_top_k=cfg.save_top_k)
         self.start_step = 0
@@ -407,7 +438,7 @@ class Trainer:
 
     def validate(self, step: int) -> Dict[str, float]:
         """A validation epoch after ``step`` steps, with its figures
-        (``val_<step>_*.png`` in the log directory)."""
+        (``val_<step>_*.png`` in the log directory, by rank 0)."""
         t0 = time.perf_counter()
         out = run_validation(self.seg, self.val_step, self.val_loader,
                              self.val_bs, self.device,
@@ -462,7 +493,8 @@ class Trainer:
             prev_handlers[signal.SIGTERM] = signal.signal(signal.SIGTERM,
                                                           _request_stop)
 
-        logger = AsyncMetricWriter(MetricLogger(self.log_dir))
+        logger = (AsyncMetricWriter(MetricLogger(self.log_dir))
+                  if self.rank == 0 else NullLogger())
         gen = torch.Generator(device=self.device)
         check_finite = cfg.checkify or cfg.debug_nans
         metrics_out: Dict[str, float] = {}
@@ -472,7 +504,7 @@ class Trainer:
         try:
             for step_idx in range(self.start_step, cfg.max_steps):
                 # profiler trace of steps 10-20 when profile_dir is set
-                if cfg.profile_dir and step_idx == 10:
+                if cfg.profile_dir and step_idx == 10 and self.rank == 0:
                     profiler = _start_profiler(self.device)
                 if profiler is not None and step_idx == 20:
                     _stop_profiler(profiler, cfg.profile_dir)
@@ -516,12 +548,12 @@ class Trainer:
                 if done % cfg.checkpoint_freq == 0 or done == cfg.max_steps:
                     mgr.save(done, seg, metrics=metrics_out)
 
-                if stop_signal:
+                if self._stop(stop_signal):
                     # lands whatever its top-k rank
                     mgr.save_preemption(done, seg, metrics=metrics_out)
                     print(f"exiting after step {done} on signal "
-                          f"{stop_signal[0]} (resume=true continues from "
-                          f"here)")
+                          f"{stop_signal[0] if stop_signal else 'of a rank'}"
+                          f" (resume=true continues from here)")
                     break
         finally:
             if profiler is not None:
@@ -530,6 +562,17 @@ class Trainer:
                 signal.signal(s, h)
             logger.close()
         return metrics_out
+
+
+    def _stop(self, stop_signal: list) -> bool:
+        """Whether a signal asked this run to stop after this step: on any
+        rank, so that every rank checkpoints after the same step (one
+        all_reduce a step over several processes)."""
+        if self.world == 1 or not self.cfg.graceful_shutdown:
+            return bool(stop_signal)
+        flag = torch.tensor([len(stop_signal)], dtype=torch.int32,
+                            device=self.device)
+        return bool(dist.all_reduce_(flag, op="max").item())
 
 
 def _start_profiler(device: torch.device):
@@ -552,7 +595,8 @@ def train(cfg: Config, vit_cfg: Optional[ViTConfig] = None,
           device: Optional[torch.device] = None) -> Dict[str, float]:
     """Train to ``cfg.max_steps`` and return the last validation's metrics.
     ``vit_cfg`` and the datasets can be injected (tests, in-memory data);
-    ``device`` defaults to ``cuda:0``."""
+    ``device`` defaults to ``cuda:LOCAL_RANK``. Every process of a group
+    calls it."""
     return Trainer(cfg, vit_cfg, train_dataset, val_dataset, device).run()
 
 
@@ -566,7 +610,10 @@ def main(argv=None):
     if not torch.cuda.is_available():
         raise SystemExit("stego_torch.train runs on a CUDA device and found "
                          "none; nothing was trained")
-    train(cfg)
+    from stego_torch.kernels import build
+
+    # the kernels' library is built once, before the ranks start
+    dist.launch(train, cfg.num_devices, cfg, prepare=build.build)
 
 
 if __name__ == "__main__":

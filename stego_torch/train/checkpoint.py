@@ -27,7 +27,9 @@ step without the metric ranks lowest). A preemption checkpoint
 :meth:`CheckpointManager.restore` prefers it when it is newer than every
 kept step. Each step is written into a temporary directory and renamed, so
 a reader never sees half of one. Saves are synchronous: the train state is
-small, and the files are written from host copies.
+small, and the files are written from host copies. Over several processes
+rank 0 writes (the ranks' states are equal bit for bit) and every rank
+waits for it after each save; every rank restores.
 """
 
 from __future__ import annotations
@@ -41,6 +43,7 @@ import torch
 
 from stego_torch.config import Config
 from stego_torch.models.convert import save_stego_checkpoint
+from stego_torch.parallel import dist
 
 METRIC_KEY = "test/cluster/mIoU"
 BACKBONE_PREFIX = "net.model."
@@ -75,11 +78,14 @@ def _optimizer_state(opt: torch.optim.Optimizer) -> Dict:
 class CheckpointManager:
     def __init__(self, directory: str, cfg: Config, save_top_k: int = 2):
         self.directory = os.path.abspath(directory)
-        os.makedirs(self.directory, exist_ok=True)
         self.cfg = cfg
         self.save_top_k = max(1, save_top_k)
-        with open(os.path.join(self.directory, "config.json"), "w") as f:
-            f.write(cfg.to_json())
+        self.primary = dist.is_primary()
+        if self.primary:
+            os.makedirs(self.directory, exist_ok=True)
+            with open(os.path.join(self.directory, "config.json"), "w") as f:
+                f.write(cfg.to_json())
+        dist.barrier()
         self._backbone: Optional[Dict[str, torch.Tensor]] = None
 
     # -- the backbone --------------------------------------------------
@@ -91,10 +97,11 @@ class CheckpointManager:
         """Keep the frozen ViT's state dict (its source precision) for the
         ``.ckpt`` files, and write it once per run directory."""
         self._backbone = _host(backbone_sd)
-        if not os.path.exists(self._backbone_path):
+        if self.primary and not os.path.exists(self._backbone_path):
             tmp = self._backbone_path + ".tmp"
             torch.save(self._backbone, tmp)
             os.replace(tmp, self._backbone_path)
+        dist.barrier()
 
     def restore_backbone(self) -> Dict[str, torch.Tensor]:
         return torch.load(self._backbone_path, map_location="cpu",
@@ -143,13 +150,15 @@ class CheckpointManager:
              metrics: Optional[Mapping[str, float]] = None) -> None:
         """Save ``seg``'s train state as ``step``, then keep only the
         ``save_top_k`` best steps."""
-        self._write(self._step_dir(step), step, seg, metrics)
-        steps = self.all_steps()
-        keep = set(top_k_steps({s: self._metrics(s) for s in steps},
-                               self.save_top_k))
-        for s in steps:
-            if s not in keep:
-                shutil.rmtree(self._step_dir(s))
+        if self.primary:
+            self._write(self._step_dir(step), step, seg, metrics)
+            steps = self.all_steps()
+            keep = set(top_k_steps({s: self._metrics(s) for s in steps},
+                                   self.save_top_k))
+            for s in steps:
+                if s not in keep:
+                    shutil.rmtree(self._step_dir(s))
+        dist.barrier()
 
     def save_preemption(self, step: int, seg,
                         metrics: Optional[Mapping[str, float]] = None
@@ -158,16 +167,17 @@ class CheckpointManager:
         metric: ``preempt/`` (replacing an earlier one) and
         ``preempt_step.json``. Nothing is written when a kept step already
         is ``step``."""
-        if step in self.all_steps():
-            return
-        self._write(os.path.join(self.directory, "preempt"), step, seg,
-                    metrics)
-        tmp = os.path.join(self.directory, "preempt_step.json.tmp")
-        with open(tmp, "w") as f:
-            json.dump({"step": int(step),
-                       "metrics": {k: float(v)
-                                   for k, v in (metrics or {}).items()}}, f)
-        os.replace(tmp, os.path.join(self.directory, "preempt_step.json"))
+        if self.primary and step not in self.all_steps():
+            self._write(os.path.join(self.directory, "preempt"), step, seg,
+                        metrics)
+            tmp = os.path.join(self.directory, "preempt_step.json.tmp")
+            with open(tmp, "w") as f:
+                json.dump({"step": int(step),
+                           "metrics": {k: float(v) for k, v
+                                       in (metrics or {}).items()}}, f)
+            os.replace(tmp, os.path.join(self.directory,
+                                         "preempt_step.json"))
+        dist.barrier()
 
     def _preempt_step(self) -> Optional[int]:
         p = os.path.join(self.directory, "preempt_step.json")

@@ -13,10 +13,13 @@ probes and Adam only.
 The steps are the image steps' (``_update_from_feats`` is shared), so a
 cached step equals the image step on the same images. The cache refuses
 configurations whose losses need per-step images (aug alignment, CRF loss)
-or whose decoding is random (random loader crops). Not ported: the cache
-sharded over several GPUs (``feat_cache_sharded``, ROADMAP.md queue 1,
-Multi-GPU (DDP)) and the salience masks (``use_salience``, Training
-branches that raise today); both raise.
+or whose decoding is random (random loader crops). Over several processes
+each rank runs the trunk over its block of the split; the blocks are then
+gathered, so that every rank holds the whole cache, or, with
+``feat_cache_sharded``, each rank keeps its block and the steps read rows
+through ``parallel/dist.py:row_take`` (capacity grows with the ranks). Not
+ported: the salience masks (``use_salience``, ROADMAP.md queue 1, Training
+branches that raise today), which raise.
 """
 
 from __future__ import annotations
@@ -28,6 +31,7 @@ import torch
 
 from stego_torch.config import Config
 from stego_torch.ops.correlation import salience_not_ported
+from stego_torch.parallel import dist
 
 
 def validate_feat_cache_cfg(cfg: Config) -> None:
@@ -52,14 +56,6 @@ def validate_feat_cache_cfg(cfg: Config) -> None:
         raise ValueError(
             "cache_backbone_feats is incompatible with crf_weight>0: the CRF "
             "loss consumes per-step images")
-
-
-def check_not_sharded(cfg: Config) -> None:
-    """Raise for ``feat_cache_sharded``, which the port does not have yet."""
-    if cfg.feat_cache_sharded:
-        raise NotImplementedError(
-            "feat_cache_sharded=true: a feature cache sharded over several "
-            "GPUs is not ported yet (ROADMAP.md queue 1, Multi-GPU (DDP))")
 
 
 def estimate_cache_gb(cfg: Config, seg, n_items: int,
@@ -93,41 +89,54 @@ def build_feat_cache(seg, contrastive_ds, cfg: Config,
     with copies of its last image, so that every chunk has one shape
     (``feat_cache.py:123-128``), and the padding's rows are dropped.
     ``res`` and ``with_mask`` override the train split's defaults: the
-    validation cache is built at ``cfg.val_res`` and needs no masks."""
+    validation cache is built at ``cfg.val_res`` and needs no masks.
+
+    Over W processes rank k builds rows [k M, (k + 1) M), M = ceil(N / W),
+    and the ranks gather them; with ``feat_cache_sharded`` rank k keeps
+    only its block, zero rows past N (``feat_cache.py:94-140``)."""
     validate_feat_cache_cfg(cfg)
-    check_not_sharded(cfg)
     want_mask = cfg.use_salience if with_mask is None else with_mask
     if want_mask:
         raise salience_not_ported()
     base = contrastive_ds.dataset
     n = len(base)
+    w = dist.world()
     est = estimate_cache_gb(cfg, seg, n, res=res, with_mask=want_mask)
-    if est > cfg.feat_cache_max_gb:
+    per_device = est / w if cfg.feat_cache_sharded else est
+    if per_device > cfg.feat_cache_max_gb:
         raise ValueError(
-            f"feature cache for {n} items would need ~{est:.1f} GiB per "
-            f"device (> feat_cache_max_gb={cfg.feat_cache_max_gb}); raise the "
-            f"cap if device memory allows, or train without "
+            f"feature cache for {n} items would need ~{per_device:.1f} GiB "
+            f"per device (> feat_cache_max_gb={cfg.feat_cache_max_gb}); "
+            f"raise the cap if device memory allows, or train without "
             f"cache_backbone_feats")
 
     device = next(seg.parameters()).device
-    dtype = seg.net.backbone_dtype
+    img0, label0 = base[0][:2]  # the shapes, for a rank with no rows
+    p = seg.vit_cfg.patch_size
+    rows = -(-n // w)
+    first = dist.rank() * rows
+    feats = torch.zeros((rows, img0.shape[0] // p, img0.shape[1] // p,
+                         seg.net.n_feats), dtype=seg.net.backbone_dtype,
+                        device=device)
+    labels = torch.zeros((rows,) + np.shape(label0), dtype=torch.int16,
+                         device=device)
     b = batch_size or cfg.batch_size
-    feats = None
-    labels = []
-    for start in range(0, n, b):
-        items = [base[i] for i in range(start, min(start + b, n))]
+    for start in range(first, min(first + rows, n), b):
+        items = [base[i] for i in range(start, min(start + b, first + rows,
+                                                   n))]
         imgs = np.stack([it[0] for it in items]).astype(np.float32)
-        labels.append(np.stack([it[1] for it in items]).astype(np.int16))
+        done = slice(start - first, start - first + len(items))
+        labels[done] = torch.from_numpy(
+            np.stack([it[1] for it in items]).astype(np.int16))
         pad = b - len(items)
         if pad:  # one shape for every chunk
             imgs = np.concatenate([imgs, np.repeat(imgs[-1:], pad, axis=0)])
         f = seg.net.backbone_features(torch.from_numpy(imgs).to(device))
-        if feats is None:
-            feats = torch.empty((n,) + tuple(f.shape[1:]), dtype=dtype,
-                                device=device)
-        feats[start:start + len(items)] = f[:len(items)]
-    return {"feats": feats,
-            "label": torch.from_numpy(np.concatenate(labels)).to(device)}
+        feats[done] = f[:len(items)]
+    if cfg.feat_cache_sharded:
+        return {"feats": feats, "label": labels}
+    return {"feats": dist.gather_rows(feats)[:n],
+            "label": dist.gather_rows(labels)[:n]}
 
 
 class FeatCacheSampler:

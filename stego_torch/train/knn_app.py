@@ -6,8 +6,10 @@ Behavioral reference: src/precompute_knns.py. For each (crop_type, split,
 dataset) every image is embedded with the frozen trunk at res 224, the
 top-``knn_k`` cosine neighbour table is built and saved as the compressed
 ``.npz`` cache (``train/knn.py:build_knn_cache``). Caches that exist are
-skipped. ``main`` runs on the first CUDA device and exits with an error
-when there is none; a caller of :func:`precompute_knns` can pass the CPU.
+skipped. ``main`` runs on the card and exits with an error when there is
+none; a caller of :func:`precompute_knns` can pass the CPU. Several
+processes (``num_devices``, or ``python -m torch.distributed.run``) split
+the embedding, as the training app does (``parallel/dist.py:launch``).
 """
 
 from __future__ import annotations
@@ -20,10 +22,13 @@ import torch
 from stego_torch.config import Config
 from stego_torch.data.contrastive import (ContrastiveSegDataset,
                                           dataset_nice_name)
-from stego_torch.data.loader import DataLoader, effective_threads
+from stego_torch.data.loader import effective_threads
 from stego_torch.data.transforms import get_transform
+from stego_torch.kernels import build
 from stego_torch.models.vit import ViTConfig
-from stego_torch.train.knn import build_knn_cache, knn_cache_file
+from stego_torch.parallel import dist
+from stego_torch.train.knn import (build_knn_cache, knn_cache_file,
+                                   stripe_loader)
 
 KNN_RES = 224  # reference precompute_knns.py:47
 EMBED_BATCH = 256  # reference loader batch (:82)
@@ -41,13 +46,14 @@ def precompute_knns(
 ) -> List[str]:
     """Write the missing KNN caches; returns the files written. The trunk
     is the segmenter's (``cfg.pretrained_weights``, or its seeded random
-    init), on ``device`` (default ``cuda:0``)."""
+    init), on ``device`` (default ``cuda:LOCAL_RANK``). Every process of a
+    group calls it; each embeds its stripe of every split."""
     from stego_torch.train.app import build_backbone
     from stego_torch.train.segmenter import UnsupervisedSegmenter
 
     if dataset_names is None:
         dataset_names = [cfg.dataset_name]
-    device = torch.device("cuda", 0) if device is None else device
+    device = dist.device() if device is None else device
     net = None
     written = []
     for crop_type in crop_types:
@@ -79,12 +85,12 @@ def precompute_knns(
                     net = seg.net.to(device).eval()
                     if net.backbone_dtype == torch.bfloat16:
                         net.model.cast_blocks(torch.bfloat16)
-                loader = DataLoader(
-                    dataset, min(batch_size, len(dataset)), shuffle=False,
-                    drop_last=False,
-                    num_threads=effective_threads(cfg.num_workers))
+                loader, rows = stripe_loader(
+                    dataset, min(batch_size, len(dataset)),
+                    effective_threads(cfg.num_workers))
                 build_knn_cache(cache, net, loader,
-                                k=min(cfg.knn_k, len(dataset)))
+                                k=min(cfg.knn_k, len(dataset)), rows=rows,
+                                n=len(dataset))
                 written.append(cache)
                 print("Saved NNs", cfg.model_type, nice, image_set)
     return written
@@ -100,6 +106,11 @@ def main(argv=None):
     if not torch.cuda.is_available():
         raise SystemExit("stego_torch.train.knn_app runs on a CUDA device "
                          "and found none; nothing was written")
+    dist.launch(_precompute, cfg.num_devices, cfg, prepare=build.build)
+
+
+def _precompute(cfg: Config) -> None:
+    """One process's part of ``main``."""
     if cfg.dataset_name == "directory":
         precompute_knns(cfg, crop_types=[None])
     else:

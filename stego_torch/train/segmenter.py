@@ -25,6 +25,20 @@ step on the image and the l2-normalised code, both resized to 56; the
 cached step has no images and raises for it, as the JAX package's feature
 cache does.
 
+Over W processes (``parallel/dist.py``) every rank builds the segmenter
+from one seed and takes rank 0's weights; each step's batch is the rank's
+``batch // W`` images of the global batch and its draws are the global
+batch's, of which the step takes the rank's part (:func:`local_draws`).
+Global negatives (``negatives_scope="global"``) gather every rank's
+feature and code maps and run the streamed kernel C2 on the rank's pair
+rows, with each group's pointwise fd mean over the global batch; local
+ones run each rank's own loss (kernel C1) with its own derangements. The
+masked means take the global count of valid pixels, the gradients are
+averaged over the ranks before the Adams, and the metrics and histograms
+that a step returns are the global batch's: the ranks' weights stay equal
+bit for bit, and a W-rank step computes the one-process step of the
+global batch.
+
 Not ported yet (ROADMAP.md queue 1, Training branches that raise today):
 the aug-alignment loss (``aug_alignment_weight > 0``, needs
 ``ops/augment.py``) and the salience-biased draw (``use_salience``); nor is
@@ -56,7 +70,7 @@ from stego_torch.ops.math import (block_local_super_perm, l2_normalize,
                                   one_hot_feats)
 from stego_torch.ops.probe_ce import (upsampled_argmax,
                                       upsampled_masked_cross_entropy)
-from stego_torch.train.feat_cache import check_not_sharded
+from stego_torch.parallel import dist
 from stego_torch.utils.metrics import update_conf_matrix
 
 PROBE_LR = 5e-3  # linear and cluster probes (train_segmentation.py:379-381)
@@ -67,13 +81,15 @@ CRF_RES = 56  # the CRF loss's image and code size (segmenter.py:365-373)
 def masked_cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
                          n_classes: int) -> torch.Tensor:
     """Pixel CE of (..., C) logits over ``0 <= label < n_classes``
-    (reference train_segmentation.py:210-218)."""
+    (reference train_segmentation.py:210-218); over several processes,
+    this rank's share of the global batch's mean
+    (``parallel/dist.py:masked_mean``)."""
     mask = (labels >= 0) & (labels < n_classes)
     safe = torch.clamp(labels, 0, n_classes - 1).long()
     logp = torch.log_softmax(logits, dim=-1)
     nll = -torch.gather(logp, -1, safe[..., None])[..., 0]
     nll = torch.where(mask, nll, torch.zeros((), device=nll.device))
-    return nll.sum() / torch.clamp_min(mask.sum(), 1)
+    return dist.masked_mean(nll.sum(), mask.sum())
 
 
 class UnsupervisedSegmenter(nn.Module):
@@ -83,7 +99,8 @@ class UnsupervisedSegmenter(nn.Module):
     ``use_corr_kernel = False`` makes the loss call the plain version of its
     kernel (C1 or C2) even on a CUDA tensor (as ``net.model.use_kernels``
     does for the trunk's kernels), to hold the step against it on the
-    card."""
+    card. ``world`` and ``rank`` are the process group's (1 and 0 for one
+    process); every rank takes rank 0's weights at construction."""
 
     def __init__(self, n_classes: int, cfg: Config,
                  vit_cfg: Optional[ViTConfig] = None,
@@ -117,11 +134,17 @@ class UnsupervisedSegmenter(nn.Module):
                                                  generator)
         self.decoder = nn.Conv2d(self.dim, self.net.n_feats, 1)
         init_conv1x1(self.decoder, generator)
-        self.corr_cfg = CorrLossCfg.from_config(cfg)
+        self.world, self.rank = dist.world(), dist.rank()
+        # local negatives: one derangement per rank's block of the global
+        # batch (segmenter.py:105-113)
+        self.corr_cfg = CorrLossCfg.from_config(
+            cfg, neg_blocks=self.world if cfg.negatives_scope == "local"
+            else 1)
         self.crf_cfg = CRFLossCfg.from_config(cfg)
         self.step = 0
         self.use_corr_kernel = True
         self._opts: Optional[Dict[str, torch.optim.Adam]] = None
+        dist.broadcast_module(self)
 
     def make_optimizers(self) -> Dict[str, torch.optim.Adam]:
         """Fresh Adams (reference configure_optimizers,
@@ -160,18 +183,21 @@ def resolve_corr_sampling(seg: UnsupervisedSegmenter) -> str:
     """The correlation loss's sampler (``segmenter.py:240-272``): "fused"
     (kernel C1) needs the fused loss, sampled (not full-field) mode, a
     correspondence loss and no ``pallas_loss_bf16``; "auto" takes it
-    whenever those hold, on any device of the port (one device, so the
-    mesh condition always holds). Otherwise "gather": bilinear sampling,
-    then the streamed kernel C2. Full-field mode samples nothing."""
+    whenever those hold, on any device of the port, and, over several
+    processes, with local negatives (C1 reads its negatives inside a rank's
+    batch). Otherwise "gather": bilinear sampling, then the streamed kernel
+    C2. Full-field mode samples nothing."""
     cfg = seg.cfg
     fused_ok = (cfg.use_pallas_loss and not cfg.full_field_loss
                 and cfg.correspondence_weight > 0
-                and not cfg.pallas_loss_bf16)
+                and not cfg.pallas_loss_bf16
+                and (seg.world == 1 or cfg.negatives_scope == "local"))
     if cfg.fused_sampling == "on":
         if not fused_ok:
             raise ValueError(
                 "fused_sampling='on' needs use_pallas_loss, sampled (not "
-                "full_field) correspondence loss and no pallas_loss_bf16")
+                "full_field) correspondence loss, no pallas_loss_bf16, and "
+                "negatives_scope='local' over several processes")
         return "fused"
     if cfg.fused_sampling == "auto" and fused_ok:
         return "fused"
@@ -195,6 +221,9 @@ def draw_step_randomness(seg: UnsupervisedSegmenter, batch_size: int,
       columns of its 56 x 56 maps (int64), when ``crf_weight > 0``.
 
     The positive image's entries exist when the correspondence loss is on.
+    ``batch_size`` is the global batch's: over several processes every rank
+    draws the same values from the same seed, and the step takes its part
+    (:func:`local_draws`).
     """
     cfg = seg.cfg
     dev = generator.device
@@ -230,6 +259,26 @@ def draw_step_randomness(seg: UnsupervisedSegmenter, batch_size: int,
     return out
 
 
+PER_IMAGE_DRAWS = ("head1_keep1", "head1_keep2", "head2_keep1", "head2_keep2",
+                   "feat1_keep", "feat2_keep", "coords1", "coords2")
+
+
+def local_draws(seg: UnsupervisedSegmenter, rand: Dict[str, Any],
+                rows: slice) -> Dict[str, Any]:
+    """This rank's part of a step's draws (the global batch's): its
+    ``rows`` of the keep-masks and coordinates; under local negatives its
+    block of each permutation, as indices into its own images. Global
+    negatives keep the whole permutations, which index the gathered batch,
+    and the CRF loss's rows and columns are every image's."""
+    if seg.world == 1:
+        return rand
+    out = {k: (v[rows] if k in PER_IMAGE_DRAWS else v)
+           for k, v in rand.items()}
+    if "perms" in rand and seg.cfg.negatives_scope == "local":
+        out["perms"] = [p[rows] - rows.start for p in rand["perms"]]
+    return out
+
+
 def _cd_histogram(cd: torch.Tensor) -> torch.Tensor:
     """64 counts of cd over [-1, 1] (``segmenter.py:226-236``): values are
     clipped, so exact +-1 cosines land in the edge bins."""
@@ -241,9 +290,27 @@ def _cd_histogram(cd: torch.Tensor) -> torch.Tensor:
 def _corr_pair_losses(seg, signal, signal_pos, code, code_pos, rand,
                       with_hist: bool, sampling_impl: str):
     """The weighted correlation loss and its metrics
-    (``segmenter.py:180-237``)."""
+    (``segmenter.py:180-237``); this rank's share of them over several
+    processes."""
     cfg = seg.cfg
-    args = (seg.corr_cfg, signal, signal_pos, code, code_pos,
+    corr_cfg, rows = seg.corr_cfg, None
+    if seg.world > 1:
+        if cfg.negatives_scope == "local":
+            # each rank's own loss, one derangement block inside it
+            corr_cfg = dataclasses.replace(corr_cfg, neg_blocks=1)
+        elif cfg.use_pallas_loss or cfg.full_field_loss:
+            # the global batch's maps, for the negatives; the code's
+            # gradient from every rank's loss returns to its rank
+            rows = dist.local_rows(code.shape[0] * seg.world)
+            signal = dist.gather_rows(signal.detach())
+            code = dist.gather_rows(code)
+        else:
+            raise ValueError(
+                "use_pallas_loss=false (the einsum reference loss) takes "
+                "global negatives on one process only; over several "
+                "processes use the streamed loss (use_pallas_loss=true) or "
+                "negatives_scope=local")
+    args = (corr_cfg, signal, signal_pos, code, code_pos,
             rand["coords1"], rand["coords2"], rand["perms"])
     if cfg.use_pallas_loss or cfg.full_field_loss:
         out = contrastive_correlation_loss_fused(
@@ -252,7 +319,7 @@ def _corr_pair_losses(seg, signal, signal_pos, code, code_pos, rand,
             feat_dtype=(torch.bfloat16 if cfg.backbone_dtype == "bfloat16"
                         else torch.float32),
             code_bf16=cfg.pallas_loss_bf16, sampling_impl=sampling_impl,
-            use_kernel=seg.use_corr_kernel)
+            use_kernel=seg.use_corr_kernel, rows=rows)
     else:
         out = contrastive_correlation_loss(*args)
     corr_loss = (cfg.pos_inter_weight * out["pos_inter_loss"]
@@ -299,6 +366,8 @@ def _update_from_feats(seg: UnsupervisedSegmenter, with_hist: bool,
     use_pos = cfg.correspondence_weight > 0
     drop_signal = net.use_dropout
     metrics: Dict[str, torch.Tensor] = {}
+    b = image_feat.shape[0]
+    rand = local_draws(seg, rand, slice(seg.rank * b, (seg.rank + 1) * b))
 
     code = net.head_code(image_feat, rand.get("head1_keep1"),
                          rand.get("head1_keep2"))
@@ -362,16 +431,22 @@ def _update_from_feats(seg: UnsupervisedSegmenter, with_hist: bool,
     for opt in opts.values():
         opt.zero_grad(set_to_none=True)
     loss.backward()
-    for opt in opts.values():
+    params = [p for opt in opts.values() for group in opt.param_groups
+              for p in group["params"]]
+    for p in params:
         # a parameter the loss does not reach steps with a zero gradient,
-        # as under optax (its moments decay and its step count advances)
-        for group in opt.param_groups:
-            for p in group["params"]:
-                if p.grad is None:
-                    p.grad = torch.zeros_like(p)
+        # as under optax (its moments decay and its step count advances);
+        # on every rank, before the ranks' gradients are averaged
+        if p.grad is None:
+            p.grad = torch.zeros_like(p)
+    scalars = dist.average_grads(params, {
+        k: v.detach() for k, v in metrics.items()
+        if not k.startswith("hist/")})
+    for opt in opts.values():
         opt.step()
     seg.step += 1
-    return {k: v.detach() for k, v in metrics.items()}
+    return {**scalars, **{k: dist.all_reduce_(v) for k, v in metrics.items()
+                          if k.startswith("hist/")}}
 
 
 def make_train_step(seg: UnsupervisedSegmenter, with_hist: bool = True):
@@ -412,6 +487,17 @@ def _index(ind: Any, device: torch.device) -> torch.Tensor:
     return torch.as_tensor(ind).to(device=device, dtype=torch.long)
 
 
+def cache_rows(seg: UnsupervisedSegmenter, t: torch.Tensor,
+               ind: torch.Tensor) -> torch.Tensor:
+    """Rows ``ind`` of a feature-cache tensor: ``index_select`` of the
+    whole table on every rank (negative indices read row 0), or, with
+    ``feat_cache_sharded``, ``parallel/dist.py:row_take`` of the rank's
+    block (negative indices read zeros)."""
+    if seg.cfg.feat_cache_sharded:
+        return dist.row_take(t, ind)
+    return t.index_select(0, torch.clamp_min(ind, 0))
+
+
 def make_cached_train_step(seg: UnsupervisedSegmenter,
                            with_hist: bool = True):
     """The train step over a feature cache (``segmenter.py:526-588``):
@@ -423,14 +509,14 @@ def make_cached_train_step(seg: UnsupervisedSegmenter,
     positives, when the correspondence loss is on; both as
     :class:`~stego_torch.train.feat_cache.FeatCacheSampler` draws them).
     ``rand``: :func:`draw_step_randomness`'s draws. The step gathers the
-    features (as f32) and labels by index and goes through the image step's
-    ``_update_from_feats``, so on the same images and draws it is the image
-    step. ``steps_per_dispatch > 1`` (``make_cached_multi_step``) is the
-    TPU's workaround for its dispatch latency (ROADMAP.md queue 1, Do not
-    port these TPU workarounds) and raises."""
+    features (as f32) and labels by index (:func:`cache_rows`) and goes
+    through the image step's ``_update_from_feats``, so on the same images
+    and draws it is the image step. ``steps_per_dispatch > 1``
+    (``make_cached_multi_step``) is the TPU's workaround for its dispatch
+    latency (ROADMAP.md queue 1, Do not port these TPU workarounds) and
+    raises."""
     cfg = seg.cfg
     _check_ported(cfg)
-    check_not_sharded(cfg)
     if cfg.crf_weight > 0:
         raise ValueError(
             "crf_weight > 0 needs each step's images, which the feature "
@@ -448,15 +534,16 @@ def make_cached_train_step(seg: UnsupervisedSegmenter,
     def train_step(cache: Dict[str, torch.Tensor],
                    batch: Dict[str, Any],
                    rand: Dict[str, Any]) -> Dict[str, torch.Tensor]:
-        feats, labels = cache["feats"], cache["label"]
-        ind = _index(batch["ind"], feats.device)
-        image_feat = feats.index_select(0, ind).float()
-        sub = {"label": labels.index_select(0, ind).to(torch.int32)}
+        dev = cache["feats"].device
+        ind = _index(batch["ind"], dev)
+        image_feat = cache_rows(seg, cache["feats"], ind).float()
+        sub = {"label": cache_rows(seg, cache["label"], ind).to(torch.int32)}
         image_feat_pos = None
         if use_pos:
-            ind_pos = _index(batch["ind_pos"], feats.device)
-            image_feat_pos = feats.index_select(0, ind_pos).float()
-            sub["label_pos"] = labels.index_select(0, ind_pos).to(torch.int32)
+            ind_pos = _index(batch["ind_pos"], dev)
+            image_feat_pos = cache_rows(seg, cache["feats"], ind_pos).float()
+            sub["label_pos"] = cache_rows(seg, cache["label"],
+                                          ind_pos).to(torch.int32)
         return _update_from_feats(seg, with_hist, image_feat, image_feat_pos,
                                   sub, rand, sampling_impl)
 
@@ -497,14 +584,12 @@ def make_cached_val_step(seg: UnsupervisedSegmenter):
     @torch.no_grad()
     def val_step(cache: Dict[str, torch.Tensor],
                  batch: Dict[str, Any]) -> Dict[str, torch.Tensor]:
-        feats = cache["feats"]
-        ind = _index(batch["ind"], feats.device)
-        safe = torch.clamp_min(ind, 0)
-        label = cache["label"].index_select(0, safe).to(torch.int32)
+        ind = _index(batch["ind"], cache["feats"].device)
+        label = cache_rows(seg, cache["label"], ind).to(torch.int32)
         label = torch.where((ind >= 0)[:, None, None], label,
                             torch.full((), -1, dtype=label.dtype,
                                        device=label.device))
-        code = seg.net.head_code(feats.index_select(0, safe).float())
+        code = seg.net.head_code(cache_rows(seg, cache["feats"], ind).float())
         return _val_outputs(seg, code, label)
 
     return val_step

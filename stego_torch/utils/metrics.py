@@ -3,7 +3,9 @@
 
 The confusion matrix is one ``torch.bincount`` on the predictions' device;
 the Hungarian assignment runs on the host with scipy, as the reference's
-(src/utils.py:203-274).
+(src/utils.py:203-274). Over several processes the matrices of an epoch are
+summed over the ranks before the matching (``merge_stats``), as the
+reference's torchmetrics sync does (src/utils.py:209-217).
 """
 
 from __future__ import annotations
@@ -13,6 +15,8 @@ from typing import Dict, Tuple
 import numpy as np
 import torch
 from scipy.optimize import linear_sum_assignment
+
+from stego_torch.parallel import dist
 
 
 def update_conf_matrix(stats: torch.Tensor, preds: torch.Tensor,
@@ -59,9 +63,9 @@ class UnsupervisedMetrics:
 
     def merge_stats(self, stats):
         """Accumulate an externally computed confusion matrix (a val step's
-        output)."""
-        if isinstance(stats, torch.Tensor):
-            stats = stats.cpu().numpy()
+        output, or an epoch's sum of them); over several processes the sum
+        of every rank's, so every rank calls it (one all_reduce)."""
+        stats = dist.all_reduce_(torch.as_tensor(stats).clone()).cpu().numpy()
         self.stats = self.stats + np.asarray(stats, dtype=np.int64)
 
     def map_clusters(self, clusters):

@@ -395,18 +395,21 @@ def test_cached_mode_trains(data_root, tmp_path):  # noqa: F811
                    for s in [ln["step"]] if "test/cluster/mIoU" in ln}, 2)
 
 
-def test_unported_modes_raise(data_root, tmp_path, monkeypatch):  # noqa: F811
+def test_unported_modes_raise(data_root, tmp_path):  # noqa: F811
+    """steps_per_dispatch > 1 raises naming ROADMAP.md; a Trainer whose
+    num_devices is not its process group's size (here one process) raises
+    and says how to start the processes (tests/test_torch_ddp_app.py runs
+    two)."""
     cfg = torch_config(jax_cfg(data_root, tmp_path))
     with pytest.raises(NotImplementedError,
                        match="Do not port these TPU workarounds"):
         app.Trainer(cfg.replace(cache_backbone_feats=True,
                                 steps_per_dispatch=2), vit_cfg=VIT,
                     device=CPU)
-    with pytest.raises(NotImplementedError, match=r"Multi-GPU \(DDP\)"):
+    with pytest.raises(ValueError, match="num_devices=2 asks for 2 processes "
+                       "and this is one of 1: start them with python -m "
+                       "stego_torch.train"):
         app.Trainer(cfg.replace(num_devices=2), vit_cfg=VIT, device=CPU)
-    monkeypatch.setenv("WORLD_SIZE", "2")
-    with pytest.raises(NotImplementedError, match=r"Multi-GPU \(DDP\)"):
-        app.Trainer(cfg, vit_cfg=VIT, device=CPU)
 
 
 def test_nonfinite_metrics_raise_with_the_step():

@@ -408,7 +408,9 @@ def test_figures_without_matplotlib_print_one_line_each(exported, capsys,
 
 def test_evaluate_refuses_picie_and_several_devices(exported):
     """run_picie on a cocostuff27 checkpoint (the JAX loop's condition)
-    and num_devices > 1 raise, naming ROADMAP.md."""
+    raises, naming ROADMAP.md; num_devices > 1 in one process raises and
+    says how to start the processes (tests/test_torch_ddp_app.py runs
+    two)."""
     cfg, path, _ = exported
     coco = cfg.replace(dataset_name="cocostuff27", run_picie=True)
     coco_path = path.replace("m.ckpt", "coco.ckpt")
@@ -416,7 +418,9 @@ def test_evaluate_refuses_picie_and_several_devices(exported):
     export_stego_checkpoint(coco_path, coco, bb, params)
     with pytest.raises(NotImplementedError, match="ROADMAP.*Other backbones"):
         Evaluator(torch_config(coco), coco_path, "cpu", val_dataset=[])
-    with pytest.raises(NotImplementedError, match="ROADMAP.*Multi-GPU"):
+    with pytest.raises(ValueError, match="num_devices=2 asks for 2 "
+                       "processes and this is one of 1: start them with "
+                       "python -m stego_torch.eval"):
         Evaluator(torch_config(cfg.replace(num_devices=2)), path, "cpu",
                   val_dataset=[])
 

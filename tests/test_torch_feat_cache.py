@@ -170,14 +170,15 @@ def test_cache_size_cap_raises():
 
 
 @pytest.mark.parametrize("kw,when", [
-    (dict(feat_cache_sharded=True), "build"),
+    (dict(use_salience=True), "step"),
     (dict(use_salience=True), "build"),
-    (dict(feat_cache_sharded=True), "step"),
+    (dict(aug_alignment_weight=0.5), "step"),
     (dict(steps_per_dispatch=2), "step"),
 ])
 def test_unported_cache_options_raise(kw, when):
-    """The sharded cache, the salience masks and steps_per_dispatch > 1
-    raise NotImplementedError naming ROADMAP."""
+    """The salience masks, the aug-alignment loss and steps_per_dispatch >
+    1 raise NotImplementedError naming ROADMAP (the sharded cache is
+    ported: tests/test_torch_ddp.py)."""
     cfg = make_cfg(**kw)
     seg = setup(make_cfg())[3]
     seg.cfg = torch_config(cfg)

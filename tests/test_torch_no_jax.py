@@ -6,9 +6,11 @@ one val step, a third builds a KNN cache and a feature cache and runs a
 cached train step and a cached val epoch, a fourth runs the train app
 on in-memory datasets (two steps, a validation and a checkpoint, then a
 resumed step), a fifth evaluates a checkpoint over an in-memory
-dataset with the grid CRF and with the exact CRF, on the CPU, and a sixth
+dataset with the grid CRF and with the exact CRF, on the CPU, a sixth
 loads a serving artifact packaged in the test's own process and predicts
-with it, importing no model, train, eval, data or config module."""
+with it, importing no model, train, eval, data or config module, and two
+more are the two ranks of a gloo group that take a train step with global
+negatives (C2) and one with local negatives (C1)."""
 
 import subprocess
 import sys
@@ -48,7 +50,7 @@ MODULES = [
     "stego_torch.ops.crf_loss", "stego_torch.native",
     "stego_torch.utils.viz", "stego_torch.data.colormaps",
     "stego_torch.train.crf_app", "stego_torch.eval.__main__",
-    "stego_torch.serve",
+    "stego_torch.serve", "stego_torch.parallel", "stego_torch.parallel.dist",
 ]
 for name in MODULES:
     importlib.import_module(name)
@@ -290,6 +292,46 @@ print("OK", sorted(m for m, mod in sys.modules.items()
 """
 
 
+DDP_SCRIPT = """
+import sys
+sys.modules["jax"] = None  # any import of jax raises ImportError
+sys.modules["PIL"] = None
+sys.modules["stego_tpu"] = None  # nor anything of the JAX package
+import torch
+from stego_torch.config import Config
+from stego_torch.models.vit import ViTConfig
+from stego_torch.parallel import dist
+from stego_torch.train.segmenter import (UnsupervisedSegmenter,
+                                         draw_step_randomness,
+                                         make_train_step)
+rank, port = int(sys.argv[1]), int(sys.argv[2])
+assert dist.maybe_initialize_distributed(
+    backend="gloo", device="cpu", rank=rank, world_size=2,
+    init_method=f"tcp://localhost:{port}", timeout_s=120)
+vit = ViTConfig(patch_size=8, embed_dim=128, depth=2, num_heads=2,
+                img_size=32)
+g = torch.Generator().manual_seed(0)
+img = torch.rand(4, 32, 32, 3, generator=g)
+batch = {"img": img, "img_pos": img.flip(2),
+         "label": torch.randint(-1, 5, (4, 32, 32), generator=g)}
+rows = dist.local_rows(4)
+for scope in ("global", "local"):
+    cfg = Config(dataset_name="directory", dim=6, res=32, feature_samples=3,
+                 neg_samples=2, batch_size=4, negatives_scope=scope)
+    seg = UnsupervisedSegmenter(5, cfg, vit_cfg=vit)
+    rand = draw_step_randomness(seg, 4, torch.Generator().manual_seed(1))
+    m = make_train_step(seg)({k: v[rows] for k, v in batch.items()}, rand)
+    assert torch.isfinite(m["loss/total"]) and seg.step == 1
+    assert int(m["hist/neg_inter"].sum()) == 2 * 4 * 81
+    flat = torch.cat([p.detach().reshape(-1) for p in seg.parameters()])
+    both = dist.gather_rows(flat[None])
+    assert torch.equal(both[0], both[1]), scope
+dist.destroy()
+print("OK", sorted(m for m, mod in sys.modules.items()
+                   if mod is not None and m.split(".")[0] == "stego_tpu"))
+"""
+
+
 def run_without_jax(script, *args):
     proc = subprocess.run([sys.executable, "-c", script, *args], cwd=REPO,
                           capture_output=True, text=True, timeout=300)
@@ -354,3 +396,29 @@ def test_serving_artifact_loads_and_predicts_without_model_code(tmp_path):
     assert sorted(got.files) == sorted(want)
     for k, v in want.items():
         np.testing.assert_array_equal(got[k], v.numpy())
+
+
+def test_two_rank_steps_run_without_jax_or_pil():
+    """Two ranks over gloo on the CPU, each in an interpreter that cannot
+    import jax, PIL or the JAX package: a global-negatives step (C2's plain
+    version over the gathered maps) and a local-negatives step (C1's),
+    the ranks' weights equal bit for bit after each."""
+    import socket
+
+    with socket.socket() as sock:
+        sock.bind(("localhost", 0))
+        port = sock.getsockname()[1]
+    procs = [subprocess.Popen([sys.executable, "-c", DDP_SCRIPT, str(rank),
+                               str(port)], cwd=REPO, stdout=subprocess.PIPE,
+                              stderr=subprocess.PIPE, text=True)
+             for rank in range(2)]
+    try:
+        outs = [p.communicate(timeout=300) for p in procs]
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    for p, (out, err) in zip(procs, outs):
+        assert p.returncode == 0, err[-3000:]
+        assert out.strip().endswith("OK []"), out
