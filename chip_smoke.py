@@ -12,7 +12,11 @@
    packed at ViT-S's) against their plain PyTorch versions at the shapes
    the trunk gives them, and times them beside F.layer_norm (L2: of x + y)
    and F.scaled_dot_product_attention (timed only: the port never calls
-   them); L and L2 also cold, on rotating inputs larger than L2.
+   them); L and L2 also cold, on rotating inputs larger than L2. Then the
+   narrow widths: kernel A's bf16 narrow-head kernel at heads of 8, 16
+   and 32 in every form (the sensitive accuracy instrument's trunk: 4
+   heads of 8, N = 65, batch 16 and 48) and L at D = 32 and 64, the same
+   way, beside SDPA and F.layer_norm.
 3. Serves flip-TTA requests with seeded ViT-S/8 and ViT-T/8 STEGO
    segmenters at full width (cocostuff27 head: dim 70, nonlinear, 27
    classes, bf16 trunk): 3 requests of 8 images at res 224, then 3 at res
@@ -99,7 +103,21 @@
    full-field at dim=160 (C2) and with an f32 trunk through A-f32 (12
    launches a step, LayerNorm plain), each held against its plain step
    (the f32 trunk by its gradients, with TF32 and bf16 attention as
-   controls that must fail).
+   controls that must fail). Then the narrow widths' paths: 3 train steps
+   of the sensitive instrument's configuration on bf16 trunks of width
+   32, 64 and 128 with heads of 8, 16 and 32 (2 A at the head width, 5 L
+   at the width, C1 once a step); the training branches at the main
+   footprint, each 3 steps with one held against its loss kernel's plain
+   version: the salience-biased draw sampled (C1) and grid-sampled (C2),
+   the aug-alignment loss on the device route (ops/augment.py in the
+   step, the trunk over 48 images) and the host route; the sensitive
+   accuracy row end to end (tools/accuracy_bench.py: the mosaic, its KNN,
+   40 steps of the app; every A launch at d = 8, every L at D = 32),
+   gated by its bands, after checking the seeded init's pinned draws,
+   then on 8 seeded trunks (every one inside the linear bands, at least 6
+   inside every band); and an f32 eval step through load_model_for_eval from torch's default
+   TF32 flags, held to the step with TF32 off (cuDNN's TF32 on, the
+   control, must fail).
 11. The training app (stego_torch/train/app.py: train() through its
    Trainer) at the same footprint on the scenes and their KNN table:
    100 steps with validation at res 320 and a checkpoint every 50, a
@@ -137,8 +155,11 @@
    negatives (C2 over the gathered maps' rows) and 2 full-field (C2),
    each rank's parameters equal bit for bit after every step, and
    metrics and parameters within the train step's gates of one process on
-   the whole batch with the same draws (local: C2's emulation of the two
-   blocks); the KNN build (nns equal one process's), the app (16 steps
+   the whole batch with the same draws, each of its steps from the ranks'
+   state after the step before (local: C2's emulation of the two
+   blocks), and the whole trajectories against its own from the seeded
+   start (the f32 local case where Adam's sqrt(v) >= 1e-5); the KNN
+   build (nns equal one process's), the app (16 steps
    straight, and 8, a checkpoint and a resume to 16, equal bit for bit;
    the validation's matrices equal one process's) and evaluate() (its
    matrices equal one process's) on the two ranks; exact launches a rank.
@@ -201,6 +222,27 @@ HEAD_MAJOR_CASES = (
 ATTN_SHAPES = [(8, 785, HEADS), (8, 1601, HEADS), (2, 3137, HEADS),
                (32, 785, 12)]
 ATTN_RTOL, ATTN_ATOL = 2e-2, 5e-3  # attention rows of PARITY_r05.json
+# kernel A's narrow-head kernel, bf16 (d, B, H, N): the sensitive accuracy
+# instrument's trunk (4 heads of 8 at res 64: N = 65; batch 16, 48 images
+# in its aug step), and heads of 16 and 32 at the same shape; every form
+# at each, the first of each d its row in the kernels line
+NARROW_CASES = ((8, 16, 4, 65), (8, 48, 4, 65), (16, 16, 4, 65),
+                (32, 16, 4, 65))
+NARROW_FORMS = ("batch_resident", "kv_resident", "resident", "flash",
+                "no_softmax", "pair")
+# kernel L at the runtime-width kernel's widths: the tiny trunk's 32 (16
+# and 48 images of 65 tokens) and 64
+NARROW_LN_SHAPES = [(16 * 65, 32), (48 * 65, 32), (16 * 65, 64)]
+# the narrow trunks driven through the train step (phase_narrow_paths):
+# width and heads; the first is the sensitive instrument's own
+NARROW_TRUNKS = ((32, 4), (64, 4), (128, 4))
+NARROW_STEPS = 3
+# models/vit.py:trunc_normal(torch.empty(6), 0.02, seed 0), as
+# tests/test_torch_vit.py pins them: a seed's trunk is one trunk under any
+# torch release
+TRUNC_NORMAL_SEED0 = [0.03081992268562317, -0.00586857832968235,
+                      -0.01438515167683363, 0.011368625797331333,
+                      -0.021690446883440018, -0.027971908450126648]
 CODE_MAX_ABS, CODE_MEAN_ABS, PRED_AGREE = 6e-2, 4e-3, 0.99
 # per request: 2 trunk calls x (12 attention sublayers, 25 LayerNorms)
 ATTN_PER_REQUEST, LN_PER_REQUEST = 2 * 12, 2 * 25
@@ -225,9 +267,22 @@ C1_CASES = (("bf16", torch.bfloat16, 384), ("f32", torch.float32, 384),
 WIDE_C1 = dict(dim=100, feature_samples=12)
 WIDE_C2_DIM = 160
 # the least gradient whose Adam step the f32-trunk step holds, and the
-# gap its gradients may have (phase_wide)
+# gap its gradients may have (phase_wide): at the seed-0 trunk of
+# models/vit.py:trunc_normal the step with A-f32 is 4.8e-6 from the plain
+# step and the control with TF32 attention 5.1e-5 (H100), so the gap sits
+# between them (it was 1e-4, which that control passed)
 ADAM_LIVE = 1e-7
-F32_TRUNK_GRAD_GAP = 1e-4
+F32_TRUNK_GRAD_GAP = 2e-5
+# the least Adam sqrt(v) at which phase ddp holds the f32 trunk's
+# parameter trajectories: a ReLU of the cluster head whose input lies
+# within an f32 rounding of 0 is decided one way by the ranks' 8-image
+# GEMMs and the other by one process's 16-image GEMMs, which moves one
+# row's gradient by one pixel's share (up to ~5e-7 on the H100, row 212
+# of net.cluster2.0.weight); Adam carries a gradient difference d into
+# lr (1 - b1) / (1 - b1^t) d / sqrt(v) of the parameter, more than
+# GRAD_ATOL at lr 5e-4 where sqrt(v) < ~1e-5 (hold_ddp_trajectories
+# prints the entries it leaves out that are over the gate)
+ADAM_LIVE_TRAJECTORY = 1e-5
 # A-f32 against its plain versions: the JAX package's f32 tolerance
 # (tests/test_torch_attention.py), which TF32 products would fail
 F32_RTOL, F32_ATOL = 2e-5, 2e-5
@@ -302,6 +357,10 @@ COUNTS = ("attention", "layer_norm", "corr_sampled_fwd", "corr_sampled_bwd",
 # and L2's
 ENTRIES = ("pair", "pair_kv", "packed", "resident", "batch_resident",
            "kv_resident", "flash", "no_softmax")
+# and kernel A's launches at the narrow head widths, L's at the runtime-
+# width kernel's widths that a path runs (attention_d<d>, layer_norm_<D>)
+NARROW_DS = (8, 16, 32)
+NARROW_LN_DS = (32, 64, 128)
 # the attention layout ladder (stego_torch/tools/attention_layouts.py):
 # 12 chained sublayers at B=32, N=785 for these models, LAYOUT_ITERS timed
 # chains a rung; the kernel A entry each rung launches once a sublayer
@@ -449,7 +508,10 @@ def cold_ms(fn, inputs) -> float:
     return sum(kernel_times(sweep, 3).values()) / (3 * len(inputs)) / 1e3
 
 
-def phase_layer_norm(dev):
+def phase_layer_norm(dev, shapes=None):
+    """Kernel L at ``shapes`` (default LN_SHAPES) against its plain
+    version, timed warm and cold beside F.layer_norm; (the worst error,
+    {D: the result at its first shape})."""
     import torch.nn.functional as F
 
     from stego_torch.ops import layer_norm as ln
@@ -459,7 +521,7 @@ def phase_layer_norm(dev):
           "weights with a bf16 input on the card)")
     g = torch.Generator(device=dev).manual_seed(0)
     worst, by_width = 0.0, {}
-    for rows, d in LN_SHAPES:
+    for rows, d in shapes or LN_SHAPES:
         x = (torch.randn(rows, d, generator=g, device=dev) * 3 + 1.5) \
             .bfloat16()
         w = 1 + 0.1 * torch.randn(d, generator=g, device=dev)
@@ -2063,6 +2125,7 @@ def reset_counts():
 
     fa.reset_launches()
     ln.LAUNCHES = ln.ADD_LAUNCHES = 0
+    ln.WIDTH_LAUNCHES.clear()
     c1.FWD_LAUNCHES = c1.BWD_LAUNCHES = 0
     c2.FWD_LAUNCHES = c2.BWD_LAUNCHES = 0
 
@@ -2077,6 +2140,10 @@ def path_counts():
     out.update({f"attention_{e}": fa.ENTRY_LAUNCHES[e] for e in ENTRIES})
     out["attention_f32"] = fa.F32_LAUNCHES  # of the attention launches
     out["add_layer_norm"] = ln.ADD_LAUNCHES
+    out.update({f"attention_d{d}": fa.HEAD_DIM_LAUNCHES[d]
+                for d in NARROW_DS})
+    out.update({f"layer_norm_{d}": ln.WIDTH_LAUNCHES.get(d, 0)
+                for d in NARROW_LN_DS})
     return out
 
 
@@ -2316,7 +2383,7 @@ def report_steps(step_ms, images, one_step, peak_gb):
 def train_run(dev, label, steps, hist_steps, expect, fall_window,
               time_plain=False, model_type="vit_small", preset=None,
               backbone_dtype="bfloat16", adam_live=None, grad_gap_max=None,
-              controls=None, f64_run=None, **cfg_kw):
+              controls=None, f64_run=None, extra=None, **cfg_kw):
     """``steps`` train steps of a seeded segmenter (``model_type``'s /8
     trunk in bf16, cocostuff27 head, the config ``preset`` where one is
     named) at the reference footprint on one fixed batch, the
@@ -2328,9 +2395,11 @@ def train_run(dev, label, steps, hist_steps, expect, fall_window,
     with the loss's plain version), then holds one step with the loss's
     kernel against the same step with its plain version (an f32
     ``backbone_dtype``: the step with every kernel against the step with
-    none, ``use_kernels=False``). Returns the
-    trained segmenter, the batch, the generator and the launches of the
-    steps (the main path; the comparison's launches are not counted)."""
+    none, ``use_kernels=False``). ``extra(batch, gen)`` gives the batch's
+    further entries (the salience masks, the host route's augmented view).
+    Returns the trained segmenter, the batch, the generator and the
+    launches of the steps (the main path; the comparison's launches are
+    not counted)."""
     from stego_torch.train.segmenter import (draw_step_randomness,
                                              make_train_step)
 
@@ -2352,6 +2421,8 @@ def train_run(dev, label, steps, hist_steps, expect, fall_window,
                                                  device=dev),
              "label": torch.randint(-1, 27, img.shape[:3], generator=gen,
                                     device=dev)}
+    if extra is not None:
+        batch.update(extra(batch, gen))
     step_fns = {h: make_train_step(seg, with_hist=h) for h in (True, False)}
     hist_logged = not cfg.full_field_loss  # full-field logs cd means only
     torch.cuda.synchronize()
@@ -3543,16 +3614,64 @@ def trainable_flat(seg):
                       if not n.startswith("net.model.")])
 
 
-def ddp_steps(dev, name, batch, reference=False):
+def head_state(seg):
+    """The segmenter's state that its train steps change: every parameter
+    outside the frozen trunk, the optimizers' states and the step count
+    (on the CPU)."""
+    return {"params": {n: p.detach().cpu().clone()
+                       for n, p in seg.named_parameters()
+                       if not n.startswith("net.model.")},
+            "opts": {k: copy.deepcopy(o.state_dict())
+                     for k, o in seg.optimizers().items()},
+            "step": seg.step}
+
+
+def load_head_state(seg, state):
+    with torch.no_grad():
+        for n, p in seg.named_parameters():
+            if n in state["params"]:
+                p.copy_(state["params"][n])
+    for k, o in seg.optimizers().items():
+        o.load_state_dict(state["opts"][k])
+    seg.step = state["step"]
+
+
+def adam_rms(seg):
+    """The root of each trainable parameter's bias-corrected Adam second
+    moment, in trainable_flat's order (inf where it has no state): the
+    size of gradient below which an f32 rounding of it moves the
+    parameter by more than the parameter tolerance (lr m / (sqrt(v) +
+    1e-8); |g| on the first step)."""
+    rms = {}
+    for o in seg.optimizers().values():
+        for group in o.param_groups:
+            beta2 = group["betas"][1]
+            for p in group["params"]:
+                st = o.state.get(p)
+                if st:
+                    rms[p] = (st["exp_avg_sq"]
+                              / (1 - beta2 ** float(st["step"]))).sqrt()
+    return torch.cat([rms.get(p, torch.full_like(p, math.inf)).detach()
+                      .reshape(-1).cpu()
+                      for n, p in seg.named_parameters()
+                      if not n.startswith("net.model.")])
+
+
+def ddp_steps(dev, name, batch, reference=False, states=None):
     """DDP_STEPS[name] train steps of a seeded ViT-S/8 segmenter on this
     process's rows of ``batch``, with the global batch's draws from
     generators seeded DDP_SEED + step, the main path (counts and collective
     time from 0). ``reference``: one process on the whole batch, on C2's
     route (fused_sampling="off"); for local negatives with C2's emulation
-    of DDP_WORLD blocks (corr_stream.py:687-693). Returns each step's
-    metrics, trainable parameters and wall ms, the launches, the
-    collectives' calls and host ms, and, over several processes, the
-    device busy ms of one more step."""
+    of DDP_WORLD blocks (corr_stream.py:687-693); with ``states`` (a
+    rank's head_state after each of its steps) each step after the first
+    starts from the rank's state after the step before, so that every step
+    of the ranks is held against the one-process step from the same state;
+    without, its own trajectory, with each step's adam_rms.
+    Returns each step's metrics, trainable parameters and wall ms, the
+    launches, the collectives' calls and host ms, over several processes
+    the head_state after each step and the device busy ms of one more
+    step."""
     from stego_torch.parallel import dist
     from stego_torch.train.segmenter import (draw_step_randomness,
                                              make_train_step)
@@ -3567,11 +3686,13 @@ def ddp_steps(dev, name, batch, reference=False):
     rows = dist.local_rows(TRAIN_BATCH)
     local = {k: v[rows] for k, v in batch.items()}
     gen = torch.Generator(device=dev)
-    out = {"metrics": [], "params": [], "ms": []}
+    out = {"metrics": [], "params": [], "ms": [], "states": [], "rms": []}
     torch.cuda.synchronize()
     reset_counts()
     calls, secs = dist.CALLS, dist.SECONDS
     for i in range(DDP_STEPS[name]):
+        if states is not None and i > 0:
+            load_head_state(seg, states[i - 1])
         gen.manual_seed(DDP_SEED + i)
         rand = draw_step_randomness(seg, TRAIN_BATCH, gen)
         t0 = time.perf_counter()
@@ -3580,6 +3701,10 @@ def ddp_steps(dev, name, batch, reference=False):
         out["ms"].append((time.perf_counter() - t0) * 1e3)
         out["metrics"].append({k: float(v) for k, v in m.items()})
         out["params"].append(trainable_flat(seg))
+        if reference and states is None:
+            out["rms"].append(adam_rms(seg))
+        if dist.initialized():
+            out["states"].append(head_state(seg))
     out["launches"] = path_counts()
     out["collective_calls"] = dist.CALLS - calls
     out["collective_ms"] = (dist.SECONDS - secs) * 1e3
@@ -3844,12 +3969,69 @@ def hold_ddp_steps(tag, ranks, refs, names, step_launches):
                   f"{statistics.median(ref['ms']):.2f} ms a step")
 
 
+def hold_ddp_trajectories(tag, ranks, trajs, names):
+    """Each case's ranks against one process's own DDP_STEPS[name] steps
+    from the same seeded start (not from the ranks' states): metrics
+    within the train step's gates after every step, and parameters within
+    them everywhere on the bf16 trunks, and on the f32 trunk's case where
+    the one-process adam_rms is at least ADAM_LIVE_TRAJECTORY (a ReLU
+    decided the other way by an f32 rounding moves a row's gradient by
+    one pixel's share, which Adam's moments carry into the parameter
+    where sqrt(v) is small); prints how many entries that leaves out and
+    how far those are off."""
+    for name in names:
+        want = trajs[name]
+        f32 = DDP_CASES[name].get("backbone_dtype") == "float32"
+        for k, r in enumerate(ranks):
+            got = r[name]
+            bad = [(i, key) for i, (gm, wm) in enumerate(
+                zip(got["metrics"], want["metrics"]))
+                for key in wm
+                if not math.isclose(gm[key], wm[key], rel_tol=LOSS_RTOL,
+                                    abs_tol=LOSS_ATOL)]
+            gap, held, out, out_over, out_worst = -math.inf, 0, 0, 0, None
+            where = None
+            for i, (a, b, rms) in enumerate(zip(got["params"],
+                                                want["params"],
+                                                want["rms"])):
+                live = (rms >= ADAM_LIVE_TRAJECTORY if f32 else
+                        torch.ones_like(b, dtype=torch.bool))
+                excess = (a - b).abs() - GRAD_ATOL - GRAD_RTOL * b.abs()
+                kept = torch.where(live, excess, -math.inf)
+                held += int(live.sum())
+                out += int((~live).sum())
+                out_over += int(((~live) & (excess > 0)).sum())
+                if float(kept.max()) > gap:
+                    j = int(kept.argmax())
+                    gap, where = float(kept.max()), (i, j, float(rms[j]))
+                left = torch.where(live, -math.inf, excess)
+                if out and float(left.max()) > 0 and (
+                        out_worst is None or float(left.max()) > out_worst[0]):
+                    j = int(left.argmax())
+                    out_worst = (float(left.max()), i, j, float(rms[j]))
+            check(not bad and gap <= 0,
+                  f"ddp {tag} {name}, rank {k}: its {DDP_STEPS[name]} steps "
+                  f"against one process's own trajectory on the whole "
+                  f"batch: metrics within rtol {LOSS_RTOL} atol {LOSS_ATOL} "
+                  f"(off: {bad[:3]}), parameters within rtol {GRAD_RTOL} "
+                  f"atol {GRAD_ATOL}"
+                  + (f" where Adam's sqrt(v) >= {ADAM_LIVE_TRAJECTORY}"
+                     if f32 else "")
+                  + f" ({held} held, worst excess {gap:.3e} at step, entry, "
+                  f"sqrt(v) {where})"
+                  + (f"; left out {out}, of them {out_over} over the gate "
+                     f"(worst excess, step, entry, sqrt(v): {out_worst})"
+                     if f32 else ""))
+
+
 def phase_ddp(dev, tmp, train_items, val_items, smi):
-    """Phase ddp. One process on the whole batch first (the references:
-    each step case, the KNN table, then, after the ranks, the validation
-    and eval matrices of their checkpoint); then DDP_WORLD ranks on this
-    card over gloo: the step cases, the KNN build, the app (straight, cut
-    and resumed) and the eval; then one rank over NCCL (the global case),
+    """Phase ddp. One process first (the KNN table); then DDP_WORLD ranks
+    on this card over gloo: the step cases, the KNN build, the app
+    (straight, cut and resumed) and the eval; then one process on the
+    whole batch for each step case, each step from the ranks' state after
+    the step before, and its own trajectory from the seeded start
+    (hold_ddp_trajectories), and the validation and eval matrices of their
+    checkpoint; then one rank over NCCL (the global case),
     and DDP_WORLD ranks over NCCL, one a card, where the machine has that
     many. Returns the launches of each run, summed over its ranks."""
     from stego_torch.eval.evaluate import Evaluator, load_model_for_eval
@@ -3862,8 +4044,6 @@ def phase_ddp(dev, tmp, train_items, val_items, smi):
           f"head, 11x11 samples, 5 negatives; two processes sharing one "
           f"card: their times are not a scaling number")
     batch = ddp_batch(dev)
-    refs = {name: ddp_steps(dev, name, batch, reference=True)
-            for name in DDP_CASES}
     ref_nns, _ = ddp_knn(dev, tmp, train)
     os.remove(os.path.join(tmp, "nns", "nns_ddp.npz"))
     data = os.path.join(tmp, "ddp_scenes.npz")
@@ -3871,8 +4051,6 @@ def phase_ddp(dev, tmp, train_items, val_items, smi):
              train_label=np.stack([lb for _, lb in train]),
              val_img=np.stack([i for i, _ in val]),
              val_label=np.stack([lb for _, lb in val]))
-    del batch
-    torch.cuda.empty_cache()
 
     def step_launches(name):
         n = DDP_STEPS[name]
@@ -3889,9 +4067,24 @@ def phase_ddp(dev, tmp, train_items, val_items, smi):
     print(f"  ddp gloo: {DDP_WORLD} ranks ran in "
           f"{time.perf_counter() - t0:.1f} s (each process's start, its "
           f"CUDA context and imports included)")
+    # one process on the whole batch, each step from rank 0's state after
+    # the step before (the ranks' states are equal bit for bit, which
+    # hold_ddp_steps checks): a W-rank step is held against the
+    # one-process step from the same state; the trajectories are held
+    # apart, where Adam's moments do not compound an f32 rounding at a
+    # ReLU or clamp into more than a step's gate
+    refs = {name: ddp_steps(
+        dev, name, batch, reference=True,
+        states=None if ranks is None else ranks[0][name]["states"])
+        for name in DDP_CASES}
+    trajs = {name: ddp_steps(dev, name, batch, reference=True)
+             for name in DDP_CASES}
+    del batch
+    torch.cuda.empty_cache()
     runs = {}
     if ranks is not None:
         hold_ddp_steps("gloo", ranks, refs, DDP_CASES, step_launches)
+        hold_ddp_trajectories("gloo", ranks, trajs, DDP_CASES)
         for name in DDP_CASES:
             runs[name] = add_counts(*(r[name]["launches"] for r in ranks))
         check(all(np.array_equal(r["nns"], ref_nns) for r in ranks),
@@ -3993,6 +4186,298 @@ def phase_ddp(dev, tmp, train_items, val_items, smi):
     return runs
 
 
+def phase_narrow(dev):
+    """Kernel A's narrow-head kernel (bf16, d = 8, 16, 32) in every form
+    against its plain version at NARROW_CASES, at the head-major gates
+    (rtol ATTN_RTOL, atol ATTN_ATOL; no_softmax two bf16 ulps of its
+    largest output), on views of a packed qkv with the output written
+    through a token-major view as the trunk does ("pair": token-major in
+    and out); the trunk's form (batch_resident) timed beside SDPA. Returns
+    {d: the result at its first shape, its forms' errors under "forms"}."""
+    import torch.nn.functional as F
+
+    from stego_torch.ops import flash_attention as fa
+
+    print(f"kernel A, narrow heads (d in {NARROW_DS}) vs plain, bf16, every "
+          f"form, q, k ~ N(0, 4), v ~ N(0, 1); rtol {ATTN_RTOL} atol "
+          f"{ATTN_ATOL} (no_softmax: two bf16 ulps of its largest output); "
+          f"library: F.scaled_dot_product_attention on (B, H, N, d)")
+    out = {}
+    for d, b, h, n in NARROW_CASES:
+        scale = d ** -0.5
+        g = torch.Generator(device=dev).manual_seed(b * n + h + d)
+        qkv = torch.randn(b, n, 3, h, d, generator=g, device=dev)
+        qkv[:, :, :2] *= 2
+        qkv = qkv.bfloat16()
+        q, k, v = (x.transpose(1, 2) for x in qkv.unbind(2))
+        tq, tk, tv = (x.flatten(2) for x in qkv.unbind(2))
+        errs, timed = {}, None
+        for form in NARROW_FORMS:
+            if form == "pair":
+                def kernel():
+                    return fa.token_major_attention(tq, tk, tv, h, scale)
+
+                def plain():
+                    return fa.attention_plain(tq, tk, tv, h, scale)
+            else:
+                fn = getattr(fa, f"{form}_attention")
+                tok = torch.empty(b, n, h * d, dtype=torch.bfloat16,
+                                  device=dev)
+                view = tok.unflatten(-1, (h, d)).transpose(1, 2)
+
+                def kernel(fn=fn, view=view):
+                    return fn(q, k, v, scale, out=view)
+
+                def plain(fn=fn):
+                    return fn(q, k, v, scale, use_kernel=False)
+            before = fa.HEAD_DIM_LAUNCHES[d]
+            got = kernel()
+            torch.cuda.synchronize()
+            launched = fa.HEAD_DIM_LAUNCHES[d] - before
+            want = plain().float()
+            diff = (got.float() - want).abs()
+            tol = (torch.full_like(want, 2 ** -7 * float(want.abs().max()))
+                   if form == "no_softmax"
+                   else ATTN_ATOL + ATTN_RTOL * want.abs())
+            errs[form] = float(diff.max())
+            check(within(diff, tol, want) and launched == 1,
+                  f"d={d} {form} (B={b}, H={h}, N={n}): max_abs_err "
+                  f"{errs[form]:.3e}, {launched} launch at d={d}")
+            if form == "batch_resident":
+                timed = (kernel, plain)
+        t = compare_times(*timed)
+        bnd = bound({"bf16": 4 * b * h * n * n * d}, 4 * b * n * h * d * 2)
+        qh, kh, vh = (x.contiguous() for x in (q, k, v))
+        lib = device_ms(lambda: F.scaled_dot_product_attention(
+            qh, kh, vh, scale=scale), floor_ms=bnd[0])
+        print(f"  d={d} batch_resident (B={b}, H={h}, N={n}): "
+              f"{timing_text(t)}; SDPA {lib:.4f} ms (kernel / SDPA "
+              f"{t['device'][0] / lib:.2f}); {bound_text(bnd)}")
+        out.setdefault(d, dict(
+            shape=f"B={b} H={h} N={n} d={d} bf16",
+            max_abs_err=max(errs.values()), ms=t["device"][0],
+            plain_ms=t["device"][1], library_ms=lib, bound=bnd,
+            forms=errs))
+    return out
+
+
+def sensitive_segmenter(dev, embed, heads):
+    """A seeded segmenter of the sensitive accuracy instrument's
+    configuration (``tiny_benchmark_setup``: 2 blocks, res 64, 4 classes)
+    with a bf16 trunk of ``embed`` wide, ``heads`` heads, on ``dev``."""
+    from stego_torch.data.synthetic import tiny_benchmark_setup
+    from stego_torch.train.segmenter import UnsupervisedSegmenter
+
+    with tempfile.TemporaryDirectory() as tmp:
+        cfg, vit = tiny_benchmark_setup(tmp, n_train=1, n_val=1,
+                                        backbone_dtype="bfloat16")
+    vit = dataclasses.replace(vit, embed_dim=embed, num_heads=heads)
+    seg = UnsupervisedSegmenter(4, cfg, vit_cfg=vit,
+                                generator=torch.Generator().manual_seed(0))
+    seg.to(dev)
+    seg.net.model.cast_blocks(torch.bfloat16)
+    return seg
+
+
+def phase_narrow_paths(dev):
+    """The train step of the sensitive instrument's configuration on bf16
+    trunks of NARROW_TRUNKS' widths (heads of 8, 16 and 32; L at 32, 64
+    and 128), NARROW_STEPS steps at batch 16 on one fixed batch: each step
+    exactly 2 A at its head width, 5 L at its width and 1 + 1 C1, a finite
+    loss. Returns {head width: the launches}."""
+    from stego_torch.train.segmenter import (draw_step_randomness,
+                                             make_train_step)
+
+    runs = {}
+    for embed, heads in NARROW_TRUNKS:
+        d = embed // heads
+        print(f"train, sensitive configuration at width {embed}, {heads} "
+              f"heads of {d}: bf16 trunk, res 64, batch 16, "
+              f"{NARROW_STEPS} steps")
+        seg = sensitive_segmenter(dev, embed, heads)
+        gen = torch.Generator(device=dev).manual_seed(embed)
+        img = images(gen, 64, dev, 16)
+        batch = {"img": img, "img_pos": img.flip(2),
+                 "label": torch.randint(-1, 4, img.shape[:3], generator=gen,
+                                        device=dev)}
+        step = make_train_step(seg, with_hist=False)
+        _, launches = run_steps(
+            NARROW_STEPS, (), (2, 5, 1, 1, 0, 0), 0, False,
+            lambda i, hist: step(batch, draw_step_randomness(seg, 16, gen)))
+        check(launches[f"attention_d{d}"] == 2 * NARROW_STEPS
+              and launches[f"layer_norm_{embed}"] == 5 * NARROW_STEPS,
+              f"width {embed}: A at d={d} {launches[f'attention_d{d}']}, "
+              f"L at {embed} {launches[f'layer_norm_{embed}']} launches")
+        runs[d] = launches
+    return runs
+
+
+def phase_accuracy(dev, tmp):
+    """The sensitive accuracy row end to end through
+    ``tools/accuracy_bench.py:sensitive`` (the mosaic written, its KNN
+    caches, 40 steps of the app, the final validation), the main path of
+    the narrow kernels: every A launch at d = 8 and every L launch at D =
+    32, gated by the row's bands; then the row on each of the port's
+    seeded trunks (``accuracy_bench.sensitive_trunks``), gated by
+    ``trunks_missed`` (every trunk the linear bands, at least
+    TRUNKS_PASSING of them every band): one trunk is one draw, so the
+    trunks gate the numerics where the first row gates a draw as well.
+    Returns the first row's launches and its metrics."""
+    from stego_torch.models.vit import trunc_normal
+    from stego_torch.tools import accuracy_bench as ab
+
+    got = trunc_normal(torch.empty(6), 0.02, torch.Generator().manual_seed(0))
+    check(got.tolist() == TRUNC_NORMAL_SEED0,
+          f"the seeded init's truncated normal under torch "
+          f"{torch.__version__} gives the pinned draws: {got.tolist()}")
+    print("accuracy, the sensitive row (tools/accuracy_bench.py): the "
+          "res-64 mosaic (32 train, 8 val), its KNN, 40 steps of the app "
+          "with the tiny ViT (width 32, 4 heads of 8) in bf16; bands (the "
+          "JAX package's, set on a TPU) "
+          + ", ".join(f"{k} >= {v}" for k, v in ab.SENSITIVE_BANDS.items()))
+    torch.cuda.synchronize()
+    reset_counts()
+    t0 = time.perf_counter()
+    metrics = ab.sensitive(tmp, dev)
+    torch.cuda.synchronize()
+    sec = time.perf_counter() - t0
+    launches = path_counts()
+    failed = ab.missed(metrics, ab.SENSITIVE_BANDS)
+    check(not failed and all(math.isfinite(v) for v in metrics.values()),
+          f"sensitive row in {sec:.1f} s on {ab.device_name(dev)}: "
+          + ", ".join(f"{k}={v:.2f}" for k, v in sorted(metrics.items()))
+          + (f"; below its bands: {failed}" if failed else ""))
+    check(launches["attention"] == launches["attention_d8"] > 0
+          and launches["layer_norm"] == launches["layer_norm_32"] > 0,
+          f"sensitive row launches: A {launches['attention']} (at d=8 "
+          f"{launches['attention_d8']}), L {launches['layer_norm']} (at "
+          f"D=32 {launches['layer_norm_32']}), C1 "
+          f"{launches['corr_sampled_fwd']}+{launches['corr_sampled_bwd']}")
+    t0 = time.perf_counter()
+    trunks = ab.sensitive_trunks(tmp, dev)
+    sec = time.perf_counter() - t0
+    failed = ab.trunks_missed(trunks)
+    check(failed is None
+          and all(math.isfinite(v) for m in trunks.values()
+                  for v in m.values()),
+          f"sensitive row on {len(trunks)} seeded trunks in {sec:.1f} s "
+          f"(linear mIoU/Acc, cluster mIoU/Acc): "
+          + "; ".join(f"seed {s} " + "/".join(
+              f"{m[k]:.2f}" for k in ab.SENSITIVE_BANDS)
+              for s, m in trunks.items())
+          + (f"; {failed}" if failed else
+             f"; every trunk inside the linear bands, at least "
+             f"{ab.TRUNKS_PASSING} inside every band"))
+    return launches, metrics
+
+
+def phase_branches(dev):
+    """The training branches at the main footprint (ViT-S/8, bf16, res
+    224, batch 16): the salience-biased draw sampled through C1 and
+    grid-sampled into C2 (masks: label > 0), and the aug-alignment loss on
+    the device route (``ops/augment.py`` in the step; the trunk over 48
+    images) and the host route (the batch's img_aug and coord_aug), each
+    SHORT_STEPS steps with train_run's gates and one step held against the
+    same step with its loss kernel's plain version. Returns {run: the
+    launches}."""
+    from stego_torch.ops import augment
+
+    def masks(batch, gen):
+        return {"mask": (batch["label"] > 0).float(),
+                "mask_pos": (batch["label"].flip(2) > 0).float()}
+
+    def host_view(batch, gen):
+        b, h = batch["img"].shape[:2]
+        img_aug, coord_aug = augment.device_augment(
+            batch["img"], augment.sample_geometric(gen, b, h, h),
+            augment.sample_photometric(gen, b))
+        return {"img_aug": img_aug, "coord_aug": coord_aug}
+
+    sampled, streamed = (12, 25, 1, 1, 0, 0), (12, 25, 0, 0, 1, 1)
+    runs = {}
+    _, _, runs["salience"] = train_run(
+        dev, "salience-biased draw, sampled loss (kernel C1)", SHORT_STEPS,
+        (0,), sampled, 0, extra=masks, use_salience=True)
+    _, _, runs["salience_gather"] = train_run(
+        dev, "salience-biased draw, fused_sampling=off (kernel C2)",
+        SHORT_STEPS, (0,), streamed, 0, extra=masks, use_salience=True,
+        fused_sampling="off")
+    _, _, runs["aug_device"] = train_run(
+        dev, "aug-alignment loss, device route (ops/augment.py)",
+        SHORT_STEPS, (0,), sampled, 0, aug_alignment_weight=0.5)
+    _, _, runs["aug_host"] = train_run(
+        dev, "aug-alignment loss, host route (img_aug, coord_aug)",
+        SHORT_STEPS, (0,), sampled, 0, extra=host_view,
+        aug_alignment_weight=0.5, device_augs=False)
+    return runs
+
+
+def phase_tf32_eval(dev, tmp):
+    """An f32-trunk eval step as ``python -m stego_torch.eval`` runs it: a
+    fresh process's flags (torch's defaults: cuDNN TF32 on, matmul TF32
+    off), an f32 ViT-S/8 checkpoint through ``load_model_for_eval`` (which
+    turns TF32 off for an f32 trunk, ``utils/precision.py``), the flip-TTA
+    code and both probes' log-probs (``make_eval_step``) at res 320, batch
+    4; held against the same step with both flags off at the f32 trunk's
+    gates (rtol 1e-4, atol 1e-5, tests/test_torch_vit.py). The control, the
+    step with cuDNN's TF32 on again, must fail them. Restores the flags it
+    found."""
+    from stego_torch.eval.evaluate import (flip_tta_code,
+                                           load_model_for_eval,
+                                           make_eval_step)
+    from stego_torch.models.convert import save_stego_checkpoint
+
+    print("eval step, f32 ViT-S/8 checkpoint through load_model_for_eval "
+          "from torch's default TF32 flags vs TF32 off (rtol 1e-4, atol "
+          "1e-5); control: cuDNN TF32 on")
+    kept = (torch.backends.cudnn.allow_tf32,
+            torch.backends.cuda.matmul.allow_tf32)
+    gen = torch.Generator(device=dev).manual_seed(9)
+    img = images(gen, VAL_RES, dev, 4)
+    label = torch.zeros(img.shape[:3], dtype=torch.long, device=dev)
+    path = os.path.join(tmp, "f32.ckpt")
+    save_stego_checkpoint(path, cocostuff_segmenter(dev, "float32"))
+
+    def run(seg):
+        with torch.inference_mode():
+            code = flip_tta_code(seg, img)
+        lin, clu, _ = make_eval_step(seg, return_probs=True)(img, label)
+        return {"code": code.clone(), "linear": lin.clone(),
+                "cluster": clu.clone()}
+
+    def gap(got, want):
+        inside = True
+        text = []
+        for k in want:
+            diff = (got[k] - want[k]).abs()
+            inside &= bool((diff <= 1e-5 + 1e-4 * want[k].abs()).all())
+            text.append(f"{k} max abs diff {float(diff.max()):.3e}")
+        return inside, ", ".join(text)
+
+    try:
+        torch.backends.cudnn.allow_tf32 = True
+        torch.backends.cuda.matmul.allow_tf32 = False
+        seg = load_model_for_eval(path, dev)
+        flags = (torch.backends.cudnn.allow_tf32,
+                 torch.backends.cuda.matmul.allow_tf32)
+        entry = run(seg)
+        torch.backends.cudnn.allow_tf32 = False
+        torch.backends.cuda.matmul.allow_tf32 = False
+        full = run(seg)
+        torch.backends.cudnn.allow_tf32 = True
+        control = run(seg)
+    finally:
+        (torch.backends.cudnn.allow_tf32,
+         torch.backends.cuda.matmul.allow_tf32) = kept
+    ok, text = gap(entry, full)
+    check(ok and flags == (False, False),
+          f"f32 eval step after load_model_for_eval (cuDNN TF32 "
+          f"{flags[0]}, matmul TF32 {flags[1]}) vs TF32 off: {text}")
+    bad, text = gap(control, full)
+    check(not bad, f"control, cuDNN TF32 on vs off fails the f32 gates: "
+                   f"{text}")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; nothing was run", file=sys.stderr)
@@ -4033,6 +4518,8 @@ def main() -> int:
     at_err, at = phase_attention(dev)
     hm = phase_head_major(dev)
     at_f32 = phase_attention_f32(dev)
+    narrow = phase_narrow(dev)
+    _, ln_narrow = phase_layer_norm(dev, NARROW_LN_SHAPES)
     serving = {}
     with tempfile.TemporaryDirectory() as tmp:
         for model_type in ("vit_small", "vit_tiny"):
@@ -4050,6 +4537,11 @@ def main() -> int:
     stream = phase_train_stream(dev)
     models = phase_train_models(dev)
     wide = phase_wide(dev)
+    narrow_paths = phase_narrow_paths(dev)
+    branches = phase_branches(dev)
+    with tempfile.TemporaryDirectory() as tmp:
+        accuracy, _ = phase_accuracy(dev, tmp)
+        phase_tf32_eval(dev, tmp)
 
     # the feature-cache path: KNN, caches, cached train and val steps
     t0 = time.perf_counter()
@@ -4130,7 +4622,8 @@ def main() -> int:
     vit_s = add_counts(serving["vit_small"], train, val, *stream.values(),
                        knn_launches, cache_launches, *cached.values(),
                        cached_val, *wide.values(), app, evals, crf_loss,
-                       artifacts.get("vit_small", {}), *ddp.values())
+                       artifacts.get("vit_small", {}), *ddp.values(),
+                       *branches.values())
     vit_t = add_counts(serving["vit_tiny"], models["vit_tiny"],
                        models["vit_tiny_val"], artifacts.get("vit_tiny", {}))
     vit_b = add_counts(models["vit_base"], models["vit_base_full_field"])
@@ -4200,6 +4693,19 @@ def main() -> int:
                              replaces, at_src, f"attention_{entry}"))
     check(total["attention"] == sum(total[f"attention_{e}"] for e in ENTRIES),
           "every kernel A launch is at one entry point")
+    # the narrow widths, launched by the sensitive accuracy row and the
+    # narrow trunks' train steps only
+    narrow_total = add_counts(accuracy, *narrow_paths.values())
+    check(all(total[f"attention_d{d}"] == 0 for d in NARROW_DS)
+          and all(total[f"layer_norm_{d}"] == 0 for d in NARROW_LN_DS),
+          "the d=64 paths launch no narrow-head A and no L at the runtime "
+          "widths")
+    for d in NARROW_DS:
+        rows.append(measured(narrow[d], narrow_total[f"attention_d{d}"],
+                             f"{at_ref}:188", at_src, f"attention_d{d}"))
+    for d in (32, 64):
+        rows.append(measured(ln_narrow[d], narrow_total[f"layer_norm_{d}"],
+                             f"{ln_ref}:39", ln_src, f"layer_norm_{d}"))
     # C1's forward by feature type and channels, each launched by its own
     # trunk's paths; the backward reads no features
     ddp_f32 = ddp.get("local", {}).get("corr_sampled_fwd", 0)
@@ -4244,8 +4750,9 @@ def main() -> int:
              add_counts(stream["full_field"], ddp.get("full_field", {}))),
             # with phase ddp's global negatives: the sampled sets' rows
             ("_gather", ("grid-sampled", False, False, 384),
-             add_counts(stream["gather"], *(ddp.get(k, {}) for k in (
-                 "global", "app", "nccl", "nccl_cards")))),
+             add_counts(stream["gather"], branches["salience_gather"],
+                        *(ddp.get(k, {}) for k in (
+                            "global", "app", "nccl", "nccl_cards")))),
             ("_code_bf16", ("grid-sampled", True, False, 384),
              stream["code_bf16"]),
             ("_f32", ("full-field", False, True, 384),

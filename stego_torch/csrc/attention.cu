@@ -1,6 +1,7 @@
 // Kernel A: forward-only attention softmax(q k^T * scale) v, one head of
 // d = 64 at a time: bf16 in and out with f32 logits and accumulator, and an
-// f32 instantiation (A-f32) for an f32 trunk.
+// f32 instantiation (A-f32) for an f32 trunk; and bf16 heads of d = 8, 16
+// and 32 by a simple kernel of its own (attention_narrow_kernel below).
 //
 // Replaces the attention kernels of stego_tpu/ops/flash_attention.py:
 // _pair_kernel (:391, pallas_call :453 in pair_attention) and
@@ -1130,6 +1131,209 @@ int attention_bf16(const void* q, const void* k, const void* v, void* o,
   return static_cast<int>(err);
 }
 
+
+// The bf16 kernel for narrow heads, d = 8, 16 or 32 (the sensitive accuracy
+// instrument's tiny ViT: width 32, 4 heads of 8; stego_torch/data/
+// synthetic.py:tiny_benchmark_setup). The JAX package's Pallas kernels take
+// any d, so the same entry points and forms reach this one. wgmma's bf16
+// K-step is 16 and a TMA box's inner extent 16 bytes at least, so d = 8
+// fits the kernel above only padded to 16 in depth, and at these widths
+// the work is small: N = 65 tokens at res 64, 4 N^2 d = 0.14 MFLOP a head.
+// So a simple design: one thread owns one query row of one (batch, head),
+// keeps q (scaled as the form says) and its f32 accumulator in registers,
+// and walks the keys in tiles of kBlockN that the block stages in shared
+// memory as f32 (every thread of a warp reads the same key row, a
+// broadcast); the products are f32 FMA in depth order. Bound at these
+// shapes: the launch itself (a few microseconds) over the bytes of q, k, v
+// and out (16 B ... 64 B a row) and the FMAs, which are both far below it.
+// The forms keep the rounding points of the kernel above: two-pass takes a
+// first pass for each row's max and a second for p = exp(s - max) rounded
+// to bf16, its f32 sum and the f32 p v; resident a third pass, p divided
+// by the row's sum before it is rounded; flash the online softmax over
+// blocks of kBlockN = TK = 128 keys (each block's max from a first sweep
+// of the tile); no_softmax p = s rounded, no division. Rows past N are
+// computed on zeros and not stored; keys past N are not visited.
+constexpr int kNarrowRows = 128;  // query rows a block, one a thread
+
+template <int kD>
+__device__ __forceinline__ void load_tile_narrow(float* dst,
+                                                 const __nv_bfloat16* head,
+                                                 long long sn, int k0,
+                                                 int kn) {
+  constexpr int kChunks = kD / 8;  // 16-byte chunks a row
+  for (int c = threadIdx.x; c < kBlockN * kChunks; c += blockDim.x) {
+    const int r = c / kChunks;
+    const int col = (c % kChunks) * 8;
+    float* out = dst + r * kD + col;
+    if (r < kn) {
+      const uint4 raw = *reinterpret_cast<const uint4*>(
+          head + static_cast<long long>(k0 + r) * sn + col);
+      const __nv_bfloat162* h2 = reinterpret_cast<const __nv_bfloat162*>(&raw);
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const float2 f = __bfloat1622float2(h2[i]);
+        out[2 * i] = f.x;
+        out[2 * i + 1] = f.y;
+      }
+    } else {
+#pragma unroll
+      for (int i = 0; i < 8; ++i) out[i] = 0.f;
+    }
+  }
+}
+
+__device__ __forceinline__ float round_bf16(float x) {
+  return __bfloat162float(__float2bfloat16_rn(x));
+}
+
+template <int kD>
+__device__ __forceinline__ float dot_row(const float* qr, const float* kr) {
+  float s = 0.f;
+#pragma unroll
+  for (int c = 0; c < kD; ++c) s = fmaf(qr[c], kr[c], s);
+  return s;
+}
+
+template <int kD, int kForm>
+__global__ void __launch_bounds__(kNarrowRows)
+attention_narrow_kernel(const __nv_bfloat16* __restrict__ q,
+                        const __nv_bfloat16* __restrict__ k,
+                        const __nv_bfloat16* __restrict__ v,
+                        __nv_bfloat16* __restrict__ o, int n, Strides qs,
+                        Strides ks, Strides vs, Strides os, float scale) {
+  __shared__ __align__(16) float s_k[kBlockN * kD];
+  __shared__ __align__(16) float s_v[kBlockN * kD];
+  const int row = blockIdx.x * kNarrowRows + threadIdx.x;
+  const int h = blockIdx.y;
+  const int b = blockIdx.z;
+  const bool live = row < n;
+  const __nv_bfloat16* kh = k + b * ks.b + h * ks.h;
+  const __nv_bfloat16* vh = v + b * vs.b + h * vs.h;
+  // two-pass and no_softmax: q * scale in q's dtype (the scale itself a
+  // bf16, as the plain version's torch.tensor(scale, dtype=q.dtype));
+  // resident and flash: the scale multiplies the f32 logits
+  constexpr bool kScaleQ = kForm == kTwoPass || kForm == kNoSoftmax;
+  const float sq = round_bf16(scale);
+  float qr[kD];
+  float acc[kD];
+  const __nv_bfloat16* qp =
+      q + b * qs.b + static_cast<long long>(live ? row : 0) * qs.n + h * qs.h;
+#pragma unroll
+  for (int c = 0; c < kD; ++c) {
+    const float x = live ? __bfloat162float(qp[c]) : 0.f;
+    qr[c] = kScaleQ ? round_bf16(x * sq) : x;
+    acc[c] = 0.f;
+  }
+  auto logit = [&](const float* kr) {
+    const float s = dot_row<kD>(qr, kr);
+    return kScaleQ ? s : s * scale;
+  };
+  // a sweep over every key tile: fn(tile's key count) after the tile has
+  // landed in s_k (and s_v when with_v)
+  auto sweep = [&](bool with_v, auto fn) {
+    for (int k0 = 0; k0 < n; k0 += kBlockN) {
+      const int kn = min(kBlockN, n - k0);
+      __syncthreads();  // every thread is done with the previous tile
+      load_tile_narrow<kD>(s_k, kh, ks.n, k0, kn);
+      if (with_v) load_tile_narrow<kD>(s_v, vh, vs.n, k0, kn);
+      __syncthreads();
+      fn(kn);
+    }
+  };
+  auto add_pv = [&](float p, const float* vr) {
+#pragma unroll
+    for (int c = 0; c < kD; ++c) acc[c] = fmaf(p, vr[c], acc[c]);
+  };
+  float m = -INFINITY, l = 0.f;
+  if constexpr (kForm == kNoSoftmax) {
+    sweep(true, [&](int kn) {
+      for (int j = 0; j < kn; ++j) {
+        add_pv(round_bf16(logit(s_k + j * kD)), s_v + j * kD);
+      }
+    });
+    l = 1.f;
+  } else if constexpr (kForm == kFlash) {
+    sweep(true, [&](int kn) {
+      float bm = -INFINITY;
+      for (int j = 0; j < kn; ++j) bm = fmaxf(bm, logit(s_k + j * kD));
+      const float m_new = fmaxf(m, bm);
+      const float corr = expf(m - m_new);
+      l *= corr;
+#pragma unroll
+      for (int c = 0; c < kD; ++c) acc[c] *= corr;
+      for (int j = 0; j < kn; ++j) {
+        const float p = expf(logit(s_k + j * kD) - m_new);
+        l += p;
+        add_pv(round_bf16(p), s_v + j * kD);
+      }
+      m = m_new;
+    });
+  } else {
+    sweep(false, [&](int kn) {
+      for (int j = 0; j < kn; ++j) m = fmaxf(m, logit(s_k + j * kD));
+    });
+    if constexpr (kForm == kResident) {
+      sweep(false, [&](int kn) {
+        for (int j = 0; j < kn; ++j) l += expf(logit(s_k + j * kD) - m);
+      });
+      const float inv = 1.f / l;
+      sweep(true, [&](int kn) {
+        for (int j = 0; j < kn; ++j) {
+          const float p = expf(logit(s_k + j * kD) - m) * inv;
+          add_pv(round_bf16(p), s_v + j * kD);
+        }
+      });
+      l = 1.f;
+    } else {
+      sweep(true, [&](int kn) {
+        for (int j = 0; j < kn; ++j) {
+          const float p = expf(logit(s_k + j * kD) - m);
+          l += p;
+          add_pv(round_bf16(p), s_v + j * kD);
+        }
+      });
+    }
+  }
+  if (!live) return;
+  __nv_bfloat16* op =
+      o + b * os.b + static_cast<long long>(row) * os.n + h * os.h;
+#pragma unroll
+  for (int c = 0; c < kD; c += 2) {
+    *reinterpret_cast<__nv_bfloat162*>(op + c) =
+        __floats2bfloat162_rn(acc[c] / l, acc[c + 1] / l);
+  }
+}
+
+template <int kD>
+cudaError_t launch_narrow(const void* q, const void* k, const void* v,
+                          void* o, int batch, int n, int heads, Strides qs,
+                          Strides ks, Strides vs, Strides os, float scale,
+                          int form, cudaStream_t stream) {
+  const dim3 grid((n + kNarrowRows - 1) / kNarrowRows, heads, batch);
+  const auto* qb = static_cast<const __nv_bfloat16*>(q);
+  const auto* kb = static_cast<const __nv_bfloat16*>(k);
+  const auto* vb = static_cast<const __nv_bfloat16*>(v);
+  auto* ob = static_cast<__nv_bfloat16*>(o);
+  switch (form) {
+    case kResident:
+      attention_narrow_kernel<kD, kResident><<<grid, kNarrowRows, 0, stream>>>(
+          qb, kb, vb, ob, n, qs, ks, vs, os, scale);
+      break;
+    case kFlash:
+      attention_narrow_kernel<kD, kFlash><<<grid, kNarrowRows, 0, stream>>>(
+          qb, kb, vb, ob, n, qs, ks, vs, os, scale);
+      break;
+    case kNoSoftmax:
+      attention_narrow_kernel<kD, kNoSoftmax><<<grid, kNarrowRows, 0, stream>>>(
+          qb, kb, vb, ob, n, qs, ks, vs, os, scale);
+      break;
+    default:
+      attention_narrow_kernel<kD, kTwoPass><<<grid, kNarrowRows, 0, stream>>>(
+          qb, kb, vb, ob, n, qs, ks, vs, os, scale);
+  }
+  return cudaGetLastError();
+}
+
 }  // namespace
 
 // q, k, v, o: bf16 with element strides (batch, token, head) per tensor and
@@ -1196,6 +1400,39 @@ extern "C" int stego_attention_f32(
       break;
     default:
       err = launch_f32<kTwoPass>(q, k, v, o, batch, n, heads, qs, ks, vs, os, scale, st);
+  }
+  return static_cast<int>(err);
+}
+
+// The narrow-head bf16 kernel (attention_narrow_kernel): head_dim 8, 16 or
+// 32, the same strides (multiples of 8 elements, 16-byte aligned bases) and
+// forms as stego_attention. Returns the CUDA error code of the launch.
+extern "C" int stego_attention_narrow(
+    const void* q, const void* k, const void* v, void* o, int batch, int n,
+    int heads, int head_dim, long long q_sb, long long q_sn, long long q_sh,
+    long long k_sb, long long k_sn, long long k_sh, long long v_sb,
+    long long v_sn, long long v_sh, long long o_sb, long long o_sn,
+    long long o_sh, float scale, int form, int device, void* stream) {
+  if (bad_args(batch, n, heads, form)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const Strides qs{q_sb, q_sn, q_sh}, ks{k_sb, k_sn, k_sh},
+      vs{v_sb, v_sn, v_sh}, os{o_sb, o_sn, o_sh};
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  switch (head_dim) {
+    case 8:
+      err = launch_narrow<8>(q, k, v, o, batch, n, heads, qs, ks, vs, os, scale, form, st);
+      break;
+    case 16:
+      err = launch_narrow<16>(q, k, v, o, batch, n, heads, qs, ks, vs, os, scale, form, st);
+      break;
+    case 32:
+      err = launch_narrow<32>(q, k, v, o, batch, n, heads, qs, ks, vs, os, scale, form, st);
+      break;
+    default:
+      err = cudaErrorInvalidValue;
   }
   return static_cast<int>(err);
 }

@@ -11,7 +11,9 @@
 //
 // Bound: device-memory bytes. Each row is read once and written once; at
 // (8 * 785, 384) bf16 that is 9.6 MB a call, a few microseconds at 3.35 TB/s,
-// so launch overhead is of the same order. Design: one warp per row keeps
+// so launch overhead is of the same order. At D = 32 (the tiny ViT of the
+// sensitive accuracy instrument) a row is 64 bytes and the launch is all
+// there is. Design: one warp per row keeps
 // the row in registers (D = 192 is 6 values a lane, 384 is 12, 768 is 24),
 // loads and stores VEC values a lane at a time (4 at D = 384 and 768, 2 at
 // D = 192, which 128 does not divide) with neighbouring lanes on
@@ -162,6 +164,75 @@ layer_norm_kernel(const __nv_bfloat16* __restrict__ x,
   }
 }
 
+// Any D = 32 * groups up to 1024 (groups <= kMaxGroups), for the widths
+// the three instantiations above do not take (the sensitive accuracy
+// instrument's tiny ViT is 32 wide): lane l holds columns c * 32 + l of
+// groups c < groups, one bf16 a load, neighbouring lanes on neighbouring
+// addresses; the register array is sized for kMaxGroups and every access is
+// unrolled under a test of c < groups, so it stays in registers. The same
+// two-pass f32 statistics and rounding order as layer_norm_kernel.
+constexpr int kMaxGroups = 32;
+
+template <bool kResidual, typename OutT>
+__global__ void __launch_bounds__(kRowsPerBlock * 32)
+layer_norm_any_kernel(const __nv_bfloat16* __restrict__ x,
+                      const __nv_bfloat16* __restrict__ y,
+                      const float* __restrict__ gamma,
+                      const float* __restrict__ beta,
+                      __nv_bfloat16* __restrict__ r, OutT* __restrict__ out,
+                      int rows, int groups, float eps) {
+  const int lane = threadIdx.x & 31;
+  const int row = blockIdx.x * kRowsPerBlock + (threadIdx.x >> 5);
+  if (row >= rows) return;
+  const int d = groups * 32;
+  const size_t base = static_cast<size_t>(row) * d;
+
+  float v[kMaxGroups];
+#pragma unroll
+  for (int c = 0; c < kMaxGroups; ++c) {
+    v[c] = 0.f;
+    if (c < groups) {
+      const size_t at = base + c * 32 + lane;
+      v[c] = __bfloat162float(x[at]);
+      if constexpr (kResidual) {
+        const __nv_bfloat16 rb = __float2bfloat16_rn(
+            __fadd_rn(v[c], __bfloat162float(y[at])));
+        r[at] = rb;
+        v[c] = __bfloat162float(rb);
+      }
+    }
+  }
+  float sum = 0.f;
+#pragma unroll
+  for (int c = 0; c < kMaxGroups; ++c) {
+    if (c < groups) sum += v[c];
+  }
+  const float inv_d = 1.0f / d;
+  const float mean = warp_sum(sum) * inv_d;
+  float sq = 0.f;
+#pragma unroll
+  for (int c = 0; c < kMaxGroups; ++c) {
+    if (c < groups) {
+      v[c] -= mean;
+      sq += v[c] * v[c];
+    }
+  }
+  const float rstd = rsqrtf(warp_sum(sq) * inv_d + eps);
+#pragma unroll
+  for (int c = 0; c < kMaxGroups; ++c) {
+    if (c < groups) {
+      const int col = c * 32 + lane;
+      const float o = __fadd_rn(__fmul_rn(__fmul_rn(v[c], rstd), gamma[col]),
+                                beta[col]);
+      if constexpr (sizeof(OutT) == 4) {
+        out[base + col] = o;
+      } else {
+        out[base + col] = __float2bfloat16_rn(o);
+      }
+    }
+  }
+}
+
 template <bool kResidual, typename OutT>
 cudaError_t launch(const void* x, const void* y, const void* gamma,
                    const void* beta, void* r, void* out, int rows, int d,
@@ -180,21 +251,26 @@ cudaError_t launch(const void* x, const void* y, const void* gamma,
   } else if (d == 384) {
     layer_norm_kernel<4, 3, kResidual, OutT>
         <<<grid, block, 0, s>>>(xb, yb, g, b, rb, o, rows, eps);
-  } else {
+  } else if (d == 768) {
     layer_norm_kernel<4, 6, kResidual, OutT>
         <<<grid, block, 0, s>>>(xb, yb, g, b, rb, o, rows, eps);
+  } else {
+    layer_norm_any_kernel<kResidual, OutT>
+        <<<grid, block, 0, s>>>(xb, yb, g, b, rb, o, rows, d / 32, eps);
   }
   return cudaGetLastError();
 }
 
 bool bad_width(int rows, int d) {
-  return rows <= 0 || (d != 192 && d != 384 && d != 768);
+  return rows <= 0 || d <= 0 || d % 32 != 0 || d > 32 * kMaxGroups;
 }
 
 }  // namespace
 
 // x, y: (rows, d) contiguous bf16; gamma, beta: (d,) f32, 16-byte aligned.
-// d is 192 (ViT-T), 384 (ViT-S) or 768 (ViT-B). Returns the CUDA error code
+// d is a multiple of 32 up to 1024: 192 (ViT-T), 384 (ViT-S) and 768
+// (ViT-B) by their own instantiations, the rest (32, the sensitive
+// instrument's tiny ViT) by layer_norm_any_kernel. Returns the CUDA error code
 // of the launch (0 on success).
 extern "C" int stego_layer_norm(const void* x, const void* gamma,
                                 const void* beta, void* y, int rows, int d,

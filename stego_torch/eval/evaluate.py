@@ -49,6 +49,7 @@ from stego_torch.ops.math import l2_normalize
 from stego_torch.ops.probe_ce import upsampled_argmax
 from stego_torch.train.segmenter import UnsupervisedSegmenter
 from stego_torch.utils.metrics import UnsupervisedMetrics, update_conf_matrix
+from stego_torch.utils.precision import full_f32_for
 
 
 def load_model_for_eval(model_path: str,
@@ -57,13 +58,15 @@ def load_model_for_eval(model_path: str,
                         ) -> UnsupervisedSegmenter:
     """Load a STEGO Lightning ``.ckpt`` onto ``device`` in eval mode; a bf16
     backbone stores its block weights in bf16 (same results, no cast per
-    call, as ``evaluate.py:203-208``)."""
+    call, as ``evaluate.py:203-208``), an f32 one turns TF32 off for the
+    process (``utils/precision.py``)."""
     if not model_path.endswith(".ckpt"):
         raise ValueError(
             f"{model_path}: stego_torch reads Lightning .ckpt files; export "
             f"a JAX orbax checkpoint with "
             f"stego_tpu.models.export.export_stego_checkpoint")
     seg = load_stego_checkpoint(model_path, vit_cfg=vit_cfg)
+    full_f32_for(seg.cfg.backbone_dtype)
     seg.to(device).eval()
     if seg.net.backbone_dtype == torch.bfloat16:
         seg.net.model.cast_blocks(torch.bfloat16)

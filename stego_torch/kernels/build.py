@@ -61,6 +61,8 @@ SIGNATURES = {
     + (_F, _I, _I, _P),
     "stego_attention_consumers": (_P, _P, _P, _P, _I, _I, _I) + (_L,) * 12
     + (_F, _I, _I, _I, _P),
+    "stego_attention_narrow": (_P, _P, _P, _P, _I, _I, _I, _I) + (_L,) * 12
+    + (_F, _I, _I, _P),
     "stego_corr_sampled_gather": (_P,) * 17 + (_I,) * 10 + (_P,),
     "stego_corr_sampled_adjoint": (_P,) * 8 + (_I,) * 7 + (_P,),
     "stego_corr_stream_fwd": (_P,) * 11 + (_I,) * 7 + (_F, _F, _I, _P),

@@ -55,8 +55,7 @@ from typing import Dict, Optional, Sequence, Tuple
 import torch
 
 from stego_torch.kernels import build
-from stego_torch.ops.correlation import (NEG_INF_MIN, CorrLossCfg,
-                                         salience_not_ported)
+from stego_torch.ops.correlation import NEG_INF_MIN, CorrLossCfg
 from stego_torch.ops.math import l2_normalize, tensor_correlation
 from stego_torch.ops.sampling import (bilinear_sample_weights,
                                       sample_from_coords)
@@ -707,8 +706,6 @@ def contrastive_correlation_loss_fused(
     pointwise fd mean is the global batch's (one all_reduce), and the
     returned losses are this rank's share: their mean over the ranks is the
     one-process loss of the global batch."""
-    if cfg.use_salience:
-        raise salience_not_ported()
     if len(perms) != cfg.neg_samples:
         raise ValueError(f"{len(perms)} permutations for neg_samples="
                          f"{cfg.neg_samples}")

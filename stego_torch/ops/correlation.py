@@ -9,6 +9,11 @@ held to. The coordinates and the negative permutations are inputs: the
 train step draws them (``train/segmenter.py:draw_step_randomness``), and
 tests hand in the JAX package's draws.
 
+With ``use_salience`` the step biases the coordinates towards a mask's
+nonzero pixels (:func:`salience_coords`, the reference's 90/10 mix,
+src/modules.py:355-364) before any of the loss's forms sees them: this
+oracle, kernel C1 and kernel C2 grid-sampled all take the same points.
+
 NHWC. Feature inputs carry no gradient (the trunk is frozen); the code
 path does.
 """
@@ -16,7 +21,7 @@ path does.
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Dict, Optional, Sequence, Tuple
+from typing import Dict, Sequence, Tuple
 
 import torch
 
@@ -65,11 +70,53 @@ class CorrLossCfg:
                 + (self.neg_inter_shift,) * self.neg_samples)
 
 
-def salience_not_ported() -> NotImplementedError:
-    return NotImplementedError(
-        "use_salience=True: the salience-biased coordinate draw "
-        "(stego_tpu/ops/correlation.py:115-155) is not ported yet "
-        "(ROADMAP.md queue 1, Training branches that raise today)")
+def salience_indices(mask: torch.Tensor, u: torch.Tensor) -> torch.Tensor:
+    """Flat pixel indices (B, n) drawn uniformly over each (B, H, W)
+    mask's nonzero entries, uniformly over all pixels where a mask is
+    empty, from uniforms ``u`` (B, n) in [0, 1): the inverse of each
+    mask's cumulative count, so the draws are made without the data and
+    the mask only maps them (``sample_nonzero_locations``'s categorical
+    draw, ``correlation.py:115-140``)."""
+    b = mask.shape[0]
+    counts = (mask.reshape(b, -1) > 0).cumsum(1)
+    total = counts[:, -1:]
+    nonempty = total > 0
+    span = torch.where(nonempty, total, torch.full_like(total,
+                                                        counts.shape[1]))
+    k = torch.minimum(torch.floor(u * span).long(), span - 1)
+    # the first pixel whose count exceeds k is the (k + 1)-th nonzero one
+    nz = torch.searchsorted(counts, k, right=True)
+    return torch.where(nonempty, nz, k)
+
+
+def index_coords(idx: torch.Tensor, h: int, w: int) -> torch.Tensor:
+    """Normalised (x, y) coordinates (..., 2) of flat pixel indices of an
+    (h, w) map, with the reference's quirks (src/modules.py:298-311): both
+    axes divided by h, and (y, x) flipped to (x, y)."""
+    ys = torch.div(idx, w, rounding_mode="floor").float()
+    xs = (idx % w).float()
+    coords_yx = torch.stack([ys, xs], dim=-1) / float(h)
+    return torch.flip(coords_yx * 2.0 - 1.0, dims=(-1,))
+
+
+def sample_nonzero_locations(mask: torch.Tensor,
+                             u: torch.Tensor) -> torch.Tensor:
+    """(B, n, 2) coordinates of :func:`salience_indices`' pixels."""
+    return index_coords(salience_indices(mask, u), mask.shape[1],
+                        mask.shape[2])
+
+
+def salience_coords(mask: torch.Tensor, u: torch.Tensor,
+                    uniform: torch.Tensor, mix: torch.Tensor
+                    ) -> torch.Tensor:
+    """(B, S, S, 2) coordinates biased towards the mask (``_draw_coords``,
+    ``correlation.py:143-157``): a point of the mask's nonzero pixels where
+    ``mix`` (B, S, S) exceeds 0.1, else the uniform point ``uniform``
+    (B, S, S, 2); ``u`` (B, S*S) draws the mask's points."""
+    b, s = uniform.shape[:2]
+    nz = sample_nonzero_locations(mask, u).reshape(b, s, s, 2)
+    keep = (mix > 0.1).float()[..., None]
+    return nz * keep + uniform * (1.0 - keep)
 
 
 def corr_loss_helper(f1: torch.Tensor, f2: torch.Tensor, c1: torch.Tensor,
@@ -106,16 +153,12 @@ def contrastive_correlation_loss(
     coords1: torch.Tensor,
     coords2: torch.Tensor,
     perms: Sequence[torch.Tensor],
-    orig_salience: Optional[torch.Tensor] = None,
-    orig_salience_pos: Optional[torch.Tensor] = None,
 ) -> Dict[str, torch.Tensor]:
     """Three-pair loss (reference forward, src/modules.py:349-398) at the
     given (B, S, S, 2) coordinates, with one negative pair per entry of
     ``perms``. Returns scalar 'pos_intra_loss'/'pos_inter_loss', the
     unreduced 'neg_inter_loss' (the caller takes its mean) and the cd
     tensors, as the JAX function."""
-    if cfg.use_salience:
-        raise salience_not_ported()
     feats = sample_from_coords(orig_feats, coords1)
     code = sample_from_coords(orig_code, coords1)
     feats_pos = sample_from_coords(orig_feats_pos, coords2)

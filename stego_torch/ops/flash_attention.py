@@ -40,13 +40,16 @@ for ``torch.export``: the serving artifact (``serve.py``) calls kernel A
 through it, and it ends in the same launch as the functions above.
 
 A CPU tensor takes the plain version; a CUDA tensor launches the kernel or
-raises (d = 64 only): bf16 q/k/v the wgmma kernel, f32 ones (an f32 trunk
+raises: bf16 q/k/v of d = 64 the wgmma kernel, bf16 ones of d = 8, 16 or
+32 (the sensitive accuracy instrument's tiny ViT has heads of 8) a simple
+kernel of their own in the same source, f32 ones of d = 64 (an f32 trunk
 with ``use_flash_attention``, which the JAX package also sends through its
 Pallas kernels) the f32 instantiation A-f32, whose softmax forms take
 their products on the tensor cores by 3xTF32 (``ops/tf32.py`` emulates that
-arithmetic) and whose no-softmax form stays on f32 FMA. The kernel has no
-sequence bound; the N bounds below are the JAX package's dispatch, kept so
-that both run the same numerics at every resolution.
+arithmetic) and whose no-softmax form stays on f32 FMA. f32 heads narrower
+than 64 raise. The kernel has no sequence bound; the N bounds below are
+the JAX package's dispatch, kept so that both run the same numerics at
+every resolution.
 """
 
 from __future__ import annotations
@@ -63,7 +66,8 @@ from stego_torch.kernels import build
 RESIDENT_MAX_N = 1152
 KV_RESIDENT_MAX_N = 4096
 TK = 128  # keys a step of flash_attention's online softmax (:24-25)
-HEAD_DIM = 64  # the only head width kernel A is built for
+HEAD_DIM = 64  # the head width of the wgmma kernel and of A-f32
+NARROW_HEAD_DIMS = (8, 16, 32)  # bf16 only, the narrow-head kernel
 # The kernel's forms (csrc/attention.cu), by name.
 FORMS = {"two_pass": 0, "resident": 1, "flash": 2, "no_softmax": 3}
 
@@ -80,14 +84,17 @@ F32_LAUNCHES = 0
 ENTRY_LAUNCHES = dict.fromkeys(
     ("pair", "pair_kv", "packed", "resident", "batch_resident",
      "kv_resident", "flash", "no_softmax"), 0)
+# and by head width
+HEAD_DIM_LAUNCHES = dict.fromkeys(NARROW_HEAD_DIMS + (HEAD_DIM,), 0)
 
 
 def reset_launches() -> None:
     global LAUNCHES, F32_LAUNCHES
     LAUNCHES = 0
     F32_LAUNCHES = 0
-    for name in ENTRY_LAUNCHES:
-        ENTRY_LAUNCHES[name] = 0
+    for counts in (ENTRY_LAUNCHES, HEAD_DIM_LAUNCHES):
+        for name in counts:
+            counts[name] = 0
 
 
 def _n_pad(n: int) -> int:
@@ -354,8 +361,9 @@ def trunk_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 def _launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
             out: torch.Tensor, scale: float, form: str, entry: str) -> None:
-    """Kernel A on (B, N, H, 64) views of q, k, v and ``out``, any strides
-    with a contiguous last axis, all bf16 or all f32."""
+    """Kernel A on (B, N, H, d) views of q, k, v and ``out``, any strides
+    with a contiguous last axis, all bf16 (d = 64 or one of
+    NARROW_HEAD_DIMS) or all f32 (d = 64)."""
     global LAUNCHES, F32_LAUNCHES
     b, n, h, d = q.shape
     if q.dtype not in ENTRIES:
@@ -377,21 +385,33 @@ def _launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                 f"attention kernel needs {name} with a contiguous last axis, "
                 f"batch, token and head strides that are multiples of 8 and "
                 f"a 16-byte aligned base; got strides {x.stride()}")
-    if d != HEAD_DIM:
+    narrow = d in NARROW_HEAD_DIMS
+    if narrow and q.dtype == torch.float32:
+        raise ValueError(
+            f"attention kernel: f32 heads of {d} are not built (A-f32 takes "
+            f"head_dim {HEAD_DIM}; the narrow-head kernel bf16 only): run the "
+            f"f32 trunk without use_flash_attention, or a bf16 trunk "
+            f"(ROADMAP.md queue 1, Accuracy at training scale)")
+    if d != HEAD_DIM and not narrow:
         raise ValueError(f"attention kernel is built for head_dim "
-                         f"{HEAD_DIM}; got {d}")
+                         f"{HEAD_DIM} and, in bf16, {NARROW_HEAD_DIMS}; "
+                         f"got {d}")
     if out.numel() == 0:
         return
 
     def strides(x):
         return x.stride(0), x.stride(1), x.stride(2)
 
-    err = getattr(build.library(), ENTRIES[q.dtype])(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-        b, n, h, *strides(q), *strides(k), *strides(v), *strides(out),
-        float(scale), FORMS[form], q.device.index,
-        torch.cuda.current_stream(q.device).cuda_stream)
-    build.check(err, "attention kernel")
+    lib = build.library()
+    args = (q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+            b, n, h) + ((d,) if narrow else ()) + (
+            *strides(q), *strides(k), *strides(v), *strides(out),
+            float(scale), FORMS[form], q.device.index,
+            torch.cuda.current_stream(q.device).cuda_stream)
+    fn = lib.stego_attention_narrow if narrow else getattr(lib,
+                                                           ENTRIES[q.dtype])
+    build.check(fn(*args), "attention kernel")
     LAUNCHES += 1
     F32_LAUNCHES += q.dtype == torch.float32
     ENTRY_LAUNCHES[entry] += 1
+    HEAD_DIM_LAUNCHES[d] += 1

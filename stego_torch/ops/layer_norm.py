@@ -33,12 +33,16 @@ import torch
 
 from stego_torch.kernels import build
 
-KERNEL_WIDTHS = (192, 384, 768)  # ViT-T, ViT-S, ViT-B
+# Every D the kernel takes: the multiples of 32 up to 1024; ViT-T's 192,
+# ViT-S's 384 and ViT-B's 768 have instantiations of their own, the rest
+# (the sensitive accuracy instrument's 32) the runtime-width kernel.
+KERNEL_WIDTHS = tuple(range(32, 1025, 32))
 # Launches of the CUDA kernel's two entries in this process (plain-version
-# calls do not count). Read and reset by chip_smoke.py to show the main path
-# used them.
+# calls do not count), and of both by D. Read and reset by chip_smoke.py
+# to show the main path used them.
 LAUNCHES = 0
 ADD_LAUNCHES = 0
+WIDTH_LAUNCHES: dict = {}
 
 
 def _normalize(xf: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor,
@@ -197,8 +201,8 @@ def _check(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor,
         raise ValueError(f"{what} kernel needs a CUDA tensor, got "
                          f"{x.device}")
     if x.dtype != torch.bfloat16 or d not in KERNEL_WIDTHS:
-        raise ValueError(f"{what} kernel takes bf16 rows of D in "
-                         f"{KERNEL_WIDTHS}; got {x.dtype}, D={d}")
+        raise ValueError(f"{what} kernel takes bf16 rows of D a multiple of "
+                         f"32 up to 1024; got {x.dtype}, D={d}")
     if not x.is_contiguous() or x.data_ptr() % 16:
         raise ValueError(f"{what} kernel needs a contiguous, 16-byte "
                          f"aligned input")
@@ -227,6 +231,7 @@ def _launch(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor,
         torch.cuda.current_stream(x.device).cuda_stream)
     build.check(err, "layer_norm kernel")
     LAUNCHES += 1
+    WIDTH_LAUNCHES[d] = WIDTH_LAUNCHES.get(d, 0) + 1
     return y
 
 
@@ -255,4 +260,5 @@ def _launch_add(x: torch.Tensor, y: torch.Tensor, weight: torch.Tensor,
         torch.cuda.current_stream(x.device).cuda_stream)
     build.check(err, "add_layer_norm kernel")
     ADD_LAUNCHES += 1
+    WIDTH_LAUNCHES[d] = WIDTH_LAUNCHES.get(d, 0) + 1
     return r, out

@@ -51,6 +51,7 @@ import torch.nn as nn
 from stego_torch.kernels import build
 from stego_torch.ops import flash_attention as _attention  # noqa: F401
 from stego_torch.ops import layer_norm as _layer_norm  # noqa: F401
+from stego_torch.utils.precision import full_f32_for
 
 MODEL_FILE = "model.pt2"
 META_FILE = "meta.json"
@@ -170,7 +171,8 @@ class ServingModel:
         on another device is moved by ``move_to_device_pass``, which
         rewrites the devices traced into its graph with its weights. On a
         CUDA device the kernel library is built (or found) here, so a
-        failed build fails the load."""
+        failed build fails the load. An f32 trunk's artifact turns TF32
+        off for the process (``utils/precision.py``)."""
         from torch.export.passes import move_to_device_pass
 
         dev = torch.device("cuda", 0) if device is None \
@@ -178,6 +180,7 @@ class ServingModel:
         with open(os.path.join(path, META_FILE)) as f:
             meta = json.load(f)
         program = torch.export.load(os.path.join(path, MODEL_FILE))
+        full_f32_for(meta.get("backbone_dtype", "float32"))
         if torch.device(meta["device"]) != dev:
             program = move_to_device_pass(program, dev)
         if dev.type == "cuda":

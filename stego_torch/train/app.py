@@ -63,6 +63,7 @@ from stego_torch.train.segmenter import (UnsupervisedSegmenter,
 from stego_torch.utils.logging import (AsyncMetricWriter, MetricLogger,
                                        NullLogger)
 from stego_torch.utils.metrics import UnsupervisedMetrics
+from stego_torch.utils.precision import full_f32_for
 
 def load_dino_weights(path: str, in_chans: int = 3
                       ) -> Dict[str, torch.Tensor]:
@@ -351,6 +352,7 @@ class Trainer:
         self.cfg = cfg
         self.device = dist.device() if device is None \
             else torch.device(device)
+        full_f32_for(cfg.backbone_dtype)
         self.log_dir = join(cfg.output_root, "logs",
                             f"{cfg.dataset_name}_{cfg.experiment_name}")
         self.ckpt_dir = join(cfg.output_root, "checkpoints",

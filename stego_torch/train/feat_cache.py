@@ -17,9 +17,9 @@ or whose decoding is random (random loader crops). Over several processes
 each rank runs the trunk over its block of the split; the blocks are then
 gathered, so that every rank holds the whole cache, or, with
 ``feat_cache_sharded``, each rank keeps its block and the steps read rows
-through ``parallel/dist.py:row_take`` (capacity grows with the ranks). Not
-ported: the salience masks (``use_salience``, ROADMAP.md queue 1, Training
-branches that raise today), which raise.
+through ``parallel/dist.py:row_take`` (capacity grows with the ranks).
+With ``use_salience`` the cache keeps each image's mask too, as float16,
+for the cached step's salience-biased draw.
 """
 
 from __future__ import annotations
@@ -30,7 +30,6 @@ import numpy as np
 import torch
 
 from stego_torch.config import Config
-from stego_torch.ops.correlation import salience_not_ported
 from stego_torch.parallel import dist
 
 
@@ -83,8 +82,9 @@ def build_feat_cache(seg, contrastive_ds, cfg: Config,
 
     Returns tensors on the segmenter's device, indexed by base-dataset
     index: ``feats`` (N, H/p, W/p, C) in the trunk's dtype (a bf16 trunk's
-    features are bf16 values, so storing them in bf16 loses nothing) and
-    ``label`` (N, H, W) int16. The trunk runs in chunks of ``batch_size``
+    features are bf16 values, so storing them in bf16 loses nothing),
+    ``label`` (N, H, W) int16 and, with masks, ``mask`` (N, H, W)
+    float16 (the items' third entry). The trunk runs in chunks of ``batch_size``
     (default ``cfg.batch_size``) images; the short final chunk is padded
     with copies of its last image, so that every chunk has one shape
     (``feat_cache.py:123-128``), and the padding's rows are dropped.
@@ -96,8 +96,6 @@ def build_feat_cache(seg, contrastive_ds, cfg: Config,
     only its block, zero rows past N (``feat_cache.py:94-140``)."""
     validate_feat_cache_cfg(cfg)
     want_mask = cfg.use_salience if with_mask is None else with_mask
-    if want_mask:
-        raise salience_not_ported()
     base = contrastive_ds.dataset
     n = len(base)
     w = dist.world()
@@ -120,6 +118,8 @@ def build_feat_cache(seg, contrastive_ds, cfg: Config,
                         device=device)
     labels = torch.zeros((rows,) + np.shape(label0), dtype=torch.int16,
                          device=device)
+    masks = (torch.zeros((rows,) + np.shape(label0), dtype=torch.float16,
+                         device=device) if want_mask else None)
     b = batch_size or cfg.batch_size
     for start in range(first, min(first + rows, n), b):
         items = [base[i] for i in range(start, min(start + b, first + rows,
@@ -128,15 +128,20 @@ def build_feat_cache(seg, contrastive_ds, cfg: Config,
         done = slice(start - first, start - first + len(items))
         labels[done] = torch.from_numpy(
             np.stack([it[1] for it in items]).astype(np.int16))
+        if want_mask:
+            masks[done] = torch.from_numpy(
+                np.stack([it[2] for it in items]).astype(np.float16))
         pad = b - len(items)
         if pad:  # one shape for every chunk
             imgs = np.concatenate([imgs, np.repeat(imgs[-1:], pad, axis=0)])
         f = seg.net.backbone_features(torch.from_numpy(imgs).to(device))
         feats[done] = f[:len(items)]
+    cache = {"feats": feats, "label": labels}
+    if want_mask:
+        cache["mask"] = masks
     if cfg.feat_cache_sharded:
-        return {"feats": feats, "label": labels}
-    return {"feats": dist.gather_rows(feats)[:n],
-            "label": dist.gather_rows(labels)[:n]}
+        return cache
+    return {k: dist.gather_rows(v)[:n] for k, v in cache.items()}
 
 
 class FeatCacheSampler:

@@ -29,6 +29,7 @@ from stego_torch.models.vit import ViTConfig
 from stego_torch.parallel import dist
 from stego_torch.train.knn import (build_knn_cache, knn_cache_file,
                                    stripe_loader)
+from stego_torch.utils.precision import full_f32_for
 
 KNN_RES = 224  # reference precompute_knns.py:47
 EMBED_BATCH = 256  # reference loader batch (:82)
@@ -54,6 +55,7 @@ def precompute_knns(
     if dataset_names is None:
         dataset_names = [cfg.dataset_name]
     device = dist.device() if device is None else device
+    full_f32_for(cfg.backbone_dtype)
     net = None
     written = []
     for crop_type in crop_types:

@@ -6,8 +6,9 @@ Submodule names are the Lightning module's (``net``, ``linear_probe``,
 keys equal those of a STEGO ``.ckpt`` (``models/convert.py``).
 
 The train step (:func:`make_train_step`) runs the frozen trunk once over
-img ‖ img_pos, the head, the contrastive correlation loss, the probe losses
-on the detached code and three Adam updates. The cached steps
+img ‖ img_pos (‖ img_aug with the aug-alignment loss), the head, the
+contrastive correlation loss, the probe losses on the detached code and
+three Adam updates. The cached steps
 (:func:`make_cached_train_step`, :func:`make_cached_val_step`,
 :func:`make_cached_val_epoch`) take the trunk's features from a feature
 cache (``train/feat_cache.py``) by index instead, and share the rest. The
@@ -15,10 +16,21 @@ loss runs through kernel C1 when the fused conditions hold
 (:func:`resolve_corr_sampling`), and through the streamed kernel C2
 otherwise: full-field (``full_field_loss``), or bilinearly sampled first
 (``fused_sampling="off"``, ``pallas_loss_bf16``). Every random input of the
-step (dropout keep-masks, sample coordinates, negative permutations) is an
-argument: :func:`draw_step_randomness` draws them from a
-``torch.Generator``; the tests hand in the JAX package's draws instead,
-since ``jax.random`` streams cannot be reproduced in torch.
+step (dropout keep-masks, sample coordinates, negative permutations, the
+salience draw's uniforms, the augmentation's parameters) is an argument:
+:func:`draw_step_randomness` draws them from a ``torch.Generator``; the
+tests hand in the JAX package's draws instead, since ``jax.random``
+streams cannot be reproduced in torch.
+
+With ``use_salience`` the sample coordinates lean towards each image's
+mask (``ops/correlation.py:salience_coords``): the step maps the draws
+through the batch's ``mask``/``mask_pos`` (the cached step takes them
+from the cache by index), and every form of the loss takes the mapped
+points. The aug-alignment loss (``aug_alignment_weight > 0``) holds the
+l2-normalised code, resampled at the augmented view's coordinates, to the
+augmented view's code (``segmenter.py:346-363``); the augmented view comes
+from the batch (``img_aug``/``coord_aug``, the host route,
+``device_augs=False``) or is made in the step (``ops/augment.py``).
 
 The CRF loss (``crf_weight > 0``, ``ops/crf_loss.py``) runs in the image
 step on the image and the l2-normalised code, both resized to 56; the
@@ -39,11 +51,8 @@ that a step returns are the global batch's: the ranks' weights stay equal
 bit for bit, and a W-rank step computes the one-process step of the
 global batch.
 
-Not ported yet (ROADMAP.md queue 1, Training branches that raise today):
-the aug-alignment loss (``aug_alignment_weight > 0``, needs
-``ops/augment.py``) and the salience-biased draw (``use_salience``); nor is
-the feature-pyramid arch (ROADMAP.md queue 1, Other backbones, plots and
-apps). Each raises.
+Not ported yet: the feature-pyramid arch (ROADMAP.md queue 1, Other
+backbones, plots and apps), which raises.
 """
 
 from __future__ import annotations
@@ -60,16 +69,18 @@ from stego_torch.models.probes import (ClusterLookup, cluster_lookup,
                                        decoder_apply, init_conv1x1,
                                        linear_probe_logits)
 from stego_torch.models.vit import VIT_CONFIGS, ViTConfig
+from stego_torch.ops import augment
 from stego_torch.ops.corr_stream import contrastive_correlation_loss_fused
 from stego_torch.ops.correlation import (CorrLossCfg,
                                          contrastive_correlation_loss,
-                                         salience_not_ported)
+                                         salience_coords)
 from stego_torch.ops.crf_loss import CRFLossCfg, contrastive_crf_loss
 from stego_torch.ops.interp import interpolate
 from stego_torch.ops.math import (block_local_super_perm, l2_normalize,
                                   one_hot_feats)
 from stego_torch.ops.probe_ce import (upsampled_argmax,
                                       upsampled_masked_cross_entropy)
+from stego_torch.ops.sampling import sample_from_coords
 from stego_torch.parallel import dist
 from stego_torch.utils.metrics import update_conf_matrix
 
@@ -216,7 +227,15 @@ def draw_step_randomness(seg: UnsupervisedSegmenter, batch_size: int,
     * ``feat1_keep``/``feat2_keep``: the masks of the loss signal, when
       ``cfg.dropout`` (``net.use_dropout``);
     * ``coords1``/``coords2``: (B, S, S, 2) sample points, U(-1, 1);
+    * ``salience_u1``/``salience_u2`` (B, S*S) and ``salience_mix1``/
+      ``salience_mix2`` (B, S, S), U(0, 1), with ``use_salience``: the
+      mask's points and the 90/10 choice between them and ``coords*``
+      (``ops/correlation.py:salience_coords``);
     * ``perms``: ``neg_samples`` batch near-derangements (int64);
+    * ``head3_keep1``/``head3_keep2``: the augmented view's head masks,
+      with ``aug_alignment_weight > 0``; and, with ``device_augs``,
+      ``aug_geom``/``aug_photo``, the augmentation's parameters at
+      ``cfg.res`` (``ops/augment.py``);
     * ``crf_ys``/``crf_xs``: the CRF loss's ``crf_samples`` rows and
       columns of its 56 x 56 maps (int64), when ``crf_weight > 0``.
 
@@ -248,9 +267,22 @@ def draw_step_randomness(seg: UnsupervisedSegmenter, batch_size: int,
         for i in images:
             out[f"coords{i}"] = torch.rand(
                 (b, s, s, 2), generator=generator, device=dev) * 2.0 - 1.0
+            if cfg.use_salience:
+                out[f"salience_u{i}"] = torch.rand(
+                    (b, s * s), generator=generator, device=dev)
+                out[f"salience_mix{i}"] = torch.rand(
+                    (b, s, s), generator=generator, device=dev)
         out["perms"] = [block_local_super_perm(b, generator,
                                                seg.corr_cfg.neg_blocks)
                         for _ in range(cfg.neg_samples)]
+    if cfg.aug_alignment_weight > 0:
+        if net.projection_type is not None:
+            out["head3_keep1"] = keep()
+            out["head3_keep2"] = keep()
+        if cfg.device_augs:
+            out["aug_geom"] = augment.sample_geometric(generator, b, cfg.res,
+                                                       cfg.res)
+            out["aug_photo"] = augment.sample_photometric(generator, b)
     if cfg.crf_weight > 0:
         for axis in ("ys", "xs"):
             out[f"crf_{axis}"] = torch.randint(
@@ -260,7 +292,10 @@ def draw_step_randomness(seg: UnsupervisedSegmenter, batch_size: int,
 
 
 PER_IMAGE_DRAWS = ("head1_keep1", "head1_keep2", "head2_keep1", "head2_keep2",
-                   "feat1_keep", "feat2_keep", "coords1", "coords2")
+                   "feat1_keep", "feat2_keep", "coords1", "coords2",
+                   "salience_u1", "salience_u2", "salience_mix1",
+                   "salience_mix2", "head3_keep1", "head3_keep2", "aug_geom",
+                   "aug_photo")
 
 
 def local_draws(seg: UnsupervisedSegmenter, rand: Dict[str, Any],
@@ -272,7 +307,12 @@ def local_draws(seg: UnsupervisedSegmenter, rand: Dict[str, Any],
     and the CRF loss's rows and columns are every image's."""
     if seg.world == 1:
         return rand
-    out = {k: (v[rows] if k in PER_IMAGE_DRAWS else v)
+
+    def part(v):
+        return augment.take_rows(v, rows) if isinstance(v, tuple) \
+            else v[rows]
+
+    out = {k: (part(v) if k in PER_IMAGE_DRAWS else v)
            for k, v in rand.items()}
     if "perms" in rand and seg.cfg.negatives_scope == "local":
         out["perms"] = [p[rows] - rows.start for p in rand["perms"]]
@@ -287,11 +327,34 @@ def _cd_histogram(cd: torch.Tensor) -> torch.Tensor:
     return torch.bincount(idx, minlength=HIST_BINS)
 
 
-def _corr_pair_losses(seg, signal, signal_pos, code, code_pos, rand,
+def _loss_coords(seg, batch, rand):
+    """The loss's (coords1, coords2): the uniform draws, or, with
+    ``use_salience`` and the batch's masks, the draws leaning towards the
+    masks (``correlation.py:143-157``). Full-field mode samples nothing to
+    bias and refuses masks (``pallas_corr.py:539-543``)."""
+    coords = [rand["coords1"], rand["coords2"]]
+    if not seg.cfg.use_salience:
+        return coords
+    for i, key in enumerate(("mask", "mask_pos")):
+        mask = batch.get(key)
+        if mask is None:
+            continue
+        if seg.cfg.full_field_loss:
+            raise ValueError(
+                "use_salience is incompatible with full_field_loss: the "
+                "dense loss has no coordinate draw to bias (reference "
+                "modules.py:355-364 applies salience to coordinate "
+                "sampling).")
+        coords[i] = salience_coords(mask, rand[f"salience_u{i + 1}"],
+                                    coords[i], rand[f"salience_mix{i + 1}"])
+    return coords
+
+
+def _corr_pair_losses(seg, signal, signal_pos, code, code_pos, coords, rand,
                       with_hist: bool, sampling_impl: str):
     """The weighted correlation loss and its metrics
-    (``segmenter.py:180-237``); this rank's share of them over several
-    processes."""
+    (``segmenter.py:180-237``) at the sample points ``coords``; this
+    rank's share of them over several processes."""
     cfg = seg.cfg
     corr_cfg, rows = seg.corr_cfg, None
     if seg.world > 1:
@@ -310,8 +373,8 @@ def _corr_pair_losses(seg, signal, signal_pos, code, code_pos, rand,
                 "global negatives on one process only; over several "
                 "processes use the streamed loss (use_pallas_loss=true) or "
                 "negatives_scope=local")
-    args = (corr_cfg, signal, signal_pos, code, code_pos,
-            rand["coords1"], rand["coords2"], rand["perms"])
+    args = (corr_cfg, signal, signal_pos, code, code_pos, *coords,
+            rand["perms"])
     if cfg.use_pallas_loss or cfg.full_field_loss:
         out = contrastive_correlation_loss_fused(
             *args, full_field=cfg.full_field_loss,
@@ -342,24 +405,19 @@ def _corr_pair_losses(seg, signal, signal_pos, code, code_pos, rand,
     return corr_loss, metrics
 
 
-def _check_ported(cfg: Config) -> None:
-    if cfg.use_salience:
-        raise salience_not_ported()
-    if cfg.aug_alignment_weight > 0:
-        raise NotImplementedError(
-            "aug_alignment_weight > 0: the augmented view (ops/augment.py) "
-            "and the aug-alignment loss are not ported yet (ROADMAP.md "
-            "queue 1, Training branches that raise today)")
-
-
 def _update_from_feats(seg: UnsupervisedSegmenter, with_hist: bool,
                        image_feat: torch.Tensor,
                        image_feat_pos: Optional[torch.Tensor],
                        batch: Dict[str, torch.Tensor], rand: Dict[str, Any],
-                       sampling_impl: str) -> Dict[str, torch.Tensor]:
+                       sampling_impl: str,
+                       image_feat_aug: Optional[torch.Tensor] = None
+                       ) -> Dict[str, torch.Tensor]:
     """Everything after the frozen trunk (``segmenter.py:283-448``): head
     code, losses, gradients and the three Adam updates, in place on
-    ``seg``. Returns the step's metrics (detached tensors)."""
+    ``seg``. ``batch`` holds ``label`` and, as the losses need them,
+    ``label_pos``, ``mask``/``mask_pos`` (``use_salience``), ``coord_aug``
+    (with ``image_feat_aug``) and ``img`` (the CRF loss). Returns the
+    step's metrics (detached tensors)."""
     cfg = seg.cfg
     net = seg.net
     label = batch["label"]
@@ -390,8 +448,8 @@ def _update_from_feats(seg: UnsupervisedSegmenter, with_hist: bool,
         else:
             signal, signal_pos = feats, feats_pos
         corr_loss, corr_metrics = _corr_pair_losses(
-            seg, signal, signal_pos, code, code_pos, rand, with_hist,
-            sampling_impl)
+            seg, signal, signal_pos, code, code_pos,
+            _loss_coords(seg, batch, rand), rand, with_hist, sampling_impl)
         loss = loss + corr_loss
         metrics.update(corr_metrics)
 
@@ -401,6 +459,20 @@ def _update_from_feats(seg: UnsupervisedSegmenter, with_hist: bool,
             l2_normalize(rec_feats) * l2_normalize(feats), dim=-1))
         loss = loss + cfg.rec_weight * rec_loss
         metrics["loss/rec"] = rec_loss
+
+    if image_feat_aug is not None:
+        code_aug = net.head_code(image_feat_aug, rand.get("head3_keep1"),
+                                 rand.get("head3_keep2"))
+        coord_small = interpolate(batch["coord_aug"], code_aug.shape[1:3],
+                                  "bilinear", align_corners=False)
+        # the reference's sample() transposes the grid, and the dataset's
+        # grid is (y, x): the two swaps cancel on square inputs
+        # (train_segmentation.py:189-198, data.py:530-532)
+        resampled = sample_from_coords(code, coord_small)
+        aug_alignment = -torch.mean(torch.sum(
+            l2_normalize(resampled) * l2_normalize(code_aug), dim=-1))
+        loss = loss + cfg.aug_alignment_weight * aug_alignment
+        metrics["loss/aug_alignment"] = aug_alignment
 
     if cfg.crf_weight > 0:
         crf = torch.mean(contrastive_crf_loss(
@@ -455,29 +527,51 @@ def make_train_step(seg: UnsupervisedSegmenter, with_hist: bool = True):
 
     ``batch``: NHWC ``img`` and ``img_pos`` (the KNN positive; needed when
     the correspondence loss is on), (B, H, W) int ``label`` (and
-    ``label_pos`` with ``use_true_labels``). ``rand``: the step's draws,
-    :func:`draw_step_randomness`. The trunk runs once over img ‖ img_pos.
+    ``label_pos`` with ``use_true_labels``), (B, H, W) ``mask`` and
+    ``mask_pos`` with ``use_salience``, and with the aug-alignment loss
+    either ``img_aug`` and ``coord_aug`` (the host route) or, under
+    ``device_augs``, neither (the step augments ``img`` by ``rand``'s
+    parameters, as ``segmenter.py:477-485``). ``rand``: the step's draws,
+    :func:`draw_step_randomness`. The trunk runs once over img ‖ img_pos
+    ‖ img_aug.
 
     ``with_hist=False`` skips the cd histograms and the plainly sampled cd
     tensors they need; the state it leaves is the hist variant's.
     """
     cfg = seg.cfg
-    _check_ported(cfg)
     sampling_impl = resolve_corr_sampling(seg)
     use_pos = cfg.correspondence_weight > 0
+    use_aug = cfg.aug_alignment_weight > 0
 
     def train_step(batch: Dict[str, torch.Tensor],
                    rand: Dict[str, Any]) -> Dict[str, torch.Tensor]:
         img = batch["img"]
         bsz = img.shape[0]
+        parts = [img]
         if use_pos:
-            feat_all = seg.net.backbone_features(
-                torch.cat([img, batch["img_pos"]]))
-            image_feat, image_feat_pos = feat_all[:bsz], feat_all[bsz:]
-        else:
-            image_feat, image_feat_pos = seg.net.backbone_features(img), None
-        return _update_from_feats(seg, with_hist, image_feat, image_feat_pos,
-                                  batch, rand, sampling_impl)
+            parts.append(batch["img_pos"])
+        if use_aug:
+            if cfg.device_augs and "img_aug" not in batch:
+                if tuple(img.shape[1:3]) != (cfg.res, cfg.res):
+                    raise ValueError(
+                        f"device_augs: the augmentation's parameters are "
+                        f"drawn for res {cfg.res} images; the batch's are "
+                        f"{tuple(img.shape[1:3])}")
+                b0 = seg.rank * bsz
+                mine = local_draws(seg, rand, slice(b0, b0 + bsz))
+                img_aug, coord_aug = augment.device_augment(
+                    img, mine["aug_geom"], mine["aug_photo"])
+                batch = dict(batch, coord_aug=coord_aug)
+            else:
+                img_aug = batch["img_aug"]
+            parts.append(img_aug.to(img.dtype))
+        feat_all = seg.net.backbone_features(
+            torch.cat(parts) if len(parts) > 1 else img)
+        chunks = feat_all.split(bsz)
+        return _update_from_feats(
+            seg, with_hist, chunks[0], chunks[1] if use_pos else None,
+            batch, rand, sampling_impl,
+            image_feat_aug=chunks[-1] if use_aug else None)
 
     return train_step
 
@@ -509,14 +603,20 @@ def make_cached_train_step(seg: UnsupervisedSegmenter,
     positives, when the correspondence loss is on; both as
     :class:`~stego_torch.train.feat_cache.FeatCacheSampler` draws them).
     ``rand``: :func:`draw_step_randomness`'s draws. The step gathers the
-    features (as f32) and labels by index (:func:`cache_rows`) and goes
-    through the image step's ``_update_from_feats``, so on the same images
-    and draws it is the image step. ``steps_per_dispatch > 1``
+    features (as f32), labels and, with ``use_salience``, the masks (as
+    f32) by index (:func:`cache_rows`) and goes through the image step's
+    ``_update_from_feats``, so on the same images and draws it is the
+    image step. The aug-alignment loss needs each step's augmented view
+    through the trunk, which the cache cannot give, and raises as the
+    cache's build does. ``steps_per_dispatch > 1``
     (``make_cached_multi_step``) is the TPU's workaround for its dispatch
     latency (ROADMAP.md queue 1, Do not port these TPU workarounds) and
     raises."""
     cfg = seg.cfg
-    _check_ported(cfg)
+    if cfg.aug_alignment_weight > 0:
+        raise ValueError(
+            "cache_backbone_feats is incompatible with aug_alignment_weight>0:"
+            " the augmented view must pass through the backbone every step")
     if cfg.crf_weight > 0:
         raise ValueError(
             "crf_weight > 0 needs each step's images, which the feature "
@@ -544,6 +644,10 @@ def make_cached_train_step(seg: UnsupervisedSegmenter,
             image_feat_pos = cache_rows(seg, cache["feats"], ind_pos).float()
             sub["label_pos"] = cache_rows(seg, cache["label"],
                                           ind_pos).to(torch.int32)
+            if cfg.use_salience:
+                sub["mask"] = cache_rows(seg, cache["mask"], ind).float()
+                sub["mask_pos"] = cache_rows(seg, cache["mask"],
+                                             ind_pos).float()
         return _update_from_feats(seg, with_hist, image_feat, image_feat_pos,
                                   sub, rand, sampling_impl)
 

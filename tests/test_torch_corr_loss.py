@@ -237,16 +237,6 @@ def test_fused_loss_front_end_matches_jax(return_cd_tensors):
                                    err_msg=k)
 
 
-@pytest.mark.parametrize("what", ["salience"])
-def test_fused_loss_unported_branches_raise(what):
-    arrs = [t(a) for a in maps(0)]
-    cs = [t(c) for c in coords(1)]
-    cfg = CorrLossCfg(feature_samples=2, neg_samples=0,
-                      use_salience=what == "salience")
-    with pytest.raises(NotImplementedError, match="not ported"):
-        corr_stream.contrastive_correlation_loss_fused(cfg, *arrs, *cs, [])
-
-
 def stream_pairs(seed, b=2, hw=8, cf=CF, cc=CC, neg=2):
     """Seeded NHWC maps of the three pair types, as the loss hands them to
     C2: (feats, feats, code, code), (feats, feats_pos, code, code_pos) and

@@ -35,10 +35,15 @@ def _ln_inputs(rows, d, device, dtype):
 
 @pytest.mark.parametrize("rows,d", [(8 * 785, 384), (8 * 1601, 384),
                                     (3, 768), (13, 384), (8 * 785, 192),
-                                    (8 * 1601, 192), (13, 192)])
+                                    (8 * 1601, 192), (13, 192),
+                                    (16 * 65, 32), (48 * 65, 32), (13, 32),
+                                    (16 * 65, 64), (13, 64), (7, 1024),
+                                    (5, 96)])
 def test_layer_norm_kernel_bf16_within_one_ulp(cuda, rows, d):
-    """Trunk shapes (ViT-S/8 and ViT-T/8 b=8 at res 224 and 320) and ragged
-    ones."""
+    """Trunk shapes (ViT-S/8 and ViT-T/8 b=8 at res 224 and 320; the
+    sensitive accuracy instrument's tiny ViT, D = 32, at batch 16 and its
+    aug step's 48 images) and ragged ones, at the runtime-width kernel's
+    widths too (64, 96, 1024)."""
     x, w, b = _ln_inputs(rows, d, cuda, torch.bfloat16)
     before = ln.LAUNCHES
     got = ln.fused_layer_norm(x, w, b, EPS)
@@ -50,7 +55,7 @@ def test_layer_norm_kernel_bf16_within_one_ulp(cuda, rows, d):
 
 
 @pytest.mark.parametrize("rows,d", [(8 * 785, 192), (8 * 785, 384),
-                                    (13, 768)])
+                                    (13, 768), (16 * 65, 32), (13, 64)])
 @pytest.mark.parametrize("out_dtype", [None, torch.float32])
 def test_add_layer_norm_kernel_matches_plain(cuda, rows, d, out_dtype):
     """L2, the residual form: r = bf16(x + y) bit for bit (one rounding of
@@ -73,9 +78,11 @@ def test_add_layer_norm_kernel_matches_plain(cuda, rows, d, out_dtype):
 
 
 def test_layer_norm_kernel_rejects_other_widths(cuda):
-    x, w, b = _ln_inputs(4, 256, cuda, torch.bfloat16)
-    with pytest.raises(ValueError, match="D in"):
-        ln.fused_layer_norm(x, w, b, EPS)
+    """D must be a multiple of 32 up to 1024."""
+    for d in (48, 1056):
+        x, w, b = _ln_inputs(4, d, cuda, torch.bfloat16)
+        with pytest.raises(ValueError, match="multiple of 32"):
+            ln.fused_layer_norm(x, w, b, EPS)
 
 
 @pytest.mark.parametrize("b,n,heads", [(8, 785, 6), (8, 1601, 6),
@@ -100,13 +107,23 @@ def test_attention_kernel_matches_plain(cuda, b, n, heads):
                                atol=5e-3)
 
 
-def test_attention_kernel_is_deterministic(cuda):
+@pytest.mark.parametrize("d", (fa.HEAD_DIM,) + fa.NARROW_HEAD_DIMS)
+def test_attention_kernel_is_deterministic(cuda, d):
+    """Two launches on the same inputs agree bit for bit, at every head
+    width (128 // d heads)."""
     g = torch.Generator(device=cuda).manual_seed(0)
     q, k, v = (torch.randn(2, 300, 128, generator=g, device=cuda).bfloat16()
                for _ in range(3))
-    a = fa.token_major_attention(q, k, v, 2, 0.125)
-    b = fa.token_major_attention(q, k, v, 2, 0.125)
+    heads = 128 // d
+    a = fa.token_major_attention(q, k, v, heads, d ** -0.5)
+    b = fa.token_major_attention(q, k, v, heads, d ** -0.5)
+    assert fa.HEAD_DIM_LAUNCHES[d] >= 2
     assert torch.equal(a, b)
+    for fn in (fa.resident_attention, fa.flash_attention):
+        heads_major = [x.unflatten(-1, (heads, d)).transpose(1, 2)
+                       for x in (q, k, v)]
+        assert torch.equal(fn(*heads_major, d ** -0.5),
+                           fn(*heads_major, d ** -0.5))
 
 
 HEAD_MAJOR = ("resident_attention", "batch_resident_attention",
@@ -114,11 +131,11 @@ HEAD_MAJOR = ("resident_attention", "batch_resident_attention",
               "no_softmax_attention", "trunk_attention")
 
 
-def _head_major_inputs(dev, b, h, n, seed):
-    """Head-major (B, H, N, 64) views of one packed qkv, as the ViT-T trunk
+def _head_major_inputs(dev, b, h, n, seed, d=64):
+    """Head-major (B, H, N, d) views of one packed qkv, as the ViT-T trunk
     hands them: q, k ~ N(0, 4) so softmax rows are peaked, v ~ N(0, 1)."""
     g = torch.Generator(device=dev).manual_seed(seed)
-    qkv = torch.randn(b, n, 3, h, 64, generator=g, device=dev)
+    qkv = torch.randn(b, n, 3, h, d, generator=g, device=dev)
     qkv[:, :, :2] *= 2
     return [x.transpose(1, 2) for x in qkv.bfloat16().unbind(2)]
 
@@ -160,6 +177,55 @@ def test_head_major_attention_kernel_matches_plain(cuda, name, b, h, n):
     diff = (out.float() - want).abs()
     assert torch.all(diff <= attention_tolerance(name, want)), \
         float(diff.max())
+
+
+# the sensitive accuracy instrument's trunk (4 heads of 8 at res 64, N =
+# 65; batch 16, and 48 images in its aug step) and ragged shapes
+NARROW_SHAPES = [(16, 4, 65), (48, 4, 65), (1, 2, 1), (2, 3, 130),
+                 (2, 4, 1153)]
+
+
+@pytest.mark.parametrize("d", fa.NARROW_HEAD_DIMS)
+@pytest.mark.parametrize("name", HEAD_MAJOR)
+def test_narrow_head_attention_kernel_matches_plain(cuda, name, d):
+    """The narrow-head kernel (bf16, d = 8, 16, 32) in every head-major
+    form, on views of a packed qkv with the output written through a
+    token-major view, against its plain version at the head-major gates;
+    and token-major (B, N, H*d) in and out. One launch a call, counted
+    under its head width."""
+    fn = getattr(fa, name)
+    scale = d ** -0.5
+    for b, h, n in NARROW_SHAPES:
+        if (name in ("resident_attention", "batch_resident_attention")
+                and -(-n // 128) * 128 > fa.RESIDENT_MAX_N):
+            continue
+        q, k, v = _head_major_inputs(cuda, b, h, n, seed=n + h + d, d=d)
+        tok = torch.empty(b, n, h * d, dtype=torch.bfloat16, device=cuda)
+        out = tok.unflatten(-1, (h, d)).transpose(1, 2)
+        before = fa.HEAD_DIM_LAUNCHES[d]
+        fn(q, k, v, scale, out=out)
+        torch.cuda.synchronize()
+        assert fa.HEAD_DIM_LAUNCHES[d] == before + 1
+        want = fn(q, k, v, scale, use_kernel=False).float()
+        diff = (out.float() - want).abs()
+        assert torch.all(diff <= attention_tolerance(name, want)), \
+            (b, h, n, float(diff.max()))
+        if name == "trunk_attention" and n <= 1152:
+            tq, tk, tv = (x.transpose(1, 2).flatten(2) for x in (q, k, v))
+            got = fa.token_major_attention(tq, tk, tv, h, scale)
+            want = fa.attention_plain(tq, tk, tv, h, scale)
+            torch.testing.assert_close(got.float(), want.float(), rtol=2e-2,
+                                       atol=5e-3)
+
+
+def test_narrow_f32_heads_raise(cuda):
+    """f32 heads narrower than 64 have no kernel: they raise, naming the
+    ROADMAP item, and launch nothing."""
+    q = torch.zeros(1, 4, 9, 8, device=cuda)
+    before = fa.LAUNCHES
+    with pytest.raises(ValueError, match="f32 heads of 8"):
+        fa.batch_resident_attention(q, q, q, 8 ** -0.5)
+    assert fa.LAUNCHES == before
 
 
 def test_flash_attention_kernel_at_res_448(cuda):
@@ -213,7 +279,8 @@ def test_token_major_launches_count_by_jax_entry(cuda, n, entry):
 
 
 def test_attention_kernel_rejects_other_head_widths(cuda):
-    q = torch.zeros(1, 3, 9, 32, device=cuda, dtype=torch.bfloat16)
+    """Head widths other than 64 and the narrow ones (8, 16, 32)."""
+    q = torch.zeros(1, 3, 9, 24, device=cuda, dtype=torch.bfloat16)
     with pytest.raises(ValueError, match="head_dim 64"):
         fa.batch_resident_attention(q, q, q, 0.125)
 
@@ -1243,3 +1310,41 @@ def test_vit_tiny_trunk_launches_head_major_kernels(cuda):
         assert float(diff.max()) <= 2 ** -5 * scale \
             and float(diff.mean()) <= 2 ** -9 * scale, (
                 float(diff.max()), float(diff.mean()), scale)
+
+
+def test_f32_checkpoint_eval_runs_in_full_f32(cuda, tmp_path):
+    """An f32 trunk's checkpoint through ``load_model_for_eval`` (the dataset
+    eval's, the demo's and serving's loader), from torch's default flags (a
+    fresh process: cuDNN TF32 on, matmul TF32 off), gives the flip-TTA code
+    of the same step in full f32 at the f32 trunk's gates (rtol 1e-4, atol
+    1e-5): loading an f32 trunk turns TF32 off. With cuDNN's TF32 the patch
+    embedding moved that code by ~6.5e-4 on an H100 (ViT-S/8, res 320)."""
+    from stego_torch.config import Config
+    from stego_torch.eval.evaluate import flip_tta_code, load_model_for_eval
+    from stego_torch.models.convert import save_stego_checkpoint
+    from stego_torch.train.segmenter import UnsupervisedSegmenter
+
+    kept = (torch.backends.cudnn.allow_tf32,
+            torch.backends.cuda.matmul.allow_tf32)
+    try:
+        torch.backends.cudnn.allow_tf32 = True
+        torch.backends.cuda.matmul.allow_tf32 = False
+        seg = UnsupervisedSegmenter(
+            27, Config(dataset_name="cocostuff27", backbone_dtype="float32",
+                       res=224),
+            generator=torch.Generator().manual_seed(0))
+        path = str(tmp_path / "f32.ckpt")
+        save_stego_checkpoint(path, seg)
+        loaded = load_model_for_eval(path, cuda)
+        img = torch.randn(2, 224, 224, 3, device=cuda, generator=torch
+                          .Generator(device=cuda).manual_seed(1))
+        with torch.inference_mode():
+            got = flip_tta_code(loaded, img)
+        torch.backends.cudnn.allow_tf32 = False
+        torch.backends.cuda.matmul.allow_tf32 = False
+        with torch.inference_mode():
+            want = flip_tta_code(loaded, img)
+        torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-5)
+    finally:
+        (torch.backends.cudnn.allow_tf32,
+         torch.backends.cuda.matmul.allow_tf32) = kept

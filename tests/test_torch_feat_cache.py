@@ -170,19 +170,21 @@ def test_cache_size_cap_raises():
 
 
 @pytest.mark.parametrize("kw,when", [
-    (dict(use_salience=True), "step"),
-    (dict(use_salience=True), "build"),
     (dict(aug_alignment_weight=0.5), "step"),
     (dict(steps_per_dispatch=2), "step"),
 ])
 def test_unported_cache_options_raise(kw, when):
-    """The salience masks, the aug-alignment loss and steps_per_dispatch >
-    1 raise NotImplementedError naming ROADMAP (the sharded cache is
-    ported: tests/test_torch_ddp.py)."""
+    """steps_per_dispatch > 1 raises NotImplementedError naming ROADMAP
+    (the sharded cache is ported: tests/test_torch_ddp.py); the
+    aug-alignment loss raises ValueError in the cached step, as the cache's
+    build does (the augmented view needs the trunk every step)."""
     cfg = make_cfg(**kw)
     seg = setup(make_cfg())[3]
     seg.cfg = torch_config(cfg)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    exc, match = ((ValueError, "aug_alignment_weight")
+                  if cfg.aug_alignment_weight else
+                  (NotImplementedError, "ROADMAP"))
+    with pytest.raises(exc, match=match):
         if when == "build":
             fc.build_feat_cache(seg, _Contrastive(), seg.cfg)
         else:

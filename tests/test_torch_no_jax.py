@@ -1,8 +1,9 @@
 """stego_torch runs where there is no JAX, no PIL and no JAX package: a
 fresh interpreter in which those imports fail imports every module of the
 port and runs one eval step, another runs train steps (the sampled loss
-through C1's plain version, full-field and grid-sampled through C2's) and
-one val step, a third builds a KNN cache and a feature cache and runs a
+through C1's plain version, full-field and grid-sampled through C2's, the
+salience-biased draw and the aug-alignment loss with the device
+augmentations) and one val step, a third builds a KNN cache and a feature cache and runs a
 cached train step and a cached val epoch, a fourth runs the train app
 on in-memory datasets (two steps, a validation and a checkpoint, then a
 resumed step), a fifth evaluates a checkpoint over an in-memory
@@ -51,6 +52,8 @@ MODULES = [
     "stego_torch.utils.viz", "stego_torch.data.colormaps",
     "stego_torch.train.crf_app", "stego_torch.eval.__main__",
     "stego_torch.serve", "stego_torch.parallel", "stego_torch.parallel.dist",
+    "stego_torch.ops.augment", "stego_torch.tools.accuracy_bench",
+    "stego_torch.utils.precision",
 ]
 for name in MODULES:
     importlib.import_module(name)
@@ -114,6 +117,18 @@ for kw in (dict(full_field_loss=True), dict(fused_sampling="off")):
     assert torch.isfinite(m["loss/total"])
     assert ("hist/neg_inter" in m) == ("fused_sampling" in kw)
 assert seg.step == 3
+# the salience-biased draw (masks: label > 0, one empty) and the
+# aug-alignment loss on the device route
+mask = (batch["label"] > 0).float()
+mask[1] = 0.0
+for kw, extra in ((dict(use_salience=True),
+                   {"mask": mask, "mask_pos": mask.flip(2)}),
+                  (dict(aug_alignment_weight=0.5), {})):
+    seg.cfg = cfg.replace(**kw)
+    m = make_train_step(seg)({**batch, **extra},
+                             draw_step_randomness(seg, 2, g))
+    assert torch.isfinite(m["loss/total"])
+assert torch.isfinite(m["loss/aug_alignment"]) and seg.step == 5
 out = make_val_step(seg)(batch)
 assert int(out["conf_linear"].sum()) == int((batch["label"] >= 0).sum())
 print("OK", sorted(m for m, mod in sys.modules.items()

@@ -301,22 +301,6 @@ def test_train_step_pallas_loss_bf16_matches_jax_two_steps():
     run_both(make_cfg(pallas_loss_bf16=True, fused_sampling="auto"))
 
 
-@pytest.mark.parametrize("kw,at_build", [
-    (dict(use_salience=True), True),
-    (dict(aug_alignment_weight=0.1), True),
-])
-def test_unported_branches_raise(kw, at_build):
-    """Each branch that needs an unported piece raises NotImplementedError
-    naming ROADMAP, when the step is built or when it runs."""
-    cfg = make_cfg(**kw)
-    seg = setup(cfg)[3]
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        step = make_train_step(seg)
-        assert not at_build
-        step(to_torch(make_batch(0)),
-             draw_step_randomness(seg, B, torch.Generator().manual_seed(0)))
-
-
 def test_reset_probes_gives_fresh_probes_and_optimizers():
     cfg = make_cfg()
     seg = setup(cfg)[3]

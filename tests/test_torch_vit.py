@@ -101,6 +101,29 @@ def test_vit_bf16_blocks_cast_changes_nothing():
     torch.testing.assert_close(before, after, rtol=0, atol=0)
 
 
+def test_trunc_normal_pins_its_draws_and_matches_jax_moments():
+    """The port's own truncated normal (models/vit.py:trunc_normal) gives
+    these values for seed 0 under any torch release (torch's
+    ``nn.init.trunc_normal_`` changed its algorithm in 2.13, and with it
+    every seeded trunk), and JAX's ``trunc_normal`` distribution: within
+    [-2 std, 2 std], the truncated normal's std (0.8796 std) within 1%."""
+    from stego_tpu.models.vit import trunc_normal as jax_trunc_normal
+    from stego_torch.models.vit import trunc_normal
+
+    got = trunc_normal(torch.empty(6), 0.02, torch.Generator().manual_seed(0))
+    np.testing.assert_array_equal(got.numpy(), np.array(
+        [0.03081992268562317, -0.00586857832968235, -0.01438515167683363,
+         0.011368625797331333, -0.021690446883440018, -0.027971908450126648],
+        np.float32))
+    big = trunc_normal(torch.empty(200000), 0.02,
+                       torch.Generator().manual_seed(1)).numpy()
+    want = np.asarray(jax_trunc_normal(jax.random.PRNGKey(1), (200000,)))
+    for x in (big, want):
+        assert np.abs(x).max() <= 0.04
+        assert abs(x.mean()) < 2e-4
+        np.testing.assert_allclose(x.std(), 0.02 * 0.87962566, rtol=1e-2)
+
+
 def test_vit_seeded_init_is_deterministic():
     a = VisionTransformer(CFG, torch.Generator().manual_seed(7))
     b = VisionTransformer(CFG, torch.Generator().manual_seed(7))
