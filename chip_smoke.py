@@ -189,6 +189,7 @@ import concurrent.futures
 import copy
 import dataclasses
 import functools
+import importlib
 import json
 import math
 import os
@@ -261,7 +262,11 @@ C1_CASES = (("bf16", torch.bfloat16, 384), ("f32", torch.float32, 384),
             ("bf16_768", torch.bfloat16, 768),
             ("f32_768", torch.float32, 768),
             # dim=100, feature_samples=12: two code chunks, two sample tiles
-            ("bf16_cc100_s144", torch.bfloat16, 384, dict(cc=100, s=12)))
+            ("bf16_cc100_s144", torch.bfloat16, 384, dict(cc=100, s=12)),
+            # the feature-pyramid step's: ResNet-50's layer4 (2048 channels
+            # at 7 x 7, res 224) beside 56 x 56 code, bf16 and f32 trunks
+            ("bf16_2048", torch.bfloat16, 2048, dict(hw=7, code_hw=56)),
+            ("f32_2048", torch.float32, 2048, dict(hw=7, code_hw=56)))
 # the code widths past one chunk of C1 (96) and C2 (128) that the wide
 # train steps run: dim=100 with feature_samples=12 (S=144), and dim=160
 WIDE_C1 = dict(dim=100, feature_samples=12)
@@ -346,6 +351,26 @@ STEP_MEDIANS = {}
 # at 192 channels). Phase C1's inputs are drawn again until none is.
 CLAMP_TIE = 1e-7
 FULL_STEPS, SHORT_STEPS = 10, 3
+# the feature-pyramid arch (phase fpn): ResNet-50's layer4 channels, the
+# head's granularity, its sampled steps (bf16 trunk) and the app's run on
+# FPN_TRAIN + FPN_VAL written scenes at TRAIN_RES; a conv bias before a
+# train-mode BatchNorm (and a kernel entry whose input channel is constant
+# over the batch) has an analytic gradient of 0, which a kernel step and a
+# plain step compute as different rounding noise, and Adam's first step
+# moves either by up to lr: the parameters are held where the plain step's
+# gradient is at least ADAM_LIVE
+FPN_CF, FPN_GRANULARITY, FPN_STEPS = 2048, 4, 10
+# the gap the feature-pyramid steps' head gradients may have from the plain
+# step's (phase fpn); C1's and C2's kernels take the plain versions' rounding
+FPN_GRAD_GAP = 1e-6
+# the part of the feature-pyramid steps' loss that must fall: on a random
+# ResNet-50 the linear probe's cross-entropy of the head's unnormalised code
+# grows over the first steps and takes loss/total with it
+CONTRASTIVE = ("the weighted contrastive losses (loss/total - loss/linear - "
+               "loss/cluster)", lambda m: m["loss/total"] - m["loss/linear"]
+               - m["loss/cluster"])
+FPN_TRAIN, FPN_VAL, FPN_APP_STEPS = 64, 16, 10
+FPN_EMBEDDERS = ("resnet50", "vgg11", "densenet121")
 # the feature-cache path: seeded synthetic scenes of 27 classes, the train
 # split at TRAIN_RES with its KNN table, the val split at VAL_RES in
 # batches of VAL_BATCH (128 = 5 x 24 + 8: a short final chunk and batch)
@@ -932,9 +957,24 @@ def bf16_attention(q, k, v, heads, scale):
 
 
 # the f32-trunk step's controls: its attention replaced, each must fail the
-# step's gradient gate
-ATTENTION_CONTROLS = {"TF32 attention": tf32_attention,
-                      "bf16 attention": bf16_attention}
+# step's gradient gate ({name: (module, attribute, the replacement of the
+# attribute's function)})
+ATTENTION_CONTROLS = {
+    "TF32 attention": ("stego_torch.models.vit", "token_major_attention",
+                       lambda kept: tf32_attention),
+    "bf16 attention": ("stego_torch.models.vit", "token_major_attention",
+                       lambda kept: bf16_attention)}
+# the feature-pyramid steps' controls, each must fail their gradient gate:
+# the code gradient of C2's backward (C1's backward runs it too) scaled by
+# 1 + 1e-3, which Adam's first step does not see (it moves a parameter by
+# lr g / (|g| + 1e-8)); and C1's adjoint on bf16-rounded tap weights
+SCALED_CODE_GRADIENT = {"C2's code gradient x (1 + 1e-3)": (
+    "stego_torch.ops.corr_stream", "backward_launch",
+    lambda kept: lambda *a, **kw: kept(*a, **kw) * (1 + 1e-3))}
+C1_CONTROLS = {**SCALED_CODE_GRADIENT, "C1's adjoint on bf16 tap weights": (
+    "stego_torch.ops.corr_fused_sampling", "adjoint_launch",
+    lambda kept: lambda lib, dsets, csets, norms, keys, wts, *rest: kept(
+        lib, dsets, csets, norms, keys, wts.bfloat16().float(), *rest))}
 
 
 def images(gen, res, dev, batch=BATCH):
@@ -947,7 +987,7 @@ def images(gen, res, dev, batch=BATCH):
 
 
 MODEL_NAMES = {"vit_tiny": "ViT-T/8", "vit_small": "ViT-S/8",
-               "vit_base": "ViT-B/8"}
+               "vit_base": "ViT-B/8", "resnet50": "ResNet-50 FPN"}
 
 
 def trunk_entry(model_type, res):
@@ -1400,9 +1440,10 @@ def phase_serve(dev, tmp):
     return {m: add_counts(*runs) for m, runs in launches.items()}
 
 
-def corr_inputs(dev, b, hw, cf, cc, s, neg, seed):
+def corr_inputs(dev, b, hw, cf, cc, s, neg, seed, code_hw=None):
     """Seeded inputs of kernel C1 at the train step's shapes: f32 feature
-    and code maps (as the trunk and head give them), U(-1, 1) coordinates,
+    and code maps (as the trunk and head give them; the code on its own
+    ``code_hw`` grid where given), U(-1, 1) coordinates,
     super_perm negatives, and the weights of a random combination of the
     losses and cd means to take gradients of. Drawn again (seed + 1000 k)
     while a cd of the plain version lies within CLAMP_TIE of a bound of
@@ -1414,7 +1455,8 @@ def corr_inputs(dev, b, hw, cf, cc, s, neg, seed):
         g = torch.Generator(device=dev).manual_seed(seed + 1000 * k)
         feats = [torch.randn(b, hw, hw, cf, generator=g, device=dev)
                  for _ in range(2)]
-        code = [torch.randn(b, hw, hw, cc, generator=g, device=dev)
+        chw = code_hw or hw
+        code = [torch.randn(b, chw, chw, cc, generator=g, device=dev)
                 for _ in range(2)]
         coords = [torch.rand(b, s, s, 2, generator=g, device=dev) * 2 - 1
                   for _ in range(2)]
@@ -1450,12 +1492,13 @@ def c1_parts(feats, code, coords, perms, shifts, feat_dtype, opts, wts):
 
     lib = build.library()
     b, h, w, _ = feats[0].shape
+    chw = tuple(code[0].shape[1:3])  # the code's grid
     g = 2 + len(perms)
     args = (feats[0], feats[1], code[0], code[1], coords[0], coords[1],
             perms)
     inputs = c1.gather_inputs(*args, feat_dtype)
     fsets, csets, norms, keys, tap_wts, i1, i2, *layout = c1.gather_launch(
-        lib, *inputs, g, (h, w))
+        lib, *inputs, g, (h, w), chw)
     perm = inputs[-1]
     lo_hi = (opts.get("zero_clamp", True), opts.get("stabalize", False))
     acc, fd, mask = c2.forward_launch(lib, fsets, csets, i1, i2, *lo_hi,
@@ -1471,9 +1514,11 @@ def c1_parts(feats, code, coords, perms, shifts, feat_dtype, opts, wts):
           "C1's pair-row layout from the gather gives C2's backward the "
           "code gradient of C2's own sort, bit for bit")
     dcode = c1.adjoint_launch(lib, dsets, csets, norms, keys, tap_wts, perm,
-                              b, (h, w))
+                              b, chw)
     label = (f"{str(feat_dtype)[6:]} features, cf={feats[0].shape[-1]}, "
-             f"cc={code[0].shape[-1]}, S={csets.shape[1]}")
+             f"cc={code[0].shape[-1]}, S={csets.shape[1]}"
+             + ("" if chw == (h, w) else f", {h}x{w} features and "
+                f"{chw[0]}x{chw[1]} code"))
     want = c1.sample_sets_plain(*args, feat_dtype)
     for name, x, y, (rtol, atol) in (
             ("feature sets", fsets, want[0], GATHER_TOL[feat_dtype]),
@@ -1486,7 +1531,7 @@ def c1_parts(feats, code, coords, perms, shifts, feat_dtype, opts, wts):
               f"max_abs_err {err:.3e} (rtol {rtol:.2e} atol {atol:.0e})")
     rtol, atol = ADJOINT_TOL
     want = torch.cat(c1.unsample_plain(dsets, csets, norms, coords[0],
-                                       coords[1], perms, (h, w)))
+                                       coords[1], perms, chw))
     got = dcode.reshape(want.shape)
     check(within((got - want).abs(), atol + rtol * want.abs(), want),
           f"{label}: adjoint's code gradients against unsample_plain, "
@@ -1506,12 +1551,12 @@ def c1_parts(feats, code, coords, perms, shifts, feat_dtype, opts, wts):
     c2_bwd_kernel, c2_bwd_rest = split(lambda: c2.backward_launch(
         lib, saved, static, wts[0], wts[1], layout), "corr_stream_bwd_kernel")
     adjoint, jacobian = split(lambda: c1.adjoint_launch(
-        lib, dsets, csets, norms, keys, tap_wts, perm, b, (h, w)),
+        lib, dsets, csets, norms, keys, tap_wts, perm, b, chw),
         "corr_sampled_adjoint_kernel")
     parts = {
         "inputs": device_ms(lambda: c1.gather_inputs(*args, feat_dtype)),
         "gather": device_ms(lambda: c1.gather_launch(lib, *inputs, g,
-                                                     (h, w))),
+                                                     (h, w), chw)),
         "c2_copies": c2_copies, "c2_fwd_kernel": c2_kernel,
         "finalize": device_ms(lambda: c2.finalize_rows(
             acc[:, 0], acc[:, 1], acc[:, 2], acc[:, 3], shifts, groups,
@@ -1534,7 +1579,8 @@ def phase_corr(dev):
     print(f"kernel C1 (corr_sampled) vs plain: B={CORR_SHAPE['b']}, "
           f"{CORR_SHAPE['hw']}x{CORR_SHAPE['hw']} maps, feats {kinds}, code "
           f"{CORR_SHAPE['cc']} f32, {CORR_SHAPE['s']}x{CORR_SHAPE['s']} "
-          f"samples (and code 100, 12x12 samples), {CORR_SHAPE['neg']} "
+          f"samples (and code 100, 12x12 samples; and 2048 at 7x7 beside "
+          f"56x56 code), {CORR_SHAPE['neg']} "
           f"negatives; losses and cd rtol "
           f"{LOSS_RTOL} atol {LOSS_ATOL}, code grads rtol {GRAD_RTOL} atol "
           f"{GRAD_ATOL}")
@@ -1543,7 +1589,7 @@ def phase_corr(dev):
         sh = dict(CORR_SHAPE, cf=cf, **(shape[0] if shape else {}))
         seed = 3 if cf == 384 else cf
         if shape:
-            seed = 1000 * sh["cc"] + sh["s"]
+            seed = 1000 * sh["cc"] + sh["s"] + sh.get("code_hw", 0)
         feats, code, coords, perms, wts = corr_inputs(dev, **sh, seed=seed)
         shifts = [0.18, 0.12] + [0.46] * sh["neg"]
         errs = {"fwd": 0.0, "bwd": 0.0}
@@ -1569,7 +1615,10 @@ def phase_corr(dev):
             torch.cuda.synchronize()
             want = run(c1.sampled_corr_plain)
             label = (f"{name.split('_')[0]} features, cf={cf}, "
-                     f"cc={sh['cc']}, S={sh['s'] ** 2}, " + ", ".join(
+                     f"cc={sh['cc']}, S={sh['s'] ** 2}, "
+                     + (f"{sh['hw']}x{sh['hw']} features and "
+                        f"{sh['code_hw']}x{sh['code_hw']} code, "
+                        if sh.get("code_hw") else "") + ", ".join(
                          f"{k}={v}" for k, v in opts.items()))
             hold_to_plain(label, got, want, errs, (LOSS_RTOL, LOSS_ATOL),
                           (GRAD_RTOL, GRAD_ATOL))
@@ -1611,30 +1660,34 @@ def phase_corr(dev):
     return out
 
 
-def c1_bounds(b, hw, cf, cc, s, neg, feat_bytes=2):
+def c1_bounds(b, hw, cf, cc, s, neg, feat_bytes=2, code_hw=None):
     """C1's least times, forward and backward. Forward: fd and cd of every
     slot (S x S x (cf + cc) multiply-adds, S = s * s samples) and the
     4-tap sampling of both sides; it reads the feature maps
     (``feat_bytes`` an element) and f32 code maps and the coordinates and
     writes the row sums, z2cn and fd. Backward: cd again, dz1 and dz2, the
     normalise Jacobian and the 4-tap scatter; it reads the residuals and
-    writes the code gradients. Products count at their type's fastest
+    writes the code gradients. The sampling, the Jacobian and the scatter
+    count once for each of the G * B (= slots) distinct sets, which the
+    slots' two sides share. Products count at their type's fastest
     rate (fd on bf16 features at bf16, every f32 product at 3xTF32), the
     sampling and the Jacobian at f32 FMA: the function's work, whatever
     implements it (the products run on C2's tensor cores, and its backward
-    reads the fd and mask its forward kept instead of taking cd again)."""
+    reads the fd and mask its forward kept instead of taking cd again).
+    ``code_hw``: the code's grid, where it is not the features'."""
     n, ss, slots = hw * hw, s * s, (2 + neg) * b
+    nc = (code_hw or hw) ** 2
     coords = 2 * b * ss * 2 * 4
     resid = slots * (5 * ss + ss * cc + ss * ss) * 4
     fd = 2 * slots * ss * ss * cf
     fwd_ops = {"bf16": 0, "tf32x3": 2 * slots * ss * ss * cc,
-               "f32": 2 * slots * 2 * ss * 4 * (cf + cc)}
+               "f32": 2 * slots * ss * 4 * (cf + cc)}
     fwd_ops["bf16" if feat_bytes == 2 else "tf32x3"] += fd
-    fwd = bound(fwd_ops,
-                2 * b * n * (feat_bytes * cf + 4 * cc) + coords + resid)
+    fwd = bound(fwd_ops, 2 * b * (n * feat_bytes * cf + nc * 4 * cc)
+                + coords + resid)
     bwd = bound({"tf32x3": 3 * 2 * slots * ss * ss * cc,
-                 "f32": 2 * slots * 2 * ss * 6 * cc},
-                resid + coords + 2 * b * n * cc * 4)
+                 "f32": 2 * slots * ss * 6 * cc},
+                resid + coords + 2 * b * nc * cc * 4)
     return {"fwd": fwd, "bwd": bwd}
 
 
@@ -1831,7 +1884,8 @@ def phase_corr_stream(dev):
     sh = CORR_SHAPE
     b, cc, neg = sh["b"], sh["cc"], sh["neg"]
     print(f"kernel C2 (corr_stream) vs plain: B={b}, feats {sh['cf']} in "
-          f"bf16 and in f32 (and ViT-B's 768 full-field), code {cc} f32 "
+          f"bf16 and in f32 (and ViT-B's 768 full-field, ResNet-50's 2048 "
+          f"grid-sampled), code {cc} f32 "
           f"(and {WIDE_C2_DIM}), "
           f"{neg} negatives; losses and cd rtol "
           f"{STREAM_RTOL} atol {STREAM_ATOL}, code grads rtol {GRAD_RTOL} "
@@ -1878,6 +1932,10 @@ def phase_corr_stream(dev):
     cases += [(*full, False, False, cf, opts, WIDE_C2_DIM)
               for opts in (zero_clamp, stabalize)]
     cases += [(*STREAM_SHAPES[1], True, False, cf, zero_clamp, WIDE_C2_DIM)]
+    # ResNet-50's 2048 channels: the feature-pyramid step's grid-sampled
+    # sets (its fused_sampling=off path), bf16 and f32 features
+    cases += [(*STREAM_SHAPES[1], False, feat_f32, FPN_CF, zero_clamp)
+              for feat_f32 in (False, True)]
     for name, hw, code_bf16, feat_f32, cf, opts, *wide in cases:
         key = (name, code_bf16, feat_f32, cf) + tuple(wide)
         cc = wide[0] if wide else sh["cc"]
@@ -2170,7 +2228,7 @@ def launches_of(attention=0, layer_norm=0, entry="pair", f32=False,
 
 def compare_steps(ref, make_step, kernel, param_atol=GRAD_ATOL,
                   plain_trunk=False, adam_live=None, grad_gap_max=None,
-                  controls=None, f64_run=None):
+                  controls=None, f64_run=None, gap_over=""):
     """One train step from ``ref``'s state with the loss's kernel
     (``kernel``, C1 or C2) and one with its plain version (trunk kernels on
     in both; with ``plain_trunk`` off in the plain step, so that the step
@@ -2185,10 +2243,11 @@ def compare_steps(ref, make_step, kernel, param_atol=GRAD_ATOL,
     a step with the kernel ignoring it (the f32 kernel) must fail the
     parameter gate. With ``adam_live`` the parameters are held only where
     the plain step's gradient is at least that, and the gradients instead:
-    |g_kernel - g_plain| / |g_plain| within ``grad_gap_max``; then each of
-    ``controls`` ({name: function}), the step with every kernel but the
-    trunk's token-major attention replaced by the function, must fail that
-    gradient gate."""
+    |g_kernel - g_plain| / |g_plain| over the parameters whose names start
+    with ``gap_over`` within ``grad_gap_max`` (reported only without one);
+    then each of ``controls`` ({name: (module, attribute, replace)}), the
+    step with every kernel and the module's attribute replaced by
+    ``replace(attribute)``, must fail that gradient gate."""
     def one_step(use_kernels, use_corr_kernel, ignore_code_bf16=False,
                  f64=False):
         from stego_torch.ops import corr_stream as c2
@@ -2210,8 +2269,10 @@ def compare_steps(ref, make_step, kernel, param_atol=GRAD_ATOL,
             {n: p.grad for n, p in seg.named_parameters()}
 
     def grad_gap(ga, gb):
-        """|ga - gb| / |gb| over every parameter's gradient."""
-        pairs = [(ga[n], gb[n]) for n in gb if gb[n] is not None]
+        """|ga - gb| / |gb| over the gradients of the parameters named
+        ``gap_over``*."""
+        pairs = [(ga[n], gb[n]) for n in gb
+                 if gb[n] is not None and n.startswith(gap_over)]
         num = sum(float(((a - b) ** 2).sum()) for a, b in pairs)
         return math.sqrt(num / sum(float((b ** 2).sum()) for _, b in pairs))
 
@@ -2236,32 +2297,33 @@ def compare_steps(ref, make_step, kernel, param_atol=GRAD_ATOL,
                   f"throughout {before:.3e} (<= 2x it)")
         else:
             print(f"  {text} (report only)")
-    if adam_live is None:
-        print(f"  gradients with {kernel} vs {kernel} plain: |g_kernel - "
-              f"g_plain| / |g_plain| = {grad_gap(gk, gp):.3e} (report only)")
+    over = f" over {gap_over}*" if gap_over else ""
+    if adam_live is None or grad_gap_max is None:
+        print(f"  gradients with {kernel} vs {kernel} plain{over}: |g_kernel"
+              f" - g_plain| / |g_plain| = {grad_gap(gk, gp):.3e} (report "
+              f"only)")
     else:
         check(grad_gap(gk, gp) <= grad_gap_max,
-              f"step with {kernel} vs {kernel} plain: gradients, |g_kernel "
-              f"- g_plain| / |g_plain| = {grad_gap(gk, gp):.3e} (<= "
-              f"{grad_gap_max})")
-    if controls and plain_trunk:
+              f"step with {kernel} vs {kernel} plain: gradients{over}, "
+              f"|g_kernel - g_plain| / |g_plain| = {grad_gap(gk, gp):.3e} "
+              f"(<= {grad_gap_max})")
+    if controls and plain_trunk and ref.vit_cfg is not None:
         _, _, ga = one_step(True, False)
         print(f"  gradients with the trunk's kernels alone ({kernel.split()[0]}"
               f" plain) vs {kernel} plain: |g - g_plain| / |g_plain| = "
               f"{grad_gap(ga, gp):.3e} (report only: the trunk is frozen, so "
               f"attention reaches the gradients through the features)")
-    for name, attention in (controls or {}).items():
-        from stego_torch.models import vit
-
-        kept = vit.token_major_attention
-        vit.token_major_attention = attention
+    for name, (module, attr, replace) in (controls or {}).items():
+        module = importlib.import_module(module)
+        kept = getattr(module, attr)
+        setattr(module, attr, replace(kept))
         try:
             _, pc, gc = one_step(True, True)
         finally:
-            vit.token_major_attention = kept
+            setattr(module, attr, kept)
         check(grad_gap(gc, gp) > grad_gap_max,
               f"control, the step with {name} vs {kernel} plain fails the "
-              f"gradient gate: |g_control - g_plain| / |g_plain| = "
+              f"gradient gate{over}: |g_control - g_plain| / |g_plain| = "
               f"{grad_gap(gc, gp):.3e} (> {grad_gap_max}); updated "
               f"parameters max abs diff {param_gap(pc, pp):.3e}")
     if ref.cfg.pallas_loss_bf16:
@@ -2328,36 +2390,40 @@ def stream_loss_f64(f1, f2, c1, c2, shifts, group_sizes, pointwise=True,
     return losses.float(), cd_means.float()
 
 
-def run_steps(steps, hist_steps, expect, fall_window, hist_logged, step):
+def run_steps(steps, hist_steps, expect, fall_window, hist_logged, step,
+              fall_on=None):
     """``steps`` calls of ``step(i, with_hist) -> metrics``, the variant
     with histograms at ``hist_steps``; the main path, so every launch is
     counted. Every step must launch exactly ``expect`` (the COUNTS), give a
     finite loss and log histograms at ``hist_steps`` when ``hist_logged``;
     with ``fall_window`` the mean loss of the last that many steps must be
-    below that of the first. Returns the step times (ms) and the
-    launches (:func:`path_counts`)."""
+    below that of the first: loss/total, or the part that ``fall_on``
+    ((name, function of the metrics)) names. Returns the step times (ms)
+    and the launches (:func:`path_counts`)."""
     reset_counts()
     losses, step_ms = [], []
+    watched = "loss/total" if fall_on is None else fall_on[0]
     for i in range(steps):
         before = train_counts()  # the COUNTS
         t0 = time.perf_counter()
         m = step(i, i in hist_steps)
         loss = float(m["loss/total"])  # synchronizes
         step_ms.append((time.perf_counter() - t0) * 1e3)
-        losses.append(loss)
+        losses.append(loss if fall_on is None else float(fall_on[1](m)))
         delta = tuple(a - b for a, b in zip(train_counts(), before))
+        part = "" if fall_on is None else f", {watched} {losses[-1]:.6f}"
         check(delta == expect and math.isfinite(loss)
               and ("hist/pos_intra" in m) == (hist_logged
                                                and i in hist_steps),
               f"step {i}{' (hist)' if i in hist_steps else ''}: "
-              f"{step_ms[-1]:.2f} ms, loss/total {loss:.6f}, launches "
+              f"{step_ms[-1]:.2f} ms, loss/total {loss:.6f}{part}, launches "
               f"attention/LN/C1 fwd/C1 bwd/C2 fwd/C2 bwd {delta}")
     launches = path_counts()
     if fall_window:
         first = statistics.mean(losses[:fall_window])
         last = statistics.mean(losses[-fall_window:])
         check(last < first,
-              f"loss/total falls: mean of steps 0-{fall_window - 1} "
+              f"{watched} falls: mean of steps 0-{fall_window - 1} "
               f"{first:.6f}, of steps {steps - fall_window}-{steps - 1} "
               f"{last:.6f}")
     return step_ms, launches
@@ -2383,16 +2449,18 @@ def report_steps(step_ms, images, one_step, peak_gb):
 def train_run(dev, label, steps, hist_steps, expect, fall_window,
               time_plain=False, model_type="vit_small", preset=None,
               backbone_dtype="bfloat16", adam_live=None, grad_gap_max=None,
-              controls=None, f64_run=None, extra=None, **cfg_kw):
+              controls=None, f64_run=None, extra=None, fall_on=None,
+              gap_over="", **cfg_kw):
     """``steps`` train steps of a seeded segmenter (``model_type``'s /8
     trunk in bf16, cocostuff27 head, the config ``preset`` where one is
     named) at the reference footprint on one fixed batch, the
     variant with histograms at ``hist_steps``. Every step must launch
     exactly ``expect`` (the COUNTS) and give a finite loss; with
-    ``fall_window`` the mean loss of the last that many steps must be below
-    that of the first. Reports the median step, images/s, device busy, the
-    top 6 kernels and peak memory (with ``time_plain`` also the step's time
-    with the loss's plain version), then holds one step with the loss's
+    ``fall_window`` the mean loss of the last that many steps (loss/total,
+    or the part ``fall_on`` names) must be below that of the first.
+    Reports the median step, images/s, device busy, the top 6 kernels and
+    peak memory (with ``time_plain`` also the step's time with the loss's
+    plain version), then holds one step with the loss's
     kernel against the same step with its plain version (an f32
     ``backbone_dtype``: the step with every kernel against the step with
     none, ``use_kernels=False``). ``extra(batch, gen)`` gives the batch's
@@ -2432,7 +2500,7 @@ def train_run(dev, label, steps, hist_steps, expect, fall_window,
     step_ms, launches = run_steps(
         steps, hist_steps, expect, fall_window, hist_logged,
         lambda i, hist: step_fns[hist](
-            batch, draw_step_randomness(seg, TRAIN_BATCH, gen)))
+            batch, draw_step_randomness(seg, TRAIN_BATCH, gen)), fall_on)
     peak_gb = torch.cuda.max_memory_allocated() / 2**30
     STEP_MEDIANS[label] = report_steps(
         step_ms, TRAIN_BATCH, lambda: step_fns[False](
@@ -2460,7 +2528,8 @@ def train_run(dev, label, steps, hist_steps, expect, fall_window,
         "C2" if expect[4] else "C1",
         BF16_PARAM_ATOL if cfg.pallas_loss_bf16 else GRAD_ATOL,
         plain_trunk=backbone_dtype == "float32", adam_live=adam_live,
-        grad_gap_max=grad_gap_max, controls=controls, f64_run=f64_run)
+        grad_gap_max=grad_gap_max, controls=controls, f64_run=f64_run,
+        gap_over=gap_over)
     return seg, gen, launches
 
 
@@ -4412,6 +4481,189 @@ def phase_branches(dev):
     return runs
 
 
+def phase_fpn(dev, tmp, smi):
+    """The feature-pyramid arch at full width (ResNet-50, granularity 4,
+    dim 70, res 224, batch 16, 11 x 11 samples, 5 negatives): FPN_STEPS
+    sampled steps with a bf16 trunk (C1 at 2048 bf16 channels, 7 x 7
+    features beside 56 x 56 code) and SHORT_STEPS with an f32 trunk (C1 at
+    2048 f32 channels), then SHORT_STEPS of each with fused_sampling=off
+    (C2 at 2048 channels), each with train_run's gates (exact launches a
+    step, a finite loss, one step held against its plain step, the
+    parameters where the plain step's gradient is at least ADAM_LIVE), the
+    weighted contrastive losses falling (CONTRASTIVE; the first 3 steps
+    against the last 3 of the bf16 run, step 0 against step 2 of the
+    others) and the head's gradients within FPN_GRAD_GAP of the plain
+    step's, which the controls (C1_CONTROLS, SCALED_CODE_GRADIENT) must
+    fail. Then the entry points a user calls, on FPN_TRAIN + FPN_VAL
+    scenes written as a directory dataset at res 224: ``python -m
+    stego_torch.train.knn_app`` with each cut embedder (FPN_EMBEDDERS), ``python
+    -m stego_torch.train`` (FPN_APP_STEPS steps, validation and a
+    checkpoint every 5, the BatchNorm refresh) with exactly one C1 forward
+    and backward a step and no other launch, ``python -m stego_torch.eval``
+    on its checkpoint and the evaluator's matrices against a recount, and
+    one served predict of the checkpoint packaged on the card. Returns the
+    launches of each run."""
+    from stego_torch.data.synthetic import write_synthetic_benchmark
+    from stego_torch.data.transforms import channel_stats
+    from stego_torch.eval import evaluate as ev
+    from stego_torch.serve import ServingModel, package
+    from stego_torch.train import app, knn_app
+    from stego_torch.train.checkpoint import CheckpointManager, load_config
+    from stego_torch.train.knn import knn_cache_file
+
+    runs = {}
+    sampled, streamed = (0, 0, 1, 1, 0, 0), (0, 0, 0, 0, 1, 1)
+    fpn = dict(model_type="resnet50", arch="feature-pyramid",
+               granularity=FPN_GRANULARITY, adam_live=ADAM_LIVE,
+               grad_gap_max=FPN_GRAD_GAP, gap_over="net.",
+               fall_on=CONTRASTIVE)
+    where = "7x7 ResNet-50 layer4 beside 56x56 code"
+    _, _, runs["bf16"] = train_run(
+        dev, f"feature-pyramid, sampled loss (kernel C1 at {FPN_CF} bf16 "
+        f"channels, {where})", FPN_STEPS, (0,), sampled, 3,
+        controls=C1_CONTROLS, **fpn)
+    _, _, runs["f32"] = train_run(
+        dev, f"feature-pyramid, f32 trunk, sampled loss (kernel C1 at "
+        f"{FPN_CF} f32 channels, {where})", SHORT_STEPS, (0,), sampled, 1,
+        backbone_dtype="float32", controls=C1_CONTROLS, **fpn)
+    for name, dtype in (("gather", "bfloat16"), ("f32_gather", "float32")):
+        _, _, runs[name] = train_run(
+            dev, f"feature-pyramid, {dtype} trunk, fused_sampling=off "
+            f"(grid-sampled 11x11, kernel C2 at {FPN_CF} channels)",
+            SHORT_STEPS, (0,), streamed, 1, backbone_dtype=dtype,
+            fused_sampling="off", controls=SCALED_CODE_GRADIENT, **fpn)
+
+    t0 = time.perf_counter()
+    root = os.path.join(tmp, "data")
+    write_synthetic_benchmark(root, n_train=FPN_TRAIN, n_val=FPN_VAL,
+                              res=TRAIN_RES)
+    args = [f"pytorch_data_dir={root}", "dataset_name=directory",
+            "dir_dataset_name=synthbench", "dir_dataset_n_classes=4",
+            "arch=feature-pyramid", f"granularity={FPN_GRANULARITY}",
+            "dim=70", f"res={TRAIN_RES}", f"val_res={TRAIN_RES}",
+            "crop_type=null"]
+    print(f"feature-pyramid entry points: {FPN_TRAIN} + {FPN_VAL} scenes "
+          f"written at res {TRAIN_RES} in {time.perf_counter() - t0:.1f} s")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.cuda.synchronize()
+    reset_counts()  # the KNN builds: convolutions only
+    for model_type in FPN_EMBEDDERS:
+        t0 = time.perf_counter()
+        knn_app.main(args + [f"model_type={model_type}"])
+        sec = time.perf_counter() - t0
+        ok = True
+        for split, n in (("train", FPN_TRAIN), ("val", FPN_VAL)):
+            nns = np.load(knn_cache_file(root, model_type, "synthbench",
+                                         split, None, TRAIN_RES))["nns"]
+            ok &= nns.shape == (n, min(KNN_K, n)) and bool(
+                (nns[:, 0] == np.arange(n)).all())
+        check(ok, f"python -m stego_torch.train.knn_app model_type="
+                  f"{model_type}: both splits in {sec:.1f} s, every scene "
+                  f"its own nearest")
+    knn_launches = path_counts()
+    check(all(v == 0 for v in knn_launches.values()),
+          "the cut embedders launch no counted kernel")
+
+    out = os.path.join(tmp, "out")
+    train_args = args + [
+        "model_type=resnet50", f"output_root={out}", "experiment_name=fpn",
+        f"batch_size={TRAIN_BATCH}", f"val_batch_size={TRAIN_BATCH}",
+        f"max_steps={FPN_APP_STEPS}", "val_freq=5", "checkpoint_freq=5",
+        "scalar_log_freq=1", "hist_freq=5", "num_neighbors=4"]
+    torch.cuda.synchronize()
+    reset_counts()  # the main path: every launch of the run is counted
+    t0 = time.perf_counter()
+    app.main(train_args)
+    torch.cuda.synchronize()
+    sec = time.perf_counter() - t0
+    runs["app"] = path_counts()
+    check(runs["app"] == launches_of(corr_sampled_fwd=FPN_APP_STEPS,
+                                     corr_sampled_bwd=FPN_APP_STEPS),
+          f"python -m stego_torch.train (arch=feature-pyramid, "
+          f"{FPN_APP_STEPS} steps, 2 validations) in {sec:.1f} s: launches "
+          f"{ {k: v for k, v in runs['app'].items() if v} } (1+1 C1 a step)")
+    with open(os.path.join(out, "logs", "directory_fpn",
+                           "metrics.jsonl")) as f:
+        lines = [json.loads(line) for line in f]
+    losses = [ln["loss/total"] for ln in lines if "loss/total" in ln]
+    tests = [ln for ln in lines if "test/cluster/mIoU" in ln]
+    check(len(losses) == FPN_APP_STEPS and len(tests) == 2
+          and all(math.isfinite(v) for v in losses),
+          f"the app logged {len(losses)} losses ({losses[0]:.4f} .. "
+          f"{losses[-1]:.4f}) and {len(tests)} validations (cluster mIoU "
+          + ", ".join(f"{ln['test/cluster/mIoU']:.2f}" for ln in tests) + ")")
+    ckpt_dir = os.path.join(out, "checkpoints", "directory_fpn")
+    ckpt = CheckpointManager(ckpt_dir,
+                             load_config(ckpt_dir)).checkpoint_path()
+    sd = torch.load(ckpt, map_location="cpu", weights_only=True)["state_dict"]
+    tracked = {int(v) for k, v in sd.items()
+               if k.endswith("num_batches_tracked")}
+    var = sd["net.conv4.double_conv.4.running_var"]
+    check(tracked == {int(os.path.basename(os.path.dirname(ckpt)))}
+          and not torch.equal(var, torch.ones_like(var)),
+          f"{os.path.relpath(ckpt, out)}: every BatchNorm refreshed once a "
+          f"step ({sorted(tracked)}), running statistics moved")
+
+    cwd = os.getcwd()
+    os.chdir(tmp)  # the eval writes results/ under its working directory
+    try:
+        eval_args = [f"model_path={ckpt}", f"pytorch_data_dir={root}",
+                     "dataset_name=directory", "dir_dataset_name=synthbench",
+                     "dir_dataset_n_classes=4", f"res={TRAIN_RES}",
+                     "batch_size=8", "run_crf=false",
+                     "experiment_name=fpn_eval"]
+        torch.cuda.synchronize()
+        reset_counts()
+        t0 = time.perf_counter()
+        ev.main(eval_args)
+        sec = time.perf_counter() - t0
+        from stego_torch.config import Config, prep_args
+
+        eval_cfg = Config.from_dict({k: v for k, v in prep_args(
+            eval_args).items() if k != "model_path"}, strict=True)
+        evaluator = ev.Evaluator(eval_cfg, ckpt, dev)
+        kept = []
+        metrics = evaluator.run(
+            save_outputs=False, on_batch=lambda b, lp, cp: kept.append(
+                (b["label"], lp.cpu().numpy(), cp.cpu().numpy())))
+    finally:
+        os.chdir(cwd)
+    runs["eval"] = path_counts()
+    lin, clu = recount(kept, 4, 0)
+    check(np.array_equal(lin, evaluator.linear_metrics.stats)
+          and np.array_equal(clu, evaluator.cluster_metrics.stats)
+          and all(math.isfinite(v) for v in metrics.values())
+          and all(v == 0 for v in runs["eval"].values()),
+          f"python -m stego_torch.eval on it ({sec:.1f} s, {FPN_VAL} scenes "
+          f"at res {TRAIN_RES}; no counted kernel): the evaluator's summed "
+          f"matrices equal a host recount; "
+          + ", ".join(f"{k} {v:.2f}" for k, v in sorted(metrics.items())))
+
+    t0 = time.perf_counter()
+    art = package(ckpt, os.path.join(tmp, "art"), res=TRAIN_RES,
+                  batch_size=EVAL_BATCH)
+    served = ServingModel.load(art)
+    gen = torch.Generator(device=dev).manual_seed(21)
+    img01 = torch.rand(EVAL_BATCH, TRAIN_RES, TRAIN_RES, 3, generator=gen,
+                       device=dev)
+    got = served.predict(img01.cpu().numpy())
+    sec = time.perf_counter() - t0
+    mean, std = (torch.as_tensor(x, device=dev) for x in channel_stats(3))
+    seg = ev.load_model_for_eval(ckpt, dev)
+    lp, cp, _ = ev.make_eval_step(seg, return_probs=True)(
+        (img01 - mean) / std, torch.zeros(img01.shape[:3], device=dev))
+    agree = min(float((got[f"{k}_preds"] == w.argmax(-1).cpu().numpy())
+                      .mean()) for k, w in (("linear", lp), ("cluster", cp)))
+    diff = max(float(np.abs(got[f"{k}_probs"] - w.cpu().numpy()).max())
+               for k, w in (("linear", lp), ("cluster", cp)))
+    check(agree >= PRED_AGREE and served.meta["in_chans"] == 3,
+          f"served predict of the packaged checkpoint ({sec:.1f} s with the "
+          f"export; {smi}): predictions agree with the eval step on "
+          f"{agree:.4f} of the pixels, log-probs max abs diff {diff:.3e}")
+    return runs
+
+
 def phase_tf32_eval(dev, tmp):
     """An f32-trunk eval step as ``python -m stego_torch.eval`` runs it: a
     fresh process's flags (torch's defaults: cuDNN TF32 on, matmul TF32
@@ -4572,6 +4824,8 @@ def main() -> int:
     crf_loss = phase_crf_loss(dev)
     with tempfile.TemporaryDirectory() as tmp:
         ddp = phase_ddp(dev, tmp, train_items, val_items, smi)
+    with tempfile.TemporaryDirectory() as tmp:
+        fpn = phase_fpn(dev, tmp, smi)
     ladder = phase_layouts(dev)
 
     def per_step(steps, corr, entry="pair", trunk=True):
@@ -4605,6 +4859,12 @@ def main() -> int:
             ("vit_base", per_step(WIDE_STEPS, (1, 1, 0, 0))),
             ("vit_base_full_field", per_step(WIDE_FULL_STEPS, (0, 0, 1, 1)))):
         check(models[name] == want, f"{name} path launches: {models[name]}")
+    for name, steps, corr in (("bf16", FPN_STEPS, (1, 1, 0, 0)),
+                              ("f32", SHORT_STEPS, (1, 1, 0, 0)),
+                              ("gather", SHORT_STEPS, (0, 0, 1, 1)),
+                              ("f32_gather", SHORT_STEPS, (0, 0, 1, 1))):
+        check(fpn[name] == per_step(steps, corr, trunk=False),
+              f"feature-pyramid {name} train path launches: {fpn[name]}")
     for name, want in (
             ("cc100_s144", per_step(3, (1, 1, 0, 0))),
             ("cc160", per_step(3, (0, 0, 1, 1))),
@@ -4627,7 +4887,9 @@ def main() -> int:
     vit_t = add_counts(serving["vit_tiny"], models["vit_tiny"],
                        models["vit_tiny_val"], artifacts.get("vit_tiny", {}))
     vit_b = add_counts(models["vit_base"], models["vit_base_full_field"])
-    total = add_counts(vit_s, vit_t, vit_b, *ladder.values())
+    # the feature-pyramid paths (ResNet-50: no attention, no LayerNorm)
+    fpn_c1 = {"bf16": add_counts(fpn["bf16"], fpn["app"]), "f32": fpn["f32"]}
+    total = add_counts(vit_s, vit_t, vit_b, *ladder.values(), *fpn.values())
 
     def row(name, source, replaces, launches_, err, times, bnd, lib=None,
             **extra):
@@ -4717,12 +4979,15 @@ def main() -> int:
               + wide["f32_trunk"]["corr_sampled_fwd"] + ddp_f32,
               "bf16_192": vit_t["corr_sampled_fwd"],
               "bf16_768": vit_b["corr_sampled_fwd"],
-              "bf16_cc100_s144": wide["cc100_s144"]["corr_sampled_fwd"]}
+              "bf16_cc100_s144": wide["cc100_s144"]["corr_sampled_fwd"],
+              "bf16_2048": fpn_c1["bf16"]["corr_sampled_fwd"],
+              "f32_2048": fpn_c1["f32"]["corr_sampled_fwd"]}
     check(total["corr_sampled_fwd"] == sum(c1_fwd.values()),
           "every C1 forward launch is on a path of one feature type")
     for case, suffix in (("bf16", ""), ("f32", "_f32"), ("bf16_192", "_192"),
                          ("bf16_768", "_768"),
-                         ("bf16_cc100_s144", "_cc100_s144")):
+                         ("bf16_cc100_s144", "_cc100_s144"),
+                         ("bf16_2048", "_2048"), ("f32_2048", "_f32_2048")):
         errs, times, bnds, parts = c1[case]
         extra = {"parts_ms": {k: parts[k] for k in C1_FWD_PARTS}}
         if case == "f32":  # f32 at ViT-B's 768: no path runs it yet
@@ -4733,9 +4998,14 @@ def main() -> int:
                         c1_fwd[case], errs["fwd"], times["fwd"], bnds["fwd"],
                         **extra))
     wide_bwd = wide["cc100_s144"]["corr_sampled_bwd"]
+    fpn_bwd = {k: v["corr_sampled_bwd"] for k, v in fpn_c1.items()}
     for case, suffix, launches_ in (
-            ("bf16", "", total["corr_sampled_bwd"] - wide_bwd),
-            ("bf16_cc100_s144", "_cc100_s144", wide_bwd)):
+            ("bf16", "", total["corr_sampled_bwd"] - wide_bwd
+             - sum(fpn_bwd.values())),
+            ("bf16_cc100_s144", "_cc100_s144", wide_bwd),
+            # the backward at the feature-pyramid step's two grids
+            ("bf16_2048", "_2048", fpn_bwd["bf16"]),
+            ("f32_2048", "_f32_2048", fpn_bwd["f32"])):
         errs, times, bnds, parts = c1[case]
         err = (max(c1[k][0]["bwd"] for k in c1) if case == "bf16"
                else errs["bwd"])
@@ -4762,7 +5032,12 @@ def main() -> int:
             ("_768", ("full-field", False, False, 768),
              models["vit_base_full_field"]),
             ("_cc160", ("full-field", False, False, 384, WIDE_C2_DIM),
-             wide["cc160"])):
+             wide["cc160"]),
+            # the feature-pyramid step's fused_sampling=off paths
+            ("_gather_2048", ("grid-sampled", False, False, FPN_CF),
+             fpn["gather"]),
+            ("_f32_gather_2048", ("grid-sampled", False, True, FPN_CF),
+             fpn["f32_gather"])):
         for what, line in (("fwd", 106), ("bwd", 229)):
             r = c2[key]
             extra = {} if what == "fwd" else dict(

@@ -21,7 +21,10 @@
 // set b (g = 0) or with set g * B + b. Sampling is bilinear with border
 // clamping and align_corners=True, as four taps
 // (stego_tpu/ops/sampling.py:33-59), at the points of the reference's
-// transposed grid (src/modules.py:287). Per sample the features and the code
+// transposed grid (src/modules.py:287). The feature and code maps may lie on
+// two grids (the feature-pyramid arch: ResNet-50's layer4 at 7 x 7, the code
+// at 56 x 56): each map's four taps come from its own grid, as the JAX
+// package's gather form samples each tensor (pallas_corr.py:649-660). Per sample the features and the code
 // are l2-normalised (eps 1e-10), and fd = f1n f2n^T, cd = c1n c2n^T (S x S);
 // the loss is C2's closed form in the row sums of clamp(cd) fd, clamp(cd), fd
 // and cd.
@@ -100,7 +103,7 @@ namespace {
 
 constexpr int kWarps = 8;  // a block: one warp a sample or code-map row
 constexpr int kThreads = kWarps * 32;
-constexpr int kMaxFeat = 768;       // feature channels (ViT-B)
+constexpr int kMaxFeat = 2048;      // feature channels (ResNet-50's layer4)
 constexpr int kLaneChannels = 4;    // adjoint: channels a lane sums a pass
 constexpr int kPix = 8;             // adjoint: code-map rows a warp owns
 constexpr int kChunks = 4;          // adjoint: 32-sample key chunks at once
@@ -323,13 +326,14 @@ __device__ void pair_layout(const long long* perms, int* idx1, int* idx2,
 // One warp a (set, sample) item = set * s + sample, sets group-major (set
 // = gi * batch + b); sample k = i * s1 + j of set gi * batch + b is
 // coords[b, j, i], the reference's transposed grid (coords1 for gi = 0,
-// coords2 else). Writes the normalised feature row fsets[item] (cf,
-// FeatT) and code row csets[item] (cc, f32), the raw code norm
-// norms[item], and for each tap t keys[4 item + t], the code-map row it
-// lands on (maps code[0..batch) then code_pos[0..batch), h * w rows each;
-// 2 * batch * h * w, past every row, for a tap of weight 0 or a set whose
-// permutation entry is out of range) and wts[4 item + t], its weight. The
-// first warp of block 0 also writes the pair rows' layout (pair_layout).
+// coords2 else), sampled on the features' hf x wf grid and on the code's
+// hc x wc grid. Writes the normalised feature row fsets[item] (cf, FeatT)
+// and code row csets[item] (cc, f32), the raw code norm norms[item], and
+// for each code tap t keys[4 item + t], the code-map row it lands on (maps
+// code[0..batch) then code_pos[0..batch), hc * wc rows each; 2 * batch *
+// hc * wc, past every row, for a tap of weight 0 or a set whose permutation
+// entry is out of range) and wts[4 item + t], its weight. The first warp of
+// block 0 also writes the pair rows' layout (pair_layout).
 template <typename FeatT, int kFeatVec, int kCodeVec>
 __global__ void __launch_bounds__(kThreads)
 corr_sampled_gather_kernel(const FeatT* __restrict__ feats,
@@ -345,12 +349,12 @@ corr_sampled_gather_kernel(const FeatT* __restrict__ feats,
                            float* __restrict__ wts, int* __restrict__ idx1,
                            int* __restrict__ idx2, int* __restrict__ row_group,
                            int* __restrict__ order, int* __restrict__ offsets,
-                           int batch, int h, int w, int cf, int cc, int s1,
-                           int s2, int g) {
+                           int batch, int hf, int wf, int hc, int wc, int cf,
+                           int cc, int s1, int s2, int g) {
   extern __shared__ float buf_all[];
   pair_layout(perms, idx1, idx2, row_group, order, offsets, batch, g);
   const int s = s1 * s2;
-  const int hw = h * w;
+  const int hwc = hc * wc;
   const int lane = threadIdx.x & 31;
   const int warp = threadIdx.x >> 5;
   const size_t item = static_cast<size_t>(blockIdx.x) * kWarps + warp;
@@ -365,19 +369,20 @@ corr_sampled_gather_kernel(const FeatT* __restrict__ feats,
   const bool pos = gi == 1;
   const int i = k / s1;
   const int j = k - i * s1;
-  int idx[4];
-  float wt[4];
-  make_taps((gi == 0 ? coords1 : coords2) +
-                ((static_cast<size_t>(b) * s1 + j) * s2 + i) * 2,
-            h, w, idx, wt);
+  const float* point = (gi == 0 ? coords1 : coords2) +
+                       ((static_cast<size_t>(b) * s1 + j) * s2 + i) * 2;
+  int fidx[4], cidx[4];
+  float fwt[4], cwt[4];
+  make_taps(point, hf, wf, fidx, fwt);
+  make_taps(point, hc, wc, cidx, cwt);
   if (lane < 4) {
-    const int ti = lane == 0 ? idx[0] : lane == 1 ? idx[1]
-                 : lane == 2 ? idx[2] : idx[3];
-    const float tw = lane == 0 ? wt[0] : lane == 1 ? wt[1]
-                   : lane == 2 ? wt[2] : wt[3];
+    const int ti = lane == 0 ? cidx[0] : lane == 1 ? cidx[1]
+                 : lane == 2 ? cidx[2] : cidx[3];
+    const float tw = lane == 0 ? cwt[0] : lane == 1 ? cwt[1]
+                   : lane == 2 ? cwt[2] : cwt[3];
     const int map = pos ? batch + b : static_cast<int>(image);
     keys[4 * item + lane] =
-        valid && tw != 0.f ? map * hw + ti : 2 * batch * hw;
+        valid && tw != 0.f ? map * hwc + ti : 2 * batch * hwc;
     wts[4 * item + lane] = tw;
   }
   FeatT* fo = fsets + item * cf;
@@ -389,11 +394,12 @@ corr_sampled_gather_kernel(const FeatT* __restrict__ feats,
     return;
   }
   float* buf = buf_all + static_cast<size_t>(warp) * buf_floats(cf, cc);
-  const size_t map = static_cast<size_t>(image) * hw;
   sample_row<std::is_same<FeatT, __nv_bfloat16>::value, kFeatVec>(
-      (pos ? feats_pos : feats) + map * cf, idx, wt, cf, buf, fo);
+      (pos ? feats_pos : feats) + static_cast<size_t>(image) * hf * wf * cf,
+      fidx, fwt, cf, buf, fo);
   const float n = sample_row<false, kCodeVec>(
-      (pos ? code_pos : code) + map * cc, idx, wt, cc, buf, co);
+      (pos ? code_pos : code) + static_cast<size_t>(image) * hwc * cc, cidx,
+      cwt, cc, buf, co);
   if (lane == 0) norms[item] = n;
 }
 
@@ -574,8 +580,8 @@ cudaError_t launch_gather_as(const void* feats, const void* feats_pos,
                              const void* perms, void* fsets, void* csets,
                              void* norms, void* keys, void* wts, void* idx1,
                              void* idx2, void* row_group, void* order,
-                             void* offsets, int batch, int h, int w, int cf,
-                             int cc, int s1, int s2, int g,
+                             void* offsets, int batch, int hf, int wf, int hc,
+                             int wc, int cf, int cc, int s1, int s2, int g,
                              cudaStream_t stream) {
   auto kernel = corr_sampled_gather_kernel<FeatT, kFeatVec, kCodeVec>;
   const size_t smem =
@@ -595,7 +601,7 @@ cudaError_t launch_gather_as(const void* feats, const void* feats_pos,
       static_cast<int*>(keys), static_cast<float*>(wts),
       static_cast<int*>(idx1), static_cast<int*>(idx2),
       static_cast<int*>(row_group), static_cast<int*>(order),
-      static_cast<int*>(offsets), batch, h, w, cf, cc, s1, s2, g);
+      static_cast<int*>(offsets), batch, hf, wf, hc, wc, cf, cc, s1, s2, g);
   return cudaGetLastError();
 }
 
@@ -608,15 +614,15 @@ cudaError_t launch_gather(int code_vec, const void* feats,
                           const void* coords2, const void* perms, void* fsets,
                           void* csets, void* norms, void* keys, void* wts,
                           void* idx1, void* idx2, void* row_group,
-                          void* order, void* offsets, int batch, int h, int w,
-                          int cf, int cc, int s1, int s2, int g,
-                          cudaStream_t stream) {
+                          void* order, void* offsets, int batch, int hf,
+                          int wf, int hc, int wc, int cf, int cc, int s1,
+                          int s2, int g, cudaStream_t stream) {
   auto launch = code_vec == 4   ? &launch_gather_as<FeatT, kFeatVec, 4>
                 : code_vec == 2 ? &launch_gather_as<FeatT, kFeatVec, 2>
                                 : &launch_gather_as<FeatT, kFeatVec, 1>;
   return launch(feats, feats_pos, code, code_pos, coords1, coords2, perms,
                 fsets, csets, norms, keys, wts, idx1, idx2, row_group, order,
-                offsets, batch, h, w, cf, cc, s1, s2, g, stream);
+                offsets, batch, hf, wf, hc, wc, cf, cc, s1, s2, g, stream);
 }
 
 // Shapes the kernels take: every tap entry (4 batch g s) and code-map row
@@ -629,28 +635,29 @@ bool bad_shape(int batch, int h, int w, int cc, int s, int g) {
 
 }  // namespace
 
-// feats, feats_pos: (batch, h * w, cf), bf16 (feat_f32 = 0) or f32
-// (feat_f32 = 1); code, code_pos: (batch, h * w, cc) f32; coords1,
+// feats, feats_pos: (batch, hf * wf, cf), bf16 (feat_f32 = 0) or f32
+// (feat_f32 = 1); code, code_pos: (batch, hc * wc, cc) f32; coords1,
 // coords2: (batch, s1, s2, 2) f32 sample points in [-1, 1], (x, y) (the
 // reference's coordinates, sampled in its transposed order); perms: (g -
 // 2, batch) int64. Writes, for the batch * g sets (set gi * batch + b) of s
 // = s1 * s2 samples: fsets (sets, s, cf) in the feature type and csets
 // (sets, s, cc) f32, the l2-normalised samples; norms (sets, s), the raw
-// code norms; keys (sets, s, 4) int32, each tap's row of the code maps
-// [code; code_pos] (2 * batch * h * w rows; that count for no row), and
+// code norms; keys (sets, s, 4) int32, each code tap's row of the code maps
+// [code; code_pos] (2 * batch * hc * wc rows; that count for no row), and
 // wts (sets, s, 4) f32, its weight; and the pair rows' layout for C2:
 // idx1, idx2, row_group (sets,) int32, order (2 sets,) int32, offsets
-// (sets + 1,) int32 (pair_layout). cf <= 768, g >= 2. Returns the CUDA
+// (sets + 1,) int32 (pair_layout). cf <= 2048, g >= 2. Returns the CUDA
 // error code of the launch (0 on success).
 extern "C" int stego_corr_sampled_gather(
     const void* feats, const void* feats_pos, const void* code,
     const void* code_pos, const void* coords1, const void* coords2,
     const void* perms, void* fsets, void* csets, void* norms, void* keys,
     void* wts, void* idx1, void* idx2, void* row_group, void* order,
-    void* offsets, int batch, int h, int w, int cf, int cc, int s1, int s2,
-    int g, int feat_f32, int device, void* stream) {
-  if (bad_shape(batch, h, w, cc, s1 * s2, g) || s1 <= 0 || s2 <= 0 ||
-      cf <= 0 || cf > kMaxFeat) {
+    void* offsets, int batch, int hf, int wf, int hc, int wc, int cf, int cc,
+    int s1, int s2, int g, int feat_f32, int device, void* stream) {
+  if (bad_shape(batch, hc, wc, cc, s1 * s2, g) ||
+      bad_shape(batch, hf, wf, cf, s1 * s2, g) || s1 <= 0 || s2 <= 0 ||
+      cf > kMaxFeat) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   cudaError_t err = cudaSetDevice(device);
@@ -663,7 +670,7 @@ extern "C" int stego_corr_sampled_gather(
       int, const void*, const void*, const void*, const void*, const void*,
       const void*, const void*, void*, void*, void*, void*, void*, void*,
       void*, void*, void*, void*, int, int, int, int, int, int, int, int,
-      cudaStream_t);
+      int, int, cudaStream_t);
   Launch launch;
   if (feat_f32) {
     launch = feat_vec == 4 ? &launch_gather<float, 4>
@@ -674,7 +681,7 @@ extern "C" int stego_corr_sampled_gather(
   }
   err = launch(code_vec, feats, feats_pos, code, code_pos, coords1, coords2,
                perms, fsets, csets, norms, keys, wts, idx1, idx2, row_group,
-               order, offsets, batch, h, w, cf, cc, s1, s2, g, st);
+               order, offsets, batch, hf, wf, hc, wc, cf, cc, s1, s2, g, st);
   return static_cast<int>(err);
 }
 
@@ -682,7 +689,7 @@ extern "C" int stego_corr_sampled_gather(
 // backward; csets, norms, keys, wts: the gather's; perms (g - 2, batch)
 // int64; gv (sets, s, cc) f32 scratch (dsets through the normalisation's
 // Jacobian). Writes every element of dcode (2 * batch, h * w, cc) f32, the
-// gradient of the code maps [code; code_pos]. Two launches, the Jacobian
+// gradient of the code maps [code; code_pos] on the code's h x w grid. Two launches, the Jacobian
 // kernel and the adjoint kernel. Returns the CUDA error code of the
 // launches (0 on success).
 extern "C" int stego_corr_sampled_adjoint(const void* dsets,

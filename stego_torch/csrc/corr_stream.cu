@@ -99,7 +99,7 @@
 // next step's products; the f32 cd the same way and code_bf16's cd chained
 // in its accumulator; then each warp arrives on the stage's empty
 // mbarrier. Code channels past one panel simply take more stages, summed
-// in channel order; so do feature channels, up to 768. A tile's epilogue:
+// in channel order; so do feature channels, up to 2048. A tile's epilogue:
 // the fix-up (the warp takes its entries near a bound one at a time: its
 // lanes copy both code rows from device memory into the warp's shared
 // memory and every lane runs the chain on broadcast reads), then fd staged
@@ -176,7 +176,7 @@ namespace {
 constexpr int kTile = 64;          // rows and columns of a tile
 constexpr int kWarps = 8;          // the backward's consumer warps
 constexpr int kThreads = kWarps * 32;
-constexpr int kMaxFeat = 768;      // feature channels (ViT-B)
+constexpr int kMaxFeat = 2048;     // feature channels (ResNet-50's layer4)
 constexpr int kCodeChunk = 128;    // code channels of a backward code tile
 // Row pitches, in elements, that make the fragment loads free of bank
 // conflicts: 72 = 8 mod 32 for the channel-major f32 tiles (a 4-byte load
@@ -1515,7 +1515,7 @@ int launch_bwd(const void* fd, const void* mask, const void* code_tiles,
 // a multiple of 8 padded into feat_hi (maps, n, cf8) bf16 (else both may be
 // null); f32 code's TF32 parts code_hi and code_lo (maps, n, cc4) f32, or
 // with code_bf16 the bf16 code in code_hi (maps, n, cc8) (code_lo may then
-// be null). cf <= 768, rows and maps <= 65535, any cc. code_bf16 rounds the
+// be null). cf <= 2048, rows and maps <= 65535, any cc. code_bf16 rounds the
 // code to bf16 for cd. Returns the CUDA error code of the launches (0 on
 // success), or 20001 when cuTensorMapEncodeTiled refuses a tensor map.
 extern "C" int stego_corr_stream_fwd(const void* feats, const void* code,

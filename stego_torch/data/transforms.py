@@ -26,6 +26,8 @@ from typing import Optional, Tuple, Union
 
 import numpy as np
 
+from stego_torch.ops.interp import _weight_matrix
+
 IMAGENET_MEAN = np.array([0.485, 0.456, 0.406], dtype=np.float32)
 IMAGENET_STD = np.array([0.229, 0.224, 0.225], dtype=np.float32)
 # 4th (near-IR, potsdam_ir=true) channel: the red channel's statistics
@@ -202,27 +204,12 @@ def sample_geometric_params(
     return GeometricParams(flip, (top, left, ch, cw), out_res)
 
 
-def _linear_weight_matrix(out_size: int, in_size: int) -> np.ndarray:
-    """(out_size, in_size) bilinear weights of torch's
-    ``align_corners=False`` resize (``stego_tpu/ops/interp.py:24-50``)."""
-    src = (np.arange(out_size, dtype=np.float64) + 0.5) * (in_size / out_size)
-    src = np.clip(src - 0.5, 0.0, None)  # torch clamps the source at 0
-    x0 = np.clip(np.floor(src).astype(np.int64), 0, in_size - 1)
-    x1 = np.minimum(x0 + 1, in_size - 1)
-    t = np.clip(src - x0, 0.0, 1.0)
-    w = np.zeros((out_size, in_size), dtype=np.float64)
-    rows = np.arange(out_size)
-    np.add.at(w, (rows, x0), 1.0 - t)
-    np.add.at(w, (rows, x1), t)
-    return w
-
-
 def resize_bilinear_np(arr: np.ndarray, out_hw) -> np.ndarray:
     """Host-side bilinear resize (torch align_corners=False semantics) as two
     numpy matmuls; augmentation crops vary in shape sample to sample."""
     h, w = arr.shape[:2]
-    wh = _linear_weight_matrix(out_hw[0], h).astype(np.float32)
-    ww = _linear_weight_matrix(out_hw[1], w).astype(np.float32)
+    wh = _weight_matrix(out_hw[0], h, "bilinear", False)
+    ww = _weight_matrix(out_hw[1], w, "bilinear", False)
     squeeze = arr.ndim == 2
     a = arr[..., None] if squeeze else arr
     out = np.einsum("ih,hwc->iwc", wh, a.astype(np.float32))

@@ -20,8 +20,13 @@ a tail of fewer than W images is dropped, so W ranks evaluate the first
 W * floor(n / W) images. Rank 0 writes the kept images of its stripe. The
 exact CRF runs on the host of one process and raises there.
 
-Not ported: the PiCIE baseline rows (``run_picie``, ROADMAP.md queue 1,
-Other backbones, plots and apps), which raise.
+A feature-pyramid checkpoint (``arch="feature-pyramid"``) evaluates the same
+way: its code stays at 56 x 56 whatever the resolution, and its BatchNorms
+use their running statistics. With ``run_picie`` on cocostuff27 the kept
+images also get the PiCIE baseline's predictions (``models/picie.py``, from
+``saved_models/picie_and_probes.pth``; ``evaluate.py:237-257, 315-320``),
+mapped to classes by the assignment of the file's saved confusion matrix,
+as the comparison figure's "PiCIE (Baseline)" row.
 The JAX package's wire compaction is a TPU workaround and has no
 counterpart (ROADMAP.md queue 1, Do not port these TPU workarounds).
 """
@@ -31,7 +36,8 @@ from __future__ import annotations
 import os
 import time
 from os.path import join
-from typing import Any, Callable, Dict, List, Optional, Sequence, Union
+from typing import (Any, Callable, Dict, List, Optional, Sequence, Tuple,
+                    Union)
 
 import numpy as np
 import torch
@@ -56,10 +62,10 @@ def load_model_for_eval(model_path: str,
                         device: Union[str, torch.device],
                         vit_cfg: Optional[ViTConfig] = None
                         ) -> UnsupervisedSegmenter:
-    """Load a STEGO Lightning ``.ckpt`` onto ``device`` in eval mode; a bf16
-    backbone stores its block weights in bf16 (same results, no cast per
-    call, as ``evaluate.py:203-208``), an f32 one turns TF32 off for the
-    process (``utils/precision.py``)."""
+    """Load a STEGO Lightning ``.ckpt`` (a ViT's or a feature-pyramid
+    net's) onto ``device`` in eval mode; a bf16 backbone stores its weights
+    in bf16 (same results, no cast per call, as ``evaluate.py:203-208``),
+    an f32 one turns TF32 off for the process (``utils/precision.py``)."""
     if not model_path.endswith(".ckpt"):
         raise ValueError(
             f"{model_path}: stego_torch reads Lightning .ckpt files; export "
@@ -184,10 +190,11 @@ class Evaluator:
         self.seg = load_model_for_eval(model_path, self.device,
                                        vit_cfg=vit_cfg)
         model_cfg = self.seg.cfg
+        self.picie = None
         if eval_cfg.run_picie and model_cfg.dataset_name == "cocostuff27":
-            raise NotImplementedError(
-                "run_picie=true: the PiCIE baseline is not ported yet "
-                "(ROADMAP.md queue 1, Other backbones, plots and apps)")
+            self.picie = load_picie_rows(
+                join("saved_models", "picie_and_probes.pth"),
+                self.seg.n_classes, self.device)
         if val_dataset is None:
             val_dataset = ContrastiveSegDataset(
                 pytorch_data_dir=eval_cfg.pytorch_data_dir,
@@ -239,7 +246,7 @@ class Evaluator:
         self.cluster_metrics.reset()
         self.crf_seconds = []
         saved: Dict[str, list] = {"img": [], "label": [], "cluster": [],
-                                  "linear": []}
+                                  "linear": [], "picie": []}
         n_keep = cfg.n_images
         conf_sums = None  # the device's epoch sums, fetched once
         for bi, batch in enumerate(self.loader):
@@ -281,6 +288,9 @@ class Evaluator:
                     if isinstance(preds, torch.Tensor):
                         preds = preds.cpu().numpy()
                     saved[key].extend(preds)
+                if self.picie is not None:
+                    saved["picie"].extend(picie_rows(
+                        *self.picie, img[:take], tuple(label.shape[1:3])))
 
         if conf_sums is not None:
             self.linear_metrics.merge_stats(conf_sums[0])
@@ -317,6 +327,8 @@ class Evaluator:
         save_prediction_images(result_dir, imgs, labels, clusters, linears,
                                cmap)
         rows = {"Image": imgs, "Label": labels, "STEGO\n(Ours)": clusters}
+        if saved["picie"]:
+            rows["PiCIE\n(Baseline)"] = np.stack(saved["picie"])
         try:
             names = get_class_labels(model_cfg.dataset_name)
         except ValueError:
@@ -332,6 +344,40 @@ class Evaluator:
              lambda p: save_confusion_matrix(p, hist, names,
                                              dark_mode=cfg.dark_mode)),
         ])
+
+
+def load_picie_rows(path: str, n_classes: int,
+                    device: Union[str, torch.device]):
+    """(the PiCIE baseline on ``device``, its metrics with the assignment
+    of the file's saved confusion matrix, or None without one), or None
+    with a printed line when the file is missing or does not unpickle
+    (``evaluate.py:237-260``)."""
+    from stego_torch.models.picie import picie_from_checkpoint
+
+    try:
+        net, stats = picie_from_checkpoint(path)
+    except (FileNotFoundError, RuntimeError) as e:
+        print(f"PiCIE comparison disabled: {e}")
+        return None
+    metrics = UnsupervisedMetrics("picie/", n_classes, 0, True)
+    if stats is not None:
+        metrics.merge_stats(stats)
+        metrics.compute()
+    return net.to(device).eval(), metrics
+
+
+def picie_rows(net, metrics: UnsupervisedMetrics, img: torch.Tensor,
+               hw: Tuple[int, int]) -> List[np.ndarray]:
+    """The PiCIE baseline's class maps of ``img`` at ``hw``: its cluster
+    predictions, mapped by ``metrics``' assignment when it has one,
+    resized by nearest neighbour (``evaluate.py:315-320``)."""
+    preds = net.predict(img).cpu().numpy()
+    if metrics.assignments is not None:
+        preds = metrics.map_clusters(preds)
+    up = torch.nn.functional.interpolate(
+        torch.as_tensor(preds, dtype=torch.float32)[:, None], size=hw,
+        mode="nearest")[:, 0]
+    return list(up.numpy().astype(np.int64))
 
 
 def evaluate(eval_cfg: Config, model_path: str,

@@ -101,11 +101,13 @@ class DinoFeaturizer(nn.Module):
 
     def head_code(self, image_feat: torch.Tensor,
                   keep1: Optional[torch.Tensor] = None,
-                  keep2: Optional[torch.Tensor] = None) -> torch.Tensor:
+                  keep2: Optional[torch.Tensor] = None,
+                  train: bool = False) -> torch.Tensor:
         """cluster1 (+ cluster2 for 'nonlinear') in f32 (reference
         src/modules.py:108-117). Training passes two independent (B, 1, 1,
         C) keep-masks: dropout of cluster1's input and of cluster2's
-        (``featurizer.py:141-166``)."""
+        (``featurizer.py:141-166``); ``train`` changes nothing else here
+        (the FPN's BatchNorm reads it)."""
         if self.projection_type is None:
             return image_feat
         x1 = image_feat if keep1 is None else dropout2d(

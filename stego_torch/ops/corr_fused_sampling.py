@@ -9,6 +9,12 @@ positive, and with ``neg`` other images of the batch (``perms``). Each slot
 contributes the row sums of ``ops/corr_stream.py:finalize``; there is one
 group (one pointwise fd mean) per slot type.
 
+The feature and code maps may lie on two grids (the feature-pyramid arch:
+ResNet-50's layer4 at 7 x 7 beside 56 x 56 code): each is sampled on its
+own grid at the same points, as the JAX package's gather form samples each
+tensor (``pallas_corr.py:649-660``); on one grid this is the single-grid
+loss exactly.
+
 A slot (g, b) is pair row g * B + b, group-major. There are G * B distinct
 sets of S samples: set b is image b at its coordinates ``coords1`` (side 1
 of every row), set B + b its KNN positive at ``coords2``, set (2 + k) B + b
@@ -17,7 +23,8 @@ or with set g * B + b. Once sampled, the products are kernel C2's
 (``ops/corr_stream.py``) at N = S.
 
 * :func:`sampled_corr_plain` is the plain PyTorch version: the (S, H*W)
-  bilinear weight matrices (``ops/sampling.py``), with the kernel's rounding
+  bilinear weight matrices of each grid (``ops/sampling.py``), with the
+  kernel's rounding
   points: weights cast to ``feat_dtype`` for the features, f32
   accumulation, the sampled features rounded to ``feat_dtype`` before the
   f32 normalize, fd from ``feat_dtype`` values with f32 accumulation; the
@@ -47,9 +54,9 @@ from stego_torch.ops.math import l2_normalize
 from stego_torch.ops.sampling import bilinear_sample_weights
 
 # What the CUDA kernels take (csrc/corr_sampled.cu, csrc/corr_stream.cu):
-# feature channels up to ViT-B's 768; any number of code channels and
+# feature channels up to ResNet-50's 2048; any number of code channels and
 # samples.
-MAX_FEAT_CHANNELS = 768
+MAX_FEAT_CHANNELS = 2048
 EPS = 1e-10  # the l2 normalisation's (src/modules.py:275-276)
 # Calls of C1's forward (the gather and C2's forward) and backward (C2's
 # backward and the adjoint) in this process; plain-version calls do not
@@ -120,20 +127,22 @@ def sample_sets_plain(
     code norms (G*B, S) f32, differentiable in the code maps. A set whose
     permutation entry is out of range is zeros."""
     b, h, w, cf = orig_feats.shape
-    cc = orig_code.shape[-1]
+    hc, wc, cc = orig_code.shape[1:]
     g = 2 + len(perms)
     wm = _set_weights((h, w), coords1, coords2, g)
+    wmc = wm if (hc, wc) == (h, w) else _set_weights((hc, wc), coords1,
+                                                     coords2, g)
     src, valid = _sets(b, perms, orig_code.device)
     f = torch.cat([orig_feats, orig_feats_pos]).detach() \
         .reshape(2 * b, h * w, cf).to(feat_dtype)
-    c = torch.cat([orig_code, orig_code_pos]).reshape(2 * b, h * w,
+    c = torch.cat([orig_code, orig_code_pos]).reshape(2 * b, hc * wc,
                                                       cc).float()
     z = torch.bmm(wm.to(feat_dtype).float(), f[src].float())
     if feat_dtype == torch.bfloat16:
         z = z.to(feat_dtype).float()
     keep = valid[:, None, None]
     fsets = torch.where(keep, l2_normalize(z), 0.0).to(feat_dtype)
-    zc = torch.bmm(wm, c[src])
+    zc = torch.bmm(wmc, c[src])
     norms = torch.sqrt(torch.sum(zc * zc, dim=-1))
     csets = torch.where(keep, l2_normalize(zc), 0.0)
     return fsets, csets, torch.where(valid[:, None], norms, 0.0)
@@ -153,7 +162,8 @@ def unsample_plain(
     (``pallas_corr_fused_sampling.py:_norm_jac``, :69-76; the projection is
     dropped below eps) of the normalised sets ``csets`` and their raw norms
     ``norms`` (:func:`sample_sets_plain`), then back through each sample's
-    bilinear weights into the code maps: set b into code[b], set B + b into
+    bilinear weights on the code's grid ``hw`` into the code maps: set b
+    into code[b], set B + b into
     code_pos[b], set (2 + k) B + b into code[perm_k(b)]. Returns (dcode,
     dcode_pos), each (B, H, W, CC) f32. A set whose permutation entry is out
     of range adds nothing."""
@@ -244,7 +254,8 @@ def sampled_corr_fused(
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Three-pair sampled correlation loss.
 
-    NHWC maps (B, H, W, C), ``coords*`` (B, S1, S2, 2) in [-1, 1] in torch
+    NHWC maps (B, H, W, C), the features on one grid and the code on the
+    same or another, ``coords*`` (B, S1, S2, 2) in [-1, 1] in torch
     (x, y) order, ``perms`` the negatives' batch permutations (each (B,)
     int), ``shifts`` one per group (2 + len(perms)). Returns
     (losses (G,), cd_means (G,)), each the mean over its group's
@@ -301,10 +312,13 @@ def gather_inputs(feats, feats_pos, code, code_pos, coords1, coords2,
 
 
 def gather_launch(lib, feats, feats_pos, code, code_pos, coords1, coords2,
-                  perm, g: int, hw: Tuple[int, int]):
-    """The gather kernel in ``lib`` on :func:`gather_inputs`: (feature
-    sets (G*B, S, CF), code sets (G*B, S, CC), raw code norms (G*B, S),
-    each tap's code-map row (G*B, S, 4) int32 (2*B*H*W for none) and
+                  perm, g: int, hw: Tuple[int, int],
+                  code_hw: Tuple[int, int]):
+    """The gather kernel in ``lib`` on :func:`gather_inputs`, the features
+    on the grid ``hw`` and the code on ``code_hw``:
+    (feature sets (G*B, S, CF), code sets (G*B, S, CC), raw code norms
+    (G*B, S), each code tap's code-map row (G*B, S, 4) int32 (2*B*Hc*Wc for
+    none) and
     weight (G*B, S, 4) f32, and C2's pair-row layout: idx1, idx2 (G*B,)
     int32 (each pair row's sets; -1 for an out-of-range permutation entry),
     row_group (G*B,), order (2*G*B,) and offsets (G*B + 1,) int32, as
@@ -330,7 +344,8 @@ def gather_launch(lib, feats, feats_pos, code, code_pos, coords1, coords2,
         perm.data_ptr(), fsets.data_ptr(), csets.data_ptr(),
         norms.data_ptr(), keys.data_ptr(), wts.data_ptr(), i1.data_ptr(),
         i2.data_ptr(), row_group.data_ptr(), order.data_ptr(),
-        offsets.data_ptr(), b, hw[0], hw[1], cf, cc, s1, s2, g,
+        offsets.data_ptr(), b, hw[0], hw[1], code_hw[0], code_hw[1], cf, cc,
+        s1, s2, g,
         int(feats.dtype == f32), dev.index,
         torch.cuda.current_stream(dev).cuda_stream)
     build.check(err, "corr_sampled gather kernel")
@@ -340,7 +355,8 @@ def gather_launch(lib, feats, feats_pos, code, code_pos, coords1, coords2,
 def adjoint_launch(lib, dsets, csets, norms, keys, wts, perm, b: int,
                    hw: Tuple[int, int]) -> torch.Tensor:
     """The adjoint in ``lib`` (a Jacobian kernel, then the adjoint
-    kernel): the gradient (2B, H*W, CC) of the code maps [code; code_pos]
+    kernel): the gradient (2B, H*W, CC) of the code maps [code; code_pos],
+    ``hw`` the code's grid,
     from the code sets' gradient ``dsets`` (G*B, S, CC), the gather's
     outputs and the permutations ``perm`` (:func:`gather_inputs`). Each
     code-map row adds the taps that land on it in entry order, without
@@ -370,7 +386,7 @@ class _SampledCorr(torch.autograd.Function):
                 keep):
         dev = code.device
         b, h, w, cf = feats.shape
-        cc = code.shape[-1]
+        hc, wc, cc = code.shape[1:]
         g = 2 + len(perms)
         if feat_dtype not in (torch.bfloat16, torch.float32):
             raise ValueError(
@@ -388,9 +404,9 @@ class _SampledCorr(torch.autograd.Function):
                 raise ValueError(f"{name} shape {tuple(tensors[name].shape)}"
                                  f" != {(b, h, w, cf)}")
         for name in ("code", "code_pos"):
-            if tensors[name].shape != (b, h, w, cc):
+            if tensors[name].shape != (b, hc, wc, cc):
                 raise ValueError(f"{name} shape {tuple(tensors[name].shape)}"
-                                 f" != {(b, h, w, cc)}")
+                                 f" != {(b, hc, wc, cc)}")
         for name in ("coords1", "coords2"):
             if tensors[name].shape != coords1.shape \
                     or coords1.shape[0] != b or coords1.shape[-1] != 2:
@@ -403,7 +419,7 @@ class _SampledCorr(torch.autograd.Function):
         inputs = gather_inputs(feats, feats_pos, code, code_pos, coords1,
                                coords2, perms, feat_dtype)
         fsets, csets, norms, keys, wts, i1, i2, *layout = gather_launch(
-            lib, *inputs, g, (h, w))
+            lib, *inputs, g, (h, w), (hc, wc))
         acc, fd, mask = corr_stream.forward_launch(
             lib, fsets, csets, i1, i2, zero_clamp, stabalize, False, keep)
         global FWD_LAUNCHES
@@ -416,7 +432,7 @@ class _SampledCorr(torch.autograd.Function):
         # what the adjoint reads
         ctx.save_for_backward(csets, fd, i1, i2, acc, gm, mask, *layout,
                               norms, keys, wts, inputs[-1])
-        ctx.static = (shifts, group_sizes, pointwise, b, (h, w), cc)
+        ctx.static = (shifts, group_sizes, pointwise, b, (hc, wc), cc)
         return losses, cd_means
 
     @staticmethod

@@ -62,9 +62,9 @@ from stego_torch.ops.sampling import (bilinear_sample_weights,
 from stego_torch.parallel import dist
 
 # What the CUDA kernel is built for (csrc/corr_stream.cu): feature channels
-# up to ViT-B's 768, bf16 or f32; any number of code channels (in chunks of
-# 128).
-MAX_FEAT_CHANNELS = 768
+# up to ResNet-50's 2048, bf16 or f32; any number of code channels (in
+# chunks of 128).
+MAX_FEAT_CHANNELS = 2048
 # Rows and columns of the kernel's tiles (csrc/corr_stream.cu:kTile).
 TILE = 64
 # Launches of the CUDA kernel's two entries in this process (plain-version
@@ -689,7 +689,9 @@ def contrastive_correlation_loss_fused(
     pair and the negatives (one group each).
 
     ``full_field``: every pixel against every pixel through C2; the
-    coordinates go unused. Otherwise the maps are sampled at ``coords1`` /
+    coordinates go unused, and the features and code must share one grid
+    (fd and cd are N x N over its positions). Otherwise each map is sampled
+    on its own grid at ``coords1`` /
     ``coords2``: inside kernel C1 (``sampling_impl="fused"``) or by the
     bilinear weight matrix and then C2 (``"gather"``). With
     ``return_cd_tensors`` (sampled modes) the cd entries are instead the cd
@@ -713,6 +715,14 @@ def contrastive_correlation_loss_fused(
     code = code_pos = code_neg = None
     over_ranks = rows is not None
     if full_field:
+        if orig_feats.shape[1:3] != orig_code.shape[1:3]:
+            raise ValueError(
+                f"full_field_loss pairs every feature position with the code "
+                f"at the same position, so the features and code must share "
+                f"one grid; got features {tuple(orig_feats.shape[1:3])} and "
+                f"code {tuple(orig_code.shape[1:3])} (the feature-pyramid "
+                f"arch's layer4 and 56 x 56 code): use the sampled loss "
+                f"(full_field_loss=false)")
         losses, cd_means = _full_field(cfg, orig_feats, orig_feats_pos,
                                        orig_code, orig_code_pos, perms,
                                        feat_dtype, code_bf16, use_kernel,
@@ -761,27 +771,34 @@ def contrastive_correlation_loss_fused(
         # same values as F.grid_sample, but a backward without atomics, so
         # the step's gradient is the same from run to run (a first Adam
         # step turns run-to-run noise on a near-zero gradient into +-lr)
-        h, w = orig_feats.shape[1:3]
         b = coords1.shape[0]
         grid_hw = coords1.shape[2], coords1.shape[1]  # transposed grid
-        w1, w2 = (bilinear_sample_weights((h, w), c.transpose(1, 2))
-                  for c in (coords1, coords2))
+        # each map's weights on its own grid (the FPN's features and code
+        # lie on two)
+        weights = {}
+        for t in (orig_feats, orig_code):
+            hw = tuple(t.shape[1:3])
+            if hw not in weights:
+                weights[hw] = [bilinear_sample_weights(hw, c.transpose(1, 2))
+                               for c in (coords1, coords2)]
 
-        def sample(wm, t):
-            out = torch.bmm(wm, t.reshape(t.shape[0], h * w, -1).float())
+        def sample(i, t):
+            hw = tuple(t.shape[1:3])
+            out = torch.bmm(weights[hw][i],
+                            t.reshape(t.shape[0], hw[0] * hw[1], -1).float())
             return out.reshape(t.shape[0], *grid_hw, t.shape[-1])
 
         rows = rows or slice(0, orig_feats.shape[0])
-        feats = sample(w1, orig_feats[rows])
-        code = sample(w1, orig_code[rows])
-        feats_pos = sample(w2, orig_feats_pos)
-        code_pos = sample(w2, orig_code_pos)
+        feats = sample(0, orig_feats[rows])
+        code = sample(0, orig_code[rows])
+        feats_pos = sample(1, orig_feats_pos)
+        code_pos = sample(1, orig_code_pos)
         pairs = [(feats, feats, code, code), (feats, feats_pos, code,
                                               code_pos)]
         if has_neg:
             negs = [p.to(orig_feats.device).long()[rows] for p in perms]
-            feats_neg = torch.cat([sample(w2, orig_feats[p]) for p in negs])
-            code_neg = torch.cat([sample(w2, orig_code[p]) for p in negs])
+            feats_neg = torch.cat([sample(1, orig_feats[p]) for p in negs])
+            code_neg = torch.cat([sample(1, orig_code[p]) for p in negs])
             pairs += [(feats, feats_neg[k * b:(k + 1) * b], code,
                        code_neg[k * b:(k + 1) * b])
                       for k in range(len(perms))]

@@ -18,6 +18,7 @@ from typing import Optional, Sequence
 import torch
 import torch.nn.functional as F
 
+from stego_torch.ops.interp import _linear_weight_matrix
 from stego_torch.parallel import dist
 
 
@@ -26,20 +27,11 @@ def bilinear_matrix(out_size: int, in_size: int,
                     device: torch.device = torch.device("cpu"),
                     dtype: torch.dtype = torch.float32) -> torch.Tensor:
     """(out_size, in_size) weights of torch's bilinear resize along one
-    axis, ``align_corners=False`` (``stego_tpu/ops/interp.py:35-50``), on
+    axis, ``align_corners=False`` (``ops/interp.py``'s f64 matrix), on
     ``device`` in ``dtype``. Cached: a copy to the card in every step would
     wait for the stream."""
-    src = (torch.arange(out_size, dtype=torch.float64) + 0.5) \
-        * (in_size / out_size) - 0.5
-    src = torch.clamp_min(src, 0.0)
-    x0 = torch.clamp(torch.floor(src).long(), 0, in_size - 1)
-    x1 = torch.clamp_max(x0 + 1, in_size - 1)
-    t = torch.clamp(src - x0, 0.0, 1.0)
-    w = torch.zeros((out_size, in_size), dtype=torch.float64)
-    rows = torch.arange(out_size)
-    w.index_put_((rows, x0), 1.0 - t, accumulate=True)
-    w.index_put_((rows, x1), t, accumulate=True)
-    return w.to(device=device, dtype=dtype)
+    return torch.from_numpy(_linear_weight_matrix(
+        out_size, in_size, False)).to(device=device, dtype=dtype)
 
 
 def upsampled_masked_cross_entropy(logits: torch.Tensor,

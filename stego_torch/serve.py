@@ -9,7 +9,9 @@ then, in any process: ``ServingModel.load(dir).predict(batch)``.
 The artifact is a ``torch.export`` program of the flip-TTA inference
 function (normalise, two trunk calls, bilinear upsampling of the code, the
 probes' log-probs, their argmaxes), batch-polymorphic (the batch is a
-symbolic dimension; the resolution is fixed). Inside it the trunk reaches
+symbolic dimension; the resolution is fixed). A feature-pyramid
+checkpoint's program is its ResNet-50 and head, with no custom ops (the
+path has no attention and no LayerNorm). Inside a ViT's the trunk reaches
 kernels A and L through the registered ops ``stego_torch::attention`` and
 ``stego_torch::layer_norm`` (``ops/flash_attention.py``,
 ``ops/layer_norm.py``). Each op has a CPU implementation, its plain version,
@@ -59,6 +61,12 @@ OUTPUT_KEYS = ("linear_probs", "cluster_probs", "linear_preds",
                "cluster_preds")
 
 
+def in_chans(seg) -> int:
+    """The image channels ``seg`` takes: its ViT's, or 3 without one (the
+    feature-pyramid arch's ResNet-50; ``serve.py:131``)."""
+    return seg.vit_cfg.in_chans if seg.vit_cfg is not None else 3
+
+
 class ServeFn(nn.Module):
     """Flip-TTA inference on a [0, 1] RGB(A) NHWC f32 batch
     (``serve.py:_serve_fn``): the channel statistics are buffers of the
@@ -75,7 +83,7 @@ class ServeFn(nn.Module):
         self.cluster_probe = seg.cluster_probe
         dev = seg.linear_probe.weight.device
         mean, std = (torch.as_tensor(s, device=dev)
-                     for s in channel_stats(seg.net.vit_cfg.in_chans))
+                     for s in channel_stats(in_chans(seg)))
         self.register_buffer("mean", mean)
         self.register_buffer("std", std)
 
@@ -117,8 +125,8 @@ def package_from_parts(seg, out_dir: str, res: int, batch_size: int,
             f"ported yet (ROADMAP.md queue 1, Multi-GPU (DDP))")
     os.makedirs(out_dir, exist_ok=True)
     fn = ServeFn(seg).eval()
-    in_chans = seg.net.vit_cfg.in_chans
-    example = torch.zeros(max(batch_size, 2), res, res, in_chans,
+    channels = in_chans(seg)
+    example = torch.zeros(max(batch_size, 2), res, res, channels,
                           device=fn.mean.device)
     batch = torch.export.Dim("batch", min=1)
     with torch.no_grad():
@@ -128,7 +136,7 @@ def package_from_parts(seg, out_dir: str, res: int, batch_size: int,
     torch.export.save(program, os.path.join(out_dir, MODEL_FILE))
     with open(os.path.join(out_dir, META_FILE), "w") as f:
         json.dump({
-            "res": res, "batch_size": batch_size, "in_chans": in_chans,
+            "res": res, "batch_size": batch_size, "in_chans": channels,
             "n_devices": n_devices, "n_classes": seg.n_classes,
             "extra_clusters": seg.cfg.extra_clusters,
             "batch_polymorphic": True,

@@ -54,6 +54,7 @@ from stego_torch.data.datasets import get_class_labels
 from stego_torch.data.loader import (DataLoader, effective_threads,
                                      infinite_batches, pad_batch)
 from stego_torch.data.transforms import get_transform
+from stego_torch.models.resnet import load_resnet_backbone
 from stego_torch.models.vit import ViTConfig
 from stego_torch.parallel import dist
 from stego_torch.train.checkpoint import CheckpointManager
@@ -92,16 +93,25 @@ def load_dino_weights(path: str, in_chans: int = 3
 
 def build_backbone(cfg: Config, seg: UnsupervisedSegmenter
                    ) -> Dict[str, torch.Tensor]:
-    """Put ``cfg.pretrained_weights`` into the segmenter's ViT, or keep its
-    seeded random init (offline; the reference downloads DINO weights,
-    modules.py:35-62), and return the ViT's f32 state dict on the CPU: the
-    source precision the checkpoints keep when the trunk computes in
-    bf16."""
-    vit = seg.net.model
-    if cfg.pretrained_weights:
+    """Put ``cfg.pretrained_weights`` into the segmenter's trunk, or keep
+    its seeded random init (offline; the reference downloads DINO weights,
+    modules.py:35-62), and return the trunk's f32 state dict on the CPU:
+    the source precision the checkpoints keep when the trunk computes in
+    bf16. The feature-pyramid arch's trunk is ResNet-50, read from a
+    torchvision-layout file of ``cfg.model_type``
+    (``models/resnet.py:load_resnet_backbone``, ``app.py:89-101``)."""
+    trunk = seg.net.model
+    if cfg.arch == "feature-pyramid":
+        if cfg.pretrained_weights:
+            trunk.load_state_dict(load_resnet_backbone(
+                cfg.model_type, cfg.pretrained_weights))
+        else:
+            print("WARNING: no pretrained_weights — random ResNet-50 "
+                  "backbone.")
+    elif cfg.pretrained_weights:
         sd = load_dino_weights(cfg.pretrained_weights,
                                in_chans=seg.vit_cfg.in_chans)
-        missing, _ = vit.load_state_dict(sd, strict=False)
+        missing, _ = trunk.load_state_dict(sd, strict=False)
         if missing:
             raise ValueError(f"{cfg.pretrained_weights} lacks {missing[:4]}")
     else:
@@ -110,7 +120,7 @@ def build_backbone(cfg: Config, seg: UnsupervisedSegmenter
               "weights; provide pretrained_weights=<path to .pth> for "
               "parity).")
     return {k: v.detach().float().cpu().clone()
-            for k, v in vit.state_dict().items()}
+            for k, v in trunk.state_dict().items()}
 
 
 def make_datasets(cfg: Config):

@@ -31,8 +31,13 @@ import torch
 
 from stego_torch.data.loader import DataLoader
 from stego_torch.models.featurizer import DinoFeaturizer
+from stego_torch.models.zoo import CutBackboneEmbedder
 from stego_torch.ops.math import l2_normalize
 from stego_torch.parallel import dist
+
+
+# what embeds a split: a segmenter's ViT featurizer, or a cut backbone
+Embedder = Union[DinoFeaturizer, CutBackboneEmbedder]
 
 
 def knn_cache_file(pytorch_data_dir: str, model_type: str, dataset_name: str,
@@ -46,11 +51,13 @@ def knn_cache_file(pytorch_data_dir: str, model_type: str, dataset_name: str,
     )
 
 
-def make_embed_fn(net: DinoFeaturizer
+def make_embed_fn(net: Embedder
                   ) -> Callable[[torch.Tensor], torch.Tensor]:
     """img (B, H, W, 3) -> (B, n_feats) f32: the trunk's features, their
     spatial mean, l2-normalised (reference get_feats,
-    precompute_knns.py:15-21). Runs on the device of ``net``'s weights."""
+    precompute_knns.py:15-21); the cut backbone's (``models/zoo.py``) are
+    already pooled, (B, 1, 1, D). Runs on the device of ``net``'s
+    weights."""
     device = next(net.parameters()).device
 
     @torch.no_grad()
@@ -128,7 +135,7 @@ def topk_neighbors(feats: Union[torch.Tensor, np.ndarray], k: int = 30,
     return out.cpu().numpy()
 
 
-def build_knn_cache(cache_file: str, net: DinoFeaturizer, loader: Iterable,
+def build_knn_cache(cache_file: str, net: Embedder, loader: Iterable,
                     k: int = 30, rows: Optional[Sequence[int]] = None,
                     n: Optional[int] = None) -> np.ndarray:
     """Embed every image of ``loader``, take the top-k and save the

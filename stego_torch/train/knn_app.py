@@ -25,6 +25,7 @@ from stego_torch.data.contrastive import (ContrastiveSegDataset,
 from stego_torch.data.loader import effective_threads
 from stego_torch.data.transforms import get_transform
 from stego_torch.kernels import build
+from stego_torch.models.zoo import CutBackboneEmbedder
 from stego_torch.models.vit import ViTConfig
 from stego_torch.parallel import dist
 from stego_torch.train.knn import (build_knn_cache, knn_cache_file,
@@ -47,13 +48,19 @@ def precompute_knns(
 ) -> List[str]:
     """Write the missing KNN caches; returns the files written. The trunk
     is the segmenter's (``cfg.pretrained_weights``, or its seeded random
-    init), on ``device`` (default ``cuda:LOCAL_RANK``). Every process of a
-    group calls it; each embeds its stripe of every split."""
+    init), on ``device`` (default ``cuda:LOCAL_RANK``); a non-dino arch
+    embeds with the cut backbone of ``cfg.model_type`` instead
+    (``models/zoo.py:CutBackboneEmbedder``: resnet50 and its variants,
+    vgg11, densenet121; its torchvision-layout ``pretrained_weights`` or
+    its seeded init). Every process of a group calls it; each embeds its
+    stripe of every split."""
     from stego_torch.train.app import build_backbone
     from stego_torch.train.segmenter import UnsupervisedSegmenter
 
     if dataset_names is None:
         dataset_names = [cfg.dataset_name]
+    bdtype = (torch.bfloat16 if cfg.backbone_dtype == "bfloat16"
+              else torch.float32)
     device = dist.device() if device is None else device
     full_f32_for(cfg.backbone_dtype)
     net = None
@@ -77,7 +84,18 @@ def precompute_knns(
                     cfg=cfg.replace(res=res),
                     seed=cfg.seed,
                 )
-                if net is None:
+                if net is None and cfg.arch != "dino":
+                    # non-dino archs embed with the cut backbone
+                    # (reference precompute_knns.py:56-58,
+                    # knn_app.py:88-96)
+                    net = CutBackboneEmbedder(
+                        cfg.model_type, bdtype,
+                        generator=torch.Generator().manual_seed(cfg.seed))
+                    if cfg.pretrained_weights:
+                        net.load_pretrained(cfg.pretrained_weights)
+                    net = net.to(device).eval()
+                    net.model.to(bdtype)
+                elif net is None:
                     # the trunk of a segmenter of any head (the embedding
                     # reads only the trunk's features)
                     seg = UnsupervisedSegmenter(

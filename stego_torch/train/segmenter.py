@@ -51,8 +51,13 @@ that a step returns are the global batch's: the ranks' weights stay equal
 bit for bit, and a W-rank step computes the one-process step of the
 global batch.
 
-Not ported yet: the feature-pyramid arch (ROADMAP.md queue 1, Other
-backbones, plots and apps), which raises.
+The feature-pyramid arch (``arch="feature-pyramid"``, ``models/fpn.py``)
+takes the ResNet-50's taps as its features (a dict), layer4 as the loss's
+signal on its own 7 x 7 grid beside the 56 x 56 code, and refreshes its
+BatchNorm running statistics after the three Adam updates
+(``segmenter.py:436-441``). It runs on one process: over several, each
+rank's batch statistics would be its own and not the global batch's, as
+the JAX mesh computes them, and it raises.
 """
 
 from __future__ import annotations
@@ -65,6 +70,7 @@ import torch.nn as nn
 
 from stego_torch.config import Config
 from stego_torch.models.featurizer import DinoFeaturizer, dropout2d
+from stego_torch.models.fpn import FeaturePyramidNet
 from stego_torch.models.probes import (ClusterLookup, cluster_lookup,
                                        decoder_apply, init_conv1x1,
                                        linear_probe_logits)
@@ -117,26 +123,39 @@ class UnsupervisedSegmenter(nn.Module):
                  vit_cfg: Optional[ViTConfig] = None,
                  generator: Optional[torch.Generator] = None):
         super().__init__()
-        if cfg.arch != "dino":
-            raise NotImplementedError(
-                f"arch {cfg.arch!r} is not ported yet (ROADMAP.md queue 1, "
-                f"Other backbones, plots and apps)")
         if generator is None:
             generator = torch.Generator().manual_seed(cfg.seed)
         self.cfg = cfg
         self.n_classes = n_classes
         self.dim = cfg.dim if cfg.continuous else n_classes
-        if vit_cfg is None:
-            vit_cfg = VIT_CONFIGS[cfg.model_type][cfg.dino_patch_size]
-        if cfg.potsdam_ir:
-            vit_cfg = dataclasses.replace(vit_cfg, in_chans=4)
-        self.vit_cfg = vit_cfg
-        self.net = DinoFeaturizer(
-            vit_cfg, dim=self.dim, feat_type=cfg.dino_feat_type,
-            projection_type=cfg.projection_type, use_dropout=cfg.dropout,
-            backbone_dtype=(torch.bfloat16 if cfg.backbone_dtype == "bfloat16"
-                            else torch.float32),
-            use_flash_attention=cfg.use_flash_attention, generator=generator)
+        backbone_dtype = (torch.bfloat16 if cfg.backbone_dtype == "bfloat16"
+                          else torch.float32)
+        if cfg.arch == "feature-pyramid":
+            if dist.world() > 1:
+                raise NotImplementedError(
+                    "arch='feature-pyramid' over several processes: each "
+                    "rank's BatchNorm statistics would be its own batch's, "
+                    "not the global batch's as the JAX mesh computes them "
+                    "(ROADMAP.md queue 1, Multi-GPU (DDP)); train it on one "
+                    "process")
+            self.vit_cfg = None
+            self.net = FeaturePyramidNet(cfg.granularity, self.dim,
+                                         cfg.continuous, backbone_dtype,
+                                         generator=generator)
+        elif cfg.arch == "dino":
+            if vit_cfg is None:
+                vit_cfg = VIT_CONFIGS[cfg.model_type][cfg.dino_patch_size]
+            if cfg.potsdam_ir:
+                vit_cfg = dataclasses.replace(vit_cfg, in_chans=4)
+            self.vit_cfg = vit_cfg
+            self.net = DinoFeaturizer(
+                vit_cfg, dim=self.dim, feat_type=cfg.dino_feat_type,
+                projection_type=cfg.projection_type, use_dropout=cfg.dropout,
+                backbone_dtype=backbone_dtype,
+                use_flash_attention=cfg.use_flash_attention,
+                generator=generator)
+        else:
+            raise ValueError(f"Unknown arch {cfg.arch}")
         self.linear_probe = nn.Conv2d(self.dim, n_classes, 1)
         init_conv1x1(self.linear_probe, generator)
         self.cluster_probe = ClusterLookup(
@@ -424,11 +443,11 @@ def _update_from_feats(seg: UnsupervisedSegmenter, with_hist: bool,
     use_pos = cfg.correspondence_weight > 0
     drop_signal = net.use_dropout
     metrics: Dict[str, torch.Tensor] = {}
-    b = image_feat.shape[0]
+    b = label.shape[0]
     rand = local_draws(seg, rand, slice(seg.rank * b, (seg.rank + 1) * b))
 
     code = net.head_code(image_feat, rand.get("head1_keep1"),
-                         rand.get("head1_keep2"))
+                         rand.get("head1_keep2"), train=True)
     feats = net.signal(image_feat)
     if drop_signal:
         feats = dropout2d(feats, net.dropout_p, rand["feat1_keep"])
@@ -436,7 +455,7 @@ def _update_from_feats(seg: UnsupervisedSegmenter, with_hist: bool,
 
     if use_pos:
         code_pos = net.head_code(image_feat_pos, rand.get("head2_keep1"),
-                                 rand.get("head2_keep2"))
+                                 rand.get("head2_keep2"), train=True)
         feats_pos = net.signal(image_feat_pos)
         if drop_signal:
             feats_pos = dropout2d(feats_pos, net.dropout_p,
@@ -462,7 +481,7 @@ def _update_from_feats(seg: UnsupervisedSegmenter, with_hist: bool,
 
     if image_feat_aug is not None:
         code_aug = net.head_code(image_feat_aug, rand.get("head3_keep1"),
-                                 rand.get("head3_keep2"))
+                                 rand.get("head3_keep2"), train=True)
         coord_small = interpolate(batch["coord_aug"], code_aug.shape[1:3],
                                   "bilinear", align_corners=False)
         # the reference's sample() transposes the grid, and the dataset's
@@ -516,6 +535,10 @@ def _update_from_feats(seg: UnsupervisedSegmenter, with_hist: bool,
         if not k.startswith("hist/")})
     for opt in opts.values():
         opt.step()
+    if cfg.arch == "feature-pyramid":
+        # the FPN's BatchNorm running statistics, from the image's batch
+        # statistics under the updated head (segmenter.py:436-441)
+        net.bn_state_update(image_feat)
     seg.step += 1
     return {**scalars, **{k: dist.all_reduce_(v) for k, v in metrics.items()
                           if k.startswith("hist/")}}
@@ -565,15 +588,23 @@ def make_train_step(seg: UnsupervisedSegmenter, with_hist: bool = True):
             else:
                 img_aug = batch["img_aug"]
             parts.append(img_aug.to(img.dtype))
-        feat_all = seg.net.backbone_features(
-            torch.cat(parts) if len(parts) > 1 else img)
-        chunks = feat_all.split(bsz)
+        chunks = split_rows(seg.net.backbone_features(
+            torch.cat(parts) if len(parts) > 1 else img), bsz)
         return _update_from_feats(
             seg, with_hist, chunks[0], chunks[1] if use_pos else None,
             batch, rand, sampling_impl,
             image_feat_aug=chunks[-1] if use_aug else None)
 
     return train_step
+
+
+def split_rows(feats: Any, size: int) -> list:
+    """The trunk's features (a tensor, or the FPN's dict of taps) in
+    chunks of ``size`` images."""
+    if isinstance(feats, dict):
+        parts = {k: v.split(size) for k, v in feats.items()}
+        return [dict(zip(parts, vs)) for vs in zip(*parts.values())]
+    return list(feats.split(size))
 
 
 def _index(ind: Any, device: torch.device) -> torch.Tensor:

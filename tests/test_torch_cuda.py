@@ -423,16 +423,17 @@ def test_f32_trunk_runs_attention_kernel(cuda):
         torch.testing.assert_close(a, w, rtol=1e-4, atol=1e-4)
 
 
-def _corr_inputs(dev, b, hw, cf, cc, s, neg, seed):
-    """Seeded inputs of kernel C1: f32 feature and code maps, U(-1, 1)
-    coordinates, super_perm negatives and the JAX package's default
-    shifts."""
+def _corr_inputs(dev, b, hw, cf, cc, s, neg, seed, code_hw=None):
+    """Seeded inputs of kernel C1: f32 feature and code maps (the code on
+    its own ``code_hw`` grid where given), U(-1, 1) coordinates,
+    super_perm negatives and the JAX package's default shifts."""
     from stego_torch.ops.math import super_perm
 
     g = torch.Generator(device=dev).manual_seed(seed)
+    chw = code_hw or hw
     feats = [torch.randn(b, hw, hw, cf, generator=g, device=dev)
              for _ in range(2)]
-    code = [torch.randn(b, hw, hw, cc, generator=g, device=dev)
+    code = [torch.randn(b, chw, chw, cc, generator=g, device=dev)
             for _ in range(2)]
     coords = [torch.rand(b, s, s, 2, generator=g, device=dev) * 2 - 1
               for _ in range(2)]
@@ -449,7 +450,8 @@ def _corr_inputs(dev, b, hw, cf, cc, s, neg, seed):
 CLAMP_TIE = 1e-7
 
 
-def _corr_inputs_untied(dev, b, hw, cf, cc, s, neg, seed, opts):
+def _corr_inputs_untied(dev, b, hw, cf, cc, s, neg, seed, opts,
+                        code_hw=None):
     """:func:`_corr_inputs`, drawn again (seed + 1000 k) until no cd of the
     plain version lies within CLAMP_TIE of a bound of ``opts``' clamp."""
     from stego_torch.ops import corr_fused_sampling as c1
@@ -458,7 +460,8 @@ def _corr_inputs_untied(dev, b, hw, cf, cc, s, neg, seed, opts):
     lo, hi = clamp_bounds(opts.get("zero_clamp", True),
                           opts.get("stabalize", False))
     for k in range(20):
-        inputs = _corr_inputs(dev, b, hw, cf, cc, s, neg, seed + 1000 * k)
+        inputs = _corr_inputs(dev, b, hw, cf, cc, s, neg, seed + 1000 * k,
+                              code_hw)
         feats, code, coords, perms, _ = inputs
         _, cd = c1.sampled_products_plain(feats[0], feats[1], code[0],
                                           code[1], coords[0], coords[1],
@@ -534,6 +537,77 @@ def test_corr_sampled_kernel_matches_plain(cuda, b, hw, cf, cc, s, neg,
     torch.testing.assert_close(got[1], want[1], rtol=1e-4, atol=1e-6)
     for gg, ww in zip(got[2], want[2]):
         torch.testing.assert_close(gg, ww, rtol=2e-4, atol=1e-5)
+
+
+@pytest.mark.parametrize("feat_dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("b,hw,code_hw,cf,cc,s,neg,opts", [
+    # the feature-pyramid step: ResNet-50's layer4 at res 224, 56 x 56 code
+    (16, 7, 56, 2048, 70, 11, 5, dict(pointwise=True, zero_clamp=True)),
+    (16, 7, 56, 2048, 70, 11, 5, dict(pointwise=False, stabalize=True)),
+    # 2048 channels on one grid; two small grids, either one the larger
+    (16, 28, None, 2048, 70, 11, 5, dict(pointwise=True, zero_clamp=True)),
+    (2, 9, 5, 48, 8, 4, 1, dict(pointwise=True, zero_clamp=True)),
+    (3, 4, 13, 2048, 100, 12, 2, dict(pointwise=True, zero_clamp=False)),
+])
+def test_corr_sampled_kernel_two_grids_matches_plain(
+        cuda, b, hw, code_hw, cf, cc, s, neg, opts, feat_dtype):
+    """Kernel C1 with up to 2048 feature channels (ResNet-50's layer4) and
+    with the code on a grid of its own, against its plain version (each
+    map's weights on its own grid), at the gates of
+    :func:`test_corr_sampled_kernel_matches_plain`, one forward and one
+    backward launch; and two calls bit for bit."""
+    from stego_torch.ops import corr_fused_sampling as c1
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    feats, code, coords, perms, shifts = _corr_inputs_untied(
+        cuda, b, hw, cf, cc, s, neg, b + cf + hw, opts, code_hw)
+    wts = torch.randn(2, 2 + neg, generator=torch.Generator(device=cuda)
+                      .manual_seed(7), device=cuda)
+    opts = dict(opts, feat_dtype=feat_dtype)
+    wts = wts / max(float(x.abs().max()) for x in _corr_run(
+        c1.sampled_corr_plain, feats, code, coords, perms, shifts, wts,
+        **opts)[2])
+    f0, b0 = c1.FWD_LAUNCHES, c1.BWD_LAUNCHES
+    got = _corr_run(c1.sampled_corr_fused, feats, code, coords, perms, shifts,
+                    wts, **opts)
+    again = _corr_run(c1.sampled_corr_fused, feats, code, coords, perms,
+                      shifts, wts, **opts)
+    torch.cuda.synchronize()
+    assert (c1.FWD_LAUNCHES, c1.BWD_LAUNCHES) == (f0 + 2, b0 + 2)
+    want = _corr_run(c1.sampled_corr_plain, feats, code, coords, perms,
+                     shifts, wts, **opts)
+    torch.testing.assert_close(got[0], want[0], rtol=1e-4, atol=1e-6)
+    torch.testing.assert_close(got[1], want[1], rtol=1e-4, atol=1e-6)
+    for gg, ww in zip(got[2], want[2]):
+        assert gg.shape == code[0].shape
+        torch.testing.assert_close(gg, ww, rtol=2e-4, atol=1e-5)
+    for x, y in zip(got[:2] + tuple(got[2]), again[:2] + tuple(again[2])):
+        assert torch.equal(x, y)
+
+
+@pytest.mark.parametrize("code_hw", [None, 56])
+def test_corr_sampled_f32_fd_gate_at_2048_rejects_bf16(cuda, code_hw):
+    """At 2048 f32 channels (an f32 ResNet-50's layer4), on one grid and on
+    the FPN's two, C1's fd is the f32 plain version's elementwise within
+    1e-5, and the bf16 instantiation on the same features is not."""
+    from stego_torch.ops import corr_fused_sampling as c1
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    hw = 7 if code_hw else 28
+    feats, code, coords, perms, shifts = _corr_inputs(
+        cuda, 16, hw, 2048, 70, 11, 5, seed=5, code_hw=code_hw)
+    c = [x.clone().requires_grad_(True) for x in code]
+    want = c1.sampled_products_plain(feats[0], feats[1], code[0], code[1],
+                                     coords[0], coords[1], perms)[0]
+
+    def fd_err(dtype):
+        losses, _ = c1.sampled_corr_fused(
+            feats[0], feats[1], c[0], c[1], coords[0], coords[1], perms,
+            shifts, feat_dtype=dtype)
+        return float((c1.kernel_fd(losses) - want).abs().max())
+
+    assert fd_err(torch.float32) <= 1e-5
+    assert fd_err(torch.bfloat16) > 1e-5
 
 
 def test_corr_sampled_f32_fd_gate_rejects_bf16_kernel(cuda):
@@ -752,6 +826,9 @@ def _code_bf16_grads_agree(got, want):
                                      code_bf16=True)),
     (16, 28, 768, 160, 5, False, dict(pointwise=False, stabalize=True)),
     (2, 7, 40, 300, 1, False, dict(pointwise=True, zero_clamp=True)),
+    # ResNet-50's 2048 channels: the FPN's grid-sampled sets, full-field
+    (16, 11, 2048, 70, 5, True, dict(pointwise=True, zero_clamp=True)),
+    (4, 28, 2048, 70, 2, False, dict(pointwise=False, stabalize=True)),
 ])
 def test_corr_stream_kernel_matches_plain(cuda, b, hw, cf, cc, neg, distinct,
                                           opts, feat_dtype):

@@ -406,18 +406,24 @@ def test_figures_without_matplotlib_print_one_line_each(exported, capsys,
                                             "conf_matrix.png")]
 
 
-def test_evaluate_refuses_picie_and_several_devices(exported):
+def test_evaluate_refuses_picie_and_several_devices(exported, tmp_path,
+                                                    monkeypatch, capsys):
     """run_picie on a cocostuff27 checkpoint (the JAX loop's condition)
-    raises, naming ROADMAP.md; num_devices > 1 in one process raises and
-    says how to start the processes (tests/test_torch_ddp_app.py runs
-    two)."""
+    without ``saved_models/picie_and_probes.pth`` turns the PiCIE rows off
+    with a printed line, as the JAX loop does (``evaluate.py:258-259``;
+    with the file, ``tests/test_torch_backbone_apps.py`` draws them);
+    num_devices > 1 in one process raises and says how to start the
+    processes (tests/test_torch_ddp_app.py runs two)."""
     cfg, path, _ = exported
     coco = cfg.replace(dataset_name="cocostuff27", run_picie=True)
     coco_path = path.replace("m.ckpt", "coco.ckpt")
     _, bb, params = jax_model(cfg, seed=9)
     export_stego_checkpoint(coco_path, coco, bb, params)
-    with pytest.raises(NotImplementedError, match="ROADMAP.*Other backbones"):
-        Evaluator(torch_config(coco), coco_path, "cpu", val_dataset=[])
+    monkeypatch.chdir(tmp_path)
+    evaluator = Evaluator(torch_config(coco), coco_path, "cpu",
+                          val_dataset=[])
+    assert evaluator.picie is None
+    assert "PiCIE comparison disabled" in capsys.readouterr().out
     with pytest.raises(ValueError, match="num_devices=2 asks for 2 "
                        "processes and this is one of 1: start them with "
                        "python -m stego_torch.eval"):

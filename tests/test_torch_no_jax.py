@@ -6,7 +6,9 @@ salience-biased draw and the aug-alignment loss with the device
 augmentations) and one val step, a third builds a KNN cache and a feature cache and runs a
 cached train step and a cached val epoch, a fourth runs the train app
 on in-memory datasets (two steps, a validation and a checkpoint, then a
-resumed step), a fifth evaluates a checkpoint over an in-memory
+resumed step), another takes feature-pyramid train steps (C1's and C2's
+plain versions on two grids) and builds KNN caches with each cut embedder,
+a fifth evaluates a checkpoint over an in-memory
 dataset with the grid CRF and with the exact CRF, on the CPU, a sixth
 loads a serving artifact packaged in the test's own process and predicts
 with it, importing no model, train, eval, data or config module, and two
@@ -53,7 +55,9 @@ MODULES = [
     "stego_torch.train.crf_app", "stego_torch.eval.__main__",
     "stego_torch.serve", "stego_torch.parallel", "stego_torch.parallel.dist",
     "stego_torch.ops.augment", "stego_torch.tools.accuracy_bench",
-    "stego_torch.utils.precision",
+    "stego_torch.utils.precision", "stego_torch.models.resnet",
+    "stego_torch.models.fpn", "stego_torch.models.zoo",
+    "stego_torch.models.picie",
 ]
 for name in MODULES:
     importlib.import_module(name)
@@ -131,6 +135,52 @@ for kw, extra in ((dict(use_salience=True),
 assert torch.isfinite(m["loss/aug_alignment"]) and seg.step == 5
 out = make_val_step(seg)(batch)
 assert int(out["conf_linear"].sum()) == int((batch["label"] >= 0).sum())
+print("OK", sorted(m for m, mod in sys.modules.items()
+                   if mod is not None and m.split(".")[0] == "stego_tpu"))
+"""
+
+
+BACKBONE_SCRIPT = """
+import sys
+sys.modules["jax"] = None  # any import of jax raises ImportError
+sys.modules["PIL"] = None
+sys.modules["stego_tpu"] = None  # nor anything of the JAX package
+import torch
+from stego_torch.config import Config
+from stego_torch.models.picie import PiCIE
+from stego_torch.models.zoo import CutBackboneEmbedder
+from stego_torch.train.knn import build_knn_cache
+from stego_torch.train.segmenter import (UnsupervisedSegmenter,
+                                         draw_step_randomness,
+                                         make_train_step, make_val_step)
+# the feature-pyramid arch: C1's plain version on two grids (layer4 1 x 1,
+# code 56 x 56), then the gather route into C2's plain version
+cfg = Config(dataset_name="directory", arch="feature-pyramid",
+             model_type="resnet50", granularity=3, dim=6, res=32,
+             feature_samples=3, neg_samples=2, backbone_dtype="float32")
+seg = UnsupervisedSegmenter(5, cfg)
+g = torch.Generator().manual_seed(0)
+img = torch.rand(2, 32, 32, 3, generator=g)
+batch = {"img": img, "img_pos": img.flip(2),
+         "label": torch.randint(-1, 5, (2, 32, 32), generator=g)}
+for kw in ({}, dict(fused_sampling="off")):
+    seg.cfg = cfg.replace(**kw)
+    m = make_train_step(seg)(batch, draw_step_randomness(seg, 2, g))
+    assert torch.isfinite(m["loss/total"])
+assert seg.step == 2
+assert int(seg.net.conv3.double_conv[4].num_batches_tracked) == 2
+out = make_val_step(seg)(batch)
+assert int(out["conf_linear"].sum()) == int((batch["label"] >= 0).sum())
+# the cut embedders' KNN caches, and the PiCIE features
+import os, tempfile
+imgs = torch.rand(4, 32, 32, 3, generator=g)
+with tempfile.TemporaryDirectory() as tmp:
+    for model_type in ("resnet50", "vgg11", "densenet121"):
+        net = CutBackboneEmbedder(model_type, generator=g).eval()
+        nns = build_knn_cache(os.path.join(tmp, model_type + ".npz"), net,
+                              [imgs[:2], imgs[2:]], k=3)
+        assert nns.shape == (4, 3) and (nns[:, 0] == range(4)).all()
+assert PiCIE(g).features(imgs).shape == (4, 8, 8, 256)
 print("OK", sorted(m for m, mod in sys.modules.items()
                    if mod is not None and m.split(".")[0] == "stego_tpu"))
 """
@@ -362,6 +412,11 @@ def test_slice_imports_and_runs_without_jax_or_pil():
 
 def test_train_and_val_step_run_without_jax_or_pil():
     proc = run_without_jax(TRAIN_SCRIPT)
+    assert proc.stdout.strip().endswith("OK []"), proc.stdout
+
+
+def test_fpn_steps_and_cut_embedders_run_without_jax_or_pil():
+    proc = run_without_jax(BACKBONE_SCRIPT)
     assert proc.stdout.strip().endswith("OK []"), proc.stdout
 
 
