@@ -16,7 +16,9 @@
    narrow widths: kernel A's bf16 narrow-head kernel at heads of 8, 16
    and 32 in every form (the sensitive accuracy instrument's trunk: 4
    heads of 8, N = 65, batch 16 and 48) and L at D = 32 and 64, the same
-   way, beside SDPA and F.layer_norm.
+   way, beside SDPA and F.layer_norm; and the narrow-head kernel's f32
+   instantiation in every form at 2e-5 (TF32 off), beside f32 SDPA, with
+   its bf16 instantiation on the same inputs as a control that must fail.
 3. Serves flip-TTA requests with seeded ViT-S/8 and ViT-T/8 STEGO
    segmenters at full width (cocostuff27 head: dim 70, nonlinear, 27
    classes, bf16 trunk): 3 requests of 8 images at res 224, then 3 at res
@@ -106,7 +108,9 @@
    controls that must fail). Then the narrow widths' paths: 3 train steps
    of the sensitive instrument's configuration on bf16 trunks of width
    32, 64 and 128 with heads of 8, 16 and 32 (2 A at the head width, 5 L
-   at the width, C1 once a step); the training branches at the main
+   at the width, C1 once a step), and one forward of f32 trunks of those
+   shapes with use_flash_attention (2 f32 narrow-head launches, no L),
+   held at 2e-5 to the plain trunk; the training branches at the main
    footprint, each 3 steps with one held against its loss kernel's plain
    version: the salience-biased draw sampled (C1) and grid-sampled (C2),
    the aug-alignment loss on the device route (ops/augment.py in the
@@ -168,7 +172,14 @@
    has two. Prints each rank's ms a step, device busy and the
    collectives' calls and host ms a step: two processes sharing one card,
    not a scaling number.
-15. Runs the attention layout ladder (stego_torch/tools/attention_layouts.py:
+15. The plot apps (python -m stego_torch.eval.plot_apps) at ViT-S/8 bf16
+   with the cocostuff27 head on a written directory set and a written
+   PotsdamRaw scene: correspondence at res 224 (24 A, 50 L) and 512 (no A:
+   N = 4097 takes the einsum form; 50 L), the Potsdam mosaic of 15 x 15
+   tiles at 320 (2 trunk calls a batch of 16) and the PR curves at 320
+   with the CRF recalibrator trained on the card; exact launches, each
+   held against the same app with the trunk's kernels off, its seconds.
+16. Runs the attention layout ladder (stego_torch/tools/attention_layouts.py:
    12 chained pre-LN attention sublayers at B=32, N=785 for ViT-S, ViT-B
    and ViT-T), every rung's core held against its plain version and each
    chain launching exactly its kernels: the path of kernel A's resident,
@@ -231,6 +242,9 @@ NARROW_CASES = ((8, 16, 4, 65), (8, 48, 4, 65), (16, 16, 4, 65),
                 (32, 16, 4, 65))
 NARROW_FORMS = ("batch_resident", "kv_resident", "resident", "flash",
                 "no_softmax", "pair")
+# the narrow-head kernel's f32 instantiation (d, B, H, N): the sensitive
+# instrument's shape at each width, every form at each
+NARROW_F32_CASES = ((8, 16, 4, 65), (16, 16, 4, 65), (32, 16, 4, 65))
 # kernel L at the runtime-width kernel's widths: the tiny trunk's 32 (16
 # and 48 images of 65 tokens) and 64
 NARROW_LN_SHAPES = [(16 * 65, 32), (48 * 65, 32), (16 * 65, 64)]
@@ -2198,8 +2212,10 @@ def path_counts():
     out.update({f"attention_{e}": fa.ENTRY_LAUNCHES[e] for e in ENTRIES})
     out["attention_f32"] = fa.F32_LAUNCHES  # of the attention launches
     out["add_layer_norm"] = ln.ADD_LAUNCHES
-    out.update({f"attention_d{d}": fa.HEAD_DIM_LAUNCHES[d]
+    out.update({f"attention_d{d}": fa.HEAD_DIM_LAUNCHES[(d, torch.bfloat16)]
                 for d in NARROW_DS})
+    out.update({f"attention_d{d}_f32":
+                fa.HEAD_DIM_LAUNCHES[(d, torch.float32)] for d in NARROW_DS})
     out.update({f"layer_norm_{d}": ln.WIDTH_LAUNCHES.get(d, 0)
                 for d in NARROW_LN_DS})
     return out
@@ -4299,10 +4315,10 @@ def phase_narrow(dev):
 
                 def plain(fn=fn):
                     return fn(q, k, v, scale, use_kernel=False)
-            before = fa.HEAD_DIM_LAUNCHES[d]
+            before = fa.HEAD_DIM_LAUNCHES[(d, torch.bfloat16)]
             got = kernel()
             torch.cuda.synchronize()
-            launched = fa.HEAD_DIM_LAUNCHES[d] - before
+            launched = fa.HEAD_DIM_LAUNCHES[(d, torch.bfloat16)] - before
             want = plain().float()
             diff = (got.float() - want).abs()
             tol = (torch.full_like(want, 2 ** -7 * float(want.abs().max()))
@@ -4330,22 +4346,153 @@ def phase_narrow(dev):
     return out
 
 
-def sensitive_segmenter(dev, embed, heads):
+def sensitive_segmenter(dev, embed, heads, backbone_dtype="bfloat16"):
     """A seeded segmenter of the sensitive accuracy instrument's
     configuration (``tiny_benchmark_setup``: 2 blocks, res 64, 4 classes)
-    with a bf16 trunk of ``embed`` wide, ``heads`` heads, on ``dev``."""
+    with a trunk of ``embed`` wide, ``heads`` heads, on ``dev``: bf16, or
+    f32 with ``use_flash_attention``."""
     from stego_torch.data.synthetic import tiny_benchmark_setup
     from stego_torch.train.segmenter import UnsupervisedSegmenter
 
+    f32 = backbone_dtype == "float32"
     with tempfile.TemporaryDirectory() as tmp:
-        cfg, vit = tiny_benchmark_setup(tmp, n_train=1, n_val=1,
-                                        backbone_dtype="bfloat16")
+        cfg, vit = tiny_benchmark_setup(
+            tmp, n_train=1, n_val=1, backbone_dtype=backbone_dtype,
+            use_flash_attention=True if f32 else None)
     vit = dataclasses.replace(vit, embed_dim=embed, num_heads=heads)
     seg = UnsupervisedSegmenter(4, cfg, vit_cfg=vit,
                                 generator=torch.Generator().manual_seed(0))
     seg.to(dev)
-    seg.net.model.cast_blocks(torch.bfloat16)
+    if not f32:
+        seg.net.model.cast_blocks(torch.bfloat16)
     return seg
+
+
+def phase_narrow_f32(dev):
+    """The narrow-head kernel's f32 instantiation (d = 8, 16, 32) in every
+    form against the f32 plain version at F32_RTOL / F32_ATOL (no_softmax:
+    F32_RTOL of its largest output), TF32 off, on views of a packed qkv as
+    phase_narrow; the bf16 instantiation on the same inputs, the control,
+    must fail each gate; the trunk's form (batch_resident) timed beside
+    f32 SDPA and the bound (3xTF32's rate, as A-f32's rows; the f32 FMA
+    bound printed). Returns {d: the result at NARROW_F32_CASES' shape, its
+    forms' errors under "forms"}."""
+    import torch.nn.functional as F
+
+    from stego_torch.ops import flash_attention as fa
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    print(f"kernel A, narrow heads on f32 q/k/v (d in {NARROW_DS}) vs plain, "
+          f"every form, q, k ~ N(0, 4), v ~ N(0, 1); rtol {F32_RTOL} atol "
+          f"{F32_ATOL} (no_softmax: rtol of its largest output); TF32 off; "
+          f"control: the bf16 instantiation on the same inputs must fail; "
+          f"library: f32 F.scaled_dot_product_attention on (B, H, N, d)")
+    out = {}
+    for d, b, h, n in NARROW_F32_CASES:
+        scale = d ** -0.5
+        g = torch.Generator(device=dev).manual_seed(b * n + h + d)
+        qkv = torch.randn(b, n, 3, h, d, generator=g, device=dev)
+        qkv[:, :, :2] *= 2
+        q, k, v = (x.transpose(1, 2) for x in qkv.unbind(2))
+        tq, tk, tv = (x.flatten(2) for x in qkv.unbind(2))
+        errs, timed = {}, None
+        for form in NARROW_FORMS:
+            if form == "pair":
+                def kernel(dtype=torch.float32):
+                    return fa.token_major_attention(
+                        *(x.to(dtype) for x in (tq, tk, tv)), h, scale)
+
+                def plain():
+                    return fa.attention_plain(tq, tk, tv, h, scale)
+            else:
+                fn = getattr(fa, f"{form}_attention")
+                view = torch.empty(b, n, h * d, device=dev).unflatten(
+                    -1, (h, d)).transpose(1, 2)
+
+                def kernel(dtype=torch.float32, fn=fn, view=view):
+                    if dtype != torch.float32:  # the control, a new output
+                        return fn(*(x.to(dtype) for x in (q, k, v)), scale)
+                    return fn(q, k, v, scale, out=view)
+
+                def plain(fn=fn):
+                    return fn(q, k, v, scale, use_kernel=False)
+            before = fa.HEAD_DIM_LAUNCHES[(d, torch.float32)]
+            got = kernel()
+            torch.cuda.synchronize()
+            launched = fa.HEAD_DIM_LAUNCHES[(d, torch.float32)] - before
+            want = plain()
+            diff = (got - want).abs()
+            tol = (torch.full_like(want, F32_RTOL * float(want.abs().max()))
+                   if form == "no_softmax"
+                   else F32_ATOL + F32_RTOL * want.abs())
+            errs[form] = float(diff.max())
+            check(got.dtype == torch.float32 and within(diff, tol, want)
+                  and launched == 1,
+                  f"d={d} f32 {form} (B={b}, H={h}, N={n}): max_abs_err "
+                  f"{errs[form]:.3e}, {launched} f32 launch at d={d}")
+            ctl = (kernel(torch.bfloat16).float() - want).abs()
+            check(bool((ctl > tol).any()),
+                  f"control, d={d} {form} by the bf16 instantiation on the "
+                  f"same inputs: max_abs_err {float(ctl.max()):.3e}, "
+                  f"{int((ctl > tol).sum())} of {ctl.numel()} elements out "
+                  f"of the gate (must fail)")
+            if form == "batch_resident":
+                timed = (kernel, plain)
+        t = compare_times(*timed)
+        flops = 4 * b * h * n * n * d
+        nbytes = 4 * b * n * h * d * 4
+        bnd = bound({"tf32x3": flops}, nbytes)
+        fma = bound({"f32": flops}, nbytes)
+        qh, kh, vh = (x.contiguous() for x in (q, k, v))
+        lib = device_ms(lambda: F.scaled_dot_product_attention(
+            qh, kh, vh, scale=scale), floor_ms=bnd[0])
+        print(f"  d={d} f32 batch_resident (B={b}, H={h}, N={n}): "
+              f"{timing_text(t)}; f32 SDPA {lib:.4f} ms (kernel / SDPA "
+              f"{t['device'][0] / lib:.2f}); {bound_text(bnd)}; at f32 FMA "
+              f"{fma[0]:.4f} ms")
+        out[d] = dict(shape=f"B={b} H={h} N={n} d={d} f32",
+                      max_abs_err=max(errs.values()), ms=t["device"][0],
+                      plain_ms=t["device"][1], library_ms=lib, bound=bnd,
+                      forms=errs)
+    return out
+
+
+def phase_narrow_f32_paths(dev):
+    """One forward through ``seg.net`` of an f32 trunk of each of
+    NARROW_TRUNKS' shapes (the sensitive configuration, res 64, batch 16)
+    with ``use_flash_attention``, TF32 off: exactly 2 launches, both of the
+    narrow-head kernel's f32 instantiation at the trunk's head width, and
+    no L (an f32 trunk's LayerNorm stays plain); its features and code
+    within F32_RTOL / F32_ATOL of the same forward on the kernels' plain
+    versions. Returns {head width: the launches}."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    runs = {}
+    for embed, heads in NARROW_TRUNKS:
+        d = embed // heads
+        seg = sensitive_segmenter(dev, embed, heads, "float32")
+        img = images(torch.Generator(device=dev).manual_seed(embed), 64, dev,
+                     16)
+        reset_counts()
+        with torch.inference_mode():
+            got = seg.net(img)
+        torch.cuda.synchronize()
+        runs[d] = path_counts()
+        seg.net.model.use_kernels = False
+        with torch.inference_mode():
+            want = seg.net(img)
+        errs = [float((g - w).abs().max()) for g, w in zip(got, want)]
+        check(all(within((g - w).abs(), F32_ATOL + F32_RTOL * w.abs(), w)
+                  for g, w in zip(got, want))
+              and runs[d]["attention"] == runs[d][f"attention_d{d}_f32"] == 2
+              and runs[d]["layer_norm"] == 0,
+              f"f32 trunk, width {embed}, {heads} heads of {d}, "
+              f"use_flash_attention: features and code vs plain max_abs_err "
+              f"{errs[0]:.3e}, {errs[1]:.3e}; A at d={d} f32 "
+              f"{runs[d][f'attention_d{d}_f32']} launches, L "
+              f"{runs[d]['layer_norm']}")
+    return runs
 
 
 def phase_narrow_paths(dev):
@@ -4664,6 +4811,184 @@ def phase_fpn(dev, tmp, smi):
     return runs
 
 
+# phase analysis: the written directory set (train images for the
+# correspondence figure, the val set of the PR curves) and the PotsdamRaw
+# scene (the reference's 15 x 15 grid of 320 x 320 tiles)
+ANALYSIS_TRAIN, ANALYSIS_VAL, ANALYSIS_RES = 8, 64, 320
+# (15 and 320: potsdam_mosaic's grid and tile size, as the main runs it)
+POTSDAM_GRID, POTSDAM_TILE, ANALYSIS_BATCH = 15, 320, 16
+CORR_RESOLUTIONS = (224, 512)
+AP_ATOL, CRF_PARAM_RTOL = 1e-3, 1e-4
+
+
+def write_potsdamraw(root, grid, res, seed=0):
+    """The first ``grid`` x ``grid`` tiles of scene 0 of a PotsdamRaw tree
+    (``potsdamraw/processed/{imgs,gt}/0_<row>_<col>.mat``, in the dataset's
+    order over its 15 x 15 grid), each of ``res``: 8 x 8 blocks of the 6
+    fine labels, a colour a label, with noise."""
+    from scipy.io import savemat
+
+    rng = np.random.default_rng(seed)
+    palette = rng.integers(30, 226, (6, 3))
+    cell = -(-res // 8)
+    for sub in ("imgs", "gt"):
+        os.makedirs(os.path.join(root, "potsdamraw", "processed", sub),
+                    exist_ok=True)
+    for i in range(grid * grid):
+        gt = np.repeat(np.repeat(rng.integers(0, 6, (8, 8)), cell, 0),
+                       cell, 1)[:res, :res].astype(np.uint8)
+        img = np.clip(palette[gt] + rng.normal(0, 12, (res, res, 3)), 0,
+                      255).astype(np.uint8)
+        name = f"0_{i // 15}_{i % 15}.mat"
+        for sub, key, arr in (("imgs", "img", img), ("gt", "gt", gt)):
+            savemat(os.path.join(root, "potsdamraw", "processed", sub, name),
+                    {key: arr})
+
+
+def phase_analysis(dev, tmp):
+    """``python -m stego_torch.eval.plot_apps``' three mains on the card,
+    ViT-S/8 bf16 with the cocostuff27 head (dim 70, 27 classes), seeded
+    random weights: correspondence at res 224 (2 trunk calls at B=1, 24 A
+    at pair and 50 L; with the movie) and at 512 (N = 4097 pads past
+    KV_RESIDENT_MAX_N: 50 L and no A), potsdam over a written PotsdamRaw
+    scene of POTSDAM_GRID x POTSDAM_GRID tiles at 320 in batches of 16 (2
+    trunk calls a batch: 12 A at pair_kv, 25 L each) and pr_curves over the
+    written val set at 320 (one trunk call a batch of 16, up to 8) with the
+    recalibrator on the card. Each main's launches exactly; each held
+    against the same main with the trunk's kernels off
+    (``VisionTransformer.use_kernels``; correspondence without its movie)
+    on the card: the heatmaps at
+    CODE_MAX_ABS / CODE_MEAN_ABS, the mosaic's predictions at PRED_AGREE,
+    the APs within AP_ATOL, the recalibrator's scalars within
+    CRF_PARAM_RTOL; its seconds printed. Returns {app: launches}."""
+    from stego_torch.data.synthetic import write_synthetic_benchmark
+    from stego_torch.eval import plot_apps
+    from stego_torch.models.convert import save_stego_checkpoint
+    from stego_torch.models.vit import VisionTransformer
+    from stego_torch.train.knn import knn_cache_file
+
+    t0 = time.perf_counter()
+    root = os.path.join(tmp, "data")
+    write_synthetic_benchmark(root, "analysis", n_train=ANALYSIS_TRAIN,
+                              n_val=ANALYSIS_VAL, res=ANALYSIS_RES,
+                              n_classes=27)
+    # each train image's two neighbours: the next image
+    n = ANALYSIS_TRAIN
+    nns = np.stack([np.arange(n), (np.arange(n) + 1) % n,
+                    (np.arange(n) + 1) % n], 1)
+    os.makedirs(os.path.join(root, "nns"), exist_ok=True)
+    for res in CORR_RESOLUTIONS:
+        np.savez(knn_cache_file(root, "vit_small", "analysis", "train", None,
+                                res), nns=nns)
+    write_potsdamraw(root, POTSDAM_GRID, POTSDAM_TILE)
+    ckpt = os.path.join(tmp, "analysis.ckpt")
+    save_stego_checkpoint(ckpt, cocostuff_segmenter(dev, "bfloat16"))
+    print(f"analysis: the three plot apps, ViT-S/8 bf16, cocostuff27 head, "
+          f"seeded weights; {ANALYSIS_TRAIN} train + {ANALYSIS_VAL} val "
+          f"scenes at {ANALYSIS_RES} and a {POTSDAM_GRID} x {POTSDAM_GRID} "
+          f"PotsdamRaw scene of {POTSDAM_TILE} x {POTSDAM_TILE} tiles written "
+          f"in {time.perf_counter() - t0:.1f} s")
+    data = [f"pytorch_data_dir={root}", "dataset_name=directory",
+            "dir_dataset_name=analysis", "dir_dataset_n_classes=27",
+            f"output_root={os.path.join(tmp, 'out')}"]
+    runs = {
+        "correspondence_224": (plot_apps.correspondence_main, data + [
+            "model_type=vit_small", "dino_patch_size=8", "dim=70",
+            "res=224", "img_num=3", "plot_movie=true"],
+            launches_of(24, 50, "pair")),
+        "correspondence_512": (plot_apps.correspondence_main, data + [
+            "model_type=vit_small", "dino_patch_size=8", "dim=70",
+            "res=512", "img_num=3"], launches_of(0, 50)),
+        "potsdam": (plot_apps.potsdam_main,
+                    [f"pytorch_data_dir={root}", f"model_path={ckpt}",
+                     "img_num=0"],
+                    launches_of(12 * 2 * -(-POTSDAM_GRID ** 2
+                                            // ANALYSIS_BATCH),
+                                25 * 2 * -(-POTSDAM_GRID ** 2
+                                            // ANALYSIS_BATCH), "pair_kv")),
+        "pr_curves": (plot_apps.pr_curves_main, data + [
+            f"model_path={ckpt}", f"batch_size={ANALYSIS_BATCH}"],
+            launches_of(12 * min(8, ANALYSIS_VAL // ANALYSIS_BATCH),
+                        25 * min(8, ANALYSIS_VAL // ANALYSIS_BATCH),
+                        "pair_kv")),
+    }
+    cwd = os.getcwd()
+    os.chdir(tmp)  # potsdam writes results/predictions/potsdam here
+    launches, outs = {}, {}
+    try:
+        for name, (main_fn, argv, want) in runs.items():
+            for kernels in (True, False):
+                VisionTransformer.use_kernels = kernels
+                reset_counts()
+                torch.cuda.synchronize()
+                t1 = time.perf_counter()
+                # the movie's heatmaps are the figure's function at other
+                # points: its ~20 s GIF is encoded once, with the kernels
+                out = main_fn([a for a in argv if kernels
+                               or a != "plot_movie=true"], device=dev)
+                torch.cuda.synchronize()
+                secs = time.perf_counter() - t1
+                got = path_counts()
+                outs[name, kernels] = out
+                if kernels:
+                    launches[name] = got
+                    check(got == want, f"analysis, {name}: {secs:.2f} s on "
+                          f"the card, launches A {got['attention']} "
+                          f"(pair {got['attention_pair']}, pair_kv "
+                          f"{got['attention_pair_kv']}), L "
+                          f"{got['layer_norm']}")
+                else:
+                    print(f"  analysis, {name} with the trunk's kernels off: "
+                          f"{secs:.2f} s, {got['attention']} A and "
+                          f"{got['layer_norm']} L launches")
+    finally:
+        VisionTransformer.use_kernels = True
+        os.chdir(cwd)
+
+    for name in ("correspondence_224", "correspondence_512"):
+        got, want = outs[name, True], outs[name, False]
+        for side, g, w in zip(("self", "KNN"), got["heatmaps"],
+                              want["heatmaps"]):
+            diff = (g - w).abs()
+            check(bool(torch.isfinite(g).all()) and g.shape == w.shape
+                  and float(diff.max()) <= CODE_MAX_ABS
+                  and float(diff.mean()) <= CODE_MEAN_ABS,
+                  f"analysis, {name} heatmaps ({side}, {tuple(g.shape)}) vs "
+                  f"the kernels off: max abs {float(diff.max()):.3e} (<= "
+                  f"{CODE_MAX_ABS}), mean {float(diff.mean()):.3e} (<= "
+                  f"{CODE_MEAN_ABS})")
+        if got["movie"] is not None:
+            check(all(m.shape[0] == 50 and bool(torch.isfinite(m).all())
+                      for m in got["movie"]),
+                  f"analysis, {name}: the movie's heatmaps "
+                  f"{tuple(got['movie'][0].shape)} finite")
+    got, want = outs["potsdam", True], outs["potsdam", False]
+    side = POTSDAM_GRID * POTSDAM_TILE
+    agree = float(np.mean(got["cluster"] == want["cluster"]))
+    pngs = sorted(os.listdir(os.path.join(tmp, "results", "predictions",
+                                          "potsdam")))
+    check(got["cluster"].shape == (side, side) and agree >= PRED_AGREE
+          and np.array_equal(got["label"], want["label"]),
+          f"analysis, potsdam: the {side} x {side} mosaic's mapped "
+          f"predictions agree with the kernels off on {agree:.4%} (>= "
+          f"{PRED_AGREE:.0%}); PNGs {pngs}")
+    got, want = outs["pr_curves", True], outs["pr_curves", False]
+    gaps = {k: abs(got["aps"][k] - want["aps"][k]) for k in got["aps"]}
+    check(all(g <= AP_ATOL for g in gaps.values()),
+          f"analysis, pr_curves: APs {got['aps']} vs the kernels off, gaps "
+          f"{gaps} (<= {AP_ATOL}); {got['targets'].size} pairs")
+    rel = {k: abs(float(got["crf_params"][k] - want["crf_params"][k]))
+           / max(abs(float(want["crf_params"][k])), 1e-12)
+           for k in got["crf_params"]}
+    check(all(r <= CRF_PARAM_RTOL for r in rel.values()),
+          f"analysis, pr_curves: the recalibrator's scalars "
+          f"{ {k: round(float(v), 6) for k, v in got['crf_params'].items()} }"
+          f" vs the kernels off, relative gaps <= {max(rel.values()):.2e} "
+          f"(<= {CRF_PARAM_RTOL})")
+    print(f"  analysis: the phase took {time.perf_counter() - t0:.1f} s")
+    return launches
+
+
 def phase_tf32_eval(dev, tmp):
     """An f32-trunk eval step as ``python -m stego_torch.eval`` runs it: a
     fresh process's flags (torch's defaults: cuDNN TF32 on, matmul TF32
@@ -4771,6 +5096,7 @@ def main() -> int:
     hm = phase_head_major(dev)
     at_f32 = phase_attention_f32(dev)
     narrow = phase_narrow(dev)
+    narrow_f32 = phase_narrow_f32(dev)
     _, ln_narrow = phase_layer_norm(dev, NARROW_LN_SHAPES)
     serving = {}
     with tempfile.TemporaryDirectory() as tmp:
@@ -4790,6 +5116,7 @@ def main() -> int:
     models = phase_train_models(dev)
     wide = phase_wide(dev)
     narrow_paths = phase_narrow_paths(dev)
+    narrow_f32_paths = phase_narrow_f32_paths(dev)
     branches = phase_branches(dev)
     with tempfile.TemporaryDirectory() as tmp:
         accuracy, _ = phase_accuracy(dev, tmp)
@@ -4826,6 +5153,8 @@ def main() -> int:
         ddp = phase_ddp(dev, tmp, train_items, val_items, smi)
     with tempfile.TemporaryDirectory() as tmp:
         fpn = phase_fpn(dev, tmp, smi)
+    with tempfile.TemporaryDirectory() as tmp:
+        analysis = phase_analysis(dev, tmp)
     ladder = phase_layouts(dev)
 
     def per_step(steps, corr, entry="pair", trunk=True):
@@ -4876,14 +5205,14 @@ def main() -> int:
     # serving artifacts, train with the sampled, full-field, grid-sampled
     # and bf16-code losses, val, the KNN, the cache builds, cached train and
     # val, the app, the dataset eval, the CRF-loss train run, phase ddp's
-    # ranks), ViT-T
+    # ranks, the plot apps), ViT-T
     # (serving, its artifact, train, val), ViT-B (train, sampled and
     # full-field), and the layout ladder
     vit_s = add_counts(serving["vit_small"], train, val, *stream.values(),
                        knn_launches, cache_launches, *cached.values(),
                        cached_val, *wide.values(), app, evals, crf_loss,
                        artifacts.get("vit_small", {}), *ddp.values(),
-                       *branches.values())
+                       *branches.values(), *analysis.values())
     vit_t = add_counts(serving["vit_tiny"], models["vit_tiny"],
                        models["vit_tiny_val"], artifacts.get("vit_tiny", {}))
     vit_b = add_counts(models["vit_base"], models["vit_base_full_field"])
@@ -4965,6 +5294,15 @@ def main() -> int:
     for d in NARROW_DS:
         rows.append(measured(narrow[d], narrow_total[f"attention_d{d}"],
                              f"{at_ref}:188", at_src, f"attention_d{d}"))
+    # the f32 instantiation, launched by the f32 narrow trunks' forwards
+    narrow_f32_total = add_counts(*narrow_f32_paths.values())
+    check(all(total[f"attention_d{d}_f32"] == narrow_total[
+        f"attention_d{d}_f32"] == 0 for d in NARROW_DS),
+          "no other path launches the narrow-head kernel on f32")
+    for d in NARROW_DS:
+        rows.append(measured(narrow_f32[d],
+                             narrow_f32_total[f"attention_d{d}_f32"],
+                             f"{at_ref}:188", at_src, f"attention_d{d}_f32"))
     for d in (32, 64):
         rows.append(measured(ln_narrow[d], narrow_total[f"layer_norm_{d}"],
                              f"{ln_ref}:39", ln_src, f"layer_norm_{d}"))

@@ -18,9 +18,10 @@ Numerics follow the JAX trunk:
   form.
 * f32 trunk: erf GELU, einsum-form attention and the plain LayerNorm. With
   ``use_flash`` (which the JAX package runs through its Pallas kernels) the
-  attention goes to kernel A's f32 instantiation (A-f32) by the same
-  dispatch as the bf16 trunk's, and LayerNorm stays plain, as in JAX
-  (``vit.py:166``); on the CPU the plain versions run.
+  attention goes to kernel A's f32 instantiations (A-f32 at heads of 64,
+  the narrow-head kernel's at 8, 16 and 32) by the same dispatch as the
+  bf16 trunk's, and LayerNorm stays plain, as in JAX (``vit.py:166``); on
+  the CPU the plain versions run.
 * Weights are cast to the compute dtype where they are used, as the JAX
   trunk's ``.astype(x.dtype)`` does, so storing the block weights in bf16
   (:meth:`VisionTransformer.cast_blocks`) changes no result. Patch embed, cls
@@ -255,6 +256,11 @@ class VisionTransformer(nn.Module):
     0.02 weights and embeddings, zero biases, unit LayerNorms, as
     ``init_vit_params``)."""
 
+    # False: the kernels' plain versions, on any device; set on a trunk, or
+    # on the class for every trunk that sets none (chip_smoke.py runs an app
+    # that builds its own trunk so, against the same app with the kernels)
+    use_kernels = True
+
     def __init__(self, cfg: ViTConfig,
                  generator: Optional[torch.Generator] = None):
         super().__init__()
@@ -266,7 +272,6 @@ class VisionTransformer(nn.Module):
             torch.zeros(1, cfg.n_patches_side ** 2 + 1, d))
         self.blocks = nn.ModuleList(Block(cfg) for _ in range(cfg.depth))
         self.norm = LayerNorm(d, cfg.ln_eps)
-        self.use_kernels = True
         self.reset_parameters(generator)
 
     @torch.no_grad()
@@ -351,3 +356,50 @@ class VisionTransformer(nn.Module):
             attns.append(attn)
             qkvs.append(qkv)
         return feats, attns, qkvs
+
+
+# The reference's trunk methods (vision_transformer.py:211-256) as functions
+# of a trunk, on get_intermediate_feat (``stego_tpu/models/vit.py:392-423``).
+# As there, the trunk computes in f32 unless ``dtype`` says otherwise, and
+# takes no kernel unless the caller passes ``use_flash=True``.
+
+
+def vit_forward_feats(model: VisionTransformer, img: torch.Tensor,
+                      dtype: torch.dtype = torch.float32,
+                      use_flash: bool = False) -> torch.Tensor:
+    """All-token output after the final norm, (B, 1+HW, D) f32 (reference
+    forward_feats)."""
+    feats, _, _ = model.get_intermediate_feat(
+        img, n=1, want_attn_qkv=False, dtype=dtype, use_flash=use_flash)
+    return feats[0]
+
+
+def vit_cls_forward(model: VisionTransformer, img: torch.Tensor,
+                    dtype: torch.dtype = torch.float32,
+                    use_flash: bool = False) -> torch.Tensor:
+    """The cls token's output, (B, D) f32 (reference forward)."""
+    return vit_forward_feats(model, img, dtype, use_flash)[:, 0]
+
+
+def vit_get_last_selfattention(model: VisionTransformer, img: torch.Tensor,
+                               dtype: torch.dtype = torch.float32,
+                               use_flash: bool = False) -> torch.Tensor:
+    """Attention probabilities of the last block, (B, heads, N, N) in the
+    trunk's dtype (reference get_last_selfattention). That block takes the
+    einsum form, which returns them; ``use_flash`` reaches the blocks
+    before it."""
+    _, attns, _ = model.get_intermediate_feat(img, n=1, dtype=dtype,
+                                              use_flash=use_flash)
+    return attns[0]
+
+
+def vit_get_intermediate_layers(model: VisionTransformer, img: torch.Tensor,
+                                n: int = 1,
+                                dtype: torch.dtype = torch.float32,
+                                use_flash: bool = False
+                                ) -> List[torch.Tensor]:
+    """Normed token outputs of the last ``n`` blocks, each (B, 1+HW, D) f32
+    (reference get_intermediate_layers)."""
+    feats, _, _ = model.get_intermediate_feat(
+        img, n=n, want_attn_qkv=False, dtype=dtype, use_flash=use_flash)
+    return feats

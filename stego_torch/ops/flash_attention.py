@@ -40,16 +40,17 @@ for ``torch.export``: the serving artifact (``serve.py``) calls kernel A
 through it, and it ends in the same launch as the functions above.
 
 A CPU tensor takes the plain version; a CUDA tensor launches the kernel or
-raises: bf16 q/k/v of d = 64 the wgmma kernel, bf16 ones of d = 8, 16 or
-32 (the sensitive accuracy instrument's tiny ViT has heads of 8) a simple
-kernel of their own in the same source, f32 ones of d = 64 (an f32 trunk
-with ``use_flash_attention``, which the JAX package also sends through its
-Pallas kernels) the f32 instantiation A-f32, whose softmax forms take
-their products on the tensor cores by 3xTF32 (``ops/tf32.py`` emulates that
-arithmetic) and whose no-softmax form stays on f32 FMA. f32 heads narrower
-than 64 raise. The kernel has no sequence bound; the N bounds below are
-the JAX package's dispatch, kept so that both run the same numerics at
-every resolution.
+raises: bf16 q/k/v of d = 64 the wgmma kernel, bf16 or f32 ones of d = 8,
+16 or 32 (the sensitive accuracy instrument's tiny ViT has heads of 8) a
+simple kernel of their own in the same source, instantiated for each dtype
+(f32 FMA in depth order; in f32 it rounds nothing to bf16), f32 ones of
+d = 64 (an f32 trunk with ``use_flash_attention``, which the JAX package
+also sends through its Pallas kernels) the f32 instantiation A-f32, whose
+softmax forms take their products on the tensor cores by 3xTF32
+(``ops/tf32.py`` emulates that arithmetic) and whose no-softmax form stays
+on f32 FMA. The kernel has no sequence bound; the N bounds below are the
+JAX package's dispatch, kept so that both run the same numerics at every
+resolution.
 """
 
 from __future__ import annotations
@@ -67,7 +68,7 @@ RESIDENT_MAX_N = 1152
 KV_RESIDENT_MAX_N = 4096
 TK = 128  # keys a step of flash_attention's online softmax (:24-25)
 HEAD_DIM = 64  # the head width of the wgmma kernel and of A-f32
-NARROW_HEAD_DIMS = (8, 16, 32)  # bf16 only, the narrow-head kernel
+NARROW_HEAD_DIMS = (8, 16, 32)  # the narrow-head kernel, bf16 and f32
 # The kernel's forms (csrc/attention.cu), by name.
 FORMS = {"two_pass": 0, "resident": 1, "flash": 2, "no_softmax": 3}
 
@@ -75,7 +76,8 @@ FORMS = {"two_pass": 0, "resident": 1, "flash": 2, "no_softmax": 3}
 ENTRIES = {torch.bfloat16: "stego_attention",
            torch.float32: "stego_attention_f32"}
 # Launches of the CUDA kernel in this process (plain-version calls do not
-# count): all of them, those on f32 q/k/v (A-f32), and by the JAX entry
+# count): all of them, those on f32 q/k/v (A-f32 and the narrow-head
+# kernel's f32 instantiation), and by the JAX entry
 # point each stands for (the token-major ones by N: pair up to
 # RESIDENT_MAX_N, pair_kv beyond). Read and reset by chip_smoke.py to show
 # the main path used it.
@@ -84,8 +86,9 @@ F32_LAUNCHES = 0
 ENTRY_LAUNCHES = dict.fromkeys(
     ("pair", "pair_kv", "packed", "resident", "batch_resident",
      "kv_resident", "flash", "no_softmax"), 0)
-# and by head width
-HEAD_DIM_LAUNCHES = dict.fromkeys(NARROW_HEAD_DIMS + (HEAD_DIM,), 0)
+# and by (head width, dtype of q/k/v)
+HEAD_DIM_LAUNCHES = dict.fromkeys(
+    ((d, dt) for d in NARROW_HEAD_DIMS + (HEAD_DIM,) for dt in ENTRIES), 0)
 
 
 def reset_launches() -> None:
@@ -362,8 +365,8 @@ def trunk_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 def _launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
             out: torch.Tensor, scale: float, form: str, entry: str) -> None:
     """Kernel A on (B, N, H, d) views of q, k, v and ``out``, any strides
-    with a contiguous last axis, all bf16 (d = 64 or one of
-    NARROW_HEAD_DIMS) or all f32 (d = 64)."""
+    with a contiguous last axis, all bf16 or all f32, of d = 64 or one of
+    NARROW_HEAD_DIMS."""
     global LAUNCHES, F32_LAUNCHES
     b, n, h, d = q.shape
     if q.dtype not in ENTRIES:
@@ -386,16 +389,9 @@ def _launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                 f"batch, token and head strides that are multiples of 8 and "
                 f"a 16-byte aligned base; got strides {x.stride()}")
     narrow = d in NARROW_HEAD_DIMS
-    if narrow and q.dtype == torch.float32:
-        raise ValueError(
-            f"attention kernel: f32 heads of {d} are not built (A-f32 takes "
-            f"head_dim {HEAD_DIM}; the narrow-head kernel bf16 only): run the "
-            f"f32 trunk without use_flash_attention, or a bf16 trunk "
-            f"(ROADMAP.md queue 1, Accuracy at training scale)")
     if d != HEAD_DIM and not narrow:
         raise ValueError(f"attention kernel is built for head_dim "
-                         f"{HEAD_DIM} and, in bf16, {NARROW_HEAD_DIMS}; "
-                         f"got {d}")
+                         f"{HEAD_DIM} and {NARROW_HEAD_DIMS}; got {d}")
     if out.numel() == 0:
         return
 
@@ -408,10 +404,13 @@ def _launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
             *strides(q), *strides(k), *strides(v), *strides(out),
             float(scale), FORMS[form], q.device.index,
             torch.cuda.current_stream(q.device).cuda_stream)
-    fn = lib.stego_attention_narrow if narrow else getattr(lib,
-                                                           ENTRIES[q.dtype])
+    entry_fn = ENTRIES[q.dtype]
+    if narrow:
+        entry_fn = "stego_attention_narrow" + (
+            "_f32" if q.dtype == torch.float32 else "")
+    fn = getattr(lib, entry_fn)
     build.check(fn(*args), "attention kernel")
     LAUNCHES += 1
     F32_LAUNCHES += q.dtype == torch.float32
     ENTRY_LAUNCHES[entry] += 1
-    HEAD_DIM_LAUNCHES[d] += 1
+    HEAD_DIM_LAUNCHES[(d, q.dtype)] += 1

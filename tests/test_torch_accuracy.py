@@ -20,6 +20,7 @@ import torch
 from stego_torch.data.synthetic import tiny_benchmark_setup
 from stego_torch.train.app import train
 from stego_torch.train.knn_app import precompute_knns
+from tests._torch_cpu import one_intra_op_thread  # noqa: F401
 
 
 def check_bands(m):

@@ -50,6 +50,7 @@ from tests.test_integration import data_root  # noqa: F401
 from tests.test_torch_config import torch_config
 from tests.test_torch_train_step import setup
 from tests.test_torch_vit import JAX_CFG, SMALL
+from tests._torch_cpu import child_env, one_intra_op_thread  # noqa: F401
 
 REPO = Path(__file__).resolve().parents[1]
 VIT = ViTConfig(**SMALL)
@@ -341,7 +342,7 @@ def test_sigterm_checkpoints_and_resumes(data_root, tmp_path):  # noqa: F811
     from that step."""
     cfg = make_cfg(data_root, tmp_path, max_steps=10_000, val_freq=10_000,
                    checkpoint_freq=10_000, scalar_log_freq=1)
-    env = {**os.environ, "PYTHONUNBUFFERED": "1"}
+    env = child_env(PYTHONUNBUFFERED="1")
     cmd = [sys.executable, "-c", SIGTERM_WORKER]
     p = subprocess.Popen(cmd + [cfg.to_json()], cwd=REPO, env=env,
                          stdout=subprocess.PIPE, stderr=subprocess.STDOUT)

@@ -8,6 +8,7 @@ import torch
 
 from stego_tpu.ops import flash_attention as jfa
 from stego_torch.ops import flash_attention as fa
+from tests._torch_cpu import one_intra_op_thread  # noqa: F401
 
 D = 64
 

@@ -11,6 +11,7 @@ import torch
 
 from stego_tpu.ops import augment as jaug
 from stego_torch.ops import augment as aug
+from tests._torch_cpu import one_intra_op_thread  # noqa: F401
 
 
 def jax_params(seed, b, h, w):

@@ -40,6 +40,7 @@ from tests.test_fpn import make_torch_resnet50_sd
 from tests.test_integration import data_root  # noqa: F401
 from tests.test_torch_resnet import picie_sd
 from tests.test_zoo import make_densenet_sd, make_vgg11_sd
+from tests._torch_cpu import one_intra_op_thread  # noqa: F401
 
 CPU = torch.device("cpu")
 RES = 32

@@ -5,6 +5,7 @@ import shutil
 import pytest
 
 from stego_torch.kernels import build
+from tests._torch_cpu import one_intra_op_thread  # noqa: F401
 
 
 @pytest.fixture

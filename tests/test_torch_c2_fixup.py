@@ -20,6 +20,7 @@ from stego_tpu.ops.pallas_corr import \
     fused_correlation_loss_multi as jax_stream_multi
 from stego_torch.ops import corr_stream
 from stego_torch.ops import tf32
+from tests._torch_cpu import one_intra_op_thread  # noqa: F401
 
 CODE_WIDTHS = [3, 16, 70, 128, 160, 300]
 # zero_clamp (lo = 0), stabalize (hi = 0.8), and both

@@ -10,6 +10,7 @@ import pytest
 
 from stego_tpu import config as jax_config
 from stego_torch import config
+from tests._torch_cpu import one_intra_op_thread  # noqa: F401
 
 
 def torch_config(jcfg: jax_config.Config) -> config.Config:

@@ -18,6 +18,7 @@ from stego_torch.models.vit import VIT_CONFIGS, VisionTransformer
 
 from tests.test_torch_config import torch_config
 from tests.test_torch_vit import CFG, JAX_CFG, jax_backbone
+from tests._torch_cpu import one_intra_op_thread  # noqa: F401
 
 
 def make_cfg(**kw):

@@ -35,6 +35,7 @@ from stego_torch.ops.math import (block_local_super_perm, one_hot_feats,
                                   super_perm, tensor_correlation)
 from stego_torch.ops.sampling import (bilinear_sample_weights,
                                       sample_from_coords)
+from tests._torch_cpu import one_intra_op_thread  # noqa: F401
 
 # losses and cd means; code gradients (PARITY_r05.json, sampled-loss rows)
 LOSS_TOL = dict(rtol=1e-4, atol=1e-6)

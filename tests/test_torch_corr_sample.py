@@ -18,6 +18,7 @@ from stego_torch.ops import corr_stream
 from tests.test_torch_corr_loss import (GRAD_TOL, LOSS_TOL, coords,
                                         jax_sampled, maps, plain_forward,
                                         port_sampled, t, weights)
+from tests._torch_cpu import one_intra_op_thread  # noqa: F401
 
 OPTS = [dict(pointwise=True, zero_clamp=True),
         dict(pointwise=False, zero_clamp=False, stabalize=True)]

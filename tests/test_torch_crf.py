@@ -27,6 +27,7 @@ from stego_tpu.ops.crf import dense_crf as jax_dense_crf
 from stego_torch.data.synthetic import render_scene
 from stego_torch.ops import crf
 from stego_torch.ops.crf import bilateral_kernel, dense_crf
+from tests._torch_cpu import one_intra_op_thread  # noqa: F401
 
 SHAPES = [(2, 64, 64, 5, 16), (1, 60, 52, 27, 15), (1, 160, 160, 27, 40)]
 ATOL, SHARE, MEAN, F64_RATIO = 1e-4, 0.995, 2e-6, 3.0

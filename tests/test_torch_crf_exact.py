@@ -16,6 +16,7 @@ from stego_tpu.ops import crf_exact as jax_exact
 from stego_torch import native
 from stego_torch.native import PermutohedralLattice, permutohedral_filter
 from stego_torch.ops import crf_exact
+from tests._torch_cpu import one_intra_op_thread  # noqa: F401
 
 REPO = Path(__file__).resolve().parents[1]
 

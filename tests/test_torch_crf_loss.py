@@ -29,6 +29,7 @@ from tests.test_torch_train_step import (B, METRIC_TOL, assert_state_close,
                                          jax_step_draws, make_batch,
                                          make_cfg, setup, to_torch)
 from tests.test_torch_vit import CFG
+from tests._torch_cpu import one_intra_op_thread  # noqa: F401
 
 
 def crf_coords(key, s, h, w):

@@ -117,7 +117,7 @@ def test_attention_kernel_is_deterministic(cuda, d):
     heads = 128 // d
     a = fa.token_major_attention(q, k, v, heads, d ** -0.5)
     b = fa.token_major_attention(q, k, v, heads, d ** -0.5)
-    assert fa.HEAD_DIM_LAUNCHES[d] >= 2
+    assert fa.HEAD_DIM_LAUNCHES[(d, torch.bfloat16)] >= 2
     assert torch.equal(a, b)
     for fn in (fa.resident_attention, fa.flash_attention):
         heads_major = [x.unflatten(-1, (heads, d)).transpose(1, 2)
@@ -202,10 +202,10 @@ def test_narrow_head_attention_kernel_matches_plain(cuda, name, d):
         q, k, v = _head_major_inputs(cuda, b, h, n, seed=n + h + d, d=d)
         tok = torch.empty(b, n, h * d, dtype=torch.bfloat16, device=cuda)
         out = tok.unflatten(-1, (h, d)).transpose(1, 2)
-        before = fa.HEAD_DIM_LAUNCHES[d]
+        before = fa.HEAD_DIM_LAUNCHES[(d, torch.bfloat16)]
         fn(q, k, v, scale, out=out)
         torch.cuda.synchronize()
-        assert fa.HEAD_DIM_LAUNCHES[d] == before + 1
+        assert fa.HEAD_DIM_LAUNCHES[(d, torch.bfloat16)] == before + 1
         want = fn(q, k, v, scale, use_kernel=False).float()
         diff = (out.float() - want).abs()
         assert torch.all(diff <= attention_tolerance(name, want)), \
@@ -218,14 +218,111 @@ def test_narrow_head_attention_kernel_matches_plain(cuda, name, d):
                                        atol=5e-3)
 
 
-def test_narrow_f32_heads_raise(cuda):
-    """f32 heads narrower than 64 have no kernel: they raise, naming the
-    ROADMAP item, and launch nothing."""
-    q = torch.zeros(1, 4, 9, 8, device=cuda)
+def f32_tolerance(name, want, rtol=2e-5, atol=2e-5):
+    """The A-f32 gate (the JAX package's f32 attention tolerance); the
+    no-softmax form, a sum of N unnormalised products, to rtol of its
+    largest output."""
+    if name == "no_softmax_attention":
+        return torch.full_like(want, rtol * float(want.abs().max()))
+    return atol + rtol * want.abs()
+
+
+@pytest.mark.parametrize("d", fa.NARROW_HEAD_DIMS)
+@pytest.mark.parametrize("name", HEAD_MAJOR)
+def test_narrow_f32_attention_kernel_matches_plain(cuda, name, d):
+    """The narrow-head kernel's f32 instantiation in every head-major form
+    against the f32 plain version at 2e-5 (TF32 off), one f32 launch a
+    call counted under its width; the bf16 instantiation on the same
+    inputs, the control, misses that gate."""
+    fn = getattr(fa, name)
+    scale = d ** -0.5
+    kept = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        for b, h, n in NARROW_SHAPES:
+            if (name in ("resident_attention", "batch_resident_attention")
+                    and -(-n // 128) * 128 > fa.RESIDENT_MAX_N):
+                continue
+            g = torch.Generator(device=cuda).manual_seed(n + h + d)
+            qkv = torch.randn(b, n, 3, h, d, generator=g, device=cuda)
+            qkv[:, :, :2] *= 2
+            q, k, v = (x.transpose(1, 2) for x in qkv.unbind(2))
+            tok = torch.empty(b, n, h * d, device=cuda)
+            out = tok.unflatten(-1, (h, d)).transpose(1, 2)
+            before = fa.HEAD_DIM_LAUNCHES[(d, torch.float32)]
+            fn(q, k, v, scale, out=out)
+            torch.cuda.synchronize()
+            assert fa.HEAD_DIM_LAUNCHES[(d, torch.float32)] == before + 1
+            want = fn(q, k, v, scale, use_kernel=False)
+            tol = f32_tolerance(name, want)
+            diff = (out - want).abs()
+            assert torch.all(diff <= tol), (b, h, n, float(diff.max()))
+            if n >= 65:
+                ctl = fn(*(x.bfloat16() for x in (q, k, v)), scale).float()
+                assert not torch.all((ctl - want).abs() <= tol), (b, h, n)
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = kept
+
+
+def test_narrow_f32_trunk_forward_matches_plain(cuda):
+    """An f32 trunk of the sensitive instrument's shape (width 32, 4 heads
+    of 8, res 64) with use_flash: 2 f32 narrow launches a forward, its
+    features within 2e-5 of the plain trunk's."""
+    from stego_torch.models.vit import ViTConfig, VisionTransformer
+
+    kept = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        model = VisionTransformer(
+            ViTConfig(patch_size=8, embed_dim=32, depth=2, num_heads=4,
+                      img_size=64), torch.Generator().manual_seed(0)).to(cuda)
+        img = torch.randn(16, 64, 64, 3, device=cuda, generator=torch
+                          .Generator(device=cuda).manual_seed(2))
+        before = fa.HEAD_DIM_LAUNCHES[(8, torch.float32)]
+        with torch.inference_mode():
+            got = model.get_intermediate_feat(img, want_attn_qkv=False,
+                                              use_flash=True)[0][0]
+            assert fa.HEAD_DIM_LAUNCHES[(8, torch.float32)] == before + 2
+            model.use_kernels = False
+            want = model.get_intermediate_feat(img, want_attn_qkv=False,
+                                               use_flash=True)[0][0]
+        torch.testing.assert_close(got, want, rtol=2e-5, atol=2e-5)
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = kept
+
+
+def test_correspondence_heatmaps_on_the_card_match_the_cpu(cuda, tmp_path):
+    """correspondence_main at res 224 with a bf16 ViT-S/8 (kernels A and L)
+    on the card against the same main on the CPU (the kernels' plain
+    versions): the heatmaps within chip_smoke's code gates (max 6e-2,
+    mean 4e-3)."""
+    import numpy as np
+
+    from stego_torch.config import Config
+    from stego_torch.data.contrastive import dataset_nice_name
+    from stego_torch.data.synthetic import write_synthetic_benchmark
+    from stego_torch.eval.plot_apps import correspondence_main
+    from stego_torch.train.knn import knn_cache_file
+
+    root = str(tmp_path / "data")
+    write_synthetic_benchmark(root, n_train=8, n_val=1, res=224)
+    cfg = Config(dataset_name="directory", dir_dataset_name="synthbench")
+    path = knn_cache_file(root, cfg.model_type,
+                          dataset_nice_name(cfg, "directory"), "train", None,
+                          224)
+    (tmp_path / "data" / "nns").mkdir()
+    np.savez(path, nns=np.stack([np.arange(8), (np.arange(8) + 1) % 8,
+                                 (np.arange(8) + 1) % 8], 1))
+    argv = [f"pytorch_data_dir={root}", "dataset_name=directory",
+            "dir_dataset_name=synthbench", "dir_dataset_n_classes=4",
+            "res=224", f"output_root={tmp_path / 'out'}", "img_num=2"]
     before = fa.LAUNCHES
-    with pytest.raises(ValueError, match="f32 heads of 8"):
-        fa.batch_resident_attention(q, q, q, 8 ** -0.5)
-    assert fa.LAUNCHES == before
+    card = correspondence_main(argv, device=cuda)["heatmaps"]
+    assert fa.LAUNCHES == before + 24  # 2 trunk calls of 12 blocks
+    cpu = correspondence_main(argv, device="cpu")["heatmaps"]
+    for c, h in zip(card, cpu):
+        diff = (c.cpu() - h).abs()
+        assert float(diff.max()) <= 6e-2 and float(diff.mean()) <= 4e-3
 
 
 def test_flash_attention_kernel_at_res_448(cuda):

@@ -23,6 +23,7 @@ from stego_torch.data import contrastive, crop, datasets, transforms
 from tests.test_data import synthetic_dir  # noqa: F401
 from tests.test_datasets_real_formats import (  # noqa: F401
     cityscapes_root, coco_root, potsdam_root)
+from tests._torch_cpu import one_intra_op_thread  # noqa: F401
 
 RES = 16
 N_NEIGHBORS = 3

@@ -40,6 +40,7 @@ from tests.test_torch_train_step import (N_CLASSES, STATE_TOL,
                                          assert_state_close, jax_step_draws,
                                          make_cfg, setup)
 from tests.test_torch_vit import SMALL
+from tests._torch_cpu import child_env, one_intra_op_thread  # noqa: F401
 
 B, RES, STEPS = 4, 32, 2
 WORLD = 2
@@ -57,7 +58,7 @@ def start_ranks(worker, *args, world=WORLD):
     """Popen one process a rank of ``tests/<worker>``, each given its rank,
     the world size, a free port and ``args``."""
     port = free_port()
-    env = {k: v for k, v in os.environ.items()
+    env = {k: v for k, v in child_env().items()
            if k not in ("XLA_FLAGS", "JAX_PLATFORMS")}
     return [subprocess.Popen(
         [sys.executable, os.path.join(REPO, "tests", worker), str(r),

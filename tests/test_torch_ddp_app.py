@@ -31,6 +31,7 @@ from stego_torch.train.knn_app import precompute_knns
 from stego_torch.train.segmenter import make_val_step
 from tests.test_torch_ddp import WORLD, start_ranks, wait_ranks
 from tests.test_torch_vit import SMALL
+from tests._torch_cpu import one_intra_op_thread  # noqa: F401
 
 VIT = ViTConfig(**SMALL)
 CPU = torch.device("cpu")

@@ -8,6 +8,7 @@ import subprocess
 import sys
 
 from tests.test_torch_ddp import REPO, WORLD, free_port
+from tests._torch_cpu import child_env, one_intra_op_thread  # noqa: F401
 
 LAUNCH = ("import sys; from stego_torch.parallel import dist; "
           "from tests._torch_ddp_worker import record_rank; "
@@ -20,7 +21,7 @@ def test_launch_spawns_ranks_or_joins_a_launchers_group(tmp_path):
     torch.distributed.run's environment (WORLD_SIZE, RANK, MASTER_ADDR,
     MASTER_PORT) each process joins that group. Both on gloo and the CPU,
     as asked; every rank sees the other in an all_reduce."""
-    env = {k: v for k, v in os.environ.items()
+    env = {k: v for k, v in child_env().items()
            if k not in ("WORLD_SIZE", "RANK", "LOCAL_RANK")}
     spawned, joined = tmp_path / "spawned", tmp_path / "joined"
     spawned.mkdir()

@@ -36,6 +36,7 @@ from stego_torch.ops.math import l2_normalize
 from tests.test_torch_config import torch_config
 from tests.test_torch_convert import jax_model, make_cfg
 from tests.test_torch_vit import JAX_CFG
+from tests._torch_cpu import one_intra_op_thread  # noqa: F401
 
 RES = 32
 

@@ -33,6 +33,7 @@ from tests.test_torch_config import torch_config
 from tests.test_torch_train_step import (METRIC_TOL, N_CLASSES,
                                          assert_state_close, jax_step_draws,
                                          setup)
+from tests._torch_cpu import one_intra_op_thread  # noqa: F401
 
 RES, N_ITEMS, CHUNK, B = 32, 10, 4, 4
 F32_TOL = dict(rtol=1e-4, atol=1e-5)

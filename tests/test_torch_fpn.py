@@ -41,6 +41,7 @@ from tests.test_fpn import make_torch_resnet50_sd
 from tests.test_torch_config import torch_config
 from tests.test_torch_corr_loss import GRAD_TOL, LOSS_TOL, loss_draws, t
 from tests.test_torch_train_step import METRIC_TOL, jax_step_draws, make_cfg
+from tests._torch_cpu import one_intra_op_thread  # noqa: F401
 
 HEAD_TOL = dict(rtol=1e-5, atol=1e-6)
 B, DIM = 2, 5

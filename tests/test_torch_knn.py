@@ -16,6 +16,7 @@ from stego_torch.train import knn
 
 from tests.test_torch_train_step import setup
 from tests.test_torch_feat_cache import make_cfg
+from tests._torch_cpu import one_intra_op_thread  # noqa: F401
 
 
 def tie_free_feats(n, d, seed):

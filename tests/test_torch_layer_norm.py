@@ -10,6 +10,7 @@ from stego_tpu.ops.layer_norm import add_layer_norm as jax_add_ln
 from stego_tpu.ops.layer_norm import fused_layer_norm as jax_fused_ln
 from stego_torch.kernels import build
 from stego_torch.ops import layer_norm as ln
+from tests._torch_cpu import one_intra_op_thread  # noqa: F401
 
 EPS = 1e-6  # ViTConfig.ln_eps
 

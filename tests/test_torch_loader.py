@@ -14,6 +14,7 @@ from stego_tpu.data import transforms as jax_transforms
 from stego_torch.data import datasets, loader, transforms
 
 from tests.test_data import synthetic_dir  # noqa: F401
+from tests._torch_cpu import one_intra_op_thread  # noqa: F401
 
 
 class Items:

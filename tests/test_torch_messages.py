@@ -4,6 +4,7 @@ stale them; and every name they give is an item of that queue."""
 
 import re
 from pathlib import Path
+from tests._torch_cpu import one_intra_op_thread  # noqa: F401
 
 REPO = Path(__file__).resolve().parents[1]
 SOURCES = sorted((REPO / "stego_torch").rglob("*.py")) + sorted(

@@ -18,6 +18,7 @@ from stego_torch.data.transforms import get_transform
 from stego_torch.kernels.build import BUILD_DIR
 
 from tests.test_native_io import _write_corpus
+from tests._torch_cpu import one_intra_op_thread  # noqa: F401
 
 REPO = Path(__file__).resolve().parents[1]
 

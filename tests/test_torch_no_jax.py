@@ -1,23 +1,29 @@
-"""stego_torch runs where there is no JAX, no PIL and no JAX package: a
-fresh interpreter in which those imports fail imports every module of the
-port and runs one eval step, another runs train steps (the sampled loss
-through C1's plain version, full-field and grid-sampled through C2's, the
-salience-biased draw and the aug-alignment loss with the device
-augmentations) and one val step, a third builds a KNN cache and a feature cache and runs a
-cached train step and a cached val epoch, a fourth runs the train app
-on in-memory datasets (two steps, a validation and a checkpoint, then a
-resumed step), another takes feature-pyramid train steps (C1's and C2's
-plain versions on two grids) and builds KNN caches with each cut embedder,
-a fifth evaluates a checkpoint over an in-memory
-dataset with the grid CRF and with the exact CRF, on the CPU, a sixth
-loads a serving artifact packaged in the test's own process and predicts
-with it, importing no model, train, eval, data or config module, and two
-more are the two ranks of a gloo group that take a train step with global
-negatives (C2) and one with local negatives (C1)."""
+"""stego_torch runs where there is no JAX, no PIL and no JAX package. One
+fresh interpreter in which those imports fail runs seven scripts, one
+after the other, each in its own namespace (the module fixture ``parts``;
+each test reads its script's output): the first imports every module of
+the port and runs one eval step; the others run train steps (the sampled
+loss through C1's plain version, full-field and grid-sampled through
+C2's, the salience-biased draw and the aug-alignment loss with the device
+augmentations) and one val step; feature-pyramid train steps (C1's and
+C2's plain versions on two grids) and KNN caches with each cut embedder;
+a KNN cache and a feature cache, a cached train step and a cached val
+epoch; the train app on in-memory datasets (two steps, a validation and a
+checkpoint, then a resumed step); the dataset eval of a checkpoint over an
+in-memory dataset with the grid CRF and with the exact CRF; the trunk
+wrappers, eval/analysis.py (matplotlib blocked too, as on the card) and
+plot_apps. A second interpreter loads a serving artifact packaged in the
+test's own process and predicts with it, importing no model, train, eval,
+data or config module, and two more are the two ranks of a gloo group that
+take a train step with global negatives (C2) and one with local negatives
+(C1)."""
 
 import subprocess
 import sys
 from pathlib import Path
+
+import pytest
+from tests._torch_cpu import child_env, one_intra_op_thread  # noqa: F401
 
 REPO = Path(__file__).resolve().parents[1]
 
@@ -57,7 +63,8 @@ MODULES = [
     "stego_torch.ops.augment", "stego_torch.tools.accuracy_bench",
     "stego_torch.utils.precision", "stego_torch.models.resnet",
     "stego_torch.models.fpn", "stego_torch.models.zoo",
-    "stego_torch.models.picie",
+    "stego_torch.models.picie", "stego_torch.eval.analysis",
+    "stego_torch.eval.plot_apps",
 ]
 for name in MODULES:
     importlib.import_module(name)
@@ -397,42 +404,151 @@ print("OK", sorted(m for m, mod in sys.modules.items()
 """
 
 
+ANALYSIS_SCRIPT = """
+import sys
+sys.modules["jax"] = None  # any import of jax raises ImportError
+sys.modules["PIL"] = None
+sys.modules["stego_tpu"] = None  # nor anything of the JAX package
+sys.modules["matplotlib"] = None  # as on the card: figures are not drawn
+import os
+import tempfile
+import numpy as np
+import torch
+from stego_torch.config import Config
+from stego_torch.data.synthetic import render_scene
+from stego_torch.eval import analysis, plot_apps
+from stego_torch.models.convert import save_stego_checkpoint
+from stego_torch.models.vit import (ViTConfig, VisionTransformer,
+                                    vit_cls_forward,
+                                    vit_get_last_selfattention)
+from stego_torch.train.segmenter import UnsupervisedSegmenter
+vit = ViTConfig(patch_size=8, embed_dim=128, depth=2, num_heads=2,
+                img_size=32)
+g = torch.Generator().manual_seed(0)
+img = torch.rand(2, 32, 32, 3, generator=g)
+trunk = VisionTransformer(vit)
+assert vit_cls_forward(trunk, img).shape == (2, 128)
+assert vit_get_last_selfattention(trunk, img).shape == (2, 2, 17, 17)
+feats = torch.randn(1, 4, 4, 16, generator=g)
+query = torch.from_numpy(analysis.interpolated_query_path(
+    [[-0.5, 0.5], [0.5, -0.5]], hold=2, steps=2))
+hi, he = analysis.correspondence_heatmaps(feats, feats.flip(1), query,
+                                          (32, 32))
+assert hi.shape == he.shape == (1, 6, 32, 32)[1:]
+c1, c2 = (torch.rand(2, 4, 4, 2, generator=g) * 2 - 1 for _ in range(2))
+label = torch.randint(-1, 5, (2, 32, 32), generator=g)
+ld, fd = analysis.label_agreement_fd(feats.expand(2, -1, -1, -1), label, 5,
+                                     c1, c2)
+cd, idiff = analysis.crf_pair_diffs(img, c1, c2)
+params = analysis.train_crf_recalibrator(cd, idiff, ld, steps=3)
+aps = analysis.plot_pr_curves(
+    "pr.png", {"fd": fd.numpy(), "crf": analysis.crf_kernel_fd(
+        img, c1, c2).numpy()}, ld.numpy())
+assert sorted(aps) == ["crf", "fd"] and not os.path.exists("pr.png")
+assert analysis.plot_correspondence_figure(
+    "c.png", img[0].numpy(), img[1].numpy(), hi.numpy(), he.numpy(),
+    query.numpy()) == []
+# the Potsdam mosaic of a 2 x 2 scene held in memory, from a checkpoint
+rng = np.random.default_rng(0)
+tiles = []
+for _ in range(4):
+    t_img, t_label = render_scene(rng, 32, 3)
+    tiles.append({"img": t_img, "label": t_label.astype(np.int64)})
+cfg = Config(dataset_name="directory", dim=6, res=32, backbone_dtype="float32")
+with tempfile.TemporaryDirectory() as tmp:
+    path = os.path.join(tmp, "m.ckpt")
+    save_stego_checkpoint(path, UnsupervisedSegmenter(5, cfg, vit_cfg=vit))
+    cwd = os.getcwd()
+    os.chdir(tmp)
+    try:
+        out = analysis.potsdam_mosaic(cfg, path, "cpu", img_num=0,
+                                      tile_res=32, dataset=tiles, grid=2)
+    finally:
+        os.chdir(cwd)
+assert out["cluster"].shape == out["label"].shape == (64, 64)
+try:
+    plot_apps.main(["figures"])
+except SystemExit as e:
+    assert "usage" in str(e)
+print("OK", sorted(m for m, mod in sys.modules.items()
+                   if mod is not None and m.split(".")[0] == "stego_tpu"))
+"""
+
+# the scripts that one interpreter runs, one after the other, each in its
+# own namespace; each prints "OK" and the JAX package's loaded modules
+# (none) as its last line
+PARTS = {"slice": SCRIPT, "train": TRAIN_SCRIPT, "backbone": BACKBONE_SCRIPT,
+         "cached": CACHED_SCRIPT, "app": APP_SCRIPT, "eval": EVAL_SCRIPT,
+         "analysis": ANALYSIS_SCRIPT}
+RUNNER = """
+import sys
+import traceback
+for name, code in PARTS.items():
+    print("=== part", name, flush=True)
+    try:
+        exec(compile(code, name, "exec"), {"__name__": "__main__"})
+    except Exception:
+        traceback.print_exc(file=sys.stdout)
+        print("FAILED", name, flush=True)
+"""
+
+
 def run_without_jax(script, *args):
     proc = subprocess.run([sys.executable, "-c", script, *args], cwd=REPO,
-                          capture_output=True, text=True, timeout=300)
+                          env=child_env(), capture_output=True, text=True,
+                          timeout=600)
     assert proc.returncode == 0, proc.stderr[-3000:]
     return proc
 
 
-def test_slice_imports_and_runs_without_jax_or_pil():
-    proc = run_without_jax(SCRIPT)
+@pytest.fixture(scope="module")
+def parts():
+    """{part: its output} of the PARTS, run in one fresh interpreter (the
+    imports and torch's start-up paid once)."""
+    proc = run_without_jax(f"PARTS = {PARTS!r}\n" + RUNNER)
+    out = {}
+    for chunk in proc.stdout.split("=== part ")[1:]:
+        name, _, text = chunk.partition("\n")
+        out[name] = text
+    return out
+
+
+def assert_part_ran(parts, name):
     # nothing of the JAX package is loaded, not even a stdlib-only module
-    assert proc.stdout.strip().endswith("OK []"), proc.stdout
+    assert parts[name].strip().endswith("OK []"), parts[name][-3000:]
 
 
-def test_train_and_val_step_run_without_jax_or_pil():
-    proc = run_without_jax(TRAIN_SCRIPT)
-    assert proc.stdout.strip().endswith("OK []"), proc.stdout
+def test_slice_imports_and_runs_without_jax_or_pil(parts):
+    """Every module of the port imports; an eval step; the layout
+    ladder."""
+    assert_part_ran(parts, "slice")
 
 
-def test_fpn_steps_and_cut_embedders_run_without_jax_or_pil():
-    proc = run_without_jax(BACKBONE_SCRIPT)
-    assert proc.stdout.strip().endswith("OK []"), proc.stdout
+def test_train_and_val_step_run_without_jax_or_pil(parts):
+    assert_part_ran(parts, "train")
 
 
-def test_knn_cache_and_cached_steps_run_without_jax_or_pil():
-    proc = run_without_jax(CACHED_SCRIPT)
-    assert proc.stdout.strip().endswith("OK []"), proc.stdout
+def test_fpn_steps_and_cut_embedders_run_without_jax_or_pil(parts):
+    assert_part_ran(parts, "backbone")
 
 
-def test_train_app_runs_and_resumes_without_jax_or_pil():
-    proc = run_without_jax(APP_SCRIPT)
-    assert proc.stdout.strip().endswith("OK []"), proc.stdout
+def test_knn_cache_and_cached_steps_run_without_jax_or_pil(parts):
+    assert_part_ran(parts, "cached")
 
 
-def test_eval_with_both_crfs_runs_without_jax_or_pil():
-    proc = run_without_jax(EVAL_SCRIPT)
-    assert proc.stdout.strip().endswith("OK []"), proc.stdout
+def test_train_app_runs_and_resumes_without_jax_or_pil(parts):
+    assert_part_ran(parts, "app")
+
+
+def test_eval_with_both_crfs_runs_without_jax_or_pil(parts):
+    assert_part_ran(parts, "eval")
+
+
+def test_analysis_and_plot_apps_run_without_jax_pil_or_matplotlib(parts):
+    """The trunk wrappers, eval/analysis.py (the figures and PNGs not
+    written, one line each), the Potsdam mosaic of an in-memory scene, and
+    plot_apps."""
+    assert_part_ran(parts, "analysis")
 
 
 def test_serving_artifact_loads_and_predicts_without_model_code(tmp_path):
@@ -479,7 +595,8 @@ def test_two_rank_steps_run_without_jax_or_pil():
         sock.bind(("localhost", 0))
         port = sock.getsockname()[1]
     procs = [subprocess.Popen([sys.executable, "-c", DDP_SCRIPT, str(rank),
-                               str(port)], cwd=REPO, stdout=subprocess.PIPE,
+                               str(port)], cwd=REPO, env=child_env(),
+                              stdout=subprocess.PIPE,
                               stderr=subprocess.PIPE, text=True)
              for rank in range(2)]
     try:

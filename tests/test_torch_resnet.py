@@ -23,6 +23,7 @@ from stego_torch.models.picie import (PiCIE, picie_from_checkpoint,
 
 from tests.test_fpn import make_torch_resnet50_sd
 from tests.test_zoo import make_densenet_sd, make_vgg11_sd
+from tests._torch_cpu import one_intra_op_thread  # noqa: F401
 
 TRUNK_TOL = dict(rtol=5e-3, atol=5e-4)
 VGG_TOL = dict(rtol=1e-4, atol=1e-5)

@@ -30,6 +30,7 @@ from stego_torch.train.segmenter import UnsupervisedSegmenter
 from tests.test_torch_config import torch_config
 from tests.test_torch_convert import make_cfg
 from tests.test_torch_vit import SMALL, TINY
+from tests._torch_cpu import one_intra_op_thread  # noqa: F401
 
 OPS = ("stego_torch.attention.default", "stego_torch.layer_norm.default")
 

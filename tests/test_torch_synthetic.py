@@ -17,6 +17,7 @@ from stego_torch.data.datasets import DirectoryDataset
 from stego_torch.data.transforms import get_transform, normalize
 
 from tests.test_torch_config import torch_config
+from tests._torch_cpu import one_intra_op_thread  # noqa: F401
 
 
 def files(base):

@@ -14,6 +14,10 @@ Tolerances and their sources:
   weights that make the largest 1, rtol 2e-4 and atol 1e-5:
   ``chip_smoke.py``'s STREAM_RTOL/STREAM_ATOL and GRAD_RTOL/GRAD_ATOL
   (PARITY_r05.json's corr rows).
+
+Its torch products run on one intra-op thread (``tests/_torch_cpu.py``),
+so none of them depends on how many threads OpenMP and MKL take under the
+Tier-1 run's load.
 """
 
 import functools
@@ -33,6 +37,7 @@ from stego_tpu.ops.pallas_corr import \
 from stego_torch.ops import corr_stream
 from stego_torch.ops import flash_attention as fa
 from stego_torch.ops import tf32
+from tests._torch_cpu import one_intra_op_thread  # noqa: F401
 
 D = 64
 F32_TOL = dict(rtol=2e-5, atol=2e-5)

@@ -37,6 +37,7 @@ from stego_torch.utils.metrics import UnsupervisedMetrics, update_conf_matrix
 from tests.test_torch_config import torch_config
 from stego_tpu.models.vit import ViTConfig as JaxViTConfig
 from tests.test_torch_vit import JAX_CFG, TINY, jax_backbone, tiny_backbone
+from tests._torch_cpu import one_intra_op_thread  # noqa: F401
 
 B, RES, N_CLASSES = 4, 64, 5
 STATE_TOL = dict(rtol=2e-4, atol=1e-5)  # tests/test_fused_sampling.py:265

@@ -15,6 +15,7 @@ from stego_torch.models.convert import vit_state_dict
 from stego_torch.models.vit import ViTConfig, VisionTransformer
 from stego_torch.ops.interp import interpolate
 from stego_torch.ops.math import l2_normalize
+from tests._torch_cpu import one_intra_op_thread  # noqa: F401
 
 # depth 2, embed 128 = 2 heads of 64, patch 8, trained at res 32 (4x4 grid)
 SMALL = dict(patch_size=8, embed_dim=128, depth=2, num_heads=2, img_size=32)
