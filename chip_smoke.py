@@ -1128,6 +1128,9 @@ SERVE_CPU_IMAGES = {"vit_small_224": 2, "vit_tiny_320": 1,
 # the JAX package); bf16: PRED_AGREE where the margin exceeds
 # SERVE_BF16_MARGIN
 SERVE_F32_ATOL, SERVE_F32_MARGIN, SERVE_BF16_MARGIN = 1e-4, 1e-3, 5e-2
+# the n_devices artifact of SERVE_TIMED's checkpoint: its shards, served on
+# that many cards where the machine has them, else all on cuda:0
+SERVE_SHARDS = 2
 # the modules a serving process must not import: the model code
 MODEL_CODE = ("stego_torch.models", "stego_torch.train", "stego_torch.eval",
               "stego_torch.data", "stego_torch.config")
@@ -1189,7 +1192,7 @@ def serve_child(args) -> int:
         report["top"] = sorted(by_kernel.items(), key=lambda kv: -kv[1])[:5]
     if opts["cpu_images"]:
         t0 = time.perf_counter()
-        on_cpu = ServingModel.load(opts["artifact"], device="cpu")
+        on_cpu = ServingModel.load(opts["artifact"], devices=["cpu"])
         report["cpu_load_s"] = time.perf_counter() - t0
         report["cpu_devices"] = sorted(
             {str(p.device) for p in on_cpu.module.parameters()}
@@ -1270,6 +1273,80 @@ def op_host_us(dev):
             out[name] = (time.perf_counter() - t0) / 200 * 1e6
             torch.cuda.synchronize()
     return out
+
+
+def serve_n_devices(case, tmp):
+    """An n_devices=SERVE_SHARDS artifact of ``case``'s checkpoint (phase
+    serve's SERVE_TIMED), packaged on the card and loaded in this process
+    on its default devices where the machine has SERVE_SHARDS cards, else
+    on [cuda:0] * SERVE_SHARDS after a default-devices load, which must
+    raise. Gates: its predict of the case's BATCH images equals the
+    one-device artifact's predict of each shard bit for bit, and kernels
+    A and L launch one request's count on each shard's card. On two cards
+    it prints the predict's time beside the one-device artifact's on the
+    whole batch. Returns the predict's launches."""
+    from stego_torch import serve
+    from stego_torch.ops import flash_attention as fa
+    from stego_torch.ops import layer_norm as ln
+
+    n, cards = SERVE_SHARDS, torch.cuda.device_count()
+    t0 = time.perf_counter()
+    art = serve.package(case["ckpt"], os.path.join(tmp, "serve_shards"),
+                        res=case["res"], batch_size=BATCH, n_devices=n)
+    pack_s = time.perf_counter() - t0
+    if cards >= n:
+        model = serve.ServingModel.load(art)
+        where = f"on cuda:0 .. cuda:{n - 1}"
+    else:
+        try:
+            serve.ServingModel.load(art)
+            raised = "nothing"
+        except RuntimeError as e:
+            raised = str(e)
+        check(f"needs {n} CUDA devices, have {cards}" in raised,
+              f"serve n_devices={n}: a default-devices load on {cards} "
+              f"card raises: {raised}")
+        model = serve.ServingModel.load(art, devices=["cuda:0"] * n)
+        where = (f"on [cuda:0] * {n} ({cards} card: its time is no scaling "
+                 f"number and is not printed)")
+    one = serve.ServingModel.load(case["art"])
+    img = case["img"]
+    torch.cuda.synchronize()
+    reset_counts()
+    got = model.predict(img)
+    launches = path_counts()
+    by_card = (dict(fa.DEVICE_LAUNCHES), dict(ln.DEVICE_LAUNCHES))
+    per = len(img) // n
+    same = True
+    for s in range(n):
+        want = one.predict(img[s * per:(s + 1) * per])
+        same &= all(np.array_equal(got[k][s * per:(s + 1) * per], want[k])
+                    for k in serve.OUTPUT_KEYS)
+    cards_used = sorted({d.index for d in model.devices})
+    share = n // len(cards_used)
+    want_by_card = tuple({i: share * c for i in cards_used}
+                         for c in (ATTN_PER_REQUEST, LN_PER_REQUEST))
+    check(same and model.meta["n_devices"] == n and by_card == want_by_card,
+          f"serve n_devices={n} ({case['res']}, packaged in {pack_s:.2f} s) "
+          f"{where}: predict of {len(img)} equals the one-device "
+          f"artifact's on each shard of {per} bit for bit; attention "
+          f"launches by card {by_card[0]}, layer_norm {by_card[1]}")
+    if cards >= n:
+        def wall_ms(fn):
+            out = []
+            fn()
+            for _ in range(SERVE_ITERS):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                fn()
+                out.append((time.perf_counter() - t0) * 1e3)
+            return statistics.median(out)
+
+        print(f"  serve n_devices={n}: predict() of {len(img)} on {n} cards "
+              f"{wall_ms(lambda: model.predict(img)):.3f} ms, the one-device"
+              f" artifact on cuda:0 {wall_ms(lambda: one.predict(img)):.3f}"
+              f" ms (median of {SERVE_ITERS}, host arrays in and out)")
+    return launches
 
 
 def phase_serve(dev, tmp):
@@ -1450,6 +1527,7 @@ def phase_serve(dev, tmp):
         host = op_host_us(dev)
         print("  host us a call: " + ", ".join(
             f"{k} {v:.1f}" for k, v in host.items()))
+    launches["vit_small"].append(serve_n_devices(timed, tmp))
     print(f"  phase serve: {time.perf_counter() - t_phase:.1f} s")
     return {m: add_counts(*runs) for m, runs in launches.items()}
 
@@ -2198,6 +2276,7 @@ def reset_counts():
     fa.reset_launches()
     ln.LAUNCHES = ln.ADD_LAUNCHES = 0
     ln.WIDTH_LAUNCHES.clear()
+    ln.DEVICE_LAUNCHES.clear()
     c1.FWD_LAUNCHES = c1.BWD_LAUNCHES = 0
     c2.FWD_LAUNCHES = c2.BWD_LAUNCHES = 0
 
@@ -3670,6 +3749,24 @@ DDP_CASES = {"local": dict(negatives_scope="local", backbone_dtype="float32",
              "global": {},  # C2 over the gathered maps' rows
              "full_field": dict(full_field_loss=True)}  # C2, whole maps
 DDP_STEPS = {"local": 3, "global": 3, "full_field": 2}
+# The feature-pyramid cases: ResNet-50, granularity FPN_GRANULARITY, dim 70,
+# res 224, TRAIN_BATCH // DDP_WORLD images a rank, the head's train-mode
+# BatchNorms on the global batch's statistics (all-reduced,
+# models/fpn.py:batch_stats). Global negatives on a bf16 trunk (C2's gather
+# route at 2048 channels over the gathered maps), local ones on an f32
+# trunk (C1 at 2048 channels on each rank), for the local ViT case's
+# reason above. The control: the global case with each rank's BatchNorms
+# on its own batch (models/fpn.py:local_stats), which must fail the
+# running statistics' gate. The FPN app's steps (validation and a
+# checkpoint at half and at the end).
+FPN_DDP = dict(model_type="resnet50", arch="feature-pyramid",
+               granularity=FPN_GRANULARITY)
+FPN_DDP_CASES = {"fpn_global": FPN_DDP,
+                 "fpn_local": dict(FPN_DDP, negatives_scope="local",
+                                   backbone_dtype="float32")}
+FPN_CONTROL = "fpn_own_stats"
+DDP_STEPS.update(fpn_global=3, fpn_local=3, fpn_own_stats=1)
+DDP_FPN_APP_STEPS = 4
 # the app's scenes (the first of the train and val splits), steps (a cut
 # and a resume at half), global validation and eval batches
 DDP_TRAIN, DDP_VAL, DDP_APP_STEPS, DDP_VAL_BATCH, DDP_EVAL_BATCH = \
@@ -3699,13 +3796,31 @@ def trainable_flat(seg):
                       if not n.startswith("net.model.")])
 
 
+def head_buffers(seg):
+    """The buffers outside the frozen trunk (the feature-pyramid head's
+    BatchNorm running statistics and their counts), on the CPU."""
+    return {n: b.detach().cpu().clone() for n, b in seg.named_buffers()
+            if not n.startswith("net.model.")}
+
+
+def grads_flat(seg, prefix=""):
+    """The gradients of the trainable parameters named ``prefix``*, flat
+    in trainable_flat's order, on the CPU; inf for a parameter without one
+    (no loss reached it: it is held wherever ADAM_LIVE decides)."""
+    return torch.cat([(p.grad if p.grad is not None else torch.full_like(
+        p, math.inf)).detach().reshape(-1).cpu()
+        for n, p in seg.named_parameters()
+        if not n.startswith("net.model.") and n.startswith(prefix)])
+
+
 def head_state(seg):
     """The segmenter's state that its train steps change: every parameter
-    outside the frozen trunk, the optimizers' states and the step count
-    (on the CPU)."""
+    and buffer outside the frozen trunk, the optimizers' states and the
+    step count (on the CPU)."""
     return {"params": {n: p.detach().cpu().clone()
                        for n, p in seg.named_parameters()
                        if not n.startswith("net.model.")},
+            "buffers": head_buffers(seg),
             "opts": {k: copy.deepcopy(o.state_dict())
                      for k, o in seg.optimizers().items()},
             "step": seg.step}
@@ -3716,6 +3831,9 @@ def load_head_state(seg, state):
         for n, p in seg.named_parameters():
             if n in state["params"]:
                 p.copy_(state["params"][n])
+        for n, b in seg.named_buffers():
+            if n in state["buffers"]:
+                b.copy_(state["buffers"][n])
     for k, o in seg.optimizers().items():
         o.load_state_dict(state["opts"][k])
     seg.step = state["step"]
@@ -3748,30 +3866,42 @@ def ddp_steps(dev, name, batch, reference=False, states=None):
     generators seeded DDP_SEED + step, the main path (counts and collective
     time from 0). ``reference``: one process on the whole batch, on C2's
     route (fused_sampling="off"); for local negatives with C2's emulation
-    of DDP_WORLD blocks (corr_stream.py:687-693); with ``states`` (a
+    of DDP_WORLD blocks (corr_stream.py:687-693); for the feature-pyramid
+    cases with its trunk called as the ranks call it (rank_trunk); with
+    ``states`` (a
     rank's head_state after each of its steps) each step after the first
     starts from the rank's state after the step before, so that every step
     of the ranks is held against the one-process step from the same state;
     without, its own trajectory, with each step's adam_rms.
-    Returns each step's metrics, trainable parameters and wall ms, the
-    launches, the collectives' calls and host ms, over several processes
-    the head_state after each step and the device busy ms of one more
-    step."""
+    Returns each step's metrics, trainable parameters, head buffers, net
+    gradients and wall ms, the launches, the collectives' calls and host
+    ms, over several processes the head_state after each step and the
+    device busy ms of one more step. The feature-pyramid cases
+    (FPN_DDP_CASES, FPN_CONTROL) likewise, on their ResNet-50 segmenter;
+    the control's steps take models/fpn.py:local_stats for the BatchNorms'
+    statistics."""
+    from stego_torch.models import fpn
     from stego_torch.parallel import dist
     from stego_torch.train.segmenter import (draw_step_randomness,
                                              make_train_step)
 
-    kw = dict(DDP_CASES[name])
+    kw = dict({**DDP_CASES, **FPN_DDP_CASES, FPN_CONTROL: FPN_DDP}[name])
     if reference and name != "full_field":
         kw["fused_sampling"] = "off"
     seg = cocostuff_segmenter(dev, **kw)
-    if reference and name == "local":
+    if reference and name.startswith("fpn"):
+        rank_trunk(seg)
+    if reference and kw.get("negatives_scope") == "local":
         seg.corr_cfg = dataclasses.replace(seg.corr_cfg, neg_blocks=DDP_WORLD)
     step = make_train_step(seg, with_hist=False)
     rows = dist.local_rows(TRAIN_BATCH)
     local = {k: v[rows] for k, v in batch.items()}
     gen = torch.Generator(device=dev)
-    out = {"metrics": [], "params": [], "ms": [], "states": [], "rms": []}
+    out = {"metrics": [], "params": [], "buffers": [], "grads": [],
+           "net_grads": [], "ms": [], "states": [], "rms": []}
+    kept = fpn.batch_stats
+    if name == FPN_CONTROL:
+        fpn.batch_stats = fpn.local_stats
     torch.cuda.synchronize()
     reset_counts()
     calls, secs = dist.CALLS, dist.SECONDS
@@ -3786,10 +3916,15 @@ def ddp_steps(dev, name, batch, reference=False, states=None):
         out["ms"].append((time.perf_counter() - t0) * 1e3)
         out["metrics"].append({k: float(v) for k, v in m.items()})
         out["params"].append(trainable_flat(seg))
+        if name.startswith("fpn"):
+            out["buffers"].append(head_buffers(seg))
+            out["grads"].append(grads_flat(seg))
+            out["net_grads"].append(grads_flat(seg, "net."))
         if reference and states is None:
             out["rms"].append(adam_rms(seg))
         if dist.initialized():
             out["states"].append(head_state(seg))
+    fpn.batch_stats = kept
     out["launches"] = path_counts()
     out["collective_calls"] = dist.CALLS - calls
     out["collective_ms"] = (dist.SECONDS - secs) * 1e3
@@ -3913,11 +4048,61 @@ def ddp_app(dev, tmp, train, val, nns):
             "params": trainable_flat(straight.seg)}
 
 
+def ddp_fpn_cfg(tmp):
+    """The FPN app's config: ddp_app_cfg's footprint on the
+    feature-pyramid arch (bf16 trunk, global negatives), validated at
+    TRAIN_RES (granularity 4 concatenates the image at 56 x 56, which
+    needs res 224)."""
+    return ddp_app_cfg(tmp).replace(
+        arch="feature-pyramid", model_type="resnet50",
+        granularity=FPN_GRANULARITY, val_res=TRAIN_RES,
+        max_steps=DDP_FPN_APP_STEPS,
+        val_freq=DDP_FPN_APP_STEPS // 2,
+        checkpoint_freq=DDP_FPN_APP_STEPS // 2, scalar_log_freq=1,
+        experiment_name="ddp_fpn")
+
+
+def ddp_fpn_app(dev, tmp, train, val, nns):
+    """The feature-pyramid app on this process's share: train() to
+    DDP_FPN_APP_STEPS (a validation and a checkpoint at half and at the
+    end), then evaluate() of its newest .ckpt. Counts from 0 before each.
+    Returns what phase ddp holds."""
+    from stego_torch.data.contrastive import ContrastiveSegDataset
+    from stego_torch.eval.evaluate import Evaluator
+    from stego_torch.train.app import Trainer
+
+    cfg = ddp_fpn_cfg(tmp)
+    train_ds = ContrastiveSegDataset.from_items(SceneItems(train), 27,
+                                                nns=nns, num_neighbors=7)
+    val_ds = ContrastiveSegDataset.from_items(SceneItems(val), 27)
+    torch.cuda.synchronize()
+    reset_counts()
+    t0 = time.perf_counter()
+    trainer = Trainer(cfg, train_dataset=train_ds, val_dataset=val_ds,
+                      device=dev)
+    metrics = trainer.run()
+    app_s = time.perf_counter() - t0
+    launches = path_counts()
+    ckpt = trainer.mgr.checkpoint_path()
+    reset_counts()
+    ev = Evaluator(cfg.replace(res=TRAIN_RES, batch_size=DDP_EVAL_BATCH,
+                               experiment_name="ddp_fpn_eval"),
+                   ckpt, dev, val_dataset=val_ds)
+    ev.run(save_outputs=False)
+    return {"app_launches": launches, "eval_launches": path_counts(),
+            "app_s": app_s, "metrics": metrics, "ckpt": ckpt,
+            "step": trainer.seg.step,
+            "eval": (ev.linear_metrics.stats, ev.cluster_metrics.stats),
+            "params": trainable_flat(trainer.seg),
+            "buffers": head_buffers(trainer.seg)}
+
+
 def ddp_child(args) -> int:
     """``chip_smoke.py --ddp-child <json>``: one rank of phase ddp. Joins
     the group (``backend`` on ``device``), runs the step cases ``cases``,
-    and with ``app`` the KNN build, the app and the eval on the scenes of
-    ``data``, in the working directory ``tmp``; writes its results to
+    and with ``app`` the KNN build, the app and the eval, and the
+    feature-pyramid app and its eval, on the scenes of ``data``, in the
+    working directory ``tmp``; writes its results to
     ``out`` (torch.save) and prints one JSON line. ``reference``: the
     cases in their one-process configuration (ddp_steps)."""
     opts = json.loads(args[0])
@@ -3940,8 +4125,12 @@ def ddp_child(args) -> int:
             with np.load(opts["data"]) as f:
                 train = list(zip(f["train_img"], f["train_label"]))
                 val = list(zip(f["val_img"], f["val_label"]))
+                f_val = {k: f[k] for k in ("fpn_val_img", "fpn_val_label")}
             out["nns"], out["knn_launches"] = ddp_knn(dev, opts["tmp"], train)
             out["app"] = ddp_app(dev, opts["tmp"], train, val, out["nns"])
+            fpn_val = list(zip(f_val["fpn_val_img"], f_val["fpn_val_label"]))
+            out["fpn_app"] = ddp_fpn_app(dev, opts["tmp"], train, fpn_val,
+                                         out["nns"])
         torch.save(out, opts["out"])
     finally:
         dist.destroy()
@@ -4109,6 +4298,161 @@ def hold_ddp_trajectories(tag, ranks, trajs, names):
                      if f32 else ""))
 
 
+def running_excess(got, want):
+    """The largest excess of ``got``'s running statistics (head_buffers)
+    over the parameter gate against ``want``'s, and where: variances
+    within rtol GRAD_RTOL, atol GRAD_ATOL; means within GRAD_RTOL of their
+    channel's |mean| + running std (the scale of a mean's f32 rounding,
+    and the one at which the norm reads it) and GRAD_ATOL."""
+    worst = (-math.inf, None)
+    for k, w in want.items():
+        if k.endswith("running_var"):
+            scale = w.abs()
+        elif k.endswith("running_mean"):
+            scale = w.abs() + want[k[:-len("mean")] + "var"].sqrt()
+        else:
+            continue
+        excess = (got[k] - w).abs() - GRAD_ATOL - GRAD_RTOL * scale
+        i = int(excess.argmax())
+        if float(excess[i]) > worst[0]:
+            worst = (float(excess[i]), f"{k}[{i}] {float(got[k][i]):.6e} "
+                     f"vs {float(w[i]):.6e}")
+    return worst
+
+
+def rank_trunk(seg):
+    """Make ``seg``'s trunk take a train step's img ‖ img_pos as the ranks
+    do: DDP_WORLD calls, each of one rank's img rows and img_pos rows, the
+    taps put back in the step's order. The frozen trunk computes each
+    image alone, but cuDNN picks its bf16 convolutions' algorithm by the
+    batch, so a call of the whole batch rounds the taps otherwise than
+    the ranks' calls (the bf16 feature-pyramid step's gradients 4.1e-3
+    apart on the H100): so taken, one process's step differs from the
+    ranks' only where the ranks meet."""
+    whole = seg.net.backbone_features
+
+    def features(img):
+        per = img.shape[0] // 2 // DDP_WORLD
+        taps = [whole(torch.cat([img[r * per:(r + 1) * per],
+                                 img[(DDP_WORLD + r) * per:
+                                     (DDP_WORLD + r + 1) * per]]))
+                for r in range(DDP_WORLD)]
+        return {k: torch.cat([t[k][:per] for t in taps]
+                             + [t[k][per:] for t in taps]) for k in taps[0]}
+
+    seg.net.backbone_features = features
+
+
+def hold_fpn_steps(tag, ranks, refs, names, step_launches):
+    """Each feature-pyramid case's ranks against one process on the whole
+    batch, each step from the ranks' state before it (phase fpn's gates):
+    the ranks' parameters and running statistics equal bit for bit after
+    every step; every rank's metrics within rtol LOSS_RTOL atol LOSS_ATOL
+    of one process's, its parameters within rtol GRAD_RTOL atol GRAD_ATOL
+    where one process's gradient is at least ADAM_LIVE, its running
+    statistics within running_excess's gate, and its net's gradients
+    within FPN_GRAD_GAP (|g_ranks - g_one| / |g_one|); each rank's
+    launches. Prints ms a step and the collectives' calls."""
+    for name in names:
+        ref = refs[name]
+        for i in range(DDP_STEPS[name]):
+            first = ranks[0][name]
+            check(all(torch.equal(r[name]["params"][i], first["params"][i])
+                      and all(torch.equal(r[name]["buffers"][i][k], v)
+                              for k, v in first["buffers"][i].items())
+                      for r in ranks),
+                  f"ddp {tag} {name}: step {i}, the ranks' parameters and "
+                  f"BatchNorm running statistics are equal bit for bit")
+        for k, r in enumerate(ranks):
+            got = r[name]
+            bad = [(i, key) for i, (gm, wm) in enumerate(
+                zip(got["metrics"], ref["metrics"]))
+                for key in wm
+                if not math.isclose(gm[key], wm[key], rel_tol=LOSS_RTOL,
+                                    abs_tol=LOSS_ATOL)]
+            gap = max(float(torch.where(
+                g.abs() >= ADAM_LIVE, (a - b).abs() - GRAD_ATOL
+                - GRAD_RTOL * b.abs(), -math.inf).max())
+                for a, b, g in zip(got["params"], ref["params"],
+                                   ref["grads"]))
+            stats = max(running_excess(a, b) for a, b in
+                        zip(got["buffers"], ref["buffers"]))
+            grad_gap = max(float((a - b).norm() / b.norm()) for a, b in
+                           zip(got["net_grads"], ref["net_grads"]))
+            check(not bad and gap <= 0 and stats[0] <= 0
+                  and grad_gap <= FPN_GRAD_GAP,
+                  f"ddp {tag} {name}, rank {k}: {DDP_STEPS[name]} steps "
+                  f"against one process on the whole batch from the same "
+                  f"state: metrics within rtol {LOSS_RTOL} atol {LOSS_ATOL}"
+                  f" (off: {bad[:3]}), parameters where the gradient is at "
+                  f"least {ADAM_LIVE} within rtol {GRAD_RTOL} atol "
+                  f"{GRAD_ATOL} (worst excess {gap:.3e}), running "
+                  f"statistics (worst excess {stats[0]:.3e}, {stats[1]}), "
+                  f"net gradients "
+                  f"|g - g_one| / |g_one| = {grad_gap:.3e} (<= "
+                  f"{FPN_GRAD_GAP}); loss/total "
+                  f"{got['metrics'][-1]['loss/total']:.6f} vs "
+                  f"{ref['metrics'][-1]['loss/total']:.6f}")
+            check(got["launches"] == step_launches(name),
+                  f"ddp {tag} {name}, rank {k}: launches attention/LN/C1 "
+                  f"fwd/C1 bwd/C2 fwd/C2 bwd "
+                  f"{tuple(got['launches'][c] for c in COUNTS)}")
+            n = DDP_STEPS[name]
+            print(f"  ddp {tag} {name}, rank {k}: "
+                  f"{statistics.median(got['ms']):.2f} ms a step (wall "
+                  f"clock, median of {n}), collectives "
+                  f"{got['collective_calls'] / n:.1f} calls and "
+                  f"{got['collective_ms'] / n:.2f} ms (host clock) a step; "
+                  f"one process on the whole batch "
+                  f"{statistics.median(ref['ms']):.2f} ms a step")
+
+
+def hold_fpn_app(dev, tmp, ranks, val, fpn_runs):
+    """The FPN app of phase ddp's ranks (ddp_fpn_app): its trained
+    parameters and running statistics equal bit for bit over the ranks,
+    DDP_FPN_APP_STEPS steps of exactly 1+1 C2 launches (global negatives)
+    and none else, finite metrics with the JAX keys; the eval of its
+    checkpoint on the ranks launches no counted kernel and its confusion
+    matrices equal one process's evaluate() of the same images. Adds the
+    runs' launches to ``fpn_runs``."""
+    from stego_torch.data.contrastive import ContrastiveSegDataset
+    from stego_torch.eval.evaluate import Evaluator
+
+    apps = [r["fpn_app"] for r in ranks]
+    check(all(torch.equal(a["params"], apps[0]["params"])
+              and all(torch.equal(a["buffers"][k], v)
+                      for k, v in apps[0]["buffers"].items())
+              for a in apps),
+          "ddp fpn app: the ranks' trained parameters and BatchNorm running "
+          "statistics are equal bit for bit")
+    want = launches_of(corr_stream_fwd=DDP_FPN_APP_STEPS,
+                       corr_stream_bwd=DDP_FPN_APP_STEPS)
+    for k, a in enumerate(apps):
+        check(a["app_launches"] == want and a["step"] == DDP_FPN_APP_STEPS
+              and set(a["metrics"]) == APP_METRICS
+              and all(math.isfinite(v) for v in a["metrics"].values()),
+              f"ddp fpn app, rank {k}: {a['step']} steps in "
+              f"{a['app_s']:.1f} s with 2 validations and checkpoints, "
+              f"launches {tuple(a['app_launches'][c] for c in COUNTS)} "
+              f"(1+1 C2 a step); "
+              + ", ".join(f"{m} {v:.2f}" for m, v in
+                          sorted(a["metrics"].items())))
+        check(a["eval_launches"] == launches_of(),
+              f"ddp fpn eval, rank {k}: no counted kernel")
+    fpn_runs["fpn_app"] = add_counts(*(a["app_launches"] for a in apps))
+    ev = Evaluator(ddp_fpn_cfg(tmp).replace(
+        res=TRAIN_RES, batch_size=DDP_EVAL_BATCH // DDP_WORLD,
+        experiment_name="ddp_fpn_eval_one"), apps[0]["ckpt"], dev,
+        val_dataset=ContrastiveSegDataset.from_items(SceneItems(val), 27))
+    ev.run(save_outputs=False)
+    for k, a in enumerate(apps):
+        check(np.array_equal(a["eval"][0], ev.linear_metrics.stats)
+              and np.array_equal(a["eval"][1], ev.cluster_metrics.stats),
+              f"ddp fpn eval, rank {k}: the confusion matrices "
+              f"({int(ev.linear_metrics.stats.sum())} pixels) equal one "
+              f"process's evaluate() of the same {len(val)} images")
+
+
 def phase_ddp(dev, tmp, train_items, val_items, smi):
     """Phase ddp. One process first (the KNN table); then DDP_WORLD ranks
     on this card over gloo: the step cases, the KNN build, the app
@@ -4116,39 +4460,57 @@ def phase_ddp(dev, tmp, train_items, val_items, smi):
     whole batch for each step case, each step from the ranks' state after
     the step before, and its own trajectory from the seeded start
     (hold_ddp_trajectories), and the validation and eval matrices of their
-    checkpoint; then one rank over NCCL (the global case),
-    and DDP_WORLD ranks over NCCL, one a card, where the machine has that
-    many. Returns the launches of each run, summed over its ranks."""
+    checkpoint; the feature-pyramid cases (FPN_DDP_CASES) in the same
+    runs, held by hold_fpn_steps, the control (FPN_CONTROL) against the
+    global case's first step, and the FPN app and its eval; then one rank
+    over NCCL (the global case), and DDP_WORLD ranks over NCCL, one a
+    card, where the machine has that many (the global case and the
+    feature-pyramid cases). Returns the launches of each run, summed over
+    its ranks: the ViT runs' and the feature-pyramid runs'."""
     from stego_torch.eval.evaluate import Evaluator, load_model_for_eval
     from stego_torch.train.segmenter import make_val_step
 
+    # as the children (ddp_child): the one-process references in full f32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
     train, val = train_items[:DDP_TRAIN], val_items[:DDP_VAL]
     print(f"ddp: {DDP_WORLD} processes on one card ({smi}) over gloo, each "
           f"rank {TRAIN_BATCH // DDP_WORLD} of a global batch of "
-          f"{TRAIN_BATCH} at res {TRAIN_RES}, ViT-S/8 bf16, cocostuff27 "
+          f"{TRAIN_BATCH} at res {TRAIN_RES}, ViT-S/8 bf16 and the "
+          f"feature-pyramid arch (ResNet-50, granularity {FPN_GRANULARITY},"
+          f" BatchNorms on the global batch's statistics), cocostuff27 "
           f"head, 11x11 samples, 5 negatives; two processes sharing one "
           f"card: their times are not a scaling number")
     batch = ddp_batch(dev)
     ref_nns, _ = ddp_knn(dev, tmp, train)
     os.remove(os.path.join(tmp, "nns", "nns_ddp.npz"))
     data = os.path.join(tmp, "ddp_scenes.npz")
+    # the FPN app validates the val split's first scenes at TRAIN_RES
+    fpn_val = scenes(1, DDP_VAL, TRAIN_RES)
     np.savez(data, train_img=np.stack([i for i, _ in train]),
              train_label=np.stack([lb for _, lb in train]),
              val_img=np.stack([i for i, _ in val]),
-             val_label=np.stack([lb for _, lb in val]))
+             val_label=np.stack([lb for _, lb in val]),
+             fpn_val_img=np.stack([i for i, _ in fpn_val]),
+             fpn_val_label=np.stack([lb for _, lb in fpn_val]))
 
     def step_launches(name):
         n = DDP_STEPS[name]
         if name == "local":  # the f32 trunk: A-f32, LayerNorm plain
             return launches_of(12 * n, 0, "pair", f32=True,
                                corr_sampled_fwd=n, corr_sampled_bwd=n)
+        if name == "fpn_local":  # ResNet-50: no attention, no LayerNorm
+            return launches_of(corr_sampled_fwd=n, corr_sampled_bwd=n)
+        if name.startswith("fpn"):
+            return launches_of(corr_stream_fwd=n, corr_stream_bwd=n)
         return launches_of(12 * n, 25 * n, "pair", corr_stream_fwd=n,
                            corr_stream_bwd=n)
 
+    fpn_names = list(FPN_DDP_CASES)
     t0 = time.perf_counter()
     ranks = finish_ddp("gloo", start_ddp(
-        tmp, "gloo", "gloo", [str(dev)] * DDP_WORLD, list(DDP_CASES), True,
-        data))
+        tmp, "gloo", "gloo", [str(dev)] * DDP_WORLD,
+        list(DDP_CASES) + fpn_names + [FPN_CONTROL], True, data))
     print(f"  ddp gloo: {DDP_WORLD} ranks ran in "
           f"{time.perf_counter() - t0:.1f} s (each process's start, its "
           f"CUDA context and imports included)")
@@ -4161,17 +4523,33 @@ def phase_ddp(dev, tmp, train_items, val_items, smi):
     refs = {name: ddp_steps(
         dev, name, batch, reference=True,
         states=None if ranks is None else ranks[0][name]["states"])
-        for name in DDP_CASES}
+        for name in list(DDP_CASES) + fpn_names}
     trajs = {name: ddp_steps(dev, name, batch, reference=True)
              for name in DDP_CASES}
     del batch
     torch.cuda.empty_cache()
-    runs = {}
+    runs, fpn_runs = {}, {}
     if ranks is not None:
         hold_ddp_steps("gloo", ranks, refs, DDP_CASES, step_launches)
         hold_ddp_trajectories("gloo", ranks, trajs, DDP_CASES)
         for name in DDP_CASES:
             runs[name] = add_counts(*(r[name]["launches"] for r in ranks))
+        hold_fpn_steps("gloo", ranks, refs, fpn_names, step_launches)
+        for name in fpn_names:
+            fpn_runs[name] = add_counts(*(r[name]["launches"]
+                                          for r in ranks))
+        # the control: each rank's BatchNorms on its own batch
+        control = max(running_excess(r[FPN_CONTROL]["buffers"][0],
+                                     refs["fpn_global"]["buffers"][0])
+                      for r in ranks)
+        check(control[0] > 0 and all(r[FPN_CONTROL]["launches"]
+                                  == step_launches(FPN_CONTROL)
+                                  for r in ranks),
+              f"control, ddp gloo {FPN_CONTROL}: the ranks with each "
+              f"rank's BatchNorms on its own batch's statistics fail the "
+              f"running statistics' gate against one process's first "
+              f"step (worst excess {control[0]:.3e} > 0, {control[1]})")
+        hold_fpn_app(dev, tmp, ranks, fpn_val, fpn_runs)
         check(all(np.array_equal(r["nns"], ref_nns) for r in ranks),
               f"ddp knn: the {DDP_WORLD} ranks' nns {ref_nns.shape} equal "
               f"one process's, row for row")
@@ -4258,17 +4636,23 @@ def phase_ddp(dev, tmp, train_items, val_items, smi):
     if cards >= DDP_WORLD:
         multi = finish_ddp("nccl_cards", start_ddp(
             tmp, "nccl_cards", "nccl",
-            [f"cuda:{i}" for i in range(DDP_WORLD)], ["global"], False))
+            [f"cuda:{i}" for i in range(DDP_WORLD)], ["global"] + fpn_names,
+            False))
         if multi is not None:
             hold_ddp_steps(f"nccl, {DDP_WORLD} cards", multi, refs,
                            ["global"], step_launches)
             runs["nccl_cards"] = add_counts(*(r["global"]["launches"]
                                               for r in multi))
+            hold_fpn_steps(f"nccl, {DDP_WORLD} cards", multi, refs,
+                           fpn_names, step_launches)
+            for name in fpn_names:
+                fpn_runs[f"{name}_nccl_cards"] = add_counts(
+                    *(r[name]["launches"] for r in multi))
     print(f"  ddp: ran {DDP_WORLD} ranks on one card over gloo, 1 rank over "
           f"nccl" + (f", {DDP_WORLD} ranks on {DDP_WORLD} cards over nccl"
                      if cards >= DDP_WORLD else
                      f"; {DDP_WORLD} ranks over nccl not run ({cards} card)"))
-    return runs
+    return runs, fpn_runs
 
 
 def phase_narrow(dev):
@@ -5150,7 +5534,7 @@ def main() -> int:
         evals = phase_eval(dev, tmp, ckpt, val_items)
     crf_loss = phase_crf_loss(dev)
     with tempfile.TemporaryDirectory() as tmp:
-        ddp = phase_ddp(dev, tmp, train_items, val_items, smi)
+        ddp, fpn_ddp = phase_ddp(dev, tmp, train_items, val_items, smi)
     with tempfile.TemporaryDirectory() as tmp:
         fpn = phase_fpn(dev, tmp, smi)
     with tempfile.TemporaryDirectory() as tmp:
@@ -5216,9 +5600,17 @@ def main() -> int:
     vit_t = add_counts(serving["vit_tiny"], models["vit_tiny"],
                        models["vit_tiny_val"], artifacts.get("vit_tiny", {}))
     vit_b = add_counts(models["vit_base"], models["vit_base_full_field"])
-    # the feature-pyramid paths (ResNet-50: no attention, no LayerNorm)
-    fpn_c1 = {"bf16": add_counts(fpn["bf16"], fpn["app"]), "f32": fpn["f32"]}
-    total = add_counts(vit_s, vit_t, vit_b, *ladder.values(), *fpn.values())
+    # the feature-pyramid paths (ResNet-50: no attention, no LayerNorm),
+    # phase ddp's among them: local negatives on an f32 trunk through C1,
+    # global ones and the app on a bf16 trunk through C2's gather route
+    fpn_c1 = {"bf16": add_counts(fpn["bf16"], fpn["app"]),
+              "f32": add_counts(fpn["f32"], *(
+                  v for k, v in fpn_ddp.items()
+                  if k.startswith("fpn_local")))}
+    fpn_gather = add_counts(fpn["gather"], *(
+        v for k, v in fpn_ddp.items() if not k.startswith("fpn_local")))
+    total = add_counts(vit_s, vit_t, vit_b, *ladder.values(), *fpn.values(),
+                       *fpn_ddp.values())
 
     def row(name, source, replaces, launches_, err, times, bnd, lib=None,
             **extra):
@@ -5371,9 +5763,10 @@ def main() -> int:
              models["vit_base_full_field"]),
             ("_cc160", ("full-field", False, False, 384, WIDE_C2_DIM),
              wide["cc160"]),
-            # the feature-pyramid step's fused_sampling=off paths
+            # the feature-pyramid step's fused_sampling=off paths, and
+            # phase ddp's global negatives over ranks
             ("_gather_2048", ("grid-sampled", False, False, FPN_CF),
-             fpn["gather"]),
+             fpn_gather),
             ("_f32_gather_2048", ("grid-sampled", False, True, FPN_CF),
              fpn["f32_gather"])):
         for what, line in (("fwd", 106), ("bwd", 229)):

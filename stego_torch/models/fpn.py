@@ -17,7 +17,9 @@ them, as ``nn.BatchNorm2d`` would (twice a step, for img and img_pos). The
 train step refreshes them once, after the three Adam updates, by
 :meth:`FeaturePyramidNet.bn_state_update` on the image's taps with the
 updated head (``fpn.py:199-217``, ``segmenter.py:436-441``): momentum 0.1,
-the unbiased batch variance.
+the unbiased batch variance. Over several processes (``parallel/dist.py``)
+the batch statistics are the global batch's, as the JAX data mesh computes
+them, so every rank's running statistics stay equal bit for bit.
 
 Module names follow the reference: ``model`` (the trunk; the reference's
 ``cut_model``), ``cluster{k}.0`` and ``conv{k}.double_conv.{0,1,3,4}``.
@@ -35,6 +37,7 @@ import torch.nn.functional as F
 from stego_torch.models.probes import conv1x1
 from stego_torch.models.resnet import ResNet50
 from stego_torch.ops.interp import interpolate
+from stego_torch.parallel import dist
 
 FEAT_CHANNELS = [2048, 1024, 512, 3]  # modules.py:189
 EXTRA_CHANNELS = [128, 64, 32, 32]  # modules.py:190
@@ -81,16 +84,41 @@ class DoubleConv(nn.Module):
         return x
 
 
+def local_stats(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor, int]:
+    """The per-channel mean and biased variance of NCHW ``x`` over (N, H,
+    W), and their count, on this process's batch alone."""
+    n = x.shape[0] * x.shape[2] * x.shape[3]
+    return x.mean(dim=(0, 2, 3)), x.var(dim=(0, 2, 3), unbiased=False), n
+
+
+def batch_stats(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor, int]:
+    """The batch statistics of :func:`local_stats` over the global batch.
+    Over W processes each rank holds its rows of it (all of one size): the
+    mean is the all-reduced per-channel sum over the global count, and the
+    variance the all-reduced sum of (x - mean)^2 over it, two passes as
+    ``jnp.var`` takes them on the JAX mesh (a sum of squares less the
+    squared mean cancels in f32 at a ResNet's activations). Both are
+    differentiable (``parallel/dist.py:all_reduce_sum``), so every rank's
+    loss reaches every rank's rows through them. One process computes
+    :func:`local_stats`."""
+    if not dist.initialized():
+        return local_stats(x)
+    n = x.shape[0] * x.shape[2] * x.shape[3] * dist.world()
+    mean = dist.all_reduce_sum(x.sum(dim=(0, 2, 3))) / n
+    var = dist.all_reduce_sum(
+        ((x - mean[:, None, None]) ** 2).sum(dim=(0, 2, 3))) / n
+    return mean, var, n
+
+
 def batch_norm(x: torch.Tensor, bn: nn.BatchNorm2d, train: bool,
                stats: Optional[Dict] = None, path: str = "") -> torch.Tensor:
     """torch BatchNorm2d's arithmetic, written out as ``fpn.py:_batch_norm``
-    writes it: the batch's mean and (biased) variance in training, the
+    writes it: the batch's mean and (biased) variance in training
+    (:func:`batch_stats`, the global batch's over several processes), the
     running ones else; (x - mean) * rsqrt(var + eps) * weight + bias."""
     if train:
-        mean = x.mean(dim=(0, 2, 3))
-        var = x.var(dim=(0, 2, 3), unbiased=False)
+        mean, var, n = batch_stats(x)
         if stats is not None:
-            n = x.shape[0] * x.shape[2] * x.shape[3]
             stats[path] = (mean.detach(),
                            (var * (n / max(n - 1, 1))).detach())
     else:

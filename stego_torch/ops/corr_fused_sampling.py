@@ -338,16 +338,16 @@ def gather_launch(lib, feats, feats_pos, code, code_pos, coords1, coords2,
                          for _ in range(3))
     order = torch.empty((2 * sets,), dtype=i32, device=dev)
     offsets = torch.empty((sets + 1,), dtype=i32, device=dev)
-    err = lib.stego_corr_sampled_gather(
-        feats.data_ptr(), feats_pos.data_ptr(), code.data_ptr(),
-        code_pos.data_ptr(), coords1.data_ptr(), coords2.data_ptr(),
-        perm.data_ptr(), fsets.data_ptr(), csets.data_ptr(),
-        norms.data_ptr(), keys.data_ptr(), wts.data_ptr(), i1.data_ptr(),
-        i2.data_ptr(), row_group.data_ptr(), order.data_ptr(),
-        offsets.data_ptr(), b, hw[0], hw[1], code_hw[0], code_hw[1], cf, cc,
-        s1, s2, g,
-        int(feats.dtype == f32), dev.index,
-        torch.cuda.current_stream(dev).cuda_stream)
+    with torch.cuda.device(dev):
+        err = lib.stego_corr_sampled_gather(
+            feats.data_ptr(), feats_pos.data_ptr(), code.data_ptr(),
+            code_pos.data_ptr(), coords1.data_ptr(), coords2.data_ptr(),
+            perm.data_ptr(), fsets.data_ptr(), csets.data_ptr(),
+            norms.data_ptr(), keys.data_ptr(), wts.data_ptr(), i1.data_ptr(),
+            i2.data_ptr(), row_group.data_ptr(), order.data_ptr(),
+            offsets.data_ptr(), b, hw[0], hw[1], code_hw[0], code_hw[1], cf,
+            cc, s1, s2, g, int(feats.dtype == f32), dev.index,
+            torch.cuda.current_stream(dev).cuda_stream)
     build.check(err, "corr_sampled gather kernel")
     return fsets, csets, norms, keys, wts, i1, i2, row_group, order, offsets
 
@@ -366,11 +366,12 @@ def adjoint_launch(lib, dsets, csets, norms, keys, wts, perm, b: int,
     dcode = torch.empty((2 * b, hw[0] * hw[1], cc), dtype=torch.float32,
                         device=dev)
     gv = torch.empty_like(dsets)
-    err = lib.stego_corr_sampled_adjoint(
-        dsets.data_ptr(), csets.data_ptr(), norms.data_ptr(), keys.data_ptr(),
-        wts.data_ptr(), perm.data_ptr(), gv.data_ptr(), dcode.data_ptr(), b,
-        hw[0], hw[1], cc, s, sets // b, dev.index,
-        torch.cuda.current_stream(dev).cuda_stream)
+    with torch.cuda.device(dev):
+        err = lib.stego_corr_sampled_adjoint(
+            dsets.data_ptr(), csets.data_ptr(), norms.data_ptr(),
+            keys.data_ptr(), wts.data_ptr(), perm.data_ptr(), gv.data_ptr(),
+            dcode.data_ptr(), b, hw[0], hw[1], cc, s, sets // b, dev.index,
+            torch.cuda.current_stream(dev).cuda_stream)
     build.check(err, "corr_sampled adjoint kernel")
     return dcode
 

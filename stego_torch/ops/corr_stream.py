@@ -454,9 +454,10 @@ def backward_occupancy(cc: int, code_bf16: bool,
     (a CUDA device): its ring stages, dynamic shared memory (bytes) and the
     blocks an SM holds (the occupancy API)."""
     out = (ctypes.c_int * 3)()
-    build.check(build.library().stego_corr_stream_bwd_occupancy(
-        cc, int(code_bf16), torch.device(device).index or 0, out),
-        "corr_stream backward occupancy")
+    index = torch.device(device).index or 0
+    with torch.cuda.device(index):
+        build.check(build.library().stego_corr_stream_bwd_occupancy(
+            cc, int(code_bf16), index, out), "corr_stream backward occupancy")
     return dict(zip(("stages", "smem_bytes", "blocks_per_sm"), out))
 
 
@@ -467,9 +468,11 @@ def forward_occupancy(code_bf16: bool, feat_f32: bool,
     (bytes), the blocks an SM holds (the occupancy API) and its ring
     stages."""
     out = (ctypes.c_int * 4)()
-    build.check(build.library().stego_corr_stream_fwd_occupancy(
-        int(code_bf16), int(feat_f32), torch.device(device).index or 0,
-        out), "corr_stream forward occupancy")
+    index = torch.device(device).index or 0
+    with torch.cuda.device(index):
+        build.check(build.library().stego_corr_stream_fwd_occupancy(
+            int(code_bf16), int(feat_f32), index, out),
+            "corr_stream forward occupancy")
     return dict(zip(("registers", "smem_bytes", "blocks_per_sm", "stages"),
                     out))
 
@@ -480,9 +483,11 @@ def fixup_stats(lib, device: torch.device) -> Tuple[int, float]:
     in a library built to record them (``-DSTEGO_C2_FWD_ABLATION=16``,
     ``tools/c2_ablation.py``); (0, 0.0) in any other build. Resets both."""
     count, gap = ctypes.c_ulonglong(0), ctypes.c_float(0.0)
-    build.check(lib.stego_corr_stream_fwd_fixups(
-        torch.device(device).index or 0, ctypes.byref(count),
-        ctypes.byref(gap)), "corr_stream forward fix-up count")
+    index = torch.device(device).index or 0
+    with torch.cuda.device(index):
+        build.check(lib.stego_corr_stream_fwd_fixups(
+            index, ctypes.byref(count), ctypes.byref(gap)),
+            "corr_stream forward fix-up count")
     return int(count.value), float(gap.value)
 
 
@@ -533,13 +538,14 @@ def forward_launch(lib, feats: torch.Tensor, code: torch.Tensor,
     def ptr(t):
         return None if t is None else t.data_ptr()
 
-    err = lib.stego_corr_stream_fwd(
-        feats.data_ptr(), code.data_ptr(), i1.data_ptr(), i2.data_ptr(),
-        acc.data_ptr(), fd.data_ptr() if keep else None,
-        mask.data_ptr() if keep else None, ptr(feat_hi), ptr(feat_lo),
-        ptr(code_hi), ptr(code_lo), r, m, n, cf, cc, int(code_bf16),
-        int(feat_f32), lo, hi, dev.index,
-        torch.cuda.current_stream(dev).cuda_stream)
+    with torch.cuda.device(dev):
+        err = lib.stego_corr_stream_fwd(
+            feats.data_ptr(), code.data_ptr(), i1.data_ptr(), i2.data_ptr(),
+            acc.data_ptr(), fd.data_ptr() if keep else None,
+            mask.data_ptr() if keep else None, ptr(feat_hi), ptr(feat_lo),
+            ptr(code_hi), ptr(code_lo), r, m, n, cf, cc, int(code_bf16),
+            int(feat_f32), lo, hi, dev.index,
+            torch.cuda.current_stream(dev).cuda_stream)
     build.check(err, "corr_stream forward kernel")
     return acc, fd, mask
 
@@ -627,12 +633,13 @@ def backward_launch(lib, saved: Sequence[torch.Tensor], static: tuple,
         row_group, order, offsets = layout
     tiles = code_tiles(code, code_bf16)
     dcode = torch.empty_like(code)
-    err = lib.stego_corr_stream_bwd(
-        fd.data_ptr(), mask.data_ptr(), tiles.data_ptr(), i1.data_ptr(),
-        i2.data_ptr(), acc.data_ptr(), scal.data_ptr(), row_group.data_ptr(),
-        order.data_ptr(), offsets.data_ptr(), dcode.data_ptr(), r, m, n, cc,
-        int(code_bf16), int(pointwise), dev.index,
-        torch.cuda.current_stream(dev).cuda_stream)
+    with torch.cuda.device(dev):
+        err = lib.stego_corr_stream_bwd(
+            fd.data_ptr(), mask.data_ptr(), tiles.data_ptr(), i1.data_ptr(),
+            i2.data_ptr(), acc.data_ptr(), scal.data_ptr(),
+            row_group.data_ptr(), order.data_ptr(), offsets.data_ptr(),
+            dcode.data_ptr(), r, m, n, cc, int(code_bf16), int(pointwise),
+            dev.index, torch.cuda.current_stream(dev).cuda_stream)
     build.check(err, "corr_stream backward kernel")
     return dcode
 

@@ -89,6 +89,8 @@ ENTRY_LAUNCHES = dict.fromkeys(
 # and by (head width, dtype of q/k/v)
 HEAD_DIM_LAUNCHES = dict.fromkeys(
     ((d, dt) for d in NARROW_HEAD_DIMS + (HEAD_DIM,) for dt in ENTRIES), 0)
+# and by CUDA device index
+DEVICE_LAUNCHES: dict = {}
 
 
 def reset_launches() -> None:
@@ -98,6 +100,7 @@ def reset_launches() -> None:
     for counts in (ENTRY_LAUNCHES, HEAD_DIM_LAUNCHES):
         for name in counts:
             counts[name] = 0
+    DEVICE_LAUNCHES.clear()
 
 
 def _n_pad(n: int) -> int:
@@ -409,8 +412,11 @@ def _launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         entry_fn = "stego_attention_narrow" + (
             "_f32" if q.dtype == torch.float32 else "")
     fn = getattr(lib, entry_fn)
-    build.check(fn(*args), "attention kernel")
+    with torch.cuda.device(q.device):
+        build.check(fn(*args), "attention kernel")
     LAUNCHES += 1
     F32_LAUNCHES += q.dtype == torch.float32
     ENTRY_LAUNCHES[entry] += 1
     HEAD_DIM_LAUNCHES[(d, q.dtype)] += 1
+    DEVICE_LAUNCHES[q.device.index] = DEVICE_LAUNCHES.get(q.device.index,
+                                                          0) + 1

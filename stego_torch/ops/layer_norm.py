@@ -38,11 +38,12 @@ from stego_torch.kernels import build
 # (the sensitive accuracy instrument's 32) the runtime-width kernel.
 KERNEL_WIDTHS = tuple(range(32, 1025, 32))
 # Launches of the CUDA kernel's two entries in this process (plain-version
-# calls do not count), and of both by D. Read and reset by chip_smoke.py
-# to show the main path used them.
+# calls do not count), and of both by D and by CUDA device index. Read
+# and reset by chip_smoke.py to show the main path used them.
 LAUNCHES = 0
 ADD_LAUNCHES = 0
 WIDTH_LAUNCHES: dict = {}
+DEVICE_LAUNCHES: dict = {}
 
 
 def _normalize(xf: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor,
@@ -225,13 +226,16 @@ def _launch(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor,
     rows = x.numel() // d
     if rows == 0:
         return y
-    err = build.library().stego_layer_norm(
-        x.data_ptr(), weight.data_ptr(), bias.data_ptr(), y.data_ptr(),
-        rows, d, float(eps), x.device.index,
-        torch.cuda.current_stream(x.device).cuda_stream)
+    with torch.cuda.device(x.device):
+        err = build.library().stego_layer_norm(
+            x.data_ptr(), weight.data_ptr(), bias.data_ptr(), y.data_ptr(),
+            rows, d, float(eps), x.device.index,
+            torch.cuda.current_stream(x.device).cuda_stream)
     build.check(err, "layer_norm kernel")
     LAUNCHES += 1
     WIDTH_LAUNCHES[d] = WIDTH_LAUNCHES.get(d, 0) + 1
+    DEVICE_LAUNCHES[x.device.index] = DEVICE_LAUNCHES.get(x.device.index,
+                                                          0) + 1
     return y
 
 
@@ -253,12 +257,15 @@ def _launch_add(x: torch.Tensor, y: torch.Tensor, weight: torch.Tensor,
     rows = x.numel() // d
     if rows == 0:
         return r, out
-    err = build.library().stego_add_layer_norm(
-        x.data_ptr(), y.data_ptr(), weight.data_ptr(), bias.data_ptr(),
-        r.data_ptr(), out.data_ptr(), rows, d,
-        int(out_dtype == torch.float32), float(eps), x.device.index,
-        torch.cuda.current_stream(x.device).cuda_stream)
+    with torch.cuda.device(x.device):
+        err = build.library().stego_add_layer_norm(
+            x.data_ptr(), y.data_ptr(), weight.data_ptr(), bias.data_ptr(),
+            r.data_ptr(), out.data_ptr(), rows, d,
+            int(out_dtype == torch.float32), float(eps), x.device.index,
+            torch.cuda.current_stream(x.device).cuda_stream)
     build.check(err, "add_layer_norm kernel")
     ADD_LAUNCHES += 1
     WIDTH_LAUNCHES[d] = WIDTH_LAUNCHES.get(d, 0) + 1
+    DEVICE_LAUNCHES[x.device.index] = DEVICE_LAUNCHES.get(x.device.index,
+                                                          0) + 1
     return r, out

@@ -6,8 +6,9 @@ The JAX package runs one SPMD program over a data mesh, and XLA inserts the
 collectives. Here each rank runs the one-process code on its rows of the
 global batch, and the few places where the ranks meet call the functions
 below: the gradient average, the global counts and means of the losses, the
-gathers of the negatives, the confusion matrices, the row-sharded feature
-cache and the KNN table. Without a group every function is the identity
+gathers of the negatives, the feature-pyramid head's BatchNorm
+statistics, the confusion matrices, the row-sharded feature cache and the
+KNN table. Without a group every function is the identity
 and no collective runs; in a group of one (the card's NCCL check) the
 collectives run and change nothing.
 
@@ -25,7 +26,9 @@ bit (a float sum would turn -0.0 into +0.0).
   CPU (the tests) or names it.
 * :func:`launch` runs an entry point on the processes ``num_devices`` asks
   for, starting them itself when no launcher did.
-* :func:`gather_rows` (an autograd function), :func:`row_take`
+* :func:`gather_rows` and :func:`all_reduce_sum` (autograd functions; the
+  second sums the feature-pyramid head's BatchNorm statistics),
+  :func:`row_take`
   (``mesh.py:sharded_row_take``), :func:`average_grads`,
   :func:`all_reduce_`, :func:`broadcast_module`, :func:`masked_mean` and
   :func:`local_rows` are the collectives and the batch split.
@@ -214,6 +217,31 @@ def gather_rows(x: torch.Tensor) -> torch.Tensor:
     if torch.is_grad_enabled() and x.requires_grad:
         return _GatherRows.apply(x.contiguous())
     return _gather(x.detach())
+
+
+class _AllReduceSum(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x):
+        return all_reduce_(x.clone())
+
+    @staticmethod
+    def backward(ctx, g):
+        # every rank's loss reads the sum: each rank's input takes the sum
+        # of the incoming gradients
+        return all_reduce_(g.contiguous().clone())
+
+
+def all_reduce_sum(x: torch.Tensor) -> torch.Tensor:
+    """The sum of every rank's ``x`` (same shape on each), as a new tensor.
+    Differentiable: the gradient of a rank's ``x`` is the sum over the
+    ranks of the gradients that reached their sums (which
+    :func:`average_grads` then divides by W). The identity without a
+    group, and no collective runs."""
+    if not initialized():
+        return x
+    if torch.is_grad_enabled() and x.requires_grad:
+        return _AllReduceSum.apply(x.contiguous())
+    return all_reduce_(x.detach().clone())
 
 
 def row_take(block: torch.Tensor, ind: torch.Tensor) -> torch.Tensor:

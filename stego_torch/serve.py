@@ -2,7 +2,7 @@
 counterpart of ``stego_tpu/serve.py``.
 
     python -m stego_torch.serve model_path=<.ckpt> output_dir=<dir>
-        [res=320] [batch_size=8]
+        [res=320] [batch_size=8] [n_devices=1]
 
 then, in any process: ``ServingModel.load(dir).predict(batch)``.
 
@@ -35,8 +35,16 @@ modules only: no model, train, eval, data or config code. It runs on
 ``cuda:0`` unless the caller asks for another device, and never falls back
 to the CPU or to the plain versions when the card was asked for.
 
-Not ported: ``n_devices > 1`` (the JAX package's SPMD artifact), which
-raises (ROADMAP.md queue 1, Multi-GPU (DDP)).
+Over several devices (``n_devices > 1``, the JAX package's SPMD artifact,
+``stego_tpu/serve.py:120-190``): the artifact is the same one-device,
+batch-polymorphic program with ``n_devices`` recorded in ``meta.json``.
+The loading side puts one copy of it on each of ``n_devices`` devices
+(``cuda:0`` .. ``cuda:n-1`` unless the caller names them, and it raises
+where fewer are visible), and ``predict`` splits a batch of any positive
+multiple of ``n_devices`` into that many contiguous shards, launches every
+shard's program before it reads a result back, so that separate cards
+overlap, and concatenates the outputs in shard order: the JAX artifact's
+batch split over its ``data`` mesh with the weights replicated.
 """
 
 from __future__ import annotations
@@ -115,14 +123,13 @@ def package_from_parts(seg, out_dir: str, res: int, batch_size: int,
     """Export the segmenter ``seg`` (in eval mode, on the device it is on)
     as a serving artifact directory. ``batch_size`` is recorded and sizes
     the example the export traces (at least 2: export specialises a
-    dimension of size 1); the artifact serves any batch of at least 1."""
-    if batch_size % n_devices:
+    dimension of size 1); the artifact serves any batch of at least 1, or,
+    with ``n_devices`` (which must divide ``batch_size``), any positive
+    multiple of ``n_devices`` split over that many devices. The program is
+    the one-device program either way."""
+    if n_devices < 1 or batch_size % n_devices:
         raise ValueError(f"n_devices={n_devices} must divide "
                          f"batch_size={batch_size}")
-    if n_devices > 1:
-        raise NotImplementedError(
-            f"n_devices={n_devices}: a data-parallel serving artifact is not "
-            f"ported yet (ROADMAP.md queue 1, Multi-GPU (DDP))")
     os.makedirs(out_dir, exist_ok=True)
     fn = ServeFn(seg).eval()
     channels = in_chans(seg)
@@ -161,48 +168,84 @@ def package(model_path: str, out_dir: str, res: int = 320,
 
 
 class ServingModel:
-    """A packaged artifact, loaded: ``module`` is the program (a
-    ``torch.nn.Module`` taking a device tensor), ``predict`` takes and
-    returns host arrays. No model code, no config, no checkpoint reader."""
+    """A packaged artifact, loaded: ``modules`` holds the program on each
+    of its ``devices`` (one a shard; ``module`` and ``device`` are the
+    first), each a ``torch.nn.Module`` taking a tensor on its device;
+    ``predict`` takes and returns host arrays. No model code, no config, no
+    checkpoint reader."""
 
-    def __init__(self, module: nn.Module, meta: Dict[str, Any],
-                 device: torch.device):
-        self.module = module
+    def __init__(self, modules: Sequence[nn.Module], meta: Dict[str, Any],
+                 devices: Sequence[torch.device]):
+        self.modules = list(modules)
         self.meta = meta
-        self.device = device
+        self.devices = list(devices)
+        self.module, self.device = self.modules[0], self.devices[0]
 
     @classmethod
     def load(cls, path: str,
-             device: Optional[Union[str, torch.device]] = None
+             devices: Optional[Sequence[Union[str, torch.device]]] = None
              ) -> "ServingModel":
-        """Load onto ``device`` (default ``cuda:0``). An artifact packaged
-        on another device is moved by ``move_to_device_pass``, which
-        rewrites the devices traced into its graph with its weights. On a
-        CUDA device the kernel library is built (or found) here, so a
-        failed build fails the load. An f32 trunk's artifact turns TF32
-        off for the process (``utils/precision.py``)."""
+        """Load one copy of the program onto each of ``devices``: one entry
+        a shard, the artifact's ``n_devices`` of them (a device may repeat,
+        and a device named twice shares one copy), by default ``cuda:0`` ..
+        ``cuda:n-1``, which raises where fewer CUDA devices are visible
+        (``stego_tpu/serve.py:_mesh``). An artifact packaged on another
+        device is moved by ``move_to_device_pass``, which rewrites the
+        devices traced into its graph with its weights. On a CUDA device
+        the kernel library is built (or found) here, so a failed build
+        fails the load. An f32 trunk's artifact turns TF32 off for the
+        process (``utils/precision.py``)."""
         from torch.export.passes import move_to_device_pass
 
-        dev = torch.device("cuda", 0) if device is None \
-            else torch.device(device)
         with open(os.path.join(path, META_FILE)) as f:
             meta = json.load(f)
-        program = torch.export.load(os.path.join(path, MODEL_FILE))
+        n = int(meta.get("n_devices", 1))
+        if devices is None:
+            have = torch.cuda.device_count()
+            if have < n:
+                raise RuntimeError(
+                    f"artifact needs {n} CUDA device{'s' * (n > 1)}, have "
+                    f"{have} (pass devices= to serve its shards on others)")
+            devices = range(n)
+        devices = [torch.device("cuda", d) if isinstance(d, int)
+                   else torch.device(d) for d in devices]
+        if len(devices) != n:
+            raise ValueError(f"artifact of n_devices={n} takes {n} devices, "
+                             f"got {len(devices)}: {devices}")
         full_f32_for(meta.get("backbone_dtype", "float32"))
-        if torch.device(meta["device"]) != dev:
-            program = move_to_device_pass(program, dev)
-        if dev.type == "cuda":
+        copies = {}
+        for dev in devices:
+            if dev in copies:
+                continue
+            # the pass moves the program in place: one load a device
+            program = torch.export.load(os.path.join(path, MODEL_FILE))
+            if torch.device(meta["device"]) != dev:
+                program = move_to_device_pass(program, dev)
+            copies[dev] = program.module()
+        if any(dev.type == "cuda" for dev in devices):
             build.library()
-        return cls(program.module(), meta, dev)
+        return cls([copies[dev] for dev in devices], meta, devices)
 
     def predict(self, img01: Union[np.ndarray, torch.Tensor]
                 ) -> Dict[str, np.ndarray]:
-        """img01: (B, res, res, C) in [0, 1], any B >= 1, as f32. Returns
-        the four outputs of :class:`ServeFn` as numpy arrays."""
-        img = torch.as_tensor(img01, dtype=torch.float32, device=self.device)
+        """img01: (B, res, res, C) in [0, 1] as f32, B any positive multiple
+        of the artifact's device count (any B >= 1 on one device). Splits it
+        into one contiguous shard a device, in order, launches every shard
+        before it reads any result back, and returns the four outputs of
+        :class:`ServeFn` as numpy arrays, the shards' in order."""
+        n = len(self.devices)
+        if len(img01) == 0 or len(img01) % n:
+            raise ValueError(
+                f"artifact of n_devices={n} needs a batch divisible by {n}, "
+                f"got {len(img01)} (pad the final batch)")
+        img = torch.as_tensor(img01, dtype=torch.float32)
+        outs = []
         with torch.no_grad():
-            out = self.module(img)
-        return {k: out[k].cpu().numpy() for k in OUTPUT_KEYS}
+            for module, dev, shard in zip(self.modules, self.devices,
+                                          img.split(len(img) // n)):
+                outs.append(module(shard.to(dev)))
+        return {k: np.concatenate([o[k].cpu().numpy() for o in outs])
+                for k in OUTPUT_KEYS}
 
 
 def main(argv: Optional[Sequence[str]] = None):

@@ -41,10 +41,11 @@ def launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     views = [x.unflatten(-1, (heads, HEAD_DIM)) for x in (q, k, v, out)]
     strides = [s for x in views for s in x.stride()[:3]]
     b, n = q.shape[:2]
-    err = build.library().stego_attention_consumers(
-        *(x.data_ptr() for x in views), b, n, heads, *strides,
-        float(HEAD_DIM ** -0.5), FORMS["two_pass"], consumers,
-        q.device.index, torch.cuda.current_stream(q.device).cuda_stream)
+    with torch.cuda.device(q.device):
+        err = build.library().stego_attention_consumers(
+            *(x.data_ptr() for x in views), b, n, heads, *strides,
+            float(HEAD_DIM ** -0.5), FORMS["two_pass"], consumers,
+            q.device.index, torch.cuda.current_stream(q.device).cuda_stream)
     build.check(err, "attention kernel")
 
 

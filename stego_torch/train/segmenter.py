@@ -55,9 +55,11 @@ The feature-pyramid arch (``arch="feature-pyramid"``, ``models/fpn.py``)
 takes the ResNet-50's taps as its features (a dict), layer4 as the loss's
 signal on its own 7 x 7 grid beside the 56 x 56 code, and refreshes its
 BatchNorm running statistics after the three Adam updates
-(``segmenter.py:436-441``). It runs on one process: over several, each
-rank's batch statistics would be its own and not the global batch's, as
-the JAX mesh computes them, and it raises.
+(``segmenter.py:436-441``). Over several processes its train-mode
+BatchNorms normalise by the global batch's statistics, all-reduced
+(``models/fpn.py:batch_stats``), as the JAX mesh computes them, and the
+refresh takes the same statistics, so the ranks' running statistics stay
+equal bit for bit as their parameters do.
 """
 
 from __future__ import annotations
@@ -131,13 +133,6 @@ class UnsupervisedSegmenter(nn.Module):
         backbone_dtype = (torch.bfloat16 if cfg.backbone_dtype == "bfloat16"
                           else torch.float32)
         if cfg.arch == "feature-pyramid":
-            if dist.world() > 1:
-                raise NotImplementedError(
-                    "arch='feature-pyramid' over several processes: each "
-                    "rank's BatchNorm statistics would be its own batch's, "
-                    "not the global batch's as the JAX mesh computes them "
-                    "(ROADMAP.md queue 1, Multi-GPU (DDP)); train it on one "
-                    "process")
             self.vit_cfg = None
             self.net = FeaturePyramidNet(cfg.granularity, self.dim,
                                          cfg.continuous, backbone_dtype,

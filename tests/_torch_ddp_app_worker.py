@@ -8,7 +8,8 @@ Joins a gloo group on the CPU, then on the spec's directory dataset: the
 KNN caches (``precompute_knns``), training runs of the app (straight, cut
 and resumed, and one that rank 1 sends itself a SIGTERM in, then its
 resume), the validation's summed confusion matrices of the trained
-segmenter, and a dataset evaluation of its checkpoint. Writes
+segmenter, and a dataset evaluation of its checkpoint and of the spec's
+feature-pyramid checkpoint. Writes
 ``<out_dir>/app_<rank>.pt``; works in ``<out_dir>``, where the evaluation
 writes its PNG trees. Imports torch and stego_torch only.
 """
@@ -124,6 +125,11 @@ def main(rank, world, port, spec_path, out_dir):
         out["eval_metrics"] = ev.run(save_outputs=True)
         out["eval"] = [torch.from_numpy(np.array(m.stats)) for m in
                        (ev.linear_metrics, ev.cluster_metrics)]
+        fpn = Evaluator(cfg.replace(experiment_name="ev_fpn", batch_size=2),
+                        spec["fpn_ckpt"], CPU)
+        out["fpn_eval_metrics"] = fpn.run(save_outputs=False)
+        out["fpn_eval"] = [torch.from_numpy(np.array(m.stats)) for m in
+                           (fpn.linear_metrics, fpn.cluster_metrics)]
         torch.save(out, os.path.join(out_dir, f"app_{rank}.pt"))
     finally:
         dist.destroy()

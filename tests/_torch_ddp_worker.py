@@ -9,6 +9,7 @@ scenario of the spec (written by the test with ``torch.save``) and writes
 ``<out_dir>/<scenario>_<rank>.pt``. Imports torch and stego_torch only.
 """
 
+import copy
 import os
 import sys
 
@@ -22,14 +23,20 @@ from stego_torch.parallel import dist  # noqa: E402
 
 
 def trainable(seg):
-    return {n: p.detach().clone() for n, p in seg.named_parameters()
-            if p.requires_grad and not n.startswith("net.model.")}
+    """The trainable parameters and the buffers outside the frozen trunk
+    (the feature-pyramid head's BatchNorm running statistics)."""
+    out = {n: p.detach().clone() for n, p in seg.named_parameters()
+           if p.requires_grad and not n.startswith("net.model.")}
+    out.update({n: b.clone() for n, b in seg.named_buffers()
+                if not n.startswith("net.model.")})
+    return out
 
 
 def train_state(seg):
     return {"modules": {k: v.clone() for k, v in seg.state_dict().items()
                         if not k.startswith("net.model.")},
-            "opts": {k: o.state_dict() for k, o in seg.optimizers().items()},
+            "opts": {k: copy.deepcopy(o.state_dict())
+                     for k, o in seg.optimizers().items()},
             "step": seg.step}
 
 
@@ -43,10 +50,13 @@ def load_state(seg, state):
 def segmenter(sc):
     from stego_torch.train.segmenter import UnsupervisedSegmenter
 
-    seg = UnsupervisedSegmenter(sc["n_classes"], Config.from_dict(sc["cfg"]),
-                                vit_cfg=ViTConfig(**sc["vit"]))
+    seg = UnsupervisedSegmenter(
+        sc["n_classes"], Config.from_dict(sc["cfg"]),
+        vit_cfg=ViTConfig(**sc["vit"]) if sc.get("vit") else None)
     if "backbone" in sc:
         seg.net.model.load_state_dict(sc["backbone"])
+    if "backbone_path" in sc:
+        seg.net.model.load_state_dict(torch.load(sc["backbone_path"]))
     if "state" in sc:
         load_state(seg, sc["state"])
     return seg
@@ -54,17 +64,29 @@ def segmenter(sc):
 
 def run_steps(sc):
     """Image steps on this rank's rows of each global batch, with the
-    global batch's draws."""
+    global batch's draws; with ``states`` the train state after each step;
+    with ``own_stats`` the feature-pyramid head's BatchNorms take each
+    rank's own batch statistics (``models/fpn.py:local_stats``), the
+    control that the tests' gates must refuse."""
+    from stego_torch.models import fpn
     from stego_torch.train.segmenter import make_train_step
 
     seg = segmenter(sc)
     step = make_train_step(seg, with_hist=sc.get("hist", True))
-    out = {"metrics": [], "params": []}
-    for batch, rand in zip(sc["batches"], sc["rands"]):
-        rows = dist.local_rows(batch["img"].shape[0])
-        out["metrics"].append(step({k: v[rows] for k, v in batch.items()},
-                                   rand))
-        out["params"].append(trainable(seg))
+    out = {"metrics": [], "params": [], "states": []}
+    kept = fpn.batch_stats
+    if sc.get("own_stats"):
+        fpn.batch_stats = fpn.local_stats
+    try:
+        for batch, rand in zip(sc["batches"], sc["rands"]):
+            rows = dist.local_rows(batch["img"].shape[0])
+            out["metrics"].append(step({k: v[rows] for k, v in batch.items()},
+                                       rand))
+            out["params"].append(trainable(seg))
+            if sc.get("states"):
+                out["states"].append(train_state(seg))
+    finally:
+        fpn.batch_stats = kept
     out["state"] = train_state(seg)
     return out
 

@@ -217,7 +217,7 @@ def test_fpn_checkpoint_eval_and_serving(fpn_run, tmp_path, monkeypatch):
 
     art = package(ckpt, str(tmp_path / "art"), res=RES, batch_size=2,
                   device="cpu")
-    served = ServingModel.load(art, device="cpu")
+    served = ServingModel.load(art, devices=["cpu"])
     assert served.meta["in_chans"] == 3
     img01 = np.clip(np.random.default_rng(0).random((3, RES, RES, 3)), 0, 1) \
         .astype(np.float32)

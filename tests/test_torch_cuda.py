@@ -1522,3 +1522,136 @@ def test_f32_checkpoint_eval_runs_in_full_f32(cuda, tmp_path):
     finally:
         (torch.backends.cudnn.allow_tf32,
          torch.backends.cuda.matmul.allow_tf32) = kept
+
+
+@pytest.fixture
+def second_card():
+    if torch.cuda.device_count() < 2:
+        pytest.skip("needs two CUDA devices")
+    return torch.device("cuda", 1)
+
+
+def _guarded_run(kernel, dev):
+    """Kernel ``kernel`` (A, L, C1 or C2) and its plain version on the same
+    seeded inputs on ``dev`` at the train step's shape, each held to its
+    tolerance in the tests above; the kernel's launch counted once."""
+    from stego_torch.ops import corr_fused_sampling as c1
+    from stego_torch.ops import corr_stream as c2
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    if kernel == "A":
+        g = torch.Generator(device=dev).manual_seed(785)
+        qkv = torch.randn(8, 785, 3 * 384, generator=g, device=dev)
+        qkv[..., :768] *= 2
+        q, k, v = qkv.bfloat16().split(384, dim=-1)
+        before = fa.DEVICE_LAUNCHES.get(dev.index, 0)
+        got = fa.token_major_attention(q, k, v, 6, 0.125)
+        torch.cuda.synchronize(dev)
+        assert fa.DEVICE_LAUNCHES[dev.index] == before + 1
+        assert got.device == dev
+        torch.testing.assert_close(
+            got.float(), fa.attention_plain(q, k, v, 6, 0.125).float(),
+            rtol=2e-2, atol=5e-3)
+    elif kernel == "L":
+        x, w, b = _ln_inputs(8 * 785, 384, dev, torch.bfloat16)
+        before = ln.DEVICE_LAUNCHES.get(dev.index, 0)
+        got = ln.fused_layer_norm(x, w, b, EPS)
+        torch.cuda.synchronize(dev)
+        assert ln.DEVICE_LAUNCHES[dev.index] == before + 1
+        want = ln.layer_norm_plain(x, w, b, EPS)
+        assert got.device == dev and torch.all(
+            (got.float() - want.float()).abs()
+            <= ln.bf16_ulp_tolerance(want))
+    elif kernel == "C1":
+        opts = dict(pointwise=True, zero_clamp=True)
+        feats, code, coords, perms, shifts = _corr_inputs_untied(
+            dev, 16, 28, 384, 70, 11, 5, 400, opts)
+        wts = torch.randn(2, 7, generator=torch.Generator(device=dev)
+                          .manual_seed(7), device=dev)
+        wts = wts / max(float(x.abs().max()) for x in _corr_run(
+            c1.sampled_corr_plain, feats, code, coords, perms, shifts, wts,
+            **opts)[2])
+        f0 = c1.FWD_LAUNCHES
+        got = _corr_run(c1.sampled_corr_fused, feats, code, coords, perms,
+                        shifts, wts, **opts)
+        torch.cuda.synchronize(dev)
+        assert c1.FWD_LAUNCHES == f0 + 1
+        want = _corr_run(c1.sampled_corr_plain, feats, code, coords, perms,
+                         shifts, wts, **opts)
+        torch.testing.assert_close(got[0], want[0], rtol=1e-4, atol=1e-6)
+        torch.testing.assert_close(got[1], want[1], rtol=1e-4, atol=1e-6)
+        for gg, ww in zip(got[2], want[2]):
+            assert gg.device == dev
+            torch.testing.assert_close(gg, ww, rtol=2e-4, atol=1e-5)
+    else:
+        opts = dict(pointwise=True, zero_clamp=True)
+        feats, code, idx1, idx2, shifts = _stream_inputs(
+            dev, 16, 28, 384, 70, 5, seed=470)
+        args = (c2, feats, code, idx1, idx2, shifts, 16, 5)
+        wts = torch.randn(2, 7, generator=torch.Generator(device=dev)
+                          .manual_seed(7), device=dev)
+        wts = wts / float(_stream_run(*args, wts, opts, False)[2].abs().max())
+        f0 = c2.FWD_LAUNCHES
+        got = _stream_run(*args, wts, opts, True)
+        torch.cuda.synchronize(dev)
+        assert c2.FWD_LAUNCHES == f0 + 1
+        want = _stream_run(*args, wts, opts, False)
+        torch.testing.assert_close(got[0], want[0], rtol=1e-4, atol=1e-5)
+        torch.testing.assert_close(got[1], want[1], rtol=1e-4, atol=1e-5)
+        assert got[2].device == dev
+        torch.testing.assert_close(got[2], want[2], rtol=2e-4, atol=1e-5)
+
+
+@pytest.mark.parametrize("kernel", ["A", "L", "C1", "C2"])
+def test_kernel_launches_on_its_tensors_device(second_card, kernel):
+    """Each kernel on tensors on cuda:1 while cuda:0 is current: it
+    launches there and agrees with its plain version, and cuda:0 is still
+    current after (the C entries set the tensors' device, which the launch
+    wrappers' device guards put back)."""
+    torch.cuda.set_device(0)
+    _guarded_run(kernel, second_card)
+    assert torch.cuda.current_device() == 0
+
+
+def test_n_device_artifact_serves_on_two_cards(second_card, tmp_path):
+    """An n_devices=2 artifact of a seeded bf16 ViT-S-wide trunk (2 blocks,
+    6 heads of 64, res 64), loaded on its default devices cuda:0 and
+    cuda:1: each shard's outputs equal the one-device artifact's on that
+    shard bit for bit, and kernels A and L launch a predict's share on each
+    card."""
+    import numpy as np
+
+    from stego_torch import serve
+    from stego_torch.config import Config
+    from stego_torch.models.vit import ViTConfig
+    from stego_torch.train.segmenter import UnsupervisedSegmenter
+
+    cfg = Config(dataset_name="directory", dir_dataset_n_classes=5, dim=16,
+                 res=64, backbone_dtype="bfloat16")
+    seg = UnsupervisedSegmenter(
+        5, cfg, vit_cfg=ViTConfig(patch_size=8, embed_dim=384, depth=2,
+                                  num_heads=6, img_size=64),
+        generator=torch.Generator().manual_seed(0))
+    seg.to("cuda:0").eval()
+    seg.net.model.cast_blocks(torch.bfloat16)
+    one = serve.ServingModel.load(serve.package_from_parts(
+        seg, str(tmp_path / "one"), 64, batch_size=4), devices=["cuda:0"])
+    two = serve.ServingModel.load(serve.package_from_parts(
+        seg, str(tmp_path / "two"), 64, batch_size=4, n_devices=2))
+    assert two.devices == [torch.device("cuda", 0), second_card]
+    img = np.random.default_rng(0).random((4, 64, 64, 3), dtype=np.float32)
+    fa.reset_launches()
+    ln.DEVICE_LAUNCHES.clear()
+    got = two.predict(img)
+    per = {0: fa.DEVICE_LAUNCHES.get(0), 1: fa.DEVICE_LAUNCHES.get(1)}
+    per_ln = {0: ln.DEVICE_LAUNCHES.get(0), 1: ln.DEVICE_LAUNCHES.get(1)}
+    fa.reset_launches()
+    ln.DEVICE_LAUNCHES.clear()
+    want = [one.predict(img[:2]), one.predict(img[2:])]
+    # two trunk calls (flip-TTA) of 2 blocks; LN twice a block and once
+    # more a call
+    assert per == {0: 4, 1: 4} and per_ln == {0: 10, 1: 10}
+    assert fa.DEVICE_LAUNCHES == {0: 8}
+    for k in serve.OUTPUT_KEYS:
+        np.testing.assert_array_equal(got[k][:2], want[0][k])
+        np.testing.assert_array_equal(got[k][2:], want[1][k])

@@ -2,14 +2,19 @@
 over gloo: the 2-rank train step against the JAX package's step on the
 global batch, with the same weights and the JAX step's own draws (global
 negatives through C2, sampled and full-field, against one JAX process;
-local negatives through C1 against JAX on a 2-device mesh); the cached
-step, replicated and ``feat_cache_sharded``, against one port process; and
-the collectives. Both ranks of each run start once (``tests/
-_torch_ddp_worker.py``) while the parent computes the references.
+local negatives through C1 against JAX on a 2-device mesh); the
+feature-pyramid arch's 2-rank step, its BatchNorms on the global batch's
+statistics, against the JAX step on a 2-device mesh (global negatives
+through C2's gather route, local ones through C1), and the same ranks on
+their own statistics as a control that fails; the cached step, replicated
+and ``feat_cache_sharded``, against one port process; and the collectives.
+Both ranks of each run start once (``tests/_torch_ddp_worker.py``) while
+the parent computes the references.
 
-Batch 4 (2 images a rank), res 32 (4 x 4 feature maps), the labels' ignore
-pixels spread unevenly over the two shards, so that a per-shard mean of the
-linear probe's loss fails the gates."""
+Batch 4 (2 images a rank), res 32 (4 x 4 feature maps; the feature-pyramid
+cases at res 64), the labels' ignore pixels spread unevenly over the two
+shards, so that a per-shard mean of the linear probe's loss fails the
+gates."""
 
 import json
 import os
@@ -22,6 +27,7 @@ import numpy as np
 import pytest
 import torch
 
+from stego_tpu.models import resnet as jax_resnet
 from stego_tpu.ops.math import block_local_super_perm as jax_block_perm
 from stego_tpu.parallel.mesh import make_mesh
 from stego_tpu.train.segmenter import \
@@ -29,13 +35,19 @@ from stego_tpu.train.segmenter import \
 from stego_tpu.train.segmenter import _split_step_keys
 from stego_tpu.train.segmenter import make_train_step as jax_make_train_step
 from stego_torch.config import Config
+from stego_torch.models.convert import (from_jax_params, jax_train_state,
+                                        load_jax_train_state)
 from stego_torch.ops.probe_ce import upsampled_masked_cross_entropy
 from stego_torch.train.feat_cache import build_feat_cache
-from stego_torch.train.segmenter import (draw_step_randomness,
+from stego_torch.train.segmenter import (UnsupervisedSegmenter,
+                                         draw_step_randomness,
                                          make_cached_train_step,
                                          make_cached_val_epoch)
 from tests._torch_ddp_worker import Items, load_state, train_state
+from tests.test_fpn import make_torch_resnet50_sd
 from tests.test_torch_config import torch_config
+from tests.test_torch_fpn import assert_fpn_state_close
+from tests.test_torch_train_step import METRIC_TOL as FPN_METRIC_TOL
 from tests.test_torch_train_step import (N_CLASSES, STATE_TOL,
                                          assert_state_close, jax_step_draws,
                                          make_cfg, setup)
@@ -87,15 +99,15 @@ def cfg_dict(cfg):
     return json.loads(cfg.to_json())
 
 
-def ddp_batch(seed):
-    """A global batch of B images at RES; rank 0's labels are 60% ignore
-    pixels, rank 1's 10%."""
+def ddp_batch(seed, res=RES):
+    """A global batch of B images at ``res``; rank 0's labels are 60%
+    ignore pixels, rank 1's 10%."""
     rng = np.random.default_rng(seed)
-    img = rng.standard_normal((B, RES, RES, 3)).astype(np.float32)
+    img = rng.standard_normal((B, res, res, 3)).astype(np.float32)
     pos = img + 0.05 * rng.standard_normal(img.shape).astype(np.float32)
     out = {"img": img, "img_pos": pos}
     for key in ("label", "label_pos"):
-        label = rng.integers(0, N_CLASSES, (B, RES, RES))
+        label = rng.integers(0, N_CLASSES, (B, res, res))
         share = np.repeat([0.6, 0.1], B // WORLD)[:, None, None]
         label[rng.random(label.shape) < share] = -1
         out[key] = label.astype(np.int32)
@@ -120,6 +132,44 @@ STEP_CASES = {
     # local negatives: C1 on each rank, JAX on a 2-device mesh
     "local": dict(negatives_scope="local", fused_sampling="on"),
 }
+
+
+# the feature-pyramid arch at granularity 2 and res 64 (layer4 2 x 2, code
+# 56 x 56): the smallest res at which one process's step holds
+# tests/test_torch_fpn.py's parameter gate against JAX's (at res 32,
+# layer4 is 1 x 1, its upsampled map constant over each image, and
+# conv2's kernel gradients near ADAM_LIVE differ past it in one process
+# too); the control: the global case with each rank's BatchNorms on its
+# own batch
+FPN_RES = 64
+FPN_CASES = {"fpn_global": {}, "fpn_local": dict(negatives_scope="local")}
+FPN_CONTROL = "fpn_own_stats"
+FPN_STATE_TOL = dict(rtol=2e-4, atol=1e-5)  # assert_fpn_state_close's
+
+
+def fpn_cfg(name):
+    return make_cfg(res=FPN_RES, arch="feature-pyramid",
+                    model_type="resnet50", granularity=2, dim=6,
+                    feature_samples=3, fused_sampling="auto",
+                    **FPN_CASES.get(name, FPN_CASES["fpn_global"]))
+
+
+def fpn_case(name):
+    """The feature-pyramid step case: the JAX segmenter on a 2-device mesh
+    (whose CPU sampler is the gather form), a torchvision-layout ResNet-50
+    folded by both packages, the JAX train state, the port's segmenter
+    holding them, and each step's batch, key and draws."""
+    cfg = fpn_cfg(name)
+    jseg = JaxUnsupervisedSegmenter(N_CLASSES, cfg, mesh=make_mesh(WORLD))
+    bb = jax_resnet.resnet50_params_from_torch(make_torch_resnet50_sd(2))
+    jstate = jax.tree.map(np.asarray, jseg.init_state(jax.random.PRNGKey(4)))
+    seg = from_jax_params(bb, jstate["params"], torch_config(cfg))
+    load_jax_train_state(seg, jstate)
+    blocks = WORLD if name == "fpn_local" else 1
+    keys = [jax.random.PRNGKey(300 + i) for i in range(STEPS)]
+    rands = [mesh_draws(jseg, k, blocks) for k in keys]
+    batches = [ddp_batch(20 + i, FPN_RES) for i in range(STEPS)]
+    return cfg, jseg, bb, jstate, seg, keys, rands, batches
 
 
 def step_case(name):
@@ -158,15 +208,25 @@ def runs(tmp_path_factory):
     they run, and return {scenario: (per-rank outputs, reference)}."""
     tmp = tmp_path_factory.mktemp("ddp")
     spec, cases = {}, {}
-    for name in STEP_CASES:
-        cfg, jseg, bb, jstate, seg, keys, rands, batches = step_case(name)
-        cases[name] = (jseg, bb, jstate, keys, batches)
+    for name in list(STEP_CASES) + list(FPN_CASES) + [FPN_CONTROL]:
+        fpn = name.startswith("fpn_")
+        cfg, jseg, bb, jstate, seg, keys, rands, batches = (
+            fpn_case if fpn else step_case)(name)
         spec[name] = dict(
-            kind="steps", cfg=cfg_dict(torch_config(cfg)), vit=SMALL,
-            n_classes=N_CLASSES, backbone=seg.net.model.state_dict(),
+            kind="steps", cfg=cfg_dict(torch_config(cfg)),
+            vit=None if fpn else SMALL, n_classes=N_CLASSES,
             state=train_state(seg), rands=rands, hist=False,
             batches=[{k: torch.from_numpy(v) for k, v in b.items()}
                      for b in batches])
+        if fpn:
+            path = tmp / "resnet50.pt"
+            torch.save(seg.net.model.state_dict(), path)
+            spec[name].update(backbone_path=str(path), states=True,
+                              own_stats=name == FPN_CONTROL)
+        else:
+            spec[name]["backbone"] = seg.net.model.state_dict()
+        if name != FPN_CONTROL:  # the control's reference is fpn_global's
+            cases[name] = (jseg, bb, jstate, keys, batches)
     imgs, labels, ind_batches, val_inds = cached_inputs()
     for name, sharded in (("cached", False), ("cached_sharded", True)):
         cfg = torch_config(make_cfg(res=RES, fused_sampling="auto",
@@ -196,13 +256,15 @@ def runs(tmp_path_factory):
     try:
         for name, (jseg, bb, jstate, keys, batches) in cases.items():
             step = jax.jit(jax_make_train_step(jseg, with_hist=False))
-            states, metrics = [], []
+            states, metrics, mus = [], [], []
             for key, batch in zip(keys, batches):
+                mus.append(jstate["opt"]["net"][0].mu)
                 jstate, m = step(bb, jstate, batch, key)
                 jstate = jax.tree.map(np.asarray, jstate)
                 states.append(jstate)
                 metrics.append({k: float(v) for k, v in m.items()})
-            refs[name] = (states, metrics)
+            refs[name] = (states, metrics, mus)
+        refs[FPN_CONTROL] = refs["fpn_global"]
         for name in ("cached", "cached_sharded"):
             refs[name] = one_process_cached(spec[name])
         refs["collectives"] = spec["collectives"]
@@ -234,22 +296,63 @@ def one_process_cached(sc):
 
 
 def assert_ranks_equal(outs):
-    """Both ranks' trainable parameters equal bit for bit after every
-    step."""
+    """Both ranks' trainable parameters (and the feature-pyramid head's
+    running statistics) equal bit for bit after every step."""
     for step, (a, b) in enumerate(zip(outs[0]["params"],
                                       outs[1]["params"])):
         for k in a:
             assert torch.equal(a[k], b[k]), (step, k)
 
 
-@pytest.mark.parametrize("name", list(STEP_CASES))
+def fpn_segmenter(name, state):
+    """The port's feature-pyramid segmenter holding a rank's train
+    ``state`` (its trunk is not part of it)."""
+    seg = UnsupervisedSegmenter(N_CLASSES, torch_config(fpn_cfg(name)))
+    load_state(seg, state)
+    return seg
+
+
+def running_var_excess(seg, jstate):
+    """The largest excess of the head's running variances (JAX's
+    ``ema_var``) over assert_fpn_state_close's gate."""
+    got = jax_train_state(seg, like=jstate)["params"]["head"]
+    want = jstate["params"]["head"]
+    return max(float((np.abs(got[c][n]["ema_var"] - p["ema_var"])
+                      - FPN_STATE_TOL["atol"] - FPN_STATE_TOL["rtol"]
+                      * np.abs(p["ema_var"])).max())
+               for c in want if c.startswith("conv")
+               for n, p in want[c].items() if n.startswith("norm"))
+
+
+@pytest.mark.parametrize("name", list(STEP_CASES) + list(FPN_CASES))
 def test_two_rank_step_matches_jax(runs, name):
     """Each of STEPS 2-rank steps: both ranks' metrics are the JAX step's
     on the global batch (gates of the card's phase ddp), both ranks'
     parameters are equal bit for bit, and the updated parameters and Adam
-    moments are JAX's within STATE_TOL (rtol 2e-4, atol 1e-5)."""
-    outs, (states, metrics) = runs[name]
+    moments are JAX's within STATE_TOL (rtol 2e-4, atol 1e-5). The
+    feature-pyramid cases (the JAX step on a 2-device mesh) are held after
+    every step at tests/test_torch_fpn.py's gates: metrics within its
+    METRIC_TOL, and assert_fpn_state_close's on the parameters, Adam
+    moments and BatchNorm running statistics (running means within rtol
+    2e-4 of their channel's running std), whose bits the ranks share."""
+    outs, (states, metrics, mus) = runs[name]
     assert_ranks_equal(outs)
+    if name in FPN_CASES:
+        for r in range(WORLD):
+            for got, want in zip(outs[r]["metrics"], metrics):
+                assert got.keys() == want.keys()
+                for k in want:
+                    np.testing.assert_allclose(float(got[k]), want[k],
+                                               **FPN_METRIC_TOL,
+                                               err_msg=(r, k))
+        dead = {}
+        for i, (state, jstate) in enumerate(zip(outs[0]["states"], states)):
+            seg = fpn_segmenter(name, state)
+            assert seg.step == i + 1
+            assert_fpn_state_close(seg, jstate, mus[i], i + 1,
+                                   seg.cfg.lr, dead)
+            assert running_var_excess(seg, jstate) <= 0
+        return
     for r in range(WORLD):
         for got, want in zip(outs[r]["metrics"], metrics):
             assert got.keys() == want.keys()
@@ -261,6 +364,18 @@ def test_two_rank_step_matches_jax(runs, name):
     load_state(seg, outs[0]["state"])
     assert seg.step == STEPS
     assert_state_close(seg, states[-1])
+
+
+def test_two_rank_fpn_on_own_statistics_fails(runs):
+    """The control: the same two ranks with each rank's BatchNorms on its
+    own batch's statistics (the collective left out of batch_stats) fail
+    the running-statistics gate against the JAX mesh step after its first
+    step, and the ranks' running statistics part."""
+    outs, (states, _, _) = runs[FPN_CONTROL]
+    seg = fpn_segmenter(FPN_CONTROL, outs[0]["states"][0])
+    assert running_var_excess(seg, states[0]) > 0
+    a, b = outs[0]["params"][0], outs[1]["params"][0]
+    assert any(not torch.equal(a[k], b[k]) for k in a if "running" in k)
 
 
 @pytest.mark.parametrize("name", ["cached", "cached_sharded"])

@@ -11,7 +11,9 @@ every stage in one start (``tests/_torch_ddp_app_worker.py``):
   8 val images; a SIGTERM on rank 1 makes both ranks checkpoint after the
   same step, and a resume starts there;
 * ``Evaluator``: the summed confusion matrices equal a one-process
-  evaluation of the first 8 val images, exactly."""
+  evaluation of the first 8 val images, exactly; the same for a seeded
+  feature-pyramid checkpoint (ResNet-50, granularity 2, its BatchNorms'
+  running statistics drawn away from 0 and 1)."""
 
 import json
 import os
@@ -26,9 +28,11 @@ from stego_torch.data.contrastive import ContrastiveSegDataset
 from stego_torch.data.loader import DataLoader
 from stego_torch.data.transforms import get_transform
 from stego_torch.eval.evaluate import Evaluator, load_model_for_eval
+from stego_torch.models.convert import save_stego_checkpoint
 from stego_torch.models.vit import ViTConfig
 from stego_torch.train.knn_app import precompute_knns
-from stego_torch.train.segmenter import make_val_step
+from stego_torch.train.segmenter import (UnsupervisedSegmenter,
+                                         make_val_step)
 from tests.test_torch_ddp import WORLD, start_ranks, wait_ranks
 from tests.test_torch_vit import SMALL
 from tests._torch_cpu import one_intra_op_thread  # noqa: F401
@@ -91,14 +95,33 @@ def val_dataset(cfg):
         cfg=cfg)
 
 
+def fpn_checkpoint(cfg, path):
+    """A seeded feature-pyramid segmenter of ``cfg``'s dataset, its
+    BatchNorms' running statistics drawn away from 0 and 1, saved as a
+    ``.ckpt``."""
+    g = torch.Generator().manual_seed(5)
+    seg = UnsupervisedSegmenter(3, cfg.replace(
+        arch="feature-pyramid", model_type="resnet50", granularity=2),
+        generator=g)
+    with torch.no_grad():
+        for name, b in seg.named_buffers():
+            if name.endswith("running_mean"):
+                b.copy_(0.1 * torch.randn(b.shape, generator=g))
+            elif name.endswith("running_var"):
+                b.copy_(0.5 + torch.rand(b.shape, generator=g))
+    save_stego_checkpoint(path, seg)
+    return path
+
+
 @pytest.fixture(scope="module")
 def app_runs(tmp_path_factory):
     tmp = tmp_path_factory.mktemp("ddp_app")
     ranks_root = write_data(str(tmp / "data_ranks"))
     cfg = make_cfg(ranks_root, str(tmp / "out"))
     spec = tmp / "spec.json"
-    spec.write_text(json.dumps({"cfg": json.loads(cfg.to_json()),
-                                "vit": SMALL, "knn_batch": 4}))
+    spec.write_text(json.dumps({
+        "cfg": json.loads(cfg.to_json()), "vit": SMALL, "knn_batch": 4,
+        "fpn_ckpt": fpn_checkpoint(cfg, str(tmp / "fpn.ckpt"))}))
     work = tmp / "work"
     work.mkdir()
     procs = start_ranks("_torch_ddp_app_worker.py", spec, work)
@@ -190,3 +213,23 @@ def test_eval_equals_one_process_on_the_stripes(app_runs):
         assert np.array_equal(outs[r]["eval"][0], ev.linear_metrics.stats)
         assert np.array_equal(outs[r]["eval"][1], ev.cluster_metrics.stats)
     assert os.path.isdir(work / "results" / "predictions" / "ev" / "img")
+
+
+def test_fpn_eval_equals_one_process_on_the_stripes(app_runs):
+    """evaluate() of a feature-pyramid checkpoint on 2 ranks over the 9 val
+    images: the metrics and summed confusion matrices equal one process's
+    over the first 8, exactly (eval-mode BatchNorm reads the running
+    statistics, so no collective enters the forward)."""
+    cfg, outs, _, work = app_runs
+    ev = Evaluator(cfg.replace(experiment_name="ev_fpn_one", batch_size=2),
+                   str(work.parent / "fpn.ckpt"), CPU,
+                   val_dataset=First(val_dataset(cfg), 8))
+    assert ev.seg.cfg.arch == "feature-pyramid"
+    want = ev.run(save_outputs=False)
+    assert int(ev.linear_metrics.stats.sum()) > 0
+    for r in range(WORLD):
+        assert outs[r]["fpn_eval_metrics"] == want
+        assert np.array_equal(outs[r]["fpn_eval"][0],
+                              ev.linear_metrics.stats)
+        assert np.array_equal(outs[r]["fpn_eval"][1],
+                              ev.cluster_metrics.stats)

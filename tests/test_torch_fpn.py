@@ -8,8 +8,8 @@ the JAX gather-form loss with its coordinate and permutation draws injected
 ``stego_tpu``'s ``make_train_step`` with its draws injected, at
 ``tests/test_torch_train_step.py``'s gates (metrics, parameters, Adam
 moments and the BatchNorm running statistics); the constants the port
-copies; and the errors for full-field mode on two grids and for several
-processes."""
+copies; and the error for full-field mode on two grids. The arch over
+several processes is ``tests/test_torch_ddp.py``'s."""
 
 import jax
 import jax.numpy as jnp
@@ -33,8 +33,7 @@ from stego_torch.models.convert import (from_jax_params, jax_train_state,
                                         load_jax_train_state)
 from stego_torch.ops import corr_stream
 from stego_torch.ops.correlation import CorrLossCfg
-from stego_torch.train.segmenter import (UnsupervisedSegmenter,
-                                         make_train_step,
+from stego_torch.train.segmenter import (make_train_step,
                                          resolve_corr_sampling)
 
 from tests.test_fpn import make_torch_resnet50_sd
@@ -346,16 +345,6 @@ def test_fpn_train_step_matches_jax_two_steps(continuous):
     # the carried-out state is the JAX layout, ema leaves included
     got = jax_train_state(seg, like=jstate)
     assert "ema_mean" in got["params"]["head"]["conv3"]["norm2"]
-
-
-def test_fpn_rejects_several_processes(monkeypatch):
-    """Over several processes each rank's BatchNorm statistics would be its
-    own batch's: the segmenter raises, citing the ROADMAP item."""
-    from stego_torch.parallel import dist
-
-    monkeypatch.setattr(dist, "world", lambda: 2)
-    with pytest.raises(NotImplementedError, match="Multi-GPU \\(DDP\\)"):
-        UnsupervisedSegmenter(5, torch_config(fpn_cfg()))
 
 
 def test_fpn_segmenter_round_trips_jax_params():

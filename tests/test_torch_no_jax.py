@@ -61,6 +61,7 @@ MODULES = [
     "stego_torch.train.crf_app", "stego_torch.eval.__main__",
     "stego_torch.serve", "stego_torch.parallel", "stego_torch.parallel.dist",
     "stego_torch.ops.augment", "stego_torch.tools.accuracy_bench",
+    "stego_torch.tools.ab_negatives_scope",
     "stego_torch.utils.precision", "stego_torch.models.resnet",
     "stego_torch.models.fpn", "stego_torch.models.zoo",
     "stego_torch.models.picie", "stego_torch.eval.analysis",
@@ -354,7 +355,7 @@ sys.modules["stego_tpu"] = None  # nor anything of the JAX package
 import numpy as np
 from stego_torch.serve import ServingModel
 artifact, images, outputs = sys.argv[1:]
-model = ServingModel.load(artifact, device="cpu")
+model = ServingModel.load(artifact, devices=["cpu"])
 np.savez(outputs, **model.predict(np.load(images)))
 model_code = ("stego_torch.models", "stego_torch.train", "stego_torch.eval",
               "stego_torch.data", "stego_torch.config")

@@ -2,10 +2,13 @@
 program whose trunk reaches kernels A and L through the registered ops
 stego_torch::attention and stego_torch::layer_norm) against the JAX
 package's ``_serve_fn`` on the same weights, one artifact against the eager
-serving module at several batches, the ops under ``torch.library.opcheck``,
-and the packaging CLI's checks. On the CPU the ops run their plain
+serving module at several batches, artifacts over n devices (on the CPU n
+times over) against the one-device artifact shard by shard and against the
+JAX package's SPMD artifact, the ops under ``torch.library.opcheck``, and
+the packaging CLI's checks. On the CPU the ops run their plain
 versions and the JAX package's Pallas kernels run in interpret mode."""
 
+import dataclasses
 import functools
 import json
 import os
@@ -115,7 +118,7 @@ def artifact(name, tmp):
         out = serve.package_from_parts(seg, os.path.join(tmp, name), res,
                                        batch_size=4)
     return seg, (jseg, bb, params), res, serve.ServingModel.load(
-        out, device="cpu")
+        out, devices=["cpu"])
 
 
 @pytest.fixture(scope="module")
@@ -273,16 +276,101 @@ def test_layer_norm_op_opcheck(dtype, layout):
     torch.library.opcheck(layer_norm_op, (x, w, b, 1e-6))
 
 
-def test_n_devices_raises(tmp_path):
-    seg = models(False, 0)[3]
+@functools.lru_cache(maxsize=None)
+def n_device_artifact(n, tmp):
+    """The f32_ckpt artifact's segmenter packaged with ``n_devices=n``,
+    loaded on the CPU ``n`` times over."""
+    seg = artifact("f32_ckpt", tmp)[0]
+    out = serve.package_from_parts(seg, os.path.join(tmp, f"n{n}"), 32,
+                                   batch_size=4, n_devices=n)
+    return serve.ServingModel.load(out, devices=["cpu"] * n)
+
+
+@pytest.mark.parametrize("n", [2, 4])
+def test_n_device_artifact_serves_shards_bit_for_bit(tmp, n):
+    """An n_devices=n artifact on ["cpu"] * n: each contiguous shard's
+    outputs equal the one-device artifact's on that shard bit for bit, at
+    one and at two images a shard; against the one-device artifact on the
+    whole batch, the argmaxes are equal and the log-probs within the f32
+    serving gate (atol 1e-4); a batch that is no positive multiple of n
+    raises."""
+    one = artifact("f32_ckpt", tmp)[3]
+    model = n_device_artifact(n, tmp)
+    assert model.meta["n_devices"] == n and model.meta["batch_size"] == 4
+    assert model.devices == [torch.device("cpu")] * n
+    img = images(10 + n, 2 * n, 32)
+    for per in (1, 2):
+        batch = img[:per * n]
+        got = model.predict(batch)
+        for s in range(n):
+            want = one.predict(batch[s * per:(s + 1) * per])
+            for k in serve.OUTPUT_KEYS:
+                np.testing.assert_array_equal(
+                    got[k][s * per:(s + 1) * per], want[k], err_msg=(s, k))
+        whole = one.predict(batch)
+        for probe in ("linear", "cluster"):
+            np.testing.assert_array_equal(got[f"{probe}_preds"],
+                                          whole[f"{probe}_preds"])
+            np.testing.assert_allclose(got[f"{probe}_probs"],
+                                       whole[f"{probe}_probs"], atol=1e-4,
+                                       rtol=0)
+    for b in (0, n - 1, n + 1):
+        with pytest.raises(ValueError, match=f"divisible by {n}"):
+            model.predict(img[:b])
+
+
+def test_n_devices_must_divide_batch_and_default_load_needs_the_cards(
+        tmp, tmp_path, monkeypatch):
+    """n_devices must divide batch_size (nothing is written otherwise); a
+    default-devices load of an n_devices=2 artifact raises with both counts
+    where fewer CUDA devices are visible, and an explicit devices list must
+    hold one device a shard: no load serves on fewer devices than the
+    artifact's."""
+    seg = artifact("f32_ckpt", tmp)[0]
     with pytest.raises(ValueError, match="must divide"):
         serve.package_from_parts(seg, str(tmp_path / "a"), 32, 3,
                                  n_devices=2)
-    with pytest.raises(NotImplementedError,
-                       match=r"ROADMAP.md queue 1, Multi-GPU \(DDP\)"):
-        serve.package_from_parts(seg, str(tmp_path / "b"), 32, 4,
-                                 n_devices=2)
     assert not os.listdir(tmp_path)
+    path = os.path.join(tmp, "n2")
+    n_device_artifact(2, tmp)
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: 1)
+    with pytest.raises(RuntimeError, match="needs 2 CUDA devices, have 1"):
+        serve.ServingModel.load(path)
+    for devices in (["cpu"], ["cpu"] * 3):
+        with pytest.raises(ValueError, match="takes 2 devices"):
+            serve.ServingModel.load(path, devices=devices)
+
+
+def test_n_device_artifact_matches_jax_spmd_artifact(tmp_path):
+    """The port's n_devices=2 artifact on ["cpu", "cpu"] against the JAX
+    package's SPMD artifact of tests/test_serve.py (its tiny f32 ViT on a
+    2-device mesh) on the same weights and batch of 4: log-probs within the
+    f32 serving gate, predictions equal where the margin exceeds 1e-3."""
+    from stego_tpu.serve import ServingModel as JaxServingModel
+    from stego_tpu.serve import package_from_parts as jax_package
+    from stego_torch.models.convert import from_jax_params
+    from tests.test_serve import TINY as JAX_TINY
+    from tests.test_serve import _parts
+
+    jseg, bb, params = _parts()
+    jdir = jax_package(jseg, bb, params, str(tmp_path / "jax"), res=16,
+                       batch_size=4, n_devices=2)
+    seg = from_jax_params(bb, params, torch_config(jseg.cfg),
+                          vit_cfg=ViTConfig(**dataclasses.asdict(JAX_TINY)))
+    seg.eval()
+    out = serve.package_from_parts(seg, str(tmp_path / "port"), 16,
+                                   batch_size=4, n_devices=2)
+    img = images(11, 4, 16)
+    want = JaxServingModel.load(jdir).predict(img)
+    got = serve.ServingModel.load(out, devices=["cpu", "cpu"]).predict(img)
+    for probe in ("linear", "cluster"):
+        lp = got[f"{probe}_probs"]
+        np.testing.assert_allclose(lp, want[f"{probe}_probs"], atol=1e-4,
+                                   rtol=0)
+        sure = margin(lp) > 1e-3
+        assert sure.mean() > 0.9
+        np.testing.assert_array_equal(got[f"{probe}_preds"][sure],
+                                      np.asarray(want[f"{probe}_preds"])[sure])
 
 
 def test_main_rejects_unknown_args_and_needs_cuda(tmp_path):
