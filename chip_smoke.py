@@ -305,9 +305,9 @@ ADAM_LIVE_TRAJECTORY = 1e-5
 # A-f32 against its plain versions: the JAX package's f32 tolerance
 # (tests/test_torch_attention.py), which TF32 products would fail
 F32_RTOL, F32_ATOL = 2e-5, 2e-5
-# the plain version's form of each head-major entry A-f32 is held on (the
-# others' are their names)
-FORM_OF = {"batch_resident": "two_pass"}
+# the plain version's form of each head-major entry A-f32 and the narrow
+# heads are held on (the others' are their names)
+FORM_OF = {"batch_resident": "two_pass", "kv_resident": "two_pass"}
 LOSS_RTOL, LOSS_ATOL = 1e-4, 1e-6  # sampled-loss rows of PARITY_r05.json
 GRAD_RTOL, GRAD_ATOL = 2e-4, 1e-5  # tests/test_fused_sampling.py:265
 # the streamed loss: full-field maps, grid-sampled maps (PARITY_r05's corr
@@ -4730,6 +4730,27 @@ def phase_narrow(dev):
     return out
 
 
+def phase_launch_floor(dev, narrow, narrow_f32, ln_narrow):
+    """The device time of a one-element ``x.add_(1)``, a practical floor
+    of any launch, beside the rows whose byte bounds are ~1% of their
+    times: kernel A's narrow heads and L at 32 and 64, whose remaining cost
+    is the launch (a CUDA graph's to remove). Adds it to each of those rows
+    as ``launch_floor_ms``; returns it."""
+    x = torch.zeros(1, device=dev)
+    floor = device_ms(lambda: x.add_(1))
+    print(f"launch floor: a one-element x.add_(1), {floor:.4f} ms of device "
+          f"time")
+    rows = ([(f"A d={d} bf16", narrow[d]) for d in NARROW_DS]
+            + [(f"A d={d} f32", narrow_f32[d]) for d in NARROW_DS]
+            + [(f"L at {d}", ln_narrow[d]) for d in (32, 64)])
+    for label, r in rows:
+        r["launch_floor_ms"] = floor
+        print(f"  {label} ({r['shape']}): kernel {r['ms']:.4f} ms, "
+              f"{r['ms'] / floor:.2f}x the floor; its bound "
+              f"{r['bound'][0]:.5f} ms ({r['bound'][1]})")
+    return floor
+
+
 def sensitive_segmenter(dev, embed, heads, backbone_dtype="bfloat16"):
     """A seeded segmenter of the sensitive accuracy instrument's
     configuration (``tiny_benchmark_setup``: 2 blocks, res 64, 4 classes)
@@ -4756,21 +4777,25 @@ def phase_narrow_f32(dev):
     """The narrow-head kernel's f32 instantiation (d = 8, 16, 32) in every
     form against the f32 plain version at F32_RTOL / F32_ATOL (no_softmax:
     F32_RTOL of its largest output), TF32 off, on views of a packed qkv as
-    phase_narrow; the bf16 instantiation on the same inputs, the control,
-    must fail each gate; the trunk's form (batch_resident) timed beside
+    phase_narrow; two controls must fail each gate: the bf16
+    instantiation on the same inputs, and the plain version with one TF32
+    pass a product (``ops/tf32.py:matmul_tf32``; the kernel takes its f32
+    products by 3xTF32); the trunk's form (batch_resident) timed beside
     f32 SDPA and the bound (3xTF32's rate, as A-f32's rows; the f32 FMA
     bound printed). Returns {d: the result at NARROW_F32_CASES' shape, its
     forms' errors under "forms"}."""
     import torch.nn.functional as F
 
     from stego_torch.ops import flash_attention as fa
+    from stego_torch.ops.tf32 import matmul_tf32
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     print(f"kernel A, narrow heads on f32 q/k/v (d in {NARROW_DS}) vs plain, "
           f"every form, q, k ~ N(0, 4), v ~ N(0, 1); rtol {F32_RTOL} atol "
           f"{F32_ATOL} (no_softmax: rtol of its largest output); TF32 off; "
-          f"control: the bf16 instantiation on the same inputs must fail; "
+          f"controls that must fail: the bf16 instantiation on the same "
+          f"inputs, the plain version in one TF32 pass a product; "
           f"library: f32 F.scaled_dot_product_attention on (B, H, N, d)")
     out = {}
     for d, b, h, n in NARROW_F32_CASES:
@@ -4787,8 +4812,9 @@ def phase_narrow_f32(dev):
                     return fa.token_major_attention(
                         *(x.to(dtype) for x in (tq, tk, tv)), h, scale)
 
-                def plain():
-                    return fa.attention_plain(tq, tk, tv, h, scale)
+                def plain(matmul=torch.matmul):
+                    return fa.attention_plain(tq, tk, tv, h, scale,
+                                              matmul=matmul)
             else:
                 fn = getattr(fa, f"{form}_attention")
                 view = torch.empty(b, n, h * d, device=dev).unflatten(
@@ -4799,8 +4825,12 @@ def phase_narrow_f32(dev):
                         return fn(*(x.to(dtype) for x in (q, k, v)), scale)
                     return fn(q, k, v, scale, out=view)
 
-                def plain(fn=fn):
-                    return fn(q, k, v, scale, use_kernel=False)
+                def plain(matmul=torch.matmul, fn=fn,
+                          form_=FORM_OF.get(form, form)):
+                    if matmul is torch.matmul:
+                        return fn(q, k, v, scale, use_kernel=False)
+                    return fa.attention_heads_plain(q, k, v, scale, form_,
+                                                    matmul=matmul)
             before = fa.HEAD_DIM_LAUNCHES[(d, torch.float32)]
             got = kernel()
             torch.cuda.synchronize()
@@ -4819,6 +4849,12 @@ def phase_narrow_f32(dev):
             check(bool((ctl > tol).any()),
                   f"control, d={d} {form} by the bf16 instantiation on the "
                   f"same inputs: max_abs_err {float(ctl.max()):.3e}, "
+                  f"{int((ctl > tol).sum())} of {ctl.numel()} elements out "
+                  f"of the gate (must fail)")
+            ctl = (plain(matmul_tf32) - want).abs()
+            check(bool((ctl > tol).any()),
+                  f"control, d={d} {form} by the plain version in one TF32 "
+                  f"pass a product: max_abs_err {float(ctl.max()):.3e}, "
                   f"{int((ctl > tol).sum())} of {ctl.numel()} elements out "
                   f"of the gate (must fail)")
             if form == "batch_resident":
@@ -5482,6 +5518,7 @@ def main() -> int:
     narrow = phase_narrow(dev)
     narrow_f32 = phase_narrow_f32(dev)
     _, ln_narrow = phase_layer_norm(dev, NARROW_LN_SHAPES)
+    phase_launch_floor(dev, narrow, narrow_f32, ln_narrow)
     serving = {}
     with tempfile.TemporaryDirectory() as tmp:
         for model_type in ("vit_small", "vit_tiny"):
@@ -5625,8 +5662,8 @@ def main() -> int:
         return row(name, source, replaces, launches_, r["max_abs_err"],
                    (r["ms"], r["plain_ms"]), r["bound"], r["library_ms"],
                    shape=r["shape"],
-                   **{k: r[k] for k in ("cold_ms", "two_call_ms", "forms")
-                      if k in r})
+                   **{k: r[k] for k in ("cold_ms", "two_call_ms", "forms",
+                                        "launch_floor_ms") if k in r})
 
     ln_src, ln_ref = "stego_torch/csrc/layer_norm.cu", "stego_tpu/ops/layer_norm.py"
     at_src = "stego_torch/csrc/attention.cu"

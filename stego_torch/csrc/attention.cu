@@ -1,8 +1,8 @@
 // Kernel A: forward-only attention softmax(q k^T * scale) v, one head of
 // d = 64 at a time: bf16 in and out with f32 logits and accumulator, and an
 // f32 instantiation (A-f32) for an f32 trunk; and heads of d = 8, 16 and
-// 32, bf16 or f32, by a simple kernel of its own (attention_narrow_kernel
-// below).
+// 32, bf16 or f32, by a kernel of its own, a warp per 16 query rows on
+// mma.sync (attention_narrow_kernel below).
 //
 // Replaces the attention kernels of stego_tpu/ops/flash_attention.py:
 // _pair_kernel (:391, pallas_call :453 in pair_attention) and
@@ -672,7 +672,7 @@ constexpr int kVPitch = kHeadDim + 4;
 constexpr int kF32Stage = kF32Keys * (kKPitch + kVPitch);   // floats a stage
 constexpr int kF32Smem = 2 * kF32Stage * 4;                 // 70 KB
 
-__device__ __forceinline__ void cp_async16(float* dst, const float* src,
+__device__ __forceinline__ void cp_async16(void* dst, const void* src,
                                            bool valid) {
   asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(
                    smem_u32(dst)),
@@ -1135,43 +1135,91 @@ int attention_bf16(const void* q, const void* k, const void* v, void* o,
 }
 
 
-// The kernel for narrow heads, d = 8, 16 or 32 (the sensitive accuracy
-// instrument's tiny ViT: width 32, 4 heads of 8; stego_torch/data/
-// synthetic.py:tiny_benchmark_setup), on bf16 q/k/v and, instantiated on
-// float, on f32 ones (an f32 trunk of those widths with
-// use_flash_attention). The JAX package's Pallas kernels take any d, so the
-// same entry points and forms reach this one. wgmma's bf16 K-step is 16
-// and a TMA box's inner extent 16 bytes at least, so d = 8 fits the kernel
-// above only padded to 16 in depth, and at these widths the work is small:
-// N = 65 tokens at res 64, 4 N^2 d = 0.14 MFLOP a head. So a simple design:
-// one thread owns one query row of one (batch, head), keeps q (scaled as
-// the form says) and its f32 accumulator in registers, and walks the keys
-// in tiles of kBlockN that the block stages in shared memory as f32 (every
-// thread of a warp reads the same key row, a broadcast); the products are
-// f32 FMA in depth order. Bound at these shapes: the launch itself (a few
-// microseconds) over the bytes of q, k, v and out (16 B ... 128 B a row)
-// and the FMAs, which are both far below it.
-// The forms keep the rounding points of the kernels above: two-pass takes
-// a first pass for each row's max and a second for p = exp(s - max)
-// rounded to the element type, its f32 sum and the f32 p v; resident a
-// third pass, p divided by the row's sum before it is rounded; flash the
-// online softmax over blocks of kBlockN = TK = 128 keys (each block's max
-// from a first sweep of the tile); no_softmax p = s rounded, no division.
-// In the f32 instantiation every rounding to the element type is the
-// identity, as in A-f32 (p.astype(v.dtype) is a no-op in f32): the scale
-// falls on q (two-pass, no_softmax) or on the logits (resident, flash),
-// resident's p is divided by the sum before the product, the others'
-// accumulators after it, which in f32 differ only by f32 rounding. Its
-// products stay on f32 FMA: at d <= 32 no 3xTF32 split is needed to keep
-// f32's accuracy, and FMA is what the TF32-off plain version computes.
-// Rows past N are computed on zeros and not stored; keys past N are not
-// visited.
-constexpr int kNarrowRows = 128;  // query rows a block, one a thread
+// The kernel for narrow heads, d = 8, 16 or 32, on bf16 q/k/v and,
+// instantiated on float, on f32 ones: the sensitive accuracy instrument's
+// tiny ViT (width 32, 4 heads of 8, N = 65 tokens at res 64;
+// stego_torch/data/synthetic.py:tiny_benchmark_setup) and an f32 trunk of
+// those widths with use_flash_attention. The JAX package's Pallas kernels
+// take any d, so at these widths this kernel replaces the same TPU kernels
+// as the one above (stego_tpu/ops/flash_attention.py: _batch_resident_kernel
+// :188, _kv_resident_kernel :264, _resident_kernel :124, _flash_kernel :29;
+// the token-major and no-softmax entries reach it through their strides and
+// form).
+//
+// Bound: at N = 65 a head is 4 N^2 d = 0.14 MFLOP (d = 32) against
+// 4 N d 2 bytes of q, k, v and out, far below both of the card's rates at
+// this grid's 64 blocks; what bounds the kernel is the launch and one pass
+// over q, k, v and out, each a dependent trip to memory.
+//
+// Design. A warp owns 16 query rows of one (batch, head); a block holds
+// ceil(N / 16) such warps of one (batch, head), at most kNarrowMaxWarps (a
+// launch parameter, not a template: N = 65 takes 5 warps, 80 rows, and the
+// grid (ceil(N / rows), H, B) is 64 blocks at B = 16, H = 4). A warp whose
+// rows all lie past N takes part in the loads only, so no (batch, head)
+// computes more than one warp tile past N; rows past N within it are
+// computed on zeros and not stored. Each warp holds q in registers as A
+// fragments for the whole call (scaled where the form scales q) and takes
+// both products on mma.sync: s = q k^T and acc += p v as independent
+// tensor-core steps, where the old kernel (one thread a query row) ran d
+// dependent f32 FMAs a key for each product.
+//   bf16: s on m16n8k16 (m16n8k8 at d = 8: no padding in depth), K
+//     fragments by ldmatrix; p packed to bf16 straight from s's accumulator
+//     registers (the C layout of m16n8 is the A layout of the next product)
+//     and acc += p v on m16n8k16, V fragments by ldmatrix.trans.
+//   f32: both products by 3xTF32 on m16n8k8 (tf32x3.cuh), the depth index
+//     permuted as in A-f32, so that a K fragment is one 8-byte load and s's
+//     accumulator is p's A fragment.
+// K and V come in tiles of TK = 128 keys (flash's block), in the element
+// type, through a two-stage cp.async ring of 16-byte copies (one stage when
+// N <= 128); keys at or past N load as zeros and are masked (s = -inf; p = 0
+// in no_softmax). A tile's logits for a warp's 16 rows stay in registers (16
+// n-tiles of 8 keys; a thread holds 2 keys of each for rows g and g + 8), so
+// the row max, the sum and the division are register passes after one
+// product; n-tiles wholly past N are neither multiplied nor exponentiated.
+// Where N > 128 the two-pass and resident forms take each row's max (and
+// resident's sum, rescaled as the max grows) in a first sweep over the K
+// tiles and the product again in a second over K and V. Row pitches keep
+// ldmatrix and the f32 fragment loads free of bank conflicts (NarrowSmem).
+// Not wgmma: it takes 64-row tiles and a 16-element depth, so N = 65 would be
+// two 64-row tiles, nearly half of them padding, d = 8 would be padded to 16,
+// and its rate buys nothing at 0.14 MFLOP a head.
+//
+// The forms keep the rounding points of the kernel above in either type:
+//   two-pass: q * scale in q's dtype (the scale itself of that dtype, as
+//     the plain version's torch.tensor(scale, dtype=q.dtype)), p = exp(s -
+//     the row's final max) rounded to T, its f32 sum unrounded, the output
+//     acc / sum;
+//   resident: the scale on the f32 logits, p times 1 / the row's sum
+//     before it is rounded, no division after;
+//   flash: the scale on the f32 logits, an online softmax over blocks of
+//     exactly TK = 128 keys: each block's max over the whole block before
+//     any exp, p rounded against the new max, the sum and acc rescaled by
+//     exp(old max - new max), the output acc / sum;
+//   no_softmax: q scaled as two-pass, p = s rounded to T, no division.
+// In f32 every rounding to T is the identity (p.astype(v.dtype) is a no-op).
+// No atomics, and every sum in a fixed order: runs are deterministic.
+constexpr int kNarrowTile = kBlockN;  // keys a K/V tile: TK, flash's block
+constexpr int kNarrowMaxWarps = 8;    // warps a block, 16 query rows each
 
-__device__ __forceinline__ float to_f32(__nv_bfloat16 x) {
-  return __bfloat162float(x);
-}
-__device__ __forceinline__ float to_f32(float x) { return x; }
+// Shared memory of the ring, in bytes: each stage K then V, kNarrowTile
+// rows each at these pitches.
+//   bf16: ldmatrix reads 8 rows of 16 bytes a matrix; a pitch that is an
+//     odd multiple of 16 bytes puts them in 8 distinct bank groups (48 and
+//     80 bytes for d = 16 and 32; d = 8's 16-byte rows are contiguous).
+//   f32: a K fragment is 8 bytes at row g, word 2t (t = 0..3): a pitch of
+//     8 words mod 32 keeps each half warp's 4 rows apart (d = 8: 8 words;
+//     16: 24; 32: 40); a V element is at row 2t, word g: 2 x pitch = 8 or
+//     24 words mod 32 keeps the 4 rows apart (d + 4 words: 12, 20, 36).
+template <int kD, typename T>
+struct NarrowSmem {
+  static constexpr bool kF32 = std::is_same_v<T, float>;
+  static constexpr int kRow = kD * static_cast<int>(sizeof(T));
+  static constexpr int kKPitch =
+      kF32 ? 4 * (kD == 8 ? 8 : kD + 8) : (kRow == 16 ? 16 : kRow + 16);
+  static constexpr int kVPitch = kF32 ? 4 * (kD + 4) : kKPitch;
+  static constexpr int kV = kNarrowTile * kKPitch;  // V's offset in a stage
+  static constexpr int kStage = kV + kNarrowTile * kVPitch;
+};
 
 // x rounded to T and back: bf16 rounds to nearest even, f32 is exact
 template <typename T>
@@ -1183,52 +1231,6 @@ __device__ __forceinline__ float round_to(float x) {
   }
 }
 
-// one 16-byte chunk of a row (8 bf16 or 4 f32 elements) as f32
-template <typename T>
-__device__ __forceinline__ void load_chunk(float* out, const T* src) {
-  const uint4 raw = *reinterpret_cast<const uint4*>(src);
-  if constexpr (std::is_same_v<T, float>) {
-    const float* f = reinterpret_cast<const float*>(&raw);
-#pragma unroll
-    for (int i = 0; i < 4; ++i) out[i] = f[i];
-  } else {
-    const __nv_bfloat162* h2 = reinterpret_cast<const __nv_bfloat162*>(&raw);
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const float2 f = __bfloat1622float2(h2[i]);
-      out[2 * i] = f.x;
-      out[2 * i + 1] = f.y;
-    }
-  }
-}
-
-template <int kD, typename T>
-__device__ __forceinline__ void load_tile_narrow(float* dst, const T* head,
-                                                 long long sn, int k0,
-                                                 int kn) {
-  constexpr int kPer = 16 / sizeof(T);  // elements a 16-byte chunk
-  constexpr int kChunks = kD / kPer;    // chunks a row
-  for (int c = threadIdx.x; c < kBlockN * kChunks; c += blockDim.x) {
-    const int r = c / kChunks;
-    const int col = (c % kChunks) * kPer;
-    float* out = dst + r * kD + col;
-    if (r < kn) {
-      load_chunk<T>(out, head + static_cast<long long>(k0 + r) * sn + col);
-    } else {
-#pragma unroll
-      for (int i = 0; i < kPer; ++i) out[i] = 0.f;
-    }
-  }
-}
-
-template <int kD>
-__device__ __forceinline__ float dot_row(const float* qr, const float* kr) {
-  float s = 0.f;
-#pragma unroll
-  for (int c = 0; c < kD; ++c) s = fmaf(qr[c], kr[c], s);
-  return s;
-}
-
 __device__ __forceinline__ void store_pair(__nv_bfloat16* op, float a,
                                            float b) {
   *reinterpret_cast<__nv_bfloat162*>(op) = __floats2bfloat162_rn(a, b);
@@ -1237,109 +1239,460 @@ __device__ __forceinline__ void store_pair(float* op, float a, float b) {
   *reinterpret_cast<float2*>(op) = make_float2(a, b);
 }
 
+// kCount 8 x 8 matrices of 16-bit elements from shared memory: lanes
+// 8i .. 8i + 7 give the row addresses of matrix i, and r[i] holds (row g,
+// columns 2t and 2t + 1) of it, or with kTrans (rows 2t and 2t + 1,
+// column g).
+template <int kCount, bool kTrans>
+__device__ __forceinline__ void ldsm(uint32_t (&r)[kCount], uint32_t addr) {
+  static_assert((kCount == 1 && !kTrans) || kCount == 2 || kCount == 4,
+                "x1 (K at d = 8), x2 or x4");
+  if constexpr (kCount == 1) {
+    asm volatile("ldmatrix.sync.aligned.m8n8.x1.shared.b16 {%0}, [%1];\n"
+                 : "=r"(r[0]) : "r"(addr) : "memory");
+  } else if constexpr (kCount == 2) {
+    if constexpr (kTrans) {
+      asm volatile(
+          "ldmatrix.sync.aligned.m8n8.x2.trans.shared.b16 {%0, %1}, [%2];\n"
+          : "=r"(r[0]), "=r"(r[1]) : "r"(addr) : "memory");
+    } else {
+      asm volatile("ldmatrix.sync.aligned.m8n8.x2.shared.b16 {%0, %1}, [%2];\n"
+                   : "=r"(r[0]), "=r"(r[1]) : "r"(addr) : "memory");
+    }
+  } else {
+    if constexpr (kTrans) {
+      asm volatile(
+          "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, "
+          "[%4];\n"
+          : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3]) : "r"(addr)
+          : "memory");
+    } else {
+      asm volatile(
+          "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+          : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3]) : "r"(addr)
+          : "memory");
+    }
+  }
+}
+
+// c += a b, one bf16 product into f32 on mma.sync m16n8k16 (A 16 x 16
+// row-major, B 16 x 8 column-major). Fragments (g = lane / 4, t = lane % 4;
+// two bf16 a register, the lower index in the low half): a[0] = A[g][2t..],
+// a[1] = A[g + 8][2t..], a[2] = A[g][2t + 8..], a[3] = A[g + 8][2t + 8..];
+// b0 = B[2t..][g], b1 = B[2t + 8..][g]; c as tf32x3.cuh's C.
+__device__ __forceinline__ void mma_bf16_k16(float (&c)[4],
+                                             const uint32_t (&a)[4],
+                                             uint32_t b0, uint32_t b1) {
+  asm("mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// The same, 8 deep (m16n8k8): a0 = A[g][2t..], a1 = A[g + 8][2t..],
+// b0 = B[2t..][g].
+__device__ __forceinline__ void mma_bf16_k8(float (&c)[4], uint32_t a0,
+                                            uint32_t a1, uint32_t b0) {
+  asm("mma.sync.aligned.m16n8k8.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5}, {%6}, {%0, %1, %2, %3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a0), "r"(a1), "r"(b0));
+}
+
+// Keys k0 .. k0 + kc - 1 of one head (row stride sn elements) into a
+// shared tile of the given pitch by cp.async, 16 bytes a copy; rows kc ..
+// the next multiple of 16 are zeros (the products read them; p is 0 there).
+template <int kD, typename T>
+__device__ __forceinline__ void load_narrow(uint8_t* dst, int pitch,
+                                            const T* head, long long sn,
+                                            int k0, int kc) {
+  constexpr int kPer = 16 / static_cast<int>(sizeof(T));  // elements a copy
+  constexpr int kChunks = kD / kPer;                       // copies a row
+  const int rows = min(kNarrowTile, (kc + 15) & ~15);
+  for (int c = threadIdx.x; c < rows * kChunks; c += blockDim.x) {
+    const int r = c / kChunks;
+    const int col = c % kChunks;
+    const bool valid = r < kc;
+    cp_async16(dst + r * pitch + 16 * col,
+               head + (valid ? static_cast<long long>(k0 + r) * sn : 0) +
+                   col * kPer,
+               valid);
+  }
+}
+
 template <int kD, int kForm, typename T>
-__global__ void __launch_bounds__(kNarrowRows)
+__global__ void __launch_bounds__(kNarrowMaxWarps * 32)
 attention_narrow_kernel(const T* __restrict__ q, const T* __restrict__ k,
                         const T* __restrict__ v, T* __restrict__ o, int n,
                         Strides qs, Strides ks, Strides vs, Strides os,
                         float scale) {
-  __shared__ __align__(16) float s_k[kBlockN * kD];
-  __shared__ __align__(16) float s_v[kBlockN * kD];
-  const int row = blockIdx.x * kNarrowRows + threadIdx.x;
+  using S = NarrowSmem<kD, T>;
+  constexpr bool kF32 = S::kF32;
+  // two-pass and no_softmax: q * scale in q's dtype; resident and flash:
+  // the scale multiplies the f32 logits
+  constexpr bool kScaleQ = kForm == kTwoPass || kForm == kNoSoftmax;
+  // the forms that take p against the row's final max
+  constexpr bool kFinalMax = kForm == kTwoPass || kForm == kResident;
+  constexpr int kNT = kNarrowTile / 8;  // n-tiles of 8 keys a tile
+  constexpr int kDT = kD / 8;           // n-tiles of 8 output columns
+  extern __shared__ __align__(16) uint8_t smem_narrow[];
+  const int warp = threadIdx.x >> 5;
+  const int lane = threadIdx.x & 31;
+  const int g = lane >> 2;
+  const int t = lane & 3;
   const int h = blockIdx.y;
   const int b = blockIdx.z;
-  const bool live = row < n;
+  const int row0 = (blockIdx.x * (blockDim.x >> 5) + warp) * 16;
+  const bool live = row0 < n;  // the warp has a query row below n
   const T* kh = k + b * ks.b + h * ks.h;
   const T* vh = v + b * vs.b + h * vs.h;
-  // two-pass and no_softmax: q * scale in q's dtype (the scale itself of
-  // that dtype, as the plain version's torch.tensor(scale, dtype=q.dtype));
-  // resident and flash: the scale multiplies the f32 logits
-  constexpr bool kScaleQ = kForm == kTwoPass || kForm == kNoSoftmax;
-  const float sq = round_to<T>(scale);
-  float qr[kD];
-  float acc[kD];
-  const T* qp =
-      q + b * qs.b + static_cast<long long>(live ? row : 0) * qs.n + h * qs.h;
-#pragma unroll
-  for (int c = 0; c < kD; ++c) {
-    const float x = live ? to_f32(qp[c]) : 0.f;
-    qr[c] = kScaleQ ? round_to<T>(x * sq) : x;
-    acc[c] = 0.f;
-  }
-  auto logit = [&](const float* kr) {
-    const float s = dot_row<kD>(qr, kr);
-    return kScaleQ ? s : s * scale;
-  };
-  // a sweep over every key tile: fn(tile's key count) after the tile has
-  // landed in s_k (and s_v when with_v)
-  auto sweep = [&](bool with_v, auto fn) {
-    for (int k0 = 0; k0 < n; k0 += kBlockN) {
-      const int kn = min(kBlockN, n - k0);
-      __syncthreads();  // every thread is done with the previous tile
-      load_tile_narrow<kD, T>(s_k, kh, ks.n, k0, kn);
-      if (with_v) load_tile_narrow<kD, T>(s_v, vh, vs.n, k0, kn);
-      __syncthreads();
-      fn(kn);
+  const int tiles = (n + kNarrowTile - 1) / kNarrowTile;
+  // a first sweep over K alone (the row max, and resident's sum)
+  const bool two_sweeps = kFinalMax && tiles > 1;
+  const int loads = two_sweeps ? 2 * tiles : tiles;
+
+  // load i: tile i (i - tiles in the second sweep), K, and V unless it is
+  // the first sweep's
+  auto issue = [&](int i) {
+    uint8_t* st = smem_narrow + (i & 1) * S::kStage;
+    const int k0 = (i < tiles ? i : i - tiles) * kNarrowTile;
+    const int kc = min(kNarrowTile, n - k0);
+    load_narrow<kD, T>(st, S::kKPitch, kh, ks.n, k0, kc);
+    if (!two_sweeps || i >= tiles) {
+      load_narrow<kD, T>(st + S::kV, S::kVPitch, vh, vs.n, k0, kc);
     }
+    asm volatile("cp.async.commit_group;\n" ::: "memory");
   };
-  auto add_pv = [&](float p, const float* vr) {
+  issue(0);
+
+  // q's A fragments (zeros past n), loaded while the first tile lands.
+  // bf16: qa[ks] of depth step ks (16 deep; d = 8 one step of 8 in qa[0][0]
+  // and qa[0][1]). f32: qa[st] the TF32 high part and q_lo[st] the low part
+  // of 8-deep step st, mma column t at depth 8 st + 2t, t + 4 at 8 st + 2t +
+  // 1.
+  constexpr int kQSteps = kF32 ? kDT : (kD + 15) / 16;
+  uint32_t qa[kQSteps][4] = {};
+  uint32_t q_lo[kF32 ? kQSteps : 1][4] = {};
 #pragma unroll
-    for (int c = 0; c < kD; ++c) acc[c] = fmaf(p, vr[c], acc[c]);
-  };
-  float m = -INFINITY, l = 0.f;
-  if constexpr (kForm == kNoSoftmax) {
-    sweep(true, [&](int kn) {
-      for (int j = 0; j < kn; ++j) {
-        add_pv(round_to<T>(logit(s_k + j * kD)), s_v + j * kD);
-      }
-    });
-    l = 1.f;
-  } else if constexpr (kForm == kFlash) {
-    sweep(true, [&](int kn) {
-      float bm = -INFINITY;
-      for (int j = 0; j < kn; ++j) bm = fmaxf(bm, logit(s_k + j * kD));
-      const float m_new = fmaxf(m, bm);
-      const float corr = expf(m - m_new);
-      l *= corr;
+  for (int r = 0; r < 2; ++r) {
+    const int row = row0 + g + 8 * r;
+    const bool real = row < n;
+    const T* qp = q + b * qs.b + static_cast<long long>(real ? row : 0) * qs.n +
+                  h * qs.h + 2 * t;
+    if constexpr (kF32) {
 #pragma unroll
-      for (int c = 0; c < kD; ++c) acc[c] *= corr;
-      for (int j = 0; j < kn; ++j) {
-        const float p = expf(logit(s_k + j * kD) - m_new);
-        l += p;
-        add_pv(round_to<T>(p), s_v + j * kD);
-      }
-      m = m_new;
-    });
-  } else {
-    sweep(false, [&](int kn) {
-      for (int j = 0; j < kn; ++j) m = fmaxf(m, logit(s_k + j * kD));
-    });
-    if constexpr (kForm == kResident) {
-      sweep(false, [&](int kn) {
-        for (int j = 0; j < kn; ++j) l += expf(logit(s_k + j * kD) - m);
-      });
-      const float inv = 1.f / l;
-      sweep(true, [&](int kn) {
-        for (int j = 0; j < kn; ++j) {
-          const float p = expf(logit(s_k + j * kD) - m) * inv;
-          add_pv(round_to<T>(p), s_v + j * kD);
+      for (int st = 0; st < kQSteps; ++st) {
+        float2 x = real ? *reinterpret_cast<const float2*>(qp + 8 * st)
+                        : make_float2(0.f, 0.f);
+        if (kScaleQ) {
+          x.x *= scale;
+          x.y *= scale;
         }
-      });
-      l = 1.f;
+        tf32x3::split(x.x, qa[st][r], q_lo[st][r]);
+        tf32x3::split(x.y, qa[st][2 + r], q_lo[st][2 + r]);
+      }
     } else {
-      sweep(true, [&](int kn) {
-        for (int j = 0; j < kn; ++j) {
-          const float p = expf(logit(s_k + j * kD) - m);
-          l += p;
-          add_pv(round_to<T>(p), s_v + j * kD);
+      const float sq = round_to<T>(scale);
+#pragma unroll
+      for (int st = 0; st < kQSteps; ++st) {
+#pragma unroll
+        for (int half = 0; half < (kD == 8 ? 1 : 2); ++half) {
+          uint32_t x =
+              real ? *reinterpret_cast<const uint32_t*>(qp + 16 * st + 8 * half)
+                   : 0u;
+          if (kScaleQ) {
+            const float2 f =
+                __bfloat1622float2(*reinterpret_cast<__nv_bfloat162*>(&x));
+            x = pack_bf16(f.x * sq, f.y * sq);
+          }
+          qa[st][2 * half + r] = x;
         }
-      });
+      }
     }
+  }
+
+  // s[nt][e]: the logit of row g + 8 (e >> 1) and key 8 nt + 2t + (e & 1)
+  // of the tile, then p
+  float s[kNT][4];
+  // acc[j][e]: row g + 8 (e >> 1), output column 8 j + 2t + (e & 1)
+  float acc[kDT][4];
+#pragma unroll
+  for (int j = 0; j < kDT; ++j) {
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[j][e] = 0.f;
+  }
+
+  // s = q k^T over the tile's live n-tiles (kc keys), the scale unless q
+  // carries it, keys at or past kc -inf (no_softmax: 0)
+  auto logits = [&](const uint8_t* sk, int kc) {
+#pragma unroll
+    for (int nt = 0; nt < kNT; ++nt) {
+      if (8 * nt >= kc) break;
+#pragma unroll
+      for (int e = 0; e < 4; ++e) s[nt][e] = 0.f;
+      if constexpr (kF32) {
+        const float* kr = reinterpret_cast<const float*>(
+            sk + (8 * nt + g) * S::kKPitch) + 2 * t;
+#pragma unroll
+        for (int st = 0; st < kQSteps; ++st) {
+          const float2 kk = *reinterpret_cast<const float2*>(kr + 8 * st);
+          tf32x3::mma3(s[nt], qa[st], q_lo[st], kk.x, kk.y);
+        }
+      } else {
+        // the tile's keys 8 nt .. 8 nt + 7, one 16-byte matrix a depth chunk
+        uint32_t kb[kDT];
+        ldsm<kDT, false>(kb, smem_u32(sk + (8 * nt + (lane & 7)) * S::kKPitch +
+                                      16 * ((lane >> 3) % kDT)));
+        if constexpr (kD == 8) {
+          mma_bf16_k8(s[nt], qa[0][0], qa[0][1], kb[0]);
+        } else {
+#pragma unroll
+          for (int st = 0; st < kQSteps; ++st) {
+            mma_bf16_k16(s[nt], qa[st], kb[2 * st], kb[2 * st + 1]);
+          }
+        }
+      }
+    }
+#pragma unroll
+    for (int nt = 0; nt < kNT; ++nt) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        if (!kScaleQ) s[nt][e] *= scale;
+        if (8 * nt + 2 * t + (e & 1) >= kc) {
+          s[nt][e] = kForm == kNoSoftmax ? 0.f : -INFINITY;
+        }
+      }
+    }
+  };
+  // this thread's largest logit of row r in the tile
+  auto tile_max = [&](int r) {
+    float x = -INFINITY;
+#pragma unroll
+    for (int nt = 0; nt < kNT; ++nt) {
+      x = fmaxf(x, fmaxf(s[nt][2 * r], s[nt][2 * r + 1]));
+    }
+    return x;
+  };
+  // s = exp(s - mx[r]) over the live n-tiles, 0 past them; returns this
+  // thread's sums of row 0 and row 1 (in sum[])
+  auto exp_rows = [&](const float (&mx)[2], int kc, float (&sum)[2]) {
+#pragma unroll
+    for (int nt = 0; nt < kNT; ++nt) {
+      if (8 * nt < kc) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          s[nt][e] = exp_diff(s[nt][e], mx[e >> 1]);
+          sum[e >> 1] += s[nt][e];
+        }
+      } else {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) s[nt][e] = 0.f;
+      }
+    }
+  };
+  // acc += p v over the tile's live keys, p = s rounded to T
+  auto pv = [&](const uint8_t* sv, int kc) {
+    if constexpr (kF32) {
+#pragma unroll
+      for (int st = 0; st < kNT; ++st) {
+        if (8 * st >= kc) break;
+        const float a[4] = {s[st][0], s[st][2], s[st][1], s[st][3]};
+        uint32_t a_hi[4], a_lo[4];
+        tf32x3::split(a, a_hi, a_lo);
+        const float* vp = reinterpret_cast<const float*>(
+            sv + (8 * st + 2 * t) * S::kVPitch) + g;
+        constexpr int kNext = S::kVPitch / 4;  // the next key's row
+#pragma unroll
+        for (int j = 0; j < kDT; ++j) {
+          tf32x3::mma3(acc[j], a_hi, a_lo, vp[8 * j], vp[kNext + 8 * j]);
+        }
+      }
+    } else {
+      // V's matrices of a 16-key step: mi = 2 j + half is keys 8 half ..
+      // 8 half + 7, columns 8 j .. 8 j + 7; 4 a load (2 at d = 8)
+      constexpr int kM = 2 * kDT;
+      constexpr int kPer = kM < 4 ? kM : 4;
+#pragma unroll
+      for (int kk = 0; kk < kNT / 2; ++kk) {
+        if (16 * kk >= kc) break;
+        const uint32_t a[4] = {
+            pack_bf16(s[2 * kk][0], s[2 * kk][1]),
+            pack_bf16(s[2 * kk][2], s[2 * kk][3]),
+            pack_bf16(s[2 * kk + 1][0], s[2 * kk + 1][1]),
+            pack_bf16(s[2 * kk + 1][2], s[2 * kk + 1][3])};
+        uint32_t vb[kM];
+#pragma unroll
+        for (int grp = 0; grp < kM / kPer; ++grp) {
+          const int mi = grp * kPer + (lane >> 3) % kPer;
+          uint32_t part[kPer];
+          ldsm<kPer, true>(part,
+                           smem_u32(sv + (16 * kk + 8 * (mi & 1) + (lane & 7)) *
+                                             S::kVPitch +
+                                    16 * (mi >> 1)));
+#pragma unroll
+          for (int i = 0; i < kPer; ++i) vb[grp * kPer + i] = part[i];
+        }
+#pragma unroll
+        for (int j = 0; j < kDT; ++j) {
+          mma_bf16_k16(acc[j], a, vb[2 * j], vb[2 * j + 1]);
+        }
+      }
+    }
+  };
+
+  // kFinalMax: each row's max (mt: this thread's, m: the row's) and
+  // resident's sum of exp(s - max) (lt, rescaled as mt grows; l the row's)
+  float mt[2] = {-INFINITY, -INFINITY}, lt[2] = {0.f, 0.f};
+  float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f};
+  auto body = [&](int i, const uint8_t* st) {
+    const int first = i < tiles;
+    const int kc = min(kNarrowTile,
+                       n - (first ? i : i - tiles) * kNarrowTile);
+    logits(st, kc);
+    if constexpr (kForm == kNoSoftmax) {
+      pv(st + S::kV, kc);
+    } else if constexpr (kForm == kFlash) {
+      // the block's max over all its keys, then p against the new max
+      float sum[2] = {0.f, 0.f};
+      float m_new[2];
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        m_new[r] = fmaxf(m[r], group_max(tile_max(r)));
+        const float corr = exp_diff(m[r], m_new[r]);
+        m[r] = m_new[r];
+        l[r] *= corr;
+#pragma unroll
+        for (int j = 0; j < kDT; ++j) {
+          acc[j][2 * r] *= corr;
+          acc[j][2 * r + 1] *= corr;
+        }
+      }
+      exp_rows(m_new, kc, sum);
+      l[0] += sum[0];
+      l[1] += sum[1];
+      pv(st + S::kV, kc);
+    } else if (two_sweeps && first) {
+      // the first sweep: this thread's max and (resident) rescaled sum
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        const float m_new = fmaxf(mt[r], tile_max(r));
+        if (kForm == kResident && m_new != -INFINITY) {
+          lt[r] *= exp_diff(mt[r], m_new);
+#pragma unroll
+          for (int nt = 0; nt < kNT; ++nt) {
+            if (8 * nt < kc) {
+              lt[r] += exp_diff(s[nt][2 * r], m_new) +
+                       exp_diff(s[nt][2 * r + 1], m_new);
+            }
+          }
+        }
+        mt[r] = m_new;
+      }
+      if (i == tiles - 1) {
+#pragma unroll
+        for (int r = 0; r < 2; ++r) {
+          m[r] = group_max(mt[r]);
+          if (kForm == kResident) {
+            l[r] = group_sum(lt[r] * exp_diff(mt[r], m[r]));
+          }
+        }
+      }
+    } else {
+      if (!two_sweeps) {
+        m[0] = group_max(tile_max(0));
+        m[1] = group_max(tile_max(1));
+      }
+      float sum[2] = {0.f, 0.f};
+      exp_rows(m, kc, sum);
+      if constexpr (kForm == kResident) {
+        if (!two_sweeps) {
+          l[0] = group_sum(sum[0]);
+          l[1] = group_sum(sum[1]);
+        }
+        // p times 1 / the row's sum: an IEEE division a p took the form
+        // to 2-3x the two-pass form's time on an H100
+        const float inv[2] = {__frcp_rn(l[0]), __frcp_rn(l[1])};
+#pragma unroll
+        for (int nt = 0; nt < kNT; ++nt) {
+          if (8 * nt < kc) {
+#pragma unroll
+            for (int e = 0; e < 4; ++e) s[nt][e] *= inv[e >> 1];
+          }
+        }
+      } else {
+        l[0] += sum[0];
+        l[1] += sum[1];
+      }
+      pv(st + S::kV, kc);
+    }
+  };
+
+  for (int i = 0; i < loads; ++i) {
+    if (i + 1 < loads) {
+      issue(i + 1);
+      asm volatile("cp.async.wait_group 1;\n" ::: "memory");
+    } else {
+      asm volatile("cp.async.wait_group 0;\n" ::: "memory");
+    }
+    __syncthreads();
+    if (live) body(i, smem_narrow + (i & 1) * S::kStage);
+    __syncthreads();
   }
   if (!live) return;
-  T* op = o + b * os.b + static_cast<long long>(row) * os.n + h * os.h;
+
+  // two-pass and flash divide by the row's sum of p; resident and
+  // no_softmax do not
+  constexpr bool kDivide = kForm == kTwoPass || kForm == kFlash;
+  float row_div[2] = {1.f, 1.f};
+  if (kDivide) {
+    row_div[0] = group_sum(l[0]);
+    row_div[1] = group_sum(l[1]);
+  }
 #pragma unroll
-  for (int c = 0; c < kD; c += 2) store_pair(op + c, acc[c] / l, acc[c + 1] / l);
+  for (int r = 0; r < 2; ++r) {
+    const int row = row0 + g + 8 * r;
+    if (row >= n) continue;
+    T* op = o + b * os.b + static_cast<long long>(row) * os.n + h * os.h +
+            2 * t;
+#pragma unroll
+    for (int j = 0; j < kDT; ++j) {
+      const float lo = acc[j][2 * r], hi = acc[j][2 * r + 1];
+      if (kDivide) {
+        store_pair(op + 8 * j, lo / row_div[r], hi / row_div[r]);
+      } else {
+        store_pair(op + 8 * j, lo, hi);
+      }
+    }
+  }
+}
+
+template <int kD, int kForm, typename T>
+cudaError_t launch_narrow_form(const void* q, const void* k, const void* v,
+                               void* o, int batch, int n, int heads,
+                               Strides qs, Strides ks, Strides vs,
+                               Strides os, float scale, cudaStream_t stream) {
+  using S = NarrowSmem<kD, T>;
+  auto kernel = attention_narrow_kernel<kD, kForm, T>;
+  // set up once a device: two stages of f32 at d = 32 pass 48 KB
+  static bool ready[kMaxDevices] = {};
+  int device = 0;
+  cudaError_t err = cudaGetDevice(&device);
+  if (err != cudaSuccess) return err;
+  if (device >= kMaxDevices || !ready[device]) {
+    err = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, 2 * S::kStage);
+    if (err != cudaSuccess) return err;
+    if (device < kMaxDevices) ready[device] = true;
+  }
+  const int warps = n < 16 * kNarrowMaxWarps ? (n + 15) / 16 : kNarrowMaxWarps;
+  const int rows = 16 * warps;
+  const int tiles = (n + kNarrowTile - 1) / kNarrowTile;
+  const dim3 grid((n + rows - 1) / rows, heads, batch);
+  kernel<<<grid, 32 * warps, (tiles > 1 ? 2 : 1) * S::kStage, stream>>>(
+      static_cast<const T*>(q), static_cast<const T*>(k),
+      static_cast<const T*>(v), static_cast<T*>(o), n, qs, ks, vs, os,
+      scale);
+  return cudaGetLastError();
 }
 
 template <int kD, typename T>
@@ -1347,29 +1700,16 @@ cudaError_t launch_narrow(const void* q, const void* k, const void* v,
                           void* o, int batch, int n, int heads, Strides qs,
                           Strides ks, Strides vs, Strides os, float scale,
                           int form, cudaStream_t stream) {
-  const dim3 grid((n + kNarrowRows - 1) / kNarrowRows, heads, batch);
-  const auto* qb = static_cast<const T*>(q);
-  const auto* kb = static_cast<const T*>(k);
-  const auto* vb = static_cast<const T*>(v);
-  auto* ob = static_cast<T*>(o);
   switch (form) {
     case kResident:
-      attention_narrow_kernel<kD, kResident, T><<<grid, kNarrowRows, 0, stream>>>(
-          qb, kb, vb, ob, n, qs, ks, vs, os, scale);
-      break;
+      return launch_narrow_form<kD, kResident, T>(q, k, v, o, batch, n, heads, qs, ks, vs, os, scale, stream);
     case kFlash:
-      attention_narrow_kernel<kD, kFlash, T><<<grid, kNarrowRows, 0, stream>>>(
-          qb, kb, vb, ob, n, qs, ks, vs, os, scale);
-      break;
+      return launch_narrow_form<kD, kFlash, T>(q, k, v, o, batch, n, heads, qs, ks, vs, os, scale, stream);
     case kNoSoftmax:
-      attention_narrow_kernel<kD, kNoSoftmax, T><<<grid, kNarrowRows, 0, stream>>>(
-          qb, kb, vb, ob, n, qs, ks, vs, os, scale);
-      break;
+      return launch_narrow_form<kD, kNoSoftmax, T>(q, k, v, o, batch, n, heads, qs, ks, vs, os, scale, stream);
     default:
-      attention_narrow_kernel<kD, kTwoPass, T><<<grid, kNarrowRows, 0, stream>>>(
-          qb, kb, vb, ob, n, qs, ks, vs, os, scale);
+      return launch_narrow_form<kD, kTwoPass, T>(q, k, v, o, batch, n, heads, qs, ks, vs, os, scale, stream);
   }
-  return cudaGetLastError();
 }
 
 template <typename T>

@@ -15,12 +15,20 @@ kernel added to ``csrc/`` lengthens it only when it is the slowest one
 (``-lcuda``: kernels A and C2 build their TMA tensor maps with
 ``cuTensorMapEncodeTiled`` from libcuda.)
 
+A variant of the library built with ``-D`` flags (``chip_smoke.py``'s and
+``tools/c2_ablation.py``'s C2 checks) compiles only the sources that read
+one of its macros, and links the port's objects of the others: each object
+is kept under ``build/stego_torch/obj/``, named by a hash of the flags, the
+source, the headers and the defines it reads, and builds running together
+in one process compile each object once.
+
 The library is built at first use, into ``build/stego_torch/`` at the root of
 the checkout (listed in ``.gitignore``), and named by a hash of the flags,
 the sources and the headers they include (``csrc/*.cuh``), so an edited
 source or header is rebuilt and an unchanged one is not. The
 compiler's output, ``-Xptxas -v`` register and shared-memory counts
-included, goes to ``build/stego_torch/build.log``.
+included, goes to ``build/stego_torch/build.log`` (every object's, shared
+or not).
 
 Nothing here runs at import. A missing ``nvcc`` or a failed build raises:
 the kernel wrappers never fall back to their plain versions for a CUDA
@@ -36,6 +44,7 @@ import os
 import shutil
 import subprocess
 import threading
+from concurrent.futures import Future
 from pathlib import Path
 
 CSRC_DIR = Path(__file__).resolve().parent.parent / "csrc"
@@ -76,6 +85,10 @@ SIGNATURES = {
 
 _lock = threading.Lock()
 _lib: ctypes.CDLL | None = None
+# objects being compiled in this process, so that builds running together
+# (a variant beside the port's) wait for one compile instead of repeating it
+_objects_lock = threading.Lock()
+_compiling: dict[Path, Future] = {}
 
 
 def find_nvcc() -> str:
@@ -111,6 +124,68 @@ def library_path(defines: tuple = ()) -> Path:
     return BUILD_DIR / f"libstego_torch_{h.hexdigest()[:16]}.so"
 
 
+def _reads(define: str, text: bytes) -> bool:
+    """Whether a source whose text (headers included) is ``text`` reads the
+    flag ``define``: a ``-DNAME[=VALUE]`` whose NAME it holds, or any other
+    flag."""
+    if not define.startswith("-D"):
+        return True
+    return define[2:].split("=", 1)[0].encode() in text
+
+
+def object_path(src: Path, defines: tuple = ()) -> Path:
+    """Where the object of ``src`` compiled with ``defines`` is kept: named
+    by a hash of the flags, the source, the headers and those of
+    ``defines`` that it reads, so a variant shares the objects of the
+    sources its defines leave alone."""
+    text = src.read_bytes() + b"".join(
+        p.read_bytes() for p in hashed_files() if p.suffix == ".cuh")
+    reads = tuple(d for d in defines if _reads(d, text))
+    h = hashlib.sha256(" ".join(NVCC_FLAGS + reads).encode())
+    h.update(src.name.encode())
+    h.update(text)
+    return BUILD_DIR / "obj" / f"{src.stem}_{h.hexdigest()[:16]}.o"
+
+
+def _compile(nvcc: str, jobs: list) -> None:
+    """Compile each (source, object, flags, future) of ``jobs``, all
+    started together; the compiler's output goes beside each object (.log)
+    and each future is resolved, with the error when nvcc failed."""
+    procs = []
+    try:
+        for src, obj, defines, _ in jobs:
+            tmp = obj.with_name(f"{obj.stem}.{os.getpid()}.tmp.o")
+            cmd = [nvcc, *NVCC_FLAGS, *defines, "-c", "-o", str(tmp),
+                   str(src)]
+            procs.append((cmd, tmp, subprocess.Popen(
+                cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                text=True)))
+        for (_, obj, _, future), (cmd, tmp, proc) in zip(jobs, procs):
+            stdout, stderr = proc.communicate()  # sets returncode
+            obj.with_suffix(".log").write_text(
+                " ".join(cmd) + "\n" + stdout + stderr)
+            if proc.returncode == 0:
+                os.replace(tmp, obj)
+                error = None
+            else:
+                tmp.unlink(missing_ok=True)
+                error = RuntimeError(
+                    f"nvcc failed with exit code {proc.returncode} "
+                    f"({cmd[-1]}):\n{stderr[-4000:]}")
+            with _objects_lock:
+                _compiling.pop(obj, None)
+            if error is None:
+                future.set_result(obj)
+            else:
+                future.set_exception(error)
+    finally:  # nothing left waiting on a compile that never ran
+        for _, obj, _, future in jobs:
+            if not future.done():
+                with _objects_lock:
+                    _compiling.pop(obj, None)
+                future.set_exception(RuntimeError(f"{obj.name}: not built"))
+
+
 def build(defines: tuple = ()) -> Path:
     """Compile ``csrc/*.cu`` unless the library for these sources exists;
     returns its path. ``defines`` (``-DNAME=VALUE`` flags) builds a variant
@@ -120,40 +195,38 @@ def build(defines: tuple = ()) -> Path:
     if out.exists():
         return out
     nvcc = find_nvcc()
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tag = f"{out.stem}.{os.getpid()}"
-    objs = [BUILD_DIR / f"{tag}.{src.stem}.o" for src in sources()]
-    tmp = out.with_name(f"{tag}.so.tmp")
-    compiles = [[nvcc, *NVCC_FLAGS, *defines, "-c", "-o", str(obj), str(src)]
-                for src, obj in zip(sources(), objs)]
-    procs = [subprocess.Popen(cmd, stdout=subprocess.PIPE,
-                              stderr=subprocess.PIPE, text=True)
-             for cmd in compiles]
-    log, error = [], None
-
-    def record(cmd, returncode, stdout, stderr):
-        nonlocal error
-        log.append(" ".join(cmd) + "\n" + stdout + stderr)
-        if returncode != 0 and error is None:
-            error = (f"nvcc failed with exit code {returncode} ({cmd[-1]}):"
-                     f"\n{stderr[-4000:]}")
-
-    for cmd, proc in zip(compiles, procs):
-        stdout, stderr = proc.communicate()  # sets returncode
-        record(cmd, proc.returncode, stdout, stderr)
-    if error is None:
+    (BUILD_DIR / "obj").mkdir(parents=True, exist_ok=True)
+    objs = [object_path(src, defines) for src in sources()]
+    jobs, waits = [], []
+    with _objects_lock:
+        for src, obj in zip(sources(), objs):
+            future = _compiling.get(obj)
+            if future is None and obj.exists():
+                continue
+            if future is None:
+                future = _compiling[obj] = Future()
+                jobs.append((src, obj, defines, future))
+            waits.append(future)
+    _compile(nvcc, jobs)
+    errors = [f.exception() for f in waits if f.exception() is not None]
+    log = [obj.with_suffix(".log").read_text() for obj in objs
+           if obj.with_suffix(".log").exists()]
+    tmp = out.with_name(f"{out.stem}.{os.getpid()}.so.tmp")
+    if not errors:
         link = [nvcc, *ARCH_FLAGS, "-shared", "-o", str(tmp),
                 *map(str, objs), *LINK_LIBS]
         proc = subprocess.run(link, capture_output=True, text=True,
                               check=False)
-        record(link, proc.returncode, proc.stdout, proc.stderr)
-    for obj in objs:
-        obj.unlink(missing_ok=True)
+        log.append(" ".join(link) + "\n" + proc.stdout + proc.stderr)
+        if proc.returncode != 0:
+            errors.append(RuntimeError(
+                f"nvcc failed with exit code {proc.returncode} (link):"
+                f"\n{proc.stderr[-4000:]}"))
     (BUILD_DIR / f"build{'' if not defines else '.' + out.stem}.log"
      ).write_text("".join(log))
-    if error is not None:
+    if errors:
         tmp.unlink(missing_ok=True)
-        raise RuntimeError(error)
+        raise RuntimeError(str(errors[0]))
     os.replace(tmp, out)
     return out
 

@@ -42,8 +42,9 @@ through it, and it ends in the same launch as the functions above.
 A CPU tensor takes the plain version; a CUDA tensor launches the kernel or
 raises: bf16 q/k/v of d = 64 the wgmma kernel, bf16 or f32 ones of d = 8,
 16 or 32 (the sensitive accuracy instrument's tiny ViT has heads of 8) a
-simple kernel of their own in the same source, instantiated for each dtype
-(f32 FMA in depth order; in f32 it rounds nothing to bf16), f32 ones of
+kernel of their own in the same source, instantiated for each dtype (a
+warp per 16 query rows on mma.sync: bf16 products, f32 ones by 3xTF32 in
+every form; in f32 it rounds nothing to bf16), f32 ones of
 d = 64 (an f32 trunk with ``use_flash_attention``, which the JAX package
 also sends through its Pallas kernels) the f32 instantiation A-f32, whose
 softmax forms take their products on the tensor cores by 3xTF32

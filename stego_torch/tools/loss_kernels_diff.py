@@ -34,36 +34,18 @@ timed in one run on one card.
 
 from __future__ import annotations
 
-import os
-import subprocess
 import sys
-import tempfile
 
 import torch
+
+if __package__:
+    from .checkout_diff import kernel_ms, run_checkouts
+else:  # --produce, a script in the other checkout (checkout_diff.py)
+    from checkout_diff import kernel_ms, run_checkouts
 
 C1_OUTPUTS = ("losses", "cd means", "side-2 code", "fd", "row sums",
               "dcode", "dcode_pos")
 C2_OUTPUTS = ("losses", "cd means", "dcode")
-
-
-def kernel_ms(fn, iters: int = 20) -> tuple:
-    """Device ms per call of ``fn``: (in kernels named ``corr_*``, C1's and
-    C2's; in all its kernels), from the profiler's trace, after one warm-up
-    call."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-
-    fn()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(iters):
-            fn()
-        torch.cuda.synchronize()
-    events = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
-    corr = sum(e.time_range.elapsed_us() for e in events
-               if "corr_" in e.name)
-    every = sum(e.time_range.elapsed_us() for e in events)
-    return corr / iters / 1e3, every / iters / 1e3
 
 
 def c1_kept(losses: torch.Tensor, b: int, g: int) -> list:
@@ -155,11 +137,12 @@ def produce(out: str) -> None:
 def time_fwd_bwd(forward, inputs) -> tuple:
     """(forward, backward) :func:`kernel_ms` of the loss ``forward()``
     returns, differentiated in ``inputs``."""
-    fwd = kernel_ms(forward)
+    fwd = kernel_ms(forward, match="corr_")
     losses, cds = forward()
     total = losses.sum() + cds.sum()
     bwd = kernel_ms(lambda: torch.autograd.grad(total, inputs,
-                                                retain_graph=True))
+                                                retain_graph=True),
+                    match="corr_")
     return fwd, bwd
 
 
@@ -174,19 +157,8 @@ def main(argv=None) -> int:
     if not torch.cuda.is_available():
         print("loss_kernels_diff: no CUDA device", file=sys.stderr)
         return 1
-    here = os.path.dirname(os.path.dirname(os.path.dirname(
-        os.path.abspath(__file__))))
-    results = []
-    with tempfile.TemporaryDirectory() as tmp:
-        for name, root in (("other", argv[0]), ("this", here)):
-            out = os.path.join(tmp, f"{name}.pt")
-            env = dict(os.environ, PYTHONPATH=os.path.abspath(root))
-            # this file as a script, so that stego_torch is the checkout's
-            subprocess.run([sys.executable, os.path.abspath(__file__),
-                            "--produce", out], check=True, env=env,
-                           cwd=os.path.abspath(root))
-            results.append(torch.load(out))
-    other, this = results
+    runs = run_checkouts(__file__, argv[0])
+    other, this = runs["other"][0], runs["this"][0]
     for key, tensors in this["outputs"].items():
         names = C1_OUTPUTS if key.startswith("C1") else C2_OUTPUTS
         for name, x, y in zip(names, other["outputs"][key], tensors):

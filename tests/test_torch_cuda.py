@@ -110,20 +110,25 @@ def test_attention_kernel_matches_plain(cuda, b, n, heads):
 @pytest.mark.parametrize("d", (fa.HEAD_DIM,) + fa.NARROW_HEAD_DIMS)
 def test_attention_kernel_is_deterministic(cuda, d):
     """Two launches on the same inputs agree bit for bit, at every head
-    width (128 // d heads)."""
-    g = torch.Generator(device=cuda).manual_seed(0)
-    q, k, v = (torch.randn(2, 300, 128, generator=g, device=cuda).bfloat16()
-               for _ in range(3))
+    width (128 // d heads), on bf16 and f32 q/k/v (A-f32 and the narrow-head
+    kernel's f32 instantiation), in the token-major form and the head-major
+    resident, flash and no-softmax forms."""
     heads = 128 // d
-    a = fa.token_major_attention(q, k, v, heads, d ** -0.5)
-    b = fa.token_major_attention(q, k, v, heads, d ** -0.5)
-    assert fa.HEAD_DIM_LAUNCHES[(d, torch.bfloat16)] >= 2
-    assert torch.equal(a, b)
-    for fn in (fa.resident_attention, fa.flash_attention):
-        heads_major = [x.unflatten(-1, (heads, d)).transpose(1, 2)
-                       for x in (q, k, v)]
-        assert torch.equal(fn(*heads_major, d ** -0.5),
-                           fn(*heads_major, d ** -0.5))
+    for dtype in (torch.bfloat16, torch.float32):
+        g = torch.Generator(device=cuda).manual_seed(0)
+        q, k, v = (torch.randn(2, 300, 128, generator=g, device=cuda)
+                   .to(dtype) for _ in range(3))
+        before = fa.HEAD_DIM_LAUNCHES[(d, dtype)]
+        a = fa.token_major_attention(q, k, v, heads, d ** -0.5)
+        b = fa.token_major_attention(q, k, v, heads, d ** -0.5)
+        assert fa.HEAD_DIM_LAUNCHES[(d, dtype)] == before + 2
+        assert torch.equal(a, b)
+        for fn in (fa.resident_attention, fa.flash_attention,
+                   fa.no_softmax_attention):
+            heads_major = [x.unflatten(-1, (heads, d)).transpose(1, 2)
+                           for x in (q, k, v)]
+            assert torch.equal(fn(*heads_major, d ** -0.5),
+                               fn(*heads_major, d ** -0.5)), (dtype, fn)
 
 
 HEAD_MAJOR = ("resident_attention", "batch_resident_attention",
@@ -180,9 +185,13 @@ def test_head_major_attention_kernel_matches_plain(cuda, name, b, h, n):
 
 
 # the sensitive accuracy instrument's trunk (4 heads of 8 at res 64, N =
-# 65; batch 16, and 48 images in its aug step) and ragged shapes
-NARROW_SHAPES = [(16, 4, 65), (48, 4, 65), (1, 2, 1), (2, 3, 130),
-                 (2, 4, 1153)]
+# 65; batch 16, and 48 images in its aug step) and ragged shapes: a warp
+# tile of 16 query rows exactly full and one row past it (16, 17), a 128-key
+# tile (the flash form's block) exactly full, one key past it and a second
+# partial tile (128, 129, 145), and longer sequences (130, 1153)
+NARROW_SHAPES = [(16, 4, 65), (48, 4, 65), (1, 2, 1), (2, 4, 16),
+                 (2, 4, 17), (2, 4, 128), (2, 4, 129), (2, 4, 145),
+                 (2, 3, 130), (2, 4, 1153)]
 
 
 @pytest.mark.parametrize("d", fa.NARROW_HEAD_DIMS)
@@ -260,6 +269,42 @@ def test_narrow_f32_attention_kernel_matches_plain(cuda, name, d):
             if n >= 65:
                 ctl = fn(*(x.bfloat16() for x in (q, k, v)), scale).float()
                 assert not torch.all((ctl - want).abs() <= tol), (b, h, n)
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = kept
+
+
+@pytest.mark.parametrize("d", fa.NARROW_HEAD_DIMS)
+def test_narrow_f32_gate_rejects_single_tf32_pass(cuda, d):
+    """The narrow-head kernel's f32 products by 3xTF32 hold the 2e-5 gate
+    against the f32 plain version (TF32 off) in every form at the sensitive
+    instrument's shape (B=16, H=4, N=65), and the plain version with one
+    TF32 pass a product (ops/tf32.py), the control, misses it in each."""
+    from stego_torch.ops.tf32 import matmul_tf32
+
+    kept = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        g = torch.Generator(device=cuda).manual_seed(65 + d)
+        q, k, v = (torch.randn(16, 4, 65, d, generator=g, device=cuda)
+                   for _ in range(3))
+        q, k = 2 * q, 2 * k
+        scale = d ** -0.5
+        for name, form in (("batch_resident_attention", "two_pass"),
+                           ("resident_attention", "resident"),
+                           ("flash_attention", "flash"),
+                           ("no_softmax_attention", "no_softmax")):
+            fn = getattr(fa, name)
+            want = fn(q, k, v, scale, use_kernel=False)
+            tol = f32_tolerance(name, want)
+            before = fa.HEAD_DIM_LAUNCHES[(d, torch.float32)]
+            got = fn(q, k, v, scale)
+            torch.cuda.synchronize()
+            assert fa.HEAD_DIM_LAUNCHES[(d, torch.float32)] == before + 1
+            control = fa.attention_heads_plain(q, k, v, scale, form,
+                                               matmul=matmul_tf32)
+            assert bool(((got - want).abs() <= tol).all()), \
+                (form, float((got - want).abs().max()))
+            assert not bool(((control - want).abs() <= tol).all()), form
     finally:
         torch.backends.cuda.matmul.allow_tf32 = kept
 

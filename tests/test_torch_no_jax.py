@@ -50,6 +50,8 @@ MODULES = [
     "stego_torch.tools.attention_layouts",
     "stego_torch.tools.attention_consumers",
     "stego_torch.tools.loss_kernels_diff",
+    "stego_torch.tools.attention_narrow_diff",
+    "stego_torch.tools.checkout_diff",
     "stego_torch.data.datasets", "stego_torch.data.contrastive",
     "stego_torch.data.loader", "stego_torch.data.crop",
     "stego_torch.data.native_io", "stego_torch.utils.logging",

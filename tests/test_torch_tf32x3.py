@@ -1,8 +1,8 @@
 """The card's 3xTF32 arithmetic (``csrc/tf32x3.cuh``), emulated by
 ``stego_torch/ops/tf32.py``, against the JAX package's f32 functions on the
-CPU: kernel A-f32's entry points and kernel C2's f32 fd row sums, losses
-and code gradients hold the gates they are held to on the card, and a
-single TF32 pass, the control, fails them.
+CPU: kernel A-f32's entry points, kernel A's narrow heads on f32 q/k/v and
+kernel C2's f32 fd row sums, losses and code gradients hold the gates they
+are held to on the card, and a single TF32 pass, the control, fails them.
 
 Tolerances and their sources:
 
@@ -241,6 +241,60 @@ def test_no_softmax_elementwise_gate_measures_summation_order():
     assert not _within(emulated.numpy(), plain.numpy(), **F32_TOL)
     assert float((emulated.double() - exact).abs().max()) \
         < float((plain.double() - exact).abs().max())
+
+
+# --- kernel A's narrow heads (d = 8, 16, 32), f32 ---------------------------
+
+# the head-major entries of the narrow-head kernel's softmax forms
+NARROW_ENTRIES = {"batch_resident_attention": "two_pass",
+                  "resident_attention": "resident",
+                  "flash_attention": "flash"}
+
+
+def _narrow_inputs(d, n):
+    """Head-major (B=2, H=4, N=n, d) f32 q, k ~ N(0, 4), v ~ N(0, 1)."""
+    rng = np.random.default_rng(n + d)
+    q, k, v = (rng.standard_normal((2, 4, n, d)).astype(np.float32)
+               for _ in range(3))
+    return 2 * q, 2 * k, v
+
+
+@pytest.mark.parametrize("n", [65, 145])
+@pytest.mark.parametrize("d", [8, 16, 32])
+@pytest.mark.parametrize("entry", sorted(NARROW_ENTRIES))
+def test_narrow_tf32x3_holds_f32_gate(entry, d, n):
+    """The narrow-head kernel's f32 instantiation takes both products by
+    3xTF32 (8-deep steps in depth, and in key order) at each form's own
+    rounding points: through the form's plain version, within 2e-5 of the
+    JAX kernel in f32 at the sensitive instrument's N = 65 and past one
+    128-key block (145); one TF32 pass a product, the control, misses that
+    gate."""
+    inputs = _narrow_inputs(d, n)
+    want = np.asarray(getattr(jfa, entry)(
+        *(jnp.asarray(x) for x in inputs), d ** -0.5, interpret=True))
+    args = [torch.from_numpy(x) for x in inputs]
+    for name, matmul in MATMULS.items():
+        got = fa.attention_heads_plain(*args, d ** -0.5,
+                                       NARROW_ENTRIES[entry],
+                                       matmul=matmul).numpy()
+        assert _within(got, want, **F32_TOL) == (name == "3xTF32"), name
+
+
+@pytest.mark.parametrize("n", [65, 1153])
+@pytest.mark.parametrize("d", [8, 16, 32])
+def test_narrow_no_softmax_tf32x3_holds_its_gate(d, n):
+    """no_softmax (p = the logits of q * scale, no division) at the gate
+    the card holds the narrow-head kernel to, 2e-5 of the largest output,
+    against the f32 plain version: 3xTF32 products hold it at N = 65 and
+    1153, one TF32 pass a product misses it."""
+    args = [torch.from_numpy(x) for x in _narrow_inputs(d, n)]
+    want = fa.attention_heads_plain(*args, d ** -0.5, "no_softmax")
+    tol = 2e-5 * float(want.abs().max())
+    for name, matmul in MATMULS.items():
+        got = fa.attention_heads_plain(*args, d ** -0.5, "no_softmax",
+                                       matmul=matmul)
+        assert (float((got - want).abs().max()) <= tol) \
+            == (name == "3xTF32"), name
 
 
 # --- kernel C2 ----------------------------------------------------------------
