@@ -134,17 +134,24 @@
    load_model_for_eval gives the in-memory segmenter's flip-TTA code bit
    for bit, and the resumed run starts at step 100. Prints the app's
    median step, images/s, the bare step's, the loader's wait, the
-   validation epochs' seconds and peak device memory.
+   validation epochs' seconds and peak device memory. Then the app's soak
+   (stego_torch/tools/soak.py) at 300 steps on the same scenes:
+   validation, a checkpoint and the histograms every 50, the probes reset
+   at 150, a straight run and one cut at 100 and resumed, held by every
+   gate of the soak but the accuracy bands and host RSS (the schedule's
+   rows, the kept checkpoints, flat device memory, exact launches a step
+   and a validation batch, the resumed run bit for bit the straight one).
 12. Evaluates the app's newest .ckpt over its 128 val scenes at res 320
    (stego_torch/eval/evaluate.py: evaluate() through its Evaluator,
    loader batches of 16, flip-TTA) without a CRF, with the grid CRF on the
-   card and with the exact CRF on the host (one batch). Every batch
+   card and with the exact CRF on the host (one batch of 8). Every batch
    launches 24 A at pair_kv and 50 L and nothing else; the device-summed
    confusion matrices equal the host's np.bincount of the predictions; the
    metrics are finite with the JAX evaluate's keys. The grid CRF of one
    batch's log-probs on the card is held against the same function on the
-   CPU and in f64, and the grid and exact CRFs must agree on 90% of that
-   batch's argmaxes; save_outputs writes the PNG trees. Prints each run's
+   CPU and in f64 (its first 8 images), and the grid and exact CRFs must
+   agree on 90% of the argmaxes of its first 8; save_outputs writes the
+   PNG trees. Prints each run's
    images/s, the grid CRF's device ms a batch and the exact CRF's host
    seconds an image.
 13. Trains 10 sampled steps with the in-training CRF loss (crf_weight 0.1:
@@ -167,11 +174,11 @@
    straight, and 8, a checkpoint and a resume to 16, equal bit for bit;
    the validation's matrices equal one process's) and evaluate() (its
    matrices equal one process's) on the two ranks; exact launches a rank.
-   Then one rank over NCCL (the global case's one-process step through a
-   group of one), and two ranks over NCCL, one a card, where the machine
-   has two. Prints each rank's ms a step, device busy and the
-   collectives' calls and host ms a step: two processes sharing one card,
-   not a scaling number.
+   One rank over NCCL runs beside them (the global case's one-process
+   step through a group of one); then two ranks over NCCL, one a card,
+   where the machine has two. Prints each rank's ms a step, device busy
+   and the collectives' calls and host ms a step: processes sharing one
+   card, not a scaling number.
 15. The plot apps (python -m stego_torch.eval.plot_apps) at ViT-S/8 bf16
    with the cocostuff27 head on a written directory set and a written
    PotsdamRaw scene: correspondence at res 224 (24 A, 50 L) and 512 (no A:
@@ -185,9 +192,13 @@
    chain launching exactly its kernels: the path of kernel A's resident,
    flash, no_softmax and packed forms and of L2.
 
-Prints one JSON line with the kernels' results (times, launches on the
-main paths, errors against the plain versions, the least time the card
-could take for the same work, and the library call's time where one
+Phase fpn, before phase analysis, trains the feature-pyramid arch
+(ResNet-50) and drives its entry points; its app cut at 5 steps and resumed
+to 10 must end in the straight run's train state bit for bit. The scenes of
+steps 8-14 render on the host's other cores from phase C1 on. Prints each
+phase's seconds, one JSON line with the kernels' results (times, launches
+on the main paths, errors against the plain versions, the least time the
+card could take for the same work, and the library call's time where one
 PyTorch call computes the same function), the nvidia-smi line, and as the
 last line {"ok": true, "device": {...}}. Exits non-zero, without that line,
 when there is no CUDA device, a kernel does not build or launch, or a check
@@ -383,7 +394,7 @@ FPN_GRAD_GAP = 1e-6
 CONTRASTIVE = ("the weighted contrastive losses (loss/total - loss/linear - "
                "loss/cluster)", lambda m: m["loss/total"] - m["loss/linear"]
                - m["loss/cluster"])
-FPN_TRAIN, FPN_VAL, FPN_APP_STEPS = 64, 16, 10
+FPN_TRAIN, FPN_VAL, FPN_APP_STEPS, FPN_APP_CUT = 64, 16, 10, 5
 FPN_EMBEDDERS = ("resnet50", "vgg11", "densenet121")
 # the feature-cache path: seeded synthetic scenes of 27 classes, the train
 # split at TRAIN_RES with its KNN table, the val split at VAL_RES in
@@ -1119,9 +1130,9 @@ SERVE_CASES = (("vit_small_320", "vit_small", "bfloat16", 320),
                ("vit_small_224", "vit_small", "bfloat16", 224),
                ("vit_tiny_320", "vit_tiny", "bfloat16", 320),
                ("vit_small_f32_224", "vit_small", "float32", 224))
-SERVE_TIMED, SERVE_BATCHES, SERVE_ITERS = "vit_small_320", (BATCH, 5), 12
-SERVE_CPU_IMAGES = {"vit_small_224": 2, "vit_tiny_320": 1,
-                    "vit_small_f32_224": 2}
+SERVE_TIMED, SERVE_BATCHES, SERVE_ITERS = "vit_small_320", (BATCH, 5), 6
+SERVE_CPU_IMAGES = {"vit_small_224": 1, "vit_tiny_320": 1,
+                    "vit_small_f32_224": 1}
 # f32 artifact, card against CPU: log-probs within SERVE_F32_ATOL and
 # predictions equal where the top-two margin exceeds SERVE_F32_MARGIN (the
 # f32 tolerances the port's CPU tests hold its eval and serving to against
@@ -1275,9 +1286,22 @@ def op_host_us(dev):
     return out
 
 
-def serve_n_devices(case, tmp):
+def package_shards(case, tmp):
     """An n_devices=SERVE_SHARDS artifact of ``case``'s checkpoint (phase
-    serve's SERVE_TIMED), packaged on the card and loaded in this process
+    serve's SERVE_TIMED), packaged on the card: its directory and the
+    packaging's seconds."""
+    from stego_torch import serve
+
+    t0 = time.perf_counter()
+    art = serve.package(case["ckpt"], os.path.join(tmp, "serve_shards"),
+                        res=case["res"], batch_size=BATCH,
+                        n_devices=SERVE_SHARDS)
+    return art, time.perf_counter() - t0
+
+
+def serve_n_devices(case, art, pack_s):
+    """The n_devices=SERVE_SHARDS artifact ``art`` of ``case``'s checkpoint
+    (package_shards; phase serve's SERVE_TIMED), loaded in this process
     on its default devices where the machine has SERVE_SHARDS cards, else
     on [cuda:0] * SERVE_SHARDS after a default-devices load, which must
     raise. Gates: its predict of the case's BATCH images equals the
@@ -1290,10 +1314,6 @@ def serve_n_devices(case, tmp):
     from stego_torch.ops import layer_norm as ln
 
     n, cards = SERVE_SHARDS, torch.cuda.device_count()
-    t0 = time.perf_counter()
-    art = serve.package(case["ckpt"], os.path.join(tmp, "serve_shards"),
-                        res=case["res"], batch_size=BATCH, n_devices=n)
-    pack_s = time.perf_counter() - t0
     if cards >= n:
         model = serve.ServingModel.load(art)
         where = f"on cuda:0 .. cuda:{n - 1}"
@@ -1480,11 +1500,14 @@ def phase_serve(dev, tmp):
             package(*case)
             launch(case[0])
     package(*next(case for case in SERVE_CASES if case[0] == SERVE_TIMED))
+    # the timed process loads and predicts beside the others; it times
+    # once the go file exists, after they have ended and their outputs are
+    # held here, with nothing else on the card; meanwhile this process
+    # packages the timed case's n-device artifact
+    launch(SERVE_TIMED)
+    shards = package_shards(cases[SERVE_TIMED], tmp)
     for label in untimed:
         cases[label]["proc"].wait(timeout=600)
-    # the timed process loads while the others' outputs are held here; it
-    # times once the go file exists, with nothing else on the card
-    launch(SERVE_TIMED)
     for label in untimed + [SERVE_TIMED]:
         if label == SERVE_TIMED:
             open(cases[label]["opts"]["go"], "w").close()
@@ -1527,7 +1550,7 @@ def phase_serve(dev, tmp):
         host = op_host_us(dev)
         print("  host us a call: " + ", ".join(
             f"{k} {v:.1f}" for k, v in host.items()))
-    launches["vit_small"].append(serve_n_devices(timed, tmp))
+    launches["vit_small"].append(serve_n_devices(timed, *shards))
     print(f"  phase serve: {time.perf_counter() - t_phase:.1f} s")
     return {m: add_counts(*runs) for m, runs in launches.items()}
 
@@ -2750,17 +2773,30 @@ def render(args):
     return ((img - mean) / std).astype(np.float32), label.astype(np.int16)
 
 
-def scenes(split, n, res):
-    """``n`` scenes of a split, rendered by a pool of processes (spawned,
-    so that no child shares this process's CUDA state; the pool ends before
-    this returns)."""
+def start_scenes(*splits, jobs=()):
+    """Start rendering the scenes of each ``(split, n, res)`` of
+    ``splits``, and each ``(fn, *args)`` of ``jobs``, on a pool of
+    processes (spawned, so that no child shares this process's CUDA state;
+    one fewer than the cores, so that this process keeps one while the
+    phases go on). Returns a function that waits for them all and returns
+    one list of scenes a split, the pool ended."""
     import multiprocessing
 
     ctx = multiprocessing.get_context("spawn")
-    with concurrent.futures.ProcessPoolExecutor(
-            min(8, os.cpu_count() or 1), mp_context=ctx) as pool:
-        return list(pool.map(render, [(split, i, res) for i in range(n)],
-                             chunksize=8))
+    pool = concurrent.futures.ProcessPoolExecutor(
+        max(1, min(8, os.cpu_count() or 1) - 1), mp_context=ctx)
+    done = [pool.submit(*job) for job in jobs]
+    maps = [pool.map(render, [(split, i, res) for i in range(n)],
+                     chunksize=8) for split, n, res in splits]
+
+    def result():
+        try:
+            for job in done:
+                job.result()
+            return [list(m) for m in maps]
+        finally:
+            pool.shutdown()
+    return result
 
 
 class SceneSplit:
@@ -3399,6 +3435,100 @@ def phase_app(dev, tmp, train_items, val_items, nns):
         mgr.checkpoint_path(kept[-1])
 
 
+# phase soak: tools/soak.py's two runs (straight; cut and resumed) on phase
+# app's scenes and KNN table at its footprint, SOAK_STEPS steps with
+# validation, a checkpoint and the histograms every SOAK_FREQ, the probes
+# reset at SOAK_RESET, the cut run at SOAK_CUT; memory held from SOAK_CUT
+SOAK_STEPS, SOAK_FREQ, SOAK_RESET, SOAK_CUT = 300, 50, 150, 100
+
+
+def phase_soak(dev, tmp, train_items, val_items, nns):
+    """The training app's soak (stego_torch/tools/soak.py) at a depth that
+    fits this script: both runs of SOAK_STEPS at phase app's footprint,
+    every gate of soak.gates (the schedule's rows and histogram sets, the
+    loss finite and falling, the kept checkpoints, the probe reset and the
+    linear probe's recovery, flat device memory, exact launches a step and
+    a validation batch, the resumed run bit for bit the straight one)
+    except the accuracy bands and host RSS, which mean nothing this short.
+    The main path: the counts are set to 0 just before both runs and must
+    be 12 A, 25 L and 1+1 C1 a step and 12 A2 and 25 L a validation batch
+    (and soak.code_stats' trunk call a validation) just after. Writes
+    under ``tmp``; returns the launches."""
+    from stego_torch.config import Config
+    from stego_torch.data.contrastive import ContrastiveSegDataset
+    from stego_torch.tools import soak
+
+    t0 = time.perf_counter()
+    train_ds = ContrastiveSegDataset.from_items(SceneItems(train_items), 27,
+                                                nns=nns, num_neighbors=7)
+    val_ds = ContrastiveSegDataset.from_items(SceneItems(val_items), 27)
+    cfg = Config(dataset_name="cocostuff27", model_type="vit_small",
+                 dino_patch_size=8, projection_type="nonlinear", dim=70,
+                 backbone_dtype="bfloat16", res=TRAIN_RES, val_res=VAL_RES,
+                 batch_size=TRAIN_BATCH, val_batch_size=VAL_BATCH,
+                 max_steps=SOAK_STEPS, val_freq=SOAK_FREQ,
+                 checkpoint_freq=SOAK_FREQ, hist_freq=SOAK_FREQ,
+                 scalar_log_freq=APP_LOG_FREQ, reset_probe_steps=SOAK_RESET,
+                 save_top_k=2, output_root=tmp, experiment_name="soak",
+                 run_crf=False)
+    print(f"soak: tools/soak.py at {SOAK_STEPS} steps on the app's scenes, "
+          f"validation, checkpoints and histograms every {SOAK_FREQ}, the "
+          f"probes reset at {SOAK_RESET}, a run cut at {SOAK_CUT} and "
+          f"resumed")
+    torch.cuda.synchronize()
+    reset_counts()
+    runs, fails = soak.soak(
+        cfg, SOAK_CUT, soak.Limits(mem_from=SOAK_CUT,
+                                   loss_window=SOAK_STEPS // 10,
+                                   rss_growth=None),
+        train_dataset=train_ds, val_dataset=val_ds, device=dev)
+    torch.cuda.synchronize()
+    launches = path_counts()
+    steps = sum(r.record["steps"][1] - r.record["steps"][0]
+                for r in runs.values())
+    vals = sum(r.record["val_s"]["n"] for r in runs.values())
+    batches = -(-len(val_items) // VAL_BATCH)
+    # each validation: its batches and soak.code_stats' trunk call
+    want = add_counts(launches_of(12 * steps, 25 * steps, "pair",
+                                  corr_sampled_fwd=steps,
+                                  corr_sampled_bwd=steps),
+                      trunk_launches(vals * (batches + 1), VAL_RES))
+    check(launches == want,
+          f"soak: {steps} steps and {vals} validations of {batches} batches "
+          f"and a code-statistics call, launches attention/LN/C1 fwd/C1 bwd/"
+          f"C2 fwd/C2 bwd "
+          f"{tuple(launches[k] for k in COUNTS)}, attention at "
+          f"pair/pair_kv {launches['attention_pair']}/"
+          f"{launches['attention_pair_kv']}")
+    for f in fails:
+        check(False, f"soak: {f}")
+    straight, resumed = runs["straight"].record, runs["resumed"].record
+    mem = [m[1:3] for m in straight["memory_mib"]]
+    check(not fails,
+          f"soak: every gate of tools/soak.py: the resumed run (from step "
+          f"{resumed['steps'][0]}, across the reset at {SOAK_RESET}) ends in "
+          f"the straight run's state bit for bit and logs its rows; linear "
+          f"mIoU by validation "
+          + ", ".join(f"{v[0]}: {v[1]:.2f}" for v in straight["validation"])
+          + f"; device memory (allocated, peak MiB) "
+          + ", ".join(f"{a:.1f}/{p:.1f}" for a, p in mem)
+          + "; the code's norm, pairwise cosine and one direction's share "
+          + ", ".join(f"{c[1]:.2f}/{c[2]:.4f}/{c[3]:.4f}"
+                      for c in straight["code"]))
+    for line in soak.lines(runs, dev):
+        for seg in line.get("segments", [line]):
+            print(f"  soak, {line['soak']}, steps {seg['steps'][0]}-"
+                  f"{seg['steps'][1]}: {seg['wall_s']:.1f} s wall, "
+                  f"{seg['images_per_s']:.1f} images/s over the loop, median "
+                  f"step {seg['median_step_ms']:.2f} ms, loader wait "
+                  f"{seg['loader_wait_share']:.1%}, validation "
+                  f"{seg['val_s']['sum']:.2f} s ({seg['val_s']['n']}), "
+                  f"checkpoints {seg['ckpt_s']['sum']:.2f} s "
+                  f"({seg['ckpt_s']['n']})")
+    print(f"  soak: the phase took {time.perf_counter() - t0:.1f} s")
+    return launches
+
+
 # the eval phase: evaluate() on the app's newest .ckpt over its val scenes
 # at VAL_RES, batch_size EVAL_BATCH (loader batches of twice that), without
 # a CRF, with the grid CRF and with the exact CRF (EXACT_BATCHES batches;
@@ -3414,6 +3544,9 @@ def phase_app(dev, tmp, train_items, val_items, nns):
 # and exact backends agree on GRID_EXACT of the argmaxes
 # (tests/test_crf.py:101-143)
 EVAL_BATCH, EXACT_BATCHES, EXACT_SCENES, MIN_MOVED = 8, 1, 8, 1e-3
+# the exact CRF's run takes batch_size EXACT_BATCH; the grid CRF on the
+# CPU, the first CRF_CPU_IMAGES images of the first batch
+EXACT_BATCH, CRF_CPU_IMAGES = 4, 8
 CRF_ATOL, CRF_SHARE, CRF_MEAN, CRF_ARGMAX, F64_RATIO = 1e-4, 0.995, 2e-6, \
     0.999, 3.0
 CRF_F64_MAX = 1e-2
@@ -3443,7 +3576,8 @@ def recount(kept, n_classes, extra):
     return out
 
 
-def eval_run(dev, label, ckpt, val_ds, max_batches=None, **cfg_kw):
+def eval_run(dev, label, ckpt, val_ds, max_batches=None,
+             batch_size=EVAL_BATCH, **cfg_kw):
     """evaluate()'s loop (an Evaluator) over ``val_ds``, the main path: the
     counts are set to 0 just before it and read just after. Gates: 24 A
     (pair_kv) and 50 L launches a batch and no other, the summed confusion
@@ -3455,7 +3589,7 @@ def eval_run(dev, label, ckpt, val_ds, max_batches=None, **cfg_kw):
     from stego_torch.eval.evaluate import Evaluator
 
     cfg = Config(dataset_name="cocostuff27", res=VAL_RES,
-                 batch_size=EVAL_BATCH, experiment_name="eval", **cfg_kw)
+                 batch_size=batch_size, experiment_name="eval", **cfg_kw)
     ev = Evaluator(cfg, ckpt, dev, val_dataset=val_ds)
     kept, first = [], []
 
@@ -3589,7 +3723,7 @@ def phase_eval(dev, tmp, ckpt, val_items):
                                          run_crf=True, crf_backend="grid")
     ev_x, exact_kept, _, run3, _ = eval_run(
         dev, "exact CRF", ckpt, val_ds, max_batches=EXACT_BATCHES,
-        run_crf=True, crf_backend="exact")
+        batch_size=EXACT_BATCH, run_crf=True, crf_backend="exact")
     n_exact = EXACT_BATCHES * ev_x.batch_size
     print(f"  eval, exact CRF: host {sum(ev_x.crf_seconds) / n_exact:.3f} s "
           f"an image ({os.cpu_count()} CPU cores, "
@@ -3607,10 +3741,11 @@ def phase_eval(dev, tmp, ckpt, val_items):
     inputs = {"linear log-probs": lp, "cluster log-probs": cp,
               "scene logits": scene}
 
-    def grid(device, dtype=torch.float32, names=tuple(inputs)):
-        im = img01.to(device, dtype)
+    def grid(device, dtype=torch.float32, names=tuple(inputs), n=None):
+        """The grid CRF of the first ``n`` images (all: None)."""
+        im = img01[:n].to(device, dtype)
         kern = bilateral_kernel(im)
-        return {k: dense_crf(im, inputs[k].to(device, dtype), kern=kern)
+        return {k: dense_crf(im, inputs[k][:n].to(device, dtype), kern=kern)
                 for k in names}
 
     card = grid(dev)
@@ -3624,11 +3759,11 @@ def phase_eval(dev, tmp, ckpt, val_items):
                   f"the argmaxes (< {MIN_MOVED:g}), not counted")
     counted = tuple(k for k in inputs if moved[k] >= MIN_MOVED)
     t0 = time.perf_counter()
-    cpu = grid("cpu", names=counted)
+    cpu = grid("cpu", names=counted, n=CRF_CPU_IMAGES)
     cpu_s = time.perf_counter() - t0
-    ref = grid(dev, torch.float64, names=counted)
+    ref = grid(dev, torch.float64, names=counted, n=CRF_CPU_IMAGES)
     for k in counted:
-        c, h, r = card[k], cpu[k].to(dev), ref[k]
+        c, h, r = card[k][:CRF_CPU_IMAGES], cpu[k].to(dev), ref[k]
         argmax, share, mean, mx = crf_agreement(c, h)
         card_f64 = [float(f((c.double() - r).abs())) for f in (torch.max,
                                                               torch.mean)]
@@ -3638,7 +3773,7 @@ def phase_eval(dev, tmp, ckpt, val_items):
               and card_f64[1] <= F64_RATIO * max(cpu_f64[1], 1e-12)
               and card_f64[0] <= CRF_F64_MAX,
               f"eval: grid CRF of the {k}, card vs CPU "
-              f"({ev.batch_size}x{VAL_RES}x{VAL_RES}, {c.shape[-1]} classes,"
+              f"({c.shape[0]}x{VAL_RES}x{VAL_RES}, {c.shape[-1]} classes,"
               f" {moved[k]:.4f} of the argmaxes moved): argmax equal "
               f"{argmax:.6f}, within {CRF_ATOL:g} {share:.6f}, mean |diff| "
               f"{mean:.2e}, max {mx:.2e}; from f64: card max "
@@ -3648,14 +3783,16 @@ def phase_eval(dev, tmp, ckpt, val_items):
     # grid against exact: the eval runs' first batch, and the scene logits
     # on its first EXACT_SCENES images
     for i, k in ((1, "linear log-probs"), (2, "cluster log-probs")):
-        agree = float(np.mean(grid_kept[0][i] == exact_kept[0][i]))
+        n = len(exact_kept[0][i])
+        agree = float(np.mean(grid_kept[0][i][:n] == exact_kept[0][i]))
         if moved[k] < MIN_MOVED:
             print(f"  eval: grid and exact CRF agree on {agree:.4f} of the "
                   f"first batch's argmaxes of the {k}: the grid CRF moves "
                   f"{moved[k]:.2e} of them, not counted")
             continue
         check(agree >= GRID_EXACT, f"eval: grid and exact CRF agree on "
-              f"{agree:.4f} of the first batch's argmaxes of the {k}")
+              f"{agree:.4f} of the argmaxes of the {k} of the first batch's "
+              f"first {n} images")
     t0 = time.perf_counter()
     exact = dense_crf_exact_batch_multi(
         img01[:EXACT_SCENES].cpu().numpy(),
@@ -4453,19 +4590,20 @@ def hold_fpn_app(dev, tmp, ranks, val, fpn_runs):
               f"process's evaluate() of the same {len(val)} images")
 
 
-def phase_ddp(dev, tmp, train_items, val_items, smi):
+def phase_ddp(dev, tmp, train_items, val_items, fpn_val, smi):
     """Phase ddp. One process first (the KNN table); then DDP_WORLD ranks
     on this card over gloo: the step cases, the KNN build, the app
-    (straight, cut and resumed) and the eval; then one process on the
+    (straight, cut and resumed) and the eval, with one rank over NCCL
+    beside them (the global case); then one process on the
     whole batch for each step case, each step from the ranks' state after
     the step before, and its own trajectory from the seeded start
     (hold_ddp_trajectories), and the validation and eval matrices of their
     checkpoint; the feature-pyramid cases (FPN_DDP_CASES) in the same
     runs, held by hold_fpn_steps, the control (FPN_CONTROL) against the
-    global case's first step, and the FPN app and its eval; then one rank
-    over NCCL (the global case), and DDP_WORLD ranks over NCCL, one a
-    card, where the machine has that many (the global case and the
-    feature-pyramid cases). Returns the launches of each run, summed over
+    global case's first step, and the FPN app (validated on ``fpn_val``)
+    and its eval; then the NCCL rank's step, and DDP_WORLD ranks over
+    NCCL, one a card, where the machine has that many (the global case and
+    the feature-pyramid cases). Returns the launches of each run, summed over
     its ranks: the ViT runs' and the feature-pyramid runs'."""
     from stego_torch.eval.evaluate import Evaluator, load_model_for_eval
     from stego_torch.train.segmenter import make_val_step
@@ -4485,8 +4623,6 @@ def phase_ddp(dev, tmp, train_items, val_items, smi):
     ref_nns, _ = ddp_knn(dev, tmp, train)
     os.remove(os.path.join(tmp, "nns", "nns_ddp.npz"))
     data = os.path.join(tmp, "ddp_scenes.npz")
-    # the FPN app validates the val split's first scenes at TRAIN_RES
-    fpn_val = scenes(1, DDP_VAL, TRAIN_RES)
     np.savez(data, train_img=np.stack([i for i, _ in train]),
              train_label=np.stack([lb for _, lb in train]),
              val_img=np.stack([i for i, _ in val]),
@@ -4508,9 +4644,14 @@ def phase_ddp(dev, tmp, train_items, val_items, smi):
 
     fpn_names = list(FPN_DDP_CASES)
     t0 = time.perf_counter()
-    ranks = finish_ddp("gloo", start_ddp(
-        tmp, "gloo", "gloo", [str(dev)] * DDP_WORLD,
-        list(DDP_CASES) + fpn_names + [FPN_CONTROL], True, data))
+    gloo = start_ddp(tmp, "gloo", "gloo", [str(dev)] * DDP_WORLD,
+                     list(DDP_CASES) + fpn_names + [FPN_CONTROL], True, data)
+    # one rank over NCCL beside them: the global case's one-process step
+    # (C2's route) through a group of one, whose collectives run and change
+    # nothing
+    nccl_procs = start_ddp(tmp, "nccl", "nccl", ["cuda:0"], ["global"],
+                           False, reference=True)
+    ranks = finish_ddp("gloo", gloo)
     print(f"  ddp gloo: {DDP_WORLD} ranks ran in "
           f"{time.perf_counter() - t0:.1f} s (each process's start, its "
           f"CUDA context and imports included)")
@@ -4622,10 +4763,7 @@ def phase_ddp(dev, tmp, train_items, val_items, smi):
                                          "ddp_eval", "img")),
               "ddp eval: rank 0 wrote the PNG trees")
 
-    # one rank over NCCL: the global case's one-process step (C2's route)
-    # through a group of one, whose collectives run and change nothing
-    nccl = finish_ddp("nccl", start_ddp(tmp, "nccl", "nccl", ["cuda:0"],
-                                        ["global"], False, reference=True))
+    nccl = finish_ddp("nccl", nccl_procs)
     if nccl is not None:
         hold_ddp_steps("nccl, 1 rank", nccl, refs, ["global"], step_launches)
         runs["nccl"] = nccl[0]["global"]["launches"]
@@ -5163,6 +5301,7 @@ def phase_fpn(dev, tmp, smi):
     ckpt_dir = os.path.join(out, "checkpoints", "directory_fpn")
     ckpt = CheckpointManager(ckpt_dir,
                              load_config(ckpt_dir)).checkpoint_path()
+    runs["app_resume"] = fpn_resume(out, train_args, ckpt_dir)
     sd = torch.load(ckpt, map_location="cpu", weights_only=True)["state_dict"]
     tracked = {int(v) for k, v in sd.items()
                if k.endswith("num_batches_tracked")}
@@ -5231,6 +5370,54 @@ def phase_fpn(dev, tmp, smi):
     return runs
 
 
+def fpn_resume(out, train_args, straight_dir):
+    """``python -m stego_torch.train`` of the feature-pyramid arch cut at
+    FPN_APP_CUT steps, then run again with resume=true to FPN_APP_STEPS:
+    its last step's train state (the head, its BatchNorm statistics, the
+    probes and the three Adams' states) must equal the straight run's
+    (``straight_dir``) bit for bit. Returns the two runs' launches (1+1
+    C1 a step)."""
+    from stego_torch.train import app
+
+    args = [a for a in train_args
+            if not a.startswith(("max_steps=", "experiment_name="))]
+    args.append("experiment_name=fpn_resumed")
+    torch.cuda.synchronize()
+    reset_counts()
+    t0 = time.perf_counter()
+    app.main(args + [f"max_steps={FPN_APP_CUT}"])
+    app.main(args + [f"max_steps={FPN_APP_STEPS}", "resume=true"])
+    torch.cuda.synchronize()
+    sec = time.perf_counter() - t0
+    launches = path_counts()
+    check(launches == launches_of(corr_sampled_fwd=FPN_APP_STEPS,
+                                  corr_sampled_bwd=FPN_APP_STEPS),
+          f"python -m stego_torch.train (arch=feature-pyramid) cut at "
+          f"{FPN_APP_CUT} and resumed to {FPN_APP_STEPS} in {sec:.1f} s: "
+          f"launches { {k: v for k, v in launches.items() if v} }")
+    states = [torch.load(os.path.join(d, str(FPN_APP_STEPS), "state.pt"),
+                         map_location="cpu", weights_only=True)
+              for d in (straight_dir, os.path.join(
+                  out, "checkpoints", "directory_fpn_resumed"))]
+    pairs = [(f"modules.{k}", v, states[1]["modules"][k])
+             for k, v in states[0]["modules"].items()]
+    for name, opt in states[0]["optimizers"].items():
+        for i, entry in opt["state"].items():
+            pairs += [(f"{name}.{i}.{k}", v,
+                       states[1]["optimizers"][name]["state"][i][k])
+                      for k, v in entry.items()]
+    off = [(n, float((a.double() - b.double()).abs().max()))
+           for n, a, b in pairs if not torch.equal(a, b)]
+    worst = max(off, key=lambda x: x[1]) if off else None
+    check(not off and states[0]["step"] == states[1]["step"],
+          f"feature-pyramid app: cut at {FPN_APP_CUT} and resumed, step "
+          f"{FPN_APP_STEPS}'s train state equals the straight run's bit for "
+          f"bit ({len(pairs)} tensors; {len(off)} differ"
+          + (f", the largest {worst[1]:.3e} at {worst[0]}" if worst else "")
+          + ")")
+    return launches
+
+
 # phase analysis: the written directory set (train images for the
 # correspondence figure, the val set of the PR curves) and the PotsdamRaw
 # scene (the reference's 15 x 15 grid of 320 x 320 tiles)
@@ -5265,6 +5452,28 @@ def write_potsdamraw(root, grid, res, seed=0):
                     {key: arr})
 
 
+def write_analysis_data(root):
+    """Phase analysis's data under ``root``: ANALYSIS_TRAIN + ANALYSIS_VAL
+    scenes of 27 classes at ANALYSIS_RES as the directory set "analysis",
+    each train image's two neighbours the next image as its KNN caches at
+    each CORR_RESOLUTIONS, and a POTSDAM_GRID x POTSDAM_GRID PotsdamRaw
+    scene of POTSDAM_TILE tiles; numpy and scipy only."""
+    from stego_torch.data.synthetic import write_synthetic_benchmark
+    from stego_torch.train.knn import knn_cache_file
+
+    write_synthetic_benchmark(root, "analysis", n_train=ANALYSIS_TRAIN,
+                              n_val=ANALYSIS_VAL, res=ANALYSIS_RES,
+                              n_classes=27)
+    n = ANALYSIS_TRAIN
+    nns = np.stack([np.arange(n), (np.arange(n) + 1) % n,
+                    (np.arange(n) + 1) % n], 1)
+    os.makedirs(os.path.join(root, "nns"), exist_ok=True)
+    for res in CORR_RESOLUTIONS:
+        np.savez(knn_cache_file(root, "vit_small", "analysis", "train", None,
+                                res), nns=nns)
+    write_potsdamraw(root, POTSDAM_GRID, POTSDAM_TILE)
+
+
 def phase_analysis(dev, tmp):
     """``python -m stego_torch.eval.plot_apps``' three mains on the card,
     ViT-S/8 bf16 with the cocostuff27 head (dim 70, 27 classes), seeded
@@ -5280,34 +5489,22 @@ def phase_analysis(dev, tmp):
     on the card: the heatmaps at
     CODE_MAX_ABS / CODE_MEAN_ABS, the mosaic's predictions at PRED_AGREE,
     the APs within AP_ATOL, the recalibrator's scalars within
-    CRF_PARAM_RTOL; its seconds printed. Returns {app: launches}."""
-    from stego_torch.data.synthetic import write_synthetic_benchmark
+    CRF_PARAM_RTOL; its seconds printed. The data are written under
+    ``<tmp>/data`` (write_analysis_data) before this is called. Returns
+    {app: launches}."""
     from stego_torch.eval import plot_apps
     from stego_torch.models.convert import save_stego_checkpoint
     from stego_torch.models.vit import VisionTransformer
-    from stego_torch.train.knn import knn_cache_file
 
     t0 = time.perf_counter()
     root = os.path.join(tmp, "data")
-    write_synthetic_benchmark(root, "analysis", n_train=ANALYSIS_TRAIN,
-                              n_val=ANALYSIS_VAL, res=ANALYSIS_RES,
-                              n_classes=27)
-    # each train image's two neighbours: the next image
-    n = ANALYSIS_TRAIN
-    nns = np.stack([np.arange(n), (np.arange(n) + 1) % n,
-                    (np.arange(n) + 1) % n], 1)
-    os.makedirs(os.path.join(root, "nns"), exist_ok=True)
-    for res in CORR_RESOLUTIONS:
-        np.savez(knn_cache_file(root, "vit_small", "analysis", "train", None,
-                                res), nns=nns)
-    write_potsdamraw(root, POTSDAM_GRID, POTSDAM_TILE)
     ckpt = os.path.join(tmp, "analysis.ckpt")
     save_stego_checkpoint(ckpt, cocostuff_segmenter(dev, "bfloat16"))
     print(f"analysis: the three plot apps, ViT-S/8 bf16, cocostuff27 head, "
           f"seeded weights; {ANALYSIS_TRAIN} train + {ANALYSIS_VAL} val "
           f"scenes at {ANALYSIS_RES} and a {POTSDAM_GRID} x {POTSDAM_GRID} "
-          f"PotsdamRaw scene of {POTSDAM_TILE} x {POTSDAM_TILE} tiles written "
-          f"in {time.perf_counter() - t0:.1f} s")
+          f"PotsdamRaw scene of {POTSDAM_TILE} x {POTSDAM_TILE} tiles, "
+          f"written beside the phases since phase C1")
     data = [f"pytorch_data_dir={root}", "dataset_name=directory",
             "dir_dataset_name=analysis", "dir_dataset_n_classes=27",
             f"output_root={os.path.join(tmp, 'out')}"]
@@ -5488,6 +5685,14 @@ def main() -> int:
     print(f"card: {smi}")
     print(f"torch {torch.__version__}, CUDA {torch.version.cuda}")
     t0 = time.perf_counter()
+    phase_times = {}
+    lap_at = [t0]
+
+    def lap(name):
+        """The seconds since the last lap, as phase ``name``'s."""
+        now = time.perf_counter()
+        phase_times[name] = phase_times.get(name, 0.0) + now - lap_at[0]
+        lap_at[0] = now
     # the port's library, C2's two check builds and the exact CRF's
     # lattice (g++), compiled together before any phase is timed
     from stego_torch import native
@@ -5508,6 +5713,7 @@ def main() -> int:
             if any(w in line for w in ("registers", "Compiling entry",
                                        "spill stores", "C7513")):
                 print(f"  ptxas: {line.strip()}")
+    lap("build")
 
     dev = torch.device("cuda", 0)
     ln_err, ln = phase_layer_norm(dev)
@@ -5519,19 +5725,34 @@ def main() -> int:
     narrow_f32 = phase_narrow_f32(dev)
     _, ln_narrow = phase_layer_norm(dev, NARROW_LN_SHAPES)
     phase_launch_floor(dev, narrow, narrow_f32, ln_narrow)
+    lap("L, L2, A")
     serving = {}
     with tempfile.TemporaryDirectory() as tmp:
         for model_type in ("vit_small", "vit_tiny"):
             serving[model_type] = phase_slice(dev, tmp, model_type)
+        lap("slice")
         artifacts = phase_serve(dev, tmp)
+        lap("serve")
     for model_type, launches in serving.items():
         want = add_counts(*(launches_of(
             REQUESTS * ATTN_PER_REQUEST, REQUESTS * LN_PER_REQUEST,
             trunk_entry(model_type, res)) for res in RESOLUTIONS))
         check(launches == want,
               f"eval path launches, {MODEL_NAMES[model_type]}: {launches}")
+    # the scenes of the feature-cache path, the app, its soak and phase ddp
+    # (the FPN app validates the val split's first scenes at TRAIN_RES) and
+    # phase analysis's data, made on the host's other cores while the next
+    # phases run
+    analysis_dir = tempfile.TemporaryDirectory()
+    rendering = start_scenes(
+        (0, TRAIN_IMAGES, TRAIN_RES), (1, VAL_IMAGES, VAL_RES),
+        (1, DDP_VAL, TRAIN_RES),
+        jobs=[(write_analysis_data, os.path.join(analysis_dir.name,
+                                                 "data"))])
     c1 = phase_corr(dev)
+    lap("C1")
     c2 = phase_corr_stream(dev)
+    lap("C2")
     train, val = phase_train(dev)
     stream = phase_train_stream(dev)
     models = phase_train_models(dev)
@@ -5539,17 +5760,20 @@ def main() -> int:
     narrow_paths = phase_narrow_paths(dev)
     narrow_f32_paths = phase_narrow_f32_paths(dev)
     branches = phase_branches(dev)
+    lap("train steps")
     with tempfile.TemporaryDirectory() as tmp:
         accuracy, _ = phase_accuracy(dev, tmp)
         phase_tf32_eval(dev, tmp)
+    lap("accuracy, tf32 eval")
 
     # the feature-cache path: KNN, caches, cached train and val steps
     t0 = time.perf_counter()
-    train_items = scenes(0, TRAIN_IMAGES, TRAIN_RES)
-    val_items = scenes(1, VAL_IMAGES, VAL_RES)
+    train_items, val_items, ddp_fpn_val = rendering()
     print(f"scenes: {TRAIN_IMAGES} at res {TRAIN_RES} and {VAL_IMAGES} at res "
-          f"{VAL_RES}, 27 classes, rendered in "
-          f"{time.perf_counter() - t0:.1f} s")
+          f"{VAL_RES} (and phase ddp's {DDP_VAL} at {TRAIN_RES}), 27 "
+          f"classes, rendered beside the phases since phase C1, waited "
+          f"{time.perf_counter() - t0:.1f} s for them")
+    lap("scenes (wait)")
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     bases = {trunk: cocostuff_segmenter(dev, dtype, cache_backbone_feats=True)
@@ -5566,17 +5790,32 @@ def main() -> int:
                           train_split, batches[0])
     cached_val = phase_cached_val(dev, trained, caches, val_split)
     del bases, trained, caches
+    lap("KNN, caches, cached steps")
     with tempfile.TemporaryDirectory() as tmp:
         app, ckpt = phase_app(dev, tmp, train_items, val_items, nns)
+        lap("app")
         evals = phase_eval(dev, tmp, ckpt, val_items)
-    crf_loss = phase_crf_loss(dev)
+        lap("eval")
     with tempfile.TemporaryDirectory() as tmp:
-        ddp, fpn_ddp = phase_ddp(dev, tmp, train_items, val_items, smi)
+        soaked = phase_soak(dev, tmp, train_items, val_items, nns)
+    lap("soak")
+    crf_loss = phase_crf_loss(dev)
+    lap("CRF loss")
+    with tempfile.TemporaryDirectory() as tmp:
+        ddp, fpn_ddp = phase_ddp(dev, tmp, train_items, val_items,
+                                 ddp_fpn_val, smi)
+    lap("ddp")
     with tempfile.TemporaryDirectory() as tmp:
         fpn = phase_fpn(dev, tmp, smi)
-    with tempfile.TemporaryDirectory() as tmp:
+    lap("fpn")
+    with analysis_dir as tmp:
         analysis = phase_analysis(dev, tmp)
+    lap("analysis")
     ladder = phase_layouts(dev)
+    lap("ladder")
+    print("phase seconds: " + ", ".join(
+        f"{k} {v:.1f}" for k, v in phase_times.items())
+        + f"; all {sum(phase_times.values()):.1f}")
 
     def per_step(steps, corr, entry="pair", trunk=True):
         """The launches of ``steps`` steps: a trunk call each (12 A at
@@ -5625,14 +5864,15 @@ def main() -> int:
     # launches summed over the paths of each trunk: ViT-S (serving, the
     # serving artifacts, train with the sampled, full-field, grid-sampled
     # and bf16-code losses, val, the KNN, the cache builds, cached train and
-    # val, the app, the dataset eval, the CRF-loss train run, phase ddp's
-    # ranks, the plot apps), ViT-T
+    # val, the app, its soak, the dataset eval, the CRF-loss train run,
+    # phase ddp's ranks, the plot apps), ViT-T
     # (serving, its artifact, train, val), ViT-B (train, sampled and
     # full-field), and the layout ladder
     vit_s = add_counts(serving["vit_small"], train, val, *stream.values(),
                        knn_launches, cache_launches, *cached.values(),
-                       cached_val, *wide.values(), app, evals, crf_loss,
-                       artifacts.get("vit_small", {}), *ddp.values(),
+                       cached_val, *wide.values(), app, soaked, evals,
+                       crf_loss, artifacts.get("vit_small", {}),
+                       *ddp.values(),
                        *branches.values(), *analysis.values())
     vit_t = add_counts(serving["vit_tiny"], models["vit_tiny"],
                        models["vit_tiny_val"], artifacts.get("vit_tiny", {}))
@@ -5640,7 +5880,8 @@ def main() -> int:
     # the feature-pyramid paths (ResNet-50: no attention, no LayerNorm),
     # phase ddp's among them: local negatives on an f32 trunk through C1,
     # global ones and the app on a bf16 trunk through C2's gather route
-    fpn_c1 = {"bf16": add_counts(fpn["bf16"], fpn["app"]),
+    fpn_c1 = {"bf16": add_counts(fpn["bf16"], fpn["app"],
+                                 fpn["app_resume"]),
               "f32": add_counts(fpn["f32"], *(
                   v for k, v in fpn_ddp.items()
                   if k.startswith("fpn_local")))}

@@ -336,12 +336,16 @@ class Trainer:
     steps, the loaders and the checkpoint manager. :meth:`run` trains to
     ``cfg.max_steps`` and returns the last validation's metrics; ``seg``
     is the trained segmenter. ``step_starts``, ``loader_wait``,
-    ``copy_seconds`` and ``val_seconds`` record the loop's host times: the
-    clock at each step's start, the seconds each step waited for its batch
-    and took to copy it to the device (a copy from pageable memory returns
-    when it is done), and each validation epoch's seconds. It runs on the
-    process group this process is in (every rank constructs and runs one);
+    ``copy_seconds``, ``val_seconds`` and ``ckpt_seconds`` record the
+    loop's host times: the clock at each step's start, the seconds each
+    step waited for its batch and took to copy it to the device (a copy
+    from pageable memory returns when it is done), each validation epoch's
+    seconds and each checkpoint save's. ``metric_logger`` is the class of
+    the logger that rank 0's writer thread feeds. It runs on the process
+    group this process is in (every rank constructs and runs one);
     ``num_devices`` > 0 must be that group's size."""
+
+    metric_logger = MetricLogger
 
     def __init__(self, cfg: Config, vit_cfg: Optional[ViTConfig] = None,
                  train_dataset=None, val_dataset=None,
@@ -447,6 +451,7 @@ class Trainer:
         self.loader_wait: List[float] = []
         self.copy_seconds: List[float] = []
         self.val_seconds: List[float] = []
+        self.ckpt_seconds: List[float] = []
 
     def validate(self, step: int) -> Dict[str, float]:
         """A validation epoch after ``step`` steps, with its figures
@@ -461,6 +466,14 @@ class Trainer:
                              val_base=self.val_dataset.dataset)
         self.val_seconds.append(time.perf_counter() - t0)
         return out
+
+    def reset_probes(self, step: int) -> None:
+        """``reset_probe_steps``: fresh probes and probe optimizers after
+        ``step`` steps, drawn from ``step_seed(seed, max_steps + 1)`` (the
+        JAX app's ``fold_in(k_steps, max_steps + 1)``)."""
+        print("RESETTING PROBES")
+        self.seg.reset_probes(torch.Generator().manual_seed(
+            step_seed(self.cfg.seed, self.cfg.max_steps + 1)))
 
     def _step(self, batch: Dict[str, Any], step_idx: int,
               gen: torch.Generator) -> Dict[str, torch.Tensor]:
@@ -505,7 +518,7 @@ class Trainer:
             prev_handlers[signal.SIGTERM] = signal.signal(signal.SIGTERM,
                                                           _request_stop)
 
-        logger = (AsyncMetricWriter(MetricLogger(self.log_dir))
+        logger = (AsyncMetricWriter(self.metric_logger(self.log_dir))
                   if self.rank == 0 else NullLogger())
         gen = torch.Generator(device=self.device)
         check_finite = cfg.checkify or cfg.debug_nans
@@ -533,9 +546,7 @@ class Trainer:
 
                 if cfg.reset_probe_steps is not None and \
                         done == cfg.reset_probe_steps:
-                    print("RESETTING PROBES")
-                    seg.reset_probes(torch.Generator().manual_seed(
-                        step_seed(cfg.seed, cfg.max_steps + 1)))
+                    self.reset_probes(done)
 
                 if done % cfg.scalar_log_freq == 0:
                     # device tensors go to the writer thread, which fetches
@@ -558,7 +569,9 @@ class Trainer:
                         f"{k}={v:.2f}" for k, v in metrics_out.items()))
 
                 if done % cfg.checkpoint_freq == 0 or done == cfg.max_steps:
+                    t_save = time.perf_counter()
                     mgr.save(done, seg, metrics=metrics_out)
+                    self.ckpt_seconds.append(time.perf_counter() - t_save)
 
                 if self._stop(stop_signal):
                     # lands whatever its top-k rank

@@ -91,6 +91,7 @@ from stego_torch.ops.probe_ce import (upsampled_argmax,
 from stego_torch.ops.sampling import sample_from_coords
 from stego_torch.parallel import dist
 from stego_torch.utils.metrics import update_conf_matrix
+from stego_torch.utils.precision import deterministic_convolutions_for
 
 PROBE_LR = 5e-3  # linear and cluster probes (train_segmentation.py:379-381)
 HIST_BINS = 64
@@ -560,6 +561,7 @@ def make_train_step(seg: UnsupervisedSegmenter, with_hist: bool = True):
     sampling_impl = resolve_corr_sampling(seg)
     use_pos = cfg.correspondence_weight > 0
     use_aug = cfg.aug_alignment_weight > 0
+    deterministic_convolutions_for(cfg.arch)
 
     def train_step(batch: Dict[str, torch.Tensor],
                    rand: Dict[str, Any]) -> Dict[str, torch.Tensor]:

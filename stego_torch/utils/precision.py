@@ -14,6 +14,14 @@ KNN precompute (``train/knn_app.py``), the dataset eval, the demo and
 serving's packaging (``eval/evaluate.py:load_model_for_eval``) and the
 serving side (``serve.py:ServingModel.load``). A bf16 trunk changes
 nothing: its convolution and products run in bf16.
+
+The feature-pyramid arch trains convolutions, and with TF32 off cuDNN
+picks algorithms that add in no fixed order: on an H100 its app cut and
+resumed ended 12.0 apart from the straight run in a BatchNorm's running
+variance (``chip_smoke.py:fpn_resume``). The JAX package's steps are
+deterministic, so its train step asks cuDNN for deterministic algorithms
+(``deterministic_convolutions_for``), and chip_smoke holds the resumed
+run to the straight one bit for bit.
 """
 
 from __future__ import annotations
@@ -27,3 +35,11 @@ def full_f32_for(backbone_dtype: str) -> None:
     if backbone_dtype == "float32":
         torch.backends.cudnn.allow_tf32 = False
         torch.backends.cuda.matmul.allow_tf32 = False
+
+
+def deterministic_convolutions_for(arch: str) -> None:
+    """Ask cuDNN for deterministic algorithms for the process when
+    ``arch`` is the feature-pyramid arch, whose train step trains
+    convolutions."""
+    if arch == "feature-pyramid":
+        torch.backends.cudnn.deterministic = True

@@ -33,7 +33,9 @@ from stego_torch.models.convert import (from_jax_params, jax_train_state,
                                         load_jax_train_state)
 from stego_torch.ops import corr_stream
 from stego_torch.ops.correlation import CorrLossCfg
-from stego_torch.train.segmenter import (make_train_step,
+from stego_torch.models.vit import ViTConfig
+from stego_torch.train.segmenter import (UnsupervisedSegmenter,
+                                         make_train_step,
                                          resolve_corr_sampling)
 
 from tests.test_fpn import make_torch_resnet50_sd
@@ -363,3 +365,21 @@ def test_fpn_segmenter_round_trips_jax_params():
     bb2, params2 = convert.to_jax_params(seg)
     jax.tree.map(np.testing.assert_array_equal, bb2, bb)
     jax.tree.map(np.testing.assert_array_equal, params2, params)
+
+
+def test_fpn_train_step_asks_cudnn_for_deterministic_algorithms(
+        monkeypatch):
+    """The feature-pyramid arch's train step sets
+    ``torch.backends.cudnn.deterministic`` (on the card a run cut and
+    resumed, or two straight runs, differed without it;
+    ``utils/precision.py``); a ViT's leaves it."""
+    monkeypatch.setattr(torch.backends.cudnn, "deterministic", False)
+    vit = ViTConfig(patch_size=8, embed_dim=32, depth=1, num_heads=2,
+                    img_size=32)
+    make_train_step(UnsupervisedSegmenter(
+        5, torch_config(make_cfg(dim=6, res=32)), vit_cfg=vit),
+        with_hist=False)
+    assert torch.backends.cudnn.deterministic is False
+    make_train_step(UnsupervisedSegmenter(5, torch_config(fpn_cfg())),
+                    with_hist=False)
+    assert torch.backends.cudnn.deterministic is True

@@ -1,5 +1,5 @@
 """stego_torch runs where there is no JAX, no PIL and no JAX package. One
-fresh interpreter in which those imports fail runs seven scripts, one
+fresh interpreter in which those imports fail runs eight scripts, one
 after the other, each in its own namespace (the module fixture ``parts``;
 each test reads its script's output): the first imports every module of
 the port and runs one eval step; the others run train steps (the sampled
@@ -12,7 +12,9 @@ epoch; the train app on in-memory datasets (two steps, a validation and a
 checkpoint, then a resumed step); the dataset eval of a checkpoint over an
 in-memory dataset with the grid CRF and with the exact CRF; the trunk
 wrappers, eval/analysis.py (matplotlib blocked too, as on the card) and
-plot_apps. A second interpreter loads a serving artifact packaged in the
+plot_apps; the soak of the train app (tools/soak.py) in its tiny form on
+in-memory scenes, with its gates and the resume across the probe reset
+bit for bit. A second interpreter loads a serving artifact packaged in the
 test's own process and predicts with it, importing no model, train, eval,
 data or config module, and two more are the two ranks of a gloo group that
 take a train step with global negatives (C2) and one with local negatives
@@ -67,7 +69,7 @@ MODULES = [
     "stego_torch.utils.precision", "stego_torch.models.resnet",
     "stego_torch.models.fpn", "stego_torch.models.zoo",
     "stego_torch.models.picie", "stego_torch.eval.analysis",
-    "stego_torch.eval.plot_apps",
+    "stego_torch.eval.plot_apps", "stego_torch.tools.soak",
 ]
 for name in MODULES:
     importlib.import_module(name)
@@ -477,12 +479,65 @@ print("OK", sorted(m for m, mod in sys.modules.items()
                    if mod is not None and m.split(".")[0] == "stego_tpu"))
 """
 
+SOAK_SCRIPT = """
+import sys
+sys.modules["jax"] = None  # any import of jax raises ImportError
+sys.modules["PIL"] = None
+sys.modules["stego_tpu"] = None  # nor anything of the JAX package
+sys.modules["torch.utils.tensorboard"] = None  # metrics.jsonl only
+import tempfile
+import numpy as np
+import torch
+from stego_torch.config import Config
+from stego_torch.data.contrastive import ContrastiveSegDataset
+from stego_torch.data.synthetic import render_scene
+from stego_torch.data.transforms import channel_stats
+from stego_torch.models.vit import ViTConfig
+from stego_torch.tools import soak
+rng = np.random.default_rng(0)
+mean, std = channel_stats(3)
+
+def items(n):
+    out = []
+    for _ in range(n):
+        img, label = render_scene(rng, 64, 4)
+        out.append((((img - mean) / std).astype(np.float32), label,
+                    (label > 0).astype(np.float32)))
+    return out
+
+# the tiny soak's net and schedule (soak.tiny) on in-memory scenes, each
+# scene's neighbours the next four
+nns = np.stack([(np.arange(32) + k) % 32 for k in range(5)], axis=1)
+train_ds = ContrastiveSegDataset.from_items(items(32), 4, nns=nns,
+                                            num_neighbors=4)
+val_ds = ContrastiveSegDataset.from_items(items(8), 4)
+vit = ViTConfig(patch_size=8, embed_dim=32, depth=2, num_heads=4,
+                img_size=64)
+cpu = torch.device("cpu")
+with tempfile.TemporaryDirectory() as tmp:
+    cfg = Config(dataset_name="directory", res=64, val_res=64, batch_size=8,
+                 val_batch_size=8, max_steps=40, val_freq=10,
+                 checkpoint_freq=10, hist_freq=10, scalar_log_freq=2,
+                 reset_probe_steps=20, num_neighbors=4,
+                 backbone_dtype="float32", output_root=tmp,
+                 experiment_name="soak")
+    runs, fails = soak.soak(cfg, 10, soak.Limits(mem_from=10, loss_window=4,
+                                                 warmup=2),
+                            vit_cfg=vit, train_dataset=train_ds,
+                            val_dataset=val_ds, device=cpu)
+    assert fails == [], fails
+    assert runs["resumed"].record["steps"] == [10, 40]
+    assert [ln["device"] for ln in soak.lines(runs, cpu)] == ["cpu", "cpu"]
+print("OK", sorted(m for m, mod in sys.modules.items()
+                   if mod is not None and m.split(".")[0] == "stego_tpu"))
+"""
+
 # the scripts that one interpreter runs, one after the other, each in its
 # own namespace; each prints "OK" and the JAX package's loaded modules
 # (none) as its last line
 PARTS = {"slice": SCRIPT, "train": TRAIN_SCRIPT, "backbone": BACKBONE_SCRIPT,
          "cached": CACHED_SCRIPT, "app": APP_SCRIPT, "eval": EVAL_SCRIPT,
-         "analysis": ANALYSIS_SCRIPT}
+         "analysis": ANALYSIS_SCRIPT, "soak": SOAK_SCRIPT}
 RUNNER = """
 import sys
 import traceback
@@ -552,6 +607,12 @@ def test_analysis_and_plot_apps_run_without_jax_pil_or_matplotlib(parts):
     written, one line each), the Potsdam mosaic of an in-memory scene, and
     plot_apps."""
     assert_part_ran(parts, "analysis")
+
+
+def test_soak_runs_and_resumes_across_the_reset_without_jax_or_pil(parts):
+    """tools/soak.py's runs (straight; cut at 10 and resumed) of the tiny
+    net to 40 steps, the probes reset at 20, every gate passed."""
+    assert_part_ran(parts, "soak")
 
 
 def test_serving_artifact_loads_and_predicts_without_model_code(tmp_path):
